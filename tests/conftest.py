@@ -24,6 +24,9 @@ def pytest_configure(config):
         "no_trace_sanitizer: skip the autouse tracecheck audit for this "
         "test (deliberately-corrupt timelines)",
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one",
+    )
 
 
 @pytest.fixture(autouse=True)
