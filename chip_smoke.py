@@ -10,9 +10,10 @@ Phases, one JSON line each:
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
-   time (CUDA events, median of repeats, L2 flushed before each repeat; the
-   hash kernel, well under 0.1 ms, timed as 8-16 launches back to back per
-   event pair), the plain version's time, one PyTorch library call's time
+   time (CUDA events behind a sleep kernel, so that they time the device
+   and not the host's launches; median of repeats, L2 flushed before each
+   repeat; the hash kernel, well under 0.1 ms, timed as 8-16 launches back
+   to back per event pair), the plain version's time, one PyTorch library call's time
    where one computes the same function, and the bound: the larger of bytes
    moved over 3.35 TB/s and operations over 67 TFLOP/s (H100 SXM data
    sheet).  The summary line carries one shape per kernel; the ``kernel``
@@ -24,14 +25,33 @@ Phases, one JSON line each:
 4. groupby — ``ops_dist.sim_groupby`` at the paper's §IV-C size: P = 4
    workers x 50M rows over 1000 groups, ``{"v": "sum"}``, combiner on and
    off, checked against ``np.bincount``.
+5. kernel  — flash_attention against its plain version at the serving
+   path's shapes (gemma3-4b: prefill of a local and of a global layer,
+   decode of a global and of a local layer), with the same timings and
+   bound (operations: 4 hd per visible (query, key) pair; bytes: q, o and
+   the k/v rows some query can see), and
+   ``scaled_dot_product_attention``'s time as the library yardstick; plus
+   rows with no valid key and a softcap at a small shape.
+6. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
+   weights from ``--seed``, made on the card): B = 4 requests of 4096
+   prompt tokens, 32 new tokens each, greedy.  Its wall and peak device
+   memory; then a second pass of the same traffic, timed at each token's
+   arrival on the host: time to first token, the gaps between tokens
+   (median, max) and decode tokens/s.
+7. serve_check — (a) a teacher-forced ``forward`` of request 0's prompt +
+   generated tokens (no cache) against the prefill and every decode step's
+   logits, and each greedy token against its step's argmax; (b) a reduced
+   gemma3-4b (6 layers, one global) on the card against the plain versions
+   on the CPU from the same weights.
 
-After each of those three runs, a ``trace`` line: one more run of the same
-cell under ``torch.profiler``, with the device's busy time, its idle share
-of the wall and the device ops that took longest.
+After each of the join, groupby and serve runs, a ``trace`` line: one more
+run of the same cell under ``torch.profiler``, with the device's busy time,
+its idle share of the wall and the device ops that took longest.
 
 The launch counters of every kernel are set to 0 just before each of the
-two main-path runs (join, groupby) and read just after; a kernel of the path
-that did not launch fails the run.  Then the kernels' summary line, and as
+main-path runs (join, groupby, serve) and read just after; a kernel of the
+path that did not launch, or a serve run without exactly 34 + 31 x 34
+flash-attention launches, fails the run.  Then the kernels' summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception
 exits non-zero before that line.  Without a CUDA device, or without the
 repository's ``src/`` beside this file, it exits non-zero and prints no
@@ -53,7 +73,20 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 JOIN_P, JOIN_ROWS = 8, int(9.1e6)            # benchmarks/scaling_join.py:50
 GROUPBY_P, GROUPBY_ROWS, GROUPS = 4, int(50e6), 1000  # benchmarks/groupby_scaling.py:16-17
-SIZE_CUTS: list[str] = []  # none: both paths run at the paper's sizes
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW = "gemma3-4b", 4, 4096, 32
+SIZE_CUTS: list[str] = []  # none: every path runs at its full size and depth
+
+# flash attention: 2e-5 where k/v are float32, 2e-2 where they are bfloat16
+# (tests/test_kernels.py:41).  The serving path's logits: 2e-2 between the
+# cached path (k/v rounded to bfloat16) and a cache-free forward, as the
+# reference's own decode test holds them (tests/test_models.py:73); card
+# against CPU 1e-4 where nothing is rounded to bfloat16 (float32 sums in
+# another order), and 2e-2 through the bfloat16 cache, where float32 k/v
+# a few ulps apart (cuBLAS against the CPU's matmul) can round to
+# neighbouring bfloat16 values.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SERVE_LOGIT_TOL = 2e-2
+REDUCED_F32_TOL = 1e-4
 
 INT32_MAX = 2**31 - 1
 # float32 segment sum over rows in [0, 1): a sum whose longest chain of
@@ -88,7 +121,12 @@ class Timer:
     all of them back to back inside one event pair and divides by their
     number: for kernels of well under 0.1 ms, whose single-launch times
     spread by tens of percent.  The callables then work on distinct copies
-    of the inputs, so each launch still reads its inputs from HBM."""
+    of the inputs, so each launch still reads its inputs from HBM.  A sleep
+    kernel queued ahead of the start event (~10 ms) keeps the device busy
+    while the host enqueues the timed calls, so the pair measures the
+    device's time and not the host's rate of launching."""
+
+    SLEEP_CYCLES = 20_000_000
 
     def __init__(self, torch, reps: int = 10):
         self.torch = torch
@@ -105,6 +143,7 @@ class Timer:
             self.scratch.zero_()  # 128 MB > the 50 MB L2
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start.record()
             for fn in fns:
                 fn()
@@ -157,18 +196,52 @@ def trace(torch, fn, top: int = 8) -> dict:
             "top_ms": [[name, ms, n] for name, (ms, n) in ranked]}
 
 
-def counters(hp_k, jp_k, sr_k) -> dict[str, int]:
+def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
     return {
         "hash_partition": hp_k.launches,
         "join_probe": jp_k.launches,
         "segment_reduce": sr_k.launches,
+        "flash_attention": fa_k.launches,
     }
 
 
-def reset_counters(hp_k, jp_k, sr_k) -> None:
+def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     hp_k.launches = hp_k.single_launches = 0
     jp_k.launches = 0
     sr_k.launches = 0
+    fa_k.launches = 0
+
+
+def flash_work(torch, q, k, *, causal, window, q_offset, kv_len, key_range) -> tuple[int, int]:
+    """(bytes, operations) one flash-attention call must move and do: q read
+    and o written once (float32), k and v read once over the keys some
+    query can see, 4 hd operations per visible (query, key) pair; a row that
+    sees no key averages all Tk."""
+    from repro_torch.kernels.flash_attention import ref as fa_r
+
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    mask = fa_r.key_mask(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                         kv_len=kv_len, device=q.device)
+    per_row = mask.sum(1)
+    pairs = int(torch.where(per_row > 0, per_row, tk).sum()) * b * h
+    lo, hi = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    nbytes = 2 * q.numel() * 4 + 2 * b * kvh * hd * (hi - lo) * k.element_size()
+    return nbytes, 4 * hd * pairs
+
+
+def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len):
+    """One ``scaled_dot_product_attention`` call computing the same function
+    (the library yardstick; the port never calls it): k/v upcast to float32
+    and the mask made outside the timed call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref as fa_r
+
+    mask = fa_r.key_mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len, device=q.device)
+    qt, kt, vt = q.transpose(1, 2), k.float().transpose(1, 2), v.float().transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 def main() -> int:
@@ -186,6 +259,7 @@ def main() -> int:
     from repro_torch.core import make_communicator
     from repro_torch.dataframe import Table, ops_dist
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
     from repro_torch.kernels.hash_partition import kernel as hp_k, ref as hp_r
     from repro_torch.kernels.join_probe import kernel as jp_k, ref as jp_r
     from repro_torch.kernels.segment_reduce import kernel as sr_k, ref as sr_r
@@ -373,7 +447,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    launches = {name: {} for name in kernels}
+    launches = {name: {} for name in (*kernels, "flash_attention")}
 
     # -- 3. sim_join at the weak-scaling size -----------------------------------
     p, rows = JOIN_P, JOIN_ROWS
@@ -389,12 +463,12 @@ def main() -> int:
                              capacity=cap, device=dev) for i in range(p)]
     comm = make_communicator(p, "direct")
     torch.cuda.synchronize()
-    reset_counters(hp_k, jp_k, sr_k)
+    reset_counters(hp_k, jp_k, sr_k, fa_k)
     t0 = time.perf_counter()
     out = ops_dist.sim_join(left, right, "k", comm)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = counters(hp_k, jp_k, sr_k)
+    got = counters(hp_k, jp_k, sr_k, fa_k)
     for name, c in got.items():
         launches[name]["join"] = c
     if got["hash_partition"] < 2 * p or got["join_probe"] != p:
@@ -446,12 +520,12 @@ def main() -> int:
                                   device=dev) for i in range(p)]
         comm = make_communicator(p, "direct")
         torch.cuda.synchronize()
-        reset_counters(hp_k, jp_k, sr_k)
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
         t0 = time.perf_counter()
         out = ops_dist.sim_groupby(tables, "k", {"v": "sum"}, comm, combine=combine)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = counters(hp_k, jp_k, sr_k)
+        got = counters(hp_k, jp_k, sr_k, fa_k)
         want_seg = 2 * p if combine else p
         if got["segment_reduce"] != want_seg or got["hash_partition"] != p:
             fail(f"groupby combine={combine} launches {got}: want segment_reduce == "
@@ -474,6 +548,210 @@ def main() -> int:
             tables, "k", {"v": "sum"}, make_communicator(p, "direct"), combine=combine))})
         del tables
         torch.cuda.empty_cache()
+
+    # -- 5. flash attention at the serving path's shapes -------------------------
+    from repro_torch import configs
+
+    scfg = configs.get(SERVE_ARCH)
+    hd, nh, kvh = scfg.resolved_head_dim, scfg.num_heads, scfg.num_kv_heads
+    layers = scfg.num_layers
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    timer = Timer(torch)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flash_err(got, exp, tol) -> float:
+        err = (got - exp).abs()
+        if not bool((err <= tol + tol * exp.abs()).all()):
+            fail(f"flash_attention differs from the plain version: max |err| {float(err.max())}")
+        return float(err.max())
+
+    # the cache's layer slice [B, prompt + new, KV, hd] bfloat16; 4 copies
+    # (4 x 34 MB > the L2) for the decode timings, 16 launches per event pair
+    kv_copies = [(randn(SERVE_B, cache_len, kvh, hd, dtype=torch.bfloat16),
+                  randn(SERVE_B, cache_len, kvh, hd, dtype=torch.bfloat16)) for _ in range(4)]
+    q_prefill = randn(SERVE_B, SERVE_PROMPT, nh, hd)
+    q_decode = randn(SERVE_B, 1, nh, hd)
+    flash_shapes = {}
+    for cell, q, window, q_offset, kv_len in (
+        ("prefill_local", q_prefill, scfg.sliding_window, 0, SERVE_PROMPT),
+        ("prefill_global", q_prefill, 0, 0, SERVE_PROMPT),
+        ("decode", q_decode, 0, SERVE_PROMPT, SERVE_PROMPT + 1),
+        ("decode_local", q_decode, scfg.sliding_window, SERVE_PROMPT, SERVE_PROMPT + 1),
+    ):
+        kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+        k, v = kv_copies[0]
+        err = flash_err(fa_k.flash_attention(q, k, v, **kw), fa_r.attention_ref(q, k, v, **kw),
+                        FLASH_TOL["bfloat16"])
+        nbytes, ops = flash_work(torch, q, k, key_range=fa_k.key_range, **kw)
+        bms, bby = bound(nbytes, ops)
+        per_pair = 16 if q.shape[1] == 1 else 1
+        flash_shapes[cell] = {
+            "q": list(q.shape), "kv": list(k.shape), "kv_dtype": "bfloat16", **kw,
+            "max_abs_err": err,
+            "ms": timer.ms(*rotating(lambda c, q=q, kw=kw: fa_k.flash_attention(q, *c, **kw),
+                                     kv_copies, per_pair)),
+            "plain_ms": timer.ms(lambda q=q, kw=kw: fa_r.attention_ref(q, k, v, **kw)),
+            "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "operations": ops,
+            "library_ms": timer.ms(sdpa_call(torch, q, k, v, **kw)),
+        }
+        torch.cuda.empty_cache()
+    # rows with no valid key (the uniform mean of v) and a softcap, through
+    # both designs (64 rows: tiled; 1 row: split), k/v in both types
+    small = {}
+    q_small = randn(2, 64, nh, hd)
+    for kv_dtype in ("float32", "bfloat16"):
+        ks = randn(2, 96, kvh, hd, dtype=getattr(torch, kv_dtype))
+        vs = randn(2, 96, kvh, hd, dtype=getattr(torch, kv_dtype))
+        for tq in (64, 1):
+            for what, kw in (("kv_len_0", dict(kv_len=0)),
+                             ("softcap_50", dict(softcap=50.0, kv_len=90, q_offset=90 - tq))):
+                q = q_small[:, :tq]
+                small[f"{what}_{kv_dtype}_tq{tq}"] = flash_err(
+                    fa_k.flash_attention(q, ks, vs, **kw), fa_r.attention_ref(q, ks, vs, **kw),
+                    FLASH_TOL[kv_dtype])
+    kernels["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        **flash_shapes["prefill_local"],
+        "max_abs_err": max(sh["max_abs_err"] for sh in flash_shapes.values()),
+        "shapes": flash_shapes,
+    }
+    emit({"phase": "kernel", **kernels["flash_attention"], "small_checks_max_abs_err": small,
+          "tol": FLASH_TOL})
+    del timer, kv_copies, q_prefill, q_decode, q_small, ks, vs
+    torch.cuda.empty_cache()
+
+    # -- 6. serve: generate on gemma3-4b at full width ---------------------------
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+
+    # the reference's float32 products; PyTorch's default, stated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sgen = torch.Generator(device=dev)
+    sgen.manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = api.init_params(scfg, sgen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, scfg.vocab_size, (SERVE_B, SERVE_PROMPT), generator=sgen,
+                            device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    step_logits: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(hp_k, jp_k, sr_k, fa_k)
+    t0 = time.perf_counter()
+    toks, _ = serve_step.generate(scfg, params, batch, SERVE_NEW, step_logits=step_logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counters(hp_k, jp_k, sr_k, fa_k)
+    peak = torch.cuda.max_memory_allocated()
+    want = layers + (SERVE_NEW - 1) * layers
+    if got["flash_attention"] != want:
+        fail(f"serve launched flash_attention {got['flash_attention']} times, want {want}")
+    for name, c in got.items():
+        launches[name]["serve"] = c
+    # a second pass of the same traffic, timed at the first token
+    with torch.inference_mode():
+        prefill_step = serve_step.make_prefill_step(scfg)
+        decode = serve_step.make_serve_step(scfg)
+        state = api.init_decode_state(scfg, SERVE_B, cache_len, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, state = prefill_step(params, batch, state)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        gaps = []  # each step ends when its token is on the host, as a server streams it
+        for _ in range(SERVE_NEW - 1):
+            t0 = time.perf_counter()
+            tok, state = decode(params, tok, state)
+            tok.cpu()
+            gaps.append(time.perf_counter() - t0)
+        decode_s = sum(gaps)
+        del state, tok
+    emit({"phase": "serve", "arch": SERVE_ARCH, "params": scfg.param_count(), "B": SERVE_B,
+          "prompt": SERVE_PROMPT, "new": SERVE_NEW, "init_s": init_s, "wall_s": wall,
+          "ttft_s": ttft, "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / ttft,
+          "decode_ms_per_step": decode_s / (SERVE_NEW - 1) * 1e3,
+          "token_gap_ms_median": statistics.median(gaps) * 1e3,
+          "token_gap_ms_max": max(gaps) * 1e3,
+          "decode_tokens_per_s": SERVE_B * (SERVE_NEW - 1) / decode_s,
+          "peak_mem_bytes": peak, "launches": got, "tokens_req0": toks[0].tolist()})
+    emit({"phase": "trace", "cell": "serve", **trace(
+        torch, lambda: serve_step.generate(scfg, params, batch, SERVE_NEW))})
+    torch.cuda.empty_cache()
+
+    # -- 7. serve_check ----------------------------------------------------------
+    # (a) request 0's prompt + generated tokens through the cache-free
+    # forward: position 4095 + i holds step i's logits (0 = prefill)
+    with torch.inference_mode():
+        full, _ = api.logits_fn(scfg, params, {"tokens": torch.cat([prompts[:1], toks[:1]], 1)})
+        tf = full[0, SERVE_PROMPT - 1: SERVE_PROMPT - 1 + SERVE_NEW].clone()
+        del full
+    cached = torch.stack([lg[0] for lg in step_logits])
+    err_a = (cached - tf).abs()
+    if not bool((err_a <= SERVE_LOGIT_TOL + SERVE_LOGIT_TOL * tf.abs()).all()):
+        fail(f"cached logits differ from the teacher-forced forward: {float(err_a.max())}")
+    argmax_ok = all(torch.equal(toks[:, i], lg.argmax(-1).to(torch.int32))
+                    for i, lg in enumerate(step_logits))
+    if not argmax_ok:
+        fail("a greedy token is not the argmax of its step's logits")
+    check_a = {"positions": SERVE_PROMPT + SERVE_NEW, "max_abs_err": float(err_a.max()),
+               "tol": SERVE_LOGIT_TOL, "tokens_are_argmax": argmax_ok}
+    del params, step_logits, cached, tf, err_a
+    torch.cuda.empty_cache()
+    # (b) reduced width, 6 layers (5 local + 1 global): the card against the
+    # plain versions on the CPU from the same weights
+    import dataclasses
+
+    rcfg = scfg.reduced(num_layers=6)
+    rparams = api.init_params(rcfg, sgen, device=dev)
+    rparams_cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                   for k, v in rparams.items()}
+    rprompt = torch.randint(0, rcfg.vocab_size, (2, 160), generator=sgen, device=dev,
+                            dtype=torch.int32)
+    check_b = {}
+    # stock bfloat16 config through generate (bfloat16 cache)
+    lg_card, lg_cpu = [], []
+    t_card, _ = serve_step.generate(rcfg, rparams, {"tokens": rprompt}, 16, step_logits=lg_card)
+    t_cpu, _ = serve_step.generate(rcfg, rparams_cpu, {"tokens": rprompt.cpu()}, 16,
+                                   step_logits=lg_cpu)
+    if not torch.equal(t_card.cpu(), t_cpu):
+        fail(f"reduced generate: card tokens {t_card.tolist()} != CPU {t_cpu.tolist()}")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(lg_card, lg_cpu))
+    if err > SERVE_LOGIT_TOL:
+        fail(f"reduced generate: card logits differ from the CPU's by {err}")
+    check_b["bfloat16_generate"] = {"max_abs_err": err, "tol": SERVE_LOGIT_TOL, "tokens": True}
+    # float32 compute and a float32 cache: nothing rounds to bfloat16
+    fcfg = dataclasses.replace(rcfg, dtype="float32")
+
+    def steps(p, prompt, device):
+        out_t, out_l = [], []
+        with torch.inference_mode():
+            st = api.init_decode_state(fcfg, 2, 176, torch.float32, device=device)
+            lg, st = api.prefill_fn(fcfg, p, {"tokens": prompt}, st)
+            for _ in range(16):
+                t = serve_step.greedy_sample(lg)
+                out_t.append(t.cpu())
+                out_l.append(lg[:, -1].cpu())
+                lg, st = api.decode_fn(fcfg, p, t, st)
+        return torch.cat(out_t, 1), out_l
+
+    f_card, fl_card = steps(rparams, rprompt, dev)
+    f_cpu, fl_cpu = steps(rparams_cpu, rprompt.cpu(), torch.device("cpu"))
+    if not torch.equal(f_card, f_cpu):
+        fail("reduced float32 steps: card tokens differ from the CPU's")
+    err = max(float((a - b).abs().max()) for a, b in zip(fl_card, fl_cpu))
+    if any(not torch.allclose(a, b, atol=REDUCED_F32_TOL, rtol=REDUCED_F32_TOL)
+           for a, b in zip(fl_card, fl_cpu)):
+        fail(f"reduced float32 steps: card logits differ from the CPU's by {err}")
+    check_b["float32_steps"] = {"max_abs_err": err, "tol": REDUCED_F32_TOL, "tokens": True}
+    emit({"phase": "serve_check", "full_width": check_a, "reduced": check_b})
+    del rparams, rparams_cpu
+    torch.cuda.empty_cache()
 
     for name, by_path in launches.items():
         total = sum(by_path.values())

@@ -1,9 +1,12 @@
-"""Carry a table's full state between the reference package and the port.
+"""Carry state between the reference package and the port.
 
-Both sides meet in numpy: the reference's ``Table`` exposes its padded
-columns and its count as arrays, and these two functions move exactly that
-state (padding rows included) into a port ``Table`` and back, so both
-packages can start from identical tables.
+Both sides meet in numpy.  Tables: the reference's ``Table`` exposes its
+padded columns and its count as arrays, and ``table_from_numpy`` /
+``table_to_numpy`` move exactly that state (padding rows included) into a
+port ``Table`` and back.  Models: ``params_from_numpy`` takes the
+reference's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
+params)``) and gives the port's tree; ``cache_from_numpy`` does the same for
+a KV cache.  So both packages can start from identical state.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import torch
 
 from repro_torch.dataframe.table import Table
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
 
 
 def table_from_numpy(
@@ -34,3 +39,49 @@ def table_from_numpy(
 def table_to_numpy(table: Table) -> tuple[dict[str, np.ndarray], int]:
     """(padded columns as numpy arrays, count) of a port Table."""
     return {k: v.cpu().numpy() for k, v in table.columns.items()}, int(table.count)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; a bfloat16 array (numpy's
+    extension dtype, by name) is carried bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16), order="C")).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | None = None) -> dict:
+    """The port's parameter tree from the reference's (numpy leaves, same
+    keys, stacked [L, ...]).  Float leaves become float32; the matrix
+    weights are held as the float32 value of their ``cfg.dtype`` rounding,
+    which is what the reference's products read (``transformer`` doc)."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, dev).float()
+
+    params = conv(tree)
+    transformer.round_matrix_leaves(cfg, params)
+    return params
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's parameter tree as float32 numpy arrays, same keys."""
+    return {k: params_to_numpy(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in params.items()}
+
+
+def cache_from_numpy(cache: dict, device: str | torch.device | None = None) -> dict:
+    """The port's KV cache ({"kv": tensor, "len": host int}) from the
+    reference's ({"kv": [L, 2, B, S, KV, hd], "len": int32 scalar})."""
+    return {"kv": _tensor(cache["kv"], resolve_device(device)), "len": int(cache["len"])}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """{"kv": numpy array, "len": int32 scalar}; a bfloat16 cache comes back
+    as float32 (every bfloat16 value is exact in float32)."""
+    kv = cache["kv"]
+    kv = kv.float() if kv.dtype == torch.bfloat16 else kv
+    return {"kv": kv.cpu().numpy(), "len": np.int32(cache["len"])}

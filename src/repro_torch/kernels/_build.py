@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu")
+SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_attention.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
@@ -48,6 +49,10 @@ SIGNATURES = {
     "rt_probe_sorted": (_P, _I64, _P, _I64, _P, _P, _P),
     "rt_segment_sum_i32": (_P, _P, _I64, _I64, _P, _P),
     "rt_segment_sum_f32": (_P, _P, _I64, _I64, _P, _P),
+    "rt_flash_attention": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _I, _I, _I, _I,
+        _P,
+    ),
 }
 
 

@@ -1,0 +1,156 @@
+"""Launch wrapper for ``csrc/flash_attention.cu`` (CUDA tensors only).
+
+``flash_attention`` takes the model layout (q [B, Tq, H, hd], k/v
+[B, Tk, KV, hd], any strides with hd contiguous, e.g. a layer's slice of the
+KV cache in place); ``flash_attention_heads`` the Pallas kernel's head-major
+contract (q [BH, Tq, hd], k/v [BKV, Tk, hd]), which is the same kernel with
+other strides.  With at most ``SPLIT_ROWS`` query rows per kv head
+(Tq * groups: decode) the keys the rows can see are cut into chunks, one
+block each, and merged by a second pass; otherwise one block covers 64 rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+HEAD_DIMS = (32, 64, 128, 256)
+SPLIT_ROWS = 8     # csrc kMaxSplitRows
+MIN_CHUNK = 64     # keys per block of the split design, at least ...
+MAX_CHUNK = 1024   # ... and at most (csrc kMaxChunk)
+
+
+def key_range(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
+              kv_len: int) -> tuple[int, int]:
+    """Keys [lo, hi) that some query row can see.  All Tk keys when some row
+    sees none: such a row is the mean of v over every key."""
+    last_key = min(kv_len, tk) - 1
+
+    def lo(p):
+        return max(0, p - window + 1) if window > 0 else 0
+
+    def hi(p):
+        return min(last_key, p) if causal else last_key
+
+    first, last = q_offset, q_offset + tq - 1
+    if lo(first) > hi(first) or lo(last) > hi(last):
+        return 0, tk
+    return lo(first), hi(last) + 1
+
+
+def split_plan(n_keys: int, blocks: int, sms: int) -> tuple[int, int]:
+    """(chunks, keys per chunk) for ``n_keys`` keys and ``blocks`` kv heads:
+    about two blocks per SM in all, chunks of MIN_CHUNK..MAX_CHUNK keys, none
+    empty."""
+    want = max(1, -(-2 * sms // blocks))
+    nsplit = max(min(want, -(-n_keys // MIN_CHUNK)), -(-n_keys // MAX_CHUNK))
+    chunk = -(-n_keys // nsplit)
+    return -(-n_keys // chunk), chunk
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(q, k, v) -> torch.device:
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flash_attention: {name} must be a CUDA tensor on {dev}, got {t.device}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention: q must be float32, got {q.dtype}")
+    if k.dtype != v.dtype or k.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: k/v must both be bfloat16 or float32, got {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: want q [B,Tq,H,hd], k/v [B,Tk,KV,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, tq, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if tq < 1 or k.shape[1] < 1:
+        raise ValueError("flash_attention: Tq and Tk must be >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        per16 = 16 // t.element_size()  # 16-byte vector loads of each row
+        if t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} rows must be contiguous and 16-byte "
+                             f"aligned, got strides {t.stride()}")
+    return dev
+
+
+def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len) -> None:
+    global launches
+    dev = _check(q, k, v)
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    kv_len = tk if kv_len is None else int(kv_len)
+    window, q_offset = int(window), int(q_offset)
+    if max(b * tq * h, b * tk * kvh, abs(q_offset) + tq, abs(kv_len)) >= 2**31:
+        raise ValueError("flash_attention: sizes must fit int32")
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                    *o.stride()[:3])
+    part, nsplit, k_begin, k_end, chunk = None, 0, 0, 0, 0
+    if tq * (h // kvh) <= SPLIT_ROWS:
+        k_begin, k_end = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                                   kv_len=kv_len)
+        nsplit, chunk = split_plan(k_end - k_begin, b * kvh, _sm_count(dev.index or 0))
+        part = torch.empty(b * kvh * nsplit * tq * (h // kvh) * (2 + hd), dtype=torch.float32,
+                           device=dev)
+    rc = _build.library().rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        int(k.dtype == torch.bfloat16), hd, b, tq, tk, h, kvh, ctypes.addressof(strides),
+        q_offset, window, kv_len, int(causal), float(softcap),
+        None if part is None else part.data_ptr(), nsplit, k_begin, k_end, chunk,
+        _build.stream(dev),
+    )
+    _build.check(rc, "flash_attention")
+    launches += 1
+
+
+def flash_attention(
+    q: torch.Tensor,       # [B, Tq, H, hd] float32
+    k: torch.Tensor,       # [B, Tk, KV, hd] bfloat16 or float32
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+) -> torch.Tensor:
+    """[B, Tq, H, hd] float32 attention output (semantics of ``ref.attention_ref``)."""
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+            kv_len=kv_len)
+    return o
+
+
+def flash_attention_heads(
+    q: torch.Tensor,       # [BH, Tq, hd], BH = BKV * groups
+    k: torch.Tensor,       # [BKV, Tk, hd]
+    v: torch.Tensor,
+    kv_len: int,
+    *,
+    groups: int = 1,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The Pallas kernel's head-major contract; [BH, Tq, hd] float32."""
+    bh, tq, hd = q.shape
+    bkv = k.shape[0]
+    if bh != bkv * groups:
+        raise ValueError(f"flash_attention_heads: BH {bh} != BKV {bkv} x groups {groups}")
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch(q.view(bkv, groups, tq, hd).transpose(1, 2), k[:, :, None], v[:, :, None],
+            o.view(bkv, groups, tq, hd).transpose(1, 2), causal=causal, window=window,
+            softcap=softcap, q_offset=0, kv_len=kv_len)
+    return o

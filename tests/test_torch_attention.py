@@ -1,0 +1,185 @@
+"""The port's attention on the CPU (``ops.flash_attention`` dispatches a CPU
+tensor to the plain ``ref.py``) against the reference: the Pallas kernel in
+interpret mode (the grid of ``tests/test_kernels.py``), ``layers.
+_attention_direct`` with q_offset, a run-time window and kv_len (the cached
+prefill and decode shapes), ``layers._attention_flash`` at 2048 positions,
+and rows with no valid key.  Inputs come from numpy seeds.
+
+Tolerances: 2e-5 in float32 (the sums run in another order), 2e-2 where
+q/k/v are bfloat16 as ``tests/test_kernels.py`` holds them.  The CUDA
+kernel itself runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``); here its host-side planning is checked.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as j_fa_kernel, ref as j_fa_ref
+from repro.models import layers as JL
+from repro_torch.kernels.flash_attention import kernel as fa_k, ops as fa_ops, ref as fa_r
+from repro_torch.models import layers as TL
+
+F32_TOL = 2e-5
+
+
+def _jt(a: np.ndarray, jdtype, tdtype):
+    return jnp.asarray(a, jdtype), torch.from_numpy(a).to(tdtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "bh,bkv,tq,tk,hd,causal,window",
+    [
+        (4, 4, 256, 256, 64, True, 0),
+        (4, 2, 128, 256, 64, True, 0),      # GQA groups=2, tq != tk
+        (2, 1, 256, 256, 128, True, 64),    # MQA + sliding window
+        (2, 2, 256, 512, 32, False, 0),     # bidirectional (encoder)
+    ],
+)
+def test_heads_layout_matches_pallas(bh, bkv, tq, tk, hd, causal, window, dtype):
+    rng = np.random.default_rng(0)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    qj, qt = _jt(rng.normal(size=(bh, tq, hd)).astype(np.float32), jd, td)
+    kj, kt = _jt(rng.normal(size=(bkv, tk, hd)).astype(np.float32), jd, td)
+    vj, vt = _jt(rng.normal(size=(bkv, tk, hd)).astype(np.float32), jd, td)
+    g = bh // bkv
+    exp = j_fa_kernel.flash_attention(qj, kj, vj, jnp.asarray(tk), groups=g, causal=causal,
+                                      window=window, q_block=128, kv_block=128, interpret=True)
+    before = fa_k.launches
+    got = fa_ops.flash_attention_heads(qt, kt, vt, tk, groups=g, causal=causal, window=window)
+    assert fa_k.launches == before  # a CPU tensor never reaches the kernel wrapper
+    assert got.dtype == td and got.shape == (bh, tq, hd)
+    tol = 2e-2 if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+def test_heads_layout_kv_len_and_softcap_matches_pallas():
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(2, 128, 64)).astype(np.float32)
+    k = rng.normal(size=(2, 256, 64)).astype(np.float32)
+    v = rng.normal(size=(2, 256, 64)).astype(np.float32)
+    exp = j_fa_kernel.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(100), groups=1, causal=False, softcap=20.0,
+                                      q_block=128, kv_block=128, interpret=True)
+    got = fa_ops.flash_attention_heads(torch.from_numpy(q), torch.from_numpy(k),
+                                       torch.from_numpy(v), 100, groups=1, causal=False,
+                                       softcap=20.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+    ref = j_fa_ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 100, groups=1,
+                                 causal=False, softcap=20.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL, rtol=F32_TOL)
+
+
+def _model_inputs(b, tq, tk, h, kvh, hd, seed, kv_bf16):
+    """q float32; k/v float32 or bfloat16 (the cache's type), same values in both."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, tq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, tk, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, tk, kvh, hd)).astype(np.float32)
+    kd = (jnp.bfloat16, torch.bfloat16) if kv_bf16 else (jnp.float32, torch.float32)
+    qj, qt = _jt(q, jnp.float32, torch.float32)
+    kj, kt = _jt(k, *kd)
+    vj, vt = _jt(v, *kd)
+    return (qj, kj, vj), (qt, kt, vt)
+
+
+@pytest.mark.parametrize(
+    "name,b,tq,tk,h,kvh,hd,window,q_offset,kv_len,softcap",
+    [
+        # prefill into a cache of prompt + max_new positions: kv_len = prompt
+        ("prefill_local", 2, 160, 176, 4, 2, 32, 32, 0, 160, 0.0),
+        ("prefill_global", 2, 160, 176, 4, 2, 32, 0, 0, 160, 0.0),
+        ("prefill_softcap", 1, 96, 128, 8, 4, 64, 0, 0, 96, 50.0),
+        # decode: one query at position kv_len - 1
+        ("decode_local", 2, 1, 176, 4, 2, 32, 32, 170, 171, 0.0),
+        ("decode_global", 2, 1, 176, 4, 2, 32, 0, 170, 171, 0.0),
+        ("decode_gemma_width", 1, 1, 300, 8, 4, 256, 64, 250, 251, 0.0),
+        # the forward path: no cache, no kv_len
+        ("forward", 2, 100, 100, 4, 4, 64, 0, 0, None, 0.0),
+        # a chunk of queries past the start of the cache
+        ("chunk", 1, 40, 200, 4, 1, 32, 16, 120, 160, 0.0),
+    ],
+)
+@pytest.mark.parametrize("kv_bf16", [False, True])
+def test_model_layout_matches_attention_direct(name, b, tq, tk, h, kvh, hd, window, q_offset,
+                                               kv_len, softcap, kv_bf16):
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(b, tq, tk, h, kvh, hd, len(name), kv_bf16)
+    exp = JL._attention_direct(qj, kj, vj, causal=True, window=jnp.asarray(window),
+                               softcap=softcap, q_offset=q_offset,
+                               kv_len=None if kv_len is None else jnp.asarray(kv_len))
+    got = TL.attention(qt, kt, vt, causal=True, window=window, softcap=softcap,
+                       q_offset=q_offset, kv_len=kv_len)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_model_layout_matches_attention_flash_2048(window):
+    """The reference's blocked path (taken from 2048 query positions)."""
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(1, 2048, 2048, 2, 1, 32, 9, kv_bf16=False)
+    exp = JL._attention_flash(qj, kj, vj, causal=True, window=jnp.asarray(window), softcap=0.0,
+                              q_offset=0, kv_len=None)
+    got = TL.attention(qt, kt, vt, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("tq,kw", [
+    (8, dict(kv_len=0)),                            # an empty cache
+    (1, dict(kv_len=0, q_offset=5)),
+    (6, dict(kv_len=20, window=8, q_offset=40)),    # rows past kv_len + window
+])
+def test_rows_without_keys_are_the_mean_of_v(tq, kw):
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(2, tq, 48, 4, 2, 32, 3, kv_bf16=True)
+    exp = JL._attention_direct(qj, kj, vj, causal=True, window=jnp.asarray(kw.get("window", 0)),
+                               softcap=0.0, q_offset=kw.get("q_offset", 0),
+                               kv_len=jnp.asarray(kw["kv_len"]))
+    got = TL.attention(qt, kt, vt, causal=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+    mean = vt.float().mean(1, keepdim=True).repeat_interleave(2, 2).expand(-1, tq, -1, -1)
+    np.testing.assert_allclose(got.numpy(), mean.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+def _visible(tq, tk, causal, window, q_offset, kv_len):
+    mask = fa_r.key_mask(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                         kv_len=kv_len, device="cpu").numpy()
+    return mask
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_key_range_covers_every_visible_key(seed):
+    """The split design's key range holds every key some row can see, and all
+    Tk keys exactly when some row sees none."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        tq, tk = int(rng.integers(1, 9)), int(rng.integers(1, 300))
+        causal = bool(rng.integers(0, 2))
+        window = int(rng.choice([0, 1, 7, 64]))
+        q_offset = int(rng.integers(0, 320))
+        kv_len = int(rng.integers(0, tk + 20))
+        lo, hi = fa_k.key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                                kv_len=kv_len)
+        mask = _visible(tq, tk, causal, window, q_offset, kv_len)
+        if not mask.any(axis=1).all():
+            assert (lo, hi) == (0, tk)
+        else:
+            cols = np.nonzero(mask.any(axis=0))[0]
+            assert (lo, hi) == (cols.min(), cols.max() + 1)
+
+
+@pytest.mark.parametrize("n_keys,blocks", [(1, 16), (37, 16), (1024, 16), (4097, 16),
+                                           (4097, 1), (70000, 2), (5000, 512)])
+def test_split_plan_chunks(n_keys, blocks):
+    nsplit, chunk = fa_k.split_plan(n_keys, blocks, sms=132)
+    assert 1 <= chunk <= fa_k.MAX_CHUNK
+    assert (nsplit - 1) * chunk < n_keys <= nsplit * chunk  # no empty chunk
+    # about two blocks per SM, where the keys give MIN_CHUNK to each
+    assert nsplit * blocks >= min(2 * 132, blocks * (n_keys // fa_k.MIN_CHUNK))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 4, 2, 32)
+    k = torch.zeros(1, 4, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_k.flash_attention(q, k, k)

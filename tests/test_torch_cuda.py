@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as fa_k, ops as fa_ops, ref as fa_r
 from repro_torch.kernels.hash_partition import kernel as hp_k, ops as hp_ops, ref as hp_r
 from repro_torch.kernels.join_probe import kernel as jp_k, ops as jp_ops, ref as jp_r
 from repro_torch.kernels.segment_reduce import kernel as sr_k, ops as sr_ops, ref as sr_r
@@ -82,3 +83,81 @@ def test_segment_sum_matches_plain(cuda, n, nseg):
         sr_k.segment_sum(seg, vf, nseg), sr_r.segment_sum_ref(seg, vf, nseg), atol=1e-4, rtol=1e-5
     )
 
+
+
+# flash attention: the kernel and its plain version read the same k/v (bf16
+# or f32) and both compute in float32, so only the order of the float32 sums
+# differs: 2e-5 for both k/v types.
+FLASH_TOL = 2e-5
+
+
+def _flash_inputs(cuda, b, tq, tk, h, kvh, hd, kv_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(rng.normal(size=(b, tq, h, hd)), dtype=torch.float32, device=cuda)
+    k = torch.tensor(rng.normal(size=(b, tk, kvh, hd)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.normal(size=(b, tk, kvh, hd)), dtype=torch.float32, device=cuda)
+    return q, k.to(kv_dtype), v.to(kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,tq,tk,h,kvh,hd,window,q_offset,kv_len,softcap",
+    [
+        (2, 160, 176, 4, 2, 32, 32, 0, 160, 0.0),       # reduced gemma3 prefill, ragged Tk
+        (1, 100, 100, 4, 4, 64, 0, 0, None, 0.0),        # forward, ragged tiles
+        (2, 70, 300, 8, 2, 128, 0, 200, 270, 50.0),      # chunked prefill, softcap
+        (1, 130, 4128, 8, 4, 256, 1024, 3968, 4098, 0.0),  # gemma3 widths, window
+        (4, 1, 4128, 8, 4, 256, 0, 4096, 4097, 0.0),     # main-path decode, global
+        (4, 1, 4128, 8, 4, 256, 1024, 4096, 4097, 0.0),  # main-path decode, local
+        (2, 3, 500, 4, 2, 64, 16, 300, 303, 0.0),        # split path, 6 rows per kv head
+        (2, 1, 37, 2, 1, 32, 0, 36, 37, 30.0),           # split path, tiny Tk
+    ],
+)
+def test_flash_attention_matches_plain(cuda, kv_dtype, b, tq, tk, h, kvh, hd, window,
+                                       q_offset, kv_len, softcap):
+    q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, hd, kv_dtype)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    before = fa_k.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_k.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, **kw), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("tq", [1, 64, 200])
+def test_flash_attention_rows_without_keys(cuda, tq):
+    """kv_len = 0, and rows past kv_len + window: the uniform mean of v."""
+    q, k, v = _flash_inputs(cuda, 2, tq, 150, 4, 2, 64, torch.bfloat16, seed=1)
+    for kw in (dict(kv_len=0), dict(kv_len=20, window=8, q_offset=40)):
+        got = fa_k.flash_attention(q, k, v, causal=True, **kw)
+        torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=True, **kw),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)
+    mean = v.float().mean(1, keepdim=True).repeat_interleave(2, 2).expand(-1, tq, -1, -1)
+    torch.testing.assert_close(fa_k.flash_attention(q, k, v, kv_len=0), mean,
+                               atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("causal,groups", [(True, 2), (False, 1)])
+def test_flash_attention_heads_layout(cuda, causal, groups):
+    """The Pallas kernel's head-major contract, through the same kernel."""
+    rng = np.random.default_rng(3)
+    q = torch.tensor(rng.normal(size=(4 * groups, 256, 64)), dtype=torch.float32, device=cuda)
+    k = torch.tensor(rng.normal(size=(4, 512, 64)), dtype=torch.float32, device=cuda)
+    v = torch.tensor(rng.normal(size=(4, 512, 64)), dtype=torch.float32, device=cuda)
+    kw = dict(groups=groups, causal=causal, window=0, softcap=20.0)
+    torch.testing.assert_close(fa_ops.flash_attention_heads(q, k, v, 300, **kw),
+                               fa_r.attention_heads_ref(q, k, v, 300, **kw),
+                               atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+def test_flash_attention_reads_cache_slice_in_place(cuda):
+    """k/v as a layer's [B, S, KV, hd] slice of the [L, 2, B, S, KV, hd] cache."""
+    rng = np.random.default_rng(4)
+    cache = torch.tensor(rng.normal(size=(3, 2, 2, 96, 2, 128)), dtype=torch.bfloat16,
+                         device=cuda)
+    q = torch.tensor(rng.normal(size=(2, 1, 4, 128)), dtype=torch.float32, device=cuda)
+    k, v = cache[1, 0], cache[1, 1]
+    kw = dict(window=0, q_offset=80, kv_len=81)
+    torch.testing.assert_close(fa_k.flash_attention(q, k, v, **kw),
+                               fa_r.attention_ref(q, k, v, **kw), atol=FLASH_TOL, rtol=FLASH_TOL)
