@@ -484,14 +484,12 @@ template <typename T, int HD>
 cudaError_t launch(const Args& a, int B, float* part, int nsplit, int k_begin, int k_end,
                    int chunk, cudaStream_t stream) {
   if (part == nullptr) {
-    static bool attr_set = false;  // per instantiation
-    if (!attr_set) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          flash_tiled<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(Tiled<HD>::kSmem));
-      if (e != cudaSuccess) return e;
-      attr_set = true;
-    }
+    // the opt-in above 48 KB holds per device, so it is set on every launch
+    // (cheap) rather than once per process
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tiled<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tiled<HD>::kSmem));
+    if (e != cudaSuccess) return e;
     const int M = a.Tq * a.groups;
     const dim3 grid((M + BM - 1) / BM, B * a.KV);
     flash_tiled<T, HD><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a);

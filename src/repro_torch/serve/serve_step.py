@@ -44,12 +44,13 @@ def make_serve_step(cfg: ArchConfig, ctx=None):
 
 
 def generate(cfg: ArchConfig, params, batch: dict, max_new: int, ctx=None, *,
-             step_logits: list | None = None):
+             on_step=None):
     """Prefill then decode: ([B, max_new] int32 greedy tokens, final state).
 
-    The cache is made on the device of ``batch["tokens"]``.  If
-    ``step_logits`` is a list, the last-position logits [B, V] of the
-    prefill and of each decode step are appended to it (for checking)."""
+    The cache is made on the device of ``batch["tokens"]``.  If given,
+    ``on_step(tokens, logits)`` is called after the prefill and after each
+    decode step with that step's tokens [B, 1] and its last-position logits
+    [B, V], as a server streams each token (or a check records the logits)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     with torch.inference_mode():
@@ -57,12 +58,12 @@ def generate(cfg: ArchConfig, params, batch: dict, max_new: int, ctx=None, *,
         logits, state = api.prefill_fn(cfg, params, batch, state, ctx=ctx)
         tok = greedy_sample(logits)
         out = [tok]
-        if step_logits is not None:
-            step_logits.append(logits[:, -1])
+        if on_step is not None:
+            on_step(tok, logits[:, -1])
         for _ in range(max_new - 1):
             logits, state = api.decode_fn(cfg, params, tok, state, ctx=ctx)
             tok = greedy_sample(logits)
             out.append(tok)
-            if step_logits is not None:
-                step_logits.append(logits[:, -1])
+            if on_step is not None:
+                on_step(tok, logits[:, -1])
     return torch.cat(out, dim=1), state

@@ -183,15 +183,17 @@ def test_generate_matches(arch, dtype):
     b, s, max_new = 2, 44, 8
     jcfg, tcfg, jp, tp, jb, tb = _setup(arch, b=b, s=s, seed=4, dtype=dtype)
     jtoks, jstate = jserve.generate(jcfg, jp, jb, max_new)
-    step_logits = []
-    ttoks, tstate = tserve.generate(tcfg, tp, tb, max_new, step_logits=step_logits)
+    steps = []
+    ttoks, tstate = tserve.generate(tcfg, tp, tb, max_new,
+                                    on_step=lambda tok, lg: steps.append((tok, lg)))
     assert ttoks.dtype == torch.int32 and ttoks.shape == (b, max_new)
     assert tstate["kv"].dtype == torch.bfloat16  # generate's cache, as the reference's
     np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
     _assert_cache_close(tstate, jstate, "bfloat16")
-    # each recorded step's argmax is the token generate returned
-    assert len(step_logits) == max_new
-    for i, lg in enumerate(step_logits):
+    # each step's streamed token is the one generate returned, and its argmax
+    assert len(steps) == max_new
+    for i, (tok, lg) in enumerate(steps):
+        np.testing.assert_array_equal(tok[:, 0].numpy(), ttoks[:, i].numpy())
         np.testing.assert_array_equal(lg.argmax(-1).numpy(), ttoks[:, i].numpy())
 
 
