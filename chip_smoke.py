@@ -7,6 +7,10 @@ Phases, one JSON line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``), and the time
    to build the hand-written kernels from ``src/repro_torch/kernels/csrc``.
+   Then a ``ptxas`` line (registers, static shared memory, spills of the
+   redesigned kernels, from the build's ptxas report); the run fails
+   unless the SASS of the prefill kernel (``cuobjdump -sass``) holds
+   ``HGMMA`` (warpgroup tensor-core) instructions.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -15,9 +19,13 @@ Phases, one JSON line each:
    repeat; the hash kernel, well under 0.1 ms, timed as 8-16 launches back
    to back per event pair), the plain version's time, one PyTorch library call's time
    where one computes the same function, and the bound: the larger of bytes
-   moved over 3.35 TB/s and operations over 67 TFLOP/s (H100 SXM data
-   sheet).  The summary line carries one shape per kernel; the ``kernel``
-   lines carry every shape.
+   moved over 3.35 TB/s and operations over the peak of the engine that
+   does them (H100 SXM data sheet): 67 TFLOP/s for float32 on the CUDA
+   cores, or 989 TFLOP/s for bf16 on the tensor cores times the number of
+   products a design makes of each (3 for flash attention's three-part
+   split).  The summary line carries one shape per kernel; the ``kernel``
+   lines carry every shape.  join_probe's positions and hits must equal the
+   plain version's on every row.
 3. join    — ``ops_dist.sim_join`` at the paper's weak-scaling size: P = 8
    simulated workers on the one card, 9.1M rows per worker per side
    (``benchmarks/scaling_join.py`` WEAK_ROWS), checked row by row against
@@ -29,7 +37,9 @@ Phases, one JSON line each:
    path's shapes (gemma3-4b: prefill of a local and of a global layer,
    decode of a global and of a local layer), with the same timings and
    bound (operations: 4 hd per visible (query, key) pair; bytes: q, o and
-   the k/v rows some query can see), and
+   the k/v rows some query can see; the prefill rows give both the bound
+   of the tensor-core design that runs them and the float32 CUDA-core
+   bound, each with its share), and
    ``scaled_dot_product_attention``'s time as the library yardstick; plus
    rows with no valid key and a softcap at a small shape.  Both sides read
    the same k/v, so they differ only in the order of float32 sums: 2e-5
@@ -74,7 +84,11 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+OPS_PER_S = {
+    "fp32": 67e12,         # H100 SXM float32 outside the tensor cores
+    "bf16_tensor": 989e12, # H100 SXM bf16 on the tensor cores, dense
+}
+FLASH_SPLIT = 3            # bf16 products per float32 product in flash_wgmma
 
 JOIN_P, JOIN_ROWS = 8, int(9.1e6)            # benchmarks/scaling_join.py:50
 GROUPBY_P, GROUPBY_ROWS, GROUPS = 4, int(50e6), 1000  # benchmarks/groupby_scaling.py:16-17
@@ -161,10 +175,44 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, engine: str = "fp32", split: int = 1) -> tuple[float, str]:
+    """Least time (ms) for moving ``nbytes`` and doing ``ops`` operations on
+    ``engine``, which makes ``split`` products of its type per operation."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = split * ops / OPS_PER_S[engine] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def find_cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    import os
+    import shutil
+
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    try:
+        import triton
+
+        cands.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    fail("cuobjdump not found: the prefill kernel's SASS cannot be checked")
+
+
+def sass_has(lib: Path, kernel: str, opcode: str) -> dict[str, bool]:
+    """For each function of ``lib`` whose mangled name holds ``kernel``,
+    whether its SASS holds ``opcode``."""
+    out = subprocess.run([find_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    found: dict[str, bool] = {}
+    for section in out.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if kernel in name:
+            found[name] = opcode in section
+    return found
 
 
 def rotating(fn, copies: list, launches: int) -> list:
@@ -285,6 +333,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
+    emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
+        "flash_wgmma", "flash_decode", "probe_kernel", "build_index")}})
+    hgmma = sass_has(_build.build(), "flash_wgmma", "HGMMA")
+    if not hgmma or not all(hgmma.values()):
+        fail(f"flash_wgmma's SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
 
     timer = Timer(torch)
     kernels: dict[str, dict] = {}
@@ -359,15 +412,16 @@ def main() -> int:
     left[:16] = INT32_MAX  # the sentinel-equal keys join_unique must guard
     i_k, hit_k = jp_k.probe_sorted(right, left)
     i_p, hit_p = jp_r.probe_sorted_ref(right, left)
-    if not (torch.equal(hit_k, hit_p) and torch.equal(i_k[hit_k], i_p[hit_p])):
-        fail("join_probe differs from the plain version")
+    if not (torch.equal(i_k, i_p) and torch.equal(hit_k, hit_p)):
+        fail(f"join_probe differs from the plain version: {int((i_k != i_p).sum())} positions, "
+             f"{int((hit_k != hit_p).sum())} hits")
     steps = max(1, page.bit_length())
     bms, bby = bound(4 * page + 4 * page + 4 * page + page, page * steps)
     kernels["join_probe"] = {
         "name": "join_probe", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/join_probe.cu",
         "replaces": "src/repro/kernels/join_probe/kernel.py:23",
-        "max_abs_err": int((i_k[hit_k] - i_p[hit_p]).abs().max()) if bool(hit_k.any()) else 0,
+        "max_abs_err": int((i_k - i_p).abs().max()),
         "ms": timer.ms(lambda: jp_k.probe_sorted(right, left)),
         "plain_ms": timer.ms(lambda: jp_r.probe_sorted_ref(right, left)),
         "bound_ms": bms, "bound_by": bby,
@@ -604,20 +658,29 @@ def main() -> int:
         one_key_off = float((got - exp_near).abs().max())
         del got, exp_near
         nbytes, ops = flash_work(torch, q, k, **kw)
-        bms, bby = bound(nbytes, ops)
+        prefill = q.shape[1] * (nh // kvh) > fa_k.SPLIT_ROWS
+        # the design that runs: the bf16 tensor cores at prefill (bf16 k/v),
+        # float32 on the CUDA cores at decode (a byte bound either way)
+        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT) if prefill
+                    else bound(nbytes, ops))
+        fms, fby = bound(nbytes, ops)
         per_pair = 16 if q.shape[1] == 1 else 1
+        ms = timer.ms(*rotating(lambda c, q=q, kw=kw: fa_k.flash_attention(q, *c, **kw),
+                                kv_copies, per_pair))
         flash_shapes[cell] = {
             "q": list(q.shape), "kv": list(k.shape), "kv_dtype": "bfloat16", **kw,
-            "max_abs_err": err, "one_key_off_max_abs_err": one_key_off,
-            "ms": timer.ms(*rotating(lambda c, q=q, kw=kw: fa_k.flash_attention(q, *c, **kw),
-                                     kv_copies, per_pair)),
+            "design": "flash_wgmma" if prefill else "flash_decode",
+            "max_abs_err": err, "one_key_off_max_abs_err": one_key_off, "ms": ms,
             "plain_ms": timer.ms(lambda q=q, kw=kw: fa_r.attention_ref(q, k, v, **kw)),
-            "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "operations": ops,
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bound_fp32_ms": fms, "bound_fp32_by": fby, "share_of_fp32_bound": fms / ms,
+            "bytes": nbytes, "operations": ops,
             "library_ms": timer.ms(sdpa_call(torch, q, k, v, **kw)),
         }
         torch.cuda.empty_cache()
     # rows with no valid key (the uniform mean of v) and a softcap, through
-    # both designs (64 rows: tiled; 1 row: split), k/v in both types
+    # the three designs (64 rows: wgmma with bf16 k/v, tiled with float32;
+    # 1 row: decode), k/v in both types
     small = {}
     q_small = randn(2, 64, nh, hd)
     for kv_dtype in ("float32", "bfloat16"):

@@ -10,7 +10,10 @@ port never carries on with a kernel's plain version on the card.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
-non-zero result.
+non-zero result.  The library links ``libcuda`` for the TMA descriptor
+encoder ``cuTensorMapEncodeTiled``.  ptxas reports each
+kernel's registers, shared memory and spills; the report is kept beside the
+library as ``build.log`` (:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,8 +35,9 @@ SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_att
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LOG_NAME = "build.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +51,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _U32, _U32, _I, _P, _P, _P, _P, _P,
     ),
     "rt_hash_partition": (_P, _I64, _U32, _I, _P, _P, _P),
-    "rt_probe_sorted": (_P, _I64, _P, _I64, _P, _P, _P),
+    "rt_probe_sorted": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _P),
     "rt_segment_sum_i32": (_P, _P, _I64, _I64, _P, _P),
     "rt_segment_sum_f32": (_P, _P, _I64, _I64, _P, _P),
     "rt_flash_attention": (
@@ -91,22 +96,56 @@ def build() -> Path:
             procs.append((name, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )))
-        failed = []
+        failed, logs = [], []
         for name, proc in procs:
             log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode != 0:
                 failed.append(f"{name} (exit {proc.returncode}):\n{log}")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         staged = Path(tmp) / lib.name
+        cuda_root = Path(nvcc).resolve().parents[1]
+        stubs = [f"-L{d}" for d in (cuda_root / "lib64" / "stubs",
+                                    cuda_root / "targets" / "x86_64-linux" / "lib" / "stubs")
+                 if d.is_dir()]
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(staged)],
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(staged), *stubs, "-lcuda"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
+        (out_dir / LOG_NAME).write_text("".join(logs))
         os.replace(staged, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
+
+
+def ptxas_report(pattern: str) -> dict[str, dict[str, int]]:
+    """ptxas's report for each built kernel whose (mangled) name contains
+    ``pattern``: registers, static shared memory, stack, spill stores and
+    loads.  Dynamic shared memory is set at launch and not reported."""
+    text = (build().parent / LOG_NAME).read_text()
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, rx in (("stack_bytes", r"(\d+) bytes stack frame"),
+                        ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                        ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                        ("registers", r"Used (\d+) registers"),
+                        ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(rx, line)
+            if m:
+                out[name][key] = int(m.group(1))
+        if "Used" in line and "registers" in line:
+            name = None
+    return out
 
 
 @functools.cache

@@ -13,39 +13,65 @@
 // Semantics (those of the reference): logits = (q / sqrt(hd)) . k, tanh
 // softcap if softcap > 0, then masked to -1e30 where a key is not causal
 // (k > q_pos), outside the window (k <= q_pos - window, window > 0) or past
-// kv_len; softmax over the Tk keys; o = p . v.  All arithmetic is float32:
-// q is float32, k/v are bfloat16 (read from the KV cache) or float32, o is
-// float32.  Masking with -1e30 (never -inf) makes a row with no valid key
-// the uniform mean of v over all Tk keys, as in the reference.
+// kv_len; softmax over the Tk keys; o = p . v.  q is float32, k/v are
+// bfloat16 (read from the KV cache) or float32, o is float32, and every
+// result is float32-accurate.  Masking with -1e30 (never -inf) makes a row
+// with no valid key the uniform mean of v over all Tk keys, as in the
+// reference.
 //
 // Layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd], o [B, Tq, H, hd], each
 // read or written through (batch, seq, head) strides with hd contiguous, so
 // a layer's slice of the KV cache is read in place.  Query head h reads kv
-// head h / groups (groups = H / KV); nothing is repeated in memory.
+// head h / groups (groups = H / KV); nothing is repeated in memory.  A
+// block's rows are (position, group) pairs of one kv head, so the groups of
+// a kv head share every k/v tile it loads.
 //
-// Bound on the card (H100 SXM): at prefill the operations (4 hd per valid
-// (query, key) pair, float32 on the CUDA cores, 67 TFLOP/s); at decode the
-// bytes of the cache (k and v over the keys the rows can see, 3.35 TB/s).
-// Two designs, chosen by the wrapper:
+// Three designs, chosen by the wrapper:
 //
-// * flash_tiled (R = Tq * groups > 8 rows per kv head): one block of 256
-//   threads per 64 query rows of one kv head, the rows being (position,
-//   group) pairs, so the groups of a kv head share every k/v tile.  It walks
-//   the 64-key tiles that the block's rows can see (all of them when a row
-//   has no valid key, to keep the uniform-mean rule), stages q, k, v and p
-//   in shared memory as float32 (216 KB at hd = 256) and keeps the 64 x hd
-//   accumulator in registers, 4 rows x hd/16 columns per thread.  Both
-//   products are 4x4 register micro-tiles of float32 FMAs.
-// * flash_split + flash_combine (R <= 8: decode): a block per (kv head,
-//   chunk of the visible keys), so that B * KV * chunks blocks fill the SMs
-//   when B * H is small.  Each warp scores keys against the R rows held in
-//   registers (one 16-byte load per lane), a warp per row takes the chunk's
-//   max and sum, every thread accumulates p . v for its columns, and the
-//   partial (m, l, acc) go to scratch; the combine pass merges the chunks.
-//
-// Tensor cores (wgmma), TMA and a deeper pipeline are later work.
+// * flash_wgmma (bf16 k/v, R = Tq * groups > 8 rows per kv head: every
+//   prefill of the serve path).  Bound: operations, 4 hd per visible
+//   (query, key) pair.  The first design ran them as float32 FMAs on the
+//   CUDA cores (67 TFLOP/s) and reached ~40% of that.  Here both products
+//   run on the bf16 tensor cores (wgmma) without losing float32 accuracy:
+//   k and v are bf16 already, exact as tensor-core operands, and the scaled
+//   q and the un-normalised p are each split into three bf16 parts
+//   x = x1 + x2 + x3 (x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 -
+//   x2)), which keep all 24 bits of a float32 mantissa.  S = sum_i Qi . K^T
+//   and O += sum_i Pi . V accumulate in float32: six products per tile pair,
+//   so the bound is 3 x operations / 989 TFLOP/s.  One block = a consumer
+//   warpgroup of 64 rows and a producer warp.  The producer brings 64-key k
+//   and v tiles by TMA straight from the strided cache slice into a
+//   two-stage ring (128-byte swizzle, zero fill past Tk), completed on
+//   mbarriers.  The consumer keeps q's three parts in shared memory
+//   (written swizzled), S (64 x 64) and O (64 x hd) in registers, and feeds
+//   p to the second product from registers: the S accumulator's layout is
+//   the A-operand layout.  Q . K^T reads k K-major (hd contiguous); P . V
+//   reads v MN-major through the transpose bit, so nothing is transposed in
+//   memory.  Shared memory at hd = 256: 96 KB of q parts + 2 stages x
+//   64 KB of k/v = 224 KB (one block per SM); registers: 128 for O.
+// * flash_tiled (float32 k/v, R > 8: the cache-free forward, off the serve
+//   path): 256 threads per 64 rows; q, k, v and p staged in shared memory
+//   as float32; both products 4x4 register micro-tiles of float32 FMAs.
+// * flash_decode (R <= 8: decode).  Bound: bytes, k and v over the keys the
+//   rows can see.  The first design read v 2 bytes per thread, reduced each
+//   key's score across a warp, and merged its chunks in a second launch
+//   (~18% of the bound).  Here one launch: a block per (kv head, chunk of
+//   the visible keys), at most one block per SM (the wrapper's plan: a
+//   second wave doubles the time).  Each warp streams a run of keys through
+//   its own cp.async ring (8 KB in flight per warp) with 16-byte loads of k
+//   and v rows (8 bf16 columns per lane: one warp instruction per 256-wide
+//   row), and keeps an online (m, l, acc) per lane, updated once per four
+//   keys when at most 2 rows share a kv head (the serve path's decode), so
+//   the dots, reductions and exps of four keys are independent chains.  The
+//   warps merge in shared memory; the last block of each (batch, kv head)
+//   to finish, found with an atomic counter that it resets to 0, merges the
+//   chunks.  What bounds it now is the per-warp chain of dependent
+//   reductions and exps, not bytes in flight (PERF.md).
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -54,7 +80,6 @@ namespace {
 constexpr float kMask = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kMaxSplitRows = 8;
-constexpr int kMaxChunk = 1024;
 
 struct Args {
   const float* q;
@@ -76,16 +101,28 @@ __device__ __forceinline__ int key_hi(const Args& a, int qpos) {
   int hi = min(a.kv_len, a.Tk) - 1;
   return a.causal ? min(hi, qpos) : hi;
 }
-__device__ __forceinline__ bool key_ok(const Args& a, int qpos, int kpos) {
-  return (!a.causal || kpos <= qpos) && (a.window <= 0 || kpos > qpos - a.window) &&
-         kpos < a.kv_len;
-}
-__device__ __forceinline__ float cap_logit(const Args& a, float s) {
-  return a.softcap > 0.f ? a.softcap * tanhf(s / a.softcap) : s;
+// A key k >= 0 is visible to a query at qpos iff lo <= k <= hi: causal
+// (k <= qpos), inside the window (k > qpos - window, window > 0) and before
+// kv_len.  Computed once per row, not per key.
+__device__ __forceinline__ void key_bounds(const Args& a, int qpos, int& lo, int& hi) {
+  lo = a.window > 0 ? qpos - a.window + 1 : INT_MIN;
+  hi = a.causal ? min(a.kv_len - 1, qpos) : a.kv_len - 1;
 }
 
-// n consecutive elements of a k/v row as float32 (n * sizeof(T) a multiple
-// of 16 bytes, the address 16-byte aligned).
+// Keys [k_lo, k_hi] that rows m0 .. m_last of a block can see; every key
+// when one of them sees none (rows that see nothing lie at the two ends).
+__device__ __forceinline__ void block_keys(const Args& a, int m0, int m_last, int& k_lo,
+                                           int& k_hi) {
+  const int qp_first = a.q_offset + m0 / a.groups;
+  const int qp_last = a.q_offset + m_last / a.groups;
+  const bool any_empty = key_lo(a, qp_first) > key_hi(a, qp_first) ||
+                         key_lo(a, qp_last) > key_hi(a, qp_last);
+  k_lo = any_empty ? 0 : key_lo(a, qp_first);
+  k_hi = any_empty ? a.Tk - 1 : key_hi(a, qp_last);
+}
+
+// n consecutive elements of a k/v row as float32 (16 bytes, 16-byte aligned;
+// global or shared memory).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* p, float* out);
 
@@ -93,11 +130,6 @@ template <>
 __device__ __forceinline__ void load_row<float, 4>(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-template <>
-__device__ __forceinline__ void load_row<float, 8>(const float* p, float* out) {
-  load_row<float, 4>(p, out);
-  load_row<float, 4>(p + 4, out + 4);
 }
 // bfloat16 is stored as uint16; its float32 value is the bits shifted up.
 template <>
@@ -110,33 +142,6 @@ __device__ __forceinline__ void load_row<uint16_t, 8>(const uint16_t* p, float* 
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-template <>
-__device__ __forceinline__ void load_row<uint16_t, 4>(const uint16_t* p, float* out) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  out[0] = __uint_as_float(x.x << 16);
-  out[1] = __uint_as_float(x.x & 0xffff0000u);
-  out[2] = __uint_as_float(x.y << 16);
-  out[3] = __uint_as_float(x.y & 0xffff0000u);
-}
-template <>
-__device__ __forceinline__ void load_row<uint16_t, 2>(const uint16_t* p, float* out) {
-  const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
-  out[0] = __uint_as_float(x << 16);
-  out[1] = __uint_as_float(x & 0xffff0000u);
-}
-template <>
-__device__ __forceinline__ void load_row<float, 2>(const float* p, float* out) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  out[0] = x.x; out[1] = x.y;
-}
-template <>
-__device__ __forceinline__ void load_row<float, 1>(const float* p, float* out) {
-  out[0] = *p;
-}
-template <>
-__device__ __forceinline__ void load_row<uint16_t, 1>(const uint16_t* p, float* out) {
-  out[0] = __uint_as_float(static_cast<uint32_t>(*p) << 16);
-}
 
 __device__ __forceinline__ float warp_max16(float x) {
 #pragma unroll
@@ -146,16 +151,6 @@ __device__ __forceinline__ float warp_max16(float x) {
 __device__ __forceinline__ float warp_sum16(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_sum32(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max32(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
@@ -181,9 +176,10 @@ struct Tiled {
       sizeof(float) * (size_t(BM) * LDQ + size_t(BN) * LDK + size_t(BN) * LDV + size_t(BN) * LDP);
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
   using C = Tiled<HD>;
+  using T = float;  // k/v: the bf16 ones go to flash_wgmma
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + BM * C::LDQ;
@@ -209,19 +205,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
     *reinterpret_cast<float4*>(Qs + r * C::LDQ + c) = x;
   }
 
-  // keys the block's rows can see; every key when a row sees none
-  const int qp_first = a.q_offset + m0 / a.groups;
-  const int qp_last = a.q_offset + m_last / a.groups;
-  const bool any_empty = key_lo(a, qp_first) > key_hi(a, qp_first) ||
-                         key_lo(a, qp_last) > key_hi(a, qp_last);
-  const int k_lo = any_empty ? 0 : key_lo(a, qp_first);
-  const int k_hi = any_empty ? a.Tk - 1 : key_hi(a, qp_last);
+  int k_lo, k_hi;
+  block_keys(a, m0, m_last, k_lo, k_hi);
 
-  int qpos[4];
+  int klo[4], khi[4];  // the keys each of the thread's rows may see
   float m_i[4], l_i[4], acc[4][C::DPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    qpos[i] = a.q_offset + (m0 + ty * 4 + i) / a.groups;
+    key_bounds(a, a.q_offset + (m0 + ty * 4 + i) / a.groups, klo[i], khi[i]);
     m_i[i] = kMask;
     l_i[i] = 0.f;
 #pragma unroll
@@ -283,7 +274,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
         }
     }
 
-    // mask, online softmax; p -> Ps (transposed)
+    // softcap (a uniform branch), mask, online softmax; p -> Ps (transposed)
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = a.softcap * tanhf(s[i][j] / a.softcap);
+    }
     float p[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -291,8 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = n0 + tx + 16 * j;
-        float x = cap_logit(a, s[i][j]);
-        x = key_ok(a, qpos[i], kpos) ? x : kMask;
+        const float x = klo[i] <= kpos && kpos <= khi[i] ? s[i][j] : kMask;
         s[i][j] = kpos < a.Tk ? x : -INFINITY;  // past Tk: not a key at all
         mx = fmaxf(mx, s[i][j]);
       }
@@ -351,184 +347,785 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_split / flash_combine: R <= 8 query rows per kv head (decode).
-// Grid (chunks, B * KV).  part: [B * KV, chunks, R, 2 + HD] float32 holding
-// (m, l, acc[HD]) of each chunk.
+// flash_wgmma: bf16 k/v, more than 8 rows per kv head.  Grid (row blocks of
+// 64, B * KV); 160 threads: warps 0-3 the consumer warpgroup, warp 4 the
+// producer.  The consumer's thread (warp w, lane l) holds rows
+// 16 w + l / 4 and 16 w + l / 4 + 8 and, in every 8-column block j of S and
+// O, columns 8 j + 2 (l % 4) and the next one (the wgmma accumulator
+// layout).
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_split(Args a, int k_begin, int k_end,
-                                                         int chunk, float* part) {
-  constexpr int DPL = HD / 32;   // columns per lane in the scores
-  constexpr int PARTS = kThreads / HD;  // threads sharing one output column
+constexpr int kWgRows = 64;
+constexpr int kWgKeys = 64;
+constexpr int kWgStages = 2;
+constexpr int kWgThreads = 160;
+
+template <int HD>
+struct Wg {
+  static constexpr int SW = HD >= 64 ? 128 : 64;  // swizzle span: bytes per row of an atom
+  static constexpr int ATOM = SW / 2;              // bf16 columns per atom
+  static constexpr int NATOM = HD / ATOM;          // atoms across hd
+  static constexpr int Q_ATOM = kWgRows * SW;      // bytes of one [64 rows][ATOM] atom column
+  static constexpr int KV_ATOM = kWgKeys * SW;
+  static constexpr int Q_PART = NATOM * Q_ATOM;    // one bf16 part of q: 64 x hd
+  static constexpr int KV_TILE = NATOM * KV_ATOM;  // one k (or v) tile: 64 keys x hd
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  static constexpr int OFF_K = 3 * Q_PART;
+  static constexpr int OFF_V = OFF_K + kWgStages * KV_TILE;
+  static constexpr int OFF_BAR = OFF_V + kWgStages * KV_TILE;
+  static constexpr size_t kSmem = OFF_BAR + 2 * kWgStages * 8 + 1024;  // + base alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&x)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(x[0]), "r"(x[1]),
+               "r"(x[2]), "r"(x[3])
+               : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins accumulator registers after a wait, so that no read moves above it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// (x0, x1) = sum of three bf16 parts, each part packed as a bf16 pair
+// (x0 in the low half): part 1 = bf16(x), part 2 = bf16(x - part 1),
+// part 3 = bf16(x - part 1 - part 2); the residues are exact in float32.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& p1, uint32_t& p2,
+                                       uint32_t& p3) {
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x0, x1);
+  const float2 f1 = __bfloat1622float2(h1);
+  const float r0 = x0 - f1.x, r1 = x1 - f1.y;
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(r0, r1);
+  const float2 f2 = __bfloat1622float2(h2);
+  const __nv_bfloat162 h3 = __floats2bfloat162_rn(r0 - f2.x, r1 - f2.y);
+  p1 = bf16x2_bits(h1);
+  p2 = bf16x2_bits(h2);
+  p3 = bf16x2_bits(h3);
+}
+
+// d[32] (+)= A (shared, K-major) . B (shared, K-major), m64n64k16, bf16 in, f32 out;
+// scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[16] += A (registers) . B (shared, MN-major), m64n32k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] += A (registers) . B (shared, MN-major), m64n64k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (registers) . B (shared, MN-major), m64n128k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[128] += A (registers) . B (shared, MN-major), m64n256k16, bf16 in, f32 out.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(d, a, db);
+}
+
+// kv_inner: the kv-head dimension lies inside the key dimension in memory
+// (the tensor maps order their dimensions by stride).
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma(const __grid_constant__ CUtensorMap tmap_k,
+                const __grid_constant__ CUtensorMap tmap_v, Args a, int k_inner, int v_inner) {
+  using C = Wg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_k = s_q + C::OFF_K, s_v = s_q + C::OFF_V;
+  const uint32_t bar_full = s_q + C::OFF_BAR, bar_empty = bar_full + 8 * kWgStages;
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.y, b = bkv / a.KV, kvh = bkv % a.KV;
+  const int M = a.Tq * a.groups;
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;  // the longest row blocks first
+  int k_lo, k_hi;
+  block_keys(a, m0, min(m0 + kWgRows, M) - 1, k_lo, k_hi);
+  const int t_first = k_lo / kWgKeys;
+  const int n_tiles = k_hi / kWgKeys - t_first + 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // producer warp: one thread starts every copy
+    if (tid == 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kWgStages;
+        mbar_wait(bar_empty + 8 * s, ((t / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * C::KV_TILE);
+        const int n0 = (t_first + t) * kWgKeys;
+#pragma unroll
+        for (int c = 0; c < C::NATOM; ++c) {
+          const uint32_t off = s * C::KV_TILE + c * C::KV_ATOM;
+          tma_load_4d(s_k + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, k_inner ? kvh : n0,
+                      k_inner ? n0 : kvh, b);
+          tma_load_4d(s_v + off, &tmap_v, bar_full + 8 * s, c * C::ATOM, v_inner ? kvh : n0,
+                      v_inner ? n0 : kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // q -> shared: rows (position, group) scaled by 1/sqrt(hd), three bf16
+  // parts, each in [atom][row][ATOM] with the 16-byte chunks of a row
+  // swizzled as TMA would (chunk ^ (row bits above the 128-byte line)).
+  for (int i = tid; i < kWgRows * (HD / 8); i += 128) {
+    const int r = i / (HD / 8), cc = i % (HD / 8);
+    const int m = m0 + r;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (m < M) {
+      const int t = m / a.groups, h = kvh * a.groups + m % a.groups;
+      const float* src = a.q + b * a.sqb + t * a.sqt + h * a.sqh + cc * 8;
+      load_row<float, 4>(src, x);
+      load_row<float, 4>(src + 4, x + 4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] /= a.sqrt_hd;
+    }
+    uint32_t p1[4], p2[4], p3[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split3(x[2 * e], x[2 * e + 1], p1[e], p2[e], p3[e]);
+    const int atom = cc / (C::ATOM / 8), ch = cc % (C::ATOM / 8);
+    const uint32_t off = atom * C::Q_ATOM + r * C::SW +
+                         ((ch ^ ((r * C::SW >> 7) & (C::SW / 16 - 1))) << 4);
+    st_shared_v4(s_q + off, p1);
+    st_shared_v4(s_q + C::Q_PART + off, p2);
+    st_shared_v4(s_q + 2 * C::Q_PART + off, p3);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  int klo[2], khi[2];  // the keys each of the thread's two rows may see
+  float m_i[2] = {kMask, kMask}, l_i[2] = {0.f, 0.f};  // l: this thread's part of the row sum
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_bounds(a, a.q_offset + (m0 + r_lo + 8 * h) / a.groups, klo[h], khi[h]);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kWgStages;
+    const int n0 = (t_first + t) * kWgKeys;
+    mbar_wait(bar_full + 8 * s, (t / kWgStages) & 1);
+
+    // S = sum_i Qi . K^T
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk * 16 / C::ATOM) * C::Q_ATOM + (kk * 16 % C::ATOM) * 2;
+        const uint32_t kcol = (kk * 16 / C::ATOM) * C::KV_ATOM + (kk * 16 % C::ATOM) * 2;
+        wgmma_ss_n64(sc, gmma_desc(s_q + part * C::Q_PART + col, 16, 8 * C::SW, C::LAYOUT),
+                     gmma_desc(s_k + s * C::KV_TILE + kcol, 16, 8 * C::SW, C::LAYOUT),
+                     part | kk);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // softcap (a uniform branch), mask, online softmax; sc becomes p
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = a.softcap * tanhf(sc[i] / a.softcap);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = n0 + 8 * j + cq + e;
+          float x = sc[4 * j + 2 * h + e];
+          x = klo[h] <= kpos && kpos <= khi[h] ? x : kMask;
+          x = kpos < a.Tk ? x : -INFINITY;  // past Tk: not a key at all
+          sc[4 * j + 2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[h], mx);  // >= -1e30: finite
+      const float corr = expf(m_i[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sc[4 * j + 2 * h + e] - m_new);
+          sc[4 * j + 2 * h + e] = p;
+          sum += p;
+        }
+      l_i[h] = l_i[h] * corr + sum;
+      m_i[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j + 2 * h] *= corr;
+        o[4 * j + 2 * h + 1] *= corr;
+      }
+    }
+
+    // O += sum_i Pi . V, p from registers (16 keys per step)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+      uint32_t a1[4], a2[4], a3[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split3(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], a1[f], a2[f], a3[f]);
+      const uint64_t dv = gmma_desc(s_v + s * C::KV_TILE + kk * 16 * C::SW, C::KV_ATOM,
+                                    8 * C::SW, C::LAYOUT);
+      wgmma_rs<HD>(o, a1, dv);
+      wgmma_rs<HD>(o, a2, dv);
+      wgmma_rs<HD>(o, a3, dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_i[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int m = m0 + r_lo + 8 * h;
+    if (m >= M) continue;
+    const int t = m / a.groups, hh = kvh * a.groups + m % a.groups;
+    float* op = a.o + b * a.sob + t * a.sot + hh * a.soh + cq;
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j) =
+          make_float2(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_decode: at most 8 query rows per kv head, one launch.  Grid
+// (chunks, B * KV), 256 threads.  scratch: counters (one uint32 per
+// (batch, kv head), 0 between calls, padded to 32), then the chunks'
+// partials [B * KV][chunks][R][2 + HD] float32 (m, l, acc).
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = kThreads / 32;
+constexpr int kMaxChunks = 1024;  // chunks per (batch, kv head): the merge's weights fit in smem
+
+template <typename T, int HD, int RMAX>
+struct Dec {
+  static constexpr int EPL = 16 / sizeof(T);                 // elements per 16-byte load
+  static constexpr int CPL = HD / 32 > EPL ? HD / 32 : EPL;  // columns per lane
+  static constexpr int LPK = HD / CPL;                       // lanes per key
+  static constexpr int KPS = 32 / LPK;                       // keys per warp step
+  static constexpr int LOADS = CPL / EPL;                    // 16-byte loads per row and lane
+  static constexpr int SLOT = 2 * CPL * sizeof(T);           // a lane's k and v bytes per step
+  // steps per online-softmax update (one rescale, independent chains for the
+  // dots, reductions and exps), and groups of them in flight: 8 KB per warp
+  static constexpr int U = RMAX <= 2 ? 128 / SLOT : 1;
+  static constexpr int GROUPS = U > 1 ? 2 : 256 / SLOT;
+  static constexpr int RING = kDecWarps * GROUPS * U * 32 * SLOT;  // 64 KB per block
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Merges (m2, l2, acc2) into (m, l, acc); both m >= -1e30.
+template <int N>
+__device__ __forceinline__ void merge_state(float& m, float& l, float (&acc)[N], float m2,
+                                            float l2, const float (&acc2)[N]) {
+  const float mx = fmaxf(m, m2);
+  const float w1 = expf(m - mx), w2 = expf(m2 - mx);
+  l = l * w1 + l2 * w2;
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = acc[c] * w1 + acc2[c] * w2;
+  m = mx;
+}
+
+template <typename T, int HD, int RMAX>
+__global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, int k_end,
+                                                          int chunk, float* scratch) {
+  using D = Dec<T, HD, RMAX>;
   extern __shared__ float4 smem4[];
-  float* Ss = reinterpret_cast<float*>(smem4);      // [kMaxSplitRows][chunk]
-  float* red = Ss + kMaxSplitRows * chunk;          // [PARTS][kMaxSplitRows][HD]
-  __shared__ float stat_m[kMaxSplitRows], stat_l[kMaxSplitRows];
+  float* red = reinterpret_cast<float*>(smem4);  // after the keys: [warp][RMAX][2 + HD]
+  float* wts = red;                               // in the merge: [RMAX][chunks + 1]
+  __shared__ bool last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / D::LPK, part = lane % D::LPK;  // key of the step, column slice
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int bkv = blockIdx.y, b = bkv / a.KV, kvh = bkv % a.KV;
   const int R = a.Tq * a.groups;
   const int kb = k_begin + split * chunk;
   const int n = min(chunk, k_end - kb);
+  const int per = (n + kDecWarps - 1) / kDecWarps;
+  const int r0 = kb + min(n, warp * per), r1 = kb + min(n, (warp + 1) * per);  // this warp's keys
+  const int n_groups = (r1 - r0 + D::KPS * D::U - 1) / (D::KPS * D::U);
 
-  float qreg[kMaxSplitRows][DPL];
-  int qpos[kMaxSplitRows];
+  float q[RMAX][D::CPL];
+  int klo[RMAX], khi[RMAX];  // the keys each row may see
 #pragma unroll
-  for (int r = 0; r < kMaxSplitRows; ++r) {
+  for (int r = 0; r < RMAX; ++r) {
     const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
-    qpos[r] = a.q_offset + t;
+    key_bounds(a, a.q_offset + t, klo[r], khi[r]);
 #pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      qreg[r][e] = r < R ? a.q[b * a.sqb + t * a.sqt + h * a.sqh + lane * DPL + e] / a.sqrt_hd
-                         : 0.f;
+    for (int c = 0; c < D::CPL; c += 4) {
+      if (r < R) {
+        load_row<float, 4>(a.q + b * a.sqb + t * a.sqt + h * a.sqh + part * D::CPL + c, q[r] + c);
+      } else {
+        q[r][c] = q[r][c + 1] = q[r][c + 2] = q[r][c + 3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D::CPL; ++c) q[r][c] /= a.sqrt_hd;
   }
 
-  const T* kbase = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh;
-  const T* vbase = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh;
-#pragma unroll 4
-  for (int c = warp; c < n; c += kThreads / 32) {
-    float kx[DPL];
-    load_row<T, DPL>(kbase + (kb + c) * a.skt + lane * DPL, kx);
+  const T* kbase = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh + part * D::CPL;
+  const T* vbase = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh + part * D::CPL;
+  // this lane's slot i of the warp's ring: lane_ring + i * 32 * SLOT
+  const uint32_t lane_ring = smem_u32(smem4) + (warp * D::GROUPS * D::U * 32 + lane) * D::SLOT;
+  const uint8_t* lane_ring_p = reinterpret_cast<const uint8_t*>(smem4) +
+                               (warp * D::GROUPS * D::U * 32 + lane) * D::SLOT;
+  auto fetch = [&](int g) {
 #pragma unroll
-    for (int r = 0; r < kMaxSplitRows; ++r) {
+    for (int u = 0; u < D::U; ++u) {
+      const int key = r0 + (g * D::U + u) * D::KPS + sub;
+      const bool ok = key < r1;
+      const T* ks = kbase + static_cast<int64_t>(ok ? key : r0) * a.skt;
+      const T* vs = vbase + static_cast<int64_t>(ok ? key : r0) * a.svt;
+      const uint32_t dst = lane_ring + ((g % D::GROUPS) * D::U + u) * 32 * D::SLOT;
+#pragma unroll
+      for (int l = 0; l < D::LOADS; ++l) {
+        cp_async16(dst + 16 * l, ks + l * D::EPL, ok);
+        cp_async16(dst + D::SLOT / 2 + 16 * l, vs + l * D::EPL, ok);
+      }
+    }
+  };
+
+  float m[RMAX], l[RMAX], acc[RMAX][D::CPL];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    m[r] = kMask;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D::CPL; ++c) acc[r][c] = 0.f;
+  }
+#pragma unroll
+  for (int g = 0; g < D::GROUPS - 1; ++g) {
+    fetch(g);
+    cp_async_commit();
+  }
+  for (int g = 0; g < n_groups; ++g) {
+    fetch(g + D::GROUPS - 1);
+    cp_async_commit();
+    cp_async_wait<D::GROUPS - 1>();  // group g's copies (this lane's own) have landed
+    float kx[D::U][D::CPL], vx[D::U][D::CPL];
+#pragma unroll
+    for (int u = 0; u < D::U; ++u) {
+      const T* slot = reinterpret_cast<const T*>(lane_ring_p +
+                                                 ((g % D::GROUPS) * D::U + u) * 32 * D::SLOT);
+#pragma unroll
+      for (int c = 0; c < D::CPL; c += D::EPL) {
+        load_row<T, D::EPL>(slot + c, kx[u] + c);
+        load_row<T, D::EPL>(slot + D::CPL + c, vx[u] + c);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
       if (r >= R) break;
-      float x = 0.f;
+      float x[D::U];
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) x = fmaf(qreg[r][e], kx[e], x);
-      x = warp_sum32(x);
-      if (lane == 0) {
-        x = cap_logit(a, x);
-        Ss[r * chunk + c] = key_ok(a, qpos[r], kb + c) ? x : kMask;
+      for (int u = 0; u < D::U; ++u) {
+        x[u] = 0.f;
+#pragma unroll
+        for (int c = 0; c < D::CPL; ++c) x[u] = fmaf(q[r][c], kx[u][c], x[u]);
+      }
+#pragma unroll
+      for (int o = D::LPK / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < D::U; ++u) x[u] += __shfl_xor_sync(0xffffffffu, x[u], o);
+      if (a.softcap > 0.f) {
+#pragma unroll
+        for (int u = 0; u < D::U; ++u) x[u] = a.softcap * tanhf(x[u] / a.softcap);
+      }
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < D::U; ++u) {
+        const int key = r0 + (g * D::U + u) * D::KPS + sub;
+        const float y = klo[r] <= key && key <= khi[r] ? x[u] : kMask;
+        x[u] = key < r1 ? y : -INFINITY;  // past this warp's keys: not a key
+        mx = fmaxf(mx, x[u]);
+      }
+      const float corr = expf(m[r] - mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < D::U; ++u) {
+        x[u] = expf(x[u] - mx);
+        ps += x[u];
+      }
+      l[r] = l[r] * corr + ps;
+      m[r] = mx;
+#pragma unroll
+      for (int c = 0; c < D::CPL; ++c) {
+        float y = acc[r][c] * corr;
+#pragma unroll
+        for (int u = 0; u < D::U; ++u) y = fmaf(x[u], vx[u][c], y);
+        acc[r][c] = y;
       }
     }
   }
+  cp_async_wait<0>();
+
+  // merge the keys of a step across the warp, then the warps in shared memory
+#pragma unroll
+  for (int o = D::LPK; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      float acc2[D::CPL];
+#pragma unroll
+      for (int c = 0; c < D::CPL; ++c) acc2[c] = __shfl_xor_sync(0xffffffffu, acc[r][c], o);
+      merge_state(m[r], l[r], acc[r], __shfl_xor_sync(0xffffffffu, m[r], o),
+                  __shfl_xor_sync(0xffffffffu, l[r], o), acc2);
+    }
+  __syncthreads();  // the ring is free: red reuses it
+  if (sub == 0) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r >= R) break;
+      float* dst = red + (warp * RMAX + r) * (2 + HD);
+      if (part == 0) {
+        dst[0] = m[r];
+        dst[1] = l[r];
+      }
+#pragma unroll
+      for (int c = 0; c < D::CPL; ++c) dst[2 + part * D::CPL + c] = acc[r][c];
+    }
+  }
   __syncthreads();
 
-  if (warp < R) {  // one warp per row: chunk max, p, chunk sum
-    float* sr = Ss + warp * chunk;
+  unsigned* counters = reinterpret_cast<unsigned*>(scratch);
+  const int64_t n_bkv = static_cast<int64_t>(gridDim.y);
+  float* partial = scratch + (n_bkv + 31) / 32 * 32 + static_cast<int64_t>(bkv) * nsplit * R * (2 + HD);
+  for (int i = tid; i < R * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
     float mx = kMask;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
-    mx = warp_max32(mx);
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float pv = expf(sr[c] - mx);
-      sr[c] = pv;
-      sum += pv;
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, red[(w * RMAX + r) * (2 + HD)]);
+    float ls = 0.f, as = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float* src = red + (w * RMAX + r) * (2 + HD);
+      const float wt = expf(src[0] - mx);
+      ls = fmaf(src[1], wt, ls);
+      as = fmaf(src[2 + d], wt, as);
     }
-    sum = warp_sum32(sum);
-    if (lane == 0) {
-      stat_m[warp] = mx;
-      stat_l[warp] = sum;
-    }
-  }
-  __syncthreads();
-
-  const int d = tid % HD, pidx = tid / HD;
-  float acc[kMaxSplitRows];
-#pragma unroll
-  for (int r = 0; r < kMaxSplitRows; ++r) acc[r] = 0.f;
-#pragma unroll 8
-  for (int c = pidx; c < n; c += PARTS) {
-    float vv;
-    load_row<T, 1>(vbase + (kb + c) * a.svt + d, &vv);
-#pragma unroll
-    for (int r = 0; r < kMaxSplitRows; ++r)
-      if (r < R) acc[r] = fmaf(Ss[r * chunk + c], vv, acc[r]);
-  }
-  if (PARTS > 1) {
-#pragma unroll
-    for (int r = 0; r < kMaxSplitRows; ++r) red[(pidx * kMaxSplitRows + r) * HD + d] = acc[r];
-    __syncthreads();
-    if (pidx == 0) {
-      for (int pp = 1; pp < PARTS; ++pp)
-#pragma unroll
-        for (int r = 0; r < kMaxSplitRows; ++r) acc[r] += red[(pp * kMaxSplitRows + r) * HD + d];
-    }
-  }
-  if (pidx == 0) {
-    for (int r = 0; r < R; ++r) {
-      float* pr = part + ((static_cast<int64_t>(bkv) * nsplit + split) * R + r) * (2 + HD);
+    if (nsplit == 1) {
+      const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
+      a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / fmaxf(ls, 1e-30f);
+    } else {
+      float* dst = partial + (static_cast<int64_t>(split) * R + r) * (2 + HD);
       if (d == 0) {
-        pr[0] = stat_m[r];
-        pr[1] = stat_l[r];
+        dst[0] = mx;
+        dst[1] = ls;
       }
-      pr[2 + d] = acc[r];
+      dst[2 + d] = as;
     }
   }
-}
+  if (nsplit == 1) return;
 
-__global__ void __launch_bounds__(kThreads) flash_combine(Args a, int nsplit, int hd,
-                                                           const float* part) {
-  const int bkv = blockIdx.x, b = bkv / a.KV, kvh = bkv % a.KV;
-  const int R = a.Tq * a.groups;
-  for (int idx = threadIdx.x; idx < R * hd; idx += blockDim.x) {
-    const int r = idx / hd, d = idx % hd;
-    const float* p0 = part + (static_cast<int64_t>(bkv) * nsplit * R + r) * (2 + hd);
-    const int64_t step = static_cast<int64_t>(R) * (2 + hd);
+  // the last chunk of this (batch, kv head) to finish merges all chunks
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + bkv, 1u) == static_cast<unsigned>(nsplit - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // warp r: each chunk's weight exp(m_s - max) and the row's sum of l
+  const int64_t step = static_cast<int64_t>(R) * (2 + HD);
+  if (warp < R) {
+    const float* p0 = partial + static_cast<int64_t>(warp) * (2 + HD);
     float mx = kMask;
-    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, p0[s * step]);
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float w = expf(p0[s * step] - mx);
-      l = fmaf(p0[s * step + 1], w, l);
-      acc = fmaf(p0[s * step + 2 + d], w, acc);
+    for (int s = lane; s < nsplit; s += 32) mx = fmaxf(mx, __ldcg(p0 + s * step));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float ls = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float wt = expf(__ldcg(p0 + s * step) - mx);
+      wts[warp * (nsplit + 1) + s] = wt;
+      ls = fmaf(__ldcg(p0 + s * step + 1), wt, ls);
     }
-    const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
-    a.o[b * a.sob + t * a.sot + h * a.soh + d] = acc / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
+    if (lane == 0) wts[warp * (nsplit + 1) + nsplit] = fmaxf(ls, 1e-30f);
   }
+  __syncthreads();
+  for (int i = tid; i < R * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    const float* p0 = partial + static_cast<int64_t>(r) * (2 + HD) + 2 + d;
+    const float* w = wts + r * (nsplit + 1);
+    float as = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < nsplit; ++s) as = fmaf(__ldcg(p0 + s * step), w[s], as);
+    const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
+    a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / w[nsplit];
+  }
+  if (tid == 0) counters[bkv] = 0;  // ready for the next call
 }
 
-template <typename T, int HD>
-cudaError_t launch(const Args& a, int B, float* part, int nsplit, int k_begin, int k_end,
-                   int chunk, cudaStream_t stream) {
-  if (part == nullptr) {
-    // the opt-in above 48 KB holds per device, so it is set on every launch
-    // (cheap) rather than once per process
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_tiled<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tiled<HD>::kSmem));
-    if (e != cudaSuccess) return e;
-    const int M = a.Tq * a.groups;
-    const dim3 grid((M + BM - 1) / BM, B * a.KV);
-    flash_tiled<T, HD><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a);
-  } else {
-    const size_t smem =
-        sizeof(float) * (size_t(kMaxSplitRows) * chunk + size_t(kThreads) * kMaxSplitRows);
-    flash_split<T, HD><<<dim3(nsplit, B * a.KV), kThreads, smem, stream>>>(a, k_begin, k_end,
-                                                                           chunk, part);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_combine<<<B * a.KV, kThreads, 0, stream>>>(a, nsplit, HD, part);
-  }
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// A 4-D TMA map of a bf16 k or v tensor [B, Tk, KV, hd] with strides (in
+// elements) st (key), sh (kv head), sb (batch): dimensions ordered by
+// stride, a box of ATOM columns x 64 keys, swizzled for wgmma.  *kv_inner
+// says whether the kv head comes before the key.
+template <int HD>
+bool make_kv_map(CUtensorMap* map, const void* base, int Tk, int KV, int B, int64_t st,
+                 int64_t sh, int64_t sb, int* kv_inner) {
+  using C = Wg<HD>;
+  *kv_inner = sh < st;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(*kv_inner ? KV : Tk),
+                              static_cast<cuuint64_t>(*kv_inner ? Tk : KV),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*kv_inner ? sh : st)),
+                                 static_cast<cuuint64_t>(2 * (*kv_inner ? st : sh)),
+                                 static_cast<cuuint64_t>(2 * sb)};
+  const cuuint32_t box[4] = {C::ATOM, static_cast<cuuint32_t>(*kv_inner ? 1 : kWgKeys),
+                             static_cast<cuuint32_t>(*kv_inner ? kWgKeys : 1), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
+  CUtensorMap mk, mv;
+  int k_inner = 0, v_inner = 0;
+  if (!make_kv_map<HD>(&mk, a.k, a.Tk, a.KV, B, a.skt, a.skh, a.skb, &k_inner) ||
+      !make_kv_map<HD>(&mv, a.v, a.Tk, a.KV, B, a.svt, a.svh, a.svb, &v_inner))
+    return cudaErrorInvalidValue;
+  // the opt-in above 48 KB holds per device, so it is set on every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Wg<HD>::kSmem));
+  if (e != cudaSuccess) return e;
+  const int M = a.Tq * a.groups;
+  const dim3 grid((M + kWgRows - 1) / kWgRows, B * a.KV);
+  flash_wgmma<HD><<<grid, kWgThreads, Wg<HD>::kSmem, stream>>>(mk, mv, a, k_inner, v_inner);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const Args& a, int B, float* part, int nsplit, int k_begin,
-                        int k_end, int chunk, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(a, B, part, nsplit, k_begin, k_end, chunk, stream);
-    case 64: return launch<T, 64>(a, B, part, nsplit, k_begin, k_end, chunk, stream);
-    case 128: return launch<T, 128>(a, B, part, nsplit, k_begin, k_end, chunk, stream);
-    case 256: return launch<T, 256>(a, B, part, nsplit, k_begin, k_end, chunk, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD>
+cudaError_t launch_tiled(const Args& a, int B, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(flash_tiled<HD>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(Tiled<HD>::kSmem));
+  if (e != cudaSuccess) return e;
+  const int M = a.Tq * a.groups;
+  const dim3 grid((M + BM - 1) / BM, B * a.KV);
+  flash_tiled<HD><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, int RMAX>
+cudaError_t launch_decode(const Args& a, int B, float* scratch, int nsplit, int k_begin,
+                          int k_end, int chunk, cudaStream_t stream) {
+  const size_t red = sizeof(float) * kDecWarps * RMAX * (2 + HD);
+  const size_t ring = Dec<T, HD, RMAX>::RING;
+  const size_t smem = red > ring ? red : ring;
+  const cudaError_t e = cudaFuncSetAttribute(flash_decode<T, HD, RMAX>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  flash_decode<T, HD, RMAX><<<dim3(nsplit, B * a.KV), kThreads, smem, stream>>>(
+      a, k_begin, k_end, chunk, scratch);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, int nsplit, int k_begin,
+                     int k_end, int chunk, cudaStream_t s) {
+  if (scratch == nullptr) return kv_bf16 ? launch_wgmma<HD>(a, B, s) : launch_tiled<HD>(a, B, s);
+  const bool two = a.Tq * a.groups <= 2;
+  if (kv_bf16)
+    return two ? launch_decode<uint16_t, HD, 2>(a, B, scratch, nsplit, k_begin, k_end, chunk, s)
+               : launch_decode<uint16_t, HD, 8>(a, B, scratch, nsplit, k_begin, k_end, chunk, s);
+  return two ? launch_decode<float, HD, 2>(a, B, scratch, nsplit, k_begin, k_end, chunk, s)
+             : launch_decode<float, HD, 8>(a, B, scratch, nsplit, k_begin, k_end, chunk, s);
 }
 
 }  // namespace
 
 // strides: q (b, t, h), k (b, t, kv), v (b, t, kv), o (b, t, h), in elements.
-// part == nullptr: the tiled kernel; otherwise the split kernel over keys
-// [k_begin, k_end) in nsplit chunks of `chunk` keys, then the combine.
+// part == nullptr: the wgmma design (bf16 k/v) or the tiled one (float32).
+// Otherwise the decode design over keys [k_begin, k_end) in nsplit chunks of
+// `chunk` keys, with part its scratch (see flash_decode): counters that are 0
+// when the call starts and 0 again when it ends.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int kv_bf16, int hd, int B, int Tq, int Tk, int H, int KV,
                                   const void* strides, int q_offset, int window, int kv_len,
                                   int causal, float softcap, void* part, int nsplit,
                                   int k_begin, int k_end, int chunk, void* stream) {
   const int64_t* st = static_cast<const int64_t*>(strides);
-  if (part != nullptr && (Tq * (H / KV) > kMaxSplitRows || chunk > kMaxChunk || chunk < 1))
+  if (part != nullptr &&
+      (Tq * (H / KV) > kMaxSplitRows || chunk < 1 || nsplit < 1 || nsplit > kMaxChunks))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -545,8 +1142,13 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   a.sqrt_hd = static_cast<float>(sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
-  const cudaError_t e =
-      kv_bf16 ? dispatch_hd<uint16_t>(hd, a, B, pp, nsplit, k_begin, k_end, chunk, s)
-              : dispatch_hd<float>(hd, a, B, pp, nsplit, k_begin, k_end, chunk, s);
+  cudaError_t e;
+  switch (hd) {
+    case 32: e = dispatch<32>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 64: e = dispatch<64>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 128: e = dispatch<128>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 256: e = dispatch<256>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }

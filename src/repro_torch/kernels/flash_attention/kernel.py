@@ -4,9 +4,13 @@
 [B, Tk, KV, hd], any strides with hd contiguous, e.g. a layer's slice of the
 KV cache in place); ``flash_attention_heads`` the Pallas kernel's head-major
 contract (q [BH, Tq, hd], k/v [BKV, Tk, hd]), which is the same kernel with
-other strides.  With at most ``SPLIT_ROWS`` query rows per kv head
-(Tq * groups: decode) the keys the rows can see are cut into chunks, one
-block each, and merged by a second pass; otherwise one block covers 64 rows.
+other strides.  Three designs (``csrc/flash_attention.cu``): with more than
+``SPLIT_ROWS`` query rows per kv head (Tq * groups) one block covers 64 rows,
+on the bf16 tensor cores when k/v are bfloat16 (every prefill of the serve
+path) and on the float32 CUDA cores when they are float32; with at most
+``SPLIT_ROWS`` (decode) the keys the rows can see are cut into chunks, one
+block each, and the last block of each kv head to finish merges them, in the
+same launch.
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
-MIN_CHUNK = 64     # keys per block of the split design, at least ...
-MAX_CHUNK = 1024   # ... and at most (csrc kMaxChunk)
+MIN_CHUNK = 64     # keys per block of the decode design: at least this,
+MAX_CHUNK = 1024   # and at most this while it takes no more than
+MAX_CHUNKS = 1024  # this many chunks per kv head (csrc kMaxChunks)
+
+# per device: the decode design's scratch (see _decode_scratch)
+_scratch: dict[int, torch.Tensor] = {}
 
 
 def key_range(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
@@ -46,12 +54,28 @@ def key_range(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
 
 def split_plan(n_keys: int, blocks: int, sms: int) -> tuple[int, int]:
     """(chunks, keys per chunk) for ``n_keys`` keys and ``blocks`` kv heads:
-    about two blocks per SM in all, chunks of MIN_CHUNK..MAX_CHUNK keys, none
-    empty."""
-    want = max(1, -(-2 * sms // blocks))
+    at most one block per SM in all (one wave: a second block on an SM
+    doubles the call's time), chunks of MIN_CHUNK..MAX_CHUNK keys (more
+    only where MAX_CHUNKS chunks would not hold them), none empty."""
+    want = max(1, sms // blocks)
     nsplit = max(min(want, -(-n_keys // MIN_CHUNK)), -(-n_keys // MAX_CHUNK))
+    nsplit = min(nsplit, MAX_CHUNKS)
     chunk = -(-n_keys // nsplit)
     return -(-n_keys // chunk), chunk
+
+
+def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.Tensor:
+    """The decode design's scratch on ``dev``: one uint32 counter per
+    (batch, kv head), padded to 32, then the chunks' partial (m, l, acc).
+    The kernel leaves every counter at 0, so the buffer is made (zeroed)
+    once and reused by later calls on the same stream; it grows by
+    reallocation."""
+    need = -(-bkv // 32) * 32 + partial_floats
+    buf = _scratch.get(dev.index or 0)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.float32, device=dev)
+        _scratch[dev.index or 0] = buf
+    return buf
 
 
 @functools.cache
@@ -102,8 +126,7 @@ def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len) -> None:
         k_begin, k_end = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
                                    kv_len=kv_len)
         nsplit, chunk = split_plan(k_end - k_begin, b * kvh, _sm_count(dev.index or 0))
-        part = torch.empty(b * kvh * nsplit * tq * (h // kvh) * (2 + hd), dtype=torch.float32,
-                           device=dev)
+        part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh) * (2 + hd))
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(k.dtype == torch.bfloat16), hd, b, tq, tk, h, kvh, ctypes.addressof(strides),

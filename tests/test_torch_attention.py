@@ -141,6 +141,52 @@ def test_rows_without_keys_are_the_mean_of_v(tq, kw):
     np.testing.assert_allclose(got.numpy(), mean.numpy(), atol=F32_TOL, rtol=F32_TOL)
 
 
+SPLIT_CASES = {
+    # name: (tq, tk, kw)
+    "global": (40, 128, dict(window=0, q_offset=80, kv_len=120)),
+    "window": (40, 128, dict(window=16, q_offset=80, kv_len=120)),
+    "softcap": (40, 128, dict(window=0, q_offset=80, kv_len=120, softcap=30.0)),
+    "kv_len_0": (40, 128, dict(kv_len=0)),
+    "ragged_tk": (40, 77, dict(window=0, q_offset=30, kv_len=70)),
+}
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_ref_matches_attention(hd, case):
+    """The tensor-core design's arithmetic (three bf16 parts of q and p,
+    float32 sums) against the plain float32 version and the reference's
+    _attention_direct, bf16 k/v, at the float32 limit."""
+    tq, tk, kw = SPLIT_CASES[case]
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(2, tq, tk, 4, 2, hd, hd + len(case), kv_bf16=True)
+    got = fa_r.attention_split_ref(qt, kt, vt, causal=True, **kw)
+    exp = fa_r.attention_ref(qt, kt, vt, causal=True, **kw)
+    np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    exp_j = JL._attention_direct(qj, kj, vj, causal=True, window=jnp.asarray(kw.get("window", 0)),
+                                 softcap=kw.get("softcap", 0.0), q_offset=kw.get("q_offset", 0),
+                                 kv_len=jnp.asarray(kw["kv_len"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp_j), atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_split_bf16_parts_rebuild_float32_and_one_part_is_too_coarse():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, 4096))
+                         .astype(np.float32))
+    parts = fa_r.split_bf16(x, 3)
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    rebuilt = parts[0].double() + parts[1].double() + parts[2].double()
+    # three 8-bit parts hold a float32's 24-bit mantissa: within its rounding
+    assert bool(((rebuilt - x.double()).abs() <= 2.0**-24 * x.double().abs()).all())
+    # a single bf16 part of q and p is a different result: the 2e-5 limit sees it
+    tq, tk, kw = SPLIT_CASES["global"]
+    _, (qt, kt, vt) = _model_inputs(2, tq, tk, 4, 2, 256, 11, kv_bf16=True)
+    exp = fa_r.attention_ref(qt, kt, vt, causal=True, **kw)
+    one = fa_r.attention_split_ref(qt, kt, vt, causal=True, parts=1, **kw)
+    assert not np.allclose(one.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    three = fa_r.attention_split_ref(qt, kt, vt, causal=True, parts=3, **kw)
+    np.testing.assert_allclose(three.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
 def _visible(tq, tk, causal, window, q_offset, kv_len):
     mask = fa_r.key_mask(tq, tk, causal=causal, window=window, q_offset=q_offset,
                          kv_len=kv_len, device="cpu").numpy()
@@ -149,7 +195,7 @@ def _visible(tq, tk, causal, window, q_offset, kv_len):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_key_range_covers_every_visible_key(seed):
-    """The split design's key range holds every key some row can see, and all
+    """The decode design's key range holds every key some row can see, and all
     Tk keys exactly when some row sees none."""
     rng = np.random.default_rng(seed)
     for _ in range(200):
@@ -174,8 +220,19 @@ def test_split_plan_chunks(n_keys, blocks):
     nsplit, chunk = fa_k.split_plan(n_keys, blocks, sms=132)
     assert 1 <= chunk <= fa_k.MAX_CHUNK
     assert (nsplit - 1) * chunk < n_keys <= nsplit * chunk  # no empty chunk
-    # about two blocks per SM, where the keys give MIN_CHUNK to each
-    assert nsplit * blocks >= min(2 * 132, blocks * (n_keys // fa_k.MIN_CHUNK))
+    # one wave: at most one block per SM unless MAX_CHUNK forces more chunks,
+    # and as many as the SMs and MIN_CHUNK-key chunks allow
+    assert nsplit * blocks <= max(132, blocks) or nsplit == -(-n_keys // fa_k.MAX_CHUNK)
+    assert nsplit >= min(max(1, 132 // blocks), -(-n_keys // fa_k.MIN_CHUNK))
+
+
+@pytest.mark.parametrize("n_keys,blocks", [(2_000_000, 16), (2**31 - 1, 1)])
+def test_split_plan_caps_chunks(n_keys, blocks):
+    """Past MAX_CHUNKS chunks of MAX_CHUNK keys the chunks grow instead, so
+    the decode merge's per-chunk weights fit in shared memory."""
+    nsplit, chunk = fa_k.split_plan(n_keys, blocks, sms=132)
+    assert nsplit <= fa_k.MAX_CHUNKS
+    assert (nsplit - 1) * chunk < n_keys <= nsplit * chunk
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

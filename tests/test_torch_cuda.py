@@ -53,21 +53,57 @@ def test_hash_partition_single_column(cuda, n, p):
     assert torch.equal(b_k, b_r)
 
 
-@pytest.mark.parametrize("page,n", [(1, 10), (128, 512), (777, 1000), (40000, 100000)])
-def test_probe_matches_plain(cuda, page, n):
-    rng = np.random.default_rng(page)
-    real = np.unique(rng.integers(0, 10 * page, page)).astype(np.int32)
-    rk = np.concatenate([real, np.full(page - len(real), INT32_MAX, np.int32)])
-    lk = rng.integers(0, 10 * page, n).astype(np.int32)
-    lk[:2] = INT32_MAX
-    right = torch.tensor(rk, device=cuda)
-    left = torch.tensor(lk, device=cuda)
+def _probe_page(rng, page, pad):
+    """A sorted right page of ``page`` int32 keys: distinct even keys, the
+    last ``pad`` of them INT32_MAX sentinels."""
+    pool = np.unique(rng.integers(0, 10 * page, int(1.2 * page) + 16))
+    real = np.sort(rng.choice(pool, page - pad, replace=False)) * 2
+    return np.concatenate([real, np.full(pad, INT32_MAX)]).astype(np.int32)
+
+
+def _probe_check(right, left):
+    """The kernel against the plain version on every row: idx and hit."""
     before = jp_k.launches
     idx, hit = jp_ops.probe_sorted(right, left)
     assert jp_k.launches == before + 1
     idx_r, hit_r = jp_r.probe_sorted_ref(right, left)
     assert torch.equal(hit, hit_r)
-    assert torch.equal(idx[hit], idx_r[hit_r])
+    assert torch.equal(idx, idx_r)
+
+
+# pages: one key; no index (<= 8192 keys, the shared-memory top level); one
+# index level; not a multiple of either index stride; larger than the L2
+@pytest.mark.parametrize("page,n", [(1, 10), (128, 512), (777, 1000), (8192, 3000), (8193, 3000),
+                                    (40000, 100000), (1_000_003, 200_000),
+                                    (16_777_259, 1_000_000), (40000, 0)])
+def test_probe_matches_plain(cuda, page, n):
+    rng = np.random.default_rng(page)
+    rk = _probe_page(rng, page, page // 2)
+    lk = (rng.integers(0, 10 * page, n) * 2).astype(np.int32)  # about half of them hit
+    lk[:2] = INT32_MAX
+    _probe_check(torch.tensor(rk, device=cuda), torch.tensor(lk, device=cuda))
+
+
+@pytest.mark.parametrize("page", [1, 8192, 8193, 1_000_003, 16_777_259])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("keys", ["missing", "int32_max", "outside"])
+def test_probe_edge_keys(cuda, page, pad, keys):
+    """Every key missing (odd keys against even ones), every key INT32_MAX
+    (with and without a sentinel in the page), and keys below the first and
+    above the last."""
+    pad = min(pad, page - 1) if page > 1 else pad
+    rng = np.random.default_rng(page + pad)
+    rk = _probe_page(rng, page, pad)
+    n = 5000
+    if keys == "missing":
+        lk = rng.integers(-1, 10 * page + 1, n) * 2 + 1
+    elif keys == "int32_max":
+        lk = np.full(n, INT32_MAX)
+    else:
+        last = int(rk[page - pad - 1]) if page > pad else 0
+        lk = np.concatenate([rng.integers(-(2**31), int(rk[0]) + 1, n // 2),
+                             rng.integers(last, INT32_MAX, n - n // 2)])
+    _probe_check(torch.tensor(rk, device=cuda), torch.tensor(lk.astype(np.int32), device=cuda))
 
 
 @pytest.mark.parametrize("n,nseg", [(1, 1), (33, 3), (1000, 7), (4096, 2048), (100000, 1000)])
@@ -109,8 +145,8 @@ def _flash_inputs(cuda, b, tq, tk, h, kvh, hd, kv_dtype, seed=0):
         (1, 130, 4128, 8, 4, 256, 1024, 3968, 4098, 0.0),  # gemma3 widths, window
         (4, 1, 4128, 8, 4, 256, 0, 4096, 4097, 0.0),     # main-path decode, global
         (4, 1, 4128, 8, 4, 256, 1024, 4096, 4097, 0.0),  # main-path decode, local
-        (2, 3, 500, 4, 2, 64, 16, 300, 303, 0.0),        # split path, 6 rows per kv head
-        (2, 1, 37, 2, 1, 32, 0, 36, 37, 30.0),           # split path, tiny Tk
+        (2, 3, 500, 4, 2, 64, 16, 300, 303, 0.0),        # decode design, 6 rows per kv head
+        (2, 1, 37, 2, 1, 32, 0, 36, 37, 30.0),           # decode design, tiny Tk (one chunk)
     ],
 )
 def test_flash_attention_matches_plain(cuda, kv_dtype, b, tq, tk, h, kvh, hd, window,
@@ -149,6 +185,45 @@ def test_flash_attention_heads_layout(cuda, causal, groups):
     torch.testing.assert_close(fa_ops.flash_attention_heads(q, k, v, 300, **kw),
                                fa_r.attention_heads_ref(q, k, v, 300, **kw),
                                atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("groups", [1, 2, 8])
+def test_flash_wgmma_design_matches_plain(cuda, hd, groups):
+    """bf16 k/v and more than 8 rows per kv head: the tensor-core design.
+    k/v read in place from a layer's slice of a [L, 2, B, S, KV, hd] cache,
+    Tq = 100 (not a multiple of 64), a ragged Tk of 200, windows, a softcap
+    and rows with no valid key."""
+    rng = np.random.default_rng(hd + groups)
+    kvh = 2
+    cache = torch.tensor(rng.normal(size=(3, 2, 2, 200, kvh, hd)), dtype=torch.bfloat16,
+                         device=cuda)
+    k, v = cache[1, 0], cache[1, 1]
+    q = torch.tensor(rng.normal(size=(2, 100, kvh * groups, hd)), dtype=torch.float32,
+                     device=cuda)
+    for kw in (dict(window=0, q_offset=60, kv_len=160),
+               dict(window=48, q_offset=60, kv_len=160, softcap=30.0),
+               dict(window=0, q_offset=100, kv_len=200),
+               dict(kv_len=0),
+               dict(kv_len=20, window=8, q_offset=40)):
+        got = fa_k.flash_attention(q, k, v, causal=True, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=True, **kw),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_repeats(cuda, kv_dtype):
+    """The decode design's chunk counters are back at 0 after each call:
+    repeated calls, on shapes with many chunks and with one, agree."""
+    for tk in (4128, 37):
+        q, k, v = _flash_inputs(cuda, 4, 1, tk, 8, 4, 256, kv_dtype, seed=tk)
+        kw = dict(window=0, q_offset=tk - 2, kv_len=tk - 1)
+        exp = fa_r.attention_ref(q, k, v, **kw)
+        for _ in range(3):
+            got = fa_k.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, exp, atol=FLASH_TOL, rtol=FLASH_TOL)
 
 
 def test_flash_attention_reads_cache_slice_in_place(cuda):
