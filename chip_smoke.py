@@ -45,7 +45,21 @@ Phases, one JSON line each:
    the same k/v, so they differ only in the order of float32 sums: 2e-5
    for either k/v type; at each main-path shape the kernel must also fail
    that limit against the plain version given one key too few.
-6. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
+   The same phase checks the training path's forward (the float32 tiled
+   design that also writes each row's log-sum-exp) at minicpm-2b's train
+   shape, and h2o-danube-3-4b's head width 120 (q [1, 4096, 32, 120], k/v
+   [1, 4096, 8, 120], window 4096) through the float32, bf16 and decode
+   designs, each within 2e-5 (the two prefill designs timed as above).
+6. kernel  — flash_attention_bwd (the hand-written backward) against its
+   plain version (``ref.attention_bwd_ref``) from the same o and lse, at
+   minicpm-2b's train shape (q/k/v [2, 4096, 36, 64], causal), gemma3-4b's
+   (q [1, 4096, 8, 256], k/v 4 heads, window 1024 and 0) and h2o-danube's
+   (hd 120, window 4096), plus small cases with a softcap; within
+   ``BWD_TOL``, and failing it given one key too few.  Its time, bound (10
+   hd operations per visible pair on the float32 CUDA cores, or the bytes),
+   the plain version's time and autograd through float32
+   ``scaled_dot_product_attention`` as the library yardstick.
+7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
    weights from ``--seed``, made on the card): B = 4 requests of 4096
    prompt tokens, 32 new tokens each, greedy.  The one run that is counted
    is also the one that is timed: each step's tokens are brought to the
@@ -53,20 +67,42 @@ Phases, one JSON line each:
    gaps between tokens (median, max) and decode tokens/s; plus its wall
    and peak device memory.  Fixed lengths: a smoke measurement, not a
    traffic mix.
-7. serve_check — (a) a teacher-forced ``forward`` of request 0's prompt +
+8. serve_check — (a) a teacher-forced ``forward`` of request 0's prompt +
    generated tokens (no cache) against the prefill and every decode step's
    logits, and each greedy token against its step's argmax; (b) a reduced
    gemma3-4b (6 layers, one global) on the card against the plain versions
-   on the CPU from the same weights.
+   on the CPU from the same weights.  Its weights are freed before training.
+9. train   — ``launch.train.train`` on minicpm-2b at full width and depth
+   (2,724,880,896 parameters, random from ``--seed``): B 2 x 4096 tokens
+   from its own pipeline (``data_iter``), 6 steps with its own
+   ``OptConfig`` (WSD, float32 moments) at lr 3e-4 (``TRAIN_LR``).  Each
+   step's host wall ends when its loss is on the host; the median of steps
+   2-6, tokens/s, the model
+   FLOPs of a step as a share of the float32 CUDA-core peak (the products
+   stay float32 SGEMM, as in the reference; TF32 stays refused), the loss
+   per step and peak device memory.  A smoke measurement (synthetic
+   corpus), not a traffic result.  It fails unless flash attention's
+   forward ran exactly 6 x 40 x 2 times (each layer's forward and its
+   recompute) and its backward 6 x 40 times.
+10. train_check — (a) one step (``make_train_step``'s gradients, then
+   ``apply_updates``) on the card against the same step on the CPU (plain
+   versions), at minicpm-2b's width with 2 layers and 2 x 256 tokens, from
+   the same weights and batch: loss, every gradient, the updated weights
+   and moments within the stated limits; (b) the same update with int8
+   moments; (c) the kill/resume drill on the card (reduced minicpm-2b, a
+   ``LocalStore`` checkpoint): 2 steps, exit, resume to 4 must give the
+   loss trace of 4 uninterrupted steps, bit for bit.
 
-After each of the join, groupby and serve runs, a ``trace`` line: one more
-run of the same cell under ``torch.profiler``, with the device's busy time,
-its idle share of the wall and the device ops that took longest.
+After each of the join, groupby, serve and train runs, a ``trace`` line:
+one more run (or step) of the same cell under ``torch.profiler``, with the
+device's busy time, its idle share of the wall and the device ops that took
+longest.
 
 The launch counters of every kernel are set to 0 just before each of the
-main-path runs (join, groupby, serve) and read just after; a kernel of the
-path that did not launch, or a serve run without exactly 34 + 31 x 34
-flash-attention launches, fails the run.  Then the kernels' summary line, and as
+main-path runs (join, groupby, serve, train) and read just after; a kernel
+of the path that did not launch, a serve run without exactly 34 + 31 x 34
+flash-attention launches, or a train run without the counts above, fails
+the run.  Then the kernels' summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception
 exits non-zero before that line.  Without a CUDA device, or without the
 repository's ``src/`` beside this file, it exits non-zero and prints no
@@ -93,6 +129,11 @@ FLASH_SPLIT = 3            # bf16 products per float32 product in flash_wgmma
 JOIN_P, JOIN_ROWS = 8, int(9.1e6)            # benchmarks/scaling_join.py:50
 GROUPBY_P, GROUPBY_ROWS, GROUPS = 4, int(50e6), 1000  # benchmarks/groupby_scaling.py:16-17
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_NEW = "gemma3-4b", 4, 4096, 32
+TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = "minicpm-2b", 2, 4096, 6
+# OptConfig's own default learning rate.  ``train``'s default (3e-3) is
+# sized for its reduced config: at full width it diverges once the warmup
+# reaches it (losses 12.37 -> 12.12 -> 13.90 over 6 steps on the H100).
+TRAIN_LR = 3e-4
 SIZE_CUTS: list[str] = []  # none: every path runs at its full size and depth
 
 # flash attention against its plain version: both read the same k/v (bfloat16
@@ -109,6 +150,21 @@ SIZE_CUTS: list[str] = []  # none: every path runs at its full size and depth
 FLASH_TOL = 2e-5
 SERVE_LOGIT_TOL = 2e-2
 REDUCED_F32_TOL = 1e-4
+# the backward kernel against its plain version from the same o and lse:
+# both float32, sums in another order, dk and dv sum up to T x groups terms:
+# 1e-4 absolute plus relative.  One key too few moves some gradient by
+# ~1e-3 or more.
+BWD_TOL = 1e-4
+# train_check, card against CPU (cuBLAS against the CPU's float32 products):
+# loss 1e-5 relative; gradients of float32 leaves 1e-4 of the leaf's largest
+# plus relative; bf16-rounded gradients (every matrix weight: the in-graph
+# cast's transpose rounds them) each within one bf16 ulp (2^-7 relative; a
+# tied embedding, the sum of two rounded terms, within one ulp of the leaf's
+# largest) and >= 99% bit-equal; updated weights within 2 lr (a flipped
+# update sign where |g| is tiny) and >= 99.9% within 2 bf16 ulps of lr.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_TOL = 1e-4
+BF16_ULP = 2.0**-7
 
 INT32_MAX = 2**31 - 1
 # float32 segment sum over rows in [0, 1): a sum whose longest chain of
@@ -220,10 +276,12 @@ def rotating(fn, copies: list, launches: int) -> list:
     return [lambda c=copies[i % len(copies)]: fn(c) for i in range(launches)]
 
 
-def trace(torch, fn, top: int = 8) -> dict:
+def trace(torch, fn, top: int = 8, groups: dict[str, tuple[str, ...]] | None = None) -> dict:
     """One more run of ``fn`` under ``torch.profiler``: its host wall, the
     device's busy time (the union of kernel, memcpy and memset intervals),
-    the idle share of the wall, and the device ops that took longest."""
+    the idle share of the wall, and the device ops that took longest.  With
+    ``groups`` (label -> name substrings, first match wins, "" matches
+    all), also the device ms and op count of each group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,17 +305,28 @@ def trace(torch, fn, top: int = 8) -> dict:
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_s": wall, "device_ops": len(spans), "device_busy_s": busy_us / 1e6,
-            "idle_share": 1.0 - busy_us / 1e6 / wall,
-            "top_ms": [[name, ms, n] for name, (ms, n) in ranked]}
+    out = {"wall_s": wall, "device_ops": len(spans), "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / 1e6 / wall,
+           "top_ms": [[name, ms, n] for name, (ms, n) in ranked]}
+    if groups:
+        sums = {g: [0.0, 0] for g in groups}
+        for name, (ms, n) in by_name.items():
+            g = next(g for g, keys in groups.items() if any(k in name for k in keys))
+            sums[g][0] += ms
+            sums[g][1] += n
+        out["by_group_ms"] = sums
+    return out
 
 
 def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
     return {
-        "hash_partition": hp_k.launches,
+        # the row-bucket entry (every shuffle) and the single-column one
+        # (hash32: the pipeline's content hash)
+        "hash_partition": hp_k.launches + hp_k.single_launches,
         "join_probe": jp_k.launches,
         "segment_reduce": sr_k.launches,
         "flash_attention": fa_k.launches,
+        "flash_attention_bwd": fa_k.bwd_launches,
     }
 
 
@@ -266,6 +335,7 @@ def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     jp_k.launches = 0
     sr_k.launches = 0
     fa_k.launches = 0
+    fa_k.bwd_launches = 0
 
 
 def flash_work(torch, q, k, *, causal, window, q_offset, kv_len) -> tuple[int, int]:
@@ -298,6 +368,281 @@ def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len):
                          q_offset=q_offset, kv_len=kv_len, device=q.device)
     qt, kt, vt = q.transpose(1, 2), k.float().transpose(1, 2), v.float().transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
+    """The backward kernel against its plain version at the training path's
+    shapes (module doc, phase 6); its summary row with every shape."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def within(got, exp) -> bool:
+        return all(bool(((a - e).abs() <= BWD_TOL + BWD_TOL * e.abs()).all())
+                   for a, e in zip(got, exp))
+
+    def errs(got, exp) -> float:
+        return max(float((a - e).abs().max()) for a, e in zip(got, exp))
+
+    mc, gc, hc = (configs.get(a) for a in (TRAIN_ARCH, "gemma3-4b", "h2o-danube-3-4b"))
+    shapes = {}
+    for cell, b, cfg, window in (
+        ("minicpm_train", TRAIN_B, mc, 0),
+        ("gemma3_local", 1, gc, gc.sliding_window),
+        ("gemma3_global", 1, gc, 0),
+        ("h2o_hd120", 1, hc, hc.sliding_window),
+    ):
+        h, kvh, hd, t = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, TRAIN_SEQ
+        q, do = randn(b, t, h, hd), randn(b, t, h, hd)
+        k, v = randn(b, t, kvh, hd), randn(b, t, kvh, hd)
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        if not within(got, exp):
+            fail(f"flash_attention_bwd differs from the plain version ({cell}): "
+                 f"max |err| {errs(got, exp)}")
+        err = errs(got, exp)
+        del exp
+        # one key too few: the oldest in the window (or key 0 for the last row)
+        near = dict(kw, window=(window or t) - 1)
+        o_n, lse_n = fa_r.attention_lse_ref(q, k, v, **near)
+        exp_n = fa_r.attention_bwd_ref(q, k, v, o_n, lse_n, do, **near)
+        if within(got, exp_n):
+            fail(f"flash_attention_bwd limit {BWD_TOL} does not tell one key too few ({cell})")
+        one_key_off = errs(got, exp_n)
+        del got, o_n, lse_n, exp_n
+        torch.cuda.empty_cache()
+        mask = fa_r.key_mask(t, t, causal=True, window=window, q_offset=0, kv_len=t, device=dev)
+        pairs = int(mask.sum()) * b * h
+        # q, o, do, dq and k, v, dk, dv once each, lse once
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        bms, bby = bound(nbytes, 10 * hd * pairs)
+        ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        plain_ms = timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw))
+        # the library yardstick: autograd through float32 SDPA (its backward)
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+        dout = do.transpose(1, 2)
+        library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+        shapes[cell] = {
+            "q": list(q.shape), "kv": list(k.shape), **kw, "max_abs_err": err,
+            "one_key_off_max_abs_err": one_key_off, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bytes": nbytes, "operations": 10 * hd * pairs, "library_ms": library_ms,
+        }
+        del q, do, k, v, o, lse, leaves, out, dout, mask
+        torch.cuda.empty_cache()
+    # small cases: a softcap, GQA, windows, every head width, ragged tiles
+    small = {}
+    for hd in (32, 64, 120, 128, 256):
+        for softcap, window in ((30.0, 50), (0.0, 0)):
+            q, do = randn(2, 200, 8, hd), randn(2, 200, 8, hd)
+            k, v = randn(2, 200, 4, hd), randn(2, 200, 4, hd)
+            kw = dict(causal=True, window=window, softcap=softcap)
+            o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+            got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            if not within(got, exp):
+                fail(f"flash_attention_bwd differs from the plain version (hd {hd}, softcap "
+                     f"{softcap}): max |err| {errs(got, exp)}")
+            small[f"hd{hd}_softcap{softcap:g}_window{window}"] = errs(got, exp)
+    ptx = _ptxas("bwd_")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:114",
+        **shapes["minicpm_train"],
+        "max_abs_err": max(sh["max_abs_err"] for sh in shapes.values()),
+        "shapes": shapes, "small_checks_max_abs_err": small, "tol": BWD_TOL, "ptxas": ptx,
+    }
+
+
+def step_flops(cfg, batch: int, seq: int) -> dict[str, int]:
+    """FLOPs of one causal training step.  ``model``: 3 x the forward's, the
+    forward being 2 per weight of every product per token (q, k, v, o, the
+    gated MLP, the head) and 4 hd per visible (query, key) pair per head.
+    ``products``: every matrix product the step runs, the layers' forward
+    recompute included (the backward's two products per forward one);
+    ``attention``: the flash kernels' work (forward and recompute 4 hd per
+    pair, backward 10 hd)."""
+    d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    per_layer = d * h * hd + 2 * d * kv * hd + h * hd * d + d * 2 * cfg.d_ff + cfg.d_ff * d
+    tokens = batch * seq
+    layers = 2 * tokens * cfg.num_layers * per_layer
+    head = 2 * tokens * d * cfg.vocab_size
+    pairs = h * batch * (seq * (seq + 1) // 2) * cfg.num_layers
+    return {"model": 3 * (layers + head + 4 * hd * pairs),
+            "products": 4 * layers + 3 * head,
+            "attention": (4 + 4 + 10) * hd * pairs}
+
+
+def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
+    """``launch.train.train`` on minicpm-2b at full width (module doc, phase
+    9), counted and timed in one run; then one more step under the profiler."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = configs.get(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    arrivals, log = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(hp_k, jp_k, sr_k, fa_k)
+    t0 = time.perf_counter()
+    params, losses = ltrain.train(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq_len=TRAIN_SEQ, lr=TRAIN_LR, log=log.append,
+        log_every=1,
+        device=dev, seed=seed, on_step=lambda step, loss: arrivals.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    got = counters(hp_k, jp_k, sr_k, fa_k)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": TRAIN_STEPS * cfg.num_layers * 2,
+            "flash_attention_bwd": TRAIN_STEPS * cfg.num_layers}
+    for name, n in want.items():
+        if got[name] != n:
+            fail(f"train launched {name} {got[name]} times, want {n}")
+    if got["hash_partition"] < 1 or got["join_probe"] < 1:
+        fail(f"train's pipeline did not reach the dataframe kernels: {got}")
+    for name, c in got.items():
+        launches[name]["train"] = c
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] <= losses[0]:
+        fail(f"train losses not finite and falling: {losses}")
+    step_s = [arrivals[0] - t0] + [b - a for a, b in zip(arrivals, arrivals[1:])]
+    median_s = statistics.median(step_s[1:])
+    flops = step_flops(cfg, TRAIN_B, TRAIN_SEQ)
+    emit({"phase": "train", "arch": TRAIN_ARCH, "params": cfg.param_count(), "B": TRAIN_B,
+          "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "wall_s": wall,
+          "step_s": step_s, "median_step_s_2_to_6": median_s,
+          "tokens_per_s": TRAIN_B * TRAIN_SEQ / median_s, "losses": losses,
+          "flops_per_step": flops,
+          "model_flops_share_of_fp32_cuda_core_peak":
+              flops["model"] / median_s / OPS_PER_S["fp32"],
+          "peak_mem_bytes": peak, "launches": got, "log": log})
+    # one more step under the profiler, from fresh optimizer state
+    opt_cfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                            total_steps=TRAIN_STEPS, schedule=cfg.schedule,
+                            state_dtype=cfg.opt_state_dtype)
+    opt_state = opt.init_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    batch = next(ltrain.data_iter(cfg, TRAIN_B, TRAIN_SEQ, start=TRAIN_STEPS, device=dev))
+    emit({"phase": "trace", "cell": "train", **trace(
+        torch, lambda: float(step_fn(params, opt_state, batch)[2]["loss"]), top=12,
+        groups={"products (gemm)": ("gemm",), "flash_attention_bwd": ("bwd_",),
+                "flash_attention": ("flash_",), "other": ("",)})})
+
+
+def train_check_phase(torch, seed) -> dict:
+    """Card against CPU for one step at full width (2 layers), float32 and
+    int8 moments, and the kill/resume drill on the card (module doc)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist.treepath import flatten_with_path, path_str, tree_map
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import _make_grads_of
+
+    def leafwise(tree) -> dict:
+        return {path_str(p): t for p, t in flatten_with_path(tree)}
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=2)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    p_cpu = api.init_params(cfg, gen, device="cpu", master=True)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))
+                                        .astype(np.int32)),
+             "mask": torch.from_numpy((rng.uniform(size=(2, 256)) > 0.1).astype(np.float32))}
+    grads_of = _make_grads_of(cfg, None, 1, torch.float32)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    loss_d, _, g_d = grads_of(p_dev, {k: v.to(dev) for k, v in batch.items()})
+    loss_c, _, g_c = grads_of(p_cpu, batch)
+    out = {"a": {"loss_card": float(loss_d), "loss_cpu": float(loss_c)}}
+    if abs(float(loss_d) - float(loss_c)) > TRAIN_LOSS_RTOL * abs(float(loss_c)):
+        fail(f"train_check: loss on the card {float(loss_d)} vs the CPU {float(loss_c)}")
+    matrix = ("wq", "wk", "wv", "wo_att", "wi", "wo", "lm_head", "embed")
+    grad_report = {}
+    for name, gc in leafwise(g_c).items():
+        gd = leafwise(g_d)[name].cpu()
+        err = (gd - gc).abs()
+        scale = float(gc.abs().max())
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf in matrix:
+            tied = leaf == "embed" and cfg.tie_embeddings
+            limit = (BF16_ULP * scale if tied
+                     else BF16_ULP * gc.abs() + TRAIN_F32_GRAD_TOL * scale)
+            equal = float((gd == gc).float().mean())
+            ok = bool((err <= limit).all()) and equal >= 0.99
+        else:
+            equal = float((gd == gc).float().mean())
+            ok = bool((err <= TRAIN_F32_GRAD_TOL * (scale + gc.abs())).all())
+        grad_report[name] = {"max_abs_err": float(err.max()), "scale": scale,
+                             "bit_equal_share": equal}
+        if not ok:
+            fail(f"train_check: gradient {name} on the card differs from the CPU's: "
+                 f"{grad_report[name]}")
+    out["a"]["grads"] = grad_report
+    # the update, float32 and int8 moments, from each side's own gradients
+    opt_cfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS, schedule="wsd")
+    lr1 = float(opt.lr_at(torch.tensor(1), opt_cfg))
+    for label, state_dtype in (("a", "float32"), ("b", "int8")):
+        oc = dataclasses.replace(opt_cfg, state_dtype=state_dtype)
+        pc, pd = (tree_map(torch.clone, p) for p in (p_cpu, p_dev))
+        pc, sc = opt.apply_updates(pc, g_c, opt.init_state(pc, oc), oc)
+        pd, sd = opt.apply_updates(pd, g_d, opt.init_state(pd, oc), oc)
+        worst, share = 0.0, 1.0
+        for name, wc in leafwise(pc).items():
+            err = (leafwise(pd)[name].cpu() - wc).abs()
+            worst = max(worst, float(err.max()))
+            share = min(share, float((err <= 2 * BF16_ULP * lr1 + 1e-6).float().mean()))
+        if worst > 2 * lr1 + 1e-6 or share < 0.999:
+            fail(f"train_check ({label}, {state_dtype} moments): updated weights differ: "
+                 f"max {worst}, share within 2 bf16 ulps of lr {share}")
+        q_equal = 1.0
+        for name, mc in leafwise(sc["m"]).items():
+            md = leafwise(sd["m"])[name].cpu()
+            if md.dtype == torch.int8:
+                q_equal = min(q_equal, float((md == mc).float().mean()))
+        if q_equal < 0.99:
+            fail(f"train_check (b): int8 moments differ in {1 - q_equal} of their entries")
+        out.setdefault(label, {}).update({
+            "state_dtype": state_dtype, "lr_step1": lr1, "weights_max_abs_err": worst,
+            "weights_share_within_2_bf16_ulps_of_lr": share,
+            "int8_m_equal_share": q_equal if state_dtype == "int8" else None})
+        del pc, pd, sc, sd
+    del p_cpu, p_dev, g_c, g_d
+    torch.cuda.empty_cache()
+    # (c) the kill/resume drill on the card, LocalStore checkpoints
+    rcfg = configs.get(TRAIN_ARCH).reduced()
+    kw = dict(batch=2, seq_len=64, ckpt_every=10, log=lambda *a: None, device=dev, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, ref = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/ref", **kw)
+        _, first = ltrain.train(rcfg, steps=4, stop_after=2, ckpt_dir=f"{tmp}/el", **kw)
+        _, rest = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/el", resume=True, **kw)
+    if first + rest != ref:
+        fail(f"train_check (c): kill/resume trace {first + rest} != uninterrupted {ref}")
+    out["c"] = {"uninterrupted": ref, "killed_and_resumed": first + rest, "bit_equal": True}
+    return out
+
+
+def _ptxas(pattern: str) -> dict:
+    """Registers and spills of each built kernel whose name holds ``pattern``."""
+    from repro_torch.kernels import _build
+
+    return {name.split("_cu_")[-1]: rep for name, rep in _build.ptxas_report(pattern).items()}
 
 
 def main() -> int:
@@ -334,7 +679,8 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
-        "flash_wgmma", "flash_decode", "probe_kernel", "build_index")}})
+        "flash_wgmma", "flash_decode", "flash_tiled", "bwd_dkdv", "bwd_dq", "probe_kernel",
+        "build_index")}})
     hgmma = sass_has(_build.build(), "flash_wgmma", "HGMMA")
     if not hgmma or not all(hgmma.values()):
         fail(f"flash_wgmma's SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
@@ -509,7 +855,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    launches = {name: {} for name in (*kernels, "flash_attention")}
+    launches = {name: {} for name in (*kernels, "flash_attention", "flash_attention_bwd")}
 
     # -- 3. sim_join at the weak-scaling size -----------------------------------
     p, rows = JOIN_P, JOIN_ROWS
@@ -692,6 +1038,72 @@ def main() -> int:
                 q = q_small[:, :tq]
                 small[f"{what}_{kv_dtype}_tq{tq}"] = flash_err(
                     fa_k.flash_attention(q, ks, vs, **kw), fa_r.attention_ref(q, ks, vs, **kw))
+    del ks, vs
+    # the training path's forward: float32 q/k/v at minicpm-2b's train shape
+    # through the tiled design, which also writes each row's log-sum-exp
+    tcfg = configs.get(TRAIN_ARCH)
+    tq_, tk_ = (randn(TRAIN_B, TRAIN_SEQ, tcfg.num_heads, tcfg.resolved_head_dim)
+                for _ in range(2))
+    tv_ = randn(*tk_.shape)
+    kw = dict(causal=True, window=0)
+    o, lse = fa_k.flash_attention_lse(tq_, tk_, tv_, **kw)
+    o_r, lse_r = fa_r.attention_lse_ref(tq_, tk_, tv_, **kw)
+    err = max(flash_err(o, o_r), flash_err(lse, lse_r))
+    o_n, _ = fa_r.attention_lse_ref(tq_, tk_, tv_, causal=True, window=TRAIN_SEQ - 1)
+    if within(o, o_n):
+        fail(f"flash_attention limit {FLASH_TOL} does not tell one key too few (train_fwd)")
+    one_key_off = float((o - o_n).abs().max())
+    del o, lse, o_r, lse_r, o_n
+    torch.cuda.empty_cache()
+    nbytes, ops = flash_work(torch, tq_, tk_, causal=True, window=0, q_offset=0,
+                             kv_len=TRAIN_SEQ)
+    nbytes += 4 * TRAIN_B * tcfg.num_heads * TRAIN_SEQ  # lse
+    bms, bby = bound(nbytes, ops)
+    ms = timer.ms(lambda: fa_k.flash_attention_lse(tq_, tk_, tv_, **kw))
+    flash_shapes["train_fwd"] = {
+        "q": list(tq_.shape), "kv": list(tk_.shape), "kv_dtype": "float32", **kw,
+        "design": "flash_tiled (+ lse)", "max_abs_err": err,
+        "one_key_off_max_abs_err": one_key_off, "ms": ms,
+        "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(tq_, tk_, tv_, **kw)),
+        "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+        "bytes": nbytes, "operations": ops,
+        "library_ms": timer.ms(sdpa_call(torch, tq_, tk_, tv_, causal=True, window=0,
+                                         q_offset=0, kv_len=TRAIN_SEQ)),
+    }
+    del tq_, tk_, tv_
+    torch.cuda.empty_cache()
+    # h2o-danube-3-4b's head width 120 (the 128-wide kernels with a run-time
+    # valid width): the float32 and bf16 prefill designs and decode
+    hcfg = configs.get("h2o-danube-3-4b")
+    hq = randn(1, 4096, hcfg.num_heads, hcfg.resolved_head_dim)
+    hk, hv = (randn(1, 4096, hcfg.num_kv_heads, hcfg.resolved_head_dim) for _ in range(2))
+    hd120 = {}
+    for design, kv_dtype, tq in (("flash_tiled", torch.float32, 4096),
+                                 ("flash_wgmma", torch.bfloat16, 4096),
+                                 ("flash_decode", torch.bfloat16, 1)):
+        kw = dict(causal=True, window=hcfg.sliding_window, q_offset=4096 - tq, kv_len=4096)
+        kk, vv = hk.to(kv_dtype), hv.to(kv_dtype)
+        qq = hq[:, -tq:]
+        hd120[design] = flash_err(fa_k.flash_attention(qq, kk, vv, **kw),
+                                  fa_r.attention_ref(qq, kk, vv, **kw))
+        if tq == 1:
+            continue
+        # timed at the full prefill shape: the float32 design's bound is on the
+        # CUDA cores, the bf16 one's on the tensor cores (three-part split)
+        nbytes, ops = flash_work(torch, qq, kk, **kw)
+        bms, bby = (bound(nbytes, ops) if kv_dtype == torch.float32
+                    else bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT))
+        ms = timer.ms(lambda: fa_k.flash_attention(qq, kk, vv, **kw))
+        flash_shapes[f"h2o_hd120_{design}"] = {
+            "q": list(qq.shape), "kv": list(kk.shape), "kv_dtype": str(kv_dtype)[6:], **kw,
+            "design": design, "max_abs_err": hd120[design], "ms": ms,
+            "plain_ms": timer.ms(lambda: fa_r.attention_ref(qq, kk, vv, **kw)),
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bytes": nbytes, "operations": ops,
+            "library_ms": timer.ms(sdpa_call(torch, qq, kk, vv, **kw)),
+        }
+    del hq, hk, hv, kk, vv, qq
+    torch.cuda.empty_cache()
     kernels["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -701,11 +1113,17 @@ def main() -> int:
         "shapes": flash_shapes,
     }
     emit({"phase": "kernel", **kernels["flash_attention"], "small_checks_max_abs_err": small,
-          "tol": FLASH_TOL})
-    del timer, kv_copies, q_prefill, q_decode, q_small, ks, vs
+          "hd120_max_abs_err": hd120, "tol": FLASH_TOL})
+    del kv_copies, q_prefill, q_decode, q_small
     torch.cuda.empty_cache()
 
-    # -- 6. serve: generate on gemma3-4b at full width ---------------------------
+    # -- 6. flash attention backward at the training path's shapes ---------------
+    kernels["flash_attention_bwd"] = flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r)
+    emit({"phase": "kernel", **kernels["flash_attention_bwd"]})
+    del timer
+    torch.cuda.empty_cache()
+
+    # -- 7. serve: generate on gemma3-4b at full width ---------------------------
     from repro_torch.models import api
     from repro_torch.serve import serve_step
 
@@ -758,7 +1176,7 @@ def main() -> int:
         torch, lambda: serve_step.generate(scfg, params, batch, SERVE_NEW))})
     torch.cuda.empty_cache()
 
-    # -- 7. serve_check ----------------------------------------------------------
+    # -- 8. serve_check ----------------------------------------------------------
     # (a) request 0's prompt + generated tokens through the cache-free
     # forward: position 4095 + i holds step i's logits (0 = prefill)
     with torch.inference_mode():
@@ -826,6 +1244,14 @@ def main() -> int:
     check_b["float32_steps"] = {"max_abs_err": err, "tol": REDUCED_F32_TOL, "tokens": True}
     emit({"phase": "serve_check", "full_width": check_a, "reduced": check_b})
     del rparams, rparams_cpu
+    torch.cuda.empty_cache()
+
+    # -- 9. train: minicpm-2b at full width and depth ---------------------------
+    train_phase(torch, args.seed, launches, hp_k, jp_k, sr_k, fa_k)
+    torch.cuda.empty_cache()
+
+    # -- 10. train_check ----------------------------------------------------------
+    emit({"phase": "train_check", **train_check_phase(torch, args.seed)})
     torch.cuda.empty_cache()
 
     for name, by_path in launches.items():

@@ -6,7 +6,9 @@ padded columns and its count as arrays, and ``table_from_numpy`` /
 port ``Table`` and back.  Models: ``params_from_numpy`` takes the
 reference's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
 params)``) and gives the port's tree; ``cache_from_numpy`` does the same for
-a KV cache.  So both packages can start from identical state.
+a KV cache.  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` move the
+optimizer state (float32 or int8 {"q", "scale"} moments and the step).  So
+both packages can start from identical state.
 """
 
 from __future__ import annotations
@@ -50,11 +52,13 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | None = None) -> dict:
+def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | None = None,
+                      *, master: bool = False) -> dict:
     """The port's parameter tree from the reference's (numpy leaves, same
-    keys, stacked [L, ...]).  Float leaves become float32; the matrix
-    weights are held as the float32 value of their ``cfg.dtype`` rounding,
-    which is what the reference's products read (``transformer`` doc)."""
+    keys, stacked [L, ...]).  Float leaves become float32.  For serving the
+    matrix weights are held as the float32 value of their ``cfg.dtype``
+    rounding, which is what the reference's products read (``transformer``
+    doc); ``master`` keeps them unrounded, as training's master weights."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -63,7 +67,8 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | 
         return _tensor(t, dev).float()
 
     params = conv(tree)
-    transformer.round_matrix_leaves(cfg, params)
+    if not master:
+        transformer.round_matrix_leaves(cfg, params)
     return params
 
 
@@ -85,3 +90,23 @@ def cache_to_numpy(cache: dict) -> dict:
     kv = cache["kv"]
     kv = kv.float() if kv.dtype == torch.bfloat16 else kv
     return {"kv": kv.cpu().numpy(), "len": np.int32(cache["len"])}
+
+
+def opt_state_from_numpy(state: dict, device: str | torch.device | None = None) -> dict:
+    """The port's optimizer state from the reference's ({"m", "v", "step"},
+    numpy leaves): every leaf keeps its dtype (float32 moments, int8 ``q``
+    with float32 ``scale``, int32 step)."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _tensor(t, dev)
+
+    return conv(state)
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The port's optimizer state as numpy arrays, same keys and dtypes."""
+    return {k: opt_state_to_numpy(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in state.items()}

@@ -31,7 +31,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_attention.cu")
+SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,8 +56,11 @@ SIGNATURES = {
     "rt_segment_sum_i32": (_P, _P, _I64, _I64, _P, _P),
     "rt_segment_sum_f32": (_P, _P, _I64, _I64, _P, _P),
     "rt_flash_attention": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _I, _I, _I, _I,
-        _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _P, _I, _I, _I,
+        _I, _P,
+    ),
+    "rt_flash_attention_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F32, _P,
     ),
 }
 

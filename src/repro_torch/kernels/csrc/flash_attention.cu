@@ -19,6 +19,16 @@
 // with no valid key the uniform mean of v over all Tk keys, as in the
 // reference.
 //
+// Head widths: 32, 64, 128, 256, and 120 (h2o-danube-3-4b), which runs the
+// 128-wide template with a run-time valid width: columns 120..127 of q, k
+// and v are loaded as zeros (TMA zero-fills them past its map's width), so
+// the scores do not change, and output columns 120..127 are never stored.
+// Rows of 120 are 480 bytes in float32 and 240 in bf16: 16-byte aligned.
+//
+// flash_tiled can also write each row's log-sum-exp (m + log l, [B, H, Tq]
+// float32): the training path's forward, whose backward
+// (flash_attention_bwd.cu) recomputes p = exp(s - lse) from it.
+//
 // Layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd], o [B, Tq, H, hd], each
 // read or written through (batch, seq, head) strides with hd contiguous, so
 // a layer's slice of the KV cache is read in place.  Query head h reads kv
@@ -89,6 +99,8 @@ struct Args {
   int Tq, Tk, H, KV, groups;
   int64_t sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
   int q_offset, window, kv_len, causal;
+  int hd;      // valid head width: HD, or 120 run in the 128-wide template
+  float* lse;  // flash_tiled only: [B, H, Tq] log-sum-exp per row, or null
   float softcap, sqrt_hd;
 };
 
@@ -197,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
     const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
     const int m = m0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < M) {
+    if (m < M && c < a.hd) {
       const int t = m / a.groups, h = kvh * a.groups + m % a.groups;
       x = *reinterpret_cast<const float4*>(a.q + b * a.sqb + t * a.sqt + h * a.sqh + c);
       x.x /= a.sqrt_hd; x.y /= a.sqrt_hd; x.z /= a.sqrt_hd; x.w /= a.sqrt_hd;
@@ -229,10 +241,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
     for (int i = tid; i < BN * VPR; i += kThreads) {
       const int r = i / VPR, c = (i % VPR) * EPV;
       float kx[EPV], vx[EPV];
-      if (n0 + r < a.Tk) {
+      if (n0 + r < a.Tk && c < a.hd) {
         load_row<T, EPV>(kbase + (n0 + r) * a.skt + c, kx);
         load_row<T, EPV>(vbase + (n0 + r) * a.svt + c, vx);
-      } else {  // past Tk: zeros, so that p = 0 times v adds nothing
+      } else {  // past Tk or hd: zeros, so that they add nothing
 #pragma unroll
         for (int e = 0; e < EPV; ++e) kx[e] = vx[e] = 0.f;
       }
@@ -341,8 +353,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 #pragma unroll
     for (int ch = 0; ch < C::NCH; ++ch)
 #pragma unroll
-      for (int e = 0; e < C::VEC; ++e)
-        op[tx * C::VEC + 16 * C::VEC * ch + e] = acc[i][ch * C::VEC + e] / den;
+      for (int e = 0; e < C::VEC; ++e) {
+        const int col = tx * C::VEC + 16 * C::VEC * ch + e;
+        if (col < a.hd) op[col] = acc[i][ch * C::VEC + e] / den;
+      }
+    // m and l are the row's, in every lane of the 16 that share it
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Tq + t] = m_i[i] + logf(den);
   }
 }
 
@@ -615,7 +632,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int r = i / (HD / 8), cc = i % (HD / 8);
     const int m = m0 + r;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (m < M) {
+    if (m < M && cc * 8 < a.hd) {
       const int t = m / a.groups, h = kvh * a.groups + m % a.groups;
       const float* src = a.q + b * a.sqb + t * a.sqt + h * a.sqh + cc * 8;
       load_row<float, 4>(src, x);
@@ -743,8 +760,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<float2*>(op + 8 * j) =
-          make_float2(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
+      if (8 * j < a.hd)
+        *reinterpret_cast<float2*>(op + 8 * j) =
+            make_float2(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
   }
 }
 
@@ -820,13 +838,15 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 
   float q[RMAX][D::CPL];
   int klo[RMAX], khi[RMAX];  // the keys each row may see
+  // hd 120 in the 128-wide template: the lanes past hd read nothing (zeros)
+  const bool col_ok = part * D::CPL < a.hd;
 #pragma unroll
   for (int r = 0; r < RMAX; ++r) {
     const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
     key_bounds(a, a.q_offset + t, klo[r], khi[r]);
 #pragma unroll
     for (int c = 0; c < D::CPL; c += 4) {
-      if (r < R) {
+      if (r < R && col_ok) {
         load_row<float, 4>(a.q + b * a.sqb + t * a.sqt + h * a.sqh + part * D::CPL + c, q[r] + c);
       } else {
         q[r][c] = q[r][c + 1] = q[r][c + 2] = q[r][c + 3] = 0.f;
@@ -836,8 +856,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
     for (int c = 0; c < D::CPL; ++c) q[r][c] /= a.sqrt_hd;
   }
 
-  const T* kbase = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh + part * D::CPL;
-  const T* vbase = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh + part * D::CPL;
+  const int col0 = col_ok ? part * D::CPL : 0;  // an address inside the row
+  const T* kbase = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh + col0;
+  const T* vbase = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh + col0;
   // this lane's slot i of the warp's ring: lane_ring + i * 32 * SLOT
   const uint32_t lane_ring = smem_u32(smem4) + (warp * D::GROUPS * D::U * 32 + lane) * D::SLOT;
   const uint8_t* lane_ring_p = reinterpret_cast<const uint8_t*>(smem4) +
@@ -846,7 +867,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 #pragma unroll
     for (int u = 0; u < D::U; ++u) {
       const int key = r0 + (g * D::U + u) * D::KPS + sub;
-      const bool ok = key < r1;
+      const bool ok = key < r1 && col_ok;
       const T* ks = kbase + static_cast<int64_t>(ok ? key : r0) * a.skt;
       const T* vs = vbase + static_cast<int64_t>(ok ? key : r0) * a.svt;
       const uint32_t dst = lane_ring + ((g % D::GROUPS) * D::U + u) * 32 * D::SLOT;
@@ -975,7 +996,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
     }
     if (nsplit == 1) {
       const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
-      a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / fmaxf(ls, 1e-30f);
+      if (d < a.hd) a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / fmaxf(ls, 1e-30f);
     } else {
       float* dst = partial + (static_cast<int64_t>(split) * R + r) * (2 + HD);
       if (d == 0) {
@@ -1021,7 +1042,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 #pragma unroll 8
     for (int s = 0; s < nsplit; ++s) as = fmaf(__ldcg(p0 + s * step), w[s], as);
     const int t = r / a.groups, h = kvh * a.groups + r % a.groups;
-    a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / w[nsplit];
+    if (d < a.hd) a.o[b * a.sob + t * a.sot + h * a.soh + d] = as / w[nsplit];
   }
   if (tid == 0) counters[bkv] = 0;  // ready for the next call
 }
@@ -1035,11 +1056,13 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 // stride, a box of ATOM columns x 64 keys, swizzled for wgmma.  *kv_inner
 // says whether the kv head comes before the key.
 template <int HD>
-bool make_kv_map(CUtensorMap* map, const void* base, int Tk, int KV, int B, int64_t st,
+bool make_kv_map(CUtensorMap* map, const void* base, int hd, int Tk, int KV, int B, int64_t st,
                  int64_t sh, int64_t sb, int* kv_inner) {
   using C = Wg<HD>;
   *kv_inner = sh < st;
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(*kv_inner ? KV : Tk),
+  // dimension 0 is the valid width: TMA zero-fills columns hd..HD-1 of the box
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(*kv_inner ? KV : Tk),
                               static_cast<cuuint64_t>(*kv_inner ? Tk : KV),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*kv_inner ? sh : st)),
@@ -1059,8 +1082,8 @@ template <int HD>
 cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   CUtensorMap mk, mv;
   int k_inner = 0, v_inner = 0;
-  if (!make_kv_map<HD>(&mk, a.k, a.Tk, a.KV, B, a.skt, a.skh, a.skb, &k_inner) ||
-      !make_kv_map<HD>(&mv, a.v, a.Tk, a.KV, B, a.svt, a.svh, a.svb, &v_inner))
+  if (!make_kv_map<HD>(&mk, a.k, a.hd, a.Tk, a.KV, B, a.skt, a.skh, a.skb, &k_inner) ||
+      !make_kv_map<HD>(&mv, a.v, a.hd, a.Tk, a.KV, B, a.svt, a.svh, a.svb, &v_inner))
     return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
@@ -1114,18 +1137,22 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, int nspl
 }  // namespace
 
 // strides: q (b, t, h), k (b, t, kv), v (b, t, kv), o (b, t, h), in elements.
-// part == nullptr: the wgmma design (bf16 k/v) or the tiled one (float32).
+// hd: 32, 64, 128, 256, or 120 (run in the 128-wide template).
+// part == nullptr: the wgmma design (bf16 k/v) or the tiled one (float32);
+// lse (tiled only, else null): [B, H, Tq] float32, each row's log-sum-exp.
 // Otherwise the decode design over keys [k_begin, k_end) in nsplit chunks of
 // `chunk` keys, with part its scratch (see flash_decode): counters that are 0
 // when the call starts and 0 again when it ends.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int kv_bf16, int hd, int B, int Tq, int Tk, int H, int KV,
                                   const void* strides, int q_offset, int window, int kv_len,
-                                  int causal, float softcap, void* part, int nsplit,
+                                  int causal, float softcap, void* lse, void* part, int nsplit,
                                   int k_begin, int k_end, int chunk, void* stream) {
   const int64_t* st = static_cast<const int64_t*>(strides);
   if (part != nullptr &&
       (Tq * (H / KV) > kMaxSplitRows || chunk < 1 || nsplit < 1 || nsplit > kMaxChunks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lse != nullptr && (part != nullptr || kv_bf16))  // lse: the tiled design only
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -1139,6 +1166,8 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   a.sob = st[9]; a.sot = st[10]; a.soh = st[11];
   a.q_offset = q_offset; a.window = window; a.kv_len = kv_len; a.causal = causal;
   a.softcap = softcap;
+  a.hd = hd;
+  a.lse = static_cast<float*>(lse);
   a.sqrt_hd = static_cast<float>(sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
@@ -1146,6 +1175,7 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   switch (hd) {
     case 32: e = dispatch<32>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
     case 64: e = dispatch<64>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 120:
     case 128: e = dispatch<128>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
     case 256: e = dispatch<256>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
     default: e = cudaErrorInvalidValue;

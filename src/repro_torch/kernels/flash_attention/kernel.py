@@ -11,6 +11,15 @@ path) and on the float32 CUDA cores when they are float32; with at most
 ``SPLIT_ROWS`` (decode) the keys the rows can see are cut into chunks, one
 block each, and the last block of each kv head to finish merges them, in the
 same launch.
+
+``flash_attention_lse`` is the training path's forward: the float32 tiled
+design, which also writes each row's log-sum-exp; ``flash_attention_bwd``
+launches the backward (``csrc/flash_attention_bwd.cu``) from it.  ``launches``
+counts forward calls, ``bwd_launches`` backward calls (three CUDA launches
+each: D, dK/dV, dQ).
+
+Head widths: ``HEAD_DIMS``.  120 (h2o-danube-3-4b) runs the 128-wide
+kernels with a run-time valid width (``kernel_head_dim``).
 """
 
 from __future__ import annotations
@@ -23,8 +32,9 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+bwd_launches = 0
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
 MIN_CHUNK = 64     # keys per block of the decode design: at least this,
 MAX_CHUNK = 1024   # and at most this while it takes no more than
@@ -78,6 +88,15 @@ def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.T
     return buf
 
 
+def kernel_head_dim(hd: int) -> int:
+    """The kernels' template width for head width ``hd``: ``hd`` itself, or
+    128 for 120 (columns 120..127 load as zeros and are never stored).
+    Raises for a width no kernel serves."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    return 128 if hd == 120 else hd
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -98,8 +117,7 @@ def _check(q, k, v) -> torch.device:
     b, tq, h, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    kernel_head_dim(hd)
     if tq < 1 or k.shape[1] < 1:
         raise ValueError("flash_attention: Tq and Tk must be >= 1")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -110,7 +128,7 @@ def _check(q, k, v) -> torch.device:
     return dev
 
 
-def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len) -> None:
+def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len, lse=None) -> None:
     global launches
     dev = _check(q, k, v)
     b, tq, h, hd = q.shape
@@ -122,16 +140,17 @@ def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len) -> None:
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                     *o.stride()[:3])
     part, nsplit, k_begin, k_end, chunk = None, 0, 0, 0, 0
-    if tq * (h // kvh) <= SPLIT_ROWS:
+    if lse is None and tq * (h // kvh) <= SPLIT_ROWS:
         k_begin, k_end = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
                                    kv_len=kv_len)
         nsplit, chunk = split_plan(k_end - k_begin, b * kvh, _sm_count(dev.index or 0))
-        part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh) * (2 + hd))
+        part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh)
+                               * (2 + kernel_head_dim(hd)))
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(k.dtype == torch.bfloat16), hd, b, tq, tk, h, kvh, ctypes.addressof(strides),
-        q_offset, window, kv_len, int(causal), float(softcap),
-        None if part is None else part.data_ptr(), nsplit, k_begin, k_end, chunk,
+        q_offset, window, kv_len, int(causal), float(softcap), _build.ptr(lse),
+        _build.ptr(part), nsplit, k_begin, k_end, chunk,
         _build.stream(dev),
     )
     _build.check(rc, "flash_attention")
@@ -177,3 +196,71 @@ def flash_attention_heads(
             o.view(bkv, groups, tq, hd).transpose(1, 2), causal=causal, window=window,
             softcap=softcap, q_offset=0, kv_len=kv_len)
     return o
+
+
+def flash_attention_lse(
+    q: torch.Tensor,       # [B, T, H, hd] float32
+    k: torch.Tensor,       # [B, T, KV, hd] float32
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training path's forward: (o [B, T, H, hd], lse [B, H, T]) float32
+    from the tiled design, q_offset 0 and kv_len T."""
+    if k.dtype != torch.float32 or k.shape[1] != q.shape[1]:
+        raise ValueError(f"flash_attention_lse: want float32 k/v with Tk == Tq, got {k.dtype}, "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    b, t, h, _ = q.shape
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=0, kv_len=None,
+            lse=lse)
+    return o, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,       # [B, T, H, hd] float32
+    k: torch.Tensor,       # [B, T, KV, hd] float32
+    v: torch.Tensor,
+    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_lse``'s output (semantics of
+    ``ref.attention_bwd_ref``); every tensor float32, contiguous, on one card."""
+    global bwd_launches
+    dev = _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32, got {t.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention_bwd: want q [B,T,H,hd], k/v [B,T,KV,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, t, hd) or h % kvh:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)} does not fit k/v "
+                         f"{tuple(k.shape)}")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t):
+        raise ValueError("flash_attention_bwd: o and do must have q's shape, lse [B, H, T]")
+    kernel_head_dim(hd)
+    if max(b * t * h, b * t * kvh) * hd >= 2**31:
+        raise ValueError("flash_attention_bwd: sizes must fit int32")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    rc = _build.library().rt_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), hd, b, t, h, kvh,
+        int(window), int(causal), float(softcap), _build.stream(dev),
+    )
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -14,6 +14,10 @@ q's dtype.
 tensor-core design (bf16 products of three-part splits, float32 sums); the
 tests hold it against :func:`attention_ref` and the reference.  The model
 path never calls it.
+
+:func:`attention_lse_ref` and :func:`attention_bwd_ref` are the plain
+versions of the training path's forward (with each row's log-sum-exp) and
+of the backward kernel (``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,32 @@ def key_mask(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
     return mask
 
 
+def _heads(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, T, H, hd] -> [B, KV, G, T, hd] float32 (query head h = kv head
+    h // G, group h % G)."""
+    b, t, h, hd = x.shape
+    return x.float().reshape(b, t, kvh, h // kvh, hd).permute(0, 2, 3, 1, 4)
+
+
+def _scores(q, k, *, causal, window, softcap, q_offset, kv_len):
+    """(scaled q [B, KV, G, Tq, hd], capped scores s' [B, KV, G, Tq, Tk],
+    the visible mask [Tq, Tk])."""
+    qf = _heads(q, k.shape[2]) / math.sqrt(q.shape[3])
+    s = torch.einsum("bkgqh,bskh->bkgqs", qf, k.float())
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = key_mask(q.shape[1], k.shape[1], causal=causal, window=int(window),
+                    q_offset=int(q_offset), kv_len=None if kv_len is None else int(kv_len),
+                    device=q.device)
+    return qf, s, mask
+
+
+def _unheads(x: torch.Tensor) -> torch.Tensor:
+    """[B, KV, G, T, hd] -> [B, T, KV * G, hd]."""
+    b, kvh, g, t, hd = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, t, kvh * g, hd)
+
+
 def attention_ref(
     q: torch.Tensor,       # [B, Tq, H, hd]
     k: torch.Tensor,       # [B, Tk, KV, hd], H % KV == 0
@@ -51,22 +81,67 @@ def attention_ref(
     q_offset: int = 0,
     kv_len: int | None = None,
 ) -> torch.Tensor:
-    b, tq, h, hd = q.shape
-    tk, kvh = k.shape[1], k.shape[2]
-    groups = h // kvh
-    qf = q.float() / math.sqrt(hd)
-    kf, vf = k.float(), v.float()
-    # [B, KV, G, Tq, hd] x [B, Tk, KV, hd] -> [B, KV, G, Tq, Tk]
-    qf = qf.reshape(b, tq, kvh, groups, hd).permute(0, 2, 3, 1, 4)
-    logits = torch.einsum("bkgqh,bskh->bkgqs", qf, kf)
-    if softcap > 0:
-        logits = softcap * torch.tanh(logits / softcap)
-    mask = key_mask(tq, tk, causal=causal, window=int(window), q_offset=int(q_offset),
-                    kv_len=None if kv_len is None else int(kv_len), device=q.device)
+    _, logits, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                              q_offset=q_offset, kv_len=kv_len)
+    probs = torch.softmax(logits.masked_fill(~mask, MASK_VALUE), dim=-1)
+    return _unheads(torch.einsum("bkgqs,bskh->bkgqh", probs, v.float())).to(q.dtype)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,       # [B, T, H, hd]
+    k: torch.Tensor,       # [B, T, KV, hd]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (``attention_ref``'s output, each row's
+    log-sum-exp [B, H, T] float32), q_offset 0 and kv_len T."""
+    _, logits, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=0,
+                              kv_len=None)
     logits = logits.masked_fill(~mask, MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bkgqh", probs, vf)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd).to(q.dtype)
+    lse = torch.logsumexp(logits, dim=-1)                       # [B, KV, G, T]
+    out = torch.einsum("bkgqs,bskh->bkgqh", torch.exp(logits - lse[..., None]), v.float())
+    b, tq, h, _ = q.shape
+    return _unheads(out).to(q.dtype), lse.reshape(b, h, tq)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,       # [B, T, H, hd]
+    k: torch.Tensor,       # [B, T, KV, hd]
+    v: torch.Tensor,
+    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_ref`` with q_offset 0 and kv_len T (every
+    row sees at least its own key), written as the formulas the backward
+    kernel computes, not as autograd of the forward:
+
+        s = (q / sqrt(hd)) . k,  s' = c tanh(s / c) (softcap c > 0, else s),
+        p = exp(s' - lse) where visible, else 0,  D = rowsum(dO * O),
+        dv = p^T dO,  ds = p * (dO . v - D) * (1 - (s' / c)^2),
+        dq = ds . k / sqrt(hd),  dk = ds^T . (q / sqrt(hd)),
+
+    dk and dv summed over the query heads of each kv head.  float32."""
+    kvh = k.shape[2]
+    qf, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=0,
+                          kv_len=None)
+    of, dof = _heads(o, kvh), _heads(do, kvh)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqh->bskh", p, dof)
+    ds = p * (torch.einsum("bkgqh,bskh->bkgqs", dof, v.float()) - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.einsum("bkgqs,bskh->bkgqh", ds, k.float()) / math.sqrt(q.shape[3])
+    dk = torch.einsum("bkgqs,bkgqh->bskh", ds, qf)
+    return _unheads(dq), dk, dv
 
 
 def split_bf16(x: torch.Tensor, parts: int = 3) -> list[torch.Tensor]:

@@ -1,10 +1,13 @@
 """Shared neural layers: RMSNorm, RoPE, GQA attention (windowed / cached),
-gated MLP, embeddings — the port of ``repro.models.layers``.
+gated MLP, embeddings, cross-entropy — the port of ``repro.models.layers``.
 
 Every attention call goes to ``kernels/flash_attention/ops.py``: the
 hand-written CUDA kernel for CUDA tensors, its plain version for CPU
 tensors.  There is no direct/blocked split by sequence length as in the
-reference; the kernel covers both, and applies the logit softcap itself.
+reference; the kernel covers both, and applies the logit softcap itself.  When autograd records and an input
+requires a gradient (the training forward), the call goes through the
+kernel's ``autograd.Function``, whose backward is the hand-written backward
+kernel.
 """
 
 from __future__ import annotations
@@ -88,3 +91,17 @@ def init_linear(gen: torch.Generator | None, shape, scale=None, device=None) -> 
     if device.type == "meta":
         return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(s)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+                  z_coef: float = 1e-4) -> torch.Tensor:
+    """Token-mean CE + z-loss (``z_coef * lse^2``); logits [.., V] in float32,
+    labels [..] int, mask [..] (bool or float) or None."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    per_tok = (lse - ll) + z_coef * lse.square()
+    if mask is None:
+        return per_tok.sum() / labels.numel()
+    per_tok = per_tok * mask
+    return per_tok.sum() / torch.clamp(mask.sum(), min=1)

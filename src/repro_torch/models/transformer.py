@@ -21,20 +21,37 @@ and the functions here refuse to run with it on.  The KV cache is stored in
 its own dtype (bfloat16 by default) and read back as ``cfg.dtype``, so on
 the cached path attention gets float32 q and bfloat16 k/v.
 
-Three entry points sharing weights:
-- ``forward``      : full-sequence logits
-- ``prefill``      : forward + KV cache construction
-- ``decode_step``  : one token with cache
+Training is the exception.  The reference keeps unrounded float32 master
+weights and casts them inside its graph (``w.astype(bfloat16)``), and the
+transpose of that cast rounds every weight gradient to bfloat16.
+``forward_train`` does the same: it takes float32 master weights
+(``init_params(..., master=True)``, ``interop.params_from_numpy(...,
+master=True)``) and casts each matrix weight to ``cfg.dtype`` and back inside
+the autograd graph (``w.to(bfloat16).float()``, whose gradient is rounded to
+bfloat16 as the reference's is); the embedding rows are gathered from the
+bfloat16 table, as the reference's ``take`` is.  With ``cfg.remat`` each
+layer runs under ``torch.utils.checkpoint`` (its activations are recomputed
+in the backward; the reference's ``jax.checkpoint`` saves its products,
+which changes memory, not the result).  Serving keeps the pre-rounded
+weights and pays no per-step cast.
+
+Four entry points sharing weights:
+- ``forward``       : full-sequence logits (pre-rounded weights)
+- ``forward_train`` : full-sequence logits from master weights, differentiable
+- ``prefill``       : forward + KV cache construction
+- ``decode_step``   : one token with cache
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-# leaves used as matrix weights: held rounded to cfg.dtype (as float32)
+# leaves used as matrix weights: held rounded to cfg.dtype (as float32) for
+# serving, cast to it inside the graph by forward_train
 MATRIX_LEAVES = ("wq", "wk", "wv", "wo_att", "wi", "wo", "embed", "lm_head")
 
 
@@ -73,8 +90,10 @@ def _layer_windows(cfg: ArchConfig) -> list[int]:
     return win
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None) -> dict:
-    """Stacked-parameter tree, float32, matrix weights rounded to cfg.dtype.
+def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
+                master: bool = False) -> dict:
+    """Stacked-parameter tree, float32: matrix weights rounded to cfg.dtype
+    for serving, or kept unrounded (``master``) for ``forward_train``.
 
     Draws from ``gen`` in the reference's leaf order; ``jax.random`` streams
     cannot be reproduced, so parity tests load the reference's parameters
@@ -111,7 +130,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None) -> di
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_linear(gen, (d, cfg.vocab_size), device=dev)
-    if dev.type != "meta":
+    if dev.type != "meta" and not master:
         round_matrix_leaves(cfg, params)
     return params
 
@@ -128,11 +147,15 @@ def round_matrix_leaves(cfg: ArchConfig, params: dict) -> None:
                 w.copy_(round_to_compute(cfg, w))
 
 
-def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0):
+def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0,
+              master: bool = False):
     """One transformer layer. cache_l: [2, B, S, KV, hd] or None; with a
-    cache, the layer's k/v are written into it in place."""
+    cache, the layer's k/v are written into it in place.  ``master``: the
+    matrix weights are float32 master weights, cast to cfg.dtype here."""
     b, t, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    if master:
+        blk = {n: round_to_compute(cfg, w) if n in MATRIX_LEAVES else w for n, w in blk.items()}
 
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
     q = (y @ blk["wq"]).view(b, t, h, hd)
@@ -166,31 +189,62 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
 
 
 def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["blocks"].items()}
+    """Layer i's weights: views of the stacked [L, ...] leaves, or entry i of
+    a list of per-layer dicts (the train step's per-layer gradient leaves)."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        return blocks[i]
+    return {name: w[i] for name, w in blocks.items()}
 
 
-def _embed_input(cfg: ArchConfig, params: dict, tokens, prefix_embeds) -> torch.Tensor:
-    x = L.embed(tokens, params["embed"], scale=True)
+def _embed_input(cfg: ArchConfig, table, tokens, prefix_embeds) -> torch.Tensor:
+    x = L.embed(tokens, table, scale=True)
     if prefix_embeds is not None:
         x[:, : prefix_embeds.shape[1]] = round_to_compute(cfg, prefix_embeds.float())
     return x
 
 
-def _logits(cfg: ArchConfig, params: dict, x) -> torch.Tensor:
+def _logits(cfg: ArchConfig, params: dict, x, master: bool = False) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
-    return x @ (params["embed"].T if head is None else head)
+    head = params["embed"].T if head is None else head
+    return x @ (round_to_compute(cfg, head) if master else head)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Full-sequence logits [B, T, V] float32 (+ the MoE aux loss scalar, 0)."""
     _check(cfg, ctx, tokens.device)
-    x = _embed_input(cfg, params, tokens, prefix_embeds)
+    x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
         x = _block_fn(cfg, x, _layer(params, i), window, pos)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+                  prefix_embeds: torch.Tensor | None = None, ctx=None):
+    """Full-sequence logits [B, T, V] float32 (+ the aux loss, 0) from float32
+    master weights, with the reference's in-graph casts (module doc).
+    ``params["blocks"]`` is the stacked dict or a list of per-layer dicts."""
+    _check(cfg, ctx, tokens.device)
+    x = _embed_input(cfg, params["embed"].to(_dtype(cfg.dtype)), tokens, prefix_embeds)
+    pos = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, window in enumerate(_layer_windows(cfg)):
+        blk = _layer(params, i)
+        names = tuple(blk)
+
+        def layer(x, *ws, window=window, names=names):
+            return _block_fn(cfg, x, dict(zip(names, ws)), window, pos, master=True)
+
+        if remat:
+            x = checkpoint(layer, x, *blk.values(), use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, *blk.values())
+    return (_logits(cfg, params, x, master=True),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -209,7 +263,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Run the prompt, filling the cache in place; returns last-position logits."""
     _check(cfg, ctx, tokens.device)
-    x = _embed_input(cfg, params, tokens, prefix_embeds)
+    x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]

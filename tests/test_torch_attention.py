@@ -240,3 +240,115 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     k = torch.zeros(1, 4, 1, 32)
     with pytest.raises(ValueError, match="CUDA"):
         fa_k.flash_attention(q, k, k)
+
+
+# -- the training path: gradients ------------------------------------------------
+
+# the reference's gradient is jax.grad through its jnp attention; the port's
+# is the explicit backward (ref.attention_bwd_ref, the plain version of the
+# backward kernel).  Both float32, sums in another order: 2e-5 absolute plus
+# relative on outputs and grads of O(1).
+GRAD_TOL = 2e-5
+
+GRAD_CASES = {
+    # name: (b, t, h, kvh, hd, causal, window, softcap)
+    "causal_hd64": (2, 96, 4, 4, 64, True, 0, 0.0),
+    "window_gqa_hd32": (2, 96, 4, 2, 32, True, 24, 0.0),
+    "softcap_hd64": (1, 80, 4, 1, 64, True, 0, 30.0),
+    "window_softcap_hd120": (1, 72, 4, 2, 120, True, 16, 50.0),
+    "bidirectional_hd120": (1, 40, 2, 1, 120, False, 0, 0.0),
+    "bidirectional_window_hd32": (1, 40, 4, 2, 32, False, 8, 0.0),
+}
+
+
+def _grad_inputs(b, t, h, kvh, hd, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.normal(size=(b, t, h, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, t, kvh, hd)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+def _jax_grads(q, k, v, do, *, causal, window, softcap, impl):
+    import jax
+
+    def f(q_, k_, v_):
+        out = JL.attention(q_, k_, v_, causal=causal, window=window, softcap=softcap, impl=impl)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _port_grads(q, k, v, do, **kw):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = fa_k.launches, fa_k.bwd_launches
+    out = TL.attention(qt, kt, vt, **kw)
+    out.backward(torch.from_numpy(do))
+    assert (fa_k.launches, fa_k.bwd_launches) == before  # CPU: the plain versions
+    return out.detach().numpy(), [x.grad.numpy() for x in (qt, kt, vt)]
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_attention_grads_match_jax_direct(case):
+    b, t, h, kvh, hd, causal, window, softcap = GRAD_CASES[case]
+    q, k, v, do = _grad_inputs(b, t, h, kvh, hd, len(case))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    exp_o, exp_g = _jax_grads(q, k, v, do, impl="direct", **kw)
+    got_o, got_g = _port_grads(q, k, v, do, **kw)
+    np.testing.assert_allclose(got_o, exp_o, atol=GRAD_TOL, rtol=GRAD_TOL)
+    for name, g, e in zip("qkv", got_g, exp_g):
+        np.testing.assert_allclose(g, e, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("window", [0, 700])
+def test_attention_grads_match_jax_blocked_2048(window):
+    """The reference's blocked branch (2048 positions, under jax.checkpoint)."""
+    q, k, v, do = _grad_inputs(1, 2048, 2, 1, 32, 17)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    exp_o, exp_g = _jax_grads(q, k, v, do, impl="flash", **kw)
+    got_o, got_g = _port_grads(q, k, v, do, **kw)
+    np.testing.assert_allclose(got_o, exp_o, atol=GRAD_TOL, rtol=GRAD_TOL)
+    for name, g, e in zip("qkv", got_g, exp_g):
+        np.testing.assert_allclose(g, e, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", ["window_gqa_hd32", "window_softcap_hd120"])
+def test_attention_bwd_ref_matches_autograd_of_plain_forward(case):
+    """The explicit formulas against torch autograd of ``attention_ref``;
+    and the saved lse is the forward's."""
+    b, t, h, kvh, hd, causal, window, softcap = GRAD_CASES[case]
+    q, k, v, do = (torch.from_numpy(x) for x in _grad_inputs(b, t, h, kvh, hd, 3))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    fa_r.attention_ref(qa, ka, va, **kw).backward(do)
+    o, lse = fa_r.attention_lse_ref(q, k, v, **kw)
+    np.testing.assert_allclose(o.numpy(), fa_r.attention_ref(q, k, v, **kw).numpy(),
+                               atol=GRAD_TOL, rtol=GRAD_TOL)
+    got = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, g, e in zip("qkv", got, (qa.grad, ka.grad, va.grad)):
+        np.testing.assert_allclose(g.numpy(), e.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_attention_grad_refuses_cached_calls():
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    k = torch.zeros(1, 8, 1, 32)
+    with pytest.raises(NotImplementedError, match="training forward"):
+        TL.attention(q, k, k, q_offset=4, kv_len=8)
+
+
+def test_every_dense_config_head_dim_is_served():
+    """Every dense / vlm config's head width is one the kernels take
+    (h2o-danube-3-4b's 120 runs the 128-wide template)."""
+    from repro_torch import configs as tc
+
+    for name in tc.ARCH_IDS:
+        cfg = tc.get(name)
+        if cfg.family not in ("dense", "vlm"):
+            continue
+        hd = cfg.resolved_head_dim
+        assert fa_k.kernel_head_dim(hd) >= hd, name
+    assert fa_k.kernel_head_dim(120) == 128
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_k.kernel_head_dim(96)

@@ -147,6 +147,8 @@ def _flash_inputs(cuda, b, tq, tk, h, kvh, hd, kv_dtype, seed=0):
         (4, 1, 4128, 8, 4, 256, 1024, 4096, 4097, 0.0),  # main-path decode, local
         (2, 3, 500, 4, 2, 64, 16, 300, 303, 0.0),        # decode design, 6 rows per kv head
         (2, 1, 37, 2, 1, 32, 0, 36, 37, 30.0),           # decode design, tiny Tk (one chunk)
+        (2, 90, 130, 8, 2, 120, 32, 20, 110, 0.0),       # hd 120 (h2o-danube), prefill
+        (2, 1, 300, 8, 4, 120, 64, 250, 251, 20.0),      # hd 120, decode
     ],
 )
 def test_flash_attention_matches_plain(cuda, kv_dtype, b, tq, tk, h, kvh, hd, window,
@@ -187,7 +189,7 @@ def test_flash_attention_heads_layout(cuda, causal, groups):
                                atol=FLASH_TOL, rtol=FLASH_TOL)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 120, 128, 256])
 @pytest.mark.parametrize("groups", [1, 2, 8])
 def test_flash_wgmma_design_matches_plain(cuda, hd, groups):
     """bf16 k/v and more than 8 rows per kv head: the tensor-core design.
@@ -236,3 +238,124 @@ def test_flash_attention_reads_cache_slice_in_place(cuda):
     kw = dict(window=0, q_offset=80, kv_len=81)
     torch.testing.assert_close(fa_k.flash_attention(q, k, v, **kw),
                                fa_r.attention_ref(q, k, v, **kw), atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+def test_flash_attention_h2o_danube_shape(cuda):
+    """h2o-danube-3-4b's attention at 4096 positions (hd 120, GQA 32/8, window
+    4096): the float32 forward, the bf16 prefill and the training forward."""
+    q, k, v = _flash_inputs(cuda, 1, 4096, 4096, 32, 8, 120, torch.float32, seed=120)
+    kw = dict(causal=True, window=4096)
+    exp = fa_r.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(fa_k.flash_attention(q, k, v, **kw), exp, atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, exp, atol=FLASH_TOL, rtol=FLASH_TOL)
+    torch.testing.assert_close(lse, lse_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    torch.testing.assert_close(fa_k.flash_attention(q, kb, vb, **kw),
+                               fa_r.attention_ref(q, kb, vb, **kw), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+def test_every_dense_config_head_dim_runs(cuda):
+    """Each dense / vlm config's head width through the three forward
+    designs and the backward."""
+    from repro_torch import configs as tc
+
+    widths = sorted({tc.get(n).resolved_head_dim for n in tc.ARCH_IDS
+                     if tc.get(n).family in ("dense", "vlm")})
+    assert 120 in widths
+    for hd in widths:
+        q, k, v = _flash_inputs(cuda, 1, 80, 80, 4, 2, hd, torch.float32, seed=hd)
+        for kv, tq in ((k, 80), (k.to(torch.bfloat16), 80), (k.to(torch.bfloat16), 1)):
+            vv = v.to(kv.dtype)
+            kw = dict(causal=True, q_offset=80 - tq, kv_len=80)
+            torch.testing.assert_close(fa_k.flash_attention(q[:, :tq], kv, vv, **kw),
+                                       fa_r.attention_ref(q[:, :tq], kv, vv, **kw),
+                                       atol=FLASH_TOL, rtol=FLASH_TOL)
+        _bwd_check(q, k, v, dict(causal=True, window=0, softcap=0.0))
+
+
+# the backward kernel against its plain version (ref.attention_bwd_ref) from
+# the same o and lse: both float32, sums in another order; dk and dv sum up to
+# T x groups terms.  1e-4 absolute plus relative; one key too few moves some
+# gradient by ~1e-3 or more.
+BWD_TOL = 1e-4
+
+
+def _bwd_check(q, k, v, kw, seed=0):
+    g = torch.Generator(device=q.device)
+    g.manual_seed(seed)
+    do = torch.randn(q.shape, generator=g, device=q.device)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    before = fa_k.bwd_launches
+    got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa_k.bwd_launches == before + 1
+    torch.cuda.synchronize()
+    exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, a, e in zip("qkv", got, exp):
+        torch.testing.assert_close(a, e, atol=BWD_TOL, rtol=BWD_TOL, msg=f"d{name}")
+    return got, exp, do
+
+
+@pytest.mark.parametrize(
+    "b,t,h,kvh,hd,causal,window,softcap",
+    [
+        (2, 100, 4, 4, 64, True, 0, 0.0),        # ragged tiles
+        (1, 300, 8, 2, 32, True, 64, 0.0),       # GQA, window
+        (1, 200, 4, 1, 128, True, 0, 30.0),      # MQA, softcap
+        (1, 150, 8, 4, 256, True, 40, 50.0),     # gemma3 widths (32 x 32 tiles)
+        (1, 130, 8, 2, 120, True, 100, 0.0),     # hd 120
+        (1, 96, 2, 1, 64, False, 0, 0.0),        # bidirectional
+        (1, 96, 4, 2, 32, False, 20, 20.0),      # bidirectional, window, softcap
+        (1, 1, 2, 1, 64, True, 0, 0.0),          # one position
+    ],
+)
+def test_flash_bwd_matches_plain(cuda, b, t, h, kvh, hd, causal, window, softcap):
+    q, k, v = _flash_inputs(cuda, b, t, t, h, kvh, hd, torch.float32, seed=t + hd)
+    _bwd_check(q, k, v, dict(causal=causal, window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("hd,window", [(64, 0), (256, 1024), (120, 4096)])
+def test_flash_bwd_main_path_shapes_and_one_key_too_few(cuda, hd, window):
+    """minicpm-2b's, gemma3-4b's and h2o-danube's train shapes at 4096
+    positions (heads cut to 4); the limit must see one key too few."""
+    kvh = {64: 4, 256: 2, 120: 1}[hd]
+    q, k, v = _flash_inputs(cuda, 1, 4096, 4096, 4, kvh, hd, torch.float32, seed=hd)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    got, _, do = _bwd_check(q, k, v, kw)
+    near = dict(kw, window=(window or 4096) - 1)
+    o_n, lse_n = fa_r.attention_lse_ref(q, k, v, **near)
+    exp_n = fa_r.attention_bwd_ref(q, k, v, o_n, lse_n, do, **near)
+    assert not all(torch.allclose(a, e, atol=BWD_TOL, rtol=BWD_TOL) for a, e in zip(got, exp_n))
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    q, k, v = _flash_inputs(cuda, 2, 700, 700, 8, 2, 64, torch.float32, seed=5)
+    kw = dict(causal=True, window=300, softcap=0.0)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    do = torch.randn_like(q)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(3):
+        again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_autograd_through_the_kernels(cuda):
+    """ops.flash_attention with q, k, v requiring grad: one forward and one
+    backward launch, grads as the plain versions give on the CPU."""
+    q, k, v = _flash_inputs(cuda, 2, 150, 150, 8, 4, 64, torch.float32, seed=9)
+    do = torch.randn_like(q)
+    kw = dict(causal=True, window=50, softcap=25.0)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa_k.launches, fa_k.bwd_launches
+    out = fa_ops.flash_attention(*leaves, **kw)
+    out.backward(do)
+    assert (fa_k.launches, fa_k.bwd_launches) == (before[0] + 1, before[1] + 1)
+    cpu = [x.cpu().requires_grad_() for x in (q, k, v)]
+    out_c = fa_ops.flash_attention(*cpu, **kw)
+    out_c.backward(do.cpu())
+    torch.testing.assert_close(out.detach().cpu(), out_c.detach(), atol=FLASH_TOL, rtol=FLASH_TOL)
+    for a, e in zip(leaves, cpu):
+        torch.testing.assert_close(a.grad.cpu(), e.grad, atol=BWD_TOL, rtol=BWD_TOL)
