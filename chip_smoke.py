@@ -9,8 +9,9 @@ Phases, one JSON line each:
    to build the hand-written kernels from ``src/repro_torch/kernels/csrc``.
    Then a ``ptxas`` line (registers, static shared memory, spills of the
    redesigned kernels, from the build's ptxas report); the run fails
-   unless the SASS of the prefill kernel (``cuobjdump -sass``) holds
-   ``HGMMA`` (warpgroup tensor-core) instructions.
+   unless the SASS (``cuobjdump -sass``) of the prefill kernel and of the
+   backward's tensor-core kernels holds ``HGMMA`` (warpgroup tensor-core)
+   instructions.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -54,10 +55,15 @@ Phases, one JSON line each:
    plain version (``ref.attention_bwd_ref``) from the same o and lse, at
    minicpm-2b's train shape (q/k/v [2, 4096, 36, 64], causal), gemma3-4b's
    (q [1, 4096, 8, 256], k/v 4 heads, window 1024 and 0) and h2o-danube's
-   (hd 120, window 4096), plus small cases with a softcap; within
-   ``BWD_TOL``, and failing it given one key too few.  Its time, bound (10
-   hd operations per visible pair on the float32 CUDA cores, or the bytes),
-   the plain version's time and autograd through float32
+   (hd 120, window 4096), plus small cases with a softcap, GQA and ragged
+   tiles at every head width; within ``BWD_TOL``, and failing it given one
+   key too few.  Each shape names the design that ran (``bwd_wgmma`` on the
+   bf16 tensor cores for hd <= 128, ``bwd_fa2`` on the float32 CUDA cores
+   for hd 256) and gives both bounds with their shares: the tensor-core one
+   (10 hd operations per visible pair, ``BWD_SPLIT`` bf16 products each, at
+   989 TFLOP/s) and the float32 CUDA-core one (10 hd at 67 TFLOP/s), each
+   against the bytes; ``bound_ms`` is the one of the design that ran.  Its
+   time, the plain version's time and autograd through float32
    ``scaled_dot_product_attention`` as the library yardstick.
 7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
    weights from ``--seed``, made on the card): B = 4 requests of 4096
@@ -83,7 +89,8 @@ Phases, one JSON line each:
    per step and peak device memory.  A smoke measurement (synthetic
    corpus), not a traffic result.  It fails unless flash attention's
    forward ran exactly 6 x 40 x 2 times (each layer's forward and its
-   recompute) and its backward 6 x 40 times.
+   recompute) and its backward 6 x 40 times, all of them in the
+   tensor-core design.
 10. train_check — (a) one step (``make_train_step``'s gradients, then
    ``apply_updates``) on the card against the same step on the CPU (plain
    versions), at minicpm-2b's width with 2 layers and 2 x 256 tokens, from
@@ -336,6 +343,8 @@ def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     sr_k.launches = 0
     fa_k.launches = 0
     fa_k.bwd_launches = 0
+    for design in fa_k.bwd_design_launches:
+        fa_k.bwd_design_launches[design] = 0
 
 
 def flash_work(torch, q, k, *, causal, window, q_offset, kv_len) -> tuple[int, int]:
@@ -420,7 +429,10 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         pairs = int(mask.sum()) * b * h
         # q, o, do, dq and k, v, dk, dv once each, lse once
         nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
-        bms, bby = bound(nbytes, 10 * hd * pairs)
+        design = fa_k.bwd_design(hd)
+        tms, tby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
+        fms, fby = bound(nbytes, 10 * hd * pairs)
+        bms, bby = (tms, tby) if design == "bwd_wgmma" else (fms, fby)
         ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         plain_ms = timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw))
         # the library yardstick: autograd through float32 SDPA (its backward)
@@ -429,27 +441,34 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         dout = do.transpose(1, 2)
         library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
         shapes[cell] = {
-            "q": list(q.shape), "kv": list(k.shape), **kw, "max_abs_err": err,
+            "q": list(q.shape), "kv": list(k.shape), **kw, "design": design, "max_abs_err": err,
             "one_key_off_max_abs_err": one_key_off, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
-            "bytes": nbytes, "operations": 10 * hd * pairs, "library_ms": library_ms,
+            "bound_tensor_ms": tms, "bound_tensor_by": tby, "share_of_tensor_bound": tms / ms,
+            "bound_fp32_ms": fms, "bound_fp32_by": fby, "share_of_fp32_bound": fms / ms,
+            "bytes": nbytes, "operations": 10 * hd * pairs, "split": fa_k.BWD_SPLIT,
+            "library_ms": library_ms,
         }
         del q, do, k, v, o, lse, leaves, out, dout, mask
         torch.cuda.empty_cache()
-    # small cases: a softcap, GQA, windows, every head width, ragged tiles
+    # small cases: a softcap, GQA (2 here; minicpm 1, h2o 4, below), windows,
+    # every head width, ragged tiles (200 and 4097 positions)
     small = {}
-    for hd in (32, 64, 120, 128, 256):
+    for hd, t, h, kvh in ((32, 200, 8, 4), (64, 200, 8, 4), (120, 200, 8, 4), (128, 200, 8, 4),
+                          (256, 200, 8, 4), (64, 4097, 4, 4), (120, 300, 8, 2)):
         for softcap, window in ((30.0, 50), (0.0, 0)):
-            q, do = randn(2, 200, 8, hd), randn(2, 200, 8, hd)
-            k, v = randn(2, 200, 4, hd), randn(2, 200, 4, hd)
+            q, do = randn(2, t, h, hd), randn(2, t, h, hd)
+            k, v = randn(2, t, kvh, hd), randn(2, t, kvh, hd)
             kw = dict(causal=True, window=window, softcap=softcap)
             o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
             got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
             if not within(got, exp):
-                fail(f"flash_attention_bwd differs from the plain version (hd {hd}, softcap "
-                     f"{softcap}): max |err| {errs(got, exp)}")
-            small[f"hd{hd}_softcap{softcap:g}_window{window}"] = errs(got, exp)
+                fail(f"flash_attention_bwd differs from the plain version (hd {hd}, T {t}, "
+                     f"groups {h // kvh}, softcap {softcap}): max |err| {errs(got, exp)}")
+            small[f"hd{hd}_T{t}_groups{h // kvh}_softcap{softcap:g}_window{window}"] = \
+                errs(got, exp)
+            del q, do, k, v, o, lse, got, exp
     ptx = _ptxas("bwd_")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -509,6 +528,9 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
     for name, n in want.items():
         if got[name] != n:
             fail(f"train launched {name} {got[name]} times, want {n}")
+    designs = dict(fa_k.bwd_design_launches)
+    if designs.get("bwd_wgmma") != want["flash_attention_bwd"]:
+        fail(f"train's backward did not run the tensor-core design every time: {designs}")
     if got["hash_partition"] < 1 or got["join_probe"] < 1:
         fail(f"train's pipeline did not reach the dataframe kernels: {got}")
     for name, c in got.items():
@@ -525,7 +547,7 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
           "flops_per_step": flops,
           "model_flops_share_of_fp32_cuda_core_peak":
               flops["model"] / median_s / OPS_PER_S["fp32"],
-          "peak_mem_bytes": peak, "launches": got, "log": log})
+          "peak_mem_bytes": peak, "launches": got, "bwd_designs": designs, "log": log})
     # one more step under the profiler, from fresh optimizer state
     opt_cfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
                             total_steps=TRAIN_STEPS, schedule=cfg.schedule,
@@ -679,11 +701,12 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
-        "flash_wgmma", "flash_decode", "flash_tiled", "bwd_dkdv", "bwd_dq", "probe_kernel",
-        "build_index")}})
-    hgmma = sass_has(_build.build(), "flash_wgmma", "HGMMA")
-    if not hgmma or not all(hgmma.values()):
-        fail(f"flash_wgmma's SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
+        "flash_wgmma", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_prep", "bwd_dkdv",
+        "bwd_dq", "probe_kernel", "build_index")}})
+    for name in ("flash_wgmma", "bwd_wgmma"):
+        hgmma = sass_has(_build.build(), name, "HGMMA")
+        if not hgmma or not all(hgmma.values()):
+            fail(f"{name}'s SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
 
     timer = Timer(torch)
     kernels: dict[str, dict] = {}

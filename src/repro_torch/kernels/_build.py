@@ -33,6 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_attention.cu",
            "flash_attention_bwd.cu")
+HEADERS = ("wgmma.cuh",)  # included by the sources; hashed with them
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,8 +61,9 @@ SIGNATURES = {
         _I, _P,
     ),
     "rt_flash_attention_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F32, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F32, _P,
     ),
+    "rt_flash_attention_bwd_scratch": (_I, _I, _I, _I, _I, _P),
 }
 
 
@@ -77,7 +79,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

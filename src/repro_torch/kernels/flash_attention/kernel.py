@@ -14,9 +14,13 @@ same launch.
 
 ``flash_attention_lse`` is the training path's forward: the float32 tiled
 design, which also writes each row's log-sum-exp; ``flash_attention_bwd``
-launches the backward (``csrc/flash_attention_bwd.cu``) from it.  ``launches``
-counts forward calls, ``bwd_launches`` backward calls (three CUDA launches
-each: D, dK/dV, dQ).
+launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
+design ``bwd_design`` names for the head width: ``bwd_wgmma`` on the bf16
+tensor cores (``BWD_SPLIT`` bf16 products per float32 product; four CUDA
+launches: the two split prologues, dK/dV, dQ) for every width but 256, which
+runs ``bwd_fa2`` on the float32 CUDA cores (three: D, dK/dV, dQ).
+``launches`` counts forward calls, ``bwd_launches`` backward calls, and
+``bwd_design_launches`` the backward calls of each design.
 
 Head widths: ``HEAD_DIMS``.  120 (h2o-danube-3-4b) runs the 128-wide
 kernels with a run-time valid width (``kernel_head_dim``).
@@ -33,9 +37,11 @@ from repro_torch.kernels import _build
 
 launches = 0
 bwd_launches = 0
+bwd_design_launches = {"bwd_wgmma": 0, "bwd_fa2": 0}
 
 HEAD_DIMS = (32, 64, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
+BWD_SPLIT = 6      # bf16 products per float32 product in bwd_wgmma (csrc kSplit)
 MIN_CHUNK = 64     # keys per block of the decode design: at least this,
 MAX_CHUNK = 1024   # and at most this while it takes no more than
 MAX_CHUNKS = 1024  # this many chunks per kv head (csrc kMaxChunks)
@@ -95,6 +101,13 @@ def kernel_head_dim(hd: int) -> int:
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     return 128 if hd == 120 else hd
+
+
+def bwd_design(hd: int) -> str:
+    """The backward's design at head width ``hd`` (as the CUDA entry point
+    chooses): ``bwd_wgmma`` for 32, 64, 120, 128; ``bwd_fa2`` for 256, whose
+    split operands do not fit the shared memory beside a stage."""
+    return "bwd_wgmma" if kernel_head_dim(hd) <= 128 else "bwd_fa2"
 
 
 @functools.cache
@@ -255,12 +268,18 @@ def flash_attention_bwd(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty_like(lse)
-    rc = _build.library().rt_flash_attention_bwd(
+    lib = _build.library()
+    # the split parts of q, dO, k, v and padded lse, D (bwd_wgmma) or D (bwd_fa2)
+    nbytes = ctypes.c_int64()
+    _build.check(lib.rt_flash_attention_bwd_scratch(hd, b, t, h, kvh, ctypes.addressof(nbytes)),
+                 "flash_attention_bwd")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    rc = lib.rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), hd, b, t, h, kvh,
-        int(window), int(causal), float(softcap), _build.stream(dev),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), nbytes.value, hd, b, t, h,
+        kvh, int(window), int(causal), float(softcap), _build.stream(dev),
     )
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
+    bwd_design_launches[bwd_design(hd)] += 1
     return dq, dk, dv

@@ -17,7 +17,10 @@ path never calls it.
 
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` are the plain
 versions of the training path's forward (with each row's log-sum-exp) and
-of the backward kernel (``csrc/flash_attention_bwd.cu``).
+of the backward kernel (``csrc/flash_attention_bwd.cu``);
+:func:`attention_bwd_split_ref` emulates the numerics of the backward's
+tensor-core design (every product of float32 operands as a sum of products
+of their bf16 parts), for the tests only.
 """
 
 from __future__ import annotations
@@ -190,6 +193,68 @@ def attention_split_ref(
               for part in split_bf16(p, parts))
     out = out / p.sum(-1, keepdim=True)
     return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd)
+
+
+# The cross products of bf16 parts (i of the first operand, j of the second)
+# that a float32 product is made of, largest first: the first ``pairs``
+# make the product.  The backward kernel takes all six (BWD_SPLIT), the
+# pairs with i + j <= 2; it sums them smallest first.
+BWD_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+
+
+def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, parts: int,
+                   pairs: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` of float32 ``a`` and ``b`` as the float32 sum of
+    the products of their bf16 parts that the first ``pairs`` of
+    ``BWD_PAIRS`` name, smallest first."""
+    use = BWD_PAIRS[:pairs]
+    if not 1 <= pairs <= len(BWD_PAIRS) or max(max(p) for p in use) >= parts:
+        raise ValueError(f"pairs {pairs} need more than {parts} parts (or are out of range)")
+    pa, pb = split_bf16(a, parts), split_bf16(b, parts)
+    out = None
+    for i, j in reversed(use):
+        term = torch.einsum(eq, pa[i].float(), pb[j].float())
+        out = term if out is None else out + term
+    return out
+
+
+def attention_bwd_split_ref(
+    q: torch.Tensor,       # [B, T, H, hd]
+    k: torch.Tensor,       # [B, T, KV, hd]
+    v: torch.Tensor,
+    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    parts: int = 3,
+    pairs: int = 6,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's tensor-core arithmetic: :func:`attention_bwd_ref`
+    with each of its five products (S = Qs K^T, dP = dO V^T, dV = P^T dO,
+    dK = dS^T Qs, dQ = dS K; Qs = q / sqrt(hd)) a sum of products of the
+    operands' ``parts`` bf16 parts (``pairs`` of ``BWD_PAIRS``, the first
+    operand's part first), every sum in float32.  Tests only."""
+    kvh, t = k.shape[2], k.shape[1]
+    qf = _heads(q, kvh) / math.sqrt(q.shape[3])
+    mask = key_mask(t, t, causal=causal, window=int(window), q_offset=0, kv_len=None,
+                    device=q.device)
+    kf, vf = k.float(), v.float()
+    of, dof = _heads(o, kvh), _heads(do, kvh)
+    s = _split_product("bkgqh,bskh->bkgqs", qf, kf, parts, pairs)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = _split_product("bkgqs,bkgqh->bskh", p, dof, parts, pairs)
+    ds = p * (_split_product("bkgqh,bskh->bkgqs", dof, vf, parts, pairs) - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = _split_product("bkgqs,bskh->bkgqh", ds, kf, parts, pairs) / math.sqrt(q.shape[3])
+    dk = _split_product("bkgqs,bkgqh->bskh", ds, qf, parts, pairs)
+    return _unheads(dq), dk, dv
 
 
 def attention_heads_ref(

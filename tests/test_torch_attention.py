@@ -352,3 +352,98 @@ def test_every_dense_config_head_dim_is_served():
     assert fa_k.kernel_head_dim(120) == 128
     with pytest.raises(ValueError, match="head_dim"):
         fa_k.kernel_head_dim(96)
+
+
+# -- the backward kernel's tensor-core arithmetic (bwd_wgmma) --------------------
+
+# ref.attention_bwd_split_ref emulates the kernel's products of bf16 parts
+# with float32 sums; it is held at the kernel's own limit against the plain
+# backward (BWD_TOL, as tests/test_torch_cuda.py and chip_smoke.py hold the
+# kernel) and against the reference's jax.grad.
+BWD_TOL = 1e-4
+
+BWD_SPLIT_CASES = {
+    # name: (b, t, h, kvh, hd, causal, window, softcap)
+    "hd32_gqa2_ragged": (2, 100, 4, 2, 32, True, 0, 0.0),
+    "hd64_mha": (1, 130, 4, 4, 64, True, 0, 0.0),
+    "hd64_gqa8_window": (1, 150, 8, 1, 64, True, 40, 0.0),
+    "hd64_gqa4_bidirectional": (1, 70, 4, 1, 64, False, 0, 0.0),
+    "hd120_gqa2_window_softcap": (1, 72, 4, 2, 120, True, 16, 50.0),
+    "hd128_gqa2_softcap": (1, 96, 4, 2, 128, True, 0, 30.0),
+    "hd128_gqa8_window": (1, 80, 8, 1, 128, True, 24, 0.0),
+}
+
+
+def _bwd_inputs(b, t, h, kvh, hd, causal, window, softcap, seed):
+    q, k, v, do = (torch.from_numpy(x) for x in _grad_inputs(b, t, h, kvh, hd, seed))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa_r.attention_lse_ref(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("case", sorted(BWD_SPLIT_CASES))
+def test_bwd_split_ref_matches_bwd_ref(case):
+    args, kw = _bwd_inputs(*BWD_SPLIT_CASES[case], seed=len(case))
+    got = fa_r.attention_bwd_split_ref(*args, **kw, pairs=fa_k.BWD_SPLIT)
+    exp = fa_r.attention_bwd_ref(*args, **kw)
+    for name, g, e in zip("qkv", got, exp):
+        np.testing.assert_allclose(g.numpy(), e.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_bwd_split_ref_matches_jax_direct(case):
+    b, t, h, kvh, hd, causal, window, softcap = GRAD_CASES[case]
+    q, k, v, do = _grad_inputs(b, t, h, kvh, hd, len(case))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, exp_g = _jax_grads(q, k, v, do, impl="direct", **kw)
+    args, _ = _bwd_inputs(b, t, h, kvh, hd, causal, window, softcap, len(case))
+    got = fa_r.attention_bwd_split_ref(*args, **kw, pairs=fa_k.BWD_SPLIT)
+    for name, g, e in zip("qkv", got, exp_g):
+        np.testing.assert_allclose(g.numpy(), e, atol=BWD_TOL, rtol=BWD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("window", [0, 700])
+def test_bwd_split_ref_matches_jax_blocked_2048(window):
+    """The reference's blocked branch (2048 positions, under jax.checkpoint)."""
+    q, k, v, do = _grad_inputs(1, 2048, 2, 1, 32, 17)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    _, exp_g = _jax_grads(q, k, v, do, impl="flash", **kw)
+    args, _ = _bwd_inputs(1, 2048, 2, 1, 32, True, window, 0.0, 17)
+    got = fa_r.attention_bwd_split_ref(*args, **kw, pairs=fa_k.BWD_SPLIT)
+    for name, g, e in zip("qkv", got, exp_g):
+        np.testing.assert_allclose(g.numpy(), e, atol=BWD_TOL, rtol=BWD_TOL, err_msg=f"d{name}")
+
+
+def test_bwd_split_one_product_fewer():
+    """BWD_SPLIT on record.  At 4 x 512 positions of hd 64 the worst
+    |error| / (BWD_TOL (1 + |expected|)) against the plain backward is 0.013
+    with the six products and 0.15 with five: the sixth, (2, 0), cuts the
+    error tenfold.  Five (and three) would still pass BWD_TOL; six
+    are chosen because train_check (a) also holds the bf16-rounded weight
+    gradients of a full-width step >= 99% bit-equal to the CPU's, and fewer
+    products alone move too many of them (scripts/torch_bwd_split_choice.py).
+    One or two products are a different result: the limit sees them."""
+    args, kw = _bwd_inputs(1, 512, 4, 4, 64, True, 0, 0.0, seed=3)
+    exp = fa_r.attention_bwd_ref(*args, **kw)
+
+    def worst(pairs):
+        got = fa_r.attention_bwd_split_ref(*args, **kw, pairs=pairs)
+        return max(float(((g - e).abs() / (BWD_TOL * (1 + e.abs()))).max())
+                   for g, e in zip(got, exp))
+
+    at = {n: worst(n) for n in (1, 2, fa_k.BWD_SPLIT - 1, fa_k.BWD_SPLIT)}
+    assert fa_k.BWD_SPLIT == len(fa_r.BWD_PAIRS) == 6
+    assert at[6] < 0.05 and at[5] > 4 * at[6], at
+    assert at[1] > 1 and at[2] > 1, at
+    with pytest.raises(ValueError, match="parts"):
+        fa_r.attention_bwd_split_ref(*args, **kw, parts=2, pairs=6)
+
+
+def test_bwd_design_by_head_width():
+    """The tensor-core design for every width but 256 (the dense configs'
+    32 to 128; gemma3's 256 keeps the float32 FA2 kernels)."""
+    assert [fa_k.bwd_design(hd) for hd in (32, 64, 120, 128, 256)] == \
+        ["bwd_wgmma"] * 4 + ["bwd_fa2"]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_k.bwd_design(96)

@@ -310,6 +310,20 @@ def _bwd_check(q, k, v, kw, seed=0):
         (1, 96, 2, 1, 64, False, 0, 0.0),        # bidirectional
         (1, 96, 4, 2, 32, False, 20, 20.0),      # bidirectional, window, softcap
         (1, 1, 2, 1, 64, True, 0, 0.0),          # one position
+        # the tensor-core design's tiles: 64 (hd 32, 64) or 32 (hd 120, 128)
+        # streamed rows against 128 or 64 fixed ones; ragged T (200, 257,
+        # 333, 4097); the GQA groups of minicpm-2b (1), gemma3-4b (2) and
+        # h2o-danube (4)
+        (1, 200, 4, 4, 64, True, 0, 0.0),
+        (1, 4097, 4, 4, 64, True, 0, 0.0),
+        (2, 333, 8, 4, 64, True, 100, 30.0),
+        (1, 200, 8, 4, 32, True, 50, 30.0),
+        (1, 4097, 4, 2, 32, False, 300, 0.0),
+        (1, 200, 8, 2, 120, True, 64, 0.0),
+        (1, 4097, 8, 2, 120, True, 4096, 0.0),
+        (1, 200, 8, 2, 128, False, 0, 20.0),
+        (1, 257, 8, 4, 128, True, 0, 0.0),
+        (1, 200, 8, 4, 256, True, 50, 30.0),
     ],
 )
 def test_flash_bwd_matches_plain(cuda, b, t, h, kvh, hd, causal, window, softcap):
@@ -359,3 +373,29 @@ def test_flash_autograd_through_the_kernels(cuda):
     torch.testing.assert_close(out.detach().cpu(), out_c.detach(), atol=FLASH_TOL, rtol=FLASH_TOL)
     for a, e in zip(leaves, cpu):
         torch.testing.assert_close(a.grad.cpu(), e.grad, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("hd,design", [(32, "bwd_wgmma"), (64, "bwd_wgmma"),
+                                       (120, "bwd_wgmma"), (128, "bwd_wgmma"),
+                                       (256, "bwd_fa2")])
+def test_flash_bwd_design_that_ran(cuda, hd, design):
+    """hd 64 (minicpm-2b's training path) runs on the tensor cores."""
+    q, k, v = _flash_inputs(cuda, 1, 130, 130, 4, 2, hd, torch.float32, seed=hd)
+    before = dict(fa_k.bwd_design_launches)
+    _bwd_check(q, k, v, dict(causal=True, window=0, softcap=0.0))
+    after = fa_k.bwd_design_launches
+    assert {d: after[d] - before[d] for d in after} == \
+        {d: int(d == design) for d in after}
+    assert fa_k.bwd_design(hd) == design
+
+
+def test_flash_bwd_is_deterministic_at_the_train_shape(cuda):
+    """minicpm-2b's train shape [2, 4096, 36, 64]: repeats are bit-equal."""
+    q, k, v = _flash_inputs(cuda, 2, 4096, 4096, 36, 36, 64, torch.float32, seed=4)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    do = torch.randn_like(q)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(4):
+        again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
