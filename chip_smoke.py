@@ -9,9 +9,10 @@ Phases, one JSON line each:
    to build the hand-written kernels from ``src/repro_torch/kernels/csrc``.
    Then a ``ptxas`` line (registers, static shared memory, spills of the
    redesigned kernels, from the build's ptxas report); the run fails
-   unless the SASS (``cuobjdump -sass``) of the prefill kernel and of the
-   backward's tensor-core kernels holds ``HGMMA`` (warpgroup tensor-core)
-   instructions.
+   unless the SASS (``cuobjdump -sass``) of every tensor-core kernel holds
+   ``HGMMA`` (warpgroup tensor-core) instructions: the forward's
+   ``flash_wgmma`` for bf16 and for float32 k/v (``flash_wgmma_split``),
+   the backward's ``bwd_wgmma`` and ``bwd_wide``.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -23,8 +24,8 @@ Phases, one JSON line each:
    moved over 3.35 TB/s and operations over the peak of the engine that
    does them (H100 SXM data sheet): 67 TFLOP/s for float32 on the CUDA
    cores, or 989 TFLOP/s for bf16 on the tensor cores times the number of
-   products a design makes of each (3 for flash attention's three-part
-   split).  The summary line carries one shape per kernel; the ``kernel``
+   bf16 products a design makes of each float32 product (``FLASH_SPLIT``: 3
+   where only one operand is split, 6 where both are).  The summary line carries one shape per kernel; the ``kernel``
    lines carry every shape.  join_probe's positions and hits must equal the
    plain version's on every row.
 3. join    — ``ops_dist.sim_join`` at the paper's weak-scaling size: P = 8
@@ -42,29 +43,34 @@ Phases, one JSON line each:
    of the tensor-core design that runs them and the float32 CUDA-core
    bound, each with its share), and
    ``scaled_dot_product_attention``'s time as the library yardstick; plus
-   rows with no valid key and a softcap at a small shape.  Both sides read
-   the same k/v, so they differ only in the order of float32 sums: 2e-5
-   for either k/v type; at each main-path shape the kernel must also fail
-   that limit against the plain version given one key too few.
-   The same phase checks the training path's forward (the float32 tiled
-   design that also writes each row's log-sum-exp) at minicpm-2b's train
-   shape, and h2o-danube-3-4b's head width 120 (q [1, 4096, 32, 120], k/v
-   [1, 4096, 8, 120], window 4096) through the float32, bf16 and decode
-   designs, each within 2e-5 (the two prefill designs timed as above).
+   rows with no valid key and a softcap at a small shape; and gemma3-4b's
+   global layer at 32,768 keys (q [1, 512, 8, 256] at q_offset 32,256,
+   bf16 k/v [1, 32768, 4, 256]; timed, and checked again with v of mean 1,
+   where |O| ~ 1).  Both sides read the same k/v, so they differ only in
+   the order of float32 sums: 2e-5 for either k/v type; at each main-path
+   shape the kernel must also fail that limit given one key too few.
+   The same phase checks the float32-k/v forwards with each row's
+   log-sum-exp, o and lse within 2e-5, failing it given one key too few,
+   and bit-equal across two runs: ``flash_wgmma_split`` (the training
+   path's forward) at minicpm-2b's train shape and h2o-danube-3-4b's head
+   width 120 (q [1, 4096, 32, 120], k/v [1, 4096, 8, 120], window 4096;
+   there also the bf16 prefill and decode designs), and ``flash_tiled`` at
+   gemma3-4b's global layer (q [1, 4096, 8, 256], k/v 4 heads), each timed
+   with its own bound and its float32 CUDA-core bound.
 6. kernel  — flash_attention_bwd (the hand-written backward) against its
    plain version (``ref.attention_bwd_ref``) from the same o and lse, at
    minicpm-2b's train shape (q/k/v [2, 4096, 36, 64], causal), gemma3-4b's
    (q [1, 4096, 8, 256], k/v 4 heads, window 1024 and 0) and h2o-danube's
    (hd 120, window 4096), plus small cases with a softcap, GQA and ragged
    tiles at every head width; within ``BWD_TOL``, and failing it given one
-   key too few.  Each shape names the design that ran (``bwd_wgmma`` on the
-   bf16 tensor cores for hd <= 128, ``bwd_fa2`` on the float32 CUDA cores
-   for hd 256) and gives both bounds with their shares: the tensor-core one
-   (10 hd operations per visible pair, ``BWD_SPLIT`` bf16 products each, at
-   989 TFLOP/s) and the float32 CUDA-core one (10 hd at 67 TFLOP/s), each
-   against the bytes; ``bound_ms`` is the one of the design that ran.  Its
-   time, the plain version's time and autograd through float32
-   ``scaled_dot_product_attention`` as the library yardstick.
+   key too few.  Each shape names the design that ran (``bwd_wgmma`` for
+   hd <= 128, ``bwd_wide`` for hd 256, both on the bf16 tensor cores) and
+   gives both bounds with their shares: the tensor-core one (10 hd
+   operations per visible pair, ``BWD_SPLIT`` bf16 products each, at 989
+   TFLOP/s; ``bound_ms``) and the float32 CUDA-core one (10 hd at 67
+   TFLOP/s), each against the bytes.  Its time, the plain version's time
+   and autograd through float32 ``scaled_dot_product_attention`` as the
+   library yardstick.
 7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
    weights from ``--seed``, made on the card): B = 4 requests of 4096
    prompt tokens, 32 new tokens each, greedy.  The one run that is counted
@@ -89,8 +95,8 @@ Phases, one JSON line each:
    per step and peak device memory.  A smoke measurement (synthetic
    corpus), not a traffic result.  It fails unless flash attention's
    forward ran exactly 6 x 40 x 2 times (each layer's forward and its
-   recompute) and its backward 6 x 40 times, all of them in the
-   tensor-core design.
+   recompute), all in ``flash_wgmma_split``, and its backward 6 x 40
+   times, all in ``bwd_wgmma``.
 10. train_check — (a) one step (``make_train_step``'s gradients, then
    ``apply_updates``) on the card against the same step on the CPU (plain
    versions), at minicpm-2b's width with 2 layers and 2 x 256 tokens, from
@@ -109,7 +115,9 @@ The launch counters of every kernel are set to 0 just before each of the
 main-path runs (join, groupby, serve, train) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
 flash-attention launches, or a train run without the counts above, fails
-the run.  Then the kernels' summary line, and as
+the run.  Then a ``launches`` line (each counter by run: the kernels, and
+flash attention's calls by design), the kernels' summary line (one row per
+kernel, and for flash attention one per design the main path runs), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception
 exits non-zero before that line.  Without a CUDA device, or without the
 repository's ``src/`` beside this file, it exits non-zero and prints no
@@ -131,7 +139,10 @@ OPS_PER_S = {
     "fp32": 67e12,         # H100 SXM float32 outside the tensor cores
     "bf16_tensor": 989e12, # H100 SXM bf16 on the tensor cores, dense
 }
-FLASH_SPLIT = 3            # bf16 products per float32 product in flash_wgmma
+# bf16 products per float32 product on the tensor cores: flash_wgmma splits
+# q and p (bf16 k/v are exact), flash_wgmma_split and the backward split both
+# operands of every product
+FLASH_SPLIT = {"flash_wgmma": 3, "flash_wgmma_split": 6}
 
 JOIN_P, JOIN_ROWS = 8, int(9.1e6)            # benchmarks/scaling_join.py:50
 GROUPBY_P, GROUPBY_ROWS, GROUPS = 4, int(50e6), 1000  # benchmarks/groupby_scaling.py:16-17
@@ -334,6 +345,9 @@ def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
         "segment_reduce": sr_k.launches,
         "flash_attention": fa_k.launches,
         "flash_attention_bwd": fa_k.bwd_launches,
+        # the calls of each flash design (each also counted above)
+        **{f"flash_attention/{d}": n for d, n in fa_k.fwd_design_launches.items()},
+        **{f"flash_attention_bwd/{d}": n for d, n in fa_k.bwd_design_launches.items()},
     }
 
 
@@ -343,8 +357,9 @@ def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     sr_k.launches = 0
     fa_k.launches = 0
     fa_k.bwd_launches = 0
-    for design in fa_k.bwd_design_launches:
-        fa_k.bwd_design_launches[design] = 0
+    for designs in (fa_k.fwd_design_launches, fa_k.bwd_design_launches):
+        for design in designs:
+            designs[design] = 0
 
 
 def flash_work(torch, q, k, *, causal, window, q_offset, kv_len) -> tuple[int, int]:
@@ -432,7 +447,7 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         design = fa_k.bwd_design(hd)
         tms, tby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
         fms, fby = bound(nbytes, 10 * hd * pairs)
-        bms, bby = (tms, tby) if design == "bwd_wgmma" else (fms, fby)
+        bms, bby = tms, tby  # both designs run on the tensor cores
         ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         plain_ms = timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw))
         # the library yardstick: autograd through float32 SDPA (its backward)
@@ -528,13 +543,15 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
     for name, n in want.items():
         if got[name] != n:
             fail(f"train launched {name} {got[name]} times, want {n}")
-    designs = dict(fa_k.bwd_design_launches)
-    if designs.get("bwd_wgmma") != want["flash_attention_bwd"]:
-        fail(f"train's backward did not run the tensor-core design every time: {designs}")
+    designs = {**fa_k.fwd_design_launches, **fa_k.bwd_design_launches}
+    if designs["flash_wgmma_split"] != want["flash_attention"]:
+        fail(f"train's forward did not run flash_wgmma_split every time: {designs}")
+    if designs["bwd_wgmma"] != want["flash_attention_bwd"]:
+        fail(f"train's backward did not run bwd_wgmma every time: {designs}")
     if got["hash_partition"] < 1 or got["join_probe"] < 1:
         fail(f"train's pipeline did not reach the dataframe kernels: {got}")
     for name, c in got.items():
-        launches[name]["train"] = c
+        launches.setdefault(name, {})["train"] = c
     if not all(math.isfinite(x) for x in losses) or not losses[-1] <= losses[0]:
         fail(f"train losses not finite and falling: {losses}")
     step_s = [arrivals[0] - t0] + [b - a for a, b in zip(arrivals, arrivals[1:])]
@@ -547,7 +564,7 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
           "flops_per_step": flops,
           "model_flops_share_of_fp32_cuda_core_peak":
               flops["model"] / median_s / OPS_PER_S["fp32"],
-          "peak_mem_bytes": peak, "launches": got, "bwd_designs": designs, "log": log})
+          "peak_mem_bytes": peak, "launches": got, "designs": designs, "log": log})
     # one more step under the profiler, from fresh optimizer state
     opt_cfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
                             total_steps=TRAIN_STEPS, schedule=cfg.schedule,
@@ -558,7 +575,7 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
     emit({"phase": "trace", "cell": "train", **trace(
         torch, lambda: float(step_fn(params, opt_state, batch)[2]["loss"]), top=12,
         groups={"products (gemm)": ("gemm",), "flash_attention_bwd": ("bwd_",),
-                "flash_attention": ("flash_",), "other": ("",)})})
+                "flash_attention": ("flash_", "fwd_prep"), "other": ("",)})})
 
 
 def train_check_phase(torch, seed) -> dict:
@@ -701,11 +718,14 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
-        "flash_wgmma", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_prep", "bwd_dkdv",
-        "bwd_dq", "probe_kernel", "build_index")}})
-    for name in ("flash_wgmma", "bwd_wgmma"):
+        "flash_wgmma", "fwd_prep_kv", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_wide",
+        "bwd_prep", "probe_kernel", "build_index")}})
+    # flash_wgmma<HD, false> (bf16 k/v) and <HD, true> (flash_wgmma_split),
+    # bwd_wgmma and bwd_wide: every instance on the tensor cores
+    for name, instances in (("flash_wgmma", ("ELb0E", "ELb1E")), ("bwd_wgmma", ("",)),
+                            ("bwd_wide", ("",))):
         hgmma = sass_has(_build.build(), name, "HGMMA")
-        if not hgmma or not all(hgmma.values()):
+        if not all(any(i in f for f in hgmma) for i in instances) or not all(hgmma.values()):
             fail(f"{name}'s SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
 
     timer = Timer(torch)
@@ -878,7 +898,8 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    launches = {name: {} for name in (*kernels, "flash_attention", "flash_attention_bwd")}
+    # counter name -> main-path run -> launches (see ``counters``)
+    launches: dict[str, dict[str, int]] = {}
 
     # -- 3. sim_join at the weak-scaling size -----------------------------------
     p, rows = JOIN_P, JOIN_ROWS
@@ -901,7 +922,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     got = counters(hp_k, jp_k, sr_k, fa_k)
     for name, c in got.items():
-        launches[name]["join"] = c
+        launches.setdefault(name, {})["join"] = c
     if got["hash_partition"] < 2 * p or got["join_probe"] != p:
         fail(f"join launches {got}: want hash >= {2 * p}, probe == {p}")
     emit({"phase": "trace", "cell": "join", **trace(
@@ -970,7 +991,7 @@ def main() -> int:
             fail(f"sim_groupby combine={combine}: sums differ from np.bincount")
         run = f"groupby_combine_{str(combine).lower()}"
         for name, c in got.items():
-            launches[name][run] = c
+            launches.setdefault(name, {})[run] = c
         emit({"phase": "groupby", "P": p, "rows_per_worker": rows, "groups": GROUPS,
               "combine": combine, "wall_s": wall, "bytes_on_wire": comm.bytes_on_wire,
               "comm_time_s": comm.comm_time_s, "launches": got})
@@ -1030,7 +1051,7 @@ def main() -> int:
         prefill = q.shape[1] * (nh // kvh) > fa_k.SPLIT_ROWS
         # the design that runs: the bf16 tensor cores at prefill (bf16 k/v),
         # float32 on the CUDA cores at decode (a byte bound either way)
-        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT) if prefill
+        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT["flash_wgmma"]) if prefill
                     else bound(nbytes, ops))
         fms, fby = bound(nbytes, ops)
         per_pair = 16 if q.shape[1] == 1 else 1
@@ -1047,6 +1068,45 @@ def main() -> int:
             "library_ms": timer.ms(sdpa_call(torch, q, k, v, **kw)),
         }
         torch.cuda.empty_cache()
+    # gemma3-4b's global layer at 32,768 keys (ROADMAP C 1): 512 queries at
+    # q_offset 32,256 over a bf16 cache of 32,768 positions, 1,024 rows per kv
+    # head (flash_wgmma, which sums each row's O over 512 key tiles); within
+    # the limit and not given one key too few; also with v of mean 1, where
+    # |O| ~ 1 and a bias of O toward zero would show against the limit
+    lq = randn(1, 512, nh, hd)
+    for v_mean in (0.0, 1.0):
+        lk = randn(1, 32768, kvh, hd, dtype=torch.bfloat16)
+        lv = (randn(1, 32768, kvh, hd) + v_mean).to(torch.bfloat16)
+        kw = dict(causal=True, window=0, q_offset=32256, kv_len=32768)
+        got = fa_k.flash_attention(lq, lk, lv, **kw)
+        exp = fa_r.attention_ref(lq, lk, lv, **kw)
+        err = flash_err(got, exp)
+        mean_rel = float(((got - exp) * exp.sign()).mean() / exp.abs().mean())
+        del exp
+        exp_near = fa_r.attention_ref(lq, lk, lv, **dict(kw, kv_len=32767))
+        if within(got, exp_near):
+            fail(f"flash_attention limit {FLASH_TOL} does not tell one key too few (32k keys)")
+        one_key_off = float((got - exp_near).abs().max())
+        del got, exp_near
+        if v_mean:
+            flash_shapes["prefill_global_32k"]["v_mean_1"] = {
+                "max_abs_err": err, "mean_signed_rel_err": mean_rel,
+                "one_key_off_max_abs_err": one_key_off}
+            continue
+        nbytes, ops = flash_work(torch, lq, lk, **kw)
+        bms, bby = bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT["flash_wgmma"])
+        ms = timer.ms(lambda: fa_k.flash_attention(lq, lk, lv, **kw))
+        flash_shapes["prefill_global_32k"] = {
+            "q": list(lq.shape), "kv": list(lk.shape), "kv_dtype": "bfloat16", **kw,
+            "design": "flash_wgmma", "max_abs_err": err, "mean_signed_rel_err": mean_rel,
+            "one_key_off_max_abs_err": one_key_off, "ms": ms,
+            "plain_ms": timer.ms(lambda: fa_r.attention_ref(lq, lk, lv, **kw)),
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bytes": nbytes, "operations": ops,
+            "library_ms": timer.ms(sdpa_call(torch, lq, lk, lv, **kw)),
+        }
+    del lq, lk, lv
+    torch.cuda.empty_cache()
     # rows with no valid key (the uniform mean of v) and a softcap, through
     # the three designs (64 rows: wgmma with bf16 k/v, tiled with float32;
     # 1 row: decode), k/v in both types
@@ -1062,71 +1122,88 @@ def main() -> int:
                 small[f"{what}_{kv_dtype}_tq{tq}"] = flash_err(
                     fa_k.flash_attention(q, ks, vs, **kw), fa_r.attention_ref(q, ks, vs, **kw))
     del ks, vs
-    # the training path's forward: float32 q/k/v at minicpm-2b's train shape
-    # through the tiled design, which also writes each row's log-sum-exp
-    tcfg = configs.get(TRAIN_ARCH)
-    tq_, tk_ = (randn(TRAIN_B, TRAIN_SEQ, tcfg.num_heads, tcfg.resolved_head_dim)
-                for _ in range(2))
-    tv_ = randn(*tk_.shape)
-    kw = dict(causal=True, window=0)
-    o, lse = fa_k.flash_attention_lse(tq_, tk_, tv_, **kw)
-    o_r, lse_r = fa_r.attention_lse_ref(tq_, tk_, tv_, **kw)
-    err = max(flash_err(o, o_r), flash_err(lse, lse_r))
-    o_n, _ = fa_r.attention_lse_ref(tq_, tk_, tv_, causal=True, window=TRAIN_SEQ - 1)
-    if within(o, o_n):
-        fail(f"flash_attention limit {FLASH_TOL} does not tell one key too few (train_fwd)")
-    one_key_off = float((o - o_n).abs().max())
-    del o, lse, o_r, lse_r, o_n
-    torch.cuda.empty_cache()
-    nbytes, ops = flash_work(torch, tq_, tk_, causal=True, window=0, q_offset=0,
-                             kv_len=TRAIN_SEQ)
-    nbytes += 4 * TRAIN_B * tcfg.num_heads * TRAIN_SEQ  # lse
-    bms, bby = bound(nbytes, ops)
-    ms = timer.ms(lambda: fa_k.flash_attention_lse(tq_, tk_, tv_, **kw))
-    flash_shapes["train_fwd"] = {
-        "q": list(tq_.shape), "kv": list(tk_.shape), "kv_dtype": "float32", **kw,
-        "design": "flash_tiled (+ lse)", "max_abs_err": err,
-        "one_key_off_max_abs_err": one_key_off, "ms": ms,
-        "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(tq_, tk_, tv_, **kw)),
-        "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
-        "bytes": nbytes, "operations": ops,
-        "library_ms": timer.ms(sdpa_call(torch, tq_, tk_, tv_, causal=True, window=0,
-                                         q_offset=0, kv_len=TRAIN_SEQ)),
-    }
-    del tq_, tk_, tv_
-    torch.cuda.empty_cache()
-    # h2o-danube-3-4b's head width 120 (the 128-wide kernels with a run-time
-    # valid width): the float32 and bf16 prefill designs and decode
+    # the float32-k/v designs, each with its own bound: flash_wgmma_split (k,
+    # v split too: six bf16 products per float32 product) at minicpm-2b's
+    # train shape (with lse, as the training forward) and h2o-danube-3-4b's
+    # hd 120 (q [1, 4096, 32, 120], k/v 8 heads, window 4096; there also the
+    # bf16 prefill and decode designs), and flash_tiled (float32 CUDA cores)
+    # at gemma3-4b's global layer with float32 k/v (its cache-free and
+    # training forward); each within 2e-5, o and lse, and failing it given
+    # one key too few
     hcfg = configs.get("h2o-danube-3-4b")
-    hq = randn(1, 4096, hcfg.num_heads, hcfg.resolved_head_dim)
-    hk, hv = (randn(1, 4096, hcfg.num_kv_heads, hcfg.resolved_head_dim) for _ in range(2))
+    tcfg = configs.get(TRAIN_ARCH)
     hd120 = {}
-    for design, kv_dtype, tq in (("flash_tiled", torch.float32, 4096),
-                                 ("flash_wgmma", torch.bfloat16, 4096),
-                                 ("flash_decode", torch.bfloat16, 1)):
-        kw = dict(causal=True, window=hcfg.sliding_window, q_offset=4096 - tq, kv_len=4096)
-        kk, vv = hk.to(kv_dtype), hv.to(kv_dtype)
-        qq = hq[:, -tq:]
-        hd120[design] = flash_err(fa_k.flash_attention(qq, kk, vv, **kw),
-                                  fa_r.attention_ref(qq, kk, vv, **kw))
-        if tq == 1:
-            continue
-        # timed at the full prefill shape: the float32 design's bound is on the
-        # CUDA cores, the bf16 one's on the tensor cores (three-part split)
-        nbytes, ops = flash_work(torch, qq, kk, **kw)
-        bms, bby = (bound(nbytes, ops) if kv_dtype == torch.float32
-                    else bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT))
-        ms = timer.ms(lambda: fa_k.flash_attention(qq, kk, vv, **kw))
-        flash_shapes[f"h2o_hd120_{design}"] = {
-            "q": list(qq.shape), "kv": list(kk.shape), "kv_dtype": str(kv_dtype)[6:], **kw,
-            "design": design, "max_abs_err": hd120[design], "ms": ms,
-            "plain_ms": timer.ms(lambda: fa_r.attention_ref(qq, kk, vv, **kw)),
+    for cell, b_, cfg_, window in (("train_fwd", TRAIN_B, tcfg, 0),
+                                   ("h2o_hd120", 1, hcfg, hcfg.sliding_window),
+                                   ("gemma3_global_f32", 1, scfg, 0)):
+        fq = randn(b_, TRAIN_SEQ, cfg_.num_heads, cfg_.resolved_head_dim)
+        fk, fv = (randn(b_, TRAIN_SEQ, cfg_.num_kv_heads, cfg_.resolved_head_dim)
+                  for _ in range(2))
+        kw = dict(causal=True, window=window)
+        design = fa_k.fwd_design(cfg_.resolved_head_dim, torch.float32,
+                                 TRAIN_SEQ * cfg_.num_heads // cfg_.num_kv_heads, lse=True)
+        before = fa_k.fwd_design_launches[design]
+        o, lse = fa_k.flash_attention_lse(fq, fk, fv, **kw)
+        if fa_k.fwd_design_launches[design] != before + 1:
+            fail(f"flash_attention_lse did not run {design} ({cell})")
+        o_r, lse_r = fa_r.attention_lse_ref(fq, fk, fv, **kw)
+        err = max(flash_err(o, o_r), flash_err(lse, lse_r))
+        del o_r, lse_r
+        o_n, _ = fa_r.attention_lse_ref(fq, fk, fv, causal=True, window=(window or TRAIN_SEQ) - 1)
+        if within(o, o_n):
+            fail(f"flash_attention limit {FLASH_TOL} does not tell one key too few ({cell})")
+        one_key_off = float((o - o_n).abs().max())
+        del o_n
+        o2, lse2 = fa_k.flash_attention_lse(fq, fk, fv, **kw)
+        repeat_equal = torch.equal(o, o2) and torch.equal(lse, lse2)
+        if not repeat_equal:
+            fail(f"flash_attention_lse is not bit-equal across two runs ({cell})")
+        del o, lse, o2, lse2
+        torch.cuda.empty_cache()
+        full = dict(kw, q_offset=0, kv_len=TRAIN_SEQ)
+        nbytes, ops = flash_work(torch, fq, fk, **full)
+        nbytes += 4 * b_ * cfg_.num_heads * TRAIN_SEQ  # lse
+        fms, fby = bound(nbytes, ops)
+        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[design])
+                    if design in FLASH_SPLIT else (fms, fby))
+        ms = timer.ms(lambda: fa_k.flash_attention_lse(fq, fk, fv, **kw))
+        flash_shapes[cell] = {
+            "q": list(fq.shape), "kv": list(fk.shape), "kv_dtype": "float32", **kw,
+            "design": design + " (+ lse)", "max_abs_err": err,
+            "one_key_off_max_abs_err": one_key_off, "repeat_bit_equal": repeat_equal, "ms": ms,
+            "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(fq, fk, fv, **kw)),
             "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bound_fp32_ms": fms, "bound_fp32_by": fby, "share_of_fp32_bound": fms / ms,
             "bytes": nbytes, "operations": ops,
-            "library_ms": timer.ms(sdpa_call(torch, qq, kk, vv, **kw)),
+            "library_ms": timer.ms(sdpa_call(torch, fq, fk, fv, **full)),
         }
-    del hq, hk, hv, kk, vv, qq
-    torch.cuda.empty_cache()
+        if cell != "h2o_hd120":
+            del fq, fk, fv
+            torch.cuda.empty_cache()
+            continue
+        # h2o-danube's hd 120 through the bf16 prefill and the decode designs
+        hd120["flash_wgmma_split"] = err
+        for design, tq in (("flash_wgmma", TRAIN_SEQ), ("flash_decode", 1)):
+            kw = dict(causal=True, window=window, q_offset=TRAIN_SEQ - tq, kv_len=TRAIN_SEQ)
+            kk, vv = fk.to(torch.bfloat16), fv.to(torch.bfloat16)
+            qq = fq[:, -tq:]
+            hd120[design] = flash_err(fa_k.flash_attention(qq, kk, vv, **kw),
+                                      fa_r.attention_ref(qq, kk, vv, **kw))
+            if tq == 1:
+                continue
+            nbytes, ops = flash_work(torch, qq, kk, **kw)
+            bms, bby = bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[design])
+            ms = timer.ms(lambda: fa_k.flash_attention(qq, kk, vv, **kw))
+            flash_shapes[f"h2o_hd120_{design}"] = {
+                "q": list(qq.shape), "kv": list(kk.shape), "kv_dtype": "bfloat16", **kw,
+                "design": design, "max_abs_err": hd120[design], "ms": ms,
+                "plain_ms": timer.ms(lambda: fa_r.attention_ref(qq, kk, vv, **kw)),
+                "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+                "bytes": nbytes, "operations": ops,
+                "library_ms": timer.ms(sdpa_call(torch, qq, kk, vv, **kw)),
+            }
+        del fq, fk, fv, kk, vv, qq
+        torch.cuda.empty_cache()
     kernels["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1183,7 +1260,7 @@ def main() -> int:
     if got["flash_attention"] != want:
         fail(f"serve launched flash_attention {got['flash_attention']} times, want {want}")
     for name, c in got.items():
-        launches[name]["serve"] = c
+        launches.setdefault(name, {})["serve"] = c
     ttft = arrivals[0] - t0
     gaps = [b - a for a, b in zip(arrivals, arrivals[1:])]
     decode_s = arrivals[-1] - arrivals[0]
@@ -1277,17 +1354,28 @@ def main() -> int:
     emit({"phase": "train_check", **train_check_phase(torch, args.seed)})
     torch.cuda.empty_cache()
 
-    for name, by_path in launches.items():
-        total = sum(by_path.values())
-        if total <= 0:
+    # the summary: one row per kernel, and for flash attention one per design
+    # the main path runs, each at its main-path shape (the designs off the
+    # path, flash_tiled and bwd_wide, are in the phase lines)
+    summary = {name: kernels[name] for name in ("hash_partition", "join_probe", "segment_reduce")}
+    fa, bwd = kernels["flash_attention"], kernels["flash_attention_bwd"]
+    for design, shape in (("flash_wgmma", "prefill_local"), ("flash_decode", "decode"),
+                          ("flash_wgmma_split", "train_fwd")):
+        summary[f"flash_attention/{design}"] = {**fa, **fa["shapes"][shape],
+                                                "name": f"flash_attention/{design}"}
+    summary["flash_attention_bwd/bwd_wgmma"] = {**bwd, "name": "flash_attention_bwd/bwd_wgmma"}
+    for name, row in summary.items():
+        by_path = launches.get(name, {})
+        if sum(by_path.values()) <= 0:
             fail(f"kernel {name} was not launched on the main path")
-        kernels[name]["launches"] = total
-        kernels[name]["launches_by_path"] = by_path
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    emit({"phase": "launches", **launches})
 
     keys_out = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line(), flush=True)
-    emit({"kernels": [{k: kernels[name][k] for k in keys_out} for name in kernels]})
+    emit({"kernels": [{k: row[k] for k in keys_out} for row in summary.values()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

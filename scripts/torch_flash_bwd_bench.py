@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
-"""Check and time the flash-attention backward kernel on the card, for one or
-more copies of the port (to compare a change with its parent in one call).
+"""Check and time the flash-attention kernels on the card, forward and
+backward, for one or more copies of the port (to compare a change with its
+parent in one call).
 
-    python3 scripts/torch_flash_bwd_bench.py [SRC_DIR ...] [--reps N]
+    python3 scripts/torch_flash_bwd_bench.py [SRC_DIR ...] [--reps N] [--only fwd|bwd]
 
 Each SRC_DIR is a ``src`` directory holding a ``repro_torch`` package
 (default: this checkout's ``src``); each runs in its own process, in the
 order given (list a parent and a change as A B B A).  Per package: the
-build time and each ``bwd_wgmma`` kernel's registers and spilled bytes
-(ptxas); then at minicpm-2b's train shape, h2o-danube's and two ragged
-ones, whether dq, dk, dv lie within ``BWD_TOL`` of ``ref.attention_bwd_ref``
-(and, where not, how many entries fail and the median signed deviation of
-those, relative to the expected value), whether a repeat is bit-equal, and
-the time (``chip_smoke.Timer``: CUDA events behind a sleep kernel, L2
-flushed, median).  One JSON line each.  Needs a CUDA device.
+build time and the registers and spilled bytes (ptxas) of the tensor-core
+kernels; then one JSON line per shape: the design that ran (where the
+package names it), whether the outputs lie within the kernel's limit of its
+plain version (forward 2e-5 against ``ref.attention_ref`` /
+``attention_lse_ref``; backward ``BWD_TOL`` against
+``ref.attention_bwd_ref``; where not, how many entries fail and the median
+signed deviation of those, relative to the expected value), whether a
+repeat is bit-equal, and the time (``chip_smoke.Timer``: CUDA events behind
+a sleep kernel, L2 flushed, median).
+
+Forward shapes: gemma3-4b's serve prefill (q [4, 4096, 8, 256] over a bf16
+cache slice of 4128 positions, window 1024 and 0), its global layer at
+32,768 keys (q [1, 512, 8, 256] at q_offset 32,256; v of mean 0 and 1), and
+the float32-k/v training forwards with lse: minicpm-2b's [2, 4096, 36, 64],
+h2o-danube's hd 120 (32 / 8 heads, window 4096) and gemma3-4b's global
+layer (8 / 4 heads of 256).  Backward shapes: minicpm-2b's, h2o-danube's,
+gemma3-4b's local and global layers (window 1024 and 0), and two ragged
+ones.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,13 +38,36 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+FLASH_TOL = 2e-5
 BWD_TOL = 1e-4
-# (b, t, h, kvh, hd, window): minicpm-2b's train shape, h2o-danube's, ragged ones
-SHAPES = ((2, 4096, 36, 36, 64, 0), (1, 4096, 32, 8, 120, 4096), (1, 4097, 8, 2, 64, 300),
-          (2, 333, 8, 4, 32, 50))
+# (name, b, tq, tk, h, kvh, hd, kv dtype, window, q_offset, kv_len, v mean, lse)
+FWD_SHAPES = (
+    ("serve_prefill_local", 4, 4096, 4128, 8, 4, 256, "bfloat16", 1024, 0, 4096, 0.0, False),
+    ("serve_prefill_global", 4, 4096, 4128, 8, 4, 256, "bfloat16", 0, 0, 4096, 0.0, False),
+    ("global_32k", 1, 512, 32768, 8, 4, 256, "bfloat16", 0, 32256, 32768, 0.0, False),
+    ("global_32k_v_mean_1", 1, 512, 32768, 8, 4, 256, "bfloat16", 0, 32256, 32768, 1.0, False),
+    ("minicpm_train_fwd", 2, 4096, 4096, 36, 36, 64, "float32", 0, 0, None, 0.0, True),
+    ("h2o_hd120_fwd", 1, 4096, 4096, 32, 8, 120, "float32", 4096, 0, None, 0.0, True),
+    ("gemma3_global_f32_fwd", 1, 4096, 4096, 8, 4, 256, "float32", 0, 0, None, 0.0, True),
+)
+# (b, t, h, kvh, hd, window): minicpm-2b's train shape, h2o-danube's, gemma3-4b's
+# local and global layers, ragged ones
+BWD_SHAPES = ((2, 4096, 36, 36, 64, 0), (1, 4096, 32, 8, 120, 4096), (1, 4096, 8, 4, 256, 1024),
+              (1, 4096, 8, 4, 256, 0), (1, 4097, 8, 2, 64, 300), (2, 333, 8, 4, 32, 50))
 
 
-def run_one(src: str, reps: int) -> None:
+def limits(got, exp, tol: float, names) -> dict:
+    out = {"max_abs_err": max(float((a - e).abs().max()) for a, e in zip(got, exp))}
+    for name, a, e in zip(names, got, exp):
+        bad = (a - e).abs() > tol + tol * e.abs()
+        if bool(bad.any()):
+            out[f"{name}_over_limit"] = int(bad.sum())
+            out[f"{name}_median_rel_dev"] = float(((a - e) / e)[bad].median())
+    out["within_tol"] = not any(key.endswith("_over_limit") for key in out)
+    return out
+
+
+def run_one(src: str, reps: int, only: str | None) -> None:
     sys.path.insert(0, src)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -44,29 +79,52 @@ def run_one(src: str, reps: int) -> None:
     t0 = time.perf_counter()
     _build.library()
     ptx = {name.split("_cu_")[-1]: [r["registers"], r["spill_store_bytes"]]
-           for name, r in _build.ptxas_report("bwd_wgmma").items()}
+           for pat in ("flash_wgmma", "bwd_wgmma", "bwd_wide")
+           for name, r in _build.ptxas_report(pat).items()}
     print(json.dumps({"src": src, "build_s": time.perf_counter() - t0, "ptxas": ptx}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer(torch, reps=reps)
-    for b, t, h, kvh, hd, window in SHAPES:
+    # a parent may predate the design names
+    fwd_design = getattr(fa_k, "fwd_design", None)
+    bwd_design = getattr(fa_k, "bwd_design", None)
+    for name, b, tq, tk, h, kvh, hd, kv_dtype, window, q_offset, kv_len, v_mean, lse in (
+            FWD_SHAPES if only != "bwd" else ()):
+        q = torch.randn(b, tq, h, hd, generator=gen, device=dev)
+        k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev) for _ in range(2))
+        k, v = k.to(getattr(torch, kv_dtype)), (v + v_mean).to(getattr(torch, kv_dtype))
+        out = {"src": src, "shape": name, "q": [b, tq, h, hd], "kv": [b, tk, kvh, hd],
+               "kv_dtype": kv_dtype,
+               "design": fwd_design(hd, k.dtype, tq * h // kvh, lse=lse) if fwd_design else None}
+        if lse:
+            kw = dict(causal=True, window=window)
+            call = lambda: fa_k.flash_attention_lse(q, k, v, **kw)  # noqa: E731
+            got, exp = call(), fa_r.attention_lse_ref(q, k, v, **kw)
+            out.update(limits(got, exp, FLASH_TOL, ("o", "lse")))
+        else:
+            kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+            call = lambda: (fa_k.flash_attention(q, k, v, **kw),)  # noqa: E731
+            got, exp = call(), (fa_r.attention_ref(q, k, v, **kw),)
+            out.update(limits(got, exp, FLASH_TOL, ("o",)))
+            out["mean_signed_rel_err"] = float(((got[0] - exp[0]) * exp[0].sign()).mean()
+                                               / exp[0].abs().mean())
+        out["repeat_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, call()))
+        del exp
+        out["ms"] = timer.ms(call)
+        print(json.dumps(out), flush=True)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    for b, t, h, kvh, hd, window in (BWD_SHAPES if only != "fwd" else ()):
         q, do = (torch.randn(b, t, h, hd, generator=gen, device=dev) for _ in range(2))
         k, v = (torch.randn(b, t, kvh, hd, generator=gen, device=dev) for _ in range(2))
         kw = dict(causal=True, window=window, softcap=0.0)
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
         got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        design = getattr(fa_k, "bwd_design", None)  # a parent may predate it
         out = {"src": src, "shape": [b, t, h, kvh, hd, window],
-               "design": design(hd) if design else None,
-               "max_abs_err": max(float((a - e).abs().max()) for a, e in zip(got, exp))}
-        for name, a, e in zip(("dq", "dk", "dv"), got, exp):
-            bad = (a - e).abs() > BWD_TOL + BWD_TOL * e.abs()
-            if bool(bad.any()):
-                out[f"{name}_over_limit"] = int(bad.sum())
-                out[f"{name}_median_rel_dev"] = float(((a - e) / e)[bad].median())
-        out["within_tol"] = not any(key.endswith("_over_limit") for key in out)
+               "design": bwd_design(hd) if bwd_design else None,
+               **limits(got, exp, BWD_TOL, ("dq", "dk", "dv"))}
         again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         out["repeat_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, again))
         del exp, again
@@ -80,15 +138,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("srcs", nargs="*", default=[str(ROOT / "src")])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None)
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the child process's package
     args = ap.parse_args()
     if args.one:
-        run_one(args.one, args.reps)
+        run_one(args.one, args.reps, args.only)
         return 0
     rc = 0
     for src in args.srcs:
-        rc |= subprocess.run([sys.executable, __file__, "--one", src, "--reps",
-                              str(args.reps)]).returncode
+        cmd = [sys.executable, __file__, "--one", src, "--reps", str(args.reps)]
+        rc |= subprocess.run(cmd + (["--only", args.only] if args.only else [])).returncode
     return rc
 
 

@@ -57,8 +57,8 @@ SIGNATURES = {
     "rt_segment_sum_i32": (_P, _P, _I64, _I64, _P, _P),
     "rt_segment_sum_f32": (_P, _P, _I64, _I64, _P, _P),
     "rt_flash_attention": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _P, _I, _I, _I,
-        _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _P, _P, _I, _I,
+        _I, _I, _P,
     ),
     "rt_flash_attention_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F32, _P,

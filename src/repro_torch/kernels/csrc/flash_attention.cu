@@ -25,8 +25,8 @@
 // the scores do not change, and output columns 120..127 are never stored.
 // Rows of 120 are 480 bytes in float32 and 240 in bf16: 16-byte aligned.
 //
-// flash_tiled can also write each row's log-sum-exp (m + log l, [B, H, Tq]
-// float32): the training path's forward, whose backward
+// The float32-k/v designs can also write each row's log-sum-exp (m + log
+// l, [B, H, Tq] float32): the training path's forward, whose backward
 // (flash_attention_bwd.cu) recomputes p = exp(s - lse) from it.
 //
 // Layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd], o [B, Tq, H, hd], each
@@ -36,10 +36,10 @@
 // block's rows are (position, group) pairs of one kv head, so the groups of
 // a kv head share every k/v tile it loads.
 //
-// Three designs, chosen by the wrapper:
+// Designs, chosen by the wrapper (kernel.fwd_design mirrors the choice):
 //
-// * flash_wgmma (bf16 k/v, R = Tq * groups > 8 rows per kv head: every
-//   prefill of the serve path).  Bound: operations, 4 hd per visible
+// * flash_wgmma<HD, false> (bf16 k/v, R = Tq * groups > 8 rows per kv head:
+//   every prefill of the serve path).  Bound: operations, 4 hd per visible
 //   (query, key) pair.  The first design ran them as float32 FMAs on the
 //   CUDA cores (67 TFLOP/s) and reached ~40% of that.  Here both products
 //   run on the bf16 tensor cores (wgmma) without losing float32 accuracy:
@@ -57,11 +57,34 @@
 //   p to the second product from registers: the S accumulator's layout is
 //   the A-operand layout.  Q . K^T reads k K-major (hd contiguous); P . V
 //   reads v MN-major through the transpose bit, so nothing is transposed in
-//   memory.  Shared memory at hd = 256: 96 KB of q parts + 2 stages x
-//   64 KB of k/v = 224 KB (one block per SM); registers: 128 for O.
-// * flash_tiled (float32 k/v, R > 8: the cache-free forward, off the serve
-//   path): 256 threads per 64 rows; q, k, v and p staged in shared memory
-//   as float32; both products 4x4 register micro-tiles of float32 FMAs.
+//   memory.  wgmma's float32 accumulator rounds toward zero: summed over
+//   every key tile of a row it biases O toward zero, in proportion to the
+//   number of tiles (on the H100, by 8.6e-5 of |O| on average at 32,768
+//   keys, 1.6e-4 where v has a mean of 1; PERF.md, C 1), so each tile's
+//   P . V runs in a fresh accumulator, 32 columns of O at a time (64 below
+//   hd 256), added to O in float32; two such accumulators take turns, so
+//   that a slice's products run while the one before is added.  Shared
+//   memory at hd = 256: 96 KB of q parts + 2 stages x 64 KB of k/v = 224 KB
+//   (one block per SM); registers: 128 for O, 2 x 16 for the fresh
+//   products, 48 for p's parts.
+// * flash_wgmma<HD, true> (float32 k/v, R > 8, hd <= 128: the training
+//   forward with lse, and the cache-free forward).  The same design with k
+//   and v split too: a prologue (fwd_prep_kv) writes their three bf16 parts
+//   head-major [k, v][part][batch x kv head][Tk][HD] into wrapper scratch
+//   (the layout of the backward's prologue, split_row in wgmma.cuh), the
+//   producer brings the parts by 3-D TMA, and each float32 product is the six
+//   bf16 products of parts (i, j) with i + j <= 2 (pair_a / pair_b), as in
+//   the backward: the bound is 6 x operations / 989 TFLOP/s.  Tiles of 32
+//   keys (hd 32: 64).  Shared memory at hd 64: 24 KB of q parts + 2 stages x
+//   (k, v) x 3 parts x 4 KB = 72 KB, two blocks per SM (one block's softmax
+//   overlaps the other's products); hd 128: 48 + 96 = 144 KB, one block.
+//   Registers at hd 64: 32 for O, 16 for S, 24 for p's parts, 32 for the
+//   fresh P . V product (launch bound 204 a thread at two blocks); hd 128:
+//   64 for O, 2 x 32 for the fresh products.
+// * flash_tiled (float32 k/v at hd 256, R > 8: gemma3's cache-free forward;
+//   its parts would be 192 KB a stage): 256 threads per 64 rows; q, k, v and
+//   p staged in shared memory as float32; both products 4x4 register
+//   micro-tiles of float32 FMAs.
 // * flash_decode (R <= 8: decode).  Bound: bytes, k and v over the keys the
 //   rows can see.  The first design read v 2 bytes per thread, reduced each
 //   key's score across a warp, and merged its chunks in a second launch
@@ -102,7 +125,7 @@ struct Args {
   int64_t sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
   int q_offset, window, kv_len, causal;
   int hd;      // valid head width: HD, or 120 run in the 128-wide template
-  float* lse;  // flash_tiled only: [B, H, Tq] log-sum-exp per row, or null
+  float* lse;  // float32 k/v only: [B, H, Tq] log-sum-exp per row, or null
   float softcap, sqrt_hd;
 };
 
@@ -366,8 +389,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_wgmma: bf16 k/v, more than 8 rows per kv head.  Grid (row blocks of
-// 64, B * KV); 160 threads: warps 0-3 the consumer warpgroup, warp 4 the
+// flash_wgmma: more than 8 rows per kv head on the bf16 tensor cores; k/v
+// bf16 (SPLIT false: read in place from the cache) or float32 (SPLIT true:
+// their three bf16 parts, written by fwd_prep_kv).  Grid (row blocks of 64,
+// B * KV); 160 threads: warps 0-3 the consumer warpgroup, warp 4 the
 // producer.  The consumer's thread (warp w, lane l) holds rows
 // 16 w + l / 4 and 16 w + l / 4 + 8 and, in every 8-column block j of S and
 // O, columns 8 j + 2 (l % 4) and the next one (the wgmma accumulator
@@ -375,38 +400,46 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;
-constexpr int kWgKeys = 64;
 constexpr int kWgStages = 2;
 constexpr int kWgThreads = 160;
 
-template <int HD>
+template <int HD, bool SPLIT>
 struct Wg {
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // swizzle span: bytes per row of an atom
-  static constexpr int ATOM = SW / 2;              // bf16 columns per atom
-  static constexpr int NATOM = HD / ATOM;          // atoms across hd
-  static constexpr int Q_ATOM = kWgRows * SW;      // bytes of one [64 rows][ATOM] atom column
-  static constexpr int KV_ATOM = kWgKeys * SW;
-  static constexpr int Q_PART = NATOM * Q_ATOM;    // one bf16 part of q: 64 x hd
-  static constexpr int KV_TILE = NATOM * KV_ATOM;  // one k (or v) tile: 64 keys x hd
+  static constexpr int BN = SPLIT && HD > 32 ? 32 : 64;  // keys per tile
+  static constexpr int KV_PARTS = SPLIT ? kParts : 1;   // bf16 parts of each k (v) value
+  static constexpr int NPROD = SPLIT ? kSplit : kParts; // bf16 products per float32 product
+  static constexpr int SW = HD >= 64 ? 128 : 64;        // swizzle span: bytes per row of an atom
+  static constexpr int ATOM = SW / 2;                    // bf16 columns per atom
+  static constexpr int NATOM = HD / ATOM;                // atoms across hd
+  // O columns per fresh P . V product (hd 256: 32, so that two fit beside O)
+  static constexpr int TN = HD == 256 ? 32 : HD < 64 ? HD : 64;
+  static constexpr int Q_ATOM = kWgRows * SW;            // bytes of one [64 rows][ATOM] atom column
+  static constexpr int KV_ATOM = BN * SW;
+  static constexpr int Q_PART = NATOM * Q_ATOM;          // one bf16 part of q: 64 x hd
+  static constexpr int KV_TILE = NATOM * KV_ATOM;        // one part of a k (or v) tile: BN keys x hd
+  static constexpr int STAGE = 2 * KV_PARTS * KV_TILE;   // k's parts, then v's
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
-  static constexpr int OFF_K = 3 * Q_PART;
-  static constexpr int OFF_V = OFF_K + kWgStages * KV_TILE;
-  static constexpr int OFF_BAR = OFF_V + kWgStages * KV_TILE;
+  static constexpr int OFF_KV = 3 * Q_PART;
+  static constexpr int OFF_BAR = OFF_KV + kWgStages * STAGE;
   static constexpr size_t kSmem = OFF_BAR + 2 * kWgStages * 8 + 1024;  // + base alignment
+  static constexpr int MIN_BLOCKS = SPLIT && HD <= 64 ? 2 : 1;         // blocks per SM
 };
 
-// kv_inner: the kv-head dimension lies inside the key dimension in memory
-// (the tensor maps order their dimensions by stride).
-template <int HD>
-__global__ void __launch_bounds__(kWgThreads, 1)
+// SPLIT false: tmap_k / tmap_v are 4-D maps of the bf16 k / v; k_inner /
+// v_inner say whether the kv-head dimension lies inside the key dimension in
+// memory (the tensor maps order their dimensions by stride).  SPLIT true:
+// 3-D maps of k's and v's parts [part][batch x kv head][Tk][HD].
+template <int HD, bool SPLIT>
+__global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
     flash_wgmma(const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v, Args a, int k_inner, int v_inner) {
-  using C = Wg<HD>;
+  using C = Wg<HD, SPLIT>;
+  constexpr int BN = C::BN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t s_q = smem_u32(smem);
-  const uint32_t s_k = s_q + C::OFF_K, s_v = s_q + C::OFF_V;
+  const uint32_t s_kv = s_q + C::OFF_KV;
   const uint32_t bar_full = s_q + C::OFF_BAR, bar_empty = bar_full + 8 * kWgStages;
 
   const int tid = threadIdx.x;
@@ -415,8 +448,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;  // the longest row blocks first
   int k_lo, k_hi;
   block_keys(a, m0, min(m0 + kWgRows, M) - 1, k_lo, k_hi);
-  const int t_first = k_lo / kWgKeys;
-  const int n_tiles = k_hi / kWgKeys - t_first + 1;
+  const int t_first = k_lo / BN;
+  const int n_tiles = k_hi / BN - t_first + 1;
 
   if (tid == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -432,15 +465,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kWgStages;
         mbar_wait(bar_empty + 8 * s, ((t / kWgStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * C::KV_TILE);
-        const int n0 = (t_first + t) * kWgKeys;
+        mbar_expect_tx(bar_full + 8 * s, C::STAGE);
+        const int n0 = (t_first + t) * BN;
+        const uint32_t dst = s_kv + s * C::STAGE;
 #pragma unroll
         for (int c = 0; c < C::NATOM; ++c) {
-          const uint32_t off = s * C::KV_TILE + c * C::KV_ATOM;
-          tma_load_4d(s_k + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, k_inner ? kvh : n0,
-                      k_inner ? n0 : kvh, b);
-          tma_load_4d(s_v + off, &tmap_v, bar_full + 8 * s, c * C::ATOM, v_inner ? kvh : n0,
-                      v_inner ? n0 : kvh, b);
+          if (SPLIT) {
+#pragma unroll
+            for (int i = 0; i < kParts; ++i) {
+              const uint32_t off = i * C::KV_TILE + c * C::KV_ATOM;
+              tma_load_3d(dst + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, n0,
+                          i * gridDim.y + bkv);
+              tma_load_3d(dst + kParts * C::KV_TILE + off, &tmap_v, bar_full + 8 * s,
+                          c * C::ATOM, n0, i * gridDim.y + bkv);
+            }
+          } else {
+            const uint32_t off = c * C::KV_ATOM;
+            tma_load_4d(dst + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, k_inner ? kvh : n0,
+                        k_inner ? n0 : kvh, b);
+            tma_load_4d(dst + C::KV_TILE + off, &tmap_v, bar_full + 8 * s, c * C::ATOM,
+                        v_inner ? kvh : n0, v_inner ? n0 : kvh, b);
+          }
         }
       }
     }
@@ -489,21 +534,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kWgStages;
-    const int n0 = (t_first + t) * kWgKeys;
+    const int n0 = (t_first + t) * BN;
+    const uint32_t s_k = s_kv + s * C::STAGE, s_v = s_k + C::KV_PARTS * C::KV_TILE;
     mbar_wait(bar_full + 8 * s, (t / kWgStages) & 1);
 
-    // S = sum_i Qi . K^T
-    float sc[32];
+    // S = sum over the products of Q's parts (A) and K's (B; k itself when
+    // it is bf16)
+    float sc[BN / 2];
     wgmma_fence();
 #pragma unroll
-    for (int part = 0; part < 3; ++part)
+    for (int p = 0; p < C::NPROD; ++p)
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
+        const int qa = SPLIT ? pair_a(p) : p, kb = SPLIT ? pair_b(p) : 0;
         const uint32_t col = (kk * 16 / C::ATOM) * C::Q_ATOM + (kk * 16 % C::ATOM) * 2;
         const uint32_t kcol = (kk * 16 / C::ATOM) * C::KV_ATOM + (kk * 16 % C::ATOM) * 2;
-        wgmma_ss_n64(sc, gmma_desc(s_q + part * C::Q_PART + col, 16, 8 * C::SW, C::LAYOUT),
-                     gmma_desc(s_k + s * C::KV_TILE + kcol, 16, 8 * C::SW, C::LAYOUT),
-                     part | kk);
+        wgmma_ss<BN>(sc, gmma_desc(s_q + qa * C::Q_PART + col, 16, 8 * C::SW, C::LAYOUT),
+                     gmma_desc(s_k + kb * C::KV_TILE + kcol, 16, 8 * C::SW, C::LAYOUT), p | kk);
       }
     wgmma_commit();
     wgmma_wait_all();
@@ -512,13 +559,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // softcap (a uniform branch), mask, online softmax; sc becomes p
     if (a.softcap > 0.f) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = a.softcap * tanhf(sc[i] / a.softcap);
+      for (int i = 0; i < BN / 2; ++i) sc[i] = a.softcap * tanhf(sc[i] / a.softcap);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = n0 + 8 * j + cq + e;
@@ -534,7 +581,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const float corr = expf(m_i[h] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = expf(sc[4 * j + 2 * h + e] - m_new);
@@ -550,23 +597,52 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
 
-    // O += sum_i Pi . V, p from registers (16 keys per step)
-    wgmma_fence();
+    // O += sum over the products of P's parts (A, from registers: the S
+    // accumulator's layout is the A-operand layout; 16 keys a step) and V's
+    // (B, MN-major).  wgmma's float32 accumulator rounds toward zero, which
+    // over the hundreds of key tiles of a long context biases every row of
+    // O toward zero (PERF.md, C 1), so each tile's product runs in a fresh
+    // accumulator, TN columns at a time, and is added to O in float32.  Two
+    // accumulators take turns: slice c + 1's products run while slice c is
+    // added.
+    uint32_t fr[BN / 16][kParts][4];
 #pragma unroll
-    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-      uint32_t a1[4], a2[4], a3[4];
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f)
-        split3(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], a1[f], a2[f], a3[f]);
-      const uint64_t dv = gmma_desc(s_v + s * C::KV_TILE + kk * 16 * C::SW, C::KV_ATOM,
-                                    8 * C::SW, C::LAYOUT);
-      wgmma_rs<HD>(o, a1, dv);
-      wgmma_rs<HD>(o, a2, dv);
-      wgmma_rs<HD>(o, a3, dv);
+        split3(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], fr[kk][0][f], fr[kk][1][f],
+               fr[kk][2][f]);
+    constexpr int NS = HD / C::TN;
+    float acc[2][C::TN / 2];
+#pragma unroll
+    for (int c = 0; c <= NS; ++c) {
+      if (c < NS) {
+#pragma unroll
+        for (int i = 0; i < C::TN / 2; ++i) acc[c & 1][i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < C::NPROD; ++p) {
+            const int pa = SPLIT ? pair_a(p) : p, vb = SPLIT ? pair_b(p) : 0;
+            const uint32_t col = (c * C::TN / C::ATOM) * C::KV_ATOM + (c * C::TN % C::ATOM) * 2;
+            wgmma_rs<C::TN>(acc[c & 1], fr[kk][pa],
+                            gmma_desc(s_v + vb * C::KV_TILE + col + kk * 16 * C::SW, C::KV_ATOM,
+                                      8 * C::SW, C::LAYOUT));
+          }
+        wgmma_commit();
+      }
+      if (c > 0) {
+        if (c < NS) {
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(acc[(c - 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < C::TN / 2; ++i) o[(c - 1) * C::TN / 2 + i] += acc[(c - 1) & 1][i];
+      }
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
     mbar_arrive(bar_empty + 8 * s);
   }
 
@@ -585,7 +661,29 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (8 * j < a.hd)
         *reinterpret_cast<float2*>(op + 8 * j) =
             make_float2(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
+    // m is the row's in all four lanes that share it
+    if (a.lse != nullptr && cq == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + hh) * a.Tq + t] = m_i[h] + logf(den);
   }
+}
+
+// Prologue of flash_wgmma<HD, true>: one warp per (b, t, kv head) row, k's
+// and v's rows (any strides) split into three bf16 parts, into
+// [k, v][part][b * KV + kvh][Tk][HD] (columns hd .. HD - 1 zero).
+template <int HD>
+__global__ void __launch_bounds__(kThreads) fwd_prep_kv(Args a, int B, uint32_t* parts) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= static_cast<int64_t>(B) * a.Tk * a.KV) return;
+  const int kvh = static_cast<int>(row % a.KV);
+  const int64_t bt = row / a.KV;
+  const int t = static_cast<int>(bt % a.Tk);
+  const int64_t b = bt / a.Tk;
+  const int64_t part = static_cast<int64_t>(B) * a.KV * a.Tk * HD / 2;  // uint32 per part
+  uint32_t* dst = parts + ((b * a.KV + kvh) * a.Tk + t) * HD / 2;
+  const float* k = static_cast<const float*>(a.k) + b * a.skb + t * a.skt + kvh * a.skh;
+  const float* v = static_cast<const float*>(a.v) + b * a.svb + t * a.svt + kvh * a.svh;
+  split_row<HD>(k, a.hd, 1.f, dst, part, threadIdx.x & 31);
+  split_row<HD>(v, a.hd, 1.f, dst + kParts * part, part, threadIdx.x & 31);
 }
 
 // ---------------------------------------------------------------------------
@@ -875,12 +973,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 
 // A 4-D TMA map of a bf16 k or v tensor [B, Tk, KV, hd] with strides (in
 // elements) st (key), sh (kv head), sb (batch): dimensions ordered by
-// stride, a box of ATOM columns x 64 keys, swizzled for wgmma.  *kv_inner
+// stride, a box of ATOM columns x BN keys, swizzled for wgmma.  *kv_inner
 // says whether the kv head comes before the key.
 template <int HD>
 bool make_kv_map(CUtensorMap* map, const void* base, int hd, int Tk, int KV, int B, int64_t st,
                  int64_t sh, int64_t sb, int* kv_inner) {
-  using C = Wg<HD>;
+  using C = Wg<HD, false>;
   *kv_inner = sh < st;
   // dimension 0 is the valid width: TMA zero-fills columns hd..HD-1 of the box
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
@@ -890,8 +988,8 @@ bool make_kv_map(CUtensorMap* map, const void* base, int hd, int Tk, int KV, int
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * (*kv_inner ? sh : st)),
                                  static_cast<cuuint64_t>(2 * (*kv_inner ? st : sh)),
                                  static_cast<cuuint64_t>(2 * sb)};
-  const cuuint32_t box[4] = {C::ATOM, static_cast<cuuint32_t>(*kv_inner ? 1 : kWgKeys),
-                             static_cast<cuuint32_t>(*kv_inner ? kWgKeys : 1), 1};
+  const cuuint32_t box[4] = {C::ATOM, static_cast<cuuint32_t>(*kv_inner ? 1 : C::BN),
+                             static_cast<cuuint32_t>(*kv_inner ? C::BN : 1), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return cuTensorMapEncodeTiled(
              map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
@@ -900,6 +998,21 @@ bool make_kv_map(CUtensorMap* map, const void* base, int hd, int Tk, int KV, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD, bool SPLIT>
+cudaError_t launch_flash_wgmma(const CUtensorMap& mk, const CUtensorMap& mv, const Args& a, int B,
+                               int k_inner, int v_inner, cudaStream_t stream) {
+  using C = Wg<HD, SPLIT>;
+  // the opt-in above 48 KB holds per device, so it is set on every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma<HD, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  if (e != cudaSuccess) return e;
+  const int M = a.Tq * a.groups;
+  const dim3 grid((M + kWgRows - 1) / kWgRows, B * a.KV);
+  flash_wgmma<HD, SPLIT><<<grid, kWgThreads, C::kSmem, stream>>>(mk, mv, a, k_inner, v_inner);
+  return cudaGetLastError();
+}
+
+// bf16 k/v, read in place
 template <int HD>
 cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   CUtensorMap mk, mv;
@@ -907,14 +1020,26 @@ cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   if (!make_kv_map<HD>(&mk, a.k, a.hd, a.Tk, a.KV, B, a.skt, a.skh, a.skb, &k_inner) ||
       !make_kv_map<HD>(&mv, a.v, a.hd, a.Tk, a.KV, B, a.svt, a.svh, a.svb, &v_inner))
     return cudaErrorInvalidValue;
-  // the opt-in above 48 KB holds per device, so it is set on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Wg<HD>::kSmem));
+  return launch_flash_wgmma<HD, false>(mk, mv, a, B, k_inner, v_inner, stream);
+}
+
+// float32 k/v: split into parts (kv_parts_bytes(HD, ...) of scratch), then
+// the kernel
+template <int HD>
+cudaError_t launch_split(const Args& a, int B, uint32_t* parts, cudaStream_t stream) {
+  using C = Wg<HD, true>;
+  const int64_t rows = static_cast<int64_t>(B) * a.Tk * a.KV;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  fwd_prep_kv<HD><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads,
+                    0, stream>>>(a, B, parts);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int M = a.Tq * a.groups;
-  const dim3 grid((M + kWgRows - 1) / kWgRows, B * a.KV);
-  flash_wgmma<HD><<<grid, kWgThreads, Wg<HD>::kSmem, stream>>>(mk, mv, a, k_inner, v_inner);
-  return cudaGetLastError();
+  const int64_t outer = static_cast<int64_t>(kParts) * B * a.KV;
+  CUtensorMap mk, mv;
+  if (!make_parts_map(&mk, parts, HD, a.Tk, outer, C::BN, C::ATOM, C::SW) ||
+      !make_parts_map(&mv, parts + outer * a.Tk * HD / 2, HD, a.Tk, outer, C::BN, C::ATOM, C::SW))
+    return cudaErrorInvalidValue;
+  return launch_flash_wgmma<HD, true>(mk, mv, a, B, 0, 0, stream);
 }
 
 template <int HD>
@@ -945,9 +1070,16 @@ cudaError_t launch_decode(const Args& a, int B, float* scratch, int nsplit, int 
 }
 
 template <int HD>
-cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, int nsplit, int k_begin,
-                     int k_end, int chunk, cudaStream_t s) {
-  if (scratch == nullptr) return kv_bf16 ? launch_wgmma<HD>(a, B, s) : launch_tiled<HD>(a, B, s);
+cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t* kv_parts,
+                     int nsplit, int k_begin, int k_end, int chunk, cudaStream_t s) {
+  if (scratch == nullptr) {
+    if (kv_bf16) return launch_wgmma<HD>(a, B, s);
+    if constexpr (HD <= 128) {
+      return launch_split<HD>(a, B, kv_parts, s);
+    } else {
+      return launch_tiled<HD>(a, B, s);
+    }
+  }
   const bool two = a.Tq * a.groups <= 2;
   if (kv_bf16)
     return two ? launch_decode<uint16_t, HD, 2>(a, B, scratch, nsplit, k_begin, k_end, chunk, s)
@@ -960,21 +1092,27 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, int nspl
 
 // strides: q (b, t, h), k (b, t, kv), v (b, t, kv), o (b, t, h), in elements.
 // hd: 32, 64, 128, 256, or 120 (run in the 128-wide template).
-// part == nullptr: the wgmma design (bf16 k/v) or the tiled one (float32);
-// lse (tiled only, else null): [B, H, Tq] float32, each row's log-sum-exp.
-// Otherwise the decode design over keys [k_begin, k_end) in nsplit chunks of
-// `chunk` keys, with part its scratch (see flash_decode): counters that are 0
-// when the call starts and 0 again when it ends.
+// part == nullptr: more than 8 rows per kv head or lse wanted: flash_wgmma
+// with bf16 k/v; with float32 k/v flash_wgmma on their parts (hd <= 128;
+// kv_parts: kv_parts_bytes of scratch, 16-byte aligned) or flash_tiled (hd
+// 256).  lse (float32 k/v only, else null): [B, H, Tq] float32, each row's
+// log-sum-exp.  Otherwise the decode design over keys [k_begin, k_end) in
+// nsplit chunks of `chunk` keys, with part its scratch (see flash_decode):
+// counters that are 0 when the call starts and 0 again when it ends.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int kv_bf16, int hd, int B, int Tq, int Tk, int H, int KV,
                                   const void* strides, int q_offset, int window, int kv_len,
-                                  int causal, float softcap, void* lse, void* part, int nsplit,
-                                  int k_begin, int k_end, int chunk, void* stream) {
+                                  int causal, float softcap, void* lse, void* kv_parts,
+                                  void* part, int nsplit, int k_begin, int k_end, int chunk,
+                                  void* stream) {
   const int64_t* st = static_cast<const int64_t*>(strides);
   if (part != nullptr &&
       (Tq * (H / KV) > kMaxSplitRows || chunk < 1 || nsplit < 1 || nsplit > kMaxChunks))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (lse != nullptr && (part != nullptr || kv_bf16))  // lse: the tiled design only
+  if (lse != nullptr && (part != nullptr || kv_bf16))  // lse: the float32 k/v designs only
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (part == nullptr && !kv_bf16 && hd <= 128 &&
+      (kv_parts == nullptr || reinterpret_cast<uintptr_t>(kv_parts) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -993,13 +1131,14 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   a.sqrt_hd = static_cast<float>(sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
+  uint32_t* kp = static_cast<uint32_t*>(kv_parts);
   cudaError_t e;
   switch (hd) {
-    case 32: e = dispatch<32>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
-    case 64: e = dispatch<64>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 32: e = dispatch<32>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
+    case 64: e = dispatch<64>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
     case 120:
-    case 128: e = dispatch<128>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
-    case 256: e = dispatch<256>(kv_bf16, a, B, pp, nsplit, k_begin, k_end, chunk, s); break;
+    case 128: e = dispatch<128>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
+    case 256: e = dispatch<256>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

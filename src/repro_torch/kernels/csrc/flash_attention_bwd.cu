@@ -35,27 +35,36 @@
 // the CPU in all and the card's float32 products already spend up to 0.8%;
 // 6 move 0.08% (scripts/torch_bwd_split_choice.py).
 //
-// Two designs, by head width (the wrapper, kernel.bwd_design, mirrors it):
+// Two designs, by head width (the wrapper, kernel.bwd_design, mirrors it),
+// both deterministic with no atomics: each output element is written once
+// by the thread whose registers summed it (the kill/resume drill replays a
+// loss trace bit for bit).  Both start with the same two prologues:
+// bwd_prep_q (D = rowsum(dO * O), and q / sqrt(hd) and dO split into their
+// three bf16 parts, lse and D copied into rows padded to 128) and
+// bwd_prep_kv (k and v split), into wrapper scratch in head-major order
+// [part][batch x head][T][hd].  Then two passes, FA2's split: one for dK
+// and dV, one for dQ, each with a block's 64 "fixed" rows (keys, or
+// queries) against tiles of the other rows streamed through a ring by TMA
+// (q and dO of every query tile of every q head of the GQA group that can
+// see the keys; or k and v of every key tile the queries can see).  S and dP
+// are computed in both passes: 14 hd of products per pair against the
+// bound's 10, so a design can reach at most 10/14 of its bound.  wgmma's
+// float32 accumulator rounds toward zero, which over the thousands of steps
+// of a long sum shrinks a gradient by ~1e-4 of itself (dK, dV at 4096
+// positions x 4 heads of a GQA group failed BWD_TOL so), so each streamed
+// tile's dV, dK or dQ runs in a fresh accumulator and is added to the
+// running sum with float32 adds.  Tiles that the causal or window mask
+// hides completely are never loaded (gemma3's local layers see 1024 of 4096
+// keys).
 //
-// * bwd_wgmma (hd 32, 64, 120 and 128; the training path's hd 64).  Four
-//   launches: bwd_prep_q (D, and q / sqrt(hd) and dO split into their
-//   three bf16 parts, lse and D copied into rows padded to 128), bwd_prep_kv
-//   (k and v split), both into wrapper scratch in head-major order
-//   [part][batch x head][T][hd]; then bwd_wgmma<HD, false> (dK, dV) and
-//   bwd_wgmma<HD, true> (dQ).  Deterministic, no atomics: each output
-//   element is written once by the thread whose registers summed it (the
-//   kill/resume drill replays a loss trace bit for bit).  The price is the
-//   FA2 split into two passes: S and dP are computed in both, 14 hd of
-//   products per pair against the bound's 10, so the kernel can reach at
-//   most 10/14 of its bound.
-//   One block = NWG consumer warpgroups (64 "fixed" rows each) and a
+// * bwd_wgmma (hd 32, 64, 120 and 128; the training path's hd 64):
+//   bwd_wgmma<HD, false> (dK, dV) and bwd_wgmma<HD, true> (dQ).
+//   One block = NWG consumer warpgroups (64 fixed rows each) and a
 //   producer warpgroup, one thread of which issues every copy; with NWG 2
 //   the producer hands its registers to the consumers (setmaxnreg 24 /
 //   240).  The fixed rows' two operands (dK/dV pass: 64 keys of k and v;
 //   dQ pass: 64 queries of q and dO), all three parts, come in once by TMA;
-//   the producer then streams tiles of BS rows of the other two (q and dO
-//   of every query tile of every q head of the GQA group that can see the
-//   keys; or k and v of every key tile the queries can see) through a
+//   the producer then streams tiles of BS rows of the other two through a
 //   two-stage mbarrier ring, 128-byte (hd 32: 64-byte) swizzled.  Per
 //   streamed tile a warpgroup computes, as FlashAttention-3 does,
 //     dK/dV pass:  S^T = K Q^T and dP^T = V dO^T (A and B from shared
@@ -65,30 +74,46 @@
 //                  MN-major through the transpose bit), the sum over the
 //                  GQA group in the same registers;
 //     dQ pass:     S = Q K^T and dP = dO V^T, then dS, dQ += dS K.
-//   wgmma's float32 accumulator rounds toward zero, which over the
-//   thousands of steps of a long sum shrinks a gradient by ~1e-4 of itself
-//   (dK, dV at 4096 positions x 4 heads of a GQA group failed BWD_TOL so),
-//   so each streamed tile's dV, dK or dQ runs in a fresh accumulator and is
-//   added to the running sum with float32 adds (products_rs).
-//   Tiles that the causal or window mask hides completely are never
-//   loaded, and a warpgroup skips a loaded tile that its own rows cannot
-//   see.  hd 32 and 64: NWG 2 (128 fixed rows), BS 64, 192 KB of shared
-//   memory at hd 64; 384 threads start at 168 registers each (three warps
-//   share a sub-partition's 16K), too few for the dK/dV consumers without
-//   the 240 that setmaxnreg gives them.  hd 128 (and 120, in the 128-wide template with
-//   columns 120..127 zero): NWG 1 (256 threads, up to 255 registers), BS
-//   32, 192 KB; its dK/dV pass (64 + 64 accumulator floats a thread) still
-//   spills a few hundred bytes.
-// * FA2 on the float32 CUDA cores (hd 256: gemma3-4b).  The split parts of a
-//   64-row tile of two operands are 192 KB alone, so no stage of the other
-//   two fits beside them in 227 KB.  Three launches: bwd_delta (D), bwd_dkdv
-//   (one block per (batch, kv head, key tile) walks the query tiles of its
-//   group, recomputing S, P, dP, dS; dK and dV in registers), bwd_dq (one
-//   block per (batch, q head, query tile)); both as 32 x 32 tiles of float32
-//   FMAs, q, dO, k, v staged in shared memory, p and dS through it.
-//
-// Tiles the causal or window mask hides completely are skipped in both
-// designs: gemma3's local layers see 1024 of 4096 keys.
+//   A warpgroup skips a loaded tile that its own rows cannot see.  hd 32
+//   and 64: NWG 2 (128 fixed rows), BS 64, 192 KB of shared memory at hd
+//   64; 384 threads start at 168 registers each (three warps share a
+//   sub-partition's 16K), too few for the dK/dV consumers without the 240
+//   that setmaxnreg gives them.  hd 128 (and 120, in the 128-wide template
+//   with columns 120..127 zero): NWG 1 (256 threads, up to 255 registers),
+//   BS 32, 192 KB; its dK/dV pass (64 + 64 accumulator floats a thread)
+//   still spills a few hundred bytes.
+// * bwd_wide (hd 256: gemma3-4b): bwd_wide<false> (dK, dV) and
+//   bwd_wide<true> (dQ).  bwd_wgmma's layout does not fit: the three parts of
+//   64 fixed rows of two operands are 192 KB alone, and dK and dV of 64 keys
+//   x 256 columns are 256 accumulator floats a thread of one warpgroup.  So:
+//   - the fixed operands stay float32 in shared memory (64 KB each: the
+//     compact form of their three parts), and each k-step's A fragment is
+//     read from there and split into its parts in registers (the A operand
+//     of wgmma from registers, RS form); only the streamed operands are
+//     stored as parts, 16-row tiles;
+//   - two consumer warpgroups each own 128 of the 256 columns: of dK and dV
+//     (64 + 64 accumulator floats a thread) or of dQ (64).  Each computes
+//     its columns' share of S^T and dP^T (of S and dP), 64 x 16 over 8
+//     k-steps, the two swap them through shared memory, and both sum the
+//     same two halves, so both hold the same P and dS;
+//   - the ring holds one operand's 16-row tile a slot, three slots, filled
+//     in the order in which a tile's operands are last read (dK/dV pass: q,
+//     then dO; dQ pass: v, then k), so a slot frees mid-tile.
+//   Per tile a consumer runs 2 x 8 k-steps x 6 products of m64n16k16 (its
+//   share of S, dP; one k-step's products a group, two groups in flight:
+//   2 x 12 split registers; two k-steps a group held 48, spilled more and
+//   ran 3.5% slower), then 2 (dQ) or 4 (dK, dV) 64-column slices x 6
+//   products of m64n64k16, each in a fresh accumulator, two of which take
+//   turns.
+//   Shared memory: ring 3 x 24 KB (three parts x 16 rows x 512 bytes) +
+//   fixed 2 x 64 KB + swap 16 KB (16 floats x 128 threads x 2) = 216 KB, +
+//   barriers and 1 KB of alignment: 217.05 KB of the 227 KB.  Registers a
+//   consumer thread (setmaxnreg 240; producer 24): dK/dV pass 128
+//   accumulator floats + 16 of S^T, dP^T + 24 of split A fragments during
+//   the scores (the products: + 2 x 32 fresh + 24 of P^T and dS^T parts).
+//   The fixed operands are read unpadded, with each 8-byte slot s of row r
+//   at s ^ ((r & 3) << 2): the 16 lanes of a half-warp (4 rows x 4 slots)
+//   hit 16 different bank pairs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -101,10 +126,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// FA2 on the float32 CUDA cores (hd 256).  Thread (ty, tx) of 16 x 16 owns,
-// in S, rows TM ty .. TM ty + TM - 1 and keys tx + 16 j; in dK / dV, keys
-// KO ty .. and columns tx + 16 c; in dQ, rows TM ty .. and columns tx + 16 c.
-// Rows padded by 4 floats for conflict-free 16-byte reads.
+// Shared by both designs.
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
@@ -119,7 +141,6 @@ struct BwdArgs {
   float* dq;          // [B, T, H, hd]
   float* dk;          // [B, T, KV, hd]
   float* dv;
-  float* delta;       // [B, H, T] scratch: D (FA2)
   // the tensor-core design's scratch: bf16 parts (as uint32 pairs) of
   // q / sqrt(hd), dO, k, v, and lse, D with rows padded to Tp
   uint32_t* qp;
@@ -133,310 +154,11 @@ struct BwdArgs {
   float softcap, sqrt_hd;
 };
 
-template <int HD>
-struct Tile {
-  static constexpr int BM = HD == 256 ? 32 : 64;  // query rows per tile
-  static constexpr int BN = BM;                   // keys per tile
-  static constexpr int TM = BM / 16;              // S rows per thread
-  static constexpr int TN = BN / 16;              // S keys per thread
-  static constexpr int KO = BN / 16;              // dK / dV keys per thread
-  static constexpr int CO = HD / 16;              // output columns per thread
-  static constexpr int LD = HD + 4;
-  static constexpr int LDP = BN + 4;
-  static constexpr size_t kSmem =
-      sizeof(float) * (size_t(2) * BM * LD + size_t(2) * BN * LD + size_t(2) * BM * LDP + 2 * BM);
-};
-
 __device__ __forceinline__ int64_t q_row(const BwdArgs& a, int b, int t, int h) {
   return ((static_cast<int64_t>(b) * a.T + t) * a.H + h) * a.hd;
 }
 __device__ __forceinline__ int64_t kv_row(const BwdArgs& a, int b, int t, int kvh) {
   return ((static_cast<int64_t>(b) * a.T + t) * a.KV + kvh) * a.hd;
-}
-
-// rows row0 .. row0 + N - 1 of one head -> shared [N][LD], divided by
-// `div`; zeros past T and past hd.  row_offset(t) is row t's element offset.
-template <int HD, int N, typename RowOffset>
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0, int T, int hd,
-                                      float div, RowOffset row_offset) {
-  constexpr int LD = HD + 4;
-  for (int i = threadIdx.x; i < N * (HD / 4); i += kThreads) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T && c < hd) {
-      x = *reinterpret_cast<const float4*>(src + row_offset(row0 + r) + c);
-      x.x /= div; x.y /= div; x.z /= div; x.w /= div;
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-  }
-}
-
-// lse and D of rows m0 .. m0 + BM - 1 of head h -> shared (0 past T).
-template <int BM>
-__device__ __forceinline__ void stage_rows(const BwdArgs& a, float* lse_s, float* d_s, int b,
-                                           int h, int m0) {
-  for (int r = threadIdx.x; r < BM; r += kThreads) {
-    const int t = m0 + r;
-    const int64_t at = (static_cast<int64_t>(b) * a.H + h) * a.T + t;
-    lse_s[r] = t < a.T ? a.lse[at] : 0.f;
-    d_s[r] = t < a.T ? a.delta[at] : 0.f;
-  }
-}
-
-// For the query tile at m0 (Qs scaled by 1/sqrt(hd), dOs) and the key tile
-// at n0 (Ks, Vs): P (if WANT_P) and dS -> shared [BM][LDP].
-template <int HD, bool WANT_P>
-__device__ __forceinline__ void tile_pds(const BwdArgs& a, const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs, const float* lse_s,
-                                         const float* d_s, float* Ps, float* dSs, int m0,
-                                         int n0) {
-  using C = Tile<HD>;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float s[C::TM][C::TN], dp[C::TM][C::TN];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 1
-  for (int d = 0; d < HD; d += 4) {
-    float4 qv[C::TM], ov[C::TM], kv[C::TN], vv[C::TN];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * C::TM + i) * C::LD + d);
-      ov[i] = *reinterpret_cast<const float4*>(dOs + (ty * C::TM + i) * C::LD + d);
-    }
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * C::LD + d);
-      vv[j] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * j) * C::LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        float x = s[i][j], y = dp[i][j];
-        x = fmaf(qv[i].x, kv[j].x, x); y = fmaf(ov[i].x, vv[j].x, y);
-        x = fmaf(qv[i].y, kv[j].y, x); y = fmaf(ov[i].y, vv[j].y, y);
-        x = fmaf(qv[i].z, kv[j].z, x); y = fmaf(ov[i].z, vv[j].z, y);
-        x = fmaf(qv[i].w, kv[j].w, x); y = fmaf(ov[i].w, vv[j].w, y);
-        s[i][j] = x;
-        dp[i][j] = y;
-      }
-  }
-  const bool cap = a.softcap > 0.f;  // uniform
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int r = ty * C::TM + i, t = m0 + r;
-    const int lo = a.window > 0 ? t - a.window + 1 : INT_MIN;
-    const int hi = a.causal ? t : a.T - 1;
-    const float lse = lse_s[r], dd = d_s[r];
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int key = n0 + tx + 16 * j;
-      float x = s[i][j], g = 1.f;
-      if (cap) {
-        x = a.softcap * tanhf(x / a.softcap);
-        const float u = x / a.softcap;
-        g = 1.f - u * u;
-      }
-      const bool vis = t < a.T && key < a.T && lo <= key && key <= hi;
-      const float p = vis ? expf(x - lse) : 0.f;
-      if (WANT_P) Ps[r * C::LDP + tx + 16 * j] = p;
-      dSs[r * C::LDP + tx + 16 * j] = p * (dp[i][j] - dd) * g;
-    }
-  }
-}
-
-// pass 1: D = rowsum(dO * O), one warp per (b, t, h) row
-__global__ void __launch_bounds__(kThreads) bwd_delta(BwdArgs a) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  const int64_t rows = static_cast<int64_t>(a.B) * a.T * a.H;
-  if (row >= rows) return;
-  const float* o = a.o + row * a.hd;
-  const float* g = a.dout + row * a.hd;
-  float acc = 0.f;
-  for (int c = lane; c < a.hd; c += 32) acc = fmaf(o[c], g[c], acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {  // row = (b * T + t) * H + h  ->  delta[(b * H + h) * T + t]
-    const int h = static_cast<int>(row % a.H);
-    const int64_t bt = row / a.H;
-    const int t = static_cast<int>(bt % a.T);
-    const int64_t b = bt / a.T;
-    a.delta[(b * a.H + h) * a.T + t] = acc;
-  }
-}
-
-// pass 2: dK, dV of one key tile of one (batch, kv head)
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) bwd_dkdv(BwdArgs a) {
-  using C = Tile<HD>;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + C::BN * C::LD;
-  float* Qs = Vs + C::BN * C::LD;
-  float* dOs = Qs + C::BM * C::LD;
-  float* Ps = dOs + C::BM * C::LD;
-  float* dSs = Ps + C::BM * C::LDP;
-  float* lse_s = dSs + C::BM * C::LDP;
-  float* d_s = lse_s + C::BM;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int n0 = blockIdx.x * C::BN;  // the first key tiles have the most rows (causal)
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-
-  stage<HD, C::BN>(Ks, a.k, n0, a.T, a.hd, 1.f, [&](int t) { return kv_row(a, b, t, kvh); });
-  stage<HD, C::BN>(Vs, a.v, n0, a.T, a.hd, 1.f, [&](int t) { return kv_row(a, b, t, kvh); });
-
-  float dk[C::KO][C::CO], dv[C::KO][C::CO];
-#pragma unroll
-  for (int u = 0; u < C::KO; ++u)
-#pragma unroll
-    for (int c = 0; c < C::CO; ++c) dk[u][c] = dv[u][c] = 0.f;
-
-  // the query rows that can see a key of this tile
-  const int t_lo = a.causal ? n0 : 0;
-  int t_hi = a.T - 1;
-  if (a.window > 0) t_hi = min(t_hi, n0 + C::BN - 1 + a.window - 1);
-
-  for (int g = 0; g < a.groups; ++g) {
-    const int h = kvh * a.groups + g;
-    for (int m0 = (t_lo / C::BM) * C::BM; m0 <= t_hi; m0 += C::BM) {
-      __syncthreads();  // the previous tile's Qs, dOs, Ps, dSs are no longer read
-      stage<HD, C::BM>(Qs, a.q, m0, a.T, a.hd, a.sqrt_hd, [&](int t) { return q_row(a, b, t, h); });
-      stage<HD, C::BM>(dOs, a.dout, m0, a.T, a.hd, 1.f,
-                       [&](int t) { return q_row(a, b, t, h); });
-      stage_rows<C::BM>(a, lse_s, d_s, b, h, m0);
-      __syncthreads();
-      tile_pds<HD, true>(a, Qs, dOs, Ks, Vs, lse_s, d_s, Ps, dSs, m0, n0);
-      __syncthreads();
-#pragma unroll 2
-      for (int r = 0; r < C::BM; ++r) {
-        float p[C::KO], ds[C::KO];
-#pragma unroll
-        for (int u = 0; u < C::KO; ++u) {
-          p[u] = Ps[r * C::LDP + ty * C::KO + u];
-          ds[u] = dSs[r * C::LDP + ty * C::KO + u];
-        }
-#pragma unroll
-        for (int c = 0; c < C::CO; ++c) {
-          const float go = dOs[r * C::LD + tx + 16 * c];
-          const float qq = Qs[r * C::LD + tx + 16 * c];
-#pragma unroll
-          for (int u = 0; u < C::KO; ++u) {
-            dv[u][c] = fmaf(p[u], go, dv[u][c]);
-            dk[u][c] = fmaf(ds[u], qq, dk[u][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < C::KO; ++u) {
-    const int t = n0 + ty * C::KO + u;
-    if (t >= a.T) continue;
-    float* dkp = a.dk + kv_row(a, b, t, kvh);
-    float* dvp = a.dv + kv_row(a, b, t, kvh);
-#pragma unroll
-    for (int c = 0; c < C::CO; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.hd) {
-        dkp[col] = dk[u][c];
-        dvp[col] = dv[u][c];
-      }
-    }
-  }
-}
-
-// pass 3: dQ of one query tile of one (batch, q head)
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) bwd_dq(BwdArgs a) {
-  using C = Tile<HD>;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + C::BN * C::LD;
-  float* Qs = Vs + C::BN * C::LD;
-  float* dOs = Qs + C::BM * C::LD;
-  float* Ps = dOs + C::BM * C::LD;  // unused here (tile_pds<.., false>)
-  float* dSs = Ps + C::BM * C::LDP;
-  float* lse_s = dSs + C::BM * C::LDP;
-  float* d_s = lse_s + C::BM;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * C::BM;  // the last query tiles see the most keys
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / a.groups;
-
-  stage<HD, C::BM>(Qs, a.q, m0, a.T, a.hd, a.sqrt_hd, [&](int t) { return q_row(a, b, t, h); });
-  stage<HD, C::BM>(dOs, a.dout, m0, a.T, a.hd, 1.f, [&](int t) { return q_row(a, b, t, h); });
-  stage_rows<C::BM>(a, lse_s, d_s, b, h, m0);
-
-  float dq[C::TM][C::CO];
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int c = 0; c < C::CO; ++c) dq[i][c] = 0.f;
-
-  // the keys some row of this tile can see
-  const int k_lo = a.window > 0 ? max(0, m0 - a.window + 1) : 0;
-  const int k_hi = a.causal ? min(a.T - 1, m0 + C::BM - 1) : a.T - 1;
-
-  for (int n0 = (k_lo / C::BN) * C::BN; n0 <= k_hi; n0 += C::BN) {
-    __syncthreads();  // the previous tile's Ks, Vs, dSs are no longer read
-    stage<HD, C::BN>(Ks, a.k, n0, a.T, a.hd, 1.f, [&](int t) { return kv_row(a, b, t, kvh); });
-    stage<HD, C::BN>(Vs, a.v, n0, a.T, a.hd, 1.f, [&](int t) { return kv_row(a, b, t, kvh); });
-    __syncthreads();
-    tile_pds<HD, false>(a, Qs, dOs, Ks, Vs, lse_s, d_s, Ps, dSs, m0, n0);
-    __syncthreads();
-#pragma unroll 4
-    for (int key = 0; key < C::BN; ++key) {
-      float ds[C::TM];
-#pragma unroll
-      for (int i = 0; i < C::TM; ++i) ds[i] = dSs[(ty * C::TM + i) * C::LDP + key];
-#pragma unroll
-      for (int c = 0; c < C::CO; ++c) {
-        const float kk = Ks[key * C::LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < C::TM; ++i) dq[i][c] = fmaf(ds[i], kk, dq[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int t = m0 + ty * C::TM + i;
-    if (t >= a.T) continue;
-    float* dqp = a.dq + q_row(a, b, t, h);
-#pragma unroll
-    for (int c = 0; c < C::CO; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.hd) dqp[col] = dq[i][c] / a.sqrt_hd;
-    }
-  }
-}
-
-template <int HD>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
-  using C = Tile<HD>;
-  const int64_t rows = static_cast<int64_t>(a.B) * a.T * a.H;
-  bwd_delta<<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0,
-              s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  // the opt-in above 48 KB holds per device, so it is set on every launch
-  e = cudaFuncSetAttribute(bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(C::kSmem));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(C::kSmem));
-  if (e != cudaSuccess) return e;
-  const unsigned tiles = static_cast<unsigned>((a.T + C::BM - 1) / C::BM);
-  bwd_dkdv<HD><<<dim3(tiles, a.B * a.KV), kThreads, C::kSmem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_dq<HD><<<dim3(tiles, a.B * a.H), kThreads, C::kSmem, s>>>(a);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -445,13 +167,6 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
 // 16 v + l / 4 + 8 and, in every 8-column block j of an accumulator,
 // columns 8 j + 2 (l % 4) and the next one (the wgmma accumulator layout).
 // ---------------------------------------------------------------------------
-
-constexpr int kParts = 3;   // bf16 parts of each float32 operand
-constexpr int kSplit = 6;   // BWD_SPLIT: bf16 products per float32 product
-// product p's parts (i of A, j of B): the pairs with i + j <= 2, smallest
-// first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)
-__host__ __device__ constexpr int pair_a(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
-__host__ __device__ constexpr int pair_b(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
 
 template <int HD>
 struct Bw {
@@ -521,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_q(BwdArgs a) {
   const int64_t src = ((static_cast<int64_t>(b) * a.T + t) * a.H + h) * a.hd;
   const float* o = a.o + src;
   const float* g = a.dout + src;
-  float acc = 0.f;  // as bwd_delta
+  float acc = 0.f;
   for (int c = lane; c < a.hd; c += 32) acc = fmaf(o[c], g[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -531,23 +246,8 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_q(BwdArgs a) {
   }
   const int64_t part = static_cast<int64_t>(a.B) * a.H * a.T * HDK / 2;  // uint32 per part
   const int64_t dst = (bh * a.T + t) * HDK / 2;
-#pragma unroll
-  for (int c = 2 * lane; c < HDK; c += 64) {
-    float2 x = make_float2(0.f, 0.f), y = make_float2(0.f, 0.f);
-    if (c < a.hd) {
-      x = *reinterpret_cast<const float2*>(a.q + src + c);
-      y = *reinterpret_cast<const float2*>(g + c);
-      x.x /= a.sqrt_hd;
-      x.y /= a.sqrt_hd;
-    }
-    uint32_t p[kParts];
-    split3(x.x, x.y, p[0], p[1], p[2]);
-#pragma unroll
-    for (int i = 0; i < kParts; ++i) a.qp[i * part + dst + c / 2] = p[i];
-    split3(y.x, y.y, p[0], p[1], p[2]);
-#pragma unroll
-    for (int i = 0; i < kParts; ++i) a.dop[i * part + dst + c / 2] = p[i];
-  }
+  split_row<HDK>(a.q + src, a.hd, a.sqrt_hd, a.qp + dst, part, lane);
+  split_row<HDK>(g, a.hd, 1.f, a.dop + dst, part, lane);
 }
 
 // Prologue, kv side: k and v of each (b, t, kv head) row split into three
@@ -563,21 +263,8 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
   const int64_t b = bt / a.T;
   const int64_t part = static_cast<int64_t>(a.B) * a.KV * a.T * HDK / 2;
   const int64_t dst = ((b * a.KV + kvh) * a.T + t) * HDK / 2;
-#pragma unroll
-  for (int c = 2 * lane; c < HDK; c += 64) {
-    float2 x = make_float2(0.f, 0.f), y = make_float2(0.f, 0.f);
-    if (c < a.hd) {
-      x = *reinterpret_cast<const float2*>(a.k + row * a.hd + c);
-      y = *reinterpret_cast<const float2*>(a.v + row * a.hd + c);
-    }
-    uint32_t p[kParts];
-    split3(x.x, x.y, p[0], p[1], p[2]);
-#pragma unroll
-    for (int i = 0; i < kParts; ++i) a.kp[i * part + dst + c / 2] = p[i];
-    split3(y.x, y.y, p[0], p[1], p[2]);
-#pragma unroll
-    for (int i = 0; i < kParts; ++i) a.vp[i * part + dst + c / 2] = p[i];
-  }
+  split_row<HDK>(a.k + row * a.hd, a.hd, 1.f, a.kp + dst, part, lane);
+  split_row<HDK>(a.v + row * a.hd, a.hd, 1.f, a.vp + dst, part, lane);
 }
 
 // acc = X . S^T over the kSplit part products: X the 64 fixed rows (three
@@ -835,22 +522,350 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   }
 }
 
-// A 3-D TMA map of one operand's parts [3][nbh][T][HDK] bf16: a box of ATOM
-// columns x `rows` rows, swizzled for wgmma; rows past T read as zeros.
-template <int HD>
-bool make_parts_map(CUtensorMap* map, const void* base, int T, int nbh, int rows) {
-  using C = Bw<HD>;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(kParts) * nbh};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(2 * HD),
-                                 static_cast<cuuint64_t>(2) * HD * T};
-  const cuuint32_t box[3] = {C::ATOM, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// ---------------------------------------------------------------------------
+// bwd_wide (hd 256).  384 threads: warpgroup 0 the producer, warpgroups 1
+// and 2 the consumers c = 0, 1, each owning hd columns [128 c, 128 c + 128)
+// of both passes' outputs.  Consumer thread (warp w, lane l of its
+// warpgroup) holds fixed rows 16 w + l / 4 and 16 w + l / 4 + 8 and, in
+// every 8-column block j of an accumulator, columns 8 j + 2 (l % 4) and the
+// next one.
+// ---------------------------------------------------------------------------
+
+struct Wd {
+  static constexpr int HD = 256;
+  static constexpr int BS = 16;                     // rows of a streamed tile
+  static constexpr int SLOTS = 3;                   // the ring: one operand's tile per slot
+  static constexpr int SW = 128, ATOM = 64, NATOM = HD / ATOM;
+  static constexpr uint64_t LAYOUT = 1;             // 128-byte swizzle
+  static constexpr int HALF = HD / 2;               // columns of a consumer warpgroup
+  static constexpr int TN = 64;                     // output columns per fresh product
+  static constexpr int ITEM_PART = NATOM * BS * SW; // one part of a streamed tile: 8 KB
+  static constexpr int ITEM = kParts * ITEM_PART;   // a slot: 24 KB
+  static constexpr int FIX_FLOATS = 64 * HD;        // one fixed operand, float32: 64 KB
+  static constexpr int XCH_FLOATS = 2 * 16 * 128;   // both consumers' S and dP partials: 16 KB
+  static constexpr int OFF_FIX = SLOTS * ITEM;
+  static constexpr int OFF_XCH = OFF_FIX + 2 * 4 * FIX_FLOATS;
+  static constexpr int OFF_BAR = OFF_XCH + 4 * XCH_FLOATS;
+  static constexpr size_t kSmem = OFF_BAR + 2 * SLOTS * 8 + 1024;  // + base alignment
+  static constexpr int THREADS = 384;
+};
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The A fragment of 16 columns (k-step kk) of a fixed operand (float32 in
+// shared memory, [row][128 float2 slots], slot s of row r stored at
+// s ^ ((r & 3) << 2)), rows r and r + 8, split into its three bf16 parts.
+__device__ __forceinline__ void fix_frag(const float* fix, int r, int cq, int kk,
+                                         uint32_t (&fr)[kParts][4]) {
+  const int sw = (r & 3) << 2;  // r + 8: the same
+  const int s0 = (8 * kk + cq / 2) ^ sw, s1 = (8 * kk + cq / 2 + 4) ^ sw;
+  const float2 x0 = *reinterpret_cast<const float2*>(fix + r * Wd::HD + 2 * s0);
+  const float2 x1 = *reinterpret_cast<const float2*>(fix + (r + 8) * Wd::HD + 2 * s0);
+  const float2 x2 = *reinterpret_cast<const float2*>(fix + r * Wd::HD + 2 * s1);
+  const float2 x3 = *reinterpret_cast<const float2*>(fix + (r + 8) * Wd::HD + 2 * s1);
+  split3(x0.x, x0.y, fr[0][0], fr[1][0], fr[2][0]);
+  split3(x1.x, x1.y, fr[0][1], fr[1][1], fr[2][1]);
+  split3(x2.x, x2.y, fr[0][2], fr[1][2], fr[2][2]);
+  split3(x3.x, x3.y, fr[0][3], fr[1][3], fr[2][3]);
+}
+
+// acc = X . S^T over this warpgroup's 128 columns: X the fixed operand
+// (A, split in registers), S the streamed tile's 16 rows (three parts at
+// `item`, K-major, the B operand); kSplit products per k-step, the first
+// overwrites.  Each k-step's products are a group, two groups in flight: a
+// k-step's split registers are rewritten once the one before it has
+// finished.
+__device__ __forceinline__ void wide_scores(float (&acc)[8], const float* fix, uint32_t item,
+                                            int wg, int r, int cq) {
+  using C = Wd;
+  constexpr int NK = C::HALF / 16;  // k-steps of this warpgroup's columns
+  uint32_t fr[2][kParts][4];
+#pragma unroll
+  for (int u = 0; u < NK; ++u) {
+    const int kk = wg * NK + u;
+    fix_frag(fix, r, cq, kk, fr[u & 1]);
+    wgmma_fence();
+    const uint32_t col = (kk * 16 / C::ATOM) * (C::BS * C::SW) + (kk * 16 % C::ATOM) * 2;
+#pragma unroll
+    for (int p = 0; p < kSplit; ++p)
+      wgmma_rs_n16_k(acc, fr[u & 1][pair_a(p)],
+                     gmma_desc(item + pair_b(p) * C::ITEM_PART + col, 16, 8 * C::SW, C::LAYOUT),
+                     u | p);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// t = A . S over one TN-column slice (c) of this warpgroup's columns: A
+// (64 x 16: P^T, dS^T or dS) as three bf16 parts in registers, S the
+// streamed tile (three parts at `item`, MN-major through the transpose
+// bit), in a fresh accumulator (finding 7); committed, not waited for.
+__device__ __forceinline__ void wide_slice(float (&t)[Wd::TN / 2], const uint32_t (&fr)[kParts][4],
+                                           uint32_t item, int wg, int c) {
+  using C = Wd;
+  const int col = wg * C::HALF + c * C::TN;
+  const uint32_t start = item + (col / C::ATOM) * (C::BS * C::SW) + (col % C::ATOM) * 2;
+#pragma unroll
+  for (int i = 0; i < C::TN / 2; ++i) t[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < kSplit; ++p)
+    wgmma_rs<C::TN>(t, fr[pair_a(p)], gmma_desc(start + pair_b(p) * C::ITEM_PART, C::BS * C::SW,
+                                                8 * C::SW, C::LAYOUT));
+  wgmma_commit();
+}
+
+// o's slice c += t, once t's products have finished (the caller waits), in
+// float32
+__device__ __forceinline__ void add_slice(float (&o)[Wd::HALF / 2], float (&t)[Wd::TN / 2], int c) {
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < Wd::TN / 2; ++i) o[c * Wd::TN / 2 + i] += t[i];
+}
+
+// One block of either pass.  Grid (heads, tiles) as bwd_wgmma's, 64 fixed
+// rows.  str0 / str1: the streamed operands' parts [part][batch x head][T]
+// [256], boxes of 16 rows; dK/dV pass q (0) and dO (1), dQ pass v (0) and k
+// (1): the order in which a tile's two operands are last read, so the ring
+// frees its slots in order.
+template <bool DQ>
+__global__ void __launch_bounds__(Wd::THREADS, 1)
+    bwd_wide(const __grid_constant__ CUtensorMap str0, const __grid_constant__ CUtensorMap str1,
+             BwdArgs a) {
+  using C = Wd;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t s_ring = smem_u32(smem);
+  float* fix = reinterpret_cast<float*>(smem + C::OFF_FIX);  // [S's, dP's][64][256]
+  float* xch = reinterpret_cast<float*>(smem + C::OFF_XCH);  // [consumer][16][128]
+  const uint32_t bar_full = s_ring + C::OFF_BAR, bar_empty = bar_full + 8 * C::SLOTS;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int tile = DQ ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * 64;
+  const int b = DQ ? bh / a.H : bh / a.KV;
+  const int h = DQ ? bh % a.H : 0;                   // dQ pass: the q head
+  const int kvh = DQ ? h / a.groups : bh % a.KV;
+  const int nbh_str = DQ ? a.B * a.KV : a.B * a.H;
+  int lo, hi;
+  stream_range<DQ>(a, r0, r0 + 63, lo, hi);
+  const int s_first = lo / C::BS;
+  const int per_head = hi >= lo ? hi / C::BS - s_first + 1 : 0;
+  const int n_tiles = (DQ ? 1 : a.groups) * per_head;
+  auto streamed = [&](int t, int& row0, int& sbh) {
+    row0 = (s_first + t % per_head) * C::BS;
+    sbh = DQ ? b * a.KV + kvh : b * a.H + kvh * a.groups + t / per_head;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < C::SLOTS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      for (int i = 0; i < 2 * n_tiles; ++i) {  // item i: operand i & 1 of tile i >> 1
+        const int s = i % C::SLOTS;
+        mbar_wait(bar_empty + 8 * s, ((i / C::SLOTS) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, C::ITEM);
+        int row0, sbh;
+        streamed(i >> 1, row0, sbh);
+        for (int part = 0; part < kParts; ++part)
+#pragma unroll
+          for (int c = 0; c < C::NATOM; ++c)
+            tma_load_3d(s_ring + s * C::ITEM + part * C::ITEM_PART + c * C::BS * C::SW,
+                        (i & 1) ? &str1 : &str0, bar_full + 8 * s, c * C::ATOM, row0,
+                        part * nbh_str + sbh);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = (tid >> 7) - 1, ltid = tid & 127, warp = ltid >> 5, lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+
+  // the fixed rows' two operands, this warpgroup's columns, as float32:
+  // dK/dV pass k (S^T's) and v (dP^T's); dQ pass q / sqrt(hd) (S's) and dO
+  // (dP's); zeros past T
+  for (int i = ltid; i < 2 * 64 * (C::HALF / 4); i += 128) {
+    const int f = i / (64 * (C::HALF / 4)), r = i / (C::HALF / 4) % 64;
+    const int col = C::HALF * wg + 4 * (i % (C::HALF / 4));
+    const int row = r0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < a.T) {
+      const float* src = DQ ? (f ? a.dout : a.q) + q_row(a, b, row, h)
+                            : (f ? a.v : a.k) + kv_row(a, b, row, kvh);
+      x = *reinterpret_cast<const float4*>(src + col);
+      if (DQ && f == 0) {
+        x.x /= a.sqrt_hd; x.y /= a.sqrt_hd; x.z /= a.sqrt_hd; x.w /= a.sqrt_hd;
+      }
+    }
+    const int slot = (col / 2) ^ ((r & 3) << 2);  // even: the pair stays together
+    *reinterpret_cast<float4*>(fix + f * C::FIX_FLOATS + r * C::HD + 2 * slot) = x;
+  }
+  named_bar_sync(2 + wg, 128);
+  const float* fix_s = fix;
+  const float* fix_dp = fix + C::FIX_FLOATS;
+
+  int vlo[2], vhi[2];  // the streamed rows each of the thread's rows sees
+#pragma unroll
+  for (int e = 0; e < 2; ++e) row_range<DQ>(a, r0 + r_lo + 8 * e, vlo[e], vhi[e]);
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};  // dQ pass: per fixed row (query)
+  if (DQ) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t at = static_cast<int64_t>(bh) * a.Tp + r0 + r_lo + 8 * e;
+      lse_r[e] = a.lse_p[at];
+      d_r[e] = a.d_p[at];
+    }
+  }
+  float o0[C::HALF / 2], o1[C::HALF / 2];  // dK, dV (dK/dV pass) or dQ, unused (dQ pass)
+#pragma unroll
+  for (int i = 0; i < C::HALF / 2; ++i) o0[i] = o1[i] = 0.f;
+  const bool cap = a.softcap > 0.f;  // uniform
+  float* xch_mine = xch + wg * 16 * 128;
+  const float* xch_other = xch + (1 - wg) * 16 * 128;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s0 = (2 * t) % C::SLOTS, s1 = (2 * t + 1) % C::SLOTS;
+    const uint32_t it0 = s_ring + s0 * C::ITEM, it1 = s_ring + s1 * C::ITEM;
+    int row0, sbh;
+    streamed(t, row0, sbh);
+
+    // this warpgroup's part of S (S^T) and dP (dP^T), item 0's first
+    float acc_s[8], acc_dp[8];
+    mbar_wait(bar_full + 8 * s0, ((2 * t) / C::SLOTS) & 1);
+    if constexpr (DQ) {
+      wide_scores(acc_dp, fix_dp, it0, wg, r_lo, cq);
+    } else {
+      wide_scores(acc_s, fix_s, it0, wg, r_lo, cq);
+    }
+    mbar_wait(bar_full + 8 * s1, ((2 * t + 1) / C::SLOTS) & 1);
+    if constexpr (DQ) {
+      wide_scores(acc_s, fix_s, it1, wg, r_lo, cq);
+      mbar_arrive(bar_empty + 8 * s0);  // v is read for the last time
+    } else {
+      wide_scores(acc_dp, fix_dp, it1, wg, r_lo, cq);
+    }
+
+    // the two halves summed (a + b == b + a: both warpgroups get the same S, dP)
+    if (t > 0) named_bar_sync(1, 256);  // the other one has read the last tile's
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      xch_mine[i * 128 + ltid] = acc_s[i];
+      xch_mine[(8 + i) * 128 + ltid] = acc_dp[i];
+    }
+    named_bar_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc_s[i] += xch_other[i * 128 + ltid];
+      acc_dp[i] += xch_other[(8 + i) * 128 + ltid];
+    }
+
+    // softcap (a uniform branch), mask, P and dS; acc_s becomes P (or
+    // P^T), acc_dp dS (or dS^T).  lse and D belong to the query: the
+    // column here (dK/dV pass), the row (dQ pass).
+#pragma unroll
+    for (int j = 0; j < C::BS / 8; ++j) {
+      const int c0 = row0 + 8 * j + cq;
+      float2 lse_c = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
+      if (!DQ) {
+        const int64_t at = static_cast<int64_t>(sbh) * a.Tp + c0;
+        lse_c = *reinterpret_cast<const float2*>(a.lse_p + at);
+        d_c = *reinterpret_cast<const float2*>(a.d_p + at);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int i = 4 * j + 2 * e + f, col = c0 + f;
+          float x = acc_s[i], g = 1.f;
+          if (cap) {
+            x = a.softcap * tanhf(x / a.softcap);
+            const float u = x / a.softcap;
+            g = 1.f - u * u;
+          }
+          const float lse = DQ ? lse_r[e] : (f ? lse_c.y : lse_c.x);
+          const float dd = DQ ? d_r[e] : (f ? d_c.y : d_c.x);
+          const float p = vlo[e] <= col && col <= vhi[e] ? expf(x - lse) : 0.f;
+          acc_dp[i] = p * (acc_dp[i] - dd) * g;
+          acc_s[i] = p;
+        }
+    }
+    uint32_t fp[kParts][4], fd[kParts][4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      split3(acc_s[2 * f], acc_s[2 * f + 1], fp[0][f], fp[1][f], fp[2][f]);
+      split3(acc_dp[2 * f], acc_dp[2 * f + 1], fd[0][f], fd[1][f], fd[2][f]);
+    }
+
+    // dK/dV pass: dK += dS^T . Q (item 0), then dV += P^T . dO (item 1);
+    // dQ pass:    dQ += dS . K (item 1).  TN-column slices, two fresh
+    // accumulators in turn: a slice's products run while the one before is
+    // added.
+    constexpr int NSL = C::HALF / C::TN;  // slices per output
+    constexpr int NS = (DQ ? 1 : 2) * NSL;
+    float tt[2][C::TN / 2];
+#pragma unroll
+    for (int q = 0; q <= NS; ++q) {
+      if (q < NS) {
+        if (DQ || q < NSL) {
+          wide_slice(tt[q & 1], fd, DQ ? it1 : it0, wg, q % NSL);
+        } else {
+          wide_slice(tt[q & 1], fp, it1, wg, q % NSL);
+        }
+      }
+      if (q > 0) {
+        if (q < NS) {
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        const int d = q - 1;  // the slice that has finished
+        if (d < NSL) {
+          add_slice(o0, tt[d & 1], d);
+        } else {
+          add_slice(o1, tt[d & 1], d - NSL);
+        }
+        if (!DQ && d == NSL - 1) mbar_arrive(bar_empty + 8 * s0);  // q is read for the last time
+      }
+    }
+    mbar_arrive(bar_empty + 8 * s1);
+  }
+
+  // dK/dV pass: rows are keys of kv head kvh; dQ pass: queries of head h
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + r_lo + 8 * e;
+    if (r >= a.T) continue;
+    const int64_t at = DQ ? q_row(a, b, r, h) : kv_row(a, b, r, kvh);
+#pragma unroll
+    for (int j = 0; j < C::HALF / 8; ++j) {
+      const int col = C::HALF * wg + 8 * j + cq;
+      if (DQ) {
+        *reinterpret_cast<float2*>(a.dq + at + col) =
+            make_float2(o0[4 * j + 2 * e] / a.sqrt_hd, o0[4 * j + 2 * e + 1] / a.sqrt_hd);
+      } else {
+        *reinterpret_cast<float2*>(a.dk + at + col) =
+            make_float2(o0[4 * j + 2 * e], o0[4 * j + 2 * e + 1]);
+        *reinterpret_cast<float2*>(a.dv + at + col) =
+            make_float2(o1[4 * j + 2 * e], o1[4 * j + 2 * e + 1]);
+      }
+    }
+  }
 }
 
 // Bytes of scratch the tensor-core design needs (kernel.py's
@@ -871,10 +886,12 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   // BS-row boxes of the other two
   const void* fix[2] = {DQ ? a.qp : a.kp, DQ ? a.dop : a.vp};
   const void* str[2] = {DQ ? a.kp : a.qp, DQ ? a.vp : a.dop};
-  const bool ok = make_parts_map<HD>(&f0, fix[0], a.T, DQ ? nq : nk, 64) &&
-                  make_parts_map<HD>(&f1, fix[1], a.T, DQ ? nq : nk, 64) &&
-                  make_parts_map<HD>(&s0, str[0], a.T, DQ ? nk : nq, C::BS) &&
-                  make_parts_map<HD>(&s1, str[1], a.T, DQ ? nk : nq, C::BS);
+  const int64_t nfix = static_cast<int64_t>(kParts) * (DQ ? nq : nk);
+  const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? nk : nq);
+  const bool ok = make_parts_map(&f0, fix[0], HD, a.T, nfix, 64, C::ATOM, C::SW) &&
+                  make_parts_map(&f1, fix[1], HD, a.T, nfix, 64, C::ATOM, C::SW) &&
+                  make_parts_map(&s0, str[0], HD, a.T, nstr, C::BS, C::ATOM, C::SW) &&
+                  make_parts_map(&s1, str[1], HD, a.T, nstr, C::BS, C::ATOM, C::SW);
   if (!ok) return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
@@ -885,6 +902,27 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <bool DQ>
+cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
+  using C = Wd;
+  CUtensorMap s0, s1;
+  // streamed: dK/dV pass q, dO; dQ pass v, k (16-row boxes)
+  const void* str[2] = {DQ ? a.vp : a.qp, DQ ? a.kp : a.dop};
+  const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? a.B * a.KV : a.B * a.H);
+  if (!make_parts_map(&s0, str[0], C::HD, a.T, nstr, C::BS, C::ATOM, C::SW) ||
+      !make_parts_map(&s1, str[1], C::HD, a.T, nstr, C::BS, C::ATOM, C::SW))
+    return cudaErrorInvalidValue;
+  // the opt-in above 48 KB holds per device, so it is set on every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      bwd_wide<DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (a.T + 63) / 64);
+  bwd_wide<DQ><<<grid, C::THREADS, C::kSmem, s>>>(s0, s1, a);
+  return cudaGetLastError();
+}
+
+// The prologues, then the two passes: bwd_wgmma<HD, false / true>, or at hd
+// 256 bwd_wide<false / true>.
 template <int HD>
 cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
   a.Tp = (a.T + kPadRows - 1) / kPadRows * kPadRows;
@@ -908,9 +946,15 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
                     0, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_pass<HD, false>(a, s);
-  if (e != cudaSuccess) return e;
-  return launch_pass<HD, true>(a, s);
+  if constexpr (HD == 256) {
+    e = launch_wide<false>(a, s);
+    if (e != cudaSuccess) return e;
+    return launch_wide<true>(a, s);
+  } else {
+    e = launch_pass<HD, false>(a, s);
+    if (e != cudaSuccess) return e;
+    return launch_pass<HD, true>(a, s);
+  }
 }
 
 }  // namespace
@@ -918,8 +962,8 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
 // q, o, dout, dq: [B, T, H, hd]; k, v, dk, dv: [B, T, KV, hd]; lse: [B, H,
 // T]; all float32 and contiguous.  scratch: scratch_bytes of device memory,
 // at least rt_flash_attention_bwd_scratch's (16-byte aligned).  hd 32, 64,
-// 120 (the 128-wide template), 128: the tensor-core design (four launches);
-// 256: FA2 (three launches).  All on `stream`.
+// 120 (the 128-wide template), 128: bwd_wgmma; 256: bwd_wide; four launches
+// each, all on `stream`.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dk,
                                       void* dv, void* scratch, int64_t scratch_bytes, int hd,
@@ -927,8 +971,7 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                                       float softcap, void* stream) {
   if (B < 1 || T < 1 || KV < 1 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hdk = hd == 120 ? 128 : hd;
-  const int64_t need = hdk == 256 ? static_cast<int64_t>(4) * B * H * T
-                                  : wgmma_scratch_bytes(hdk, B, T, H, KV);
+  const int64_t need = wgmma_scratch_bytes(hdk, B, T, H, KV);
   if (scratch == nullptr || scratch_bytes < need ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -942,7 +985,6 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
-  a.delta = static_cast<float*>(scratch);
   a.B = B; a.T = T; a.H = H; a.KV = KV; a.groups = H / KV; a.hd = hd;
   a.window = window; a.causal = causal;
   a.softcap = softcap;
@@ -954,7 +996,7 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
     case 64: e = launch_wgmma<64>(a, scratch, s); break;
     case 120:
     case 128: e = launch_wgmma<128>(a, scratch, s); break;
-    case 256: e = launch_bwd<256>(a, s); break;
+    case 256: e = launch_wgmma<256>(a, scratch, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
@@ -965,9 +1007,8 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
 extern "C" int rt_flash_attention_bwd_scratch(int hd, int B, int T, int H, int KV, void* bytes) {
   int64_t* out = static_cast<int64_t*>(bytes);
   switch (hd) {
-    case 32: case 64: case 128: *out = wgmma_scratch_bytes(hd, B, T, H, KV); break;
+    case 32: case 64: case 128: case 256: *out = wgmma_scratch_bytes(hd, B, T, H, KV); break;
     case 120: *out = wgmma_scratch_bytes(128, B, T, H, KV); break;
-    case 256: *out = static_cast<int64_t>(4) * B * H * T; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaSuccess);

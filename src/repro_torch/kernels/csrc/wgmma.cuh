@@ -1,8 +1,10 @@
 // Hopper building blocks shared by flash_attention.cu and
 // flash_attention_bwd.cu: shared-memory matrix descriptors, mbarriers, TMA
-// tile loads, warpgroup products (wgmma, sm_90a) and the three-part bf16
-// split of a float32 pair.  Internal linkage: each source that includes it
-// gets its own copy.
+// tile loads, warpgroup products (wgmma, sm_90a), the three-part bf16 split
+// of a float32 pair and the pairs of parts that make a float32 product, the
+// prologue that splits rows into parts in memory, and the TMA map that reads
+// them back.  Internal linkage: each source that includes it gets its own
+// copy.
 
 #pragma once
 
@@ -75,6 +77,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Pins accumulator registers after a wait, so that no read moves above it.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -85,6 +92,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
+constexpr int kParts = 3;  // bf16 parts of each float32 operand
+constexpr int kSplit = 6;  // bf16 products per float32 product of two split operands
+// product p's parts (i of A, j of B): the pairs with i + j <= 2, smallest
+// first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0); the dropped ones
+// are below float32's rounding
+__host__ __device__ constexpr int pair_a(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
+
 // (x0, x1) = sum of three bf16 parts, each part packed as a bf16 pair
 // (x0 in the low half): part 1 = bf16(x), part 2 = bf16(x - part 1),
 // part 3 = bf16(x - part 1 - part 2); the residues are exact in float32.
@@ -135,6 +150,18 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   wgmma_ss_n64(d, da, db, scale_d);
+}
+
+// d[8] (+)= A (registers) . B (shared, K-major), m64n16k16, bf16 in, f32 out;
+// scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n16_k(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d[16] += A (registers) . B (shared, MN-major), m64n32k16, bf16 in, f32 out.
@@ -221,6 +248,47 @@ template <>
 __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
                                               uint64_t db) {
   wgmma_rs_n256(d, a, db);
+}
+
+// One warp splits a row of `hd` float32 values (src, 8-byte aligned; each
+// divided by `div`) into its three bf16 parts: part i of columns c, c + 1
+// goes to dst[i * part_stride + c / 2] as a packed pair, columns hd .. HDK - 1
+// as zeros.  The layout the prologues write for TMA to read back as tiles:
+// [part][batch x head][row][HDK].
+template <int HDK>
+__device__ __forceinline__ void split_row(const float* src, int hd, float div, uint32_t* dst,
+                                          int64_t part_stride, int lane) {
+#pragma unroll
+  for (int c = 2 * lane; c < HDK; c += 64) {
+    float2 x = make_float2(0.f, 0.f);
+    if (c < hd) {
+      x = *reinterpret_cast<const float2*>(src + c);
+      x.x /= div;
+      x.y /= div;
+    }
+    uint32_t p[kParts];
+    split3(x.x, x.y, p[0], p[1], p[2]);
+#pragma unroll
+    for (int i = 0; i < kParts; ++i) dst[i * part_stride + c / 2] = p[i];
+  }
+}
+
+// A 3-D TMA map of split parts [outer][rows][hdk] bf16 (outer = parts x
+// batch x heads): a box of `atom` columns x `box_rows` rows, swizzled for
+// wgmma (`sw` bytes: 128 or 64); rows past `rows` read as zeros.
+inline bool make_parts_map(CUtensorMap* map, const void* base, int hdk, int rows, int64_t outer,
+                           int box_rows, int atom, int sw) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hdk), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(2 * hdk),
+                                 static_cast<cuuint64_t>(2) * hdk * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(atom), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

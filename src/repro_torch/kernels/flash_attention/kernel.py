@@ -4,23 +4,27 @@
 [B, Tk, KV, hd], any strides with hd contiguous, e.g. a layer's slice of the
 KV cache in place); ``flash_attention_heads`` the Pallas kernel's head-major
 contract (q [BH, Tq, hd], k/v [BKV, Tk, hd]), which is the same kernel with
-other strides.  Three designs (``csrc/flash_attention.cu``): with more than
-``SPLIT_ROWS`` query rows per kv head (Tq * groups) one block covers 64 rows,
-on the bf16 tensor cores when k/v are bfloat16 (every prefill of the serve
-path) and on the float32 CUDA cores when they are float32; with at most
-``SPLIT_ROWS`` (decode) the keys the rows can see are cut into chunks, one
-block each, and the last block of each kv head to finish merges them, in the
-same launch.
+other strides.  The designs (``csrc/flash_attention.cu``; ``fwd_design``
+names the one a call runs): with more than ``SPLIT_ROWS`` query rows per kv
+head (Tq * groups) one block covers 64 rows on the bf16 tensor cores,
+``flash_wgmma`` when k/v are bfloat16 (every prefill of the serve path) and
+``flash_wgmma_split`` when they are float32 (k and v split into three bf16
+parts by a prologue, into scratch this wrapper allocates), except at head
+width 256, where float32 k/v run ``flash_tiled`` on the float32 CUDA cores;
+with at most ``SPLIT_ROWS`` (decode) ``flash_decode`` cuts the keys the rows
+can see into chunks, one block each, and the last block of each kv head to
+finish merges them, in the same launch.
 
-``flash_attention_lse`` is the training path's forward: the float32 tiled
+``flash_attention_lse`` is the training path's forward: a float32-k/v
 design, which also writes each row's log-sum-exp; ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
-design ``bwd_design`` names for the head width: ``bwd_wgmma`` on the bf16
-tensor cores (``BWD_SPLIT`` bf16 products per float32 product; four CUDA
-launches: the two split prologues, dK/dV, dQ) for every width but 256, which
-runs ``bwd_fa2`` on the float32 CUDA cores (three: D, dK/dV, dQ).
-``launches`` counts forward calls, ``bwd_launches`` backward calls, and
-``bwd_design_launches`` the backward calls of each design.
+design ``bwd_design`` names for the head width, both on the bf16 tensor
+cores (``BWD_SPLIT`` bf16 products per float32 product) in four CUDA
+launches (the two split prologues, dK/dV, dQ): ``bwd_wgmma`` for every
+width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward calls and
+``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
+backward calls, and ``bwd_design_launches`` the backward calls of each
+design.
 
 Head widths: ``HEAD_DIMS``.  120 (h2o-danube-3-4b) runs the 128-wide
 kernels with a run-time valid width (``kernel_head_dim``).
@@ -36,8 +40,10 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+fwd_design_launches = {"flash_wgmma": 0, "flash_wgmma_split": 0, "flash_tiled": 0,
+                       "flash_decode": 0}
 bwd_launches = 0
-bwd_design_launches = {"bwd_wgmma": 0, "bwd_fa2": 0}
+bwd_design_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 
 HEAD_DIMS = (32, 64, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
@@ -103,11 +109,33 @@ def kernel_head_dim(hd: int) -> int:
     return 128 if hd == 120 else hd
 
 
+def fwd_design(hd: int, kv_dtype: torch.dtype, rows_per_kv_head: int, lse: bool = False) -> str:
+    """The forward's design (as the CUDA entry point chooses) for head width
+    ``hd``, k/v of ``kv_dtype`` and Tq * groups query rows per kv head:
+    ``flash_decode`` for at most ``SPLIT_ROWS`` rows (unless the
+    log-sum-exp is wanted), else ``flash_wgmma`` for bfloat16 k/v,
+    ``flash_wgmma_split`` for float32 k/v up to width 128 and
+    ``flash_tiled`` for float32 k/v at 256, whose split parts do not fit the
+    shared memory two stages deep."""
+    if not lse and rows_per_kv_head <= SPLIT_ROWS:
+        return "flash_decode"
+    if kv_dtype == torch.bfloat16:
+        return "flash_wgmma"
+    return "flash_wgmma_split" if kernel_head_dim(hd) <= 128 else "flash_tiled"
+
+
+def kv_parts_bytes(hd: int, b: int, tk: int, kvh: int) -> int:
+    """Scratch bytes of ``flash_wgmma_split``'s prologue: k's and v's three
+    bf16 parts, [k, v][part][B x KV][Tk][kernel_head_dim(hd)]."""
+    return 2 * 3 * b * kvh * tk * kernel_head_dim(hd) * 2
+
+
 def bwd_design(hd: int) -> str:
     """The backward's design at head width ``hd`` (as the CUDA entry point
-    chooses): ``bwd_wgmma`` for 32, 64, 120, 128; ``bwd_fa2`` for 256, whose
-    split operands do not fit the shared memory beside a stage."""
-    return "bwd_wgmma" if kernel_head_dim(hd) <= 128 else "bwd_fa2"
+    chooses): ``bwd_wgmma`` for 32, 64, 120, 128; ``bwd_wide`` for 256, whose
+    split operands do not fit bwd_wgmma's layout (fixed operands kept
+    float32, two warpgroups that split the columns)."""
+    return "bwd_wgmma" if kernel_head_dim(hd) <= 128 else "bwd_wide"
 
 
 @functools.cache
@@ -152,22 +180,26 @@ def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len, lse=None) 
         raise ValueError("flash_attention: sizes must fit int32")
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                     *o.stride()[:3])
-    part, nsplit, k_begin, k_end, chunk = None, 0, 0, 0, 0
-    if lse is None and tq * (h // kvh) <= SPLIT_ROWS:
+    design = fwd_design(hd, k.dtype, tq * (h // kvh), lse=lse is not None)
+    part, kv_parts, nsplit, k_begin, k_end, chunk = None, None, 0, 0, 0, 0
+    if design == "flash_decode":
         k_begin, k_end = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
                                    kv_len=kv_len)
         nsplit, chunk = split_plan(k_end - k_begin, b * kvh, _sm_count(dev.index or 0))
         part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh)
                                * (2 + kernel_head_dim(hd)))
+    elif design == "flash_wgmma_split":
+        kv_parts = torch.empty(kv_parts_bytes(hd, b, tk, kvh), dtype=torch.uint8, device=dev)
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(k.dtype == torch.bfloat16), hd, b, tq, tk, h, kvh, ctypes.addressof(strides),
         q_offset, window, kv_len, int(causal), float(softcap), _build.ptr(lse),
-        _build.ptr(part), nsplit, k_begin, k_end, chunk,
+        _build.ptr(kv_parts), _build.ptr(part), nsplit, k_begin, k_end, chunk,
         _build.stream(dev),
     )
     _build.check(rc, "flash_attention")
     launches += 1
+    fwd_design_launches[design] += 1
 
 
 def flash_attention(
@@ -221,7 +253,7 @@ def flash_attention_lse(
     softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training path's forward: (o [B, T, H, hd], lse [B, H, T]) float32
-    from the tiled design, q_offset 0 and kv_len T."""
+    from a float32-k/v design (``fwd_design``), q_offset 0 and kv_len T."""
     if k.dtype != torch.float32 or k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention_lse: want float32 k/v with Tk == Tq, got {k.dtype}, "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
@@ -269,7 +301,7 @@ def flash_attention_bwd(
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library()
-    # the split parts of q, dO, k, v and padded lse, D (bwd_wgmma) or D (bwd_fa2)
+    # the split parts of q, dO, k, v and the padded lse, D
     nbytes = ctypes.c_int64()
     _build.check(lib.rt_flash_attention_bwd_scratch(hd, b, t, h, kvh, ctypes.addressof(nbytes)),
                  "flash_attention_bwd")

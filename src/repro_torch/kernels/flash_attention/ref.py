@@ -18,9 +18,10 @@ path never calls it.
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` are the plain
 versions of the training path's forward (with each row's log-sum-exp) and
 of the backward kernel (``csrc/flash_attention_bwd.cu``);
-:func:`attention_bwd_split_ref` emulates the numerics of the backward's
-tensor-core design (every product of float32 operands as a sum of products
-of their bf16 parts), for the tests only.
+:func:`attention_fwd_split_ref` and :func:`attention_bwd_split_ref` emulate
+the numerics of the float32-k/v forward's and the backward's tensor-core
+designs (every product of float32 operands as a sum of products of their
+bf16 parts), for the tests only.
 """
 
 from __future__ import annotations
@@ -216,6 +217,54 @@ def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, parts: int,
         term = torch.einsum(eq, pa[i].float(), pb[j].float())
         out = term if out is None else out + term
     return out
+
+
+def attention_fwd_split_ref(
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd] float32
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+    parts: int = 3,
+    pairs: int = 6,
+    block: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32-k/v forward's tensor-core arithmetic (``flash_wgmma_split``):
+    S = the float32 sum of the products of the bf16 parts of q / sqrt(hd) and
+    of k (``pairs`` of ``BWD_PAIRS``, smallest first), masked to -1e30; then
+    an online softmax over tiles of ``block`` keys: m' = max(m, the tile's
+    max), p = exp(s - m'), l = l exp(m - m') + sum(p), and O = O exp(m - m')
+    + the tile's P . V, itself a fresh float32 sum of the products of p's and
+    v's parts; o = O / l, lse = m + log l.  (o [B, Tq, H, hd], lse [B, H, Tq])
+    float32.  Tests only."""
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    qf = _heads(q, kvh) / math.sqrt(hd)
+    s = _split_product("bkgqh,bskh->bkgqs", qf, k.float(), parts, pairs)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = key_mask(tq, tk, causal=causal, window=int(window), q_offset=int(q_offset),
+                    kv_len=None if kv_len is None else int(kv_len), device=q.device)
+    s = s.masked_fill(~mask, MASK_VALUE)
+    m = torch.full(s.shape[:4], MASK_VALUE, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(*s.shape[:4], hd, dtype=torch.float32, device=q.device)
+    vf = v.float()
+    for n0 in range(0, tk, block):
+        tile = s[..., n0:n0 + block]
+        m_new = torch.maximum(m, tile.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + _split_product("bkgqs,bskh->bkgqh", p, vf[:, n0:n0 + block],
+                                                 parts, pairs)
+        m = m_new
+    den = l.clamp_min(1e-30)
+    return _unheads(o / den[..., None]), (m + torch.log(den)).reshape(b, h, tq)
 
 
 def attention_bwd_split_ref(

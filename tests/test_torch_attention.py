@@ -371,6 +371,10 @@ BWD_SPLIT_CASES = {
     "hd120_gqa2_window_softcap": (1, 72, 4, 2, 120, True, 16, 50.0),
     "hd128_gqa2_softcap": (1, 96, 4, 2, 128, True, 0, 30.0),
     "hd128_gqa8_window": (1, 80, 8, 1, 128, True, 24, 0.0),
+    # bwd_wide: the same split arithmetic, each product's columns summed in
+    # two halves (the two consumer warpgroups' shares of S and dP)
+    "hd256_gqa2_window_softcap": (1, 90, 8, 4, 256, True, 30, 50.0),
+    "hd256_gqa2_ragged": (1, 77, 4, 2, 256, True, 0, 0.0),
 }
 
 
@@ -441,9 +445,79 @@ def test_bwd_split_one_product_fewer():
 
 
 def test_bwd_design_by_head_width():
-    """The tensor-core design for every width but 256 (the dense configs'
-    32 to 128; gemma3's 256 keeps the float32 FA2 kernels)."""
+    """bwd_wgmma for every width but 256 (the dense configs' 32 to 128);
+    gemma3's 256 runs bwd_wide, both on the tensor cores."""
     assert [fa_k.bwd_design(hd) for hd in (32, 64, 120, 128, 256)] == \
-        ["bwd_wgmma"] * 4 + ["bwd_fa2"]
+        ["bwd_wgmma"] * 4 + ["bwd_wide"]
     with pytest.raises(ValueError, match="head_dim"):
         fa_k.bwd_design(96)
+
+
+# -- the float32-k/v forward's tensor-core arithmetic (flash_wgmma_split) --------
+
+# ref.attention_fwd_split_ref emulates it: q / sqrt(hd), k and v split into
+# three bf16 parts, six products per float32 product, an online softmax over
+# key tiles with each tile's P . V a fresh float32 sum.  Held at the forward
+# kernel's own limit (2e-5, as tests/test_torch_cuda.py holds the kernel)
+# against the plain forward with lse and the reference.
+FWD_SPLIT_CASES = {
+    # name: (b, t, h, kvh, causal, window, softcap); t not a multiple of the
+    # 32- or 64-key tiles
+    "causal_mha": (2, 100, 4, 4, True, 0, 0.0),
+    "gqa2_window_softcap": (1, 90, 8, 4, True, 24, 50.0),
+    "gqa4_bidirectional": (1, 70, 8, 2, False, 0, 0.0),
+    "mqa_window": (1, 130, 4, 1, True, 40, 0.0),
+}
+
+
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+@pytest.mark.parametrize("case", sorted(FWD_SPLIT_CASES))
+def test_fwd_split_ref_matches_lse_ref_and_jax_direct(hd, case):
+    b, t, h, kvh, causal, window, softcap = FWD_SPLIT_CASES[case]
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(b, t, t, h, kvh, hd, hd + len(case), kv_bf16=False)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    block = 64 if hd == 32 else 32  # the kernel's key tiles
+    got_o, got_lse = fa_r.attention_fwd_split_ref(qt, kt, vt, block=block, **kw)
+    exp_o, exp_lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    np.testing.assert_allclose(got_o.numpy(), exp_o.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), exp_lse.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    exp_j = JL._attention_direct(qj, kj, vj, causal=causal, window=jnp.asarray(window),
+                                 softcap=softcap, q_offset=0, kv_len=None)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(exp_j), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_fwd_split_ref_matches_jax_blocked_2048(window):
+    """The reference's blocked path (taken from 2048 query positions)."""
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(1, 2048, 2048, 2, 1, 64, 19, kv_bf16=False)
+    exp = JL._attention_flash(qj, kj, vj, causal=True, window=jnp.asarray(window), softcap=0.0,
+                              q_offset=0, kv_len=None)
+    got, _ = fa_r.attention_fwd_split_ref(qt, kt, vt, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_fwd_split_ref_cached_shape_and_one_product_too_few():
+    """A cached prefill (q_offset, kv_len, GQA) matches the plain forward;
+    fewer products (one or two pairs) are a different result at the limit."""
+    _, (qt, kt, vt) = _model_inputs(2, 40, 128, 4, 2, 64, 23, kv_bf16=False)
+    kw = dict(causal=True, window=0, q_offset=80, kv_len=120)
+    exp = fa_r.attention_ref(qt, kt, vt, **kw)
+    got, _ = fa_r.attention_fwd_split_ref(qt, kt, vt, **kw)
+    np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    for pairs in (1, 2):
+        few, _ = fa_r.attention_fwd_split_ref(qt, kt, vt, pairs=pairs, **kw)
+        assert not np.allclose(few.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL), pairs
+
+
+@pytest.mark.parametrize("hd,kv_dtype,rows,lse,design", [
+    (64, torch.float32, 4096, True, "flash_wgmma_split"),    # minicpm-2b's training forward
+    (120, torch.float32, 4096, False, "flash_wgmma_split"),  # h2o-danube's cache-free forward
+    (256, torch.float32, 8192, False, "flash_tiled"),        # gemma3-4b's cache-free forward
+    (256, torch.bfloat16, 8192, False, "flash_wgmma"),       # every prefill of the serve path
+    (256, torch.bfloat16, 2, False, "flash_decode"),         # its decode
+    (64, torch.float32, 1, True, "flash_wgmma_split"),       # lse: never the decode design
+])
+def test_fwd_design_by_shape(hd, kv_dtype, rows, lse, design):
+    assert fa_k.fwd_design(hd, kv_dtype, rows, lse=lse) == design
+    assert set(fa_k.fwd_design_launches) == {"flash_wgmma", "flash_wgmma_split", "flash_tiled",
+                                             "flash_decode"}

@@ -214,6 +214,105 @@ def test_flash_wgmma_design_matches_plain(cuda, hd, groups):
                                    atol=FLASH_TOL, rtol=FLASH_TOL)
 
 
+@pytest.mark.parametrize("v_mean", [0.0, 1.0])
+def test_flash_wgmma_long_context_and_one_key_too_few(cuda, v_mean):
+    """gemma3-4b's global layer at 32,768 keys: 512 queries at q_offset
+    32,256 over a bf16 cache of 32,768 positions, causal, no window (1,024
+    rows per kv head: the tensor-core design, which sums each row's O over
+    512 key tiles).  Within the float32 limit, and not given one key too
+    few.  v with a mean of 1 makes |O| about 1, where a bias of O toward zero
+    that grows with the number of tiles shows against the limit."""
+    rng = np.random.default_rng(32768)
+    q = torch.tensor(rng.normal(size=(1, 512, 8, 256)), dtype=torch.float32, device=cuda)
+    k, v = (torch.tensor(rng.normal(size=(1, 32768, 4, 256)), dtype=torch.float32,
+                         device=cuda) for _ in range(2))
+    k, v = k.to(torch.bfloat16), (v + v_mean).to(torch.bfloat16)
+    kw = dict(causal=True, window=0, q_offset=32256, kv_len=32768)
+    got = fa_k.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    exp = fa_r.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, exp, atol=FLASH_TOL, rtol=FLASH_TOL)
+    del exp
+    near = fa_r.attention_ref(q, k, v, **dict(kw, kv_len=32767))
+    assert not torch.allclose(got, near, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+@pytest.mark.parametrize("groups", [1, 2, 8])
+def test_flash_wgmma_split_design_matches_plain(cuda, hd, groups):
+    """float32 k/v and more than 8 rows per kv head: the tensor-core design
+    on k's and v's parts.  k/v read from a layer's slice of a float32
+    [L, 2, B, S, KV, hd] cache (the prologue takes any strides), Tq = 100, a
+    ragged Tk of 200, windows, a softcap and rows with no valid key; and the
+    training forward's lse."""
+    rng = np.random.default_rng(hd + groups)
+    kvh = 2
+    cache = torch.tensor(rng.normal(size=(3, 2, 2, 200, kvh, hd)), dtype=torch.float32,
+                         device=cuda)
+    k, v = cache[1, 0], cache[1, 1]
+    q = torch.tensor(rng.normal(size=(2, 100, kvh * groups, hd)), dtype=torch.float32,
+                     device=cuda)
+    before = fa_k.fwd_design_launches["flash_wgmma_split"]
+    kws = (dict(window=0, q_offset=60, kv_len=160),
+           dict(window=48, q_offset=60, kv_len=160, softcap=30.0),
+           dict(window=0, q_offset=100, kv_len=200),
+           dict(kv_len=0),
+           dict(kv_len=20, window=8, q_offset=40))
+    for kw in kws:
+        got = fa_k.flash_attention(q, k, v, causal=True, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=True, **kw),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)
+    qt = q[:, :, :kvh * groups]
+    kt, vt = k[:, :100].contiguous(), v[:, :100].contiguous()
+    for kw in (dict(causal=True, window=0, softcap=0.0),
+               dict(causal=True, window=30, softcap=20.0),
+               dict(causal=False, window=0, softcap=0.0)):
+        o, lse = fa_k.flash_attention_lse(qt, kt, vt, **kw)
+        o_r, lse_r = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+        torch.testing.assert_close(o, o_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+        torch.testing.assert_close(lse, lse_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    assert fa_k.fwd_design_launches["flash_wgmma_split"] == before + len(kws) + 3
+
+
+@pytest.mark.parametrize("hd,h,kvh,window", [(64, 36, 36, 0), (120, 32, 8, 4096)])
+def test_flash_wgmma_split_train_shapes_and_one_key_too_few(cuda, hd, h, kvh, window):
+    """minicpm-2b's training forward (q/k/v [2, 4096, 36, 64], causal) and
+    h2o-danube's (hd 120, GQA 32/8, window 4096): o and lse within the
+    float32 limit, o not given one key too few; and a repeat is bit-equal."""
+    b = 2 if hd == 64 else 1
+    q, k, v = _flash_inputs(cuda, b, 4096, 4096, h, kvh, hd, torch.float32, seed=hd)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    before = dict(fa_k.fwd_design_launches)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    after = fa_k.fwd_design_launches
+    assert {d: after[d] - before[d] for d in after} == \
+        {d: int(d == "flash_wgmma_split") for d in after}
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    torch.testing.assert_close(lse, lse_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    del o_r, lse_r
+    o_n, _ = fa_r.attention_lse_ref(q, k, v, **dict(kw, window=(window or 4096) - 1))
+    assert not torch.allclose(o, o_n, atol=FLASH_TOL, rtol=FLASH_TOL)
+    del o_n
+    o2, lse2 = fa_k.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_forward_design_that_ran(cuda):
+    """Each forward design's counter moves by one for its call, and only it."""
+    for hd, kv_dtype, tq, design in ((64, torch.float32, 80, "flash_wgmma_split"),
+                                     (256, torch.float32, 80, "flash_tiled"),
+                                     (64, torch.bfloat16, 80, "flash_wgmma"),
+                                     (64, torch.bfloat16, 1, "flash_decode")):
+        q, k, v = _flash_inputs(cuda, 1, tq, 80, 4, 2, hd, kv_dtype, seed=hd)
+        before = dict(fa_k.fwd_design_launches)
+        fa_k.flash_attention(q, k, v, causal=True, q_offset=80 - tq, kv_len=80)
+        after = fa_k.fwd_design_launches
+        assert {d: after[d] - before[d] for d in after} == {d: int(d == design) for d in after}
+        assert fa_k.fwd_design(hd, kv_dtype, tq * 2) == design
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
 def test_flash_decode_repeats(cuda, kv_dtype):
     """The decode design's chunk counters are back at 0 after each call:
@@ -305,7 +404,7 @@ def _bwd_check(q, k, v, kw, seed=0):
         (2, 100, 4, 4, 64, True, 0, 0.0),        # ragged tiles
         (1, 300, 8, 2, 32, True, 64, 0.0),       # GQA, window
         (1, 200, 4, 1, 128, True, 0, 30.0),      # MQA, softcap
-        (1, 150, 8, 4, 256, True, 40, 50.0),     # gemma3 widths (32 x 32 tiles)
+        (1, 150, 8, 4, 256, True, 40, 50.0),     # gemma3 widths (bwd_wide)
         (1, 130, 8, 2, 120, True, 100, 0.0),     # hd 120
         (1, 96, 2, 1, 64, False, 0, 0.0),        # bidirectional
         (1, 96, 4, 2, 32, False, 20, 20.0),      # bidirectional, window, softcap
@@ -324,6 +423,10 @@ def _bwd_check(q, k, v, kw, seed=0):
         (1, 200, 8, 2, 128, False, 0, 20.0),
         (1, 257, 8, 4, 128, True, 0, 0.0),
         (1, 200, 8, 4, 256, True, 50, 30.0),
+        # bwd_wide: 16-row streamed tiles against 64 fixed rows; ragged T
+        (1, 4097, 8, 4, 256, True, 1024, 0.0),
+        (2, 333, 4, 1, 256, False, 100, 20.0),
+        (1, 1, 2, 1, 256, True, 0, 0.0),
     ],
 )
 def test_flash_bwd_matches_plain(cuda, b, t, h, kvh, hd, causal, window, softcap):
@@ -345,8 +448,9 @@ def test_flash_bwd_main_path_shapes_and_one_key_too_few(cuda, hd, window):
     assert not all(torch.allclose(a, e, atol=BWD_TOL, rtol=BWD_TOL) for a, e in zip(got, exp_n))
 
 
-def test_flash_bwd_is_deterministic(cuda):
-    q, k, v = _flash_inputs(cuda, 2, 700, 700, 8, 2, 64, torch.float32, seed=5)
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_bwd_is_deterministic(cuda, hd):
+    q, k, v = _flash_inputs(cuda, 2, 700, 700, 8, 2, hd, torch.float32, seed=5)
     kw = dict(causal=True, window=300, softcap=0.0)
     o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
     do = torch.randn_like(q)
@@ -377,9 +481,10 @@ def test_flash_autograd_through_the_kernels(cuda):
 
 @pytest.mark.parametrize("hd,design", [(32, "bwd_wgmma"), (64, "bwd_wgmma"),
                                        (120, "bwd_wgmma"), (128, "bwd_wgmma"),
-                                       (256, "bwd_fa2")])
+                                       (256, "bwd_wide")])
 def test_flash_bwd_design_that_ran(cuda, hd, design):
-    """hd 64 (minicpm-2b's training path) runs on the tensor cores."""
+    """Every width runs on the tensor cores: hd 64 (minicpm-2b's training
+    path) in bwd_wgmma, gemma3-4b's 256 in bwd_wide."""
     q, k, v = _flash_inputs(cuda, 1, 130, 130, 4, 2, hd, torch.float32, seed=hd)
     before = dict(fa_k.bwd_design_launches)
     _bwd_check(q, k, v, dict(causal=True, window=0, softcap=0.0))
@@ -389,9 +494,12 @@ def test_flash_bwd_design_that_ran(cuda, hd, design):
     assert fa_k.bwd_design(hd) == design
 
 
-def test_flash_bwd_is_deterministic_at_the_train_shape(cuda):
-    """minicpm-2b's train shape [2, 4096, 36, 64]: repeats are bit-equal."""
-    q, k, v = _flash_inputs(cuda, 2, 4096, 4096, 36, 36, 64, torch.float32, seed=4)
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_bwd_is_deterministic_at_the_train_shape(cuda, hd):
+    """minicpm-2b's train shape [2, 4096, 36, 64] and gemma3-4b's global
+    layer [1, 4096, 8 / 4, 256]: repeats are bit-equal."""
+    b, h, kvh = (2, 36, 36) if hd == 64 else (1, 8, 4)
+    q, k, v = _flash_inputs(cuda, b, 4096, 4096, h, kvh, hd, torch.float32, seed=4)
     kw = dict(causal=True, window=0, softcap=0.0)
     o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
     do = torch.randn_like(q)

@@ -157,3 +157,12 @@ def test_build_signatures_name_every_entry_point():
     text = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_build_signatures_match_argument_counts(name):
+    """ctypes passes exactly the C entry point's arguments: a missing or
+    extra one would shift every argument after it."""
+    text = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
+    params = text.split(f'extern "C" int {name}(', 1)[1].split(")", 1)[0]
+    assert len(params.split(",")) == len(_build.SIGNATURES[name])
