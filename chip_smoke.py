@@ -32,6 +32,27 @@ Phases, one JSON line each:
    simulated workers on the one card, 9.1M rows per worker per side
    (``benchmarks/scaling_join.py`` WEAK_ROWS), checked row by row against
    numpy.
+3b. comm   — the serverless communicator on the card.  (a) Phase 3's
+   tables joined again over four fabrics: all-direct Lambda (phase 3's),
+   a hybrid session with 7 of the 28 pairs blocked behind a Redis relay
+   (a quarter, drawn from ``--seed`` by the rule of
+   ``benchmarks/hybrid_links.py``), ``redis_communicator(8)`` and
+   ``s3_communicator(8)``.  Each run must give phase 3's rows bit for bit,
+   launch hash_partition 16 and join_probe 8 times, and receive every
+   block on the card; its line gives the modeled comm seconds, bytes on
+   the wire, each event's schedule (algo, relay, relayed pairs), the
+   bootstrap events and the host wall.  (b) Every collective of the
+   communicator on CUDA float32 tensors of 16M elements (64 MB) per rank
+   over 8 ranks (allreduce and reduce_scatter with add and max,
+   allgather(v), bcast, gather, scatter, send, alltoallv, the
+   non-blocking handles, ping, and a 2-colour split): results on the card,
+   bit-equal to numpy on host copies folded in rank order, each rank its
+   own buffer, and every event's modeled seconds equal to the same call's
+   on CPU tensors of the same shapes.  (c) A world-64 session on the
+   Lambda fabric (the paper's 64-node point): bootstrap, ``expand`` by 16
+   Cloud Run workers, detect + ``shrink`` of 8 ranks under each recovery
+   policy, ``recover_link`` (transient and permanent), ``rebootstrap_rank``,
+   each modeled price printed.
 4. groupby — ``ops_dist.sim_groupby`` at the paper's §IV-C size: P = 4
    workers x 50M rows over 1000 groups, ``{"v": "sum"}``, combiner on and
    off, checked against ``np.bincount``.
@@ -96,15 +117,21 @@ Phases, one JSON line each:
    corpus), not a traffic result.  It fails unless flash attention's
    forward ran exactly 6 x 40 x 2 times (each layer's forward and its
    recompute), all in ``flash_wgmma_split``, and its backward 6 x 40
-   times, all in ``bwd_wgmma``.
+   times, all in ``bwd_wgmma``.  The run carries a modeled 64-worker
+   Lambda session and a span ``Tracer``: 16 Cloud Run workers join at
+   step 3, the top 8 ranks are evicted at step 5; the line gives the
+   burst and shrink log lines, the spans per lane, ``critical_path()``
+   and the size of the written trace JSON.
 10. train_check — (a) one step (``make_train_step``'s gradients, then
    ``apply_updates``) on the card against the same step on the CPU (plain
    versions), at minicpm-2b's width with 2 layers and 2 x 256 tokens, from
    the same weights and batch: loss, every gradient, the updated weights
    and moments within the stated limits; (b) the same update with int8
    moments; (c) the kill/resume drill on the card (reduced minicpm-2b, a
-   ``LocalStore`` checkpoint): 2 steps, exit, resume to 4 must give the
-   loss trace of 4 uninterrupted steps, bit for bit.
+   ``LocalStore`` checkpoint), each call with its own modeled 8-worker
+   Lambda session: 2 steps, exit, resume to 4 must give the loss trace of
+   4 uninterrupted steps, bit for bit, and the resumed call must log its
+   re-bootstrap through the session.
 
 After each of the join, groupby, serve and train runs, a ``trace`` line:
 one more run (or step) of the same cell under ``torch.profiler``, with the
@@ -112,7 +139,8 @@ device's busy time, its idle share of the wall and the device ops that took
 longest.
 
 The launch counters of every kernel are set to 0 just before each of the
-main-path runs (join, groupby, serve, train) and read just after; a kernel
+main-path runs (join, each of the comm phase's four joins, groupby, serve,
+train) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
 flash-attention launches, or a train run without the counts above, fails
 the run.  Then a ``launches`` line (each counter by run: the kernels, and
@@ -152,6 +180,18 @@ TRAIN_ARCH, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = "minicpm-2b", 2, 4096, 6
 # sized for its reduced config: at full width it diverges once the warmup
 # reaches it (losses 12.37 -> 12.12 -> 13.90 over 6 steps on the H100).
 TRAIN_LR = 3e-4
+# phase 9's modeled fabric: the paper's 64-node Lambda point, 16 Cloud Run
+# workers admitted at step 3, the top 8 ranks evicted at step 5
+TRAIN_COMM_WORLD = 64
+TRAIN_BURST_SHRINK = dict(burst_at=3, burst_world=16, burst_provider="gcp-cloudrun",
+                          shrink_at=5, shrink_world=8)
+# phase 3b: a quarter of the 28 pairs of the P = 8 join blocked behind a
+# relay (benchmarks/hybrid_links.py FRACTIONS); the collectives at 16M float32
+# elements (64 MB) per rank over 8 ranks; the lifecycle at the paper's
+# 64-node point
+COMM_BLOCKED_SHARE = 1.0 / 4.0
+COMM_WORLD, COMM_ELEMS = 8, 16 << 20
+LIFECYCLE_WORLD = 64
 SIZE_CUTS: list[str] = []  # none: every path runs at its full size and depth
 
 # flash attention against its plain version: both read the same k/v (bfloat16
@@ -495,6 +535,245 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
     }
 
 
+def blocked_pairs_for(world: int, fraction: float, seed: int = 0) -> list[tuple[int, int]]:
+    """Deterministic sample of hole-punch-failed pairs at one fraction (the
+    rule of ``benchmarks/hybrid_links.py``, copied so that no module of the
+    JAX package is imported here)."""
+    import numpy as np
+
+    pairs = [(a, b) for a in range(world) for b in range(a + 1, world)]
+    k = int(round(fraction * len(pairs)))
+    if fraction > 0.0:
+        k = max(k, 1)  # a nonzero fraction always blocks at least one pair
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(pairs))
+    return [pairs[i] for i in order[:k]]
+
+
+def event_rows(events) -> list[tuple]:
+    """Every field of each priced event, for ``==`` comparisons."""
+    return [(e.kind.value, e.world, e.bytes_per_rank, e.raw_bytes, e.algo, e.wire_total,
+             e.relay, e.relayed_pairs, e.time_s) for e in events]
+
+
+def comm_join_phase(torch, seed, left, right, ref_out, launches, hp_k, jp_k, sr_k, fa_k) -> dict:
+    """Phase 3's join over four fabrics (module doc, phase 3b): the same rows
+    on each, only the modeled price moves."""
+    from repro_torch.core import make_communicator
+    from repro_torch.core.backends.mediated import redis_communicator, s3_communicator
+    from repro_torch.core.session import hybrid_session
+    from repro_torch.dataframe import ops_dist
+
+    p = len(left)
+    blocked = blocked_pairs_for(p, COMM_BLOCKED_SHARE, seed)
+    fabrics = {
+        "lambda_direct": lambda: make_communicator(p, "direct"),
+        "hybrid_redis": lambda: hybrid_session(p, blocked, relay="redis").communicator(),
+        "redis": lambda: redis_communicator(p),
+        "s3": lambda: s3_communicator(p),
+    }
+    out_rows = {}
+    for name, make in fabrics.items():
+        comm = make()
+        received: set[str] = set()
+        shuffle = comm.alltoallv
+
+        def alltoallv(sends, algorithm=None, _shuffle=shuffle, _seen=received):
+            recvs, counts = _shuffle(sends, algorithm=algorithm)
+            _seen.update(b.device.type for row in recvs for b in row)
+            return recvs, counts
+
+        comm.alltoallv = alltoallv
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        t0 = time.perf_counter()
+        out = ops_dist.sim_join(left, right, "k", comm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        if got["hash_partition"] != 2 * p or got["join_probe"] != p:
+            fail(f"comm join over {name}: launches {got}, want hash == {2 * p}, probe == {p}")
+        if received != {"cuda"}:
+            fail(f"comm join over {name}: received blocks on {sorted(received)}, want cuda only")
+        for kname, c in got.items():
+            by = launches.setdefault(kname, {})
+            by["comm"] = by.get("comm", 0) + c
+        for rank, (a, b) in enumerate(zip(out, ref_out)):
+            n = int(a.count)
+            if n != int(b.count) or set(a.columns) != set(b.columns) or not all(
+                    torch.equal(a.columns[c][:n], b.columns[c][:n]) for c in a.columns):
+                fail(f"comm join over {name}: rank {rank}'s rows differ from phase 3's")
+        boot = [e for e in comm.events if e.kind.value == "bootstrap"]
+        coll = [e for e in comm.events if e.kind.value != "bootstrap"]
+        out_rows[name] = {
+            "wall_s": wall, "comm_time_s": comm.comm_time_s,
+            "bootstrap_time_s": comm.session.bootstrap_time_s,
+            "bytes_on_wire": comm.bytes_on_wire,
+            "relayed_pairs": len(comm.session.link_map.relayed_pairs()),
+            "events": [{"kind": e.kind.value, "bytes_per_rank": e.bytes_per_rank,
+                        "algo": e.algo, "relay": e.relay, "relayed_pairs": e.relayed_pairs,
+                        "time_s": e.time_s} for e in coll],
+            "bootstrap": [{"algo": e.algo, "time_s": e.time_s, "relay": e.relay,
+                           "relayed_pairs": e.relayed_pairs} for e in boot],
+            "launches": {k: got[k] for k in ("hash_partition", "join_probe")},
+            "rows_bit_equal_to_join": True}
+        del out
+    return {"P": p, "blocked_pairs": blocked, "fabrics": out_rows}
+
+
+def collectives_check(torch, gen) -> dict:
+    """Every collective on CUDA float32 tensors of ``COMM_ELEMS`` elements per
+    rank (module doc, phase 3b): results on the card, bit-equal to numpy on
+    host copies folded in rank order; each event priced as the same call on
+    CPU tensors of the same shapes."""
+    import numpy as np
+
+    from repro_torch.core import Communicator
+
+    w, n = COMM_WORLD, COMM_ELEMS
+    xs = [torch.randn(n, generator=gen, device="cuda") for _ in range(w)]
+    host = [x.cpu().numpy() for x in xs]
+    cpu = [torch.from_numpy(h) for h in host]
+    lens = [n - r * 4096 for r in range(w)]  # allgatherv: ragged
+    part = n // w
+
+    def fold(op, arrays):
+        acc = arrays[0].copy()
+        for a in arrays[1:]:
+            acc = op(acc, a)
+        return acc
+
+    def ops(comm, t, binop):
+        """(name, call) of each collective; ``binop`` is the elementwise max."""
+        sends = lambda: [[t[s][d * part:(d + 1) * part] for d in range(w)] for s in range(w)]  # noqa: E731
+        return [
+            ("allreduce_add", lambda: comm.allreduce(t)),
+            ("allreduce_max", lambda: comm.allreduce(t, op=binop)),
+            ("reduce_scatter_add", lambda: comm.reduce_scatter(t)),
+            ("reduce_scatter_max", lambda: comm.reduce_scatter(t, op=binop)),
+            ("allgather", lambda: comm.allgather(t)),
+            ("allgatherv", lambda: comm.allgatherv([x[:m] for x, m in zip(t, lens)])),
+            ("bcast", lambda: comm.bcast(t[3], root=3)),
+            ("gather", lambda: comm.gather(t, root=2)),
+            ("scatter", lambda: comm.scatter(t, root=1)),
+            ("send", lambda: comm.send(t[0], dst=5)),
+            ("alltoallv", lambda: comm.alltoallv(sends())[0]),
+            ("iallreduce_wait", lambda: comm.wait(comm.iallreduce(t))),
+            ("iallgatherv_wait", lambda: comm.wait(comm.iallgatherv(t))),
+            ("ialltoallv_wait", lambda: comm.wait(comm.ialltoallv(sends()))[0]),
+            ("ping", lambda: comm.ping(7)),
+        ]
+
+    def expect(name):
+        if name in ("allreduce_add", "iallreduce_wait"):
+            return [fold(np.add, host)] * w
+        if name == "allreduce_max":
+            return [fold(np.maximum, host)] * w
+        if name.startswith("reduce_scatter"):
+            return np.split(fold(np.add if name.endswith("add") else np.maximum, host), w)
+        if name in ("allgather", "iallgatherv_wait"):
+            return [np.concatenate(host)] * w
+        if name == "allgatherv":
+            return [np.concatenate([h[:m] for h, m in zip(host, lens)])] * w
+        if name == "bcast":
+            return [host[3]] * w
+        if name == "gather":
+            return [None, None, host] + [None] * (w - 3)
+        if name == "scatter":
+            return host
+        if name in ("alltoallv", "ialltoallv_wait"):
+            return [[host[s][d * part:(d + 1) * part] for s in range(w)] for d in range(w)]
+        return None  # send, ping: priced events only
+
+    def flat(x) -> list:
+        if isinstance(x, (list, tuple)):
+            return [y for v in x for y in flat(v)]
+        return [x]
+
+    dev_comm, cpu_comm = Communicator(w), Communicator(w)
+    report = {}
+    for (name, run_d), (_, run_c) in zip(ops(dev_comm, xs, torch.maximum),
+                                         ops(cpu_comm, cpu, torch.maximum)):
+        k0 = len(dev_comm.events)
+        got = run_d()
+        run_c()
+        exp = expect(name)
+        if exp is not None:
+            g, e = flat(got), flat(exp)
+            if len(g) != len(e) or any((a is None) != (b is None) for a, b in zip(g, e)):
+                fail(f"collective {name}: result layout differs from numpy's")
+            tensors = [a for a in g if a is not None]
+            if any(a.device.type != "cuda" for a in tensors):
+                fail(f"collective {name}: a result left the card")
+            ptrs = [a.data_ptr() for a in tensors]
+            if len(set(ptrs)) != len(ptrs):
+                fail(f"collective {name}: two ranks share one result buffer")
+            seen: dict[int, torch.Tensor] = {}
+            for a, b in zip(g, e):
+                if a is None:
+                    continue
+                # replicated outputs: the first copy on the host against
+                # numpy, the other ranks' copies against it on the card
+                first = seen.get(id(b))
+                if first is None:
+                    if not np.array_equal(a.cpu().numpy(), b):
+                        fail(f"collective {name}: the card's result differs from numpy's")
+                    seen[id(b)] = a
+                elif not torch.equal(a, first):
+                    fail(f"collective {name}: ranks got different copies")
+        del got
+        ev_d, ev_c = event_rows(dev_comm.events[k0:]), event_rows(cpu_comm.events[k0:])
+        if ev_d != ev_c:
+            fail(f"collective {name}: events on the card {ev_d} != on the CPU {ev_c}")
+        report[name] = {"events": [{"kind": r[0], "bytes_per_rank": r[2], "algo": r[4],
+                                    "time_s": r[8]} for r in ev_d],
+                        "bit_equal_to_numpy": exp is not None}
+    # a 2-colour split: each sub-communicator's allreduce folds its members
+    subs = dev_comm.split([r % 2 for r in range(w)])
+    for color in (0, 1):
+        sub = subs[color]
+        members = list(sub.group)
+        got = sub.allreduce([xs[r] for r in members])
+        exp = fold(np.add, [host[r] for r in members])
+        if got[0].device.type != "cuda" or not np.array_equal(got[0].cpu().numpy(), exp):
+            fail(f"split colour {color}: allreduce differs from numpy's")
+        report[f"split_{color}_allreduce"] = {"group": members,
+                                              "time_s": dev_comm.events[-1].time_s,
+                                              "bit_equal_to_numpy": True}
+    if len(dev_comm.events) != len(cpu_comm.events) + 2:
+        fail("split: the sub-communicators did not log on the shared session")
+    return {"world": w, "elements_per_rank": n, "dtype": "float32",
+            "comm_time_s": dev_comm.comm_time_s, "bytes_on_wire": dev_comm.bytes_on_wire,
+            "collectives": report}
+
+
+def lifecycle_check() -> dict:
+    """A world-64 session on the Lambda fabric (module doc, phase 3b): each
+    lifecycle step's modeled seconds."""
+    from repro_torch.core.session import CommSession
+
+    out = {}
+    for policy in ("incremental", "cold"):
+        s = CommSession.bootstrap(LIFECYCLE_WORLD, "lambda")
+        row = {"bootstrap_s": s.bootstrap_time_s}
+        row["expand_s"] = s.expand(16, provider="gcp-cloudrun")
+        row["world_after_expand"] = s.world
+        row["full_rebootstrap_after_expand_s"] = s.full_rebootstrap_time_s()
+        dead = list(range(s.world - 8, s.world))
+        row["detect_s"] = s.detect_failure("_".join(f"r{r}" for r in dead))
+        row["shrink_s"] = s.shrink(dead, policy=policy)
+        row["world_after_shrink"] = s.world
+        row["recover_link_s"], row["recover_link_action"] = s.recover_link(0, 1)
+        row["recover_link_permanent_s"], row["recover_link_permanent_action"] = \
+            s.recover_link(2, 3, permanent=True)
+        row["rebootstrap_rank0_s"] = s.rebootstrap_rank(0)
+        row["full_rebootstrap_s"] = s.full_rebootstrap_time_s()
+        row["events"] = [{"kind": e.kind.value, "algo": e.algo, "time_s": e.time_s}
+                         for e in s.events]
+        out[policy] = row
+    return out
+
+
 def step_flops(cfg, batch: int, seq: int) -> dict[str, int]:
     """FLOPs of one causal training step.  ``model``: 3 x the forward's, the
     forward being 2 per weight of every product per token (q, k, v, o, the
@@ -519,7 +798,11 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
     9), counted and timed in one run; then one more step under the profiler."""
     import math
 
+    import tempfile
+
     from repro_torch import configs
+    from repro_torch.core.session import CommSession
+    from repro_torch.core.trace import LANES, Tracer
     from repro_torch.launch import train as ltrain
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import make_train_step
@@ -527,15 +810,34 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
     cfg = configs.get(TRAIN_ARCH)
     dev = torch.device("cuda")
     arrivals, log = [], []
+    session = CommSession.bootstrap(TRAIN_COMM_WORLD, "lambda")
+    tracer = Tracer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(hp_k, jp_k, sr_k, fa_k)
     t0 = time.perf_counter()
     params, losses = ltrain.train(
         cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq_len=TRAIN_SEQ, lr=TRAIN_LR, log=log.append,
-        log_every=1,
+        log_every=1, comm_session=session, tracer=tracer, **TRAIN_BURST_SHRINK,
         device=dev, seed=seed, on_step=lambda step, loss: arrivals.append(time.perf_counter()))
     wall = time.perf_counter() - t0
+    lifecycle = [line for line in log if line.startswith(("burst:", "shrink:"))]
+    if len(lifecycle) != 2:
+        fail(f"train did not log one burst and one shrink: {log}")
+    spans = {lane: sum(1 for sp in tracer.spans if sp.lane == lane) for lane in LANES}
+    if spans["compute"] != TRAIN_STEPS or spans["comm"] != TRAIN_STEPS:
+        fail(f"train's tracer holds {spans}, want {TRAIN_STEPS} compute and comm spans")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = Path(tmp) / "train_trace.json"
+        trace_path.write_text(json.dumps(tracer.to_json()))
+        trace_bytes = trace_path.stat().st_size
+        if len(Tracer.from_json(json.loads(trace_path.read_text())).spans) != len(tracer.spans):
+            fail("train's trace JSON does not round-trip")
+    modeled = {"world_start": TRAIN_COMM_WORLD, "world_end": session.world,
+               "lifecycle_log": lifecycle, "spans_by_lane": spans,
+               "critical_path": tracer.critical_path(), "trace_json_bytes": trace_bytes,
+               "comm_lane_s": tracer.lane_time_s("comm"),
+               "bootstrap_lane_s": tracer.lane_time_s("bootstrap")}
     got = counters(hp_k, jp_k, sr_k, fa_k)
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": TRAIN_STEPS * cfg.num_layers * 2,
@@ -564,7 +866,8 @@ def train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
           "flops_per_step": flops,
           "model_flops_share_of_fp32_cuda_core_peak":
               flops["model"] / median_s / OPS_PER_S["fp32"],
-          "peak_mem_bytes": peak, "launches": got, "designs": designs, "log": log})
+          "peak_mem_bytes": peak, "launches": got, "designs": designs, "log": log,
+          "modeled": modeled})
     # one more step under the profiler, from fresh optimizer state
     opt_cfg = opt.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
                             total_steps=TRAIN_STEPS, schedule=cfg.schedule,
@@ -587,6 +890,7 @@ def train_check_phase(torch, seed) -> dict:
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.core.session import CommSession
     from repro_torch.dist.treepath import flatten_with_path, path_str, tree_map
     from repro_torch.launch import train as ltrain
     from repro_torch.models import api
@@ -664,16 +968,28 @@ def train_check_phase(torch, seed) -> dict:
         del pc, pd, sc, sd
     del p_cpu, p_dev, g_c, g_d
     torch.cuda.empty_cache()
-    # (c) the kill/resume drill on the card, LocalStore checkpoints
+    # (c) the kill/resume drill on the card, LocalStore checkpoints, each call
+    # with its own modeled session: the resumed one re-bootstraps through it
     rcfg = configs.get(TRAIN_ARCH).reduced()
-    kw = dict(batch=2, seq_len=64, ckpt_every=10, log=lambda *a: None, device=dev, seed=seed)
+    kw = dict(batch=2, seq_len=64, ckpt_every=10, device=dev, seed=seed)
+    logs: list[str] = []
     with tempfile.TemporaryDirectory() as tmp:
-        _, ref = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/ref", **kw)
-        _, first = ltrain.train(rcfg, steps=4, stop_after=2, ckpt_dir=f"{tmp}/el", **kw)
-        _, rest = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/el", resume=True, **kw)
+        _, ref = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/ref", log=logs.append,
+                              comm_session=CommSession.bootstrap(8, "lambda"), **kw)
+        _, first = ltrain.train(rcfg, steps=4, stop_after=2, ckpt_dir=f"{tmp}/el",
+                                log=logs.append, comm_session=CommSession.bootstrap(8, "lambda"),
+                                **kw)
+        resumed = CommSession.bootstrap(8, "lambda")
+        rlog: list[str] = []
+        _, rest = ltrain.train(rcfg, steps=4, ckpt_dir=f"{tmp}/el", resume=True, log=rlog.append,
+                               comm_session=resumed, **kw)
     if first + rest != ref:
         fail(f"train_check (c): kill/resume trace {first + rest} != uninterrupted {ref}")
-    out["c"] = {"uninterrupted": ref, "killed_and_resumed": first + rest, "bit_equal": True}
+    reboot = [line for line in rlog if line.startswith("re-bootstrap:")]
+    if len(reboot) != 1 or resumed.rebootstrap_time_s <= 0.0:
+        fail(f"train_check (c): the resumed run did not re-bootstrap its session: {rlog}")
+    out["c"] = {"uninterrupted": ref, "killed_and_resumed": first + rest, "bit_equal": True,
+                "rebootstrap_log": reboot[0], "rebootstrap_s": resumed.rebootstrap_time_s}
     return out
 
 
@@ -927,7 +1243,6 @@ def main() -> int:
         fail(f"join launches {got}: want hash >= {2 * p}, probe == {p}")
     emit({"phase": "trace", "cell": "join", **trace(
         torch, lambda: ops_dist.sim_join(left, right, "k", make_communicator(p, "direct")))})
-    del left, right
 
     # independent check in numpy: every joined row is (k, left v of k, right w of k)
     lk_h, rk_h, lv_h, rw_h = (t.cpu().numpy() for t in (lk, rk, lv, rw))
@@ -958,7 +1273,23 @@ def main() -> int:
     emit({"phase": "join", "P": p, "rows_per_worker": rows, "capacity": cap, "wall_s": wall,
           "bytes_on_wire": comm.bytes_on_wire, "comm_time_s": comm.comm_time_s,
           "events": len(comm.events), "launches": got, **res})
-    del out, v_of, w_of, seen, lk_h, rk_h, lv_h, rw_h
+    del v_of, w_of, seen, lk_h, rk_h, lv_h, rw_h
+
+    # -- 3b. comm: the join over four fabrics, the collectives, the lifecycle ---
+    t0 = time.perf_counter()
+    comm_join = comm_join_phase(torch, args.seed, left, right, out, launches,
+                                hp_k, jp_k, sr_k, fa_k)
+    del left, right, out
+    torch.cuda.empty_cache()
+    for name, row in comm_join["fabrics"].items():
+        emit({"phase": "comm", "part": "join", "fabric": name, "P": comm_join["P"],
+              "blocked_pairs": comm_join["blocked_pairs"] if name.startswith("hybrid") else [],
+              **row})
+    emit({"phase": "comm", "part": "collectives", **collectives_check(torch, gen)})
+    torch.cuda.empty_cache()
+    emit({"phase": "comm", "part": "lifecycle", "world": LIFECYCLE_WORLD, "fabric": "lambda",
+          **lifecycle_check()})
+    emit({"phase": "comm", "part": "wall", "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
 
     # -- 4. sim_groupby at the §IV-C size --------------------------------------

@@ -21,7 +21,7 @@ from repro_torch.dataframe.table import Table
 
 _NO_CODEC = (
     "compress=True needs the compressed columnar codec, which is not ported yet "
-    "(ROADMAP.md, queue A: the compressed codec)"
+    "(ROADMAP A 3, the compressed codec)"
 )
 
 

@@ -25,10 +25,8 @@ Every operation is appended to the op log (:class:`StoreOp`); ``S3Store``
 prices each through a ``netsim.ChannelModel`` (default ``S3_STAGED``) and
 ``request_cost_usd()`` maps PUT/GET counts onto S3 request prices.
 ``LocalStore`` ops cost zero modeled seconds but are logged all the same.
-
-Not ported yet: the span ``Tracer`` mirror (``attach_tracer`` raises,
-ROADMAP A 2) and the fault-domain outage pricing (``arm_faults``), which
-belong to the session and tracer copies.
+``attach_tracer`` mirrors every op onto a ``Tracer``'s store lane, and
+``arm_faults`` prices fault-domain store outages as extra ``outage`` ops.
 """
 
 from __future__ import annotations
@@ -42,11 +40,7 @@ from pathlib import Path
 from collections.abc import Mapping
 
 from repro_torch.core import netsim
-
-# S3 request prices (USD per request), the port's copy of the two constants
-# of repro.core.cost_model
-S3_USD_PER_PUT = 0.005 / 1000
-S3_USD_PER_GET = 0.0004 / 1000
+from repro_torch.core.cost_model import S3_USD_PER_GET, S3_USD_PER_PUT
 
 
 class WriterKilled(RuntimeError):
@@ -58,7 +52,7 @@ class StoreOp:
     """One priced storage operation (mirrors ``core.communicator.CommEvent``:
     what moved, how big it was, and what the channel model says it cost)."""
 
-    kind: str       # "put" | "get" | "head" | "list" | "delete"
+    kind: str       # "put" | "get" | "head" | "list" | "delete" | "outage"
     key: str
     nbytes: int
     time_s: float
@@ -71,13 +65,34 @@ class Store:
 
     def __init__(self):
         self.ops: list[StoreOp] = []
+        # optional span timeline (repro_torch.core.trace.Tracer): ops mirror
+        # onto the "store" lane of trace_rank; the op log stays the thin view
+        self.tracer = None
+        self.trace_rank = 0
+        # armed fault-domain context (core.faults.ArmedFaults): while a
+        # store_outages window is active, every PUT/GET pays the outage
+        # retry ladder as an extra "outage" op before landing
+        self._armed = None
+        self._fault_step = 0
 
     # -- op accounting -------------------------------------------------------
 
+    def arm_faults(self, armed, step: int = 0) -> None:
+        """Attach one run's :class:`~repro_torch.core.faults.ArmedFaults` so
+        ``store_outages`` windows price into this store's op log."""
+        self._armed = armed
+        self._fault_step = int(step)
+
+    def set_fault_step(self, step: int) -> None:
+        self._fault_step = int(step)
+
     def attach_tracer(self, tracer, rank: int = 0):
-        """The reference mirrors every op onto a ``Tracer``'s store lane; the
-        port has no ``Tracer`` yet."""
-        raise NotImplementedError("the span Tracer is not ported yet (ROADMAP A 2)")
+        """Mirror every logged op as a ``store``-lane span of ``rank`` on
+        the given :class:`repro_torch.core.trace.Tracer` (per-op request
+        billing rides along as ``Span.usd``)."""
+        self.tracer = tracer
+        self.trace_rank = int(rank)
+        return tracer
 
     def _op_usd(self, op: StoreOp) -> float:
         """Request billing for one op (the per-op share of
@@ -92,11 +107,20 @@ class Store:
         return 0.0
 
     def _emit(self, op: StoreOp) -> StoreOp:
-        """Log one op."""
+        """Log one op, mirroring it onto the attached tracer (if any)."""
         self.ops.append(op)
+        if self.tracer is not None:
+            self.tracer.ingest_store_op(op, self.trace_rank, usd=self._op_usd(op))
         return op
 
     def _record(self, kind: str, key: str, nbytes: int) -> StoreOp:
+        if kind in ("put", "get") and self._armed is not None:
+            penalty = self._armed.outage_penalty_s("store", self._fault_step)
+            if penalty > 0.0:
+                # the op retries through the outage window (exponential
+                # backoff) and lands once it lifts; the wait is its own op
+                # so byte/request accounting of the real op stays exact
+                self._emit(StoreOp("outage", key, 0, penalty))
         return self._emit(
             StoreOp(kind, key, int(nbytes), self._price(kind, int(nbytes)))
         )

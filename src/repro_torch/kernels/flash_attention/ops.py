@@ -56,7 +56,8 @@ def flash_attention(
         if q_offset != 0 or (kv_len is not None and kv_len != k.shape[1]) \
                 or k.shape[1] != q.shape[1]:
             raise NotImplementedError("flash_attention's gradient covers q_offset 0 and "
-                                      "kv_len == Tk == Tq (the training forward) only")
+                                      "kv_len == Tk == Tq (the training forward) only "
+                                      "(ROADMAP B 2)")
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(causal),
                                     int(window), float(softcap))
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset, kv_len=kv_len)

@@ -57,7 +57,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
     weights for training; the default rounds matrix weights for serving."""
     _family(cfg)
     if cfg.param_dtype != "float32":
-        raise NotImplementedError("bfloat16 weight storage is not ported (ROADMAP A 6)")
+        raise NotImplementedError("bfloat16 weight storage is not ported (ROADMAP A 7)")
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     return transformer.init_params(cfg, gen, device=dev, master=master)
 

@@ -91,8 +91,8 @@ def make_train_step(
 def make_compressed_dp_train_step(*args, **kwargs):
     """The explicit compressed data-parallel step of the reference (int8 +
     error feedback on the dp all-reduce) needs the SPMD surface."""
-    raise NotImplementedError("make_compressed_dp_train_step needs the SPMD surface "
-                              "(ROADMAP A 5) and the compressed-dp step")
+    raise NotImplementedError("make_compressed_dp_train_step is not ported yet (ROADMAP "
+                              "A 6, after the SPMD surface A 5)")
 
 
 def make_eval_step(cfg: ArchConfig, ctx=None):

@@ -112,9 +112,37 @@ def test_local_op_log_matches(tmp_path):
     assert a.bytes_put == b.bytes_put and a.bytes_got == b.bytes_got
 
 
-def test_store_tracer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A 2"):
-        obs.S3Store().attach_tracer(object())
+def _mask_gen(key):
+    parts = key.split("/")
+    if len(parts) == 3 and len(parts[1]) == 8:
+        parts[1] = "<gen>"
+    return "/".join(parts)
+
+
+@pytest.mark.parametrize("outage", [False, True])
+def test_store_tracer_is_not_ported(outage):
+    """Once refused; now ``attach_tracer`` mirrors every op onto the store
+    lane and ``arm_faults`` prices store outages as ``outage`` ops, both
+    equal to the reference's (spans by lane, kind, bytes, usd, interval)."""
+    from repro.core import faults as jfaults, trace as jtrace
+    from repro_torch.core import faults as tfaults, trace as ttrace
+
+    logs = []
+    for store, faults, trace in ((obs.S3Store(), tfaults, ttrace),
+                                 (jobs.S3Store(), jfaults, jtrace)):
+        tracer = trace.Tracer()
+        assert store.attach_tracer(tracer, rank=2) is tracer
+        if outage:
+            store.arm_faults(faults.FaultPlan(store_outages=((1, 3),)).armed(), step=0)
+            store.put_objects_atomic("g0", {"a": b"q" * 64})
+            store.set_fault_step(1)
+        ops, _ = _drive(store)
+        spans = [(sp.rank, sp.lane, sp.kind, sp.nbytes, sp.usd, sp.t0, sp.t1,
+                  _mask_gen(sp.meta_dict["key"])) for sp in tracer.spans]
+        assert len(spans) == len(store.ops)
+        logs.append((ops, spans, [o.kind for o in store.ops].count("outage")))
+    assert logs[0] == logs[1]
+    assert (logs[0][2] > 0) == outage
     assert isinstance(obs.as_store("somewhere"), obs.LocalStore)
 
 

@@ -4,6 +4,7 @@ choices must be exactly equal (``==``, no tolerance), and the communicator
 must log the same events for the same blocks."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -137,3 +138,132 @@ def test_communicator_named_schedule_and_errors():
         tc.alltoall([[torch.ones(1)] * 3] * 4)
     with pytest.raises(ValueError, match="unknown channel"):
         t_comm.make_communicator(4, "pigeon")
+
+
+# ---------------------------------------------------------------------------
+# hybrid (per-pair) link pricing, and the full communicator on tensors
+# ---------------------------------------------------------------------------
+
+def _links(net, alg, world, fraction, relay, rank_blocked=False, override=False):
+    """The same GroupLinks in either package: ``fraction`` of the pairs relay
+    through ``relay`` (drawn as benchmarks/hybrid_links.py draws them)."""
+    pairs = [(a, b) for a in range(world) for b in range(a + 1, world)]
+    k = max(1, int(round(fraction * len(pairs)))) if fraction else 0
+    order = np.random.default_rng(world).permutation(len(pairs))
+    relayed = sorted(pairs[i] for i in order[:k])
+    if rank_blocked:
+        relayed = sorted(set(relayed) | {p for p in pairs if world - 1 in p})
+    ch = net.resolve_channel(relay)
+    pair_direct = ()
+    if override:
+        pair_direct = tuple((a, b, net.EC2_DIRECT) for a, b in pairs
+                            if (a, b) not in relayed and a >= world // 2)
+    return alg.GroupLinks(world=world, direct=net.LAMBDA_DIRECT,
+                          relayed=tuple((a, b, ch) for a, b in relayed),
+                          fallback=net.REDIS_STAGED, pair_direct=pair_direct)
+
+
+HYBRID_CASES = [(0.0, "redis", False, False), (1 / 16, "redis", False, False),
+                (0.25, "s3", False, False), (0.25, "redis", False, True),
+                (1.0, "s3", False, False), (0.0, "redis", True, False)]
+
+
+@pytest.mark.parametrize("case", range(len(HYBRID_CASES)))
+@pytest.mark.parametrize("world", [2, 3, 8, 16, 64])
+def test_hybrid_pricing_equal(world, case):
+    fraction, relay, rank_blocked, override = HYBRID_CASES[case]
+    jl = _links(j_net, j_alg, world, fraction, relay, rank_blocked, override)
+    tl = _links(t_net, t_alg, world, fraction, relay, rank_blocked, override)
+    assert dataclasses.astuple(tl) == dataclasses.astuple(jl)
+    assert (tl.all_direct, tl.fully_relayed, tl.relay_names) == \
+        (jl.all_direct, jl.fully_relayed, jl.relay_names)
+    for kind in KINDS:
+        for nbytes in (0, 4096, 1 << 20):
+            tc = t_alg.select_hybrid(kind, world, nbytes, tl, use_cache=False)
+            jc = j_alg.select_hybrid(kind, world, nbytes, jl, use_cache=False)
+            assert (tc.algorithm, tc.time_s, tc.chunks) == (jc.algorithm, jc.time_s, jc.chunks)
+            klass = j_alg._KIND_CLASS[kind]
+            for name in j_alg._HYBRID_STRUCTURE[klass]:
+                assert t_alg.hybrid_algorithm_time(tl, kind, nbytes, name) == \
+                    j_alg.hybrid_algorithm_time(jl, kind, nbytes, name), (kind, name)
+    with pytest.raises(ValueError, match="links built for world"):
+        t_alg.select_hybrid("allreduce", world + 1, 8, tl)
+
+
+def test_hybrid_structure_and_cache_equal():
+    assert t_alg.FIXED_SHAPES == j_alg.FIXED_SHAPES
+    assert t_alg._HYBRID_CACHE_MAX == j_alg._HYBRID_CACHE_MAX
+    assert {k: sorted(v) for k, v in t_alg._HYBRID_STRUCTURE.items()} == \
+        {k: sorted(v) for k, v in j_alg._HYBRID_STRUCTURE.items()}
+    for kind in KINDS:
+        assert t_alg.fixed_shape(kind) == j_alg.fixed_shape(kind)
+    shapes = {s for v in j_alg._HYBRID_STRUCTURE.values() for s, _, _ in v.values()}
+    for shape in sorted(shapes):
+        for world in (2, 5, 8, 13):
+            r = max(1, math.ceil(math.log2(world)))
+            for idx in range(2 * world):
+                assert t_alg._round_pairs(shape, idx, world, r) == \
+                    j_alg._round_pairs(shape, idx, world, r)
+    # the bounded cache: a full cache clears itself; a cached answer is the
+    # uncached one (fresh inputs, whatever other tests left in the cache)
+    tl = _links(t_net, t_alg, 8, 0.25, "redis")
+    first = t_alg.select_hybrid("allreduce", 8, 12345, tl)
+    assert t_alg.select_hybrid("allreduce", 8, 12345, tl) is first
+    assert first == t_alg.select_hybrid("allreduce", 8, 12345, tl, use_cache=False)
+    assert len(t_alg._HYBRID_CACHE) <= t_alg._HYBRID_CACHE_MAX
+    with pytest.raises(ValueError, match="unknown hybrid algorithm"):
+        t_alg.hybrid_algorithm_time(tl, "allreduce", 8, "bruck")
+
+
+def _all_collectives(comm, xs, ops):
+    w = comm.world_size
+    add, mx = ops
+    return [comm.allreduce(xs), comm.allreduce(xs, op=mx), comm.reduce_scatter(xs),
+            comm.allgather(xs), comm.allgatherv([x[: i % 3] for i, x in enumerate(xs)]),
+            comm.bcast(xs[0]), comm.gather(xs, root=w - 1), comm.scatter(xs, root=w // 2),
+            comm.send(xs[0], dst=w - 1), comm.ping(0),
+            comm.wait(comm.iallreduce(xs, add)), comm.wait(comm.iallgather(xs)),
+            comm.wait(comm.iallgatherv(xs)),
+            comm.wait(comm.ialltoallv([[x[:d] for d in range(w)] for x in xs]))[0]]
+
+
+def _np_view(x):
+    if isinstance(x, torch.Tensor):
+        x = x.numpy()
+    if isinstance(x, np.ndarray):
+        return (str(x.dtype), x.shape, x.tobytes())
+    if isinstance(x, (list, tuple)):
+        return [_np_view(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "int64", "float64"])
+@pytest.mark.parametrize("name", CHANNEL_NAMES)
+@pytest.mark.parametrize("world", [2, 16, 64])
+def test_collectives_on_tensors_equal(world, name, dtype):
+    """Every collective on CPU tensors against the reference on numpy:
+    floats bit-equal (rank-order fold), integers exact, events ``==``."""
+    rng = np.random.default_rng(world)
+    xs = [(rng.normal(size=(world, 3)) * 100).astype(dtype) for _ in range(world)]
+    jc, tc = j_comm.make_communicator(world, name), t_comm.make_communicator(world, name)
+    got = _all_collectives(tc, [torch.from_numpy(x) for x in xs], (torch.add, torch.maximum))
+    exp = _all_collectives(jc, xs, (np.add, np.maximum))
+    assert _np_view(got) == _np_view(exp)
+    assert _event_log(tc.events) == _event_log(jc.events)
+    assert [(e.wire_total, e.relay, e.relayed_pairs, e.total_bytes) for e in tc.events] == \
+        [(e.wire_total, e.relay, e.relayed_pairs, e.total_bytes) for e in jc.events]
+    assert (tc.comm_time_s, tc.bytes_on_wire, tc.raw_bytes_on_wire) == \
+        (jc.comm_time_s, jc.bytes_on_wire, jc.raw_bytes_on_wire)
+
+
+def test_allgatherv_all_empty_and_provider_factory():
+    tc = t_comm.Communicator(3)
+    out = tc.allgatherv([torch.zeros((0, 2), dtype=torch.int16) for _ in range(3)])
+    assert all(o.shape == (0, 2) and o.dtype == torch.int16 for o in out)
+    for prov in ("aws-lambda", "aws-ec2", "gcp-cloudrun", "hpc-slurm"):
+        t = t_comm.make_communicator(8, provider=prov)
+        j = j_comm.make_communicator(8, provider=prov)
+        assert dataclasses.astuple(t.channel) == dataclasses.astuple(j.channel)
+        t.barrier()
+        j.barrier()
+        assert _event_log(t.events) == _event_log(j.events)

@@ -507,3 +507,93 @@ def test_flash_bwd_is_deterministic_at_the_train_shape(cuda, hd):
     for _ in range(4):
         again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# -- the communicator on the card -------------------------------------------------
+
+def _collectives(comm, xs, mx):
+    w = comm.world_size
+    return [comm.allreduce(xs), comm.allreduce(xs, op=mx), comm.reduce_scatter(xs),
+            comm.reduce_scatter(xs, op=mx), comm.allgather(xs),
+            comm.allgatherv([x[: 3 * r] for r, x in enumerate(xs)]), comm.bcast(xs[1], root=1),
+            comm.gather(xs, root=w - 1), comm.scatter(xs), comm.alltoall(
+                [[x[d * 4:(d + 1) * 4] for d in range(w)] for x in xs]),
+            comm.alltoallv([[x[:d] for d in range(w)] for x in xs])[0],
+            comm.wait(comm.iallreduce(xs)), comm.wait(comm.iallgatherv(xs)),
+            comm.wait(comm.ialltoallv([[x[:d] for d in range(w)] for x in xs]))[0]]
+
+
+def _flat(x):
+    if isinstance(x, (list, tuple)):
+        return [y for v in x for y in _flat(v)]
+    return [x]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64])
+@pytest.mark.parametrize("fabric", ["direct", "hybrid", "s3"])
+def test_collectives_on_the_card_match_the_cpu(cuda, dtype, fabric):
+    """Every collective on CUDA tensors: results stay on the card, each rank
+    its own buffer, bit-equal to the same calls on the CPU, and the same
+    priced events."""
+    from repro_torch.core import make_communicator
+    from repro_torch.core.session import hybrid_session
+
+    w = 8
+
+    def comm():
+        if fabric == "hybrid":
+            return hybrid_session(w, [(0, 3), (1, 2), (5, 7)], relay="redis").communicator()
+        return make_communicator(w, fabric)
+
+    gen = torch.Generator().manual_seed(w)
+    xs = [(torch.randn(w * 64, 3, generator=gen) * 1000).to(dtype) for _ in range(w)]
+    cd, cc = comm(), comm()
+    got = _flat(_collectives(cd, [x.to(cuda) for x in xs], torch.maximum))
+    exp = _flat(_collectives(cc, xs, torch.maximum))
+    assert len(got) == len(exp)
+    tensors = [g for g in got if isinstance(g, torch.Tensor)]
+    assert all(g.device.type == "cuda" for g in tensors)
+    assert len({g.data_ptr() for g in tensors if g.numel()}) == \
+        len([g for g in tensors if g.numel()])
+    for g, e in zip(got, exp):
+        if isinstance(e, torch.Tensor):
+            assert g.dtype == e.dtype and torch.equal(g.cpu(), e)
+        else:
+            assert g == e
+    rows = lambda c: [(e.kind, e.bytes_per_rank, e.algo, e.relay, e.relayed_pairs,  # noqa: E731
+                       e.wire_total, e.time_s) for e in c.events]
+    assert rows(cd) == rows(cc)
+
+
+@pytest.mark.parametrize("fabric", ["hybrid", "s3"])
+def test_sim_join_over_other_fabrics_gives_the_direct_rows(cuda, fabric):
+    """``sim_join`` over a hybrid (relayed pairs) and an S3 communicator on
+    the card: the all-direct run's rows, bit for bit; only the price moves."""
+    from repro_torch.core import make_communicator
+    from repro_torch.core.backends.mediated import s3_communicator
+    from repro_torch.core.session import hybrid_session
+    from repro_torch.dataframe import Table, ops_dist
+
+    p, rows = 8, 20000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lk = torch.randperm(4 * rows * p, generator=gen, device=cuda)[: rows * p].to(torch.int32)
+    rk = torch.randperm(4 * rows * p, generator=gen, device=cuda)[: rows * p].to(torch.int32)
+    v = torch.arange(rows * p, device=cuda, dtype=torch.int32)
+    left = [Table.from_dict({"k": lk[i * rows:(i + 1) * rows], "v": v[i * rows:(i + 1) * rows]},
+                            device=cuda) for i in range(p)]
+    right = [Table.from_dict({"k": rk[i * rows:(i + 1) * rows], "w": -v[i * rows:(i + 1) * rows]},
+                             device=cuda) for i in range(p)]
+    direct = make_communicator(p, "direct")
+    ref = ops_dist.sim_join(left, right, "k", direct)
+    comm = (hybrid_session(p, [(0, 1), (2, 6), (3, 7)], relay="redis").communicator()
+            if fabric == "hybrid" else s3_communicator(p))
+    before = (hp_k.launches, jp_k.launches)
+    out = ops_dist.sim_join(left, right, "k", comm)
+    assert (hp_k.launches - before[0], jp_k.launches - before[1]) == (2 * p, p)
+    for a, b in zip(out, ref):
+        n = int(b.count)
+        assert int(a.count) == n and n > 0
+        assert all(a.columns[c].device.type == "cuda" and torch.equal(a.columns[c][:n],
+                                                                     b.columns[c][:n])
+                   for c in b.columns)
+    assert comm.comm_time_s > direct.comm_time_s

@@ -34,6 +34,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -438,7 +439,124 @@ def test_train_checkpoint_restores_in_the_reference(tmp_path):
 
 def test_train_refuses_what_is_not_ported():
     cfg = _small()
-    with pytest.raises(NotImplementedError, match="A 2"):
-        ttrain.train(cfg, steps=1, tracer=object(), **KW)
     with pytest.raises(NotImplementedError, match="A 5"):
         ttrain.train(dataclasses.replace(cfg, grad_compression=True), steps=1, **KW)
+
+
+# ---------------------------------------------------------------------------
+# the modeled session and the span Tracer in the driver (mirrors
+# tests/test_session.py::test_train_resume_rebootstraps and
+# tests/test_providers.py::test_kill_resume_during_burst_identical_traces)
+# ---------------------------------------------------------------------------
+
+MEASURED = ("train_step", "data_fetch")  # compute / overhead spans: host time
+
+
+def _gen_masked(key):
+    parts = key.split("/")
+    if len(parts) == 3 and len(parts[1]) == 8:
+        parts[1] = "<gen>"
+    return "/".join(parts)
+
+
+def _span_rows(tracer):
+    """Spans by lane, name, bytes, usd and metadata, with the modeled
+    interval; spans that carry measured host time by count only, and the
+    modeled spans on their lanes (the detector's, on ``overhead``) by
+    duration, since they start after measured ones."""
+    rows = []
+    for sp in tracer.spans:
+        meta = {k: (_gen_masked(v) if k == "key" else v) for k, v in sp.meta}
+        if sp.kind in MEASURED:
+            interval = None
+        elif sp.lane in ("compute", "overhead"):
+            interval = sp.duration_s
+        else:
+            interval = (sp.t0, sp.t1)
+        rows.append((sp.rank, sp.lane, sp.kind, sp.nbytes, sp.usd, interval, meta))
+    return rows
+
+
+def _driver_run(mod, cfg, sess_mod, trace_mod, store, policy, **kw):
+    """Kill at step 5, resume to 8; the logs and spans of both calls, with a
+    local store's root (it differs between the packages' runs) masked."""
+    logs, traces = [], []
+    common = dict(steps=8, batch=2, seq_len=32, ckpt_every=3, burst_at=2, burst_world=4,
+                  burst_provider="gcp-cloudrun", shrink_at=6, shrink_world=3,
+                  recovery_policy=policy, log=logs.append, **kw)
+    for extra in (dict(stop_after=5), dict(resume=True)):
+        tr = trace_mod.Tracer()
+        mod.train(cfg, ckpt_dir=store, comm_session=sess_mod.CommSession.bootstrap(16, "lambda"),
+                  tracer=tr, **common, **extra)
+        traces.append([row[:6] + ({k: "<root>" if v == str(store) else v
+                                    for k, v in row[6].items()},) for row in _span_rows(tr)])
+    # step lines carry losses of each package's own weights and host times;
+    # the trace summary line carries measured lanes
+    kept = [line for line in logs if not line.startswith(("step ", "trace:"))]
+    return kept, traces
+
+
+@pytest.mark.parametrize("policy,backend", [("incremental", "s3"), ("cold", "local")])
+def test_driver_session_and_tracer_match_reference(tmp_path, policy, backend):
+    """A run with a modeled 16-worker session, a burst, a shrink, a kill and a
+    resume under a Tracer logs the reference's lines (re-bootstrap, burst,
+    shrink) and lays the same spans by lane, name and modeled duration."""
+    from repro.core import session as jsess, trace as jtrace
+    from repro.dist import object_store as jobs
+    from repro_torch.core import session as tsess, trace as ttrace
+
+    jcfg, tcfg = _cfgs("minicpm-2b", d_model=64, d_ff=128)
+    stores = ((jobs.S3Store(), S3Store()) if backend == "s3"
+              else (tmp_path / "j", tmp_path / "t"))
+    exp = _driver_run(jtrain, jcfg, jsess, jtrace, stores[0], policy)
+    got = _driver_run(ttrain, tcfg, tsess, ttrace, stores[1], policy, device="cpu")
+    assert got == exp
+    logs = got[0]
+    assert [line.split(":")[0] for line in logs] == \
+        ["burst", "resumed from step 5", "re-bootstrap", "burst", "shrink"]
+    lanes = {row[1] for row in got[1][0] + got[1][1]}
+    assert lanes == {"compute", "comm", "store", "bootstrap", "overhead"}
+
+
+def test_driver_cli_flags_match_reference(tmp_path, monkeypatch, capsys):
+    """The reference's CLI flags with their defaults, choices and help; then
+    a kill + ``--resume --trace-out`` run of the port's CLI on the CPU."""
+    import argparse
+    import sys
+
+    class Parsed(Exception):
+        pass
+
+    def flags(main):
+        seen = {}
+
+        def grab(parser, *a, **k):
+            seen.update({a.dest: (tuple(a.option_strings), a.default, a.choices, a.help)
+                         for a in parser._actions})
+            raise Parsed
+
+        monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Parsed):
+            main()
+        monkeypatch.undo()
+        return seen
+
+    jflags, tflags = flags(jtrain.main), flags(ttrain.main)
+    session_flags = ("comm_world", "comm_fabric", "burst_at", "burst_world", "burst_provider",
+                     "shrink_at", "shrink_world", "recovery_policy", "trace_out")
+    for dest in session_flags:
+        assert tflags[dest] == jflags[dest], dest
+    assert set(jflags) - set(tflags) == set()
+    argv = ["train", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq-len", "16",
+            "--ckpt-dir", str(tmp_path / "ck"), "--comm-world", "8"]
+    monkeypatch.setattr(sys, "argv", argv + ["--stop-after", "2"])
+    ttrain.main()
+    out = tmp_path / "t.json"
+    monkeypatch.setattr(sys, "argv", argv + ["--resume", "--trace-out", str(out)])
+    ttrain.main()
+    text = capsys.readouterr().out
+    assert "re-bootstrap: rank 0 re-joined its CommSession (world 8) in 18.9s" in text
+    assert f"trace written to {out}" in text
+    from repro.core.trace import Tracer as JTracer
+    assert {sp.lane for sp in JTracer.from_json(json.loads(out.read_text())).spans} >= \
+        {"compute", "comm", "bootstrap"}
