@@ -56,6 +56,41 @@ Phases, one JSON line each:
 4. groupby — ``ops_dist.sim_groupby`` at the paper's §IV-C size: P = 4
    workers x 50M rows over 1000 groups, ``{"v": "sum"}``, combiner on and
    off, checked against ``np.bincount``.
+4b. bsp    — the paper's weak-scaling join through ``BSPRuntime`` on the
+   card: per rank two Tables of 9.1M int32 rows (keys a permutation,
+   capacity twice that; built once for 64 ranks, 18.6 GB), the superstep of
+   ``examples/serverless_scaling.py`` (a barrier, then ``join_unique`` of the
+   rank's own tables), 3 supersteps (``BSP_STEPS``) with the example's one
+   injected failure, at worlds 1-64 on ``lambda-10gb``, ``ec2-15gb-4vcpu``
+   and ``rivanna-10gb``.  Each run's modeled seconds (all but the measured
+   compute) must equal the same run on the CPU with the example's
+   2048-row tables, join_probe must launch once per rank per superstep, and
+   its trace must pass ``tracecheck``.  Its line gives each run's init,
+   compute (the card's time over the platform's CPU factor), comm, barrier,
+   total and retries, each platform's weak-scaling ratio T(1)/T(P) and the
+   Lambda-vs-EC2 gap at 64.  Then the recovery drill: world 8, 1M float64
+   rows a rank on the card, checkpoints in the S3 store, a rank lost at
+   superstep 1 (``recovery_policy="shrink"``), a burst of 2 workers at
+   superstep 2, overlapped supersteps; the final states bit-equal to a
+   clean run's, every modeled second, the store op log and the span
+   timeline equal to the same drill on the CPU, and no ``tracecheck``
+   violation.
+4c. codec  — ``compress=True`` on the card: phase 3's join (its rows bit
+   for bit, 16 hash and 8 probe launches, every encoded part on the card,
+   rank 0's blocks encoding to the same kinds and wire bytes as the codec
+   on host copies; per event the wire and raw bytes and their ratio, the
+   host wall beside phase 3's) and phase 4's groupby, combiner on and off
+   (sums equal to ``np.bincount``, segment_reduce launches equal to
+   phase 4's).
+4d. jobs   — the serverless executor on the card: ``etl_csv`` through
+   ``JobExecutor("aws-lambda").map`` over a 1M-row two-column CSV in the
+   S3 store, cut into 2 MB partitions, with one kill and one 20 s
+   straggle; the Tables on the card equal the CPU parse.  A ``map_reduce``
+   whose 8 tasks hash-partition slices of a join worker's keys on the card
+   into the join's 8 buckets; the summed histogram equals the plain
+   version's on a host copy.  At ``cpu_scale=0`` both jobs' ``JobReport``
+   and span timeline equal the CPU run's; at ``cpu_scale=1`` the line gives
+   the measured figures; ``tracecheck`` finds no violation.
 5. kernel  — flash_attention against its plain version at the serving
    path's shapes (gemma3-4b: prefill of a local and of a global layer,
    decode of a global and of a local layer), with the same timings and
@@ -139,7 +174,8 @@ device's busy time, its idle share of the wall and the device ops that took
 longest.
 
 The launch counters of every kernel are set to 0 just before each of the
-main-path runs (join, each of the comm phase's four joins, groupby, serve,
+main-path runs (join, each of the comm phase's four joins, groupby, each
+bsp run, the codec's join and groupbys, the jobs' map_reduce, serve,
 train) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
 flash-attention launches, or a train run without the counts above, fails
@@ -192,7 +228,25 @@ TRAIN_BURST_SHRINK = dict(burst_at=3, burst_world=16, burst_provider="gcp-cloudr
 COMM_BLOCKED_SHARE = 1.0 / 4.0
 COMM_WORLD, COMM_ELEMS = 8, 16 << 20
 LIFECYCLE_WORLD = 64
-SIZE_CUTS: list[str] = []  # none: every path runs at its full size and depth
+# the bsp phase: the paper's weak-scaling join (Tables II/III: 9.1M rows per
+# worker, benchmarks/scaling_join.py:50; worlds 1-64, benchmarks/common.py:25)
+# on three platforms, each run the superstep of examples/serverless_scaling.py
+# with its one injected failure (superstep 0, rank 1); its CPU twin runs the
+# example's 2048-row tables; the recovery drill at world 8 with 1M float64
+# rows a rank
+BSP_WORLDS = (1, 2, 4, 8, 16, 32, 64)
+BSP_PLATFORMS = ("lambda-10gb", "ec2-15gb-4vcpu", "rivanna-10gb")
+BSP_STEPS = 3
+BSP_CPU_ROWS = 2048
+DRILL_WORLD, DRILL_ROWS, DRILL_STEPS = 8, 1 << 20, 4
+# the jobs phase: a 1M-row two-column CSV cut into 2 MB partitions; the
+# map_reduce splits one join worker's keys over 8 tasks
+JOBS_CSV_ROWS, JOBS_CHUNK_BYTES, JOBS_MAP_TASKS = 1_000_000, 2 << 20, 8
+# every path runs at its full size and depth but these
+SIZE_CUTS: list[str] = [
+    "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
+    "runs 3)",
+]
 
 # flash attention against its plain version: both read the same k/v (bfloat16
 # converts to float32 exactly) and compute in float32, so they differ only in
@@ -774,6 +828,382 @@ def lifecycle_check() -> dict:
     return out
 
 
+def masked(obj):
+    """``obj`` (JSON-able) with each S3 generation id (a random uuid) in its
+    keys masked, for ``==`` between two runs."""
+    import re
+    return json.loads(re.sub(r"/[0-9a-f]{8}/", "/<gen>/", json.dumps(obj)))
+
+
+def masked_ops(store) -> list:
+    """A store's op log (kind, key, bytes, modeled s), generation ids masked."""
+    return masked([(op.kind, op.key, op.nbytes, op.time_s) for op in store.ops])
+
+
+def run_rows(rep) -> dict:
+    """Every modeled field of a RunReport: all but the measured compute_s."""
+    import dataclasses
+    steps = [{k: v for k, v in dataclasses.asdict(s).items() if k != "compute_s"}
+             for s in rep.supersteps]
+    return {"init_s": rep.init_s, "world": rep.world, "joined_at": rep.joined_at,
+            "evicted": rep.evicted, "supersteps": steps}
+
+
+def bsp_phase(torch, gen, dev, launches, hp_k, jp_k, sr_k, fa_k) -> dict:
+    """The paper's weak-scaling join through ``BSPRuntime`` on the card, and
+    the recovery drill (module doc, phase 4b)."""
+    from repro_torch.analysis import check_trace
+    from repro_torch.core import BSPRuntime, Burst, FaultPlan, netsim
+    from repro_torch.dataframe import Table, ops_local
+    from repro_torch.dist.object_store import S3Store
+    from repro_torch.dist.sharding import repartition_states
+
+    def make_states(n, count, device, g):
+        """Per rank (left, right): the example's tables of ``n`` int32 rows
+        (keys a permutation), capacity 2n."""
+        out = []
+        for _ in range(count):
+            k = torch.randperm(n, generator=g, device=device).to(torch.int32)
+            out.append((
+                Table.from_dict({"k": k, "v": k * 2}, capacity=2 * n, device=device),
+                Table.from_dict({"k": torch.randperm(n, generator=g, device=device)
+                                 .to(torch.int32), "w": k}, capacity=2 * n, device=device)))
+        return out
+
+    def join_step(rank, state, comm, world):
+        left, right = state
+        comm.barrier()
+        ops_local.join_unique(left, right, "k")
+        return state
+
+    world_max = BSP_WORLDS[-1]
+    t0 = time.perf_counter()
+    card_states = make_states(JOIN_ROWS, world_max, dev, gen)
+    cpu_states = make_states(BSP_CPU_ROWS, world_max, torch.device("cpu"),
+                             torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    runs, probe = {}, 0
+    for pname in BSP_PLATFORMS:
+        plat = netsim.resolve_platform(pname)
+        for world in BSP_WORLDS:
+            reps = []
+            for device, states in ((dev, card_states), (torch.device("cpu"), cpu_states)):
+                fails = {(0, 1): True}  # examples/serverless_scaling.py's failure
+                rt = BSPRuntime(world, platform=plat, device=device)
+                torch.cuda.synchronize()
+                reset_counters(hp_k, jp_k, sr_k, fa_k)
+                t1 = time.perf_counter()
+                _, rep = rt.run([("join", join_step)] * BSP_STEPS, states[:world],
+                                fail_injector=lambda s, r, f=fails: f.pop((s, r), False))
+                wall = time.perf_counter() - t1
+                got = counters(hp_k, jp_k, sr_k, fa_k)
+                violations = check_trace(rt.tracer, session=rt.session)
+                if violations:
+                    fail(f"bsp {pname} world {world}: tracecheck {violations[:3]}")
+                reps.append((rep, got, wall))
+            (rep, got, wall), (cpu_rep, cpu_got, _) = reps
+            if got["join_probe"] != BSP_STEPS * world or cpu_got["join_probe"] != 0:
+                fail(f"bsp {pname} world {world}: probe launches {got['join_probe']}, "
+                     f"want {BSP_STEPS * world} (one per rank per superstep)")
+            if run_rows(rep) != run_rows(cpu_rep):
+                fail(f"bsp {pname} world {world}: modeled seconds differ from the CPU run")
+            probe += got["join_probe"]
+            steps = rep.supersteps
+            runs[f"{pname}/{world}"] = {
+                "platform": pname, "world": world, "init_s": rep.init_s,
+                "compute_s": sum(s.compute_s for s in steps),
+                "comm_s": sum(s.comm_s for s in steps),
+                "barrier_s": sum(s.barrier_s for s in steps),
+                "rebootstrap_s": sum(s.rebootstrap_s for s in steps),
+                "supersteps_s": sum(s.total_s for s in steps), "total_s": rep.total_s,
+                "retries": sum(s.retries for s in steps), "host_wall_s": wall,
+                "cpu_compute_s": sum(s.compute_s for s in cpu_rep.supersteps)}
+    del card_states, cpu_states
+    torch.cuda.empty_cache()
+    launches.setdefault("join_probe", {})["bsp"] = probe
+    scaling = {}
+    for pname in BSP_PLATFORMS:
+        t1 = runs[f"{pname}/1"]
+        scaling[pname] = {
+            "total_ratio_T1_over_TP": {w: t1["total_s"] / runs[f"{pname}/{w}"]["total_s"]
+                                       for w in BSP_WORLDS},
+            "supersteps_ratio_T1_over_TP": {
+                w: t1["supersteps_s"] / runs[f"{pname}/{w}"]["supersteps_s"]
+                for w in BSP_WORLDS}}
+    lam, ec2 = runs[f"lambda-10gb/{world_max}"], runs[f"ec2-15gb-4vcpu/{world_max}"]
+    gap = {"world": world_max,
+           "total_gap": lam["total_s"] / ec2["total_s"] - 1.0,
+           "supersteps_gap": lam["supersteps_s"] / ec2["supersteps_s"] - 1.0}
+
+    # the recovery drill: world 8, float64 state of DRILL_ROWS per rank,
+    # checkpoints in the S3 store, a rank lost at superstep 1 (shrink), a
+    # burst of 2 workers at superstep 2, overlapped supersteps; measured
+    # compute priced at cpu_scale=0 so the whole report is modeled
+    def drill(device, faulted):
+        ones = torch.ones(DRILL_ROWS, dtype=torch.float64, device=device)
+
+        def step(rank, state, comm, world):
+            if rank == 0:
+                comm.allreduce([ones] * world)
+            return state * 2.0 + 1.0
+
+        g = torch.Generator().manual_seed(1)
+        init = [torch.rand(DRILL_ROWS, dtype=torch.float64, generator=g).to(device)
+                for _ in range(DRILL_WORLD)]
+        store = S3Store()
+        rt = BSPRuntime(DRILL_WORLD, provider="aws-lambda", checkpoint_dir=store,
+                        device=device, cpu_scale=0.0)
+        kw = dict(faults=FaultPlan(rank_losses=((1, DRILL_WORLD - 1),)),
+                  recovery_policy="shrink", overlap=True,
+                  burst=Burst(at_step=2, new_ranks=2, repartition=repartition_states)
+                  ) if faulted else {}
+        out, rep = rt.run([(f"s{i}", step) for i in range(DRILL_STEPS)], init, **kw)
+        return torch.cat(out).cpu(), rep, masked_ops(store), rt
+
+    t1 = time.perf_counter()
+    clean, _, _, _ = drill(dev, False)
+    states, rep, ops, rt = drill(dev, True)
+    drill_wall = time.perf_counter() - t1
+    cpu_states, cpu_rep, cpu_ops, cpu_rt = drill(torch.device("cpu"), True)
+    if not torch.equal(states, clean) or not torch.equal(states, cpu_states):
+        fail("bsp drill: the final states differ from the clean run's or the CPU run's")
+    if run_rows(rep) != run_rows(cpu_rep) or ops != cpu_ops:
+        fail("bsp drill: modeled seconds or the store op log differ from the CPU run's")
+    if masked(rt.tracer.to_json()) != masked(cpu_rt.tracer.to_json()):
+        fail("bsp drill: the span timeline differs from the CPU run's")
+    violations = check_trace(rt.tracer, session=rt.session, report=rep)
+    if violations:
+        fail(f"bsp drill: tracecheck {violations[:3]}")
+    s1 = rep.supersteps[1]
+    return {"steps": BSP_STEPS, "worlds": list(BSP_WORLDS), "rows_per_worker": JOIN_ROWS,
+            "build_s": build_s, "runs": runs, "scaling": scaling,
+            "lambda_vs_ec2": gap, "probe_launches": probe,
+            "drill": {"world": DRILL_WORLD, "rows_per_rank": DRILL_ROWS,
+                      "final_world": rep.world, "evicted": rep.evicted,
+                      "joined_at": rep.joined_at, "recovery_s": s1.recovery_s,
+                      "shrink_s": s1.shrink_s, "rollback_s": s1.rollback_s,
+                      "expand_s": rep.supersteps[2].expand_s,
+                      "overlapped_s": [s.overlapped_s for s in rep.supersteps],
+                      "total_s": rep.total_s, "store_ops": len(ops),
+                      "store_s": sum(op[3] for op in ops), "wall_s": drill_wall,
+                      "states_bit_equal_to_clean": True, "tracecheck_violations": 0}}
+
+
+def codec_phase(torch, np, left, right, ref_out, join_wall, gk, gv, expected, launches,
+                hp_k, jp_k, sr_k, fa_k) -> dict:
+    """``compress=True`` on the card (module doc, phase 4c): phase 3's join
+    and phase 4's groupby through the columnar codec."""
+    from repro_torch.core import make_communicator
+    from repro_torch.dataframe import Table, ops_dist
+    from repro_torch.dataframe.partition import build_partition_payload
+    from repro_torch.dist import compression
+
+    def watched(comm, sends_seen):
+        shuffle = comm.compressed_alltoallv
+
+        def compressed_alltoallv(sends, algorithm=None):
+            sends_seen.append(sends)
+            return shuffle(sends, algorithm=algorithm)
+        comm.compressed_alltoallv = compressed_alltoallv
+        return comm
+
+    def part_devices(sends_seen) -> set[str]:
+        return {part.device.type for sends in sends_seen for row in sends for blk in row
+                for col in blk.columns.values() for part in col.parts.values()}
+
+    def event_list(comm):
+        return [{"kind": e.kind.value, "wire_bytes": e.bytes_per_rank,
+                 "raw_bytes": e.raw_bytes, "ratio": e.compression_ratio, "algo": e.algo,
+                 "time_s": e.time_s} for e in comm.events]
+
+    p = len(left)
+    seen: list = []
+    comm = watched(make_communicator(p, "direct"), seen)
+    torch.cuda.synchronize()
+    reset_counters(hp_k, jp_k, sr_k, fa_k)
+    t0 = time.perf_counter()
+    out = ops_dist.sim_join(left, right, "k", comm, compress=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counters(hp_k, jp_k, sr_k, fa_k)
+    if got["hash_partition"] != 2 * p or got["join_probe"] != p:
+        fail(f"codec join: launches {got}, want hash == {2 * p}, probe == {p}")
+    for name, c in got.items():
+        launches.setdefault(name, {})["codec_join"] = c
+    if part_devices(seen) != {"cuda"}:
+        fail(f"codec join: encoded parts on {sorted(part_devices(seen))}, want cuda only")
+    for rank, (a, b) in enumerate(zip(out, ref_out)):
+        n = int(a.count)
+        if n != int(b.count) or set(a.columns) != set(b.columns) or not all(
+                torch.equal(a.columns[c][:n], b.columns[c][:n]) for c in a.columns):
+            fail(f"codec join: rank {rank}'s rows differ from phase 3's")
+    # rank 0's row of blocks (its left table) against the codec on host copies
+    payload, counts = build_partition_payload(left[0], p, ["k"])
+    host = [compression.encode_block({n: payload[n][d][:c].cpu() for n in sorted(payload)},
+                                     {"k"}) for d, c in enumerate(counts.tolist())]
+
+    def kinds(blocks):
+        return [{n: (c.kind, c.wire_nbytes) for n, c in b.columns.items()} for b in blocks]
+    if kinds(seen[0][0]) != kinds(host):
+        fail("codec join: rank 0's blocks encode otherwise on the host")
+    join_row = {"P": p, "wall_s": wall, "raw_join_wall_s": join_wall,
+                "bytes_on_wire": comm.bytes_on_wire, "raw_bytes_on_wire": comm.raw_bytes_on_wire,
+                "comm_time_s": comm.comm_time_s, "events": event_list(comm),
+                "rank0_blocks": kinds(seen[0][0]), "launches": got,
+                "rows_bit_equal_to_join": True}
+    del out, payload, seen
+
+    groupby_rows = {}
+    gp, rows = GROUPBY_P, GROUPBY_ROWS
+    for combine in (True, False):
+        tables = [Table.from_dict({"k": gk[i * rows:(i + 1) * rows],
+                                   "v": gv[i * rows:(i + 1) * rows]}, device=gk.device)
+                  for i in range(gp)]
+        seen = []
+        comm = watched(make_communicator(gp, "direct"), seen)
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        t0 = time.perf_counter()
+        res = ops_dist.sim_groupby(tables, "k", {"v": "sum"}, comm, combine=combine,
+                                   compress=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        run = f"groupby_combine_{str(combine).lower()}"
+        want_seg = launches["segment_reduce"][run]
+        if got["segment_reduce"] != want_seg or got["hash_partition"] != gp:
+            fail(f"codec groupby combine={combine}: launches {got}, want segment_reduce == "
+                 f"{want_seg} (phase 4's), hash == {gp}")
+        if part_devices(seen) != {"cuda"}:
+            fail(f"codec groupby combine={combine}: encoded parts off the card")
+        cols = [t.to_numpy() for t in res]
+        k = np.concatenate([c["k"] for c in cols])
+        s = np.concatenate([c["v_sum"] for c in cols])
+        if not np.array_equal(np.sort(k), np.arange(GROUPS)) or \
+                not np.array_equal(s.astype(np.int64), expected[k]):
+            fail(f"codec groupby combine={combine}: sums differ from np.bincount")
+        for name, c in got.items():
+            launches.setdefault(name, {})[f"codec_{run}"] = c
+        groupby_rows[run] = {"P": gp, "rows_per_worker": rows, "groups": GROUPS,
+                             "wall_s": wall, "bytes_on_wire": comm.bytes_on_wire,
+                             "raw_bytes_on_wire": comm.raw_bytes_on_wire,
+                             "comm_time_s": comm.comm_time_s, "events": event_list(comm),
+                             "launches": got, "sums_equal_bincount": True}
+        del tables, res, seen
+        torch.cuda.empty_cache()
+    return {"join": join_row, "groupby": groupby_rows}
+
+
+def jobs_phase(torch, np, dev, left, launches, hp_k, jp_k, sr_k, fa_k) -> dict:
+    """The serverless executor on the card (module doc, phase 4d): the CSV
+    ETL through ``JobExecutor.map`` and a hash-histogram ``map_reduce``."""
+    import dataclasses
+
+    from repro_torch.analysis import check_job, check_trace
+    from repro_torch.core import FaultPlan
+    from repro_torch.dataframe import io
+    from repro_torch.dist.object_store import S3Store
+    from repro_torch.jobs import JobExecutor
+    from repro_torch.kernels.hash_partition import ops as hp_ops, ref as hp_r
+
+    rng = np.random.default_rng(0)
+    a = rng.random(JOBS_CSV_ROWS)
+    b = rng.integers(0, 50, JOBS_CSV_ROWS).astype(float)
+    csv = ("a,b\n" + "".join(f"{x},{y}\n" for x, y in zip(a.tolist(), b.tolist()))).encode()
+    store = S3Store()
+    store.put_objects_atomic("ds", {"t.csv": csv})
+    plan = lambda: FaultPlan(kills=((0, 1),), straggles=((0, 2, 20.0),))  # noqa: E731
+
+    def etl(device, cpu_scale):
+        ex = JobExecutor("aws-lambda", device=device, cpu_scale=cpu_scale)
+        t0 = time.perf_counter()
+        tables = io.etl_csv(store, "ds", "t.csv", chunk_bytes=JOBS_CHUNK_BYTES, executor=ex,
+                            faults=plan(), device=device)
+        torch.cuda.synchronize()
+        return tables, ex, time.perf_counter() - t0
+
+    def report_row(rep) -> dict:
+        return {"ntasks": rep.ntasks, "retries": rep.retries,
+                "speculative_launched": rep.speculative_launched,
+                "speculative_wins": rep.speculative_wins,
+                "billed_s": sum(a.billed_s for t in rep.tasks for a in t.attempts),
+                "tasks_s": rep.tasks_s, "init_s": rep.init_s, "comm_s": rep.comm_s,
+                "reduce_s": rep.reduce_s, "total_s": rep.total_s, "cost_usd": rep.cost_usd}
+
+    def audited(ex, rep, what):
+        violations = check_trace(ex.tracer, job=rep) + check_job(rep, ex.tracer)
+        if violations:
+            fail(f"jobs {what}: tracecheck {violations[:3]}")
+
+    measured, ex1, etl_wall = etl(dev, 1.0)
+    modeled, ex0, _ = etl(dev, 0.0)
+    cpu_tables, cpu_ex, cpu_wall = etl(torch.device("cpu"), 0.0)
+    for tables in (measured, modeled):
+        if len(tables) != len(cpu_tables) or not all(
+                t.columns[c].device.type == "cuda" for t in tables for c in t.columns):
+            fail("jobs etl: the Tables are not one per partition on the card")
+        for t, c in zip(tables, cpu_tables):
+            n = int(c.count)
+            if int(t.count) != n or not all(torch.equal(t.columns[k][:n].cpu(), c.columns[k][:n])
+                                            for k in c.columns):
+                fail("jobs etl: a Table on the card differs from the CPU parse")
+    if sum(int(t.count) for t in cpu_tables) != JOBS_CSV_ROWS:
+        fail("jobs etl: rows lost or duplicated")
+    if dataclasses.asdict(ex0.reports[-1]) != dataclasses.asdict(cpu_ex.reports[-1]) or \
+            ex0.tracer.to_json() != cpu_ex.tracer.to_json():
+        fail("jobs etl: the JobReport at cpu_scale=0 differs from the CPU run's")
+    for ex, what in ((ex1, "etl measured"), (ex0, "etl modeled")):
+        audited(ex, ex.reports[-1], what)
+
+    # map_reduce: each task hash-partitions one slice of rank 0's join keys
+    # on the card into the join's P buckets; the reduce sums the histograms
+    p = JOIN_P
+    keys = left[0].columns["k"][:int(left[0].count)]
+    slices = list(torch.tensor_split(keys, JOBS_MAP_TASKS))
+
+    def hist(part):
+        count = torch.tensor(part.shape[0], dtype=torch.int32, device=part.device)
+        _, h = hp_ops.row_buckets([part], p, count)
+        return h[:p].to(torch.int64)
+
+    def reduce(hs):
+        return torch.stack([h.to(hs[0].device) for h in hs]).sum(0)
+
+    mr = []
+    for device, scale in ((dev, 1.0), (dev, 0.0), (torch.device("cpu"), 0.0)):
+        ex = JobExecutor("aws-lambda", device=device, cpu_scale=scale, workers=4)
+        parts = [s.to(device) for s in slices]
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        fut = ex.map_reduce(hist, parts, reduce)
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        audited(ex, fut.job, f"map_reduce {device.type} cpu_scale={scale}")
+        mr.append((fut, ex, got))
+    host = keys.cpu()
+    _, want = hp_r.row_buckets_ref([host], p, torch.tensor(host.shape[0], dtype=torch.int32))
+    (fut1, _, got1), (fut0, ex0m, _), (cfut, cex, _) = mr
+    for fut in (fut1, fut0, cfut):
+        if not torch.equal(fut.result().cpu(), want[:p].to(torch.int64)):
+            fail("jobs map_reduce: the summed histograms differ from the plain version's")
+    if got1["hash_partition"] != JOBS_MAP_TASKS:
+        fail(f"jobs map_reduce: hash launches {got1['hash_partition']}, want {JOBS_MAP_TASKS}")
+    for name, c in got1.items():
+        launches.setdefault(name, {})["jobs_map_reduce"] = c
+    if dataclasses.asdict(fut0.job) != dataclasses.asdict(cfut.job) or \
+            ex0m.tracer.to_json() != cex.tracer.to_json():
+        fail("jobs map_reduce: the JobReport at cpu_scale=0 differs from the CPU run's")
+    return {"csv_rows": JOBS_CSV_ROWS, "csv_bytes": len(csv), "chunk_bytes": JOBS_CHUNK_BYTES,
+            "etl": {"partitions": len(cpu_tables), "card_wall_s": etl_wall,
+                    "cpu_wall_s": cpu_wall, "measured": report_row(ex1.reports[-1]),
+                    "modeled": report_row(ex0.reports[-1]),
+                    "tables_equal_cpu_parse": True},
+            "map_reduce": {"tasks": JOBS_MAP_TASKS, "P": p, "histogram": want[:p].tolist(),
+                           "measured": report_row(fut1.job), "modeled": report_row(fut0.job),
+                           "launches": got1, "sum_equals_plain": True},
+            "reports_equal_cpu_at_cpu_scale_0": True, "tracecheck_violations": 0}
+
+
 def step_flops(cfg, batch: int, seq: int) -> dict[str, int]:
     """FLOPs of one causal training step.  ``model``: 3 x the forward's, the
     forward being 2 per weight of every product per token (q, k, v, o, the
@@ -1235,7 +1665,7 @@ def main() -> int:
     t0 = time.perf_counter()
     out = ops_dist.sim_join(left, right, "k", comm)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = join_wall = time.perf_counter() - t0
     got = counters(hp_k, jp_k, sr_k, fa_k)
     for name, c in got.items():
         launches.setdefault(name, {})["join"] = c
@@ -1277,9 +1707,10 @@ def main() -> int:
 
     # -- 3b. comm: the join over four fabrics, the collectives, the lifecycle ---
     t0 = time.perf_counter()
-    comm_join = comm_join_phase(torch, args.seed, left, right, out, launches,
+    # the join's tables and rows stay for the codec phase (4c)
+    join_out = out
+    comm_join = comm_join_phase(torch, args.seed, left, right, join_out, launches,
                                 hp_k, jp_k, sr_k, fa_k)
-    del left, right, out
     torch.cuda.empty_cache()
     for name, row in comm_join["fabrics"].items():
         emit({"phase": "comm", "part": "join", "fabric": name, "P": comm_join["P"],
@@ -1331,6 +1762,26 @@ def main() -> int:
             tables, "k", {"v": "sum"}, make_communicator(p, "direct"), combine=combine))})
         del tables
         torch.cuda.empty_cache()
+
+    # -- 4b. bsp: the weak-scaling join through BSPRuntime, the recovery drill ---
+    t0 = time.perf_counter()
+    emit({"phase": "bsp", **bsp_phase(torch, gen, dev, launches, hp_k, jp_k, sr_k, fa_k),
+          "wall_s": time.perf_counter() - t0})
+
+    # -- 4c. codec: compress=True on phase 3's join and phase 4's groupby -------
+    t0 = time.perf_counter()
+    emit({"phase": "codec", **codec_phase(torch, np, left, right, join_out, join_wall, gk, gv,
+                                          expected, launches, hp_k, jp_k, sr_k, fa_k),
+          "wall_s": time.perf_counter() - t0})
+    del join_out, right, gk, gv
+    torch.cuda.empty_cache()
+
+    # -- 4d. jobs: the serverless executor on the card ----------------------------
+    t0 = time.perf_counter()
+    emit({"phase": "jobs", **jobs_phase(torch, np, dev, left, launches, hp_k, jp_k, sr_k, fa_k),
+          "wall_s": time.perf_counter() - t0})
+    del left
+    torch.cuda.empty_cache()
 
     # -- 5. flash attention at the serving path's shapes -------------------------
     from repro_torch import configs

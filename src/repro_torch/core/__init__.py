@@ -1,9 +1,8 @@
 """Core: the paper's contribution — the port's own copy of ``repro.core``:
 serverless communicator, comm sessions (bootstrap lifecycle + per-pair
 links), NAT-traversal control plane, network/cost models, provider fabric
-registry + cost-aware placement, and the modeled-clock span timeline every
-priced layer emits onto.  The BSP runtime (``bsp``) is not ported yet
-(ROADMAP A 10)."""
+registry + cost-aware placement, the BSP superstep runtime, and the
+modeled-clock span timeline every priced layer emits onto."""
 
 from repro_torch.core.netsim import (  # noqa: F401
     ProviderProfile,
@@ -52,4 +51,11 @@ from repro_torch.core.communicator import (  # noqa: F401
     CommEvent,
     Communicator,
     make_communicator,
+)
+from repro_torch.core.bsp import (  # noqa: F401
+    BSPRuntime,
+    Burst,
+    RunReport,
+    SuperstepReport,
+    WorkerFailure,
 )

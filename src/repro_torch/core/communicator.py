@@ -13,8 +13,8 @@ what the reference logs for the same shapes.
 The paper's FMI extensions are reproduced as API surface: variable-length
 collectives (allgatherv / alltoallv), non-blocking ops with handles, retries
 with a ping capability, and atomic-counter rank assignment (``core/nat.py``).
-The compressed wire (``compressed_alltoallv``) needs the columnar codec,
-which is not ported yet (ROADMAP A 3).
+The compressed wire (``compressed_alltoallv``) carries the columnar codec's
+blocks (``dist/compression.py``), priced at their compressed bytes.
 
 Algorithm selection (``repro_torch.core.algorithms``)
 -----------------------------------------------------
@@ -571,11 +571,40 @@ class Communicator:
         self._record(CollectiveKind.ALLTOALLV, max_payload, algorithm=algorithm)
         return self._route(sends), counts
 
-    def compressed_alltoallv(self, sends, algorithm: str | None = None):
-        raise NotImplementedError(
-            "compressed_alltoallv needs the compressed columnar codec, which is "
-            "not ported yet (ROADMAP.md, queue A: A 3, the compressed codec)"
+    def compressed_alltoallv(
+        self, sends: Sequence[Sequence[Any]],
+        algorithm: str | None = None,
+    ) -> list[list[Any]]:
+        """Variable-length all-to-all over *pre-encoded* payload blocks.
+
+        ``sends[src][dst]`` is an opaque encoded block exposing
+        ``wire_nbytes`` (what the codec ships) and ``raw_nbytes`` (what the
+        uncompressed path would have shipped) — e.g.
+        :class:`repro_torch.dist.compression.EncodedBlock`.  The event is priced at
+        the **compressed** bytes-per-rank, so ``comm_time_s``/
+        ``bytes_on_wire`` and the BSP/cost-model pricing reflect the real
+        wire, while ``raw_bytes`` keeps the compression ratio observable.
+
+        Returns ``recvs[dst][src]`` (blocks pass through undecoded and
+        uncopied, as the reference's do: decoding makes new tensors; the
+        caller owns the codec).
+        """
+        self._check_world(sends)
+        for row in sends:
+            if len(row) != self.world_size:
+                raise ValueError("alltoallv needs a full P x P send matrix")
+        # phase 1: exchange per-pair sizes (one int per destination)
+        self._record(CollectiveKind.ALLTOALL, self.world_size * 8, algorithm=algorithm)
+        # phase 2: payload, priced at the compressed wire size
+        wire = max(sum(int(b.wire_nbytes) for b in row) for row in sends)
+        raw = max(sum(int(b.raw_nbytes) for b in row) for row in sends)
+        self._record(
+            CollectiveKind.ALLTOALLV, wire, raw_bytes=raw, algorithm=algorithm
         )
+        return [
+            [sends[src][dst] for src in range(self.world_size)]
+            for dst in range(self.world_size)
+        ]
 
     def bcast(
         self, x: torch.Tensor, root: int = 0, algorithm: str | None = None

@@ -8,4 +8,4 @@ from repro_torch.dataframe.partition import (  # noqa: F401
     hash32,
     hash_columns,
 )
-from repro_torch.dataframe import ops_dist, ops_local  # noqa: F401
+from repro_torch.dataframe import io, ops_dist, ops_local  # noqa: F401

@@ -8,6 +8,17 @@ join on the received tables."  Per-rank ``list[Table]`` go through a
 the communication; the blocks stay on the tables' device.  The GroupBy
 combiner (paper §IV-C: local pre-aggregation shrinks 50M rows to ~1e3 before
 the wire) is ``combine=True``.
+
+Compressed wire (``compress=True`` on the shuffle, join and groupby): each
+(src, dst) block goes through the columnar codec of
+``repro_torch.dist.compression`` before the alltoallv, on the tables'
+device.  Key columns are encoded **exactly** (dictionary / narrow-width
+offsets / raw — never quantized), so ``hash(key) % P`` routing and join
+equality see bit-identical values; float value columns ship as block-int8
+with one float32 scale per block; integer value columns take the exact
+treatment, keeping integer aggregates exact.  The communicator prices the
+event at the compressed bytes and records the logical bytes in
+``CommEvent.raw_bytes``.
 """
 
 from __future__ import annotations
@@ -18,11 +29,7 @@ from repro_torch.core.communicator import Communicator
 from repro_torch.dataframe import ops_local
 from repro_torch.dataframe.partition import build_partition_payload
 from repro_torch.dataframe.table import Table
-
-_NO_CODEC = (
-    "compress=True needs the compressed columnar codec, which is not ported yet "
-    "(ROADMAP A 3, the compressed codec)"
-)
+from repro_torch.dist import compression
 
 
 def _shuffle_sim(
@@ -31,14 +38,18 @@ def _shuffle_sim(
 ) -> list[Table]:
     """Hash-shuffle each rank's table so rows land at hash(key) % P.
 
-    Every block ships as one float64 row-matrix (the reference's raw wire
-    format, 8 B/value), so rows and event bytes match the reference; like
-    it, this loses integer precision above 2**53.
+    ``compress=False`` ships every block as one float64 row-matrix (the
+    reference's raw wire format, 8 B/value), so rows and event bytes match
+    the reference; like it, this loses integer precision above 2**53.
+    ``compress=True`` runs each block through the columnar codec instead:
+    the key column bit-exact at any magnitude, float value columns
+    block-int8, integer value columns exact — and the communicator prices
+    the compressed bytes while logging the raw ones.
     """
-    if compress:
-        raise NotImplementedError(_NO_CODEC)
     p = comm.world_size
     names = sorted(tables[0].columns)
+    if compress:
+        return _shuffle_sim_compressed(tables, key, comm, names, algorithm=algorithm)
     dev = tables[0].device
     sends: list[list[torch.Tensor]] = []
     for t in tables:
@@ -58,6 +69,32 @@ def _shuffle_sim(
         rows = torch.cat(recvs[dst], dim=0)
         data = {n: rows[:, i].to(tables[0].columns[n].dtype) for i, n in enumerate(names)}
         out.append(Table.from_dict(data, capacity=max(cap, rows.shape[0]), device=dev))
+    return out
+
+
+def _shuffle_sim_compressed(
+    tables: list[Table], key: str, comm: Communicator, names: list[str],
+    algorithm: str | None = None,
+) -> list[Table]:
+    """Codec-per-block variant of :func:`_shuffle_sim` (same row routing)."""
+    p = comm.world_size
+    dtypes = {n: tables[0].columns[n].dtype for n in names}
+    dev = tables[0].device
+    sends: list[list[compression.EncodedBlock]] = []
+    for t in tables:
+        payload, counts = build_partition_payload(t, p, [key])
+        sends.append([
+            compression.encode_block({n: payload[n][d][:c] for n in names}, {key})
+            for d, c in enumerate(counts.tolist())
+        ])
+    recvs = comm.compressed_alltoallv(sends, algorithm=algorithm)
+    cap = max(1, sum(t.capacity for t in tables) // p * 2)
+    out: list[Table] = []
+    for dst in range(p):
+        decoded = [compression.decode_block(b) for b in recvs[dst]]
+        data = {n: torch.cat([d[n] for d in decoded]).to(dtypes[n]) for n in names}
+        nrows = data[names[0]].shape[0] if names else 0
+        out.append(Table.from_dict(data, capacity=max(cap, nrows), device=dev))
     return out
 
 
@@ -82,15 +119,13 @@ def sim_groupby(
     algorithm: str | None = None,
 ) -> list[Table]:
     """Distributed groupby; ``combine`` applies local pre-aggregation first."""
-    if compress:
-        raise NotImplementedError(_NO_CODEC)
     work = tables
     final_aggs = dict(aggs)
     if combine:
         work = [_rename_back(ops_local.groupby_agg(t, key, aggs), aggs) for t in tables]
         # re-aggregating partials: sum-of-sums, max-of-maxes, sum-of-counts
         final_aggs = {c: ("sum" if op == "count" else op) for c, op in aggs.items()}
-    shuffled = _shuffle_sim(work, key, comm, algorithm=algorithm)
+    shuffled = _shuffle_sim(work, key, comm, compress=compress, algorithm=algorithm)
     comm.barrier(algorithm=algorithm)
     out = [ops_local.groupby_agg(t, key, final_aggs) for t in shuffled]
     if combine:

@@ -18,3 +18,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
     return device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for every kernel queued on ``device`` (a no-op on the CPU).
+
+    A function that launches kernels returns before they run, so a host
+    stamp taken after it times the launches, not the work: the port's
+    compute-measurement points (``core/bsp.py``, ``jobs/executor.py``) call
+    this before each stamp."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -597,3 +597,115 @@ def test_sim_join_over_other_fabrics_gives_the_direct_rows(cuda, fabric):
                                                                      b.columns[c][:n])
                    for c in b.columns)
     assert comm.comm_time_s > direct.comm_time_s
+
+
+# -- the BSP runtime, the job executor and the codec on the card ----------------
+
+def _sleep_cycles(cuda, ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy >= ``ms``
+    (timed with CUDA events)."""
+    cycles = 1 << 20
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        if start.elapsed_time(end) >= ms:
+            return cycles
+        cycles *= 2
+
+
+def test_measured_compute_waits_for_the_card(cuda):
+    """A rank function (and a map task) that launches ~10 ms of device work
+    returns at once; the runtime and the executor drain the card before the
+    closing stamp, so each reports at least 10 ms / cpu_speed."""
+    from repro_torch.core import BSPRuntime
+    from repro_torch.jobs import JobExecutor
+
+    cycles = _sleep_cycles(cuda, 10.0)
+
+    def busy(*_):
+        torch.cuda._sleep(cycles)
+        return 0
+
+    rt = BSPRuntime(2, provider="aws-lambda", device=cuda)
+    _, rep = rt.run([("sleep", lambda r, s, c, w: busy())], [0, 0])
+    floor = 0.010 / rt.platform.cpu_speed
+    assert rep.supersteps[0].compute_s >= floor
+    assert all(s.duration_s >= floor for s in rt.tracer.spans if s.lane == "compute")
+    ex = JobExecutor(provider="aws-lambda", device=cuda)
+    fs = ex.map(busy, range(2))
+    assert all(f.record.attempts[0].billed_s >= 0.010 / ex.provider.platform.cpu_speed
+               for f in fs)
+    red = JobExecutor(provider="aws-lambda", device=cuda).map_reduce(
+        busy, range(2), lambda rs: busy())
+    assert red.job.reduce_s >= 0.010 / ex.provider.platform.cpu_speed
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_codec_round_trip_on_the_card(cuda, exact):
+    """Every codec kind on CUDA tensors: the CPU encoding's kinds, parts and
+    wire bytes, every part on the card, and the CPU decoding."""
+    from repro_torch.dist import compression as codec
+
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+    rng = np.random.default_rng(4)
+    cols = [
+        np.array([], np.int32), np.array([i32.min, i32.max, 0], np.int32),
+        np.array([i32.min, i32.min + 200] * 70, np.int32),
+        (i32.max - rng.integers(0, 60000, 3000)).astype(np.int32),
+        np.array([i32.min, 0, i32.max] * 300, np.int32),
+        np.array([i64.min, i64.max, 0], np.int64),
+        np.array([i64.max, i64.max - 65535, i64.max - 7] * 30, np.int64),
+        np.array([i64.min, i64.min + 2**32 - 1] * 10, np.int64),
+        np.arange(70000, dtype=np.int64) * 3 - 10**12,
+        (rng.normal(size=1000) * 40).astype(np.float32), rng.normal(size=77),
+    ]
+    kinds = set()
+    for col in cols:
+        host = torch.from_numpy(col)
+        c = codec.encode_column(host, exact=exact)
+        g = codec.encode_column(host.to(cuda), exact=exact)
+        kinds.add(g.kind)
+        assert (g.kind, g.count, g.origin, g.wire_nbytes, g.raw_nbytes) == \
+            (c.kind, c.count, c.origin, c.wire_nbytes, c.raw_nbytes)
+        for name, part in g.parts.items():
+            assert part.device.type == "cuda" and part.dtype == c.parts[name].dtype
+            assert torch.equal(part.cpu(), c.parts[name]), name
+        dec = codec.decode_column(g)
+        assert dec.device.type == "cuda" and torch.equal(dec.cpu(), codec.decode_column(c))
+    assert kinds >= ({"raw", "narrow", "dict"} | (set() if exact else {"int8"}))
+
+
+def test_repartition_states_and_checkpoints_on_the_card(cuda):
+    from repro_torch.core import BSPRuntime, FaultPlan
+    from repro_torch.dist.object_store import S3Store
+    from repro_torch.dist.sharding import repartition_states
+
+    states = [torch.arange(r * 5, r * 5 + 5, dtype=torch.float64, device=cuda)
+              for r in range(6)]
+    for new in (1, 4, 5, 9):
+        parts = repartition_states(states, new)
+        host = repartition_states([s.cpu() for s in states], new)
+        assert [p.shape for p in parts] == [h.shape for h in host]
+        assert all(p.device.type == "cuda" and torch.equal(p.cpu(), h)
+                   for p, h in zip(parts, host))
+
+    def step(rank, state, comm, world):
+        return state * 2.0 + 1.0
+
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        store = S3Store()
+        rt = BSPRuntime(6, provider="aws-lambda", checkpoint_dir=store, device=device,
+                        cpu_scale=0.0)
+        out, rep = rt.run([(f"s{i}", step) for i in range(3)], [s.to(device) for s in states],
+                          faults=FaultPlan(rank_losses=((1, 5),)), recovery_policy="shrink")
+        assert all(s.device.type == device.type for s in out)
+        ckpt = BSPRuntime.latest_checkpoint(store, device=device)
+        assert all(s.device.type == device.type for s in ckpt["states"])
+        runs.append((torch.cat([s.cpu() for s in out]), rep,
+                     [(op.kind, op.nbytes, op.time_s) for op in store.ops]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1:] == runs[1][1:]

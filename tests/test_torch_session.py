@@ -391,8 +391,11 @@ def test_communicator_errors_equal():
             m["comm"].Communicator(session=m["sess"].CommSession.all_direct(4), group=(0, 0))
         with pytest.raises(ValueError, match="not in group"):
             c.split([0, 0, 1, 1])[2].local_rank(0)
-    with pytest.raises(NotImplementedError, match="A 3"):
-        t_comm.Communicator(2).compressed_alltoallv([[None] * 2] * 2)
+    for m in (T, J):
+        with pytest.raises(ValueError, match="full P x P"):
+            m["comm"].Communicator(2).compressed_alltoallv([[None] * 2, [None]])
+        with pytest.raises(ValueError, match="one entry per rank"):
+            m["comm"].Communicator(2).compressed_alltoallv([[None] * 2])
 
 
 @pytest.mark.parametrize("world", [4, 8, 9])
