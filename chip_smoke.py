@@ -112,7 +112,19 @@ Phases, one JSON line each:
    width 120 (q [1, 4096, 32, 120], k/v [1, 4096, 8, 120], window 4096;
    there also the bf16 prefill and decode designs), and ``flash_tiled`` at
    gemma3-4b's global layer (q [1, 4096, 8, 256], k/v 4 heads), each timed
-   with its own bound and its float32 CUDA-core bound.
+   with its own bound and its float32 CUDA-core bound.  And the families'
+   shapes (phase 8b), bf16 k/v, each within 2e-5, failing it given one key
+   too few, timed with its bound and SDPA: whisper-medium's encoder (q/k/v
+   [4, 1500, 16, 64], non-causal: ``flash_wgmma``) and its prompt's
+   cross-attention (q [4, 4, 16, 64] over the 1500 frames:
+   ``flash_decode``), its decoder's self-attention over the 128-position
+   cache (q [4, 4, 16, 64] at kv_len 4 and [4, 1, 16, 64] at 127:
+   ``flash_decode``), qwen3-moe's prefill (q [4, 2048, 64, 128] over [4,
+   2080, 4, 128] at kv_len 2048: ``flash_wgmma``), recurrentgemma-9b's
+   local prefill (q [4, 4096, 16, 256], k/v [4, 4096, 1, 256], window
+   2048), and decode at 16 rows per kv head (``flash_wgmma``): qwen3-moe q
+   [4, 1, 64, 128] over [4, 2080, 4, 128], recurrentgemma q [4, 1, 16, 256]
+   over [4, 4128, 1, 256].
 6. kernel  — flash_attention_bwd (the hand-written backward) against its
    plain version (``ref.attention_bwd_ref``) from the same o and lse, at
    minicpm-2b's train shape (q/k/v [2, 4096, 36, 64], causal), gemma3-4b's
@@ -140,6 +152,33 @@ Phases, one JSON line each:
    logits, and each greedy token against its step's argmax; (b) a reduced
    gemma3-4b (6 layers, one global) on the card against the plain versions
    on the CPU from the same weights.  Its weights are freed before training.
+8b. families — ``serve_step.generate`` on the four other model families,
+   one run each, random weights and inputs from ``--seed`` made on the card,
+   each family's weights freed before the next: qwen3-moe-235b-a22b at full
+   width with bfloat16 weight storage, 4 of its 94 layers (41.7 GB of
+   weights), B 4 x 2048 prompt tokens + 32, capacity factor 1.25; rwkv6-7b
+   (7.5B float32 parameters), B 4 x 4096 + 32; recurrentgemma-9b (10.4B
+   parameters, its cast leaves in bfloat16), B 4 x 4096 + 32; whisper-medium
+   (24 + 24 layers), B 4 x 1500 frames, a 4-token prompt + 124 tokens.  Each
+   run is counted and timed as phase 7's (time to first token, token gaps,
+   decode tokens/s, peak memory) and fails unless flash attention ran
+   exactly the calls its design rule gives (``FAMILY_RUNS``: qwen3-moe 4 +
+   31 x 4 and recurrentgemma 12 + 31 x 12, all ``flash_wgmma``; rwkv6 none;
+   whisper 24 ``flash_wgmma`` (encoder) + 24 + 24 + 123 x 48
+   ``flash_decode``); then one prefill and one decode step under the
+   profiler.  ``families_check``: each family at full width and a CPU-sized
+   depth (qwen3-moe 1 layer, rwkv6 2, recurrentgemma 3, whisper 2 + 2), B 2 x
+   16 prompt tokens: (a) the cache-free forward on the card against the
+   CPU's from the same weights (1e-4 where the model computes in float32,
+   2e-2 where its activations are bfloat16); (b) the cached path's logits
+   at 16 generated steps against the cache-free forward on the card (2e-2;
+   RWKV's chunked prefill against its steps 3e-4), each token its step's
+   argmax.  Griffin's bfloat16 logits take 2e-2 of the largest logit as the
+   absolute limit; each reading prints the limit applied, and both checks
+   fail unless that limit rejects the same model with its attention output
+   projection zeroed.  The phase sets
+   ``allow_bf16_reduced_precision_reduction`` False (Griffin and Whisper
+   refuse to run on the card without it) and restores it after.
 9. train   — ``launch.train.train`` on minicpm-2b at full width and depth
    (2,724,880,896 parameters, random from ``--seed``): B 2 x 4096 tokens
    from its own pipeline (``data_iter``), 6 steps with its own
@@ -175,11 +214,11 @@ longest.
 
 The launch counters of every kernel are set to 0 just before each of the
 main-path runs (join, each of the comm phase's four joins, groupby, each
-bsp run, the codec's join and groupbys, the jobs' map_reduce, serve,
-train) and read just after; a kernel
+bsp run, the codec's join and groupbys, the jobs' map_reduce, serve, each
+families run, train) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
-flash-attention launches, or a train run without the counts above, fails
-the run.  Then a ``launches`` line (each counter by run: the kernels, and
+flash-attention launches, a families run without its calls by design, or a
+train run without the counts above, fails the run.  Then a ``launches`` line (each counter by run: the kernels, and
 flash attention's calls by design), the kernels' summary line (one row per
 kernel, and for flash attention one per design the main path runs), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception
@@ -242,10 +281,33 @@ DRILL_WORLD, DRILL_ROWS, DRILL_STEPS = 8, 1 << 20, 4
 # the jobs phase: a 1M-row two-column CSV cut into 2 MB partitions; the
 # map_reduce splits one join worker's keys over 8 tasks
 JOBS_CSV_ROWS, JOBS_CHUNK_BYTES, JOBS_MAP_TASKS = 1_000_000, 2 << 20, 8
+# the families phase: one generate per run at full width, random weights from
+# --seed: (run, arch, config overrides, B, prompt tokens, new tokens, the
+# flash-attention forward calls by design that the run must make).  qwen3-moe
+# at 4 of its 94 layers (a layer's 256 padded experts are 9.66 GB in
+# bfloat16); whisper over its 30 s window (1500 frames) with a 4-token prompt,
+# the length of its start-of-transcript sequence
+FAMILY_RUNS = (
+    ("qwen3_moe", "qwen3-moe-235b-a22b", {"num_layers": 4}, 4, 2048, 32,
+     {"flash_wgmma": 4 + 31 * 4}),
+    ("rwkv6", "rwkv6-7b", {}, 4, 4096, 32, {}),
+    ("recurrentgemma", "recurrentgemma-9b", {}, 4, 4096, 32,
+     {"flash_wgmma": 12 + 31 * 12}),
+    ("whisper", "whisper-medium", {}, 4, 4, 124,
+     {"flash_wgmma": 24, "flash_decode": 24 + 24 + 123 * 48}),
+)
+# families_check: each family at full width and a depth the CPU runs, a
+# 16-token prompt and 16 new tokens (RWKV's forward takes whole chunks of 16)
+FAMILY_CHECK = (("qwen3-moe-235b-a22b", {"num_layers": 1}), ("rwkv6-7b", {"num_layers": 2}),
+                ("recurrentgemma-9b", {"num_layers": 3}),
+                ("whisper-medium", {"num_layers": 2, "encoder_layers": 2}))
+FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW = 2, 16, 16
 # every path runs at its full size and depth but these
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
     "runs 3)",
+    "families: qwen3-moe-235b-a22b at 4 of its 94 layers (full width, bf16 storage: "
+    "~41 GB of weights)",
 ]
 
 # flash attention against its plain version: both read the same k/v (bfloat16
@@ -262,6 +324,13 @@ SIZE_CUTS: list[str] = [
 FLASH_TOL = 2e-5
 SERVE_LOGIT_TOL = 2e-2
 REDUCED_F32_TOL = 1e-4
+# families_check: RWKV's prefill (chunks of 16) against its decode steps (chunk
+# 1): float32 sums in another order, the reference's own chunk-invariance
+# limit (tests/test_models.py:95).  Griffin's logits are bfloat16: there the
+# absolute part of 2e-2 is taken of the largest logit (its products round to
+# bfloat16 in another order on the card than on the CPU, as the port's and
+# the reference's do; tests/test_torch_families.py).
+RWKV_STEP_TOL = 3e-4
 # the backward kernel against its plain version from the same o and lse:
 # both float32, sums in another order, dk and dv sum up to T x groups terms:
 # 1e-4 absolute plus relative.  One key too few moves some gradient by
@@ -1423,6 +1492,192 @@ def train_check_phase(torch, seed) -> dict:
     return out
 
 
+def families_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k) -> None:
+    """The four families' serve runs (module doc, phase 8b): each one
+    ``generate``, counted and timed, then one prefill and one decode step
+    under the profiler; each family's weights are freed before the next."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+
+    dev = torch.device("cuda")
+    for run, arch, over, b, prompt, new, want in FAMILY_RUNS:
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(t.numel() * t.element_size() for t in api.tree_leaves(params))
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                                         device=dev, dtype=torch.int32)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((b, cfg.source_positions, cfg.d_model),
+                                          generator=gen, device=dev)
+        arrivals = []
+
+        def on_step(tok, logits):
+            tok.cpu()
+            arrivals.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        t0 = time.perf_counter()
+        toks, _ = serve_step.generate(cfg, params, batch, new, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        peak = torch.cuda.max_memory_allocated()
+        designs = {d: n for d, n in fa_k.fwd_design_launches.items() if n}
+        if designs != want or got["flash_attention"] != sum(want.values()):
+            fail(f"families {run}: flash_attention ran {designs} ({got['flash_attention']} "
+                 f"calls), want {want}")
+        for name, c in got.items():
+            launches.setdefault(name, {})[f"families/{run}"] = c
+        if toks.shape != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            fail(f"families {run}: tokens out of range: {toks.shape}")
+        gaps = [y - x for x, y in zip(arrivals, arrivals[1:])]
+        decode_s = arrivals[-1] - arrivals[0]
+        emit({"phase": "families", "run": run, "arch": arch, "layers": cfg.num_layers,
+              "params": cfg.param_count(), "weight_bytes": weight_bytes, "B": b,
+              "prompt": prompt, "new": new, "init_s": init_s, "wall_s": wall,
+              "ttft_s": arrivals[0] - t0,
+              "token_gap_ms_median": statistics.median(gaps) * 1e3,
+              "token_gap_ms_max": max(gaps) * 1e3,
+              "decode_tokens_per_s": b * (new - 1) / decode_s,
+              "peak_mem_bytes": peak, "launches": got, "designs": designs,
+              "tokens_req0": toks[0].tolist()})
+
+        def prefill_and_decode():
+            with torch.inference_mode():
+                st = api.init_decode_state(cfg, b, prompt + 1, device=dev)
+                lg, st = api.prefill_fn(cfg, params, batch, st)
+                api.decode_fn(cfg, params, serve_step.greedy_sample(lg), st)
+
+        emit({"phase": "trace", "cell": f"families/{run}", **trace(torch, prefill_and_decode)})
+        del params, batch, toks
+        torch.cuda.empty_cache()
+
+
+def families_check(torch, seed) -> dict:
+    """Each family at full width and a CPU-sized depth (module doc, phase
+    8b): (a) the cache-free forward on the card against the plain versions
+    on the CPU from the same weights; (b) on the card, the cached path (a
+    ``generate``'s logits at every step) against the cache-free forward of
+    the prompt and the generated tokens, each token the argmax of its step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import serve_step
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to_cpu(v) for v in tree)
+        return tree.cpu()
+
+    def close(got, exp, tol, scaled) -> tuple[bool, dict]:
+        """Whether ``got`` is within ``tol`` of ``exp`` (bfloat16 logits:
+        the absolute part of the largest ``exp``), and the reading."""
+        got, exp = got.float().cpu(), exp.float().cpu()
+        top = float(exp.abs().max())
+        atol = tol * max(1.0, top) if scaled else tol
+        err = (got - exp).abs()
+        return bool((err <= atol + tol * exp.abs()).all()), {
+            "max_abs_err": float(err.max()), "tol": tol, "atol": atol, "rtol": tol,
+            "max_abs_logit": top}
+
+    def attn_out(p) -> torch.Tensor:
+        """The output projection of Griffin's attention layers in ``p``
+        (the planted fault zeroes it)."""
+        return p["group"][cfg.block_pattern.index("attn")]["wo_a"]
+
+    dev = torch.device("cuda")
+    b, s, new = FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW
+    out = {}
+    for arch, over in FAMILY_CHECK:
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        bf16_compute = api.compute_dtype(cfg) == torch.bfloat16
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = api.init_params(cfg, gen, device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev,
+                                         dtype=torch.int32)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((b, cfg.source_positions, cfg.d_model), generator=gen,
+                                          device=dev)
+        row = {"layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers}
+        # (a) the card against the CPU, the cache-free forward
+        tol = SERVE_LOGIT_TOL if bf16_compute else REDUCED_F32_TOL
+        cpu_params, cpu_batch = to_cpu(params), to_cpu(batch)
+        with torch.inference_mode():
+            card, _ = api.logits_fn(cfg, params, batch)
+            cpu, _ = api.logits_fn(cfg, cpu_params, cpu_batch)
+        scaled = card.dtype == torch.bfloat16
+        ok, reading = close(card, cpu, tol, scaled)
+        if not ok or not bool(torch.isfinite(card).all()):
+            fail(f"families_check {arch}: the card's forward differs from the CPU's: {reading}")
+        row["card_vs_cpu"] = {**reading, "logits": list(card.shape), "dtype": str(card.dtype)}
+        if cfg.family == "hybrid":
+            # the limit scaled by the largest logit must still catch a lost
+            # attention layer: the CPU side without its output projection
+            attn_out(cpu_params).zero_()
+            with torch.inference_mode():
+                faulted, _ = api.logits_fn(cfg, cpu_params, cpu_batch)
+            caught, reading = close(card, faulted, tol, scaled)
+            if caught:
+                fail(f"families_check {arch}: the limit passes a zeroed attention output: "
+                     f"{reading}")
+            row["card_vs_cpu"]["attn_out_zeroed"] = reading
+            del faulted
+        del card, cpu, cpu_params, cpu_batch
+        # (b) the cached path against the cache-free forward, on the card; the
+        # MoE at capacity factor 16, so that no pair drops in either (a
+        # batched prefill and a decode step drop different pairs at 1.25, as
+        # the reference's own decode test notes, tests/test_models.py:57-59)
+        ccfg = dataclasses.replace(cfg, capacity_factor=16.0) if cfg.family == "moe" else cfg
+        steps = []
+        toks, _ = serve_step.generate(ccfg, params, batch, new,
+                                      on_step=lambda t, lg: steps.append(lg.float()))
+        with torch.inference_mode():
+            full, _ = api.logits_fn(ccfg, params, {**batch, "tokens": torch.cat(
+                [batch["tokens"], toks], 1)})
+        tf = full[:, s - 1: s - 1 + new].float()
+        cached = torch.stack(steps, 1)
+        tol = RWKV_STEP_TOL if cfg.family == "ssm" else SERVE_LOGIT_TOL
+        ok, reading = close(cached, tf, tol, scaled)
+        if not ok:
+            fail(f"families_check {arch}: cached logits differ from the forward: {reading}")
+        if not all(torch.equal(toks[:, i], lg.argmax(-1).to(torch.int32))
+                   for i, lg in enumerate(steps)):
+            fail(f"families_check {arch}: a greedy token is not its step's argmax")
+        row["cached_vs_forward"] = {**reading, "positions": s + new}
+        if cfg.family == "hybrid":
+            saved = attn_out(params).clone()
+            attn_out(params).zero_()
+            with torch.inference_mode():
+                faulted, _ = api.logits_fn(ccfg, params, {**batch, "tokens": torch.cat(
+                    [batch["tokens"], toks], 1)})
+            attn_out(params).copy_(saved)
+            caught, reading = close(cached, faulted[:, s - 1: s - 1 + new], tol, scaled)
+            if caught:
+                fail(f"families_check {arch}: the limit passes a zeroed attention output: "
+                     f"{reading}")
+            row["cached_vs_forward"]["attn_out_zeroed"] = reading
+            del faulted, saved
+        out[arch] = row
+        del params, full, steps
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas(pattern: str) -> dict:
     """Registers and spills of each built kernel whose name holds ``pattern``."""
     from repro_torch.kernels import _build
@@ -1986,6 +2241,71 @@ def main() -> int:
             }
         del fq, fk, fv, kk, vv, qq
         torch.cuda.empty_cache()
+    # the families' attention shapes (phase 8b): whisper-medium's encoder over
+    # its 1500 frames (non-causal, a ragged key edge: 23 x 64 + 28) and the
+    # cross-attention of its 4-token prompt over them (flash_decode);
+    # recurrentgemma-9b's local MQA prefill (16 query heads over 1 kv head of
+    # 256, window 2048); decode at 16 rows per kv head, past SPLIT_ROWS, so in
+    # flash_wgmma (qwen3-moe's 64 / 4 heads of 128 at its first decode step,
+    # recurrentgemma's 16 / 1 past its window); qwen3-moe's prefill (16
+    # query heads per kv head, its 2048-token prompt in a 2080-position
+    # cache) and whisper's decoder self-attention over its 128-position
+    # cache (the 4-token prompt, and the last decode step); bf16 k/v, each
+    # within 2e-5 and failing it given one key too few
+    for cell, q_shape, kv_shape, kw in (
+        ("whisper_encoder", (4, 1500, 16, 64), (4, 1500, 16, 64),
+         dict(causal=False, window=0, q_offset=0, kv_len=None)),
+        ("whisper_cross", (4, 4, 16, 64), (4, 1500, 16, 64),
+         dict(causal=False, window=0, q_offset=0, kv_len=None)),
+        ("whisper_self_prompt", (4, 4, 16, 64), (4, 128, 16, 64),
+         dict(causal=True, window=0, q_offset=0, kv_len=4)),
+        ("whisper_self_decode", (4, 1, 16, 64), (4, 128, 16, 64),
+         dict(causal=True, window=0, q_offset=126, kv_len=127)),
+        ("qwen3_moe_prefill", (4, 2048, 64, 128), (4, 2080, 4, 128),
+         dict(causal=True, window=0, q_offset=0, kv_len=2048)),
+        ("griffin_local", (4, 4096, 16, 256), (4, 4096, 1, 256),
+         dict(causal=True, window=2048, q_offset=0, kv_len=4096)),
+        ("qwen3_moe_decode", (4, 1, 64, 128), (4, 2080, 4, 128),
+         dict(causal=True, window=0, q_offset=2048, kv_len=2049)),
+        ("griffin_decode", (4, 1, 16, 256), (4, 4128, 1, 256),
+         dict(causal=True, window=2048, q_offset=4096, kv_len=4097)),
+    ):
+        fq = randn(*q_shape)
+        copies = [(randn(*kv_shape, dtype=torch.bfloat16), randn(*kv_shape, dtype=torch.bfloat16))
+                  for _ in range(4 if q_shape[1] <= 4 else 1)]
+        fk, fv = copies[0]
+        design = fa_k.fwd_design(q_shape[3], torch.bfloat16, q_shape[1] * q_shape[2] // kv_shape[2])
+        before = fa_k.fwd_design_launches[design]
+        got = fa_k.flash_attention(fq, fk, fv, **kw)
+        if fa_k.fwd_design_launches[design] != before + 1:
+            fail(f"flash_attention did not run {design} ({cell})")
+        err = flash_err(got, fa_r.attention_ref(fq, fk, fv, **kw))
+        if kw["window"]:
+            near = dict(kw, window=kw["window"] - 1)
+        else:
+            near = dict(kw, kv_len=(kw["kv_len"] or kv_shape[1]) - 1)
+        exp_near = fa_r.attention_ref(fq, fk, fv, **near)
+        if within(got, exp_near):
+            fail(f"flash_attention limit {FLASH_TOL} does not tell one key too few ({cell})")
+        one_key_off = float((got - exp_near).abs().max())
+        del got, exp_near
+        nbytes, ops = flash_work(torch, fq, fk, **kw)
+        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[design])
+                    if design in FLASH_SPLIT else bound(nbytes, ops))
+        fms, fby = bound(nbytes, ops)
+        ms = timer.ms(*rotating(lambda c, q=fq, kw=kw: fa_k.flash_attention(q, *c, **kw), copies,
+                                16 if q_shape[1] <= 4 else 1))
+        flash_shapes[cell] = {
+            "q": list(q_shape), "kv": list(kv_shape), "kv_dtype": "bfloat16", **kw,
+            "design": design, "max_abs_err": err, "one_key_off_max_abs_err": one_key_off,
+            "ms": ms, "plain_ms": timer.ms(lambda: fa_r.attention_ref(fq, fk, fv, **kw)),
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+            "bound_fp32_ms": fms, "bound_fp32_by": fby, "share_of_fp32_bound": fms / ms,
+            "bytes": nbytes, "operations": ops,
+            "library_ms": timer.ms(sdpa_call(torch, fq, fk, fv, **kw)),
+        }
+        del fq, fk, fv, copies
+        torch.cuda.empty_cache()
     kernels["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2126,6 +2446,19 @@ def main() -> int:
     check_b["float32_steps"] = {"max_abs_err": err, "tol": REDUCED_F32_TOL, "tokens": True}
     emit({"phase": "serve_check", "full_width": check_a, "reduced": check_b})
     del rparams, rparams_cpu
+    torch.cuda.empty_cache()
+
+    # -- 8b. families: qwen3-moe, rwkv6, recurrentgemma, whisper -----------------
+    # the reference's bf16 products sum in float32: Griffin and Whisper
+    # refuse to run on the card without this (layers.check_products)
+    matmul = torch.backends.cuda.matmul
+    reduced_bf16 = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    families_phase(torch, args.seed, launches, hp_k, jp_k, sr_k, fa_k)
+    emit({"phase": "families_check", **families_check(torch, args.seed),
+          "families_wall_s": time.perf_counter() - t0})
+    matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
     torch.cuda.empty_cache()
 
     # -- 9. train: minicpm-2b at full width and depth ---------------------------

@@ -5,8 +5,11 @@ padded columns and its count as arrays, and ``table_from_numpy`` /
 ``table_to_numpy`` move exactly that state (padding rows included) into a
 port ``Table`` and back.  Models: ``params_from_numpy`` takes the
 reference's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-params)``) and gives the port's tree; ``cache_from_numpy`` does the same for
-a KV cache.  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` move the
+params)``) and gives the port's tree, each leaf in the type its family's
+products read; ``cache_from_numpy`` does the same for a KV cache, and
+``state_from_numpy`` / ``state_to_numpy`` for any family's decode state
+(the transformer's KV cache, RWKV's recurrent state, Griffin's group /
+remainder state, the encoder-decoder's self and cross K/V).  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` move the
 optimizer state (float32 or int8 {"q", "scale"} moments and the step).  So
 both packages can start from identical state.
 """
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch.dataframe.table import Table
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import api
 from repro_torch.models.config import ArchConfig
 
 
@@ -55,27 +58,39 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | None = None,
                       *, master: bool = False) -> dict:
     """The port's parameter tree from the reference's (numpy leaves, same
-    keys, stacked [L, ...]).  Float leaves become float32.  For serving the
-    matrix weights are held as the float32 value of their ``cfg.dtype``
-    rounding, which is what the reference's products read (``transformer``
-    doc); ``master`` keeps them unrounded, as training's master weights."""
+    keys and nesting, stacked [L, ...]).  Each leaf takes the reference's
+    ``cfg.param_dtype`` value (a bfloat16 leaf carried bit for bit) and is
+    held in the type its products read (``api.hold_leaf``): the
+    transformer's float32 matrix weights as the float32 value of their
+    ``cfg.dtype`` rounding (``transformer`` doc), Griffin's and Whisper's
+    cast leaves in ``cfg.dtype``; ``master`` keeps every leaf unrounded in
+    ``cfg.param_dtype``, as training's master weights."""
     dev = resolve_device(device)
+    pd = getattr(torch, cfg.param_dtype)
 
-    def conv(t):
+    def conv(t, path):
         if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items()}
-        return _tensor(t, dev).float()
+            return {k: conv(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v, path) for v in t)
+        return api.hold_leaf(cfg, path, _tensor(t, dev).to(pd), master)
 
-    params = conv(tree)
-    if not master:
-        transformer.round_matrix_leaves(cfg, params)
-    return params
+    return conv(tree, ())
 
 
-def params_to_numpy(params: dict) -> dict:
-    """The port's parameter tree as float32 numpy arrays, same keys."""
-    return {k: params_to_numpy(v) if isinstance(v, dict) else v.cpu().numpy()
-            for k, v in params.items()}
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 comes back as float32 (exact)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def params_to_numpy(params):
+    """The port's parameter tree as numpy arrays, same keys and nesting
+    (bfloat16 leaves as float32)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return tuple(params_to_numpy(v) for v in params)
+    return _to_numpy(params)
 
 
 def cache_from_numpy(cache: dict, device: str | torch.device | None = None) -> dict:
@@ -90,6 +105,32 @@ def cache_to_numpy(cache: dict) -> dict:
     kv = cache["kv"]
     kv = kv.float() if kv.dtype == torch.bfloat16 else kv
     return {"kv": kv.cpu().numpy(), "len": np.int32(cache["len"])}
+
+
+def state_from_numpy(state, device: str | torch.device | None = None):
+    """Any family's decode state from the reference's (numpy leaves, same
+    keys and nesting): every array keeps its dtype (a bfloat16 cache bit
+    for bit), ``len`` becomes a host int."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: int(v) if k == "len" else conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v) for v in t)
+        return _tensor(t, dev)
+
+    return conv(state)
+
+
+def state_to_numpy(state):
+    """A decode state as numpy arrays, same keys and nesting; ``len`` an
+    int32 scalar, a bfloat16 array as float32 (exact)."""
+    if isinstance(state, dict):
+        return {k: np.int32(v) if k == "len" else state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return tuple(state_to_numpy(v) for v in state)
+    return _to_numpy(state)
 
 
 def opt_state_from_numpy(state: dict, device: str | torch.device | None = None) -> dict:

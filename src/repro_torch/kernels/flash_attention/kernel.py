@@ -52,8 +52,10 @@ MIN_CHUNK = 64     # keys per block of the decode design: at least this,
 MAX_CHUNK = 1024   # and at most this while it takes no more than
 MAX_CHUNKS = 1024  # this many chunks per kv head (csrc kMaxChunks)
 
-# per device: the decode design's scratch (see _decode_scratch)
-_scratch: dict[int, torch.Tensor] = {}
+# per device: the decode design's scratch, and how many of its leading
+# words are known to be zero (see _decode_scratch)
+_scratch: dict[str, torch.Tensor] = {}
+_zeroed: dict[str, int] = {}
 
 
 def key_range(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
@@ -89,14 +91,22 @@ def split_plan(n_keys: int, blocks: int, sms: int) -> tuple[int, int]:
 def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.Tensor:
     """The decode design's scratch on ``dev``: one uint32 counter per
     (batch, kv head), padded to 32, then the chunks' partial (m, l, acc).
-    The kernel leaves every counter at 0, so the buffer is made (zeroed)
-    once and reused by later calls on the same stream; it grows by
-    reallocation."""
-    need = -(-bkv // 32) * 32 + partial_floats
-    buf = _scratch.get(dev.index or 0)
+    The kernel leaves every counter it used at 0, so the buffer is made
+    (zeroed) once and reused by later calls on the same stream; it grows by
+    reallocation.  A call's partials start right after its own counters, so
+    a later call with more (batch, kv head) pairs finds partials where its
+    extra counters lie: those words are zeroed first (``_zeroed`` counts the
+    leading words known to be zero)."""
+    counters = -(-bkv // 32) * 32
+    need = counters + partial_floats
+    key = str(dev)
+    buf = _scratch.get(key)
     if buf is None or buf.numel() < need:
         buf = torch.zeros(need, dtype=torch.float32, device=dev)
-        _scratch[dev.index or 0] = buf
+        _scratch[key] = buf
+    elif _zeroed[key] < counters:
+        buf[_zeroed[key]:counters].zero_()
+    _zeroed[key] = counters  # this call writes its partials past its counters
     return buf
 
 

@@ -1,17 +1,20 @@
-"""Unified model API — the port of ``repro.models.api`` for the families
-ported so far (``dense`` and ``vlm``; the others raise
-``NotImplementedError`` naming their ROADMAP item):
+"""Unified model API — the port of ``repro.models.api``, keyed off
+``ArchConfig.family``: the transformer families (``dense``, ``vlm``,
+``moe``), ``ssm`` (RWKV-6), ``hybrid`` (Griffin) and ``audio`` (Whisper):
 
 - ``init_params(cfg, gen, device=None, master=False)``
 - ``logits_fn(cfg, params, batch, ctx)``   -> (logits, aux)
-- ``loss_fn(cfg, params, batch, ctx)``     -> (loss, {"ce", "aux"}), from
-  float32 master weights (``transformer.forward_train``)
+- ``loss_fn(cfg, params, batch, ctx)``     -> (loss, {"ce", "aux"}); for the
+  transformer families from float32 master weights
+  (``transformer.forward_train``), for the others the serving forward's
+  value, without a gradient (their training is not ported)
 - ``init_decode_state(cfg, batch, max_len, dtype, device=None)``
 - ``prefill_fn(cfg, params, batch, state, ctx)``
 - ``decode_fn(cfg, params, tokens, state, ctx)``
 
 ``batch`` dicts hold ``tokens`` (int32 [B, T]), for ``loss_fn`` a ``mask``
-([B, T] float32) and, for vlm, ``patches``.
+([B, T] float32), for vlm ``patches`` and for audio ``frames`` ([B, S_src,
+d] float32).
 """
 
 from __future__ import annotations
@@ -21,76 +24,126 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import kernel as fa_k
+from repro_torch.models import encdec, griffin, rwkv, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
-_TRANSFORMER_FAMILIES = ("dense", "vlm")
-_NOT_PORTED = {
-    "moe": "ROADMAP A 7 (models/moe.py)",
-    "ssm": "ROADMAP A 7 (models/rwkv.py)",
-    "hybrid": "ROADMAP A 7 (models/griffin.py)",
-    "audio": "ROADMAP A 7 (models/encdec.py)",
-}
+_TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+_MODULES = {"ssm": rwkv, "hybrid": griffin, "audio": encdec}
 
 
-def _family(cfg: ArchConfig) -> None:
+def _module(cfg: ArchConfig):
     if cfg.family in _TRANSFORMER_FAMILIES:
-        return
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")
+        return transformer
+    if cfg.family in _MODULES:
+        return _MODULES[cfg.family]
     raise ValueError(f"unknown family {cfg.family}")
 
 
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The narrowest type of the activations ``cfg``'s products read: float32
+    for the transformer families and RWKV, ``cfg.dtype`` for Griffin and
+    Whisper (on the card, bfloat16 needs ``layers.check_products``'s flag)."""
+    return _module(cfg).compute_dtype(cfg)
+
+
+def hold_leaf(cfg: ArchConfig, path: tuple[str, ...], t: torch.Tensor,
+              master: bool = False) -> torch.Tensor:
+    """Parameter leaf ``path`` (its keys; ``t`` in ``cfg.param_dtype``) in
+    the type and rounding ``cfg``'s family holds it in (each module's
+    ``hold_leaf``); ``master``: unrounded, as training's master weights."""
+    return _module(cfg).hold_leaf(cfg, path, t, master)
+
+
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of a nested dict / tuple tree, in insertion order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def check_card_head_dim(cfg: ArchConfig) -> None:
+    """Raise before anything is allocated where the card has no attention
+    kernel for ``cfg``'s head width (kimi-k2's 112)."""
+    if cfg.family == "ssm":
+        return
+    hd = cfg.resolved_head_dim
+    try:
+        fa_k.kernel_head_dim(hd)
+    except ValueError:
+        raise NotImplementedError(f"{cfg.name}: head width {hd} has no flash-attention kernel on "
+                                  f"the card (ROADMAP B 3)") from None
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
                 master: bool = False) -> dict:
     """Parameters on ``device`` (default: the card; raises without one) drawn
     from ``gen``, which must live on that device.  ``device="meta"`` makes
-    shapes only (``gen`` may be None).  ``master``: unrounded float32 master
-    weights for training; the default rounds matrix weights for serving."""
-    _family(cfg)
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError("bfloat16 weight storage is not ported (ROADMAP A 7)")
+    shapes only (``gen`` may be None).  Leaves are held as the family's
+    products read them (``cfg.param_dtype`` storage; see each module);
+    ``master``: unrounded master weights for training."""
+    module = _module(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
-    return transformer.init_params(cfg, gen, device=dev, master=master)
+    if dev.type == "cuda":
+        check_card_head_dim(cfg)
+    return module.init_params(cfg, gen, device=dev, master=master)
 
 
 def logits_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
-    """Full-sequence logits + aux loss, family-dispatched."""
-    _family(cfg)
-    return transformer.forward(cfg, params, batch["tokens"], prefix_embeds=batch.get("patches"),
-                               ctx=ctx)
+    """Full-sequence logits + aux loss (the MoE balance loss), family-dispatched."""
+    tokens = batch["tokens"]
+    module = _module(cfg)
+    if module is transformer:
+        return transformer.forward(cfg, params, tokens, prefix_embeds=batch.get("patches"),
+                                   ctx=ctx)
+    if module is encdec:
+        return encdec.forward(cfg, params, tokens, batch["frames"], ctx=ctx)
+    logits, aux, _ = module.forward(cfg, params, tokens, ctx=ctx)
+    return logits, aux
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     """CE of ``logits[:, :-1]`` against ``tokens[:, 1:]`` under ``mask[:, 1:]``
     plus the aux loss: (total, {"ce", "aux"})."""
-    _family(cfg)
-    logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
-                                            prefix_embeds=batch.get("patches"), ctx=ctx)
+    if _module(cfg) is transformer:
+        logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
+                                                prefix_embeds=batch.get("patches"), ctx=ctx)
+    else:
+        with torch.no_grad():
+            logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
     loss = L.cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
     return loss + aux, {"ce": loss, "aux": aux}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       device=None) -> Any:
-    _family(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dtype, device=resolve_device(device))
+    """The KV cache (transformer, audio), the recurrent state (ssm: float32,
+    O(1) in ``max_len``) or both (hybrid), on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    module = _module(cfg)
+    if module is rwkv:
+        return rwkv.init_state(cfg, batch, device=dev)
+    if module is griffin:
+        return griffin.init_state(cfg, batch, max_len, dtype, device=dev)
+    return module.init_cache(cfg, batch, max_len, dtype, device=dev)
 
 
 def prefill_fn(cfg: ArchConfig, params: dict, batch: dict, state: Any, ctx=None):
-    _family(cfg)
-    return transformer.prefill(cfg, params, batch["tokens"], state,
-                               prefix_embeds=batch.get("patches"), ctx=ctx)
+    """Run the prompt into ``state``: (last-position logits [B, 1, V], state)."""
+    tokens = batch["tokens"]
+    module = _module(cfg)
+    if module is transformer:
+        return transformer.prefill(cfg, params, tokens, state,
+                                   prefix_embeds=batch.get("patches"), ctx=ctx)
+    if module is encdec:
+        return encdec.prefill(cfg, params, tokens, batch["frames"], state, ctx=ctx)
+    logits, _, st = module.forward(cfg, params, tokens, state=state, ctx=ctx, last_only=True)
+    return logits, st
 
 
 def decode_fn(cfg: ArchConfig, params: dict, tokens: torch.Tensor, state: Any, ctx=None):
-    _family(cfg)
-    return transformer.decode_step(cfg, params, tokens, state, ctx=ctx)
+    """One token per sequence: (logits [B, 1, V], state)."""
+    return _module(cfg).decode_step(cfg, params, tokens, state, ctx=ctx)

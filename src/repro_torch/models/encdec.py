@@ -1,0 +1,234 @@
+"""Whisper-style encoder-decoder (whisper-medium): the port of
+``repro.models.encdec``.
+
+The conv audio frontend is a stub: ``batch["frames"]`` holds precomputed
+frame embeddings [B, S_src, d] (post-conv, pre-encoder).  The encoder keeps
+sinusoidal positions over its ``source_positions`` frames and attends
+without a mask; the decoder uses RoPE, causal cached self-attention, and
+cross-attention over K/V computed once from the encoder output at prefill.
+
+Arithmetic follows the reference per leaf.  The encoder computes in
+``cfg.dtype`` (bfloat16: ``frames.astype(dt)``) and casts its matrix leaves
+to it.  The decoder's embedding scale promotes the bfloat16 table to
+float32 (as in ``transformer``), so the decoder computes in float32 and its
+own leaves are cast to float32, i.e. read unrounded; the cross K/V come
+from the bfloat16 encoder output through ``xk`` / ``xv`` cast to bfloat16,
+and the tied output head is the embedding cast to ``cfg.dtype``.  The port
+holds each leaf in the type its products read (``hold_leaf``).  Attention
+reads the bfloat16 self-attention cache and cross K/V as they are
+(``layers.kv_as``), which keeps the kernel on its bf16 designs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+_ENC_MATRIX = ("wq", "wk", "wv", "wo", "wi", "wo_m")
+_DEC_CAST = ("xk", "xv")   # decoder leaves read by the bfloat16 encoder output
+
+
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The type of the encoder's activations, the narrowest the products
+    read: ``cfg.dtype``."""
+    return getattr(torch, cfg.dtype)
+
+
+def hold_leaf(cfg: ArchConfig, path: tuple[str, ...], t: torch.Tensor,
+              master: bool = False) -> torch.Tensor:
+    """Leaf ``path`` (``t``, in ``cfg.param_dtype``) as the port holds it
+    (module doc)."""
+    cast = (path == ("embed",) or (path[0] == "encoder" and path[-1] in _ENC_MATRIX)
+            or (path[0] == "decoder" and path[-1] in _DEC_CAST))
+    return t.to(getattr(torch, cfg.dtype if cast and not master else cfg.param_dtype))
+
+
+def _sinusoid(n: int, d: int) -> torch.Tensor:
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * dim / d))
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32))
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
+                master: bool = False) -> dict:
+    """The reference's tree, each leaf held as ``hold_leaf`` does."""
+    d, hd, h, kv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    le, ld = cfg.encoder_layers, cfg.num_layers
+    dev = torch.device(device) if device is not None else gen.device
+    pd = getattr(torch, cfg.param_dtype)
+
+    def lin(path, shape, scale=None):
+        w = L.init_linear(gen, shape, scale=scale, device=dev, dtype=pd)
+        return hold_leaf(cfg, path, w, master)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=pd, device=dev)
+
+    enc = {
+        "ln1": zeros(le, d),
+        "ln2": zeros(le, d),
+        "wq": lin(("encoder", "wq"), (le, d, h * hd)),
+        "wk": lin(("encoder", "wk"), (le, d, kv * hd)),
+        "wv": lin(("encoder", "wv"), (le, d, kv * hd)),
+        "wo": lin(("encoder", "wo"), (le, h * hd, d)),
+        "wi": lin(("encoder", "wi"), (le, d, 2 * cfg.d_ff)),
+        "wo_m": lin(("encoder", "wo_m"), (le, cfg.d_ff, d)),
+    }
+    dec = {
+        "ln1": zeros(ld, d),
+        "ln_x": zeros(ld, d),
+        "ln2": zeros(ld, d),
+        **{name: lin(("decoder", name), (ld,) + shape) for name, shape in (
+            ("wq", (d, h * hd)), ("wk", (d, kv * hd)), ("wv", (d, kv * hd)), ("wo", (h * hd, d)),
+            ("xq", (d, h * hd)), ("xk", (d, kv * hd)), ("xv", (d, kv * hd)), ("xo", (h * hd, d)),
+            ("wi", (d, 2 * cfg.d_ff)), ("wo_m", (cfg.d_ff, d)))},
+    }
+    return {
+        "embed": lin(("embed",), (cfg.vocab_size, d), d ** -0.5),
+        "encoder": enc,
+        "decoder": dec,
+        "enc_norm": zeros(d),
+        "final_norm": zeros(d),
+    }
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {n: w[i] for n, w in tree.items()}
+
+
+def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """frames: [B, S_src, d] (stub embeddings) -> encoder states in cfg.dtype."""
+    dt = getattr(torch, cfg.dtype)
+    b, s, d = frames.shape
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    x = frames.to(dt) + _sinusoid(s, d).to(device=frames.device, dtype=dt)[None]
+    for i in range(cfg.encoder_layers):
+        blk = _layer(params["encoder"], i)
+        y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        q = (y @ blk["wq"].to(dt)).view(b, s, h, hd)
+        k = (y @ blk["wk"].to(dt)).view(b, s, kv, hd)
+        v = (y @ blk["wv"].to(dt)).view(b, s, kv, hd)
+        att = L.attention(q, k, v, causal=False)
+        x = x + att.reshape(b, s, h * hd) @ blk["wo"].to(dt)
+        y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+        x = x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0):
+    """One decoder layer; with ``self_cache`` ([2, B, S, KV, hd]) the
+    layer's k/v are written into it in place."""
+    dt = x.dtype
+    b, t, _ = x.shape
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    # self attention (causal, cached on decode)
+    y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    q = L.rope((y @ blk["wq"].to(dt)).view(b, t, h, hd), pos, cfg.rope_theta)
+    k = L.rope((y @ blk["wk"].to(dt)).view(b, t, kv, hd), pos, cfg.rope_theta)
+    v = (y @ blk["wv"].to(dt)).view(b, t, kv, hd)
+    q_off, att_kv_len = 0, None
+    if self_cache is not None:
+        start = kv_len if t == 1 else 0
+        if start + t > self_cache.shape[2]:
+            raise ValueError(f"KV cache of {self_cache.shape[2]} positions is full")
+        self_cache[0, :, start:start + t] = k
+        self_cache[1, :, start:start + t] = v
+        k, v = L.kv_as(self_cache[0], dt), L.kv_as(self_cache[1], dt)
+        q_off, att_kv_len = start, kv_len + t
+    att = L.attention(q, k, v, causal=True, q_offset=q_off, kv_len=att_kv_len)
+    x = x + att.reshape(b, t, h * hd) @ blk["wo"].to(dt)
+    # cross attention to the encoder states (precomputed K/V)
+    y = L.rms_norm(x, blk["ln_x"], cfg.norm_eps)
+    xq = (y @ blk["xq"].to(dt)).view(b, t, h, hd)
+    xk, xv = enc_kv
+    att = L.attention(xq, L.kv_as(xk, dt), L.kv_as(xv, dt), causal=False)
+    x = x + att.reshape(b, t, h * hd) @ blk["xo"].to(dt)
+    y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+
+
+def _cross_kv(cfg, blk, enc_out):
+    """Layer ``blk``'s cross K/V from the encoder states: [B, S_src, KV, hd] x2."""
+    dt = enc_out.dtype
+    b, s, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = (enc_out @ blk["xk"].to(dt)).view(b, s, kv, hd)
+    v = (enc_out @ blk["xv"].to(dt)).view(b, s, kv, hd)
+    return k, v
+
+
+def _embed(cfg, params, tokens):
+    return L.embed(tokens, params["embed"].to(getattr(torch, cfg.dtype)), scale=True)
+
+
+def _logits(cfg, params, x):
+    """The tied output head: the embedding cast to cfg.dtype."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.mm(x, params["embed"].to(getattr(torch, cfg.dtype)).T)
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.Tensor, *,
+            ctx=None):
+    """Teacher-forced forward: (logits over the decoder positions, aux 0)."""
+    L.require_local(ctx)
+    L.check_products(tokens.device, compute_dtype(cfg))
+    enc_out = encode(cfg, params, frames)
+    t = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    pos = torch.arange(t, device=x.device)
+    for i in range(cfg.num_layers):
+        blk = _layer(params["decoder"], i)
+        x = _dec_block(cfg, x, blk, pos, _cross_kv(cfg, blk, enc_out))
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """{"self_kv": [L, 2, B, S, KV, hd], "cross_k" / "cross_v": [L, B,
+    S_src, KV, hd], "len": host int}."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    s_src = cfg.source_positions
+    return {
+        "self_kv": torch.zeros((cfg.num_layers, 2, batch, max_len, kv, hd), dtype=dtype,
+                               device=device),
+        "cross_k": torch.zeros((cfg.num_layers, batch, s_src, kv, hd), dtype=dtype, device=device),
+        "cross_v": torch.zeros((cfg.num_layers, batch, s_src, kv, hd), dtype=dtype, device=device),
+        "len": 0,
+    }
+
+
+def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.Tensor,
+            cache: dict, *, ctx=None):
+    """Encode the source, store the cross K/V, run the prompt into the
+    cache (in place); returns last-position logits and the cache."""
+    L.require_local(ctx)
+    L.check_products(tokens.device, compute_dtype(cfg))
+    enc_out = encode(cfg, params, frames)
+    t = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    pos = torch.arange(t, device=x.device)
+    for i in range(cfg.num_layers):
+        blk = _layer(params["decoder"], i)
+        xk, xv = _cross_kv(cfg, blk, enc_out)
+        cache["cross_k"][i] = xk
+        cache["cross_v"][i] = xv
+        x = _dec_block(cfg, x, blk, pos, (xk, xv), self_cache=cache["self_kv"][i], kv_len=0)
+    return _logits(cfg, params, x[:, -1:]), {**cache, "len": t}
+
+
+def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *, ctx=None):
+    """One token: the self-attention cache is updated in place."""
+    L.require_local(ctx)
+    L.check_products(tokens.device, compute_dtype(cfg))
+    kv_len = int(cache["len"])
+    x = _embed(cfg, params, tokens)
+    pos = torch.arange(kv_len, kv_len + 1, device=x.device)
+    for i in range(cfg.num_layers):
+        x = _dec_block(cfg, x, _layer(params["decoder"], i), pos,
+                       (cache["cross_k"][i], cache["cross_v"][i]),
+                       self_cache=cache["self_kv"][i], kv_len=kv_len)
+    return _logits(cfg, params, x), {**cache, "len": kv_len + 1}

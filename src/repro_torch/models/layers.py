@@ -58,9 +58,75 @@ def attention(
     masks keys ``window`` or more behind the query (a host int, so one call
     serves local and global layers); ``q_offset`` is the absolute position
     of q[:, 0]; ``kv_len`` masks the valid prefix of the KV buffer.
+
+    q may be of any float type: the kernel takes its float32 value, and the
+    output comes back in q's type, as the reference's attention upcasts
+    inside and casts back.  k/v go through as they are: bfloat16 k/v (a
+    cache, or a bfloat16 model's projections) equal their float32 value,
+    which the reference reads, and keep the kernel on its bf16 designs.
     """
-    return fa_ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
-                                  q_offset=q_offset, kv_len=kv_len)
+    out = fa_ops.flash_attention(q.float(), k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    return out.to(q.dtype)
+
+
+def require_local(ctx) -> None:
+    """Every model entry point runs on one device: a DistContext (sharded
+    execution, the expert-parallel MoE) is not ported."""
+    if ctx is not None:
+        raise NotImplementedError("DistContext (sharded execution) is not ported (ROADMAP A 5)")
+
+
+def check_products(device: torch.device, dtype: torch.dtype) -> None:
+    """Refuse to run on the card where cuBLAS would compute other products
+    than the reference's: float32 products in TF32
+    (``torch.backends.cuda.matmul.allow_tf32``, off by default), or
+    ``dtype`` (the model's activations) bfloat16 with partial sums in
+    bfloat16 (``allow_bf16_reduced_precision_reduction``, on by default;
+    the reference's bfloat16 products sum in float32)."""
+    if device.type != "cuda":
+        return
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on: the reference's "
+                           "float32 products would be computed in TF32")
+    if dtype == torch.bfloat16 and matmul.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction "
+                           "is on: the reference's bfloat16 products sum in float32; set it "
+                           "to False")
+
+
+def kv_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """k or v as attention reads the reference's ``t.astype(dtype)``: a
+    bfloat16 tensor as it is (its values are exact in any wider type, and
+    the kernel upcasts them itself), any other cast to ``dtype``."""
+    return t if t.dtype == torch.bfloat16 else t.to(dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` under the reference's type promotion: operands of two float
+    types meet in the wider one (bfloat16 activations times float32
+    weights, or float32 times bfloat16, is a float32 product)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation).  In float32 the
+    fused ``F.gelu`` agrees to 1e-6; in a narrower type the reference
+    evaluates the formula op by op, each rounded to that type (its
+    constants too), which a fused kernel's single rounding would not
+    reproduce, so the port does the same."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+
+    def const(c):
+        return torch.tensor(c, dtype=torch.float32, device=x.device).to(x.dtype)
+
+    inner = const(np.sqrt(2 / np.pi)) * (x + const(0.044715) * x ** 3)
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
 def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -68,8 +134,7 @@ def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act: str = "s
     ff = wo.shape[0]
     gu = x @ wi
     gate, up = gu[..., :ff], gu[..., ff:]
-    # jax.nn.gelu defaults to the tanh approximation
-    a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    a = F.silu(gate) if act == "silu" else gelu(gate)
     return (a * up) @ wo
 
 
@@ -82,15 +147,29 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> tor
     return x
 
 
-def init_linear(gen: torch.Generator | None, shape, scale=None, device=None) -> torch.Tensor:
-    """Normal(0, 1) * scale (default 1/sqrt(fan_in)) from ``gen``, float32.
-    On the meta device only the shape is made."""
+_INIT_PIECE = 1 << 26   # float32 scratch elements per draw of a narrower leaf
+
+
+def init_linear(gen: torch.Generator | None, shape, scale=None, device=None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal(0, 1) * scale (default 1/sqrt(fan_in)) from ``gen``, drawn in
+    float32 and held in ``dtype``.  A narrower leaf is drawn in pieces of
+    ``_INIT_PIECE`` elements, so a layer of bfloat16 experts never exists
+    in float32 at once.  On the meta device only the shape is made."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     device = torch.device(device) if device is not None else gen.device
     if device.type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(s)
+        return torch.empty(shape, dtype=dtype, device=device)
+    if dtype == torch.float32:
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(s)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _INIT_PIECE):
+        piece = flat[i:i + _INIT_PIECE]
+        piece.copy_(torch.randn(piece.shape, generator=gen, dtype=torch.float32,
+                                device=device).mul_(s))
+    return out
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,

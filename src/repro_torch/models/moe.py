@@ -1,0 +1,133 @@
+"""Mixture-of-Experts block (qwen3-moe, kimi-k2) — the port of
+``repro.models.moe``, local dispatch.
+
+Token -> expert dispatch is the paper's shuffle on one device: route each
+token to its top-k experts, bucket the (token, slot) pairs by expert in a
+stable sort (the partition phase of ``dataframe.partition``), run each
+expert's FFN over its bucket, and combine the weighted outputs back per
+token.  Capacity-factor dropping follows the reference: a pair past its
+expert's ``cap`` rows contributes zero.  Routing is exact against the
+reference: the same ``topi``, stable order, counts, slots and ``keep``.
+
+The expert-parallel dispatch (``_moe_ep``: an all-to-all over the mesh's
+expert axis) is not ported: ``moe_block`` with a ``ctx`` raises.
+
+Memory.  The expert stacks hold ``num_experts_padded`` experts, as the
+reference's parameter tree does, but the padding experts are dead: the
+router is ``num_experts`` wide, so no pair is ever bucketed to one, its
+bucket rows are zeros and its outputs are never gathered.  The port
+buckets and computes the live experts only, and reads their weights
+``_EXPERT_SLICE`` experts at a time (each slice cast to ``cfg.dtype`` and
+back to float32, as the reference's ``astype`` then float32 product reads
+it), so a layer's float32 expert stack never exists at once.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+_EXPERT_SLICE = 16   # experts whose weights are read in float32 at once
+
+
+def init_moe_block(cfg: ArchConfig, gen: torch.Generator | None, lcount: int, device,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Router [L, d, E] and the padded expert stacks [L, E_pad, d, 2 ff] /
+    [L, E_pad, ff, d], held in ``dtype``."""
+    e, d, ff = cfg.num_experts_padded, cfg.d_model, cfg.moe_d_ff
+    return {
+        "router": L.init_linear(gen, (lcount, d, cfg.num_experts), device=device, dtype=dtype),
+        "wi": L.init_linear(gen, (lcount, e, d, 2 * ff), device=device, dtype=dtype),
+        "wo": L.init_linear(gen, (lcount, e, ff, d), device=device, dtype=dtype),
+    }
+
+
+def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
+    """Top-k routing. x2d: [N, d] -> (weights [N, k], experts [N, k], aux)."""
+    logits = x2d.float() @ router.float()               # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    # load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
+    e = cfg.num_experts
+    density = torch.bincount(topi[:, 0], minlength=e).float() / topi.shape[0]
+    mean_probs = probs.mean(0)
+    aux = cfg.router_aux_coef * e * torch.sum(density * mean_probs)
+    return topv, topi, aux
+
+
+def _bucket_by_expert(x2d, topv, topi, num_experts: int, cap: int):
+    """Scatter (token, slot) pairs into [E, cap, ...] buckets; returns the
+    buckets and (e_sorted, slot_row, tok_sorted, w_sorted, keep), each in
+    the stable expert order.  ``slot_row`` is ``cap`` for a dropped pair."""
+    n, k = topi.shape
+    flat_e = topi.reshape(-1)                            # [N*k]
+    flat_w = topv.reshape(-1)
+    flat_tok = torch.arange(n, device=topi.device).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    e_sorted = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n * k, device=topi.device) - starts[e_sorted]
+    keep = pos < cap
+    slot_row = torch.where(keep, pos, torch.full_like(pos, cap))
+    tok_sorted = flat_tok[order]
+    w_sorted = torch.where(keep, flat_w[order], torch.zeros_like(flat_w))
+
+    buf = torch.zeros((num_experts, cap + 1, x2d.shape[-1]), dtype=x2d.dtype, device=x2d.device)
+    buf[e_sorted, slot_row] = x2d[tok_sorted]   # every dropped pair lands in row cap
+    return buf[:, :cap], (e_sorted, slot_row, tok_sorted, w_sorted, keep)
+
+
+def _expert_ffn(buf, wi, wo, act: str):
+    """Grouped FFN: buf [E, C, d] x wi [E, d, 2ff] -> [E, C, d]."""
+    ff = wo.shape[-2]
+    gu = torch.bmm(buf, wi)
+    gate, up = gu[..., :ff], gu[..., ff:]
+    a = F.silu(gate) if act == "silu" else L.gelu(gate)
+    return torch.bmm(a * up, wo)
+
+
+def _experts(cfg: ArchConfig, buf, wi, wo) -> torch.Tensor:
+    """``_expert_ffn`` over the live experts' buckets, ``_EXPERT_SLICE``
+    experts of weights at a time, each read as the reference's
+    ``astype(cfg.dtype)`` in a float32 product."""
+    cd = getattr(torch, cfg.dtype)
+    out = torch.empty_like(buf)
+    for e0 in range(0, buf.shape[0], _EXPERT_SLICE):
+        e1 = min(e0 + _EXPERT_SLICE, buf.shape[0])
+        out[e0:e1] = _expert_ffn(buf[e0:e1], wi[e0:e1].to(cd).float(), wo[e0:e1].to(cd).float(),
+                                 cfg.act)
+    return out
+
+
+def moe_block(x: torch.Tensor, moe_params: dict, cfg: ArchConfig, ctx=None):
+    """MoE FFN over x [B, T, d]; returns (out [B, T, d], aux loss scalar)."""
+    if ctx is not None:  # the expert-parallel dispatch, _moe_ep
+        L.require_local(ctx)
+    b, t, d = x.shape
+    out2d, aux = _moe_local(x.reshape(b * t, d), moe_params["router"], moe_params["wi"],
+                            moe_params["wo"], cfg)
+    return out2d.reshape(b, t, d), aux
+
+
+def _moe_local(x2d, router, wi, wo, cfg: ArchConfig):
+    """The reference's local dispatch over the live experts: ``wi`` / ``wo``
+    may hold padding experts past ``num_experts`` (module doc)."""
+    n = x2d.shape[0]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = int(math.ceil(n * k / cfg.num_experts * cfg.capacity_factor))
+    topv, topi, aux = _route(x2d, router, cfg)
+    buf, (e_sorted, slot_row, tok_sorted, w_sorted, keep) = _bucket_by_expert(
+        x2d, topv, topi, e, cap)
+    out_buf = _experts(cfg, buf, wi[:e], wo[:e])
+    gathered = out_buf[e_sorted, torch.clamp(slot_row, max=cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    out = torch.zeros_like(x2d)
+    out.index_add_(0, tok_sorted, gathered * w_sorted[:, None].to(gathered.dtype))
+    return out, aux

@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer — gemma3 / minicpm / starcoder2 /
-h2o-danube / the internvl2 text backbone: the port of
-``repro.models.transformer``.
+"""Decoder-only transformer — gemma3 / minicpm / starcoder2 / h2o-danube /
+the internvl2 text backbone, and the MoE models (qwen3-moe, kimi-k2), whose
+layers run ``moe.moe_block`` (plus kimi-k2's shared expert) in place of the
+dense MLP: the port of ``repro.models.transformer``.
 
 Parameters keep the reference's stacked ``[L, ...]`` layout; the
 reference's ``lax.scan`` over layers is a Python loop over ``[L, ...]``
@@ -14,10 +15,11 @@ to float32, so the residual stream is float32 from the first layer, and
 ``y @ w.astype(bfloat16)`` is a float32 product with bfloat16-rounded
 weights.  The port therefore holds every matrix weight (and the embedding)
 as the float32 value of its ``cfg.dtype`` rounding (``init_params``,
-``interop.params_from_numpy``), so that a float32 ``torch.matmul`` computes
-the reference's product.  TF32 would be a different result:
-``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default)
-and the functions here refuse to run with it on.  The KV cache is stored in
+``interop.params_from_numpy``, ``hold_leaf``), so that a float32
+``torch.matmul`` computes the reference's product.  TF32 would be a
+different result: ``torch.backends.cuda.matmul.allow_tf32`` stays False
+(PyTorch's default) and the functions here refuse to run with it on
+(``layers.check_products``).  The KV cache is stored in
 its own dtype (bfloat16 by default) and read back as ``cfg.dtype``, so on
 the cached path attention gets float32 q and bfloat16 k/v.
 
@@ -35,6 +37,12 @@ in the backward; the reference's ``jax.checkpoint`` saves its products,
 which changes memory, not the result).  Serving keeps the pre-rounded
 weights and pays no per-step cast.
 
+bfloat16 weight storage (``cfg.param_dtype == "bfloat16"``: qwen3-moe,
+kimi-k2) holds every leaf in bfloat16, as the reference's
+``astype(param_dtype)`` does; the products read each matrix leaf as its
+float32 value (``w.float()``, the reference's ``astype(cfg.dtype)`` of a
+bfloat16 leaf), one layer at a time.
+
 Four entry points sharing weights:
 - ``forward``       : full-sequence logits (pre-rounded weights)
 - ``forward_train`` : full-sequence logits from master weights, differentiable
@@ -49,30 +57,45 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.moe import init_moe_block, moe_block
 
 # leaves used as matrix weights: held rounded to cfg.dtype (as float32) for
-# serving, cast to it inside the graph by forward_train
-MATRIX_LEAVES = ("wq", "wk", "wv", "wo_att", "wi", "wo", "embed", "lm_head")
+# serving, cast to it inside the graph by forward_train (the MoE experts,
+# under "moe", are cast by moe_block as it reads them)
+MATRIX_LEAVES = ("wq", "wk", "wv", "wo_att", "wi", "wo", "wi_sh", "wo_sh", "embed", "lm_head")
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The type of the activations the products read: float32 (module doc)."""
+    return torch.float32
+
+
 def _check(cfg: ArchConfig, ctx, device: torch.device) -> None:
-    if ctx is not None:
-        raise NotImplementedError("DistContext (sharded execution) is not ported (ROADMAP A 5)")
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A 7)")
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on: the reference's "
-                           "float32 products would be computed in TF32")
+    L.require_local(ctx)
+    L.check_products(device, compute_dtype(cfg))
+
+
+def _held_rounded(cfg: ArchConfig, path: tuple[str, ...], master: bool) -> bool:
+    """Whether leaf ``path`` is held at its cfg.dtype rounding: a float32
+    matrix weight outside the MoE experts, for serving."""
+    return (not master and path[-1] in MATRIX_LEAVES and path[:-1] in ((), ("blocks",))
+            and _dtype(cfg.param_dtype) == torch.float32
+            and _dtype(cfg.dtype) != torch.float32)
+
+
+def hold_leaf(cfg: ArchConfig, path: tuple[str, ...], t: torch.Tensor,
+              master: bool = False) -> torch.Tensor:
+    """Leaf ``path`` (``t``, in ``cfg.param_dtype``) as the port holds it."""
+    return round_to_compute(cfg, t) if _held_rounded(cfg, path, master) else t
 
 
 def round_to_compute(cfg: ArchConfig, t: torch.Tensor) -> torch.Tensor:
     """The float32 value of ``t`` rounded to ``cfg.dtype``."""
-    cd = _dtype(cfg.dtype)
-    return t if cd == torch.float32 else t.to(cd).float()
+    return t.to(_dtype(cfg.dtype)).float()
 
 
 def _layer_windows(cfg: ArchConfig) -> list[int]:
@@ -92,23 +115,24 @@ def _layer_windows(cfg: ArchConfig) -> list[int]:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
                 master: bool = False) -> dict:
-    """Stacked-parameter tree, float32: matrix weights rounded to cfg.dtype
-    for serving, or kept unrounded (``master``) for ``forward_train``.
+    """Stacked-parameter tree in ``cfg.param_dtype``.  float32 storage:
+    matrix weights rounded to cfg.dtype for serving, or kept unrounded
+    (``master``) for ``forward_train``; bfloat16 storage: every leaf in
+    bfloat16, as the reference's ``astype``.
 
     Draws from ``gen`` in the reference's leaf order; ``jax.random`` streams
     cannot be reproduced, so parity tests load the reference's parameters
     through ``interop.params_from_numpy`` instead."""
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A 7)")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv, lcount = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     dev = torch.device(device) if device is not None else gen.device
+    pd = _dtype(cfg.param_dtype)
 
     def stack(shape):
-        return L.init_linear(gen, (lcount,) + shape, device=dev)
+        return L.init_linear(gen, (lcount,) + shape, device=dev, dtype=pd)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.zeros(shape, dtype=pd, device=dev)
 
     block = {
         "ln1": zeros(lcount, d),
@@ -121,41 +145,47 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
     if cfg.qk_norm:
         block["qnorm"] = zeros(lcount, hd)
         block["knorm"] = zeros(lcount, hd)
-    block["wi"] = stack((d, 2 * cfg.d_ff))
-    block["wo"] = stack((cfg.d_ff, d))
+    if cfg.family == "moe":
+        block["moe"] = init_moe_block(cfg, gen, lcount, dev, dtype=pd)
+        if cfg.n_shared_experts:
+            block["wi_sh"] = stack((d, 2 * cfg.moe_d_ff * cfg.n_shared_experts))
+            block["wo_sh"] = stack((cfg.moe_d_ff * cfg.n_shared_experts, d))
+    else:
+        block["wi"] = stack((d, 2 * cfg.d_ff))
+        block["wo"] = stack((cfg.d_ff, d))
     params = {
-        "embed": L.init_linear(gen, (cfg.vocab_size, d), scale=d ** -0.5, device=dev),
+        "embed": L.init_linear(gen, (cfg.vocab_size, d), scale=d ** -0.5, device=dev, dtype=pd),
         "blocks": block,
         "final_norm": zeros(d),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.init_linear(gen, (d, cfg.vocab_size), device=dev)
+        params["lm_head"] = L.init_linear(gen, (d, cfg.vocab_size), device=dev, dtype=pd)
     if dev.type != "meta" and not master:
         round_matrix_leaves(cfg, params)
     return params
 
 
 def round_matrix_leaves(cfg: ArchConfig, params: dict) -> None:
-    """Round every matrix weight of ``params`` to cfg.dtype, in place."""
-    if _dtype(cfg.dtype) == torch.float32:
-        return
+    """Hold every leaf of ``params`` as ``hold_leaf`` does, in place."""
     for name in MATRIX_LEAVES:
-        if name in params:
+        if name in params and _held_rounded(cfg, (name,), False):
             params[name].copy_(round_to_compute(cfg, params[name]))
-        if name in params["blocks"]:
+        if name in params["blocks"] and _held_rounded(cfg, ("blocks", name), False):
             for w in params["blocks"][name]:  # a layer at a time: bounded scratch
                 w.copy_(round_to_compute(cfg, w))
 
 
 def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0,
               master: bool = False):
-    """One transformer layer. cache_l: [2, B, S, KV, hd] or None; with a
-    cache, the layer's k/v are written into it in place.  ``master``: the
-    matrix weights are float32 master weights, cast to cfg.dtype here."""
+    """One transformer layer -> (x, the MoE aux loss or None). cache_l:
+    [2, B, S, KV, hd] or None; with a cache, the layer's k/v are written
+    into it in place.  ``master``: the matrix weights are float32 master
+    weights, cast to cfg.dtype here; else each is read as its float32 value
+    (a no-op for float32 storage)."""
     b, t, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    if master:
-        blk = {n: round_to_compute(cfg, w) if n in MATRIX_LEAVES else w for n, w in blk.items()}
+    read = (lambda w: round_to_compute(cfg, w)) if master else (lambda w: w.float())
+    blk = {n: read(w) if n in MATRIX_LEAVES else w for n, w in blk.items()}
 
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
     q = (y @ blk["wq"]).view(b, t, h, hd)
@@ -185,16 +215,26 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
                       q_offset=q_off, kv_len=att_kv_len)
     x = x + att.reshape(b, t, h * hd) @ blk["wo_att"]
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + L.gated_mlp(y2, blk["wi"], blk["wo"], cfg.act)
+    if cfg.family != "moe":
+        return x + L.gated_mlp(y2, blk["wi"], blk["wo"], cfg.act), None
+    ff, aux = moe_block(y2, blk["moe"], cfg)
+    if cfg.n_shared_experts:
+        ff = ff + L.gated_mlp(y2, blk["wi_sh"], blk["wo_sh"], cfg.act)
+    return x + ff, aux
+
+
+def _index(tree, i: int):
+    return {n: _index(w, i) for n, w in tree.items()} if isinstance(tree, dict) else tree[i]
 
 
 def _layer(params: dict, i: int) -> dict:
-    """Layer i's weights: views of the stacked [L, ...] leaves, or entry i of
-    a list of per-layer dicts (the train step's per-layer gradient leaves)."""
+    """Layer i's weights: views of the stacked [L, ...] leaves (nested for
+    the MoE block), or entry i of a list of per-layer dicts (the train
+    step's per-layer gradient leaves)."""
     blocks = params["blocks"]
     if isinstance(blocks, list):
         return blocks[i]
-    return {name: w[i] for name, w in blocks.items()}
+    return _index(blocks, i)
 
 
 def _embed_input(cfg: ArchConfig, table, tokens, prefix_embeds) -> torch.Tensor:
@@ -208,28 +248,33 @@ def _logits(cfg: ArchConfig, params: dict, x, master: bool = False) -> torch.Ten
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     head = params["embed"].T if head is None else head
-    return x @ (round_to_compute(cfg, head) if master else head)
+    return x @ (round_to_compute(cfg, head) if master else head.float())
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
-    """Full-sequence logits [B, T, V] float32 (+ the MoE aux loss scalar, 0)."""
+    """Full-sequence logits [B, T, V] float32 and the MoE aux loss summed
+    over the layers (0 for a dense model)."""
     _check(cfg, ctx, tokens.device)
     x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
-        x = _block_fn(cfg, x, _layer(params, i), window, pos)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_l = _block_fn(cfg, x, _layer(params, i), window, pos)
+        aux = aux if aux_l is None else aux + aux_l
+    return _logits(cfg, params, x), aux
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                   prefix_embeds: torch.Tensor | None = None, ctx=None):
-    """Full-sequence logits [B, T, V] float32 (+ the aux loss, 0) from float32
-    master weights, with the reference's in-graph casts (module doc).
-    ``params["blocks"]`` is the stacked dict or a list of per-layer dicts."""
+    """Full-sequence logits [B, T, V] float32 and the MoE aux loss from
+    float32 master weights, with the reference's in-graph casts (module
+    doc).  ``params["blocks"]`` is the stacked dict or a list of per-layer
+    dicts."""
     _check(cfg, ctx, tokens.device)
     x = _embed_input(cfg, params["embed"].to(_dtype(cfg.dtype)), tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, window in enumerate(_layer_windows(cfg)):
         blk = _layer(params, i)
@@ -239,12 +284,12 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             return _block_fn(cfg, x, dict(zip(names, ws)), window, pos, master=True)
 
         if remat:
-            x = checkpoint(layer, x, *blk.values(), use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux_l = checkpoint(layer, x, *blk.values(), use_reentrant=False,
+                                  preserve_rng_state=False)
         else:
-            x = layer(x, *blk.values())
-    return (_logits(cfg, params, x, master=True),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            x, aux_l = layer(x, *blk.values())
+        aux = aux if aux_l is None else aux + aux_l
+    return _logits(cfg, params, x, master=True), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -268,7 +313,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
-        x = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=0)
+        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=0)
     return _logits(cfg, params, x[:, -1:]), {"kv": kv, "len": t}
 
 
@@ -281,5 +326,5 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
-        x = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=kv_len)
+        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=kv_len)
     return _logits(cfg, params, x), {"kv": kv, "len": kv_len + 1}

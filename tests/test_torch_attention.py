@@ -339,19 +339,32 @@ def test_attention_grad_refuses_cached_calls():
 
 
 def test_every_dense_config_head_dim_is_served():
-    """Every dense / vlm config's head width is one the kernels take
-    (h2o-danube-3-4b's 120 runs the 128-wide template)."""
+    """Every served config's head width is one the kernels take (dense and
+    vlm; qwen3-moe 128, recurrentgemma 256, whisper 64; h2o-danube-3-4b's
+    120 runs the 128-wide template; rwkv6 has no attention).  kimi-k2's 112
+    has no kernel yet: ``api.init_params`` on the card refuses it before
+    allocating anything, naming ROADMAP B 3."""
     from repro_torch import configs as tc
+    from repro_torch.models import api
 
+    served = set()
     for name in tc.ARCH_IDS:
         cfg = tc.get(name)
-        if cfg.family not in ("dense", "vlm"):
+        if cfg.family == "ssm" or name == "kimi-k2-1t-a32b":
             continue
         hd = cfg.resolved_head_dim
         assert fa_k.kernel_head_dim(hd) >= hd, name
+        api.check_card_head_dim(cfg)
+        served.add(hd)
+    assert {64, 128, 256} <= served
     assert fa_k.kernel_head_dim(120) == 128
     with pytest.raises(ValueError, match="head_dim"):
         fa_k.kernel_head_dim(96)
+    kimi = tc.get("kimi-k2-1t-a32b")
+    assert kimi.resolved_head_dim == 112
+    with pytest.raises(NotImplementedError, match="ROADMAP B 3"):
+        api.check_card_head_dim(kimi)
+    api.check_card_head_dim(tc.get("rwkv6-7b"))   # attention-free: nothing to check
 
 
 # -- the backward kernel's tensor-core arithmetic (bwd_wgmma) --------------------
@@ -521,3 +534,20 @@ def test_fwd_design_by_shape(hd, kv_dtype, rows, lse, design):
     assert fa_k.fwd_design(hd, kv_dtype, rows, lse=lse) == design
     assert set(fa_k.fwd_design_launches) == {"flash_wgmma", "flash_wgmma_split", "flash_tiled",
                                              "flash_decode"}
+
+
+def test_decode_scratch_zeroes_counters_a_wider_call_needs():
+    """The decode design's scratch is reused across calls: its counters must
+    be 0 when a call starts.  A call with 16 (batch, kv head) pairs writes
+    its partials from word 32 on; a later call with 64 pairs counts in words
+    0..63, which must be zeroed again first."""
+    dev = torch.device("cpu")
+    fa_k._scratch.pop(str(dev), None)
+    buf = fa_k._decode_scratch(dev, 16, 100)
+    assert buf.numel() == 132 and not bool(buf.any())
+    buf[32:].fill_(7.0)                       # the first call's partials
+    again = fa_k._decode_scratch(dev, 64, 50)
+    assert again is buf                       # reused: 114 words fit
+    assert not bool(again[:64].any())         # the wider call's counters are zero
+    assert bool((again[64:] == 7.0).all())    # its partial area is not cleared
+    fa_k._scratch.pop(str(dev), None)

@@ -709,3 +709,102 @@ def test_repartition_states_and_checkpoints_on_the_card(cuda):
                      [(op.kind, op.nbytes, op.time_s) for op in store.ops]))
     assert torch.equal(runs[0][0], runs[1][0])
     assert runs[0][1:] == runs[1][1:]
+
+
+# -- the MoE, RWKV-6, Griffin and Whisper families ------------------------------
+
+@pytest.mark.parametrize("q_shape,kv_shape,kw", [
+    # whisper-medium's encoder over its 1500 frames (non-causal, 23 x 64 + 28 keys)
+    ((2, 1500, 16, 64), (2, 1500, 16, 64), dict(causal=False)),
+    # its cross-attention of the 4-token prompt (flash_decode)
+    ((2, 4, 16, 64), (2, 1500, 16, 64), dict(causal=False)),
+    # 16 rows per kv head at decode: qwen3-moe (64 / 4 heads of 128) and
+    # recurrentgemma (16 / 1 of 256, window 2048), past SPLIT_ROWS
+    ((2, 1, 64, 128), (2, 2080, 4, 128), dict(q_offset=2048, kv_len=2049)),
+    ((2, 1, 16, 256), (2, 4128, 1, 256), dict(window=2048, q_offset=4096, kv_len=4097)),
+    # qwen3-moe's prefill: 16 query heads per kv head over its 2080-position cache
+    ((2, 2048, 64, 128), (2, 2080, 4, 128), dict(kv_len=2048)),
+    # whisper's decoder self-attention over its 128-position cache: the
+    # 4-token prompt and the last decode step (flash_decode)
+    ((2, 4, 16, 64), (2, 128, 16, 64), dict(kv_len=4)),
+    ((2, 1, 16, 64), (2, 128, 16, 64), dict(q_offset=126, kv_len=127)),
+])
+def test_flash_forward_at_the_families_shapes(cuda, q_shape, kv_shape, kw):
+    rng = np.random.default_rng(q_shape[1] + kv_shape[1])
+    q = torch.tensor(rng.normal(size=q_shape), dtype=torch.float32, device=cuda)
+    k, v = (torch.tensor(rng.normal(size=kv_shape), dtype=torch.float32,
+                         device=cuda).to(torch.bfloat16) for _ in range(2))
+    design = fa_k.fwd_design(q_shape[3], torch.bfloat16, q_shape[1] * q_shape[2] // kv_shape[2])
+    assert design == ("flash_decode" if q_shape[1] * q_shape[2] // kv_shape[2] <= 8
+                      else "flash_wgmma")
+    before = fa_k.fwd_design_launches[design]
+    got = fa_k.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_k.fwd_design_launches[design] == before + 1
+    torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, **kw), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("arch,over,tol", [
+    ("qwen3-moe-235b-a22b", dict(num_layers=1), 1e-4),
+    ("rwkv6-7b", dict(num_layers=1), 1e-4),
+    ("recurrentgemma-9b", dict(num_layers=3), 2e-2),
+    ("whisper-medium", dict(num_layers=1, encoder_layers=1), 2e-2),
+])
+def test_family_full_width_forward_on_the_card(cuda, monkeypatch, arch, over, tol):
+    """One full-width layer (Griffin: one rec, rec, attn group) of each
+    family on the card against the plain versions on the CPU, from the same
+    weights: 1e-4 where the model computes in float32, 2e-2 where its
+    activations are bfloat16 (Griffin's bfloat16 logits: of the largest),
+    with bfloat16 products summed in float32 as the entry points require."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction",
+                        False)
+    cfg = dataclasses.replace(configs.get(arch), **over)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = api.init_params(cfg, gen, device=cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=cuda,
+                                     dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.source_positions, cfg.d_model), generator=gen,
+                                      device=cuda)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(cpu(v) for v in tree)
+        return tree.cpu()
+
+    with torch.inference_mode():
+        got, _ = api.logits_fn(cfg, params, batch)
+        exp, _ = api.logits_fn(cfg, cpu(params), cpu(batch))
+    assert got.dtype == exp.dtype and bool(torch.isfinite(got).all())
+    atol = tol * max(1.0, float(exp.float().abs().max())) if exp.dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(got.cpu().float(), exp.float(), atol=atol, rtol=tol)
+
+
+def test_flash_decode_after_a_narrower_decode(cuda):
+    """The decode design's scratch is shared by every call: a call over 16
+    (batch, kv head) pairs leaves partials where a later call over 64 pairs
+    keeps its counters (gemma3's decode, then whisper's cross-attention).
+    Both must be right, in either order."""
+    rng = np.random.default_rng(64)
+
+    def case(b, kvh, tk):
+        q = torch.tensor(rng.normal(size=(b, 1, kvh, 64)), dtype=torch.float32, device=cuda)
+        k, v = (torch.tensor(rng.normal(size=(b, tk, kvh, 64)), dtype=torch.float32,
+                             device=cuda).to(torch.bfloat16) for _ in range(2))
+        return q, k, v
+
+    narrow, wide = case(4, 4, 4097), case(4, 16, 1500)
+    for q, k, v in (narrow, wide, narrow, wide):
+        got = fa_k.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=False),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)

@@ -5,8 +5,10 @@ parameters (the reference's, carried over by ``interop.params_from_numpy``).
 Tolerances: layers 1e-6 (float32, one op each); greedy tokens identical;
 logits 1e-4 where nothing is rounded to bfloat16 (float32 through several
 layers, sums in another order).  Every config is a reduced one: gemma3-4b
-with 6 layers (5 local, 1 global), starcoder2-3b (gelu, GQA) and
-internvl2-2b (patch prefix).  Each runs with ``dtype="float32"`` and with
+with 6 layers (5 local, 1 global), starcoder2-3b (gelu, GQA),
+internvl2-2b (patch prefix) and the MoE models qwen3-moe-235b-a22b and
+kimi-k2-1t-a32b (bfloat16 weight storage; kimi-k2's shared expert; aux
+loss within 1e-6).  The other families are in ``test_torch_families.py``.  Each runs with ``dtype="float32"`` and with
 its stock bfloat16 ``dtype``, which the reference also computes in float32
 (see ``repro_torch.models.transformer``) except that the KV cache holds k/v
 rounded to bfloat16.  There the two packages' float32 k/v, a few float32
@@ -44,8 +46,12 @@ CASES = {
     "gemma3-4b": dict(num_layers=6),
     "starcoder2-3b": {},
     "internvl2-2b": {},
+    "qwen3-moe-235b-a22b": {},
+    "kimi-k2-1t-a32b": {},
 }
 DENSE_VLM = ("gemma3-4b", "minicpm-2b", "starcoder2-3b", "h2o-danube-3-4b", "internvl2-2b")
+OTHER_FAMILIES = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "rwkv6-7b", "recurrentgemma-9b",
+                  "whisper-medium")
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +155,11 @@ def _assert_cache_close(tcache, jcache, dtype: str):
 @pytest.mark.parametrize("arch", list(CASES))
 def test_forward_matches(arch, dtype):
     jcfg, tcfg, jp, tp, jb, tb = _setup(arch, b=2, s=40, dtype=dtype)
-    exp, _ = japi.logits_fn(jcfg, jp, jb)
+    exp, exp_aux = japi.logits_fn(jcfg, jp, jb)
     got, aux = tapi.logits_fn(tcfg, tp, tb)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32
+    assert (float(aux) == 0.0) == (jcfg.family != "moe")
+    _close(aux, exp_aux, 1e-6)
     _close(got, exp)
 
 
@@ -242,7 +250,7 @@ def test_float32_cache_is_read_back_in_compute_dtype():
 # parameters, interop, entry points
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_VLM)
+@pytest.mark.parametrize("arch", DENSE_VLM + OTHER_FAMILIES)
 def test_param_count_matches_reference(arch):
     assert tconfigs.get(arch).param_count() == jconfigs.get(arch).param_count()
 
@@ -313,18 +321,21 @@ def test_entry_points_default_to_the_card():
         interop.params_from_numpy(cfg, {"final_norm": np.zeros(4, np.float32)})
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "rwkv6-7b", "recurrentgemma-9b",
-                                  "whisper-medium"])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A 7"):
-        tapi.init_params(cfg, torch.Generator(), device="cpu")
-
-
-def test_sharded_context_raises():
-    _, tcfg, _, tp, _, tb = _setup("starcoder2-3b", b=1, s=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A 5"):
-        tapi.logits_fn(tcfg, tp, tb, ctx=object())
+@pytest.mark.parametrize("arch", ("starcoder2-3b",) + OTHER_FAMILIES)
+def test_sharded_context_raises(arch):
+    """A DistContext (sharded execution, the expert-parallel MoE) is A 5,
+    in every family and entry point."""
+    tcfg = tconfigs.get(arch).reduced()
+    tp = tapi.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    tb = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if tcfg.family == "audio":
+        tb["frames"] = torch.zeros((1, tcfg.source_positions, tcfg.d_model))
+    state = tapi.init_decode_state(tcfg, 1, 8, device="cpu")
+    for call in (lambda: tapi.logits_fn(tcfg, tp, tb, ctx=object()),
+                 lambda: tapi.prefill_fn(tcfg, tp, tb, state, ctx=object()),
+                 lambda: tapi.decode_fn(tcfg, tp, tb["tokens"][:, :1], state, ctx=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP A 5"):
+            call()
 
 
 def test_sampling():
