@@ -206,6 +206,38 @@ Phases, one JSON line each:
    Lambda session: 2 steps, exit, resume to 4 must give the loss trace of
    4 uninterrupted steps, bit for bit, and the resumed call must log its
    re-bootstrap through the session.
+11. spmd   — the SPMD surface (``core/backends/direct.py`` over a
+   ``DeviceMesh``) on one NCCL rank: NCCL refuses two ranks on one card,
+   so the process group (a ``FileStore`` in a temporary directory) has
+   world 1 and the multi-rank behaviour is the gloo tests'; the phase
+   fails unless the backend is ``nccl``.  (a), right after phase 4c:
+   ``join_spmd`` on one join worker's tables (9.1M rows a side), raw and
+   ``compress=True``, rows equal to numpy's join; ``groupby_spmd`` on one
+   groupby worker's 50M rows, combiner on and off, sums equal to
+   ``np.bincount``; walls and launches.  (b), after phase 10: each tp
+   rank's island of ``attention_sharded`` in turn, through the port's
+   autograd: minicpm-2b's train shape (q/k/v [2, 4096, 36, 64]) at tp 8
+   (36 heads do not split: the sequence split, 8 islands of 512 rows at
+   q_offset 0-3584, ``bwd_wgmma``), gemma3-4b's global layer (q [1, 4096,
+   8, 256], k/v 4 heads) at tp 16 (16 islands of 256, ``flash_tiled`` and
+   ``bwd_wide``), and whisper-medium's cross-attention (q [4, 128, 16, 64]
+   over k/v [4, 1500, 16, 64], non-causal); each forward with lse within
+   2e-5 and each backward within ``BWD_TOL`` of the plain versions (from
+   the kernel's own o and lse), the islands reassembled (dq concatenated,
+   dk and dv summed) within the same limits of one full-length call.
+   (c) head width 112 at kimi-k2's attention (q [1, 4096, 64, 112], k/v 8
+   heads): the bf16-k/v forward (``flash_wgmma``), the float32 training
+   forward and the backward through the port's entry points, each against
+   its plain version.  Every new shape of (b) and (c) is timed as phase 5
+   times (its bound; the plain version; SDPA, or SDPA's autograd for a
+   backward) and gets a row in the summary line, with its launches on its
+   path.  (d) ``make_train_step(ctx)`` and ``make_compressed_dp_train_step``
+   at world 1 on minicpm-2b (full width, ``SPMD_DP_LAYERS`` layers), 3
+   steps each from the same weights and batch: step 0's losses equal, the
+   parameters after 3 steps within 2 x 3 x lr of each other (the reference
+   test's bound), the residual in (0, 1), peak memory under 75 GB.  (e)
+   ``_moe_ep`` at world 1 on one full-width qwen3-moe layer (9.66 GB of
+   padded bf16 experts), 4 x 2048 tokens, against ``_moe_local`` at 2e-4.
 
 After each of the join, groupby, serve and train runs, a ``trace`` line:
 one more run (or step) of the same cell under ``torch.profiler``, with the
@@ -215,7 +247,8 @@ longest.
 The launch counters of every kernel are set to 0 just before each of the
 main-path runs (join, each of the comm phase's four joins, groupby, each
 bsp run, the codec's join and groupbys, the jobs' map_reduce, serve, each
-families run, train) and read just after; a kernel
+families run, train, and the spmd phase's joins, groupbys, islands, hd 112
+calls and dp steps) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
 flash-attention launches, a families run without its calls by design, or a
 train run without the counts above, fails the run.  Then a ``launches`` line (each counter by run: the kernels, and
@@ -302,12 +335,31 @@ FAMILY_CHECK = (("qwen3-moe-235b-a22b", {"num_layers": 1}), ("rwkv6-7b", {"num_l
                 ("recurrentgemma-9b", {"num_layers": 3}),
                 ("whisper-medium", {"num_layers": 2, "encoder_layers": 2}))
 FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW = 2, 16, 16
+# the spmd phase: one NCCL rank (NCCL refuses two ranks on one card); the
+# islands of attention_sharded at the training shapes (minicpm-2b's 36 heads
+# do not split over tp 8: the sequence split, 8 islands of 512 rows;
+# gemma3-4b's global layer over tp 16: 16 of 256) and whisper-medium's
+# cross-attention (its decoder's 128 positions over the 1500 frames); the
+# dp steps on minicpm-2b at SPMD_DP_LAYERS of its 40 layers; one qwen3-moe
+# layer through the expert-parallel dispatch
+SPMD_ISLANDS = (("minicpm_seq_tp8", TRAIN_ARCH, TRAIN_B, 8),
+                ("gemma3_global_seq_tp16", "gemma3-4b", 1, 16))
+SPMD_CROSS = ("whisper-medium", 4, 128, 1500)   # arch, B, decoder positions, frames
+SPMD_DP_LAYERS, SPMD_DP_STEPS = 8, 3
+SPMD_MOE_B, SPMD_MOE_T = 4, 2048
+SPMD_PG_TIMEOUT_S = 300
 # every path runs at its full size and depth but these
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
     "runs 3)",
     "families: qwen3-moe-235b-a22b at 4 of its 94 layers (full width, bf16 storage: "
     "~41 GB of weights)",
+    "spmd: one rank (world 1 on NCCL: NCCL refuses two ranks on one card; the multi-rank "
+    "behaviour is the gloo tests')",
+    f"spmd (d): minicpm-2b at {SPMD_DP_LAYERS} of its 40 layers, {SPMD_DP_STEPS} steps per dp "
+    "step (at 40 the compressed step's residual adds 10.9 GB to the train phase's 70 GB "
+    "peak; 8 keeps the phase near a minute)",
+    "spmd (e): qwen3-moe-235b-a22b at 1 of its 94 layers (9.66 GB of padded bf16 experts)",
 ]
 
 # flash attention against its plain version: both read the same k/v (bfloat16
@@ -1678,6 +1730,377 @@ def families_check(torch, seed) -> dict:
     return out
 
 
+def spmd_group(torch, tmp: Path):
+    """A process group of one rank on NCCL (a FileStore in ``tmp``) and its
+    DeviceMesh("cuda", (1,), ("data",))."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1), rank=0,
+                            world_size=1, timeout=timedelta(seconds=SPMD_PG_TIMEOUT_S))
+    if dist.get_backend() != "nccl":
+        fail(f"the spmd phase's process group runs {dist.get_backend()}, not nccl")
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    # NCCL sets its communicator up at the first collective: before the walls
+    from repro_torch.core.backends import direct
+
+    direct.barrier("data", mesh)
+    torch.cuda.synchronize()
+    return mesh
+
+
+def spmd_frames_phase(torch, np, mesh, left, right, gk, gv, launches, hp_k, jp_k, sr_k,
+                      fa_k) -> dict:
+    """(a) join_spmd on one join worker's tables (raw and compressed) and
+    groupby_spmd on one groupby worker's rows (combiner on and off) over the
+    mesh's "data" axis; rows and sums exact against numpy (module doc)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.backends import direct
+    from repro_torch.dataframe import Table, ops_dist
+
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    n_l, n_r = int(left.count), int(right.count)
+    lk, lv = (left.columns[c][:n_l].cpu().numpy() for c in ("k", "v"))
+    rk, rw = (right.columns[c][:n_r].cpu().numpy() for c in ("k", "w"))
+    common, li, ri = np.intersect1d(lk, rk, assume_unique=True, return_indices=True)
+
+    def run(name, fn, check):
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        for k, c in got.items():
+            launches.setdefault(k, {})[name] = c
+        check(res.to_numpy(), got)
+        out[name] = {"wall_s": wall, "rows": int(res.count), "launches": got}
+
+    def join_check(tag):
+        def check(cols, got):
+            order = np.argsort(cols["k"])
+            if not (np.array_equal(cols["k"][order], common)
+                    and np.array_equal(cols["v"][order], lv[li])
+                    and np.array_equal(cols["w"][order], rw[ri])):
+                fail(f"join_spmd ({tag}) rows differ from numpy's join")
+            if got["hash_partition"] < 2 or got["join_probe"] != 1:
+                fail(f"join_spmd ({tag}) launches {got}: want hash >= 2, probe == 1")
+        return check
+
+    rows = GROUPBY_ROWS
+    expected = np.bincount(gk[:rows].cpu().numpy(), weights=gv[:rows].cpu().numpy(),
+                           minlength=GROUPS).astype(np.int64)
+    table = Table.from_dict({"k": gk[:rows], "v": gv[:rows]}, device=gk.device)
+
+    def groupby_check(combine):
+        def check(cols, got):
+            if not (np.array_equal(np.sort(cols["k"]), np.arange(GROUPS))
+                    and np.array_equal(cols["v_sum"].astype(np.int64), expected[cols["k"]])):
+                fail(f"groupby_spmd combine={combine}: groups or sums differ from np.bincount")
+            if got["segment_reduce"] != (2 if combine else 1) or got["hash_partition"] != 1:
+                fail(f"groupby_spmd combine={combine} launches {got}")
+        return check
+
+    with direct.use_mesh(mesh):
+        for compress in (False, True):
+            tag = "compressed" if compress else "raw"
+            run(f"spmd_join_{tag}", lambda c=compress: ops_dist.join_spmd(
+                left, right, "k", "data", compress=c), join_check(tag))
+        for combine in (True, False):
+            run(f"spmd_groupby_combine_{str(combine).lower()}",
+                lambda c=combine: ops_dist.groupby_spmd(table, "k", {"v": "sum"}, "data",
+                                                        combine=c), groupby_check(combine))
+    out.update(join_rows=len(common), join_rows_per_side=(n_l, n_r), groupby_rows=rows)
+    return out
+
+
+def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dict:
+    """(b) the islands of attention_sharded, (c) head width 112, (d) the dp
+    steps, (e) the expert-parallel MoE (module doc); the kernel rows of each
+    new flash-attention shape."""
+    import contextlib
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ref as fa_r
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    timer = Timer(torch)
+    rows, checks = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def errs(got, exp, tol, what):
+        err = max(float((a - e).abs().max()) for a, e in zip(got, exp))
+        if not all(bool(((a - e).abs() <= tol + tol * e.abs()).all()) for a, e in zip(got, exp)):
+            fail(f"spmd: {what} differs by {err} (limit {tol})")
+        return err
+
+    @contextlib.contextmanager
+    def path(name):
+        """Launches in the block (not the comparisons' own) onto path ``name``."""
+        before = counters(hp_k, jp_k, sr_k, fa_k)
+        yield
+        after = counters(hp_k, jp_k, sr_k, fa_k)
+        for k, c in after.items():
+            launches.setdefault(k, {})
+            launches[k][name] = launches[k].get(name, 0) + c - before[k]
+
+    def fwd_row(name, q, k, v, kw, design):
+        """The forward with lse at ``kw`` (q_offset, causal): time, bound
+        (its design's engine), the plain version, SDPA."""
+        full = dict(causal=kw["causal"], window=0, q_offset=kw["q_offset"], kv_len=k.shape[1])
+        nbytes, ops = flash_work(torch, q, k, **full)
+        nbytes += 4 * q.shape[0] * q.shape[2] * q.shape[1]  # lse
+        bms, bby = (bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[design])
+                    if design in FLASH_SPLIT else bound(nbytes, ops))
+        ms = timer.ms(lambda: fa_k.flash_attention_lse(q, k, v, **kw))
+        rows[name] = {"design": design, "q": list(q.shape), "kv": list(k.shape), **kw,
+                      "ms": ms, "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **kw)),
+                      "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+                      "bytes": nbytes, "operations": ops,
+                      "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full))}
+
+    def bwd_row(name, q, k, v, kw):
+        o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        do = randn(*q.shape)
+        mask = fa_r.key_mask(q.shape[1], k.shape[1], causal=kw["causal"], window=0,
+                             q_offset=kw["q_offset"], kv_len=None, device=dev)
+        pairs = int(mask.sum()) * q.shape[0] * q.shape[2]
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        hd = q.shape[3]
+        bms, bby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
+        ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+        library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                          retain_graph=True))
+        rows[name] = {"design": fa_k.bwd_design(hd), "q": list(q.shape), "kv": list(k.shape),
+                      **kw, "ms": ms,
+                      "plain_ms": timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do,
+                                                                          **kw)),
+                      "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
+                      "bytes": nbytes, "operations": 10 * hd * pairs, "split": fa_k.BWD_SPLIT,
+                      "library_ms": library_ms}
+        del leaves, out
+
+    def through_port(q_l, k, v, do_l, call):
+        """``call`` (the port's entry point) on leaves, forward and backward:
+        (o, dq, dk, dv)."""
+        leaves = [x.detach().requires_grad_() for x in (q_l, k, v)]
+        o = call(*leaves)
+        o.backward(do_l)
+        return o.detach(), *(x.grad for x in leaves)
+
+    def against_plain(what, q, k, v, do, got, kw):
+        """The port's (o, dq, dk, dv) against the plain versions from the
+        kernel's own o and lse (the comparisons' launches are not the path's)."""
+        o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+        fe = errs((got[0], o, lse), (o_r, o_r, lse_r), FLASH_TOL, f"{what} forward")
+        be = errs(got[1:], fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw), BWD_TOL,
+                  f"{what} backward")
+        return fe, be
+
+    # -- (b) the islands, each rank's in turn, and whisper's cross-attention
+    reset_counters(hp_k, jp_k, sr_k, fa_k)
+    for cell, arch, b, tps in SPMD_ISLANDS:
+        cfg = configs.get(arch)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, do = randn(b, TRAIN_SEQ, h, hd), randn(b, TRAIN_SEQ, h, hd)
+        k, v = randn(b, TRAIN_SEQ, kvh, hd), randn(b, TRAIN_SEQ, kvh, hd)
+        plan = L.shard_plan(h, kvh, TRAIN_SEQ, tps)
+        if plan != "seq":
+            fail(f"spmd {cell}: the reference's rule picks {plan}, not the sequence split")
+        tl = TRAIN_SEQ // tps
+        parts, dk, dv, fwd_err, bwd_err = [], torch.zeros_like(k), torch.zeros_like(v), 0.0, 0.0
+        for r in range(tps):
+            sl = slice(r * tl, (r + 1) * tl)
+            q_l, do_l = q[:, sl].contiguous(), do[:, sl].contiguous()
+            with path(f"spmd_islands/{cell}"):
+                got = through_port(q_l, k, v, do_l, lambda a, b_, c, r=r: L.attention_island(
+                    a, b_, c, r, tps, plan="seq", causal=True))
+            fe, be = against_plain(f"{cell} island {r}", q_l, k, v, do_l, got,
+                                   dict(causal=True, window=0, softcap=0.0, q_offset=r * tl))
+            fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+            parts.append(got[:2])
+            dk += got[2]
+            dv += got[3]
+        # the islands reassembled against one full-length call
+        kw = dict(causal=True, window=0, softcap=0.0)
+        o_f, lse_f = fa_k.flash_attention_lse(q, k, v, **kw)
+        g_f = fa_k.flash_attention_bwd(q, k, v, o_f, lse_f, do, **kw)
+        errs((torch.cat([p_[0] for p_ in parts], 1),), (o_f,), FLASH_TOL, f"{cell} reassembled o")
+        whole = errs((torch.cat([p_[1] for p_ in parts], 1), dk, dv), g_f, BWD_TOL,
+                     f"{cell} reassembled gradients")
+        checks[cell] = {"islands": tps, "rows_each": tl, "plan": plan, "fwd_max_abs_err": fwd_err,
+                        "bwd_max_abs_err": bwd_err, "reassembled_max_abs_err": whole}
+        # the last island (the most keys) timed, forward and backward
+        last = dict(kw, q_offset=TRAIN_SEQ - tl)
+        q_l = q[:, -tl:].contiguous()
+        design = fa_k.fwd_design(hd, torch.float32, tl * h // kvh, lse=True)
+        fwd_row(f"flash_attention/{design}@{cell}", q_l, k, v, last, design)
+        bwd_row(f"flash_attention_bwd/{fa_k.bwd_design(hd)}@{cell}", q_l, k, v, last)
+        del q, do, k, v, parts, dk, dv, g_f, o_f, lse_f, q_l
+        torch.cuda.empty_cache()
+    arch, b, tq, tk = SPMD_CROSS
+    cfg = configs.get(arch)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, do = randn(b, tq, h, hd), randn(b, tq, h, hd)
+    k, v = randn(b, tk, kvh, hd), randn(b, tk, kvh, hd)
+    kw = dict(causal=False, window=0, softcap=0.0, q_offset=0)
+    with path("spmd_islands/whisper_cross"):
+        got = through_port(q, k, v, do, lambda a, b_, c: L.attention(a, b_, c, causal=False))
+    fe, be = against_plain("whisper cross-attention", q, k, v, do, got, kw)
+    checks["whisper_cross"] = {"q": list(q.shape), "kv": list(k.shape), "fwd_max_abs_err": fe,
+                               "bwd_max_abs_err": be}
+    design = fa_k.fwd_design(hd, torch.float32, tq * h // kvh, lse=True)
+    fwd_row(f"flash_attention/{design}@whisper_cross", q, k, v, kw, design)
+    bwd_row(f"flash_attention_bwd/{fa_k.bwd_design(hd)}@whisper_cross", q, k, v, kw)
+    del q, do, k, v, got
+    islands = {d: sum(n for run, n in launches.get(f"flash_attention_bwd/{d}", {}).items()
+                      if run.startswith("spmd_islands/"))
+               for d in fa_k.bwd_design_launches}
+    want = {"bwd_wgmma": SPMD_ISLANDS[0][3] + 1, "bwd_wide": SPMD_ISLANDS[1][3]}
+    if islands != want:
+        fail(f"spmd islands: backward launches by design {islands}, want {want}")
+    torch.cuda.empty_cache()
+
+    # -- (c) head width 112 at kimi-k2's attention
+    cfg = configs.get("kimi-k2-1t-a32b")
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, do = randn(1, TRAIN_SEQ, h, hd), randn(1, TRAIN_SEQ, h, hd)
+    k, v = randn(1, TRAIN_SEQ, kvh, hd), randn(1, TRAIN_SEQ, kvh, hd)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    kw = dict(causal=True, window=0, softcap=0.0, q_offset=0)
+    with path("spmd_hd112/kimi_hd112"):
+        o_b = L.attention(q, kb, vb, causal=True)              # serving: flash_wgmma
+        got = through_port(q, k, v, do, lambda a, b_, c: L.attention(a, b_, c, causal=True))
+    full = dict(causal=True, window=0, q_offset=0, kv_len=TRAIN_SEQ)
+    bf16_err = errs((o_b,), (fa_r.attention_ref(q, kb, vb, **full),), FLASH_TOL,
+                    "hd 112 bf16 forward")
+    fe, be = against_plain("hd 112 training", q, k, v, do, got, kw)
+    checks["kimi_hd112"] = {"q": list(q.shape), "kv": list(k.shape), "bf16_fwd_max_abs_err":
+                            bf16_err, "fwd_max_abs_err": fe, "bwd_max_abs_err": be}
+    nbytes, ops = flash_work(torch, q, kb, **full)
+    bms, bby = bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT["flash_wgmma"])
+    ms = timer.ms(lambda: fa_k.flash_attention(q, kb, vb, **full))
+    rows["flash_attention/flash_wgmma@kimi_hd112"] = {
+        "design": "flash_wgmma", "q": list(q.shape), "kv": list(kb.shape), **full, "ms": ms,
+        "plain_ms": timer.ms(lambda: fa_r.attention_ref(q, kb, vb, **full)),
+        "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
+        "operations": ops, "library_ms": timer.ms(sdpa_call(torch, q, kb, vb, **full))}
+    fwd_row("flash_attention/flash_wgmma_split@kimi_hd112", q, k, v, kw, "flash_wgmma_split")
+    bwd_row("flash_attention_bwd/bwd_wgmma@kimi_hd112", q, k, v, kw)
+    del q, do, k, v, kb, vb, o_b, got
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        cell = name.split("@")[1]
+        row["path"] = ("spmd_hd112/" if cell == "kimi_hd112" else "spmd_islands/") + cell
+        row["max_abs_err"] = checks[cell]["bwd_max_abs_err" if "bwd" in name
+                                          else "fwd_max_abs_err"]
+    rows["flash_attention/flash_wgmma@kimi_hd112"]["max_abs_err"] = bf16_err
+    del timer
+    torch.cuda.empty_cache()
+
+    # -- (d) the data-parallel steps at world 1
+    from repro_torch.core.backends import direct
+    from repro_torch.dist.treepath import flatten_with_path, path_str
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api, moe
+    from repro_torch.models.transformer import DistContext
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_compressed_dp_train_step, make_train_step
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=SPMD_DP_LAYERS)
+    oc = opt.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                       total_steps=TRAIN_STEPS, schedule=cfg.schedule,
+                       state_dtype=cfg.opt_state_dtype)
+    batch = next(ltrain.data_iter(cfg, TRAIN_B, TRAIN_SEQ, device=dev))
+
+    def fresh():
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        params = api.init_params(cfg, g, device=dev, master=True)
+        return params, opt.init_state(params, oc)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = fresh()
+    step = make_train_step(cfg, oc, ctx=DistContext(mesh=mesh, dp_axes=("data",)))
+    losses, t0 = [], time.perf_counter()
+    with path("spmd_dp"):
+        for _ in range(SPMD_DP_STEPS):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+    dp_wall = time.perf_counter() - t0
+    host = {path_str(p_): w.cpu() for p_, w in flatten_with_path(params)}
+    del params, state, step
+    torch.cuda.empty_cache()
+    params, state = fresh()
+    ccfg = dataclasses.replace(cfg, grad_compression=True)
+    cstep, init_err = make_compressed_dp_train_step(ccfg, oc, mesh)
+    err = init_err(params)
+    c_losses, t0 = [], time.perf_counter()
+    with path("spmd_dp"):
+        for _ in range(SPMD_DP_STEPS):
+            params, state, err, m = cstep(params, state, err, batch)
+            c_losses.append(float(m["loss"]))
+    c_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    diff = max(float((w.cpu() - host[path_str(p_)]).abs().max())
+               for p_, w in flatten_with_path(params))
+    err_max = max(float(e.abs().max()) for _, e in flatten_with_path(err))
+    limit = 2 * SPMD_DP_STEPS * TRAIN_LR
+    if abs(c_losses[0] - losses[0]) > 1e-6 * abs(losses[0]):
+        fail(f"spmd dp: step-0 losses differ: {losses[0]} vs {c_losses[0]}")
+    if not diff <= limit:
+        fail(f"spmd dp: parameters after {SPMD_DP_STEPS} steps differ by {diff} > {limit}")
+    if not 0 < err_max < 1.0:
+        fail(f"spmd dp: error-feedback residual {err_max} not in (0, 1)")
+    if peak > 75e9:
+        fail(f"spmd dp: peak {peak / 1e9:.1f} GB over 75 GB")
+    dp = {"arch": TRAIN_ARCH, "layers": SPMD_DP_LAYERS, "B": TRAIN_B, "seq_len": TRAIN_SEQ,
+          "steps": SPMD_DP_STEPS, "lr": TRAIN_LR, "losses": losses, "compressed_losses": c_losses,
+          "param_max_abs_diff": diff, "limit": limit, "residual_max": err_max,
+          "wall_s": dp_wall, "compressed_wall_s": c_wall, "peak_mem_bytes": peak,
+          "world": direct.axis_size("data", mesh)}
+    del params, state, err, host, batch
+    torch.cuda.empty_cache()
+
+    # -- (e) the expert-parallel dispatch on one qwen3-moe layer
+    mcfg = configs.get("qwen3-moe-235b-a22b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    blk = {k: w[0] for k, w in moe.init_moe_block(mcfg, g, 1, dev, dtype=torch.bfloat16).items()}
+    x = torch.randn((SPMD_MOE_B, SPMD_MOE_T, mcfg.d_model), generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_ep, aux_ep = moe.moe_block(x, blk, mcfg, DistContext(mesh=mesh, ep_axis="data"))
+        torch.cuda.synchronize()
+        ep_wall = time.perf_counter() - t0
+        y_loc, aux_loc = moe.moe_block(x, blk, mcfg, None)
+    moe_err = errs((y_ep, aux_ep), (y_loc, aux_loc), 2e-4, "moe _moe_ep against _moe_local")
+    moe_row = {"arch": "qwen3-moe-235b-a22b", "x": list(x.shape),
+               "expert_bytes": sum(w.numel() * w.element_size() for w in blk.values()),
+               "max_abs_err": moe_err, "tol": 2e-4, "wall_s": ep_wall}
+    del blk, x, y_ep, y_loc
+    torch.cuda.empty_cache()
+    return {"checks": checks, "rows": rows, "dp": dp, "moe": moe_row}
+
+
 def _ptxas(pattern: str) -> dict:
     """Registers and spills of each built kernel whose name holds ``pattern``."""
     from repro_torch.kernels import _build
@@ -2028,6 +2451,17 @@ def main() -> int:
     emit({"phase": "codec", **codec_phase(torch, np, left, right, join_out, join_wall, gk, gv,
                                           expected, launches, hp_k, jp_k, sr_k, fa_k),
           "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # -- 4e. spmd (a): join_spmd and groupby_spmd on one NCCL rank ---------------
+    import tempfile
+
+    spmd_tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    mesh = spmd_group(torch, Path(spmd_tmp.name))
+    emit({"phase": "spmd", "part": "frames", **spmd_frames_phase(
+        torch, np, mesh, left[0], right[0], gk, gv, launches, hp_k, jp_k, sr_k, fa_k),
+        "wall_s": time.perf_counter() - t0})
     del join_out, right, gk, gv
     torch.cuda.empty_cache()
 
@@ -2469,9 +2903,20 @@ def main() -> int:
     emit({"phase": "train_check", **train_check_phase(torch, args.seed)})
     torch.cuda.empty_cache()
 
+    # -- 11. spmd (b)-(e): the islands, hd 112, the dp steps, the MoE dispatch ------
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    spmd = spmd_model_phase(torch, args.seed, mesh, launches, hp_k, jp_k, sr_k, fa_k)
+    emit({"phase": "spmd", "part": "model", "backend": dist.get_backend(), **spmd,
+          "wall_s": time.perf_counter() - t0})
+    dist.destroy_process_group()
+    spmd_tmp.cleanup()
+    torch.cuda.empty_cache()
+
     # the summary: one row per kernel, and for flash attention one per design
-    # the main path runs, each at its main-path shape (the designs off the
-    # path, flash_tiled and bwd_wide, are in the phase lines)
+    # the main path runs, each at its main-path shape, then the spmd phase's
+    # shapes (flash_tiled and bwd_wide run only there)
     summary = {name: kernels[name] for name in ("hash_partition", "join_probe", "segment_reduce")}
     fa, bwd = kernels["flash_attention"], kernels["flash_attention_bwd"]
     for design, shape in (("flash_wgmma", "prefill_local"), ("flash_decode", "decode"),
@@ -2479,6 +2924,13 @@ def main() -> int:
         summary[f"flash_attention/{design}"] = {**fa, **fa["shapes"][shape],
                                                 "name": f"flash_attention/{design}"}
     summary["flash_attention_bwd/bwd_wgmma"] = {**bwd, "name": "flash_attention_bwd/bwd_wgmma"}
+    # the spmd phase's new shapes, each counted on its own path
+    for name, row in spmd["rows"].items():
+        base = name.split("@")[0]
+        src = bwd if base.startswith("flash_attention_bwd") else fa
+        summary[name] = {**{k: src[k] for k in ("route", "source", "replaces")}, **row,
+                         "name": name}
+        launches[name] = {row["path"]: launches.get(base, {}).get(row["path"], 0)}
     for name, row in summary.items():
         by_path = launches.get(name, {})
         if sum(by_path.values()) <= 0:

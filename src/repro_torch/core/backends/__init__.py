@@ -1,10 +1,11 @@
 """Communicator backends — the port of ``repro.core.backends``.
 
-- ``mediated`` : the redis / s3 store-staged communicators of the paper's
-                 substrate comparison, and the hybrid (relay-fallback)
-                 communicator.  The reference's SPMD ``staged_*``
-                 collectives and its ``direct`` backend belong to the SPMD
-                 surface, which is not ported yet (ROADMAP A 5).
+- ``direct``   : the production path — ``torch.distributed`` collectives over
+                 the named axes of a device mesh (the analogue of NAT
+                 hole-punched direct TCP).
+- ``mediated`` : redis / s3 store-staged backends for the paper's substrate
+                 comparison (simulation pricing + an SPMD emulation that
+                 moves the extra bytes of a staging hop).
 """
 
-from repro_torch.core.backends import mediated  # noqa: F401
+from repro_torch.core.backends import direct, mediated  # noqa: F401

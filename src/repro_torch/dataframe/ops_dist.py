@@ -1,13 +1,22 @@
 """Distributed operators: hash partition -> AllToAll shuffle -> local op —
-port of the simulation surface of ``repro.dataframe.ops_dist``.
+port of ``repro.dataframe.ops_dist``.
 
 Paper §III-D: "1) Hash applicable columns into partitioned tables, 2) Use
 AllToAll to send tables to the intended destination, and 3) Execute a local
-join on the received tables."  Per-rank ``list[Table]`` go through a
-:class:`~repro_torch.core.communicator.Communicator` whose event log prices
-the communication; the blocks stay on the tables' device.  The GroupBy
-combiner (paper §IV-C: local pre-aggregation shrinks 50M rows to ~1e3 before
-the wire) is ``combine=True``.
+join on the received tables."  Two surfaces, same algorithm:
+
+- **sim_***: per-rank ``list[Table]`` through a
+  :class:`~repro_torch.core.communicator.Communicator` whose event log
+  prices the communication; the blocks stay on the tables' device.
+- ***_spmd**: the production path.  Every rank calls it with its own Table;
+  the shuffle is a direct all-to-all over a mesh axis
+  (``core.backends.direct``) of the mesh the caller binds with
+  ``direct.use_mesh(mesh)``.  On CUDA tables the
+  hash, the probe and the segment sums are the hand-written kernels, as on
+  the sim surface.
+
+The GroupBy combiner (paper §IV-C: local pre-aggregation shrinks 50M rows
+to ~1e3 before the wire) is ``combine=True``.
 
 Compressed wire (``compress=True`` on the shuffle, join and groupby): each
 (src, dst) block goes through the columnar codec of
@@ -25,10 +34,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.backends import direct
 from repro_torch.core.communicator import Communicator
 from repro_torch.dataframe import ops_local
 from repro_torch.dataframe.partition import build_partition_payload
-from repro_torch.dataframe.table import Table
+from repro_torch.dataframe.table import Table, from_stacked
 from repro_torch.dist import compression
 
 
@@ -149,3 +159,54 @@ def _restore_names(t: Table, aggs: dict[str, str], final_aggs: dict[str, str]) -
         if fop != op:
             cols[f"{col}_{op}"] = cols.pop(f"{col}_{fop}")
     return Table(cols, t.count)
+
+
+# ---------------------------------------------------------------------------
+# SPMD surface (every rank its own Table; the production path)
+# ---------------------------------------------------------------------------
+
+
+def shuffle_spmd(table: Table, key: str, axis: str, compress: bool = False) -> Table:
+    """Hash-shuffle this rank's table across mesh axis ``axis``.
+
+    Fixed-capacity alltoallv: the send buffer is ``[P, cap, ...]`` with cap
+    the local capacity (worst-case skew absorbed by the receive pack).
+    ``compress=True`` replaces each float value column's buffer with a
+    block-int8 payload + per-block float32 scales across the all-to-all;
+    the key column and integer columns always ship exact."""
+    p = direct.axis_size(axis)
+    payload, counts = build_partition_payload(table, p, [key])
+    recv_counts = direct.alltoallv_counts(counts, axis)
+    recv = {}
+    for name, buf in payload.items():
+        if compress and name != key and buf.dtype.is_floating_point:
+            q, scales = compression.quantize_slots(buf)
+            recv[name] = compression.dequantize_slots(
+                direct.alltoall(q, axis), direct.alltoall(scales, axis), tuple(buf.shape),
+                buf.dtype)
+        else:
+            recv[name] = direct.alltoall(buf, axis)
+    return from_stacked(recv, recv_counts)
+
+
+def join_spmd(left: Table, right: Table, key: str, axis: str, compress: bool = False) -> Table:
+    """Distributed inner join (unique right keys) of this rank's tables."""
+    l_sh = shuffle_spmd(left, key, axis, compress=compress)
+    r_sh = shuffle_spmd(right, key, axis, compress=compress)
+    return ops_local.join_unique(l_sh, r_sh, key)
+
+
+def groupby_spmd(table: Table, key: str, aggs: dict[str, str], axis: str,
+                 combine: bool = True, compress: bool = False) -> Table:
+    """Distributed groupby of this rank's table; ``combine`` applies local
+    pre-aggregation first."""
+    work = table
+    final_aggs = dict(aggs)
+    if combine:
+        work = _rename_back(ops_local.groupby_agg(table, key, aggs), aggs)
+        final_aggs = {c: ("sum" if op == "count" else op) for c, op in aggs.items()}
+    shuffled = shuffle_spmd(work, key, axis, compress=compress)
+    out = ops_local.groupby_agg(shuffled, key, final_aggs)
+    if combine:
+        out = _restore_names(out, aggs, final_aggs)
+    return out

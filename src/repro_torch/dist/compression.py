@@ -1,7 +1,23 @@
-"""Columnar wire codec for the compressed shuffle — the port of the columnar
-half of ``repro.dist.compression``, on tensors.
+"""Wire compression: int8 gradient compression (EF-SGD) and the columnar
+shuffle codec — the port of ``repro.dist.compression``, on tensors.
 
-The alltoallv shuffle in ``dataframe/ops_dist.py`` is the
+Gradients.  The data-parallel gradient all-reduce is bandwidth-bound, so
+the dp-axis reduction trades precision for bytes: each shard
+block-quantizes its gradient to int8 with one float32 scale per ``_BLOCK``
+values, keeps the quantization residual locally, and adds it back into the
+next step's gradient (error feedback).  ``compressed_pmean`` runs on every
+rank of a mesh axis (``core.backends.direct``): each rank all-gathers only
+the int8 payload and the scales, then dequantizes and averages the same
+way, so all ranks hold the same mean without a trusted root.
+``quantize_slots`` / ``dequantize_slots`` do the same to an alltoallv send
+buffer (the SPMD shuffle's ``compress=True``).  The int8 values and scales
+are the reference's for the same float32 input.  The reference runs these
+under ``jit``, where XLA turns its ``max / 127.0`` into a multiply by
+float32(1/127), which is one ulp off the division for ~5% of the blocks; so
+these scales multiply by it too (``_INV127``), while the shuffle codec
+below, whose reference is numpy, divides.
+
+Shuffle codec.  The alltoallv shuffle in ``dataframe/ops_dist.py`` is the
 communication-bound exchange (paper §IV: the distributed join's scaling
 curve is set by the shuffle, not the local join).  Its wire format is
 per-column, with eligibility decided by *role*:
@@ -36,15 +52,19 @@ and decoded values are the reference's for the same column:
 ``EncodedColumn.wire_nbytes`` is what the codec ships; ``raw_nbytes`` is
 what the uncompressed path would have shipped (it stacks every column into
 one float64 row-matrix), so ``raw_nbytes / wire_nbytes`` is the
-per-column compression ratio.  ``quantize_slots`` / ``compressed_pmean``
-(the gradient half of the reference module) are ROADMAP A 5 / A 6.
+per-column compression ratio.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
 import torch
+
+from repro_torch.core.backends import direct
+from repro_torch.dist import treepath
 
 _BLOCK = 128  # values per quantization block (one float32 scale each)
 
@@ -134,24 +154,103 @@ def _encode_int_exact(arr: torch.Tensor) -> EncodedColumn:
     return min(candidates, key=lambda e: e.wire_nbytes)
 
 
+_INV127 = 1.0 / 127.0  # rounded to float32 where it multiplies a float32 tensor
+
+
+def _int8(blocks: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """round(blocks / scale) clipped to [-127, 127] (half to even, as
+    ``jnp.round``), with the reference's 1e-30 floor on the scale."""
+    q = torch.round(blocks / torch.clamp(scale[..., None], min=1e-30))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
 def _quantize_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Block-wise symmetric int8 quantization (pads to a block multiple):
-    ``(q, scale)``, one float32 scale per ``_BLOCK`` values."""
-    flat = x.to(torch.float32).reshape(-1)
+    """Block-wise symmetric int8 quantization of ``x`` (its size a multiple
+    of ``_BLOCK``): ``(q, scale)``, ``q`` int8 of ``x``'s shape and one
+    float32 scale per block of ``_BLOCK`` consecutive values (flattened
+    order), blockmax x float32(1/127) as the reference's jitted quantizer.
+    Per-block max error is ``scale / 2``."""
+    flat = x.to(torch.float32).reshape(-1, _BLOCK)
+    scale = flat.abs().amax(dim=-1) * flat.new_tensor(_INV127)
+    return _int8(flat, scale).reshape(x.shape), scale
+
+
+def _dequantize_blocks(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    flat = q.to(torch.float32).reshape(-1, _BLOCK) * scale[:, None]
+    return flat.reshape(q.shape)
+
+
+def _pad_to_block(flat: torch.Tensor) -> torch.Tensor:
     pad = (-flat.shape[0]) % _BLOCK
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    flat = flat.reshape(-1, _BLOCK)
-    # divide by a tensor, not a Python scalar: on the card a scalar divisor
-    # becomes a multiply by its reciprocal, one ulp off numpy's division
-    scale = flat.abs().amax(dim=-1) / flat.new_tensor(127.0)
-    q = torch.round(flat / torch.clamp(scale[:, None], min=1e-30))
-    return torch.clamp(q, -127, 127).to(torch.int8), scale
+    return flat
 
 
-def _dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
-    flat = q.to(torch.float32).reshape(-1, _BLOCK) * scale[:, None]
-    return flat.reshape(-1)[:n]
+def compressed_pmean(g: torch.Tensor, axis: str, err: torch.Tensor | None = None, *,
+                     mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 mean over mesh ``axis``, called by every rank of
+    the axis with its own ``g``.
+
+    ``err`` is this rank's residual from the previous step (None on the
+    first).  Returns ``(mean, new_err)``: ``mean`` is the same on every rank
+    (each dequantizes every rank's payload in rank order); ``new_err`` stays
+    local and is bounded by one quantization step of the compensated
+    gradient."""
+    shape = g.shape
+    compensated = g if err is None else g + err
+    flat = _pad_to_block(compensated.to(torch.float32).reshape(-1))
+    q, scale = _quantize_blocks(flat)
+    new_err = flat - _dequantize_blocks(q, scale)  # the residual never crosses the wire
+    # wire payload: int8 values + one float32 scale per block
+    q_all = direct.allgather(q[None], axis, dim=0, mesh=mesh)        # [P, n]
+    s_all = direct.allgather(scale[None], axis, dim=0, mesh=mesh)    # [P, n / _BLOCK]
+    world = q_all.shape[0]
+    deq = q_all.to(torch.float32).reshape(world, -1, _BLOCK) * s_all[:, :, None]
+    mean = deq.mean(0).reshape(-1)
+    n = math.prod(shape)
+    return mean[:n].reshape(shape), new_err[:n].reshape(shape)
+
+
+def wire_bytes_saved(tree: Any) -> dict:
+    """Bytes on the wire for one gradient exchange of ``tree``: int8 + scales
+    against bf16 (the ratio the train loop logs)."""
+    sizes = [leaf.numel() for leaf in treepath.leaves(tree)]
+    n = int(sum(sizes))
+    bf16_bytes = 2 * n
+    compressed = int(sum(s + 4 * (-(-s // _BLOCK)) for s in sizes))
+    return {
+        "elements": n,
+        "bf16_bytes": bf16_bytes,
+        "compressed_bytes": compressed,
+        "ratio_vs_bf16": bf16_bytes / max(compressed, 1),
+        "block": _BLOCK,
+    }
+
+
+def quantize_slots(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-int8 quantize an alltoallv send buffer ``[P, cap, ...]``: each
+    destination slot's rows flattened, zero-padded to a block multiple and
+    quantized in ``_BLOCK`` blocks.  Returns ``(q [P, n], scales [P,
+    n / _BLOCK])``, the two fixed-shape payloads that replace the float
+    buffer on the wire."""
+    p = x.shape[0]
+    flat = x.to(torch.float32).reshape(p, -1)
+    pad = (-flat.shape[1]) % _BLOCK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((p, pad))], dim=1)
+    blocks = flat.reshape(p, -1, _BLOCK)
+    scale = blocks.abs().amax(dim=-1) * blocks.new_tensor(_INV127)
+    return _int8(blocks, scale).reshape(p, -1), scale
+
+
+def dequantize_slots(q: torch.Tensor, scale: torch.Tensor, shape: tuple[int, ...],
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Invert :func:`quantize_slots` back to ``shape`` (trims the pad)."""
+    p = q.shape[0]
+    deq = q.to(torch.float32).reshape(p, -1, _BLOCK) * scale[..., None]
+    n = math.prod(shape[1:])
+    return deq.reshape(p, -1)[:, :n].reshape(shape).to(dtype)
 
 
 def encode_column(arr: torch.Tensor, *, exact: bool) -> EncodedColumn:
@@ -167,7 +266,11 @@ def encode_column(arr: torch.Tensor, *, exact: bool) -> EncodedColumn:
         return _encode_int_exact(arr)
     if exact or not arr.dtype.is_floating_point:
         return EncodedColumn("raw", arr.dtype, arr.shape[0], {"values": arr})
-    q, scales = _quantize_blocks(arr)
+    blocks = _pad_to_block(arr.to(torch.float32)).reshape(-1, _BLOCK)
+    # numpy's division: by a tensor, not a Python scalar (on the card a
+    # scalar divisor becomes a multiply by its reciprocal)
+    scales = blocks.abs().amax(dim=-1) / blocks.new_tensor(127.0)
+    q = _int8(blocks, scales)
     # ship only the valid int8 values; decode re-pads to the block multiple
     return EncodedColumn(
         "int8", arr.dtype, arr.shape[0],
@@ -183,11 +286,8 @@ def decode_column(enc: EncodedColumn) -> torch.Tensor:
     if enc.kind == "dict":
         return enc.parts["uniques"][enc.parts["codes"].to(torch.int64)].to(enc.dtype)
     if enc.kind == "int8":
-        q = enc.parts["q"]
-        pad = (-q.shape[0]) % _BLOCK
-        if pad:
-            q = torch.cat([q, q.new_zeros(pad)])
-        return _dequantize_blocks(q, enc.parts["scales"], enc.count).to(enc.dtype)
+        q = _pad_to_block(enc.parts["q"])
+        return _dequantize_blocks(q, enc.parts["scales"])[: enc.count].to(enc.dtype)
     raise ValueError(f"unknown encoding kind {enc.kind!r}")
 
 

@@ -11,7 +11,8 @@ products read; ``cache_from_numpy`` does the same for a KV cache, and
 (the transformer's KV cache, RWKV's recurrent state, Griffin's group /
 remainder state, the encoder-decoder's self and cross K/V).  ``opt_state_from_numpy`` / ``opt_state_to_numpy`` move the
 optimizer state (float32 or int8 {"q", "scale"} moments and the step).  So
-both packages can start from identical state.
+both packages can start from identical state.  ``expert_slice`` cuts one
+expert-parallel rank's experts from the reference's parameter tree.
 """
 
 from __future__ import annotations
@@ -76,6 +77,21 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device: str | torch.device | 
         return api.hold_leaf(cfg, path, _tensor(t, dev).to(pd), master)
 
     return conv(tree, ())
+
+
+def expert_slice(cfg: ArchConfig, tree: dict, rank: int, ep_size: int) -> dict:
+    """The reference's parameter tree (numpy leaves) with each MoE layer's
+    expert stacks (``blocks.moe.wi`` / ``wo``, [L, E_pad, ...]) cut to rank
+    ``rank``'s E_pad / ``ep_size`` experts, the slice ``moe._moe_ep`` runs
+    on that rank of the expert-parallel axis.  Other leaves are shared."""
+    e_pad = cfg.num_experts_padded
+    if e_pad % ep_size:
+        raise ValueError(f"{e_pad} padded experts do not split over {ep_size} ranks")
+    n = e_pad // ep_size
+    moe = dict(tree["blocks"]["moe"])
+    for name in ("wi", "wo"):
+        moe[name] = moe[name][:, rank * n:(rank + 1) * n]
+    return {**tree, "blocks": {**tree["blocks"], "moe": moe}}
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

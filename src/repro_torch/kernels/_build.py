@@ -61,9 +61,10 @@ SIGNATURES = {
         _I, _I, _P,
     ),
     "rt_flash_attention_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _F32, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F32,
+        _P,
     ),
-    "rt_flash_attention_bwd_scratch": (_I, _I, _I, _I, _I, _P),
+    "rt_flash_attention_bwd_scratch": (_I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -19,11 +19,12 @@
 // with no valid key the uniform mean of v over all Tk keys, as in the
 // reference.
 //
-// Head widths: 32, 64, 128, 256, and 120 (h2o-danube-3-4b), which runs the
-// 128-wide template with a run-time valid width: columns 120..127 of q, k
-// and v are loaded as zeros (TMA zero-fills them past its map's width), so
-// the scores do not change, and output columns 120..127 are never stored.
-// Rows of 120 are 480 bytes in float32 and 240 in bf16: 16-byte aligned.
+// Head widths: 32, 64, 128, 256, and 112 (kimi-k2) and 120 (h2o-danube-3-4b),
+// which run the 128-wide template with a run-time valid width: the columns
+// of q, k and v past hd are loaded as zeros (TMA zero-fills them past its
+// map's width), so the scores do not change, and output columns past hd are
+// never stored.  Rows of 112 and 120 are 448 and 480 bytes in float32, 224
+// and 240 in bf16: 16-byte aligned.
 //
 // The float32-k/v designs can also write each row's log-sum-exp (m + log
 // l, [B, H, Tq] float32): the training path's forward, whose backward
@@ -124,7 +125,7 @@ struct Args {
   int Tq, Tk, H, KV, groups;
   int64_t sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
   int q_offset, window, kv_len, causal;
-  int hd;      // valid head width: HD, or 120 run in the 128-wide template
+  int hd;      // valid head width: HD, or 112 / 120 run in the 128-wide template
   float* lse;  // float32 k/v only: [B, H, Tq] log-sum-exp per row, or null
   float softcap, sqrt_hd;
 };
@@ -758,7 +759,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode(Args a, int k_begin, in
 
   float q[RMAX][D::CPL];
   int klo[RMAX], khi[RMAX];  // the keys each row may see
-  // hd 120 in the 128-wide template: the lanes past hd read nothing (zeros)
+  // hd 112 / 120 in the 128-wide template: the lanes past hd read nothing (zeros)
   const bool col_ok = part * D::CPL < a.hd;
 #pragma unroll
   for (int r = 0; r < RMAX; ++r) {
@@ -1091,7 +1092,7 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t
 }  // namespace
 
 // strides: q (b, t, h), k (b, t, kv), v (b, t, kv), o (b, t, h), in elements.
-// hd: 32, 64, 128, 256, or 120 (run in the 128-wide template).
+// hd: 32, 64, 128, 256, or 112 / 120 (run in the 128-wide template).
 // part == nullptr: more than 8 rows per kv head or lse wanted: flash_wgmma
 // with bf16 k/v; with float32 k/v flash_wgmma on their parts (hd <= 128;
 // kv_parts: kv_parts_bytes of scratch, 16-byte aligned) or flash_tiled (hd
@@ -1136,6 +1137,7 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   switch (hd) {
     case 32: e = dispatch<32>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
     case 64: e = dispatch<64>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
+    case 112:
     case 120:
     case 128: e = dispatch<128>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
     case 256: e = dispatch<256>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;

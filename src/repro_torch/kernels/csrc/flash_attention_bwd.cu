@@ -7,11 +7,17 @@
 // transpose of the forward, on the TPU.  The port's forward is a hand-written
 // kernel with no gradient, so its backward is one too.
 //
-// Semantics: the gradient of ref.attention_ref with q [B, T, H, hd] and
-// k, v [B, T, KV, hd] float32 (H % KV == 0), q_offset 0 and kv_len T (the
-// training path's only call; every row sees at least its own key), causal
-// or not, a run-time sliding window (0 = none) and a tanh softcap c
-// (d/ds of c tanh(s / c) is 1 - (s' / c)^2 with s' the capped score).
+// Semantics: the gradient of ref.attention_ref with q [B, Tq, H, hd] and
+// k, v [B, Tk, KV, hd] float32 (H % KV == 0), query row i at position
+// q_offset + i and kv_len Tk, causal or not, a run-time sliding window (0 =
+// none) and a tanh softcap c (d/ds of c tanh(s / c) is 1 - (s' / c)^2 with
+// s' the capped score).  Every row sees at least its own key: a non-causal,
+// unwindowed row sees all Tk keys, and a causal or windowed call needs
+// 0 <= q_offset and q_offset + Tq <= Tk (the entry point refuses others),
+// which the training forward (q_offset 0, Tq == Tk), every island of the
+// sequence-split attention (q_offset = rank x Tq, Tk the whole sequence)
+// and a non-causal cross-attention meet.  Keys that no query sees get zero
+// dK and dV rows.
 // With s = (q / sqrt(hd)) . k, p = exp(s' - lse) (lse from the forward),
 // D = rowsum(dO * O):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D) * cap',
@@ -57,7 +63,7 @@
 // hides completely are never loaded (gemma3's local layers see 1024 of 4096
 // keys).
 //
-// * bwd_wgmma (hd 32, 64, 120 and 128; the training path's hd 64):
+// * bwd_wgmma (hd 32, 64, 112, 120 and 128; the training path's hd 64):
 //   bwd_wgmma<HD, false> (dK, dV) and bwd_wgmma<HD, true> (dQ).
 //   One block = NWG consumer warpgroups (64 fixed rows each) and a
 //   producer warpgroup, one thread of which issues every copy; with NWG 2
@@ -78,10 +84,10 @@
 //   and 64: NWG 2 (128 fixed rows), BS 64, 192 KB of shared memory at hd
 //   64; 384 threads start at 168 registers each (three warps share a
 //   sub-partition's 16K), too few for the dK/dV consumers without the 240
-//   that setmaxnreg gives them.  hd 128 (and 120, in the 128-wide template
-//   with columns 120..127 zero): NWG 1 (256 threads, up to 255 registers),
-//   BS 32, 192 KB; its dK/dV pass (64 + 64 accumulator floats a thread)
-//   still spills a few hundred bytes.
+//   that setmaxnreg gives them.  hd 128 (and 112 and 120, in the 128-wide
+//   template with the columns past hd zero): NWG 1 (256 threads, up to 255
+//   registers), BS 32, 192 KB; its dK/dV pass (64 + 64 accumulator floats a
+//   thread) still spills a few hundred bytes.
 // * bwd_wide (hd 256: gemma3-4b): bwd_wide<false> (dK, dV) and
 //   bwd_wide<true> (dQ).  bwd_wgmma's layout does not fit: the three parts of
 //   64 fixed rows of two operands are 192 KB alone, and dK and dV of 64 keys
@@ -149,16 +155,22 @@ struct BwdArgs {
   uint32_t* vp;
   float* lse_p;
   float* d_p;
-  int B, T, Tp, H, KV, groups, hd;
-  int window, causal;
+  int B, Tq, Tk, Tp, H, KV, groups, hd;  // Tp: Tq padded to kPadRows
+  int q_offset, window, causal;
   float softcap, sqrt_hd;
 };
 
 __device__ __forceinline__ int64_t q_row(const BwdArgs& a, int b, int t, int h) {
-  return ((static_cast<int64_t>(b) * a.T + t) * a.H + h) * a.hd;
+  return ((static_cast<int64_t>(b) * a.Tq + t) * a.H + h) * a.hd;
 }
 __device__ __forceinline__ int64_t kv_row(const BwdArgs& a, int b, int t, int kvh) {
-  return ((static_cast<int64_t>(b) * a.T + t) * a.KV + kvh) * a.hd;
+  return ((static_cast<int64_t>(b) * a.Tk + t) * a.KV + kvh) * a.hd;
+}
+
+// Rows of the fixed operands (keys in the dK/dV pass, queries in dQ's).
+template <bool DQ>
+__device__ __forceinline__ int fixed_rows(const BwdArgs& a) {
+  return DQ ? a.Tq : a.Tk;
 }
 
 // ---------------------------------------------------------------------------
@@ -193,26 +205,28 @@ constexpr int kPadRows = 128;  // lse and D rows padded to a multiple of every b
 
 // The streamed rows [lo, hi] that fixed rows r_first .. r_last can reach:
 // dK/dV pass (fixed keys) the queries that see one of the keys; dQ pass
-// (fixed queries) the keys one of the queries sees.  Empty when lo > hi.
+// (fixed queries) the keys one of the queries sees.  Query row i sits at
+// position q_offset + i, key row j at j.  Empty when lo > hi (a key that no
+// query sees: its dK and dV rows are 0).
 template <bool DQ>
 __device__ __forceinline__ void stream_range(const BwdArgs& a, int r_first, int r_last, int& lo,
                                              int& hi) {
-  r_last = min(r_last, a.T - 1);
+  r_last = min(r_last, fixed_rows<DQ>(a) - 1);
   if (DQ) {
-    lo = a.window > 0 ? max(0, r_first - a.window + 1) : 0;
-    hi = a.causal ? r_last : a.T - 1;
+    lo = a.window > 0 ? max(0, a.q_offset + r_first - a.window + 1) : 0;
+    hi = a.causal ? min(a.Tk - 1, a.q_offset + r_last) : a.Tk - 1;
   } else {
-    lo = a.causal ? r_first : 0;
-    hi = a.window > 0 ? min(a.T - 1, r_last + a.window - 1) : a.T - 1;
+    lo = a.causal ? max(0, r_first - a.q_offset) : 0;
+    hi = a.window > 0 ? min(a.Tq - 1, r_last + a.window - 1 - a.q_offset) : a.Tq - 1;
   }
   if (r_first > r_last) hi = lo - 1;
 }
 
-// The streamed rows [lo, hi] that fixed row r sees (row r sees none past T).
+// The streamed rows [lo, hi] that fixed row r sees (none past the fixed rows).
 template <bool DQ>
 __device__ __forceinline__ void row_range(const BwdArgs& a, int r, int& lo, int& hi) {
   stream_range<DQ>(a, r, r, lo, hi);
-  if (r >= a.T) { lo = 1; hi = 0; }
+  if (r >= fixed_rows<DQ>(a)) { lo = 1; hi = 0; }
 }
 
 // Prologue, q side: one warp per (b, t, h) row of the padded length Tp.
@@ -229,11 +243,11 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_q(BwdArgs a) {
   const int t = static_cast<int>(bt % a.Tp);
   const int b = static_cast<int>(bt / a.Tp);
   const int64_t bh = static_cast<int64_t>(b) * a.H + h;
-  if (t >= a.T) {
+  if (t >= a.Tq) {
     if (lane == 0) a.lse_p[bh * a.Tp + t] = a.d_p[bh * a.Tp + t] = 0.f;
     return;
   }
-  const int64_t src = ((static_cast<int64_t>(b) * a.T + t) * a.H + h) * a.hd;
+  const int64_t src = q_row(a, b, t, h);
   const float* o = a.o + src;
   const float* g = a.dout + src;
   float acc = 0.f;
@@ -241,11 +255,11 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_q(BwdArgs a) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
-    a.lse_p[bh * a.Tp + t] = a.lse[bh * a.T + t];
+    a.lse_p[bh * a.Tp + t] = a.lse[bh * a.Tq + t];
     a.d_p[bh * a.Tp + t] = acc;
   }
-  const int64_t part = static_cast<int64_t>(a.B) * a.H * a.T * HDK / 2;  // uint32 per part
-  const int64_t dst = (bh * a.T + t) * HDK / 2;
+  const int64_t part = static_cast<int64_t>(a.B) * a.H * a.Tq * HDK / 2;  // uint32 per part
+  const int64_t dst = (bh * a.Tq + t) * HDK / 2;
   split_row<HDK>(a.q + src, a.hd, a.sqrt_hd, a.qp + dst, part, lane);
   split_row<HDK>(g, a.hd, 1.f, a.dop + dst, part, lane);
 }
@@ -256,13 +270,13 @@ template <int HDK>
 __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
-  if (row >= static_cast<int64_t>(a.B) * a.T * a.KV) return;
+  if (row >= static_cast<int64_t>(a.B) * a.Tk * a.KV) return;
   const int kvh = static_cast<int>(row % a.KV);
   const int64_t bt = row / a.KV;
-  const int t = static_cast<int>(bt % a.T);
-  const int64_t b = bt / a.T;
-  const int64_t part = static_cast<int64_t>(a.B) * a.KV * a.T * HDK / 2;
-  const int64_t dst = ((b * a.KV + kvh) * a.T + t) * HDK / 2;
+  const int t = static_cast<int>(bt % a.Tk);
+  const int64_t b = bt / a.Tk;
+  const int64_t part = static_cast<int64_t>(a.B) * a.KV * a.Tk * HDK / 2;
+  const int64_t dst = ((b * a.KV + kvh) * a.Tk + t) * HDK / 2;
   split_row<HDK>(a.k + row * a.hd, a.hd, 1.f, a.kp + dst, part, lane);
   split_row<HDK>(a.v + row * a.hd, a.hd, 1.f, a.vp + dst, part, lane);
 }
@@ -382,7 +396,7 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     if (tid == 0) {
       // a warpgroup whose rows all lie past T loads nothing (its rows are
       // masked and never stored)
-      const int live = min(C::NWG, (a.T - r0 + 63) / 64);
+      const int live = min(C::NWG, (fixed_rows<DQ>(a) - r0 + 63) / 64);
       mbar_expect_tx(bar_fix, live * 2 * kParts * C::FIX_TILE);
       for (int w = 0; w < live; ++w)
         for (int op = 0; op < 2; ++op)
@@ -502,9 +516,8 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = fr0 + r_lo + 8 * e;
-    if (r >= a.T) continue;
-    const int64_t at = DQ ? ((static_cast<int64_t>(b) * a.T + r) * a.H + h) * a.hd
-                          : ((static_cast<int64_t>(b) * a.T + r) * a.KV + kvh) * a.hd;
+    if (r >= fixed_rows<DQ>(a)) continue;
+    const int64_t at = DQ ? q_row(a, b, r, h) : kv_row(a, b, r, kvh);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + cq;
@@ -705,7 +718,7 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
     const int col = C::HALF * wg + 4 * (i % (C::HALF / 4));
     const int row = r0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < a.T) {
+    if (row < fixed_rows<DQ>(a)) {
       const float* src = DQ ? (f ? a.dout : a.q) + q_row(a, b, row, h)
                             : (f ? a.v : a.k) + kv_row(a, b, row, kvh);
       x = *reinterpret_cast<const float4*>(src + col);
@@ -850,7 +863,7 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = r0 + r_lo + 8 * e;
-    if (r >= a.T) continue;
+    if (r >= fixed_rows<DQ>(a)) continue;
     const int64_t at = DQ ? q_row(a, b, r, h) : kv_row(a, b, r, kvh);
 #pragma unroll
     for (int j = 0; j < C::HALF / 8; ++j) {
@@ -871,9 +884,10 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
 // Bytes of scratch the tensor-core design needs (kernel.py's
 // bwd_scratch_bytes mirrors it): the parts of q, dO ([3][B H][T][HDK] bf16
 // each) and of k, v ([3][B KV][T][HDK]), then lse and D as [B H][Tp].
-int64_t wgmma_scratch_bytes(int HDK, int B, int T, int H, int KV) {
-  const int64_t tp = (static_cast<int64_t>(T) + kPadRows - 1) / kPadRows * kPadRows;
-  return 2 * 2 * kParts * static_cast<int64_t>(B) * T * HDK * (H + KV) +
+int64_t wgmma_scratch_bytes(int HDK, int B, int Tq, int Tk, int H, int KV) {
+  const int64_t tp = (static_cast<int64_t>(Tq) + kPadRows - 1) / kPadRows * kPadRows;
+  return 2 * 2 * kParts * static_cast<int64_t>(B) * HDK *
+             (static_cast<int64_t>(Tq) * H + static_cast<int64_t>(Tk) * KV) +
          2 * 4 * static_cast<int64_t>(B) * H * tp;
 }
 
@@ -888,16 +902,17 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   const void* str[2] = {DQ ? a.kp : a.qp, DQ ? a.vp : a.dop};
   const int64_t nfix = static_cast<int64_t>(kParts) * (DQ ? nq : nk);
   const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? nk : nq);
-  const bool ok = make_parts_map(&f0, fix[0], HD, a.T, nfix, 64, C::ATOM, C::SW) &&
-                  make_parts_map(&f1, fix[1], HD, a.T, nfix, 64, C::ATOM, C::SW) &&
-                  make_parts_map(&s0, str[0], HD, a.T, nstr, C::BS, C::ATOM, C::SW) &&
-                  make_parts_map(&s1, str[1], HD, a.T, nstr, C::BS, C::ATOM, C::SW);
+  const int tfix = DQ ? a.Tq : a.Tk, tstr = DQ ? a.Tk : a.Tq;
+  const bool ok = make_parts_map(&f0, fix[0], HD, tfix, nfix, 64, C::ATOM, C::SW) &&
+                  make_parts_map(&f1, fix[1], HD, tfix, nfix, 64, C::ATOM, C::SW) &&
+                  make_parts_map(&s0, str[0], HD, tstr, nstr, C::BS, C::ATOM, C::SW) &&
+                  make_parts_map(&s1, str[1], HD, tstr, nstr, C::BS, C::ATOM, C::SW);
   if (!ok) return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
       bwd_wgmma<HD, DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (e != cudaSuccess) return e;
-  const dim3 grid(DQ ? nq : nk, (a.T + C::ROWS - 1) / C::ROWS);
+  const dim3 grid(DQ ? nq : nk, (tfix + C::ROWS - 1) / C::ROWS);
   bwd_wgmma<HD, DQ><<<grid, C::THREADS, C::kSmem, s>>>(f0, f1, s0, s1, a);
   return cudaGetLastError();
 }
@@ -909,14 +924,15 @@ cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
   // streamed: dK/dV pass q, dO; dQ pass v, k (16-row boxes)
   const void* str[2] = {DQ ? a.vp : a.qp, DQ ? a.kp : a.dop};
   const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? a.B * a.KV : a.B * a.H);
-  if (!make_parts_map(&s0, str[0], C::HD, a.T, nstr, C::BS, C::ATOM, C::SW) ||
-      !make_parts_map(&s1, str[1], C::HD, a.T, nstr, C::BS, C::ATOM, C::SW))
+  const int tfix = DQ ? a.Tq : a.Tk, tstr = DQ ? a.Tk : a.Tq;
+  if (!make_parts_map(&s0, str[0], C::HD, tstr, nstr, C::BS, C::ATOM, C::SW) ||
+      !make_parts_map(&s1, str[1], C::HD, tstr, nstr, C::BS, C::ATOM, C::SW))
     return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
       bwd_wide<DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (e != cudaSuccess) return e;
-  const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (a.T + 63) / 64);
+  const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (tfix + 63) / 64);
   bwd_wide<DQ><<<grid, C::THREADS, C::kSmem, s>>>(s0, s1, a);
   return cudaGetLastError();
 }
@@ -925,9 +941,9 @@ cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
 // 256 bwd_wide<false / true>.
 template <int HD>
 cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
-  a.Tp = (a.T + kPadRows - 1) / kPadRows * kPadRows;
-  const int64_t qpart = static_cast<int64_t>(a.B) * a.H * a.T * HD;  // bf16 per part
-  const int64_t kpart = static_cast<int64_t>(a.B) * a.KV * a.T * HD;
+  a.Tp = (a.Tq + kPadRows - 1) / kPadRows * kPadRows;
+  const int64_t qpart = static_cast<int64_t>(a.B) * a.H * a.Tq * HD;  // bf16 per part
+  const int64_t kpart = static_cast<int64_t>(a.B) * a.KV * a.Tk * HD;
   uint16_t* p = static_cast<uint16_t*>(scratch);
   a.qp = reinterpret_cast<uint32_t*>(p);
   a.dop = reinterpret_cast<uint32_t*>(p + kParts * qpart);
@@ -936,7 +952,7 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
   a.lse_p = reinterpret_cast<float*>(p + 2 * kParts * (qpart + kpart));
   a.d_p = a.lse_p + static_cast<int64_t>(a.B) * a.H * a.Tp;
   const int64_t qrows = static_cast<int64_t>(a.B) * a.Tp * a.H;
-  const int64_t krows = static_cast<int64_t>(a.B) * a.T * a.KV;
+  const int64_t krows = static_cast<int64_t>(a.B) * a.Tk * a.KV;
   constexpr int kRowsPerBlock = kThreads / 32;
   bwd_prep_q<HD><<<static_cast<unsigned>((qrows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads,
                    0, s>>>(a);
@@ -959,19 +975,24 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
 
 }  // namespace
 
-// q, o, dout, dq: [B, T, H, hd]; k, v, dk, dv: [B, T, KV, hd]; lse: [B, H,
-// T]; all float32 and contiguous.  scratch: scratch_bytes of device memory,
-// at least rt_flash_attention_bwd_scratch's (16-byte aligned).  hd 32, 64,
-// 120 (the 128-wide template), 128: bwd_wgmma; 256: bwd_wide; four launches
-// each, all on `stream`.
+// q, o, dout, dq: [B, Tq, H, hd]; k, v, dk, dv: [B, Tk, KV, hd]; lse: [B,
+// H, Tq]; all float32 and contiguous.  q row i sits at position q_offset +
+// i; a causal or windowed call needs 0 <= q_offset and q_offset + Tq <= Tk
+// (every row then sees its own key).  scratch: scratch_bytes of device
+// memory, at least rt_flash_attention_bwd_scratch's (16-byte aligned).  hd
+// 32, 64, 112 and 120 (the 128-wide template), 128: bwd_wgmma; 256:
+// bwd_wide; four launches each, all on `stream`.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dk,
                                       void* dv, void* scratch, int64_t scratch_bytes, int hd,
-                                      int B, int T, int H, int KV, int window, int causal,
-                                      float softcap, void* stream) {
-  if (B < 1 || T < 1 || KV < 1 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int hdk = hd == 120 ? 128 : hd;
-  const int64_t need = wgmma_scratch_bytes(hdk, B, T, H, KV);
+                                      int B, int Tq, int Tk, int H, int KV, int q_offset,
+                                      int window, int causal, float softcap, void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((causal || window > 0) && (q_offset < 0 || q_offset + Tq > Tk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hdk = hd == 112 || hd == 120 ? 128 : hd;
+  const int64_t need = wgmma_scratch_bytes(hdk, B, Tq, Tk, H, KV);
   if (scratch == nullptr || scratch_bytes < need ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -985,8 +1006,8 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
-  a.B = B; a.T = T; a.H = H; a.KV = KV; a.groups = H / KV; a.hd = hd;
-  a.window = window; a.causal = causal;
+  a.B = B; a.Tq = Tq; a.Tk = Tk; a.H = H; a.KV = KV; a.groups = H / KV; a.hd = hd;
+  a.q_offset = q_offset; a.window = window; a.causal = causal;
   a.softcap = softcap;
   a.sqrt_hd = static_cast<float>(sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -994,6 +1015,7 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   switch (hd) {
     case 32: e = launch_wgmma<32>(a, scratch, s); break;
     case 64: e = launch_wgmma<64>(a, scratch, s); break;
+    case 112:
     case 120:
     case 128: e = launch_wgmma<128>(a, scratch, s); break;
     case 256: e = launch_wgmma<256>(a, scratch, s); break;
@@ -1004,11 +1026,12 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
 
 // The scratch bytes rt_flash_attention_bwd needs for these sizes, into
 // *bytes; cudaErrorInvalidValue for a head width it does not take.
-extern "C" int rt_flash_attention_bwd_scratch(int hd, int B, int T, int H, int KV, void* bytes) {
+extern "C" int rt_flash_attention_bwd_scratch(int hd, int B, int Tq, int Tk, int H, int KV,
+                                              void* bytes) {
   int64_t* out = static_cast<int64_t*>(bytes);
   switch (hd) {
-    case 32: case 64: case 128: case 256: *out = wgmma_scratch_bytes(hd, B, T, H, KV); break;
-    case 120: *out = wgmma_scratch_bytes(128, B, T, H, KV); break;
+    case 32: case 64: case 128: case 256: *out = wgmma_scratch_bytes(hd, B, Tq, Tk, H, KV); break;
+    case 112: case 120: *out = wgmma_scratch_bytes(128, B, Tq, Tk, H, KV); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaSuccess);

@@ -16,7 +16,8 @@ can see into chunks, one block each, and the last block of each kv head to
 finish merges them, in the same launch.
 
 ``flash_attention_lse`` is the training path's forward: a float32-k/v
-design, which also writes each row's log-sum-exp; ``flash_attention_bwd``
+design, which also writes each row's log-sum-exp, at any ``q_offset`` and
+Tq, Tk (a sequence-split island, a cross-attention); ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
 design ``bwd_design`` names for the head width, both on the bf16 tensor
 cores (``BWD_SPLIT`` bf16 products per float32 product) in four CUDA
@@ -26,8 +27,8 @@ width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward calls and
 backward calls, and ``bwd_design_launches`` the backward calls of each
 design.
 
-Head widths: ``HEAD_DIMS``.  120 (h2o-danube-3-4b) runs the 128-wide
-kernels with a run-time valid width (``kernel_head_dim``).
+Head widths: ``HEAD_DIMS``.  112 (kimi-k2) and 120 (h2o-danube-3-4b) run
+the 128-wide kernels with a run-time valid width (``kernel_head_dim``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ fwd_design_launches = {"flash_wgmma": 0, "flash_wgmma_split": 0, "flash_tiled": 
 bwd_launches = 0
 bwd_design_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 
-HEAD_DIMS = (32, 64, 120, 128, 256)
+HEAD_DIMS = (32, 64, 112, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
 BWD_SPLIT = 6      # bf16 products per float32 product in bwd_wgmma (csrc kSplit)
 MIN_CHUNK = 64     # keys per block of the decode design: at least this,
@@ -112,11 +113,11 @@ def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.T
 
 def kernel_head_dim(hd: int) -> int:
     """The kernels' template width for head width ``hd``: ``hd`` itself, or
-    128 for 120 (columns 120..127 load as zeros and are never stored).
-    Raises for a width no kernel serves."""
+    128 for 112 and 120 (the columns past hd load as zeros and are never
+    stored).  Raises for a width no kernel serves."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    return 128 if hd == 120 else hd
+    return 128 if hd in (112, 120) else hd
 
 
 def fwd_design(hd: int, kv_dtype: torch.dtype, rows_per_kv_head: int, lse: bool = False) -> str:
@@ -142,7 +143,7 @@ def kv_parts_bytes(hd: int, b: int, tk: int, kvh: int) -> int:
 
 def bwd_design(hd: int) -> str:
     """The backward's design at head width ``hd`` (as the CUDA entry point
-    chooses): ``bwd_wgmma`` for 32, 64, 120, 128; ``bwd_wide`` for 256, whose
+    chooses): ``bwd_wgmma`` for 32, 64, 112, 120, 128; ``bwd_wide`` for 256, whose
     split operands do not fit bwd_wgmma's layout (fixed operands kept
     float32, two warpgroups that split the columns)."""
     return "bwd_wgmma" if kernel_head_dim(hd) <= 128 else "bwd_wide"
@@ -253,59 +254,73 @@ def flash_attention_heads(
     return o
 
 
+def check_grad_shape(tq: int, tk: int, *, causal: bool, window: int, q_offset: int) -> None:
+    """The shapes the gradient covers: a causal or windowed call needs
+    0 <= q_offset and q_offset + Tq <= Tk, so that every row sees its own
+    key (the backward kernel's assumption); a call that is neither sees
+    every key."""
+    if (causal or window > 0) and not 0 <= q_offset <= tk - tq:
+        raise ValueError(f"flash_attention's gradient: a causal or windowed call needs "
+                         f"0 <= q_offset and q_offset + Tq <= Tk, got q_offset {q_offset}, "
+                         f"Tq {tq}, Tk {tk}")
+
+
 def flash_attention_lse(
-    q: torch.Tensor,       # [B, T, H, hd] float32
-    k: torch.Tensor,       # [B, T, KV, hd] float32
+    q: torch.Tensor,       # [B, Tq, H, hd] float32
+    k: torch.Tensor,       # [B, Tk, KV, hd] float32
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The training path's forward: (o [B, T, H, hd], lse [B, H, T]) float32
-    from a float32-k/v design (``fwd_design``), q_offset 0 and kv_len T."""
-    if k.dtype != torch.float32 or k.shape[1] != q.shape[1]:
-        raise ValueError(f"flash_attention_lse: want float32 k/v with Tk == Tq, got {k.dtype}, "
-                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    """The training path's forward: (o [B, Tq, H, hd], lse [B, H, Tq])
+    float32 from a float32-k/v design (``fwd_design``), kv_len Tk."""
+    if k.dtype != torch.float32:
+        raise ValueError(f"flash_attention_lse: want float32 k/v, got {k.dtype}")
     b, t, h, _ = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=0, kv_len=None,
-            lse=lse)
+    _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+            kv_len=None, lse=lse)
     return o, lse
 
 
 def flash_attention_bwd(
-    q: torch.Tensor,       # [B, T, H, hd] float32
-    k: torch.Tensor,       # [B, T, KV, hd] float32
+    q: torch.Tensor,       # [B, Tq, H, hd] float32
+    k: torch.Tensor,       # [B, Tk, KV, hd] float32
     v: torch.Tensor,
-    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
-    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
-    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    o: torch.Tensor,       # [B, Tq, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, Tq]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, Tq, H, hd]: the gradient of o
     *,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_lse``'s output (semantics of
-    ``ref.attention_bwd_ref``); every tensor float32, contiguous, on one card."""
+    ``ref.attention_bwd_ref``); every tensor float32, contiguous, on one card;
+    the shapes ``check_grad_shape`` admits."""
     global bwd_launches
     dev = _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
         if t.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be float32, got {t.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention_bwd: want q [B,T,H,hd], k/v [B,T,KV,hd], got "
+        raise ValueError(f"flash_attention_bwd: want q [B,Tq,H,hd], k/v [B,Tk,KV,hd], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, hd = q.shape
-    kvh = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, t, hd) or h % kvh:
+    tk, kvh = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, hd) or h % kvh:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t):
-        raise ValueError("flash_attention_bwd: o and do must have q's shape, lse [B, H, T]")
+        raise ValueError("flash_attention_bwd: o and do must have q's shape, lse [B, H, Tq]")
     kernel_head_dim(hd)
-    if max(b * t * h, b * t * kvh) * hd >= 2**31:
+    check_grad_shape(t, tk, causal=causal, window=int(window), q_offset=int(q_offset))
+    if max(b * t * h, b * tk * kvh) * hd >= 2**31:
         raise ValueError("flash_attention_bwd: sizes must fit int32")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -313,13 +328,14 @@ def flash_attention_bwd(
     lib = _build.library()
     # the split parts of q, dO, k, v and the padded lse, D
     nbytes = ctypes.c_int64()
-    _build.check(lib.rt_flash_attention_bwd_scratch(hd, b, t, h, kvh, ctypes.addressof(nbytes)),
+    _build.check(lib.rt_flash_attention_bwd_scratch(hd, b, t, tk, h, kvh,
+                                                    ctypes.addressof(nbytes)),
                  "flash_attention_bwd")
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     rc = lib.rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), nbytes.value, hd, b, t, h,
-        kvh, int(window), int(causal), float(softcap), _build.stream(dev),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), nbytes.value, hd, b, t, tk,
+        h, kvh, int(q_offset), int(window), int(causal), float(softcap), _build.stream(dev),
     )
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1

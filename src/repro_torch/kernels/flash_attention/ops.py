@@ -4,8 +4,10 @@ version for a CPU tensor.
 ``flash_attention`` takes the differentiable path (:class:`FlashAttention`:
 the forward kernel that keeps each row's log-sum-exp, and the backward
 kernel) when autograd records and q, k or v requires a gradient: the
-training forward, q_offset 0 and kv_len T.  Serving never records a graph
-and keeps the forward designs of ``kernel.py``."""
+training forward, the islands of the sequence-split attention (a
+``q_offset``, Tq < Tk) and a cross-attention (Tq != Tk), with kv_len Tk and
+the shapes ``kernel.check_grad_shape`` admits.  Serving never records a
+graph and keeps the forward designs of ``kernel.py``."""
 
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ class FlashAttention(torch.autograd.Function):
     ``ref.attention_bwd_ref``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
-        kw = dict(causal=causal, window=window, softcap=softcap)
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float, q_offset: int):
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         if q.device.type == "cpu":
             o, lse = ref.attention_lse_ref(q, k, v, **kw)
         else:
@@ -38,7 +40,7 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = ref.attention_bwd_ref(q, k, v, o, lse, do, **ctx.kw)
         else:
             dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -53,13 +55,13 @@ def flash_attention(
     kv_len: int | None = None,
 ) -> torch.Tensor:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q_offset != 0 or (kv_len is not None and kv_len != k.shape[1]) \
-                or k.shape[1] != q.shape[1]:
-            raise NotImplementedError("flash_attention's gradient covers q_offset 0 and "
-                                      "kv_len == Tk == Tq (the training forward) only "
-                                      "(ROADMAP B 2)")
+        if kv_len is not None and kv_len != k.shape[1]:
+            raise NotImplementedError("flash_attention's gradient covers kv_len == Tk (no "
+                                      "training path reads a partly filled cache)")
+        kernel.check_grad_shape(q.shape[1], k.shape[1], causal=bool(causal), window=int(window),
+                                q_offset=int(q_offset))
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(causal),
-                                    int(window), float(softcap))
+                                    int(window), float(softcap), int(q_offset))
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, **kw)

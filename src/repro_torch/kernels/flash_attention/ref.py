@@ -92,18 +92,19 @@ def attention_ref(
 
 
 def attention_lse_ref(
-    q: torch.Tensor,       # [B, T, H, hd]
-    k: torch.Tensor,       # [B, T, KV, hd]
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd]
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (``attention_ref``'s output, each row's
-    log-sum-exp [B, H, T] float32), q_offset 0 and kv_len T."""
-    _, logits, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=0,
-                              kv_len=None)
+    log-sum-exp [B, H, Tq] float32), kv_len Tk."""
+    _, logits, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                              q_offset=q_offset, kv_len=None)
     logits = logits.masked_fill(~mask, MASK_VALUE)
     lse = torch.logsumexp(logits, dim=-1)                       # [B, KV, G, T]
     out = torch.einsum("bkgqs,bskh->bkgqh", torch.exp(logits - lse[..., None]), v.float())
@@ -112,20 +113,22 @@ def attention_lse_ref(
 
 
 def attention_bwd_ref(
-    q: torch.Tensor,       # [B, T, H, hd]
-    k: torch.Tensor,       # [B, T, KV, hd]
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd]
     v: torch.Tensor,
-    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
-    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
-    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    o: torch.Tensor,       # [B, Tq, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, Tq]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, Tq, H, hd]: the gradient of o
     *,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``attention_ref`` with q_offset 0 and kv_len T (every
-    row sees at least its own key), written as the formulas the backward
-    kernel computes, not as autograd of the forward:
+    """(dq, dk, dv) of ``attention_ref`` at ``q_offset`` with kv_len Tk
+    (every row sees at least one key: ``kernel.check_grad_shape``), written
+    as the formulas the backward kernel computes, not as autograd of the
+    forward:
 
         s = (q / sqrt(hd)) . k,  s' = c tanh(s / c) (softcap c > 0, else s),
         p = exp(s' - lse) where visible, else 0,  D = rowsum(dO * O),
@@ -134,8 +137,8 @@ def attention_bwd_ref(
 
     dk and dv summed over the query heads of each kv head.  float32."""
     kvh = k.shape[2]
-    qf, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=0,
-                          kv_len=None)
+    qf, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                          q_offset=q_offset, kv_len=None)
     of, dof = _heads(o, kvh), _heads(do, kvh)
     p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
     delta = (dof * of).sum(-1, keepdim=True)
@@ -268,16 +271,17 @@ def attention_fwd_split_ref(
 
 
 def attention_bwd_split_ref(
-    q: torch.Tensor,       # [B, T, H, hd]
-    k: torch.Tensor,       # [B, T, KV, hd]
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd]
     v: torch.Tensor,
-    o: torch.Tensor,       # [B, T, H, hd]: the forward's output
-    lse: torch.Tensor,     # [B, H, T]: the forward's log-sum-exp
-    do: torch.Tensor,      # [B, T, H, hd]: the gradient of o
+    o: torch.Tensor,       # [B, Tq, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, Tq]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, Tq, H, hd]: the gradient of o
     *,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
     parts: int = 3,
     pairs: int = 6,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -286,10 +290,10 @@ def attention_bwd_split_ref(
     dK = dS^T Qs, dQ = dS K; Qs = q / sqrt(hd)) a sum of products of the
     operands' ``parts`` bf16 parts (``pairs`` of ``BWD_PAIRS``, the first
     operand's part first), every sum in float32.  Tests only."""
-    kvh, t = k.shape[2], k.shape[1]
+    kvh = k.shape[2]
     qf = _heads(q, kvh) / math.sqrt(q.shape[3])
-    mask = key_mask(t, t, causal=causal, window=int(window), q_offset=0, kv_len=None,
-                    device=q.device)
+    mask = key_mask(q.shape[1], k.shape[1], causal=causal, window=int(window),
+                    q_offset=int(q_offset), kv_len=None, device=q.device)
     kf, vf = k.float(), v.float()
     of, dof = _heads(o, kvh), _heads(do, kvh)
     s = _split_product("bkgqh,bskh->bkgqs", qf, kf, parts, pairs)

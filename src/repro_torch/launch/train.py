@@ -21,8 +21,17 @@ lines and spans:
         --comm-fabric lambda --trace-out t.json
     python scripts/trace_to_chrome.py t.json
 
-Not ported yet: the compressed data-parallel step (``cfg.grad_compression``
-raises ``NotImplementedError``), which needs the SPMD surface (ROADMAP A 5).
+The reference's gate for the explicit compressed data-parallel step:
+with ``cfg.grad_compression``, a dp world above 1 and a batch it divides,
+every rank runs ``make_compressed_dp_train_step`` on its slice of the
+global batch (int8 + error feedback on the wire) and logs "explicit path
+ON" beside the modeled implicit-vs-explicit dp reduction.  The dp world is
+every rank of an initialised ``torch.distributed`` process group (one rank
+a card, or gloo processes on the CPU), as the reference's is every device.
+The error-feedback residual is training state: each rank's joins the
+checkpoint, stacked ``[world, ...]`` as the reference stores it, so a
+killed and resumed run reproduces the uninterrupted losses.  With more than
+one rank, rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -34,18 +43,22 @@ from collections.abc import Callable
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
+from repro_torch.core import algorithms, netsim
+from repro_torch.core.backends import direct
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.session import CommSession
 from repro_torch.core.trace import Tracer
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist import compression, treepath
 from repro_torch.dist.object_store import Store, as_store
 from repro_torch.models import api
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import make_compressed_dp_train_step, make_train_step
 
 
 def build_dataset(cfg, batch: int, seq_len: int, seed: int = 0, device=None):
@@ -130,9 +143,6 @@ def train(
     checkpoint op, ``bootstrap`` spans mirrored from the session lifecycle,
     and — with a ``comm_session`` — one ``comm`` span per step for the
     modeled gradient all-reduce over that session's world."""
-    if cfg.grad_compression:
-        raise NotImplementedError("the compressed data-parallel step needs the SPMD surface "
-                                  "(ROADMAP A 5)")
     dev = resolve_device(device)
     opt_cfg = opt.OptConfig(
         lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps,
@@ -152,20 +162,51 @@ def train(
             comm_session.attach_tracer(tracer, ranks=(0,))
             grad_comm = Communicator(session=comm_session)
             grad_nbytes = int(sum(x.numel() * x.element_size() for x in api.tree_leaves(params)))
+            if cfg.grad_compression:
+                grad_nbytes = int(compression.wire_bytes_saved(params)["compressed_bytes"])
         if ckpt_dir is not None:
             # wrap once so every checkpoint op mirrors onto the store lane
             ckpt_dir = as_store(ckpt_dir)
             ckpt_dir.attach_tracer(tracer)
 
-    step_fn = make_train_step(cfg, opt_cfg)
+    # the explicit compressed dp-reduction: the reference's gate
+    dp = dist.get_world_size() if dist.is_initialized() else 1
+    use_explicit_dp = bool(cfg.grad_compression) and dp > 1 and batch % dp == 0
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    grad_err = None
+    if use_explicit_dp:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh(dev.type, (dp,), mesh_dim_names=("data",))
+        step_fn, init_err = make_compressed_dp_train_step(cfg, opt_cfg, mesh)
+        grad_err = init_err(params)
+    else:
+        step_fn = make_train_step(cfg, opt_cfg)
 
     def ckpt_tree():
-        return {"params": params, "opt": opt_state}
+        tree = {"params": params, "opt": opt_state}
+        if use_explicit_dp:  # every rank's residual, [world, ...]
+            tree["grad_err"] = treepath.tree_map(
+                lambda e: direct.allgather(e[None], "data", dim=0, mesh=mesh), grad_err)
+        return tree
+
+    def save(step):
+        tree = ckpt_tree()  # a collective with the explicit path: every rank
+        if writer:
+            ckpt.save(ckpt_dir, step, tree)
+        if dist.is_initialized():
+            dist.barrier()
 
     start = 0
     if resume and ckpt_dir and (last := ckpt.latest(ckpt_dir)):
-        tree = ckpt.restore(last, ckpt_tree())
+        like = {"params": params, "opt": opt_state}
+        if use_explicit_dp:
+            like["grad_err"] = treepath.tree_map(lambda e: torch.empty((dp,) + e.shape), grad_err)
+        tree = ckpt.restore(last, like)
         params, opt_state = tree["params"], tree["opt"]
+        if use_explicit_dp:
+            rank = direct.axis_index("data", mesh)
+            grad_err = treepath.tree_map(lambda e: e[rank].to(dev), tree["grad_err"])
         start = ckpt.read_manifest(last)["step"]
         log(f"resumed from step {start}")
         if comm_session is not None and start > 0:
@@ -173,6 +214,27 @@ def train(
             log(f"re-bootstrap: rank 0 re-joined its CommSession "
                 f"(world {comm_session.world}) in {reboot_s:.1f}s modeled "
                 f"rendezvous + re-punch")
+
+    if cfg.grad_compression:
+        rep = compression.wire_bytes_saved(params)
+        log(f"grad compression: int8+scales {rep['compressed_bytes']/2**20:.1f} MiB "
+            f"vs bf16 {rep['bf16_bytes']/2**20:.1f} MiB "
+            f"({rep['ratio_vs_bf16']:.2f}x) per exchange")
+        # the dp-reduction model (against the implicit float32 all-reduce),
+        # Lambda-direct at the paper's 64-node point
+        implicit = algorithms.select_algorithm(
+            "allreduce", 64, 4 * rep["elements"], netsim.LAMBDA_DIRECT)
+        explicit = algorithms.select_algorithm(
+            "allgather", 64, rep["compressed_bytes"], netsim.LAMBDA_DIRECT)
+        why_off = (
+            "" if use_explicit_dp
+            else " (single device)" if dp == 1
+            else f" (batch {batch} not divisible by {dp} devices)"
+        )
+        log(f"dp-reduction model @64/lambda-direct: implicit f32 all-reduce "
+            f"{implicit.time_s*1e3:.1f} ms ({implicit.algorithm}) vs explicit "
+            f"int8 allgather {explicit.time_s*1e3:.1f} ms ({explicit.algorithm}); "
+            f"explicit path {'ON' if use_explicit_dp else 'off' + why_off}")
 
     def apply_burst():
         nonlocal grad_comm
@@ -230,7 +292,11 @@ def train(
         batch_data = next(it)
         fetch_s = time.perf_counter() - t_fetch
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch_data)
+        if use_explicit_dp:
+            params, opt_state, grad_err, metrics = step_fn(params, opt_state, grad_err,
+                                                           batch_data)
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch_data)
         losses.append(float(metrics["loss"]))
         if tracer is not None:
             tracer.span(0, "overhead", "data_fetch", duration_s=fetch_s, step=step)
@@ -249,11 +315,11 @@ def train(
                 f"gnorm {float(metrics['grad_norm']):.3f} "
                 f"({(time.time() - t0) / max(step - start + 1, 1):.2f}s/step)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step + 1, ckpt_tree())
+            save(step + 1)
     # checkpoint on the way out (graceful preemption / end of run) so a
     # stop_after drill never exits with unsaved progress
     if ckpt_dir and end > start and end % ckpt_every != 0:
-        ckpt.save(ckpt_dir, end, ckpt_tree())
+        save(end)
     if tracer is not None and tracer.spans:
         lanes = ", ".join(
             f"{lane} {tracer.lane_time_s(lane):.3f}s"

@@ -22,7 +22,9 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 
+from repro_torch.core.backends import direct
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import kernel as fa_k
 from repro_torch.models import encdec, griffin, rwkv, transformer
@@ -67,7 +69,7 @@ def tree_leaves(tree) -> list[torch.Tensor]:
 
 def check_card_head_dim(cfg: ArchConfig) -> None:
     """Raise before anything is allocated where the card has no attention
-    kernel for ``cfg``'s head width (kimi-k2's 112)."""
+    kernel for ``cfg``'s head width (every config of the catalog has one)."""
     if cfg.family == "ssm":
         return
     hd = cfg.resolved_head_dim
@@ -75,7 +77,7 @@ def check_card_head_dim(cfg: ArchConfig) -> None:
         fa_k.kernel_head_dim(hd)
     except ValueError:
         raise NotImplementedError(f"{cfg.name}: head width {hd} has no flash-attention kernel on "
-                                  f"the card (ROADMAP B 3)") from None
+                                  f"the card") from None
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None, *,
@@ -107,14 +109,32 @@ def logits_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     """CE of ``logits[:, :-1]`` against ``tokens[:, 1:]`` under ``mask[:, 1:]``
-    plus the aux loss: (total, {"ce", "aux"})."""
+    plus the aux loss: (total, {"ce", "aux"}).
+
+    With a ``ctx`` whose ``dp_axes`` name mesh axes, ``batch`` is this
+    rank's shard and the loss is the reference's over the global batch:
+    the masked-loss sum and the mask count are summed over the dp axes
+    separately (a mean of the shards' means differs where their masks
+    do), and the aux loss is the shards' mean.  The sums carry autograd
+    (``torch.distributed.nn``: the backward sums the ranks' gradients too),
+    so each rank's parameter gradients are dp times its share, and their
+    mean over the dp axes (``train_step``) is the global gradient."""
     if _module(cfg) is transformer:
         logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
                                                 prefix_embeds=batch.get("patches"), ctx=ctx)
     else:
         with torch.no_grad():
             logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
-    loss = L.cross_entropy(logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+    args = (logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+    if ctx is None or ctx.mesh is None or not ctx.dp_axes:
+        loss = L.cross_entropy(*args)
+        return loss + aux, {"ce": loss, "aux": aux}
+    group = direct.group(ctx.dp_axes, ctx.mesh)
+    total, count = L.cross_entropy_terms(*args)
+    total = dist_nn.all_reduce(total, group=group)
+    count = direct.allreduce(count.detach(), ctx.dp_axes, ctx.mesh)
+    loss = total / torch.clamp(count, min=1)
+    aux = dist_nn.all_reduce(aux, group=group) / direct.axis_size(ctx.dp_axes, ctx.mesh)
     return loss + aux, {"ce": loss, "aux": aux}
 
 

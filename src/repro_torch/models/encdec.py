@@ -17,6 +17,10 @@ and the tied output head is the embedding cast to ``cfg.dtype``.  The port
 holds each leaf in the type its products read (``hold_leaf``).  Attention
 reads the bfloat16 self-attention cache and cross K/V as they are
 (``layers.kv_as``), which keeps the kernel on its bf16 designs.
+
+A ``ctx`` (``transformer.DistContext``) passes through every entry point as
+in the reference, where it only hints activation shardings: a rank already
+holds only its shard, so it changes nothing here.
 """
 
 from __future__ import annotations
@@ -174,7 +178,6 @@ def _logits(cfg, params, x):
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.Tensor, *,
             ctx=None):
     """Teacher-forced forward: (logits over the decoder positions, aux 0)."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     enc_out = encode(cfg, params, frames)
     t = tokens.shape[1]
@@ -205,7 +208,6 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
             cache: dict, *, ctx=None):
     """Encode the source, store the cross K/V, run the prompt into the
     cache (in place); returns last-position logits and the cache."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     enc_out = encode(cfg, params, frames)
     t = tokens.shape[1]
@@ -222,7 +224,6 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *, ctx=None):
     """One token: the self-attention cache is updated in place."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     kv_len = int(cache["len"])
     x = _embed(cfg, params, tokens)

@@ -22,6 +22,10 @@ and only then cast.  The port holds each cast leaf in ``cfg.dtype`` (the
 products' ``w.to(dt)`` is then a no-op) and the others in
 ``cfg.param_dtype``.  The attention layer reads its cache as ``q.dtype``
 (``layers.kv_as``): a bfloat16 cache goes to the kernel as it is.
+
+A ``ctx`` (``transformer.DistContext``) passes through every entry point as
+in the reference, where it only hints activation shardings: a rank already
+holds only its shard, so it changes nothing here.
 """
 
 from __future__ import annotations
@@ -289,7 +293,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
     """(logits, aux 0, state): the cache-free forward (``state`` None), or
     the prefill, which fills ``state`` in place and returns it with its
     length.  ``last_only``: the last position's logits only."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -303,7 +306,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, state: dict, *, ctx=None):
     """One token; carries the h / conv / local-KV state (updated in place)."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     x = _embed(cfg, params, tokens)
     kv_len = int(state["len"])

@@ -7,7 +7,8 @@ tensors.  There is no direct/blocked split by sequence length as in the
 reference; the kernel covers both, and applies the logit softcap itself.  When autograd records and an input
 requires a gradient (the training forward), the call goes through the
 kernel's ``autograd.Function``, whose backward is the hand-written backward
-kernel.
+kernel.  ``attention_sharded`` splits a call over a mesh's tensor-parallel
+axis (``core.backends.direct``), each rank's island a plain local call.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.backends import direct
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 
@@ -70,11 +72,100 @@ def attention(
     return out.to(q.dtype)
 
 
-def require_local(ctx) -> None:
-    """Every model entry point runs on one device: a DistContext (sharded
-    execution, the expert-parallel MoE) is not ported."""
-    if ctx is not None:
-        raise NotImplementedError("DistContext (sharded execution) is not ported (ROADMAP A 5)")
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward on a tensor every rank of ``group`` holds alike; the
+    backward sums the ranks' gradients (each rank's island reads only its
+    part of it), so every rank gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return direct.allreduce(g, ctx.axis, ctx.mesh), None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather of the ranks' pieces along ``dim``; downstream every rank
+    computes alike from the whole tensor, so the backward keeps this rank's
+    piece of the gradient (a sum over ranks would count it P times)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.axis, ctx.mesh, ctx.dim = axis, mesh, dim
+        ctx.rank, ctx.n = direct.axis_index(axis, mesh), x.shape[dim]
+        return direct.allgather(x, axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+def shard_plan(h: int, kvh: int, t: int, tps: int) -> str | None:
+    """The reference's choice for ``attention_sharded``: ``"head"`` when the
+    q heads split over the tp ranks (H % tp == 0, and each rank's heads map
+    to a contiguous kv subset), else ``"seq"`` when the sequence splits into
+    pieces of at least 256 rows, else None (no split)."""
+    g = h // kvh
+    if h % tps == 0 and h >= tps:
+        h_local = h // tps
+        if h_local % g == 0 or g % h_local == 0:
+            return "head"
+    if t % tps == 0 and t // tps >= 256:
+        return "seq"
+    return None
+
+
+def attention_island(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: int, tps: int,
+                     *, plan: str, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                     q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """Tp rank ``rank``'s island of :func:`attention_sharded`: a plain local
+    attention call, no collective.  ``q_l`` is the rank's piece of q (plan
+    ``"head"``: its H / tp heads; ``"seq"``: its T / tp rows), k and v the
+    whole (replicated) tensors.  A head split reads the kv heads its q heads
+    map to (a contiguous slice, no copy); a sequence split offsets the
+    positions by the piece's first row, so it attends at ``q_offset + rank
+    x T / tp`` over every key (the backward at a query offset, Tq < Tk)."""
+    if plan == "head":
+        h_local, g = q_l.shape[2], q_l.shape[2] * tps // k.shape[2]
+        first = rank * h_local // g
+        n_kv = max(1, h_local // g)
+        k, v = k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
+    else:
+        q_offset = q_offset + rank * q_l.shape[1]
+    return attention(q_l, k, v, causal=causal, window=window, softcap=softcap,
+                     q_offset=q_offset, kv_len=kv_len)
+
+
+def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,
+                      causal: bool = True, window: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """Attention split over the tensor-parallel axis ``ctx.tp_axis``: each tp
+    rank runs a fully local flash island on its heads (``"head"``) or its
+    rows (``"seq"``, context-parallel: k/v whole, positions offset), then
+    the islands' outputs are all-gathered (``shard_plan`` chooses, as the
+    reference does).  Every rank of the tp axis holds the same q, k, v (the
+    activations are replicated over it); the gradients reach every rank
+    whole (the copy's backward sums the islands' pieces).  The reference's
+    ``b % dp`` condition has no counterpart: a rank already holds only its
+    dp shard of the batch.  Without a tp axis of size > 1 in the mesh, or
+    with no admissible split, this is :func:`attention`."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    tps = direct.axis_size(tp, mesh) if mesh is not None and tp in mesh.mesh_dim_names else 1
+    plan = shard_plan(q.shape[2], k.shape[2], q.shape[1], tps) if tps > 1 else None
+    if plan is None:
+        return attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                         q_offset=q_offset, kv_len=kv_len)
+    rank = direct.axis_index(tp, mesh)
+    q, k, v = (_CopyToGroup.apply(x, tp, mesh) for x in (q, k, v))
+    dim = 2 if plan == "head" else 1
+    n = q.shape[dim] // tps
+    q_l = q.narrow(dim, rank * n, n)
+    out = attention_island(q_l, k, v, rank, tps, plan=plan, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset, kv_len=kv_len)
+    return _GatherFromGroup.apply(out.contiguous(), tp, mesh, dim)
 
 
 def check_products(device: torch.device, dtype: torch.dtype) -> None:
@@ -172,15 +263,27 @@ def init_linear(gen: torch.Generator | None, shape, scale=None, device=None,
     return out
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
-                  z_coef: float = 1e-4) -> torch.Tensor:
-    """Token-mean CE + z-loss (``z_coef * lse^2``); logits [.., V] in float32,
-    labels [..] int, mask [..] (bool or float) or None."""
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        z_coef: float = 1e-4) -> tuple[torch.Tensor, torch.Tensor | int]:
+    """The numerator and denominator of :func:`cross_entropy`: the masked sum
+    of the per-token CE + z-loss, and the mask's sum (the token count
+    without a mask), each to be summed over the data-parallel shards of a
+    global mean."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
     per_tok = (lse - ll) + z_coef * lse.square()
     if mask is None:
-        return per_tok.sum() / labels.numel()
-    per_tok = per_tok * mask
-    return per_tok.sum() / torch.clamp(mask.sum(), min=1)
+        return per_tok.sum(), labels.numel()
+    return (per_tok * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+                  z_coef: float = 1e-4) -> torch.Tensor:
+    """Token-mean CE + z-loss (``z_coef * lse^2``); logits [.., V] in float32,
+    labels [..] int, mask [..] (bool or float) or None."""
+    total, count = cross_entropy_terms(logits, labels, mask, z_coef)
+    if mask is None:
+        return total / count
+    return total / torch.clamp(count, min=1)

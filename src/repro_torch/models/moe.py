@@ -1,5 +1,5 @@
 """Mixture-of-Experts block (qwen3-moe, kimi-k2) — the port of
-``repro.models.moe``, local dispatch.
+``repro.models.moe``: local and expert-parallel dispatch.
 
 Token -> expert dispatch is the paper's shuffle on one device: route each
 token to its top-k experts, bucket the (token, slot) pairs by expert in a
@@ -9,8 +9,13 @@ token.  Capacity-factor dropping follows the reference: a pair past its
 expert's ``cap`` rows contributes zero.  Routing is exact against the
 reference: the same ``topi``, stable order, counts, slots and ``keep``.
 
-The expert-parallel dispatch (``_moe_ep``: an all-to-all over the mesh's
-expert axis) is not ported: ``moe_block`` with a ``ctx`` raises.
+The expert-parallel dispatch (``_moe_ep``, with a ``ctx`` whose
+``ep_axis`` is set; forward only) is the dataframe shuffle at the tensor
+level: the experts are split over the ep axis, each rank routes its share
+of the tokens, all-to-alls the per-expert buckets to the experts' ranks
+(``core.backends.direct``), runs its own experts and sends the results
+back.  A rank holds either every expert or only its slice
+(``interop.expert_slice`` cuts it from the reference's state).
 
 Memory.  The expert stacks hold ``num_experts_padded`` experts, as the
 reference's parameter tree does, but the padding experts are dead: the
@@ -29,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.backends import direct
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -107,12 +113,14 @@ def _experts(cfg: ArchConfig, buf, wi, wo) -> torch.Tensor:
 
 
 def moe_block(x: torch.Tensor, moe_params: dict, cfg: ArchConfig, ctx=None):
-    """MoE FFN over x [B, T, d]; returns (out [B, T, d], aux loss scalar)."""
-    if ctx is not None:  # the expert-parallel dispatch, _moe_ep
-        L.require_local(ctx)
+    """MoE FFN over x [B, T, d]; returns (out [B, T, d], aux loss scalar).
+    With ``ctx.ep_axis`` set, the expert-parallel dispatch."""
     b, t, d = x.shape
-    out2d, aux = _moe_local(x.reshape(b * t, d), moe_params["router"], moe_params["wi"],
-                            moe_params["wo"], cfg)
+    args = (x.reshape(b * t, d), moe_params["router"], moe_params["wi"], moe_params["wo"], cfg)
+    if ctx is not None and ctx.ep_axis is not None:
+        out2d, aux = _moe_ep(*args, ctx)
+    else:
+        out2d, aux = _moe_local(*args)
     return out2d.reshape(b, t, d), aux
 
 
@@ -131,3 +139,48 @@ def _moe_local(x2d, router, wi, wo, cfg: ArchConfig):
     out = torch.zeros_like(x2d)
     out.index_add_(0, tok_sorted, gathered * w_sorted[:, None].to(gathered.dtype))
     return out, aux
+
+
+def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
+    """Expert-parallel dispatch over ``ctx.ep_axis`` (forward only).
+
+    Every rank of the ep axis holds the same ``x2d`` (the activations are
+    replicated over it).  The tokens are padded to a multiple of the axis
+    size and rank r routes the r-th share; its per-expert buckets [E_pad,
+    cap, d] go to the experts' owners ([E_pad / p, p cap, d] each), which run
+    their experts (the live ones: padding experts get no token) and send the
+    outputs back; each rank combines its tokens and the shares are
+    all-gathered.  ``wi`` / ``wo`` hold every padded expert or only this
+    rank's E_pad / p.  The aux loss is the mean of the ranks' (as the
+    reference's ``pmean``)."""
+    axes = tuple(ctx.ep_axis) if isinstance(ctx.ep_axis, (tuple, list)) else (ctx.ep_axis,)
+    mesh = ctx.mesh
+    p, rank = direct.axis_size(axes, mesh), direct.axis_index(axes, mesh)
+    e_pad, k = cfg.num_experts_padded, cfg.experts_per_token
+    e_loc = e_pad // p
+    if wi.shape[0] == e_pad and e_loc != e_pad:
+        wi, wo = wi[rank * e_loc:(rank + 1) * e_loc], wo[rank * e_loc:(rank + 1) * e_loc]
+    n_in = x2d.shape[0]
+    pad = (-n_in) % p
+    if pad:  # decode-scale batches: pad tokens to divide the EP axis
+        x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
+    n_local = x2d.shape[0] // p
+    x_local = x2d[rank * n_local:(rank + 1) * n_local]
+    cap = max(int(math.ceil(n_local * k / cfg.num_experts * cfg.capacity_factor)), 8)
+    topv, topi, aux = _route(x_local, router, cfg)
+    buf, (e_sorted, slot_row, tok_sorted, w_sorted, keep) = _bucket_by_expert(
+        x_local, topv, topi, e_pad, cap)
+    # shuffle: [E, cap, d] -> [E / p, p cap, d] on the experts' owner
+    recv = direct.alltoall(buf, axes, split_dim=0, concat_dim=1, mesh=mesh)
+    out_recv = torch.zeros_like(recv)
+    live = min(max(cfg.num_experts - rank * e_loc, 0), e_loc)
+    if live:
+        out_recv[:live] = _experts(cfg, recv[:live], wi[:live], wo[:live])
+    # shuffle back: [E / p, p cap, d] -> [E, cap, d]
+    out_buf = direct.alltoall(out_recv, axes, split_dim=1, concat_dim=0, mesh=mesh)
+    gathered = out_buf[e_sorted, torch.clamp(slot_row, max=cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    out = torch.zeros_like(x_local)
+    out.index_add_(0, tok_sorted, gathered * w_sorted[:, None].to(gathered.dtype))
+    out = direct.allgather(out, axes, dim=0, mesh=mesh)
+    return out[:n_in], direct.allreduce_mean(aux, axes, mesh)

@@ -22,6 +22,10 @@ The model computes in float32 throughout, from float32 weights that no
 product rounds (the reference casts no leaf), so the port holds the
 reference's leaves as they are.  No kernel runs here: the family has no
 attention.
+
+A ``ctx`` (``transformer.DistContext``) passes through every entry point as
+in the reference, where it only hints activation shardings: a rank already
+holds only its shard, so it changes nothing here.
 """
 
 from __future__ import annotations
@@ -180,7 +184,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
     """(logits, aux 0, new state): full-sequence logits (``last_only``: the
     last position's), carrying ``state`` (zeros when None) through the
     tokens.  The new state is made afresh; ``state`` is left as it was."""
-    L.require_local(ctx)
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
     chunk = min(chunk, t)

@@ -43,6 +43,12 @@ kimi-k2) holds every leaf in bfloat16, as the reference's
 float32 value (``w.float()``, the reference's ``astype(cfg.dtype)`` of a
 bfloat16 leaf), one layer at a time.
 
+Sharded execution (``ctx``, a :class:`DistContext`): every rank runs the
+same program on its own shard, the dp shard of the batch, replicated over
+the tensor-parallel axis.  Attention runs as ``layers.attention_sharded``
+(islands over ``ctx.tp_axis``) and the MoE layers as ``moe._moe_ep`` (an
+all-to-all over ``ctx.ep_axis``); ``api.loss_fn`` averages over the dp axes.
+
 Four entry points sharing weights:
 - ``forward``       : full-sequence logits (pre-rounded weights)
 - ``forward_train`` : full-sequence logits from master weights, differentiable
@@ -51,6 +57,9 @@ Four entry points sharing weights:
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -74,8 +83,25 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.float32
 
 
-def _check(cfg: ArchConfig, ctx, device: torch.device) -> None:
-    L.require_local(ctx)
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """Distribution context: the device mesh (a
+    ``torch.distributed.device_mesh.DeviceMesh``) and the names of its
+    expert-parallel, data-parallel and tensor-parallel axes.  ctx=None runs
+    everything on one device."""
+
+    mesh: Any = None
+    ep_axis: str | tuple[str, ...] | None = None  # expert-parallel mesh axis ("model")
+    dp_axes: tuple[str, ...] = ()
+    tp_axis: str | None = None
+
+    def shard(self, x, *spec):
+        """The reference's sharding constraint, a no-op here: a rank already
+        holds only its shard (the SPMD program is written per rank)."""
+        return x
+
+
+def _check(cfg: ArchConfig, device: torch.device) -> None:
     L.check_products(device, compute_dtype(cfg))
 
 
@@ -176,7 +202,7 @@ def round_matrix_leaves(cfg: ArchConfig, params: dict) -> None:
 
 
 def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0,
-              master: bool = False):
+              master: bool = False, ctx: DistContext | None = None):
     """One transformer layer -> (x, the MoE aux loss or None). cache_l:
     [2, B, S, KV, hd] or None; with a cache, the layer's k/v are written
     into it in place.  ``master``: the matrix weights are float32 master
@@ -211,13 +237,17 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
     else:
         k_att, v_att, att_kv_len, q_off = k, v, None, 0
 
-    att = L.attention(q, k_att, v_att, causal=True, window=window, softcap=cfg.attn_softcap,
-                      q_offset=q_off, kv_len=att_kv_len)
+    att_kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, q_offset=q_off,
+                  kv_len=att_kv_len)
+    if ctx is not None and ctx.mesh is not None and t > 1:
+        att = L.attention_sharded(q, k_att, v_att, ctx, **att_kw)
+    else:
+        att = L.attention(q, k_att, v_att, **att_kw)
     x = x + att.reshape(b, t, h * hd) @ blk["wo_att"]
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
     if cfg.family != "moe":
         return x + L.gated_mlp(y2, blk["wi"], blk["wo"], cfg.act), None
-    ff, aux = moe_block(y2, blk["moe"], cfg)
+    ff, aux = moe_block(y2, blk["moe"], cfg, ctx)
     if cfg.n_shared_experts:
         ff = ff + L.gated_mlp(y2, blk["wi_sh"], blk["wo_sh"], cfg.act)
     return x + ff, aux
@@ -255,12 +285,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Full-sequence logits [B, T, V] float32 and the MoE aux loss summed
     over the layers (0 for a dense model)."""
-    _check(cfg, ctx, tokens.device)
+    _check(cfg, tokens.device)
     x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
-        x, aux_l = _block_fn(cfg, x, _layer(params, i), window, pos)
+        x, aux_l = _block_fn(cfg, x, _layer(params, i), window, pos, ctx=ctx)
         aux = aux if aux_l is None else aux + aux_l
     return _logits(cfg, params, x), aux
 
@@ -271,7 +301,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     float32 master weights, with the reference's in-graph casts (module
     doc).  ``params["blocks"]`` is the stacked dict or a list of per-layer
     dicts."""
-    _check(cfg, ctx, tokens.device)
+    _check(cfg, tokens.device)
     x = _embed_input(cfg, params["embed"].to(_dtype(cfg.dtype)), tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -281,7 +311,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         names = tuple(blk)
 
         def layer(x, *ws, window=window, names=names):
-            return _block_fn(cfg, x, dict(zip(names, ws)), window, pos, master=True)
+            return _block_fn(cfg, x, dict(zip(names, ws)), window, pos, master=True, ctx=ctx)
 
         if remat:
             x, aux_l = checkpoint(layer, x, *blk.values(), use_reentrant=False,
@@ -307,24 +337,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Run the prompt, filling the cache in place; returns last-position logits."""
-    _check(cfg, ctx, tokens.device)
+    _check(cfg, tokens.device)
     x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
-        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=0)
+        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=0, ctx=ctx)
     return _logits(cfg, params, x[:, -1:]), {"kv": kv, "len": t}
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *, ctx=None):
     """One decode step: tokens [B, 1] -> logits [B, 1, V]; the cache is
     updated in place and returned with its length + 1."""
-    _check(cfg, ctx, tokens.device)
+    _check(cfg, tokens.device)
     x = L.embed(tokens, params["embed"], scale=True)
     kv_len = int(cache["len"])
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
-        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=kv_len)
+        x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=kv_len,
+                         ctx=ctx)
     return _logits(cfg, params, x), {"kv": kv, "len": kv_len + 1}

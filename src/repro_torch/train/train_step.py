@@ -10,13 +10,26 @@ gradient per layer instead).  Microbatch gradients accumulate in the same
 buffers, in the reference's order (0 + g1 + g2 ...), and are divided by the
 count, as its ``lax.scan`` does.  The optimizer then updates the parameters
 in place.
+
+Data parallelism is explicit, on the mesh axes of
+``core.backends.direct``: every rank runs the step on its own shard of the
+batch, with the same parameters and optimizer state.
+``make_train_step(ctx=...)`` averages the ranks' gradients over
+``ctx.dp_axes`` (``allreduce_mean``; ``api.loss_fn`` makes each rank's the
+dp-fold share of the global loss's gradient).
+``make_compressed_dp_train_step`` is the reference's explicit int8
+reduction (``cfg.grad_compression``): each rank's gradient of its own
+shard's loss crosses the wire as int8 + per-block scales
+(``compression.compressed_pmean``) with its error-feedback residual kept
+locally.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.dist import treepath
+from repro_torch.core.backends import direct
+from repro_torch.dist import compression, treepath
 from repro_torch.models import api
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as opt
@@ -72,13 +85,17 @@ def make_train_step(
     grad_dtype=torch.float32,
 ):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics); params and opt_state are updated in place."""
-    if ctx is not None:
-        raise NotImplementedError("DistContext (sharded execution) is not ported (ROADMAP A 5)")
+    metrics); params and opt_state are updated in place.  With a ``ctx``
+    whose ``dp_axes`` name mesh axes, ``batch`` is this rank's shard; the
+    loss and metrics are the global batch's and the gradients are averaged
+    over the dp axes before the update, so every rank updates alike."""
     grads_of = _make_grads_of(cfg, ctx, microbatches, grad_dtype)
+    dp = ctx.dp_axes if ctx is not None and ctx.mesh is not None else ()
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grads_of(params, batch)
+        for g in treepath.leaves(grads) if dp else ():
+            g.copy_(direct.allreduce_mean(g, dp, ctx.mesh))
         params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg)
         metrics = dict(metrics)
         metrics["loss"] = loss
@@ -88,11 +105,61 @@ def make_train_step(
     return train_step
 
 
-def make_compressed_dp_train_step(*args, **kwargs):
-    """The explicit compressed data-parallel step of the reference (int8 +
-    error feedback on the dp all-reduce) needs the SPMD surface."""
-    raise NotImplementedError("make_compressed_dp_train_step is not ported yet (ROADMAP "
-                              "A 6, after the SPMD surface A 5)")
+def make_compressed_dp_train_step(
+    cfg: ArchConfig,
+    opt_cfg: opt.OptConfig,
+    mesh,
+    dp_axis: str = "data",
+    microbatches: int = 1,
+    grad_dtype=torch.float32,
+):
+    """Explicit compressed dp-reduction step (``cfg.grad_compression``).
+
+    Every rank of ``dp_axis`` takes the global batch, keeps its slice of the
+    leading dim (which must divide the axis size), computes its own loss and
+    gradients, and reduces each gradient leaf with
+    :func:`compression.compressed_pmean` (int8 + per-block scales on the
+    wire, the error feedback local); the mean, the same on every rank, feeds
+    the same optimizer update everywhere.  Metrics are the ranks' mean.
+
+    Returns ``(step_fn, init_err)``, as the reference does:
+
+    - ``step_fn(params, opt_state, err, batch) -> (params, opt_state, err,
+      metrics)``: params, opt_state and ``err`` updated in place; ``err`` is
+      this rank's residual tree (the reference stacks every rank's,
+      ``[world, ...]``; here each rank holds its own);
+    - ``init_err(params)``: float32 zeros shaped like ``params``.
+    """
+    if cfg.grad_compression is False:
+        raise ValueError("make_compressed_dp_train_step requires cfg.grad_compression")
+    world = direct.axis_size(dp_axis, mesh)
+    rank = direct.axis_index(dp_axis, mesh)
+    grads_of = _make_grads_of(cfg, None, microbatches, grad_dtype)
+
+    def local(batch):
+        def piece(x):
+            if x.shape[0] % world:
+                raise ValueError(f"global batch {x.shape[0]} not divisible by dp={world}")
+            n = x.shape[0] // world
+            return x[rank * n:(rank + 1) * n]
+        return {k: piece(x) for k, x in batch.items()}
+
+    def step_fn(params, opt_state, err, batch):
+        loss, metrics, grads = grads_of(params, local(batch))
+        for g, e in zip(treepath.leaves(grads), treepath.leaves(err)):
+            mean, new_e = compression.compressed_pmean(g, dp_axis, e, mesh=mesh)
+            g.copy_(mean)
+            e.copy_(new_e)
+        params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg)
+        metrics = {**metrics, "loss": loss}
+        metrics = {k: direct.allreduce_mean(m, dp_axis, mesh) for k, m in metrics.items()}
+        metrics["grad_norm"] = opt.global_norm(grads)
+        return params, opt_state, err, metrics
+
+    def init_err(params):
+        return treepath.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+    return step_fn, init_err
 
 
 def make_eval_step(cfg: ArchConfig, ctx=None):

@@ -1,0 +1,472 @@
+"""The ranks of the port's SPMD checks: gloo on the CPU (the tier-1 tests,
+``tests/test_torch_spmd.py``) or NCCL on the cards, each rank a process
+with a ``FileStore`` it is given, inputs from a pickle (``make_inputs``, made
+with numpy from fixed seeds), its results pickled beside it.
+
+    python tests/_torch_spmd_ranks.py JOB RANK WORLD STORE INPUTS OUT [DEVICE]
+
+JOB ``main`` runs the world-4 checks (collectives, compression, the
+dataframe operators, attention_sharded, the dense model, the dp train
+steps, the driver's gate); ``moe`` the world-8 expert-parallel dispatch.
+DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
+
+    python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
+
+runs the ``main`` job on WORLD cards (default 4) over NCCL and again on the
+CPU over gloo, and holds every card result against the CPU's (the limits
+of ``CARD_TOL``); it prints one JSON line and exits non-zero on a mismatch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch import configs, interop
+from repro_torch.core.backends import direct, mediated
+from repro_torch.dataframe import ops_dist
+from repro_torch.dist import compression, treepath
+from repro_torch.interop import table_from_numpy, table_to_numpy
+from repro_torch.models import api, moe
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import DistContext
+from repro_torch.train import optimizer as opt
+from repro_torch.train import train_step as ts
+
+REPO = Path(__file__).resolve().parents[1]
+JOB_TIMEOUT_S = 300
+PG_TIMEOUT_S = 120
+
+CFG_OVER = dict(vocab_size=512, d_model=128, num_heads=4, head_dim=32, num_kv_heads=2)
+MOE_OVER = dict(num_experts=8, experts_per_token=2, moe_d_ff=32, d_model=64,
+                capacity_factor=8.0)
+OPT = dict(lr=1e-2, warmup_steps=2, total_steps=8, schedule="wsd")
+# attention_sharded: (mesh (dp, tp), b, t, h, kvh, hd, window); the
+# reference's plan: "head" where H % tp == 0, else "seq" (t / tp >= 256)
+ATTENTION = {
+    "head_tp2": ((2, 2), 2, 64, 4, 2, 32, 0),
+    "head_tp4_window": ((1, 4), 1, 96, 4, 2, 32, 24),
+    "seq_tp2": ((2, 2), 2, 512, 3, 1, 32, 0),
+    "seq_tp4_window": ((1, 4), 1, 1024, 6, 2, 32, 300),
+}
+# the collectives whose results move data (==) and those that sum floats
+EXACT = ("axis_index", "axis_size", "barrier", "allreduce_max", "allreduce_max_int32",
+         "allgather_dim0", "allgather_dim1", "alltoall_00", "alltoall_01", "alltoall_10",
+         "alltoall_11", "bcast_root2", "ppermute", "ring_shift1", "ring_shift3",
+         "alltoallv_counts", "alltoallv_payload", "alltoallv_recv_counts", "staged_all_to_all",
+         "staged_all_to_all_chunked2", "staged_all_to_all_chunked4", "two_axes_index",
+         "two_axes_alltoall", "model_axis_allgather")
+SUMS = ("allreduce", "allreduce_mean", "reduce_scatter_dim0", "reduce_scatter_dim1",
+        "staged_allreduce", "two_axes_allreduce", "compressed_pmean", "compressed_pmean_err",
+        "compressed_pmean_ef", "compressed_pmean_ef_err",
+        *(f"allreduce_decomposed_{m}{n}" for m in ("", "mean_") for n in ("64", "3x5", "13")))
+
+DEV = torch.device("cpu")  # this rank's device (main sets it)
+
+
+def t_(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a)).to(DEV)
+
+
+def np_(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def make_inputs() -> dict:
+    """Every job's inputs, from numpy seeds (the model weights from the port's
+    seeded init on the CPU)."""
+    rng = np.random.default_rng(20)
+    p = 4
+    inp = {
+        "x": rng.normal(size=(p, 8, 12)).astype(np.float32) * 4,
+        "counts": rng.integers(0, 6, (p, p)).astype(np.int32),
+        "payload": rng.normal(size=(p, p, 5, 3)).astype(np.float32),
+        "staged": rng.normal(size=(p, p, 8, 4)).astype(np.float32),
+        "grad": rng.normal(size=(p, 1000)).astype(np.float32),
+        "grad_err": (rng.normal(size=(p, 1000)) * 0.01).astype(np.float32),
+        "dec_64": rng.normal(size=(p, 64)).astype(np.float32),
+        "dec_3x5": rng.normal(size=(p, 3, 5)).astype(np.float32),
+        "dec_13": rng.normal(size=(p, 13)).astype(np.float32),
+    }
+    # the dataframe: per rank 64 rows in a capacity of 128 (the groupby 100)
+    n, cap = 64, 128
+    keys = rng.permutation(p * n).astype(np.int32)
+    rkeys = rng.permutation(p * n).astype(np.int32)[: p * n // 2]
+
+    def stacked(cols, per):
+        out = {}
+        for name, v in cols.items():
+            a = np.zeros((p, cap), v.dtype)
+            for r in range(p):
+                a[r, :per] = v[r * per:(r + 1) * per]
+            out[name] = a
+        return {"columns": out, "count": np.full(p, per, np.int32)}
+
+    inp["df"] = {
+        "left": stacked({"k": keys, "v": (rng.normal(size=p * n) * 10).astype(np.float32)}, n),
+        "right": stacked({"k": rkeys, "w": rng.integers(0, 9, p * n // 2).astype(np.int32)},
+                         n // 2),
+        "group": stacked({"g": rng.integers(0, 50, p * 100).astype(np.int32),
+                          "amount": rng.integers(1, 500, p * 100).astype(np.int32),
+                          "score": rng.normal(size=p * 100).astype(np.float32)}, 100),
+    }
+    inp["attention"] = {}
+    for case, (mesh, b, t, h, kvh, hd, window) in ATTENTION.items():
+        q, do = (rng.normal(size=(b, t, h, hd)).astype(np.float32) for _ in range(2))
+        k, v = (rng.normal(size=(b, t, kvh, hd)).astype(np.float32) for _ in range(2))
+        inp["attention"][case] = {"mesh": mesh, "q": q, "k": k, "v": v, "do": do,
+                                  "window": window}
+    cfg = configs.get("gemma3-4b").reduced(**CFG_OVER)
+    gen = torch.Generator().manual_seed(3)
+    inp["params"] = interop.params_to_numpy(api.init_params(cfg, gen, device="cpu", master=True))
+    mask = (rng.random((8, 16)) < 0.8).astype(np.float32)   # the shards' masks differ
+    mask[0, :] = 1.0
+    inp["batch"] = {"tokens": rng.integers(0, CFG_OVER["vocab_size"], (8, 16)).astype(np.int32),
+                    "mask": mask}
+    inp["cfg_over"], inp["opt"], inp["moe_over"] = CFG_OVER, OPT, MOE_OVER
+    mcfg = configs.get("qwen3-moe-235b-a22b").reduced(**MOE_OVER)
+    inp["moe_params"] = {"blocks": {"moe": interop.params_to_numpy(
+        api.init_params(mcfg, torch.Generator().manual_seed(4), device="cpu"))["blocks"]["moe"]}}
+    inp["moe_x"] = rng.normal(size=(8, 16, MOE_OVER["d_model"])).astype(np.float32)
+    return inp
+
+
+def launch(job: str, world: int, tmp: Path, inputs: Path, device: str = "cpu"):
+    """The ``world`` rank processes of ``job``, their outputs in ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    store = tmp / f"{job}_{device}_store"
+    return [subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(store),
+                              str(inputs), str(tmp), device], env=env, cwd=tmp,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def wait(procs, what: str) -> None:
+    """Wait for ``procs`` at most JOB_TIMEOUT_S each; kill them all and raise
+    on a timeout, raise with the log of one that failed."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=JOB_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(f"{what} did not finish in {JOB_TIMEOUT_S} s") from None
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{what} failed:\n{log[-4000:]}")
+
+
+def load(tmp: Path, job: str, world: int, device: str = "cpu") -> list[dict]:
+    return [pickle.loads((tmp / f"{job}_{device}_rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def collectives(inp, rank, out):
+    mesh = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
+    x = t_(inp["x"][rank])                                   # [8, 12]
+    r = {}
+    with direct.use_mesh(mesh):
+        r["axis_index"] = np.int32(direct.axis_index("data"))
+        r["axis_size"] = np.int32(direct.axis_size("data"))
+        r["barrier"] = np_(direct.barrier("data"))
+        r["allreduce"] = np_(direct.allreduce(x, "data"))
+        r["allreduce_mean"] = np_(direct.allreduce_mean(x, "data"))
+        r["allreduce_max"] = np_(direct.allreduce_max(x, "data"))
+        r["allreduce_max_int32"] = np_(direct.allreduce_max(x.to(torch.int32), "data"))
+        r["reduce_scatter_dim0"] = np_(direct.reduce_scatter(x, "data", dim=0))
+        r["reduce_scatter_dim1"] = np_(direct.reduce_scatter(x, "data", dim=1))
+        for name in ("64", "3x5", "13"):
+            d = t_(inp[f"dec_{name}"][rank])
+            r[f"allreduce_decomposed_{name}"] = np_(direct.allreduce_decomposed(d, "data"))
+            r[f"allreduce_decomposed_mean_{name}"] = np_(
+                direct.allreduce_decomposed(d, "data", mean=True))
+        r["allgather_dim0"] = np_(direct.allgather(x, "data", dim=0))
+        r["allgather_dim1"] = np_(direct.allgather(x, "data", dim=1))
+        for s_, c_ in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            r[f"alltoall_{s_}{c_}"] = np_(direct.alltoall(x, "data", split_dim=s_, concat_dim=c_))
+        r["bcast_root2"] = np_(direct.bcast(x, "data", root=2))
+        r["ppermute"] = np_(direct.ppermute(x, "data", [(0, 2), (1, 0), (2, 1)]))
+        r["ring_shift1"] = np_(direct.send_recv_ring(x, "data", shift=1))
+        r["ring_shift3"] = np_(direct.send_recv_ring(x, "data", shift=3))
+        counts, payload = t_(inp["counts"][rank]), t_(inp["payload"][rank])
+        r["alltoallv_counts"] = np_(direct.alltoallv_counts(counts, "data"))
+        recv, rc = direct.alltoallv(payload, counts, "data")
+        r["alltoallv_payload"], r["alltoallv_recv_counts"] = np_(recv), np_(rc)
+        st = t_(inp["staged"][rank])                         # [4, 8, 4]
+        r["staged_all_to_all"] = np_(mediated.staged_all_to_all(st, "data"))
+        r["staged_allreduce"] = np_(mediated.staged_allreduce(st, "data"))
+        for chunks in (2, 4):
+            r[f"staged_all_to_all_chunked{chunks}"] = np_(
+                mediated.staged_all_to_all_chunked(st, "data", chunks=chunks))
+        g = t_(inp["grad"][rank])
+        mean, err = compression.compressed_pmean(g, "data")
+        r["compressed_pmean"], r["compressed_pmean_err"] = np_(mean), np_(err)
+        mean, err = compression.compressed_pmean(g, "data", t_(inp["grad_err"][rank]))
+        r["compressed_pmean_ef"], r["compressed_pmean_ef_err"] = np_(mean), np_(err)
+    # two axes: the (data, model) group, data major
+    mesh22 = init_device_mesh(DEV.type, (2, 2), mesh_dim_names=("data", "model"))
+    both = ("data", "model")
+    r["two_axes_index"] = np.int32(direct.axis_index(both, mesh22))
+    r["two_axes_allreduce"] = np_(direct.allreduce(x, both, mesh22))
+    r["two_axes_alltoall"] = np_(direct.alltoall(x, both, mesh=mesh22))
+    r["model_axis_allgather"] = np_(direct.allgather(x, "model", dim=0, mesh=mesh22))
+    out["collectives"] = r
+
+
+def dataframe(inp, rank, out):
+    mesh = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
+    df = inp["df"]
+
+    def table(cols):
+        return table_from_numpy({k: v[rank] for k, v in cols["columns"].items()},
+                                int(cols["count"][rank]), DEV)
+
+    left, right, grp = table(df["left"]), table(df["right"]), table(df["group"])
+    r = {}
+    with direct.use_mesh(mesh):
+        for compress in (False, True):
+            tag = "compressed" if compress else "raw"
+            r[f"shuffle_{tag}"] = table_to_numpy(
+                ops_dist.shuffle_spmd(left, "k", "data", compress=compress))
+            r[f"join_{tag}"] = table_to_numpy(
+                ops_dist.join_spmd(left, right, "k", "data", compress=compress))
+            for combine in (True, False):
+                r[f"groupby_{tag}_combine{combine}"] = table_to_numpy(ops_dist.groupby_spmd(
+                    grp, "g", {"amount": "sum", "score": "max"}, "data", combine=combine,
+                    compress=compress))
+    out["dataframe"] = r
+
+
+def attention(inp, rank, out):
+    r = {}
+    for case, spec in inp["attention"].items():
+        shape = spec["mesh"]
+        mesh = init_device_mesh(DEV.type, shape, mesh_dim_names=("data", "model"))
+        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model")
+        d = direct.axis_index("data", mesh)
+        b = spec["q"].shape[0] // shape[0]
+        rows = slice(d * b, (d + 1) * b)
+        q, k, v = (t_(spec[n][rows]).requires_grad_() for n in "qkv")
+        o = L.attention_sharded(q, k, v, ctx, causal=True, window=spec["window"])
+        o.backward(t_(spec["do"][rows]))
+        r[case] = {"o": np_(o), "dq": np_(q.grad), "dk": np_(k.grad), "dv": np_(v.grad),
+                   "plan": L.shard_plan(q.shape[2], k.shape[2], q.shape[1], shape[1])}
+    out["attention"] = r
+
+
+def dense(inp, rank, out):
+    cfg = configs.get("gemma3-4b").reduced(**inp["cfg_over"])
+    # serving weights for the forward, master weights for the loss (its graph casts them)
+    params = interop.params_from_numpy(cfg, inp["params"], DEV)
+    master = interop.params_from_numpy(cfg, inp["params"], DEV, master=True)
+    batch = inp["batch"]
+    r = {}
+    # forward and loss under a (2, 2) context: dp shard d, replicated over tp
+    mesh22 = init_device_mesh(DEV.type, (2, 2), mesh_dim_names=("data", "model"))
+    ctx = DistContext(mesh=mesh22, dp_axes=("data",), tp_axis="model")
+    d = direct.axis_index("data", mesh22)
+    n = batch["tokens"].shape[0] // 2
+    shard = {k: t_(v[d * n:(d + 1) * n]) for k, v in batch.items()}
+    with torch.no_grad():
+        logits, _ = api.logits_fn(cfg, params, shard, ctx=ctx)
+        loss, metrics = api.loss_fn(cfg, master, shard, ctx=ctx)
+    r["logits"], r["loss"], r["ce"] = np_(logits), float(loss), float(metrics["ce"])
+    # make_train_step(ctx) at dp 4
+    mesh4 = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
+    ctx4 = DistContext(mesh=mesh4, dp_axes=("data",))
+    oc = opt.OptConfig(**inp["opt"])
+    n = batch["tokens"].shape[0] // 4
+    shard = {k: t_(v[rank * n:(rank + 1) * n]) for k, v in batch.items()}
+    p = interop.params_from_numpy(cfg, inp["params"], DEV, master=True)
+    state = opt.init_state(p, oc)
+    p, state, m = ts.make_train_step(cfg, oc, ctx=ctx4)(p, state, shard)
+    r["dp_step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "params": interop.params_to_numpy(p)}
+    # the compressed dp step at dp 4, 3 steps, from the global batch
+    ccfg = dataclasses.replace(cfg, grad_compression=True)
+    p = interop.params_from_numpy(ccfg, inp["params"], DEV, master=True)
+    state = opt.init_state(p, oc)
+    step, init_err = ts.make_compressed_dp_train_step(ccfg, oc, mesh4)
+    err = init_err(p)
+    full = {k: t_(v) for k, v in batch.items()}
+    losses = []
+    for _ in range(3):
+        p, state, err, m = step(p, state, err, full)
+        losses.append(float(m["loss"]))
+    r["compressed_step"] = {"losses": losses, "params": interop.params_to_numpy(p),
+                            "err_max": max(float(e.abs().max()) for e in treepath.leaves(err))}
+    out["dense"] = r
+
+
+def driver(inp, rank, out, ckpt_dir: Path):
+    from repro_torch.launch import train as ltrain
+
+    cfg = dataclasses.replace(configs.get("gemma3-4b").reduced(**inp["cfg_over"]),
+                              grad_compression=True)
+    kw = dict(steps=4, batch=8, seq_len=16, device=DEV)
+    lines = []
+    _, full = ltrain.train(cfg, log=lines.append, **kw)
+    ltrain.train(cfg, ckpt_dir=ckpt_dir, ckpt_every=2, stop_after=2, log=lambda *a: None, **kw)
+    _, resumed = ltrain.train(cfg, ckpt_dir=ckpt_dir, resume=True, log=lambda *a: None, **kw)
+    out["driver"] = {"full": full, "resumed": resumed, "log": lines}
+
+
+def moe_ep(inp, rank, out):
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced(**inp["moe_over"])
+    mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
+    ctx = DistContext(mesh=mesh, ep_axis="model", dp_axes=("data",), tp_axis="model")
+    d, m = direct.axis_index("data", mesh), direct.axis_index("model", mesh)
+    x = t_(inp["moe_x"])
+    n = x.shape[0] // 2
+    x = x[d * n:(d + 1) * n]
+    full = interop.params_from_numpy(cfg, inp["moe_params"], DEV)
+    sliced = interop.params_from_numpy(cfg, interop.expert_slice(cfg, inp["moe_params"], m, 4),
+                                       DEV)
+    r = {}
+    with torch.no_grad():
+        for name, tree in (("full", full), ("slice", sliced)):
+            blk = {k: w[0] for k, w in tree["blocks"]["moe"].items()}
+            y, aux = moe.moe_block(x, blk, cfg, ctx)
+            r[name] = {"out": np_(y), "aux": float(aux)}
+        blk = {k: w[0] for k, w in full["blocks"]["moe"].items()}
+        y, aux = moe.moe_block(x, blk, cfg, None)
+        r["local"] = {"out": np_(y), "aux": float(aux)}
+    r["expert_rows"] = int(sliced["blocks"]["moe"]["wi"].shape[1])
+    out["moe"] = r
+
+
+def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
+             device: str) -> None:
+    global DEV
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        DEV = torch.device("cuda", rank)
+    torch.set_num_threads(1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+                            timeout=timedelta(seconds=PG_TIMEOUT_S))
+    inp = pickle.loads(Path(inputs).read_bytes())
+    out = {"backend": dist.get_backend()}
+    if job == "main":
+        collectives(inp, rank, out)
+        dataframe(inp, rank, out)
+        attention(inp, rank, out)
+        dense(inp, rank, out)
+        driver(inp, rank, out, Path(out_dir) / f"ckpt_{device}")
+    else:
+        moe_ep(inp, rank, out)
+    (Path(out_dir) / f"{job}_{device}_rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# card results against the CPU's: (absolute + relative) limits by part, each
+# the limit its tier-1 test holds the CPU run to against the reference.  The
+# driver draws its weights from a generator on its own device, so its card
+# and CPU losses differ from step 0: each is held to its own kill/resume.
+CARD_TOL = {"collectives": 1e-6, "attention": 1e-4, "logits": 1e-4, "loss": 1e-5}
+
+
+def _close(a, b, tol) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind in "iub" or tol == 0:
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+    return a.shape == b.shape and bool(np.all(np.abs(a - b) <= tol + tol * np.abs(b)))
+
+
+def compare_cards(card: list[dict], cpu: list[dict]) -> dict:
+    """Every card rank's results against the same rank's on the CPU: the
+    names that fail, and the largest differences by part."""
+    lr = OPT["lr"]
+    bad, worst = [], {}
+
+    def check(name, a, b, tol):
+        ok = _close(a, b, tol)
+        if np.asarray(b).dtype.kind == "f" and np.asarray(a).shape == np.asarray(b).shape:
+            d = float(np.max(np.abs(np.asarray(a) - np.asarray(b)), initial=0.0))
+            part = name.split("/")[1]
+            worst[part] = max(worst.get(part, 0.0), d)
+        if not ok:
+            bad.append(name)
+
+    for r, (g, c) in enumerate(zip(card, cpu)):
+        if g["backend"] != "nccl":
+            bad.append(f"rank{r}/backend {g['backend']}")
+        for name in EXACT:
+            check(f"{r}/collectives/{name}", g["collectives"][name], c["collectives"][name], 0)
+        for name in SUMS:
+            check(f"{r}/collectives/{name}", g["collectives"][name], c["collectives"][name],
+                  CARD_TOL["collectives"])
+        for run, (cols, count) in c["dataframe"].items():
+            gcols, gcount = g["dataframe"][run]
+            if gcount != count:
+                bad.append(f"{r}/dataframe/{run}/count")
+            for k, v in cols.items():
+                check(f"{r}/dataframe/{run}/{k}", gcols[k], v, 0)
+        for case, res in c["attention"].items():
+            for k in ("o", "dq", "dk", "dv"):
+                check(f"{r}/attention/{case}/{k}", g["attention"][case][k], res[k],
+                      CARD_TOL["attention"])
+        gd, cd = g["dense"], c["dense"]
+        check(f"{r}/dense/logits", gd["logits"], cd["logits"], CARD_TOL["logits"])
+        for k in ("loss", "ce"):
+            check(f"{r}/dense/{k}", gd[k], cd[k], CARD_TOL["loss"])
+        check(f"{r}/dense/dp_step_loss", gd["dp_step"]["loss"], cd["dp_step"]["loss"],
+              CARD_TOL["loss"])
+        for step, limit in (("dp_step", 2 * lr), ("compressed_step", 2 * 3 * lr)):
+            gp, cp = treepath.leaves(gd[step]["params"]), treepath.leaves(cd[step]["params"])
+            diff = max(float(np.abs(a - b).max()) for a, b in zip(gp, cp))
+            worst[step] = max(worst.get(step, 0.0), diff)
+            if diff > limit:
+                bad.append(f"{r}/dense/{step}_params {diff} > {limit}")
+        for li, lc in zip(gd["compressed_step"]["losses"], cd["compressed_step"]["losses"]):
+            if abs(li - lc) > 0.02 * abs(lc):
+                bad.append(f"{r}/dense/compressed_step_losses")
+        drv = g["driver"]
+        if not np.allclose(drv["resumed"], drv["full"][2:], rtol=1e-6) \
+                or not any("explicit path ON" in line for line in drv["log"]):
+            bad.append(f"{r}/driver")
+    return {"mismatches": bad, "max_abs_diff": worst, "driver_losses": card[0]["driver"]["full"]}
+
+
+def cards(world: int = 4, out: str | None = None) -> int:
+    """The ``main`` job on ``world`` cards (NCCL) and on the CPU (gloo) at
+    once; the card results held against the CPU's (module doc)."""
+    if torch.cuda.device_count() < world:
+        print(f"cards: {world} cards wanted, {torch.cuda.device_count()} present",
+              file=sys.stderr)
+        return 2
+    tmp = Path(out or tempfile.mkdtemp())
+    tmp.mkdir(parents=True, exist_ok=True)
+    inputs = tmp / "inputs.pkl"
+    inputs.write_bytes(pickle.dumps(make_inputs()))
+    t0 = time.perf_counter()
+    card, cpu = launch("main", world, tmp, inputs, "cuda"), launch("main", world, tmp, inputs)
+    wait(card, f"the {world}-card NCCL job")
+    card_s = time.perf_counter() - t0
+    wait(cpu, f"the {world}-rank gloo job")
+    res = compare_cards(load(tmp, "main", world, "cuda"), load(tmp, "main", world))
+    print(json.dumps({"world": world, "backend": "nccl", "card_job_wall_s": card_s, **res}))
+    return 1 if res["mismatches"] else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "cards":
+        sys.exit(cards(*(int(a) if i == 0 else a for i, a in enumerate(sys.argv[2:]))))
+    job, rank, world, store, inputs_, out_dir = sys.argv[1:7]
+    run_rank(job, int(rank), int(world), store, inputs_, out_dir,
+             sys.argv[7] if len(sys.argv) > 7 else "cpu")

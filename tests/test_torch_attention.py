@@ -332,38 +332,90 @@ def test_attention_bwd_ref_matches_autograd_of_plain_forward(case):
 
 
 def test_attention_grad_refuses_cached_calls():
+    """A gradient through a partly filled cache (kv_len < Tk) is refused;
+    so is a causal call whose last row would sit past the keys."""
     q = torch.zeros(1, 4, 2, 32, requires_grad=True)
     k = torch.zeros(1, 8, 1, 32)
-    with pytest.raises(NotImplementedError, match="training forward"):
-        TL.attention(q, k, k, q_offset=4, kv_len=8)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        TL.attention(q, k, k, q_offset=4, kv_len=6)
+    with pytest.raises(ValueError, match="q_offset"):
+        TL.attention(q, k, k, q_offset=5)
+
+
+# the gradient at a query offset and Tq != Tk (a sequence-split island, a
+# cross-attention): name -> (b, tq, tk, h, kvh, hd, causal, window, softcap,
+# q_offset)
+OFFSET_GRAD_CASES = {
+    "island_causal_hd64": (2, 32, 96, 4, 4, 64, True, 0, 0.0, 64),
+    "island_mid_causal_gqa_hd32": (1, 24, 96, 4, 2, 32, True, 0, 0.0, 40),
+    "island_window_softcap_hd120": (1, 16, 80, 4, 2, 120, True, 20, 30.0, 48),
+    "island_window_hd112": (1, 32, 64, 4, 1, 112, True, 12, 0.0, 32),
+    "cross_bidirectional_hd64": (2, 12, 50, 4, 4, 64, False, 0, 0.0, 0),
+    "cross_bidirectional_window_hd32": (1, 20, 40, 4, 2, 32, False, 8, 0.0, 10),
+}
+
+
+def _offset_inputs(b, tq, tk, h, kvh, hd, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.normal(size=(b, tq, h, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, tk, kvh, hd)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", sorted(OFFSET_GRAD_CASES))
+def test_attention_grads_at_offset_match_jax(case):
+    """The port's gradient (the plain backward) at q_offset != 0 and
+    Tq != Tk, causal, windowed and not, against jax.grad of the reference's
+    attention at the same offset; and the split arithmetic of the backward
+    kernel at its own limit against the plain backward."""
+    import jax
+
+    b, tq, tk, h, kvh, hd, causal, window, softcap, off = OFFSET_GRAD_CASES[case]
+    q, k, v, do = _offset_inputs(b, tq, tk, h, kvh, hd, len(case))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+
+    def f(q_, k_, v_):
+        out = JL.attention(q_, k_, v_, impl="direct", **kw)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, exp_o), exp_g = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got_o, got_g = _port_grads(q, k, v, do, **kw)
+    np.testing.assert_allclose(got_o, np.asarray(exp_o), atol=GRAD_TOL, rtol=GRAD_TOL)
+    for name, g, e in zip("qkv", got_g, exp_g):
+        np.testing.assert_allclose(g, np.asarray(e), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    split = fa_r.attention_bwd_split_ref(qt, kt, vt, o, lse, dot, **kw, pairs=fa_k.BWD_SPLIT)
+    for name, g, e in zip("qkv", split, got_g):
+        np.testing.assert_allclose(g.numpy(), e, atol=1e-4, rtol=1e-4, err_msg=f"split d{name}")
 
 
 def test_every_dense_config_head_dim_is_served():
     """Every served config's head width is one the kernels take (dense and
     vlm; qwen3-moe 128, recurrentgemma 256, whisper 64; h2o-danube-3-4b's
-    120 runs the 128-wide template; rwkv6 has no attention).  kimi-k2's 112
-    has no kernel yet: ``api.init_params`` on the card refuses it before
-    allocating anything, naming ROADMAP B 3."""
+    120 and kimi-k2's 112 run the 128-wide template; rwkv6 has no
+    attention)."""
     from repro_torch import configs as tc
     from repro_torch.models import api
 
     served = set()
     for name in tc.ARCH_IDS:
         cfg = tc.get(name)
-        if cfg.family == "ssm" or name == "kimi-k2-1t-a32b":
+        if cfg.family == "ssm":
             continue
         hd = cfg.resolved_head_dim
         assert fa_k.kernel_head_dim(hd) >= hd, name
         api.check_card_head_dim(cfg)
         served.add(hd)
-    assert {64, 128, 256} <= served
-    assert fa_k.kernel_head_dim(120) == 128
+    assert {64, 112, 128, 256} <= served
+    assert fa_k.kernel_head_dim(120) == fa_k.kernel_head_dim(112) == 128
+    assert fa_k.bwd_design(112) == "bwd_wgmma"
     with pytest.raises(ValueError, match="head_dim"):
         fa_k.kernel_head_dim(96)
-    kimi = tc.get("kimi-k2-1t-a32b")
-    assert kimi.resolved_head_dim == 112
-    with pytest.raises(NotImplementedError, match="ROADMAP B 3"):
-        api.check_card_head_dim(kimi)
+    with pytest.raises(NotImplementedError, match="head width 96"):
+        api.check_card_head_dim(tc.get("kimi-k2-1t-a32b").reduced(head_dim=96))
     api.check_card_head_dim(tc.get("rwkv6-7b"))   # attention-free: nothing to check
 
 

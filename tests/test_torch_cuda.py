@@ -434,6 +434,65 @@ def test_flash_bwd_matches_plain(cuda, b, t, h, kvh, hd, causal, window, softcap
     _bwd_check(q, k, v, dict(causal=causal, window=window, softcap=softcap))
 
 
+@pytest.mark.parametrize(
+    "b,tq,tk,h,kvh,hd,causal,window,softcap,q_offset",
+    [
+        # sequence-split islands: Tq rows at q_offset of Tk keys, causal
+        (1, 128, 512, 4, 4, 64, True, 0, 0.0, 384),
+        (2, 64, 256, 8, 2, 32, True, 0, 0.0, 64),
+        (1, 100, 333, 4, 1, 128, True, 50, 30.0, 200),    # ragged, window, softcap
+        (1, 96, 200, 8, 1, 112, True, 0, 0.0, 104),       # kimi-k2's width
+        (1, 256, 1024, 8, 4, 256, True, 0, 0.0, 512),     # bwd_wide
+        (1, 64, 300, 8, 4, 256, True, 100, 20.0, 236),    # bwd_wide, ragged
+        # cross-attention: non-causal, Tq != Tk (keys no query reaches: 0)
+        (2, 128, 1500, 4, 4, 64, False, 0, 0.0, 0),
+        (1, 40, 333, 8, 4, 256, False, 0, 0.0, 0),
+        (1, 77, 129, 4, 2, 112, False, 30, 0.0, 20),
+        (1, 200, 50, 4, 2, 64, False, 0, 0.0, 0),
+    ],
+)
+def test_flash_bwd_at_offset_matches_plain(cuda, b, tq, tk, h, kvh, hd, causal, window, softcap,
+                                           q_offset):
+    q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, hd, torch.float32, seed=tq + hd)
+    _bwd_check(q, k, v, dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2)])
+def test_flash_bwd_islands_reassemble_the_full_call(cuda, hd, tps):
+    """The sequence split's islands (rank r: rows r T / tps .. at q_offset
+    r T / tps, every key): dq concatenated and dk, dv summed give the full
+    call's gradients."""
+    t = 512
+    q, k, v = _flash_inputs(cuda, 1, t, t, 4, 2, hd, torch.float32, seed=hd)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    full, _, do = _bwd_check(q, k, v, kw)
+    tl = t // tps
+    dq, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(tps):
+        rows = slice(r * tl, (r + 1) * tl)
+        ql, dol = q[:, rows].contiguous(), do[:, rows].contiguous()
+        o, lse = fa_k.flash_attention_lse(ql, k, v, **kw, q_offset=r * tl)
+        g = fa_k.flash_attention_bwd(ql, k, v, o, lse, dol, **kw, q_offset=r * tl)
+        dq.append(g[0])
+        dk += g[1]
+        dv += g[2]
+    for name, a, e in zip("qkv", (torch.cat(dq, 1), dk, dv), full):
+        torch.testing.assert_close(a, e, atol=BWD_TOL, rtol=BWD_TOL, msg=f"d{name}")
+
+
+def test_kimi_head_width_runs(cuda):
+    """Head width 112 (kimi-k2) in the 128-wide template: the bf16 and
+    float32 prefill designs, decode, and the backward."""
+    q, k, v = _flash_inputs(cuda, 1, 300, 300, 8, 2, 112, torch.float32, seed=112)
+    for kv, tq in ((k, 300), (k.to(torch.bfloat16), 300), (k.to(torch.bfloat16), 1)):
+        vv = v.to(kv.dtype)
+        kw = dict(causal=True, q_offset=300 - tq, kv_len=300)
+        torch.testing.assert_close(fa_k.flash_attention(q[:, :tq], kv, vv, **kw),
+                                   fa_r.attention_ref(q[:, :tq], kv, vv, **kw),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)
+    _bwd_check(q, k, v, dict(causal=True, window=0, softcap=0.0))
+
+
 @pytest.mark.parametrize("hd,window", [(64, 0), (256, 1024), (120, 4096)])
 def test_flash_bwd_main_path_shapes_and_one_key_too_few(cuda, hd, window):
     """minicpm-2b's, gemma3-4b's and h2o-danube's train shapes at 4096

@@ -323,19 +323,24 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("arch", ("starcoder2-3b",) + OTHER_FAMILIES)
 def test_sharded_context_raises(arch):
-    """A DistContext (sharded execution, the expert-parallel MoE) is A 5,
-    in every family and entry point."""
+    """A DistContext flows through every family and entry point (it raised
+    before the SPMD surface was ported); without a mesh it changes nothing:
+    the logits equal those of ctx=None bit for bit.  Sharded meshes are
+    tests/test_torch_spmd.py's."""
     tcfg = tconfigs.get(arch).reduced()
     tp = tapi.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    tb = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    tb = {"tokens": torch.arange(4, dtype=torch.int32)[None] % tcfg.vocab_size}
     if tcfg.family == "audio":
         tb["frames"] = torch.zeros((1, tcfg.source_positions, tcfg.d_model))
-    state = tapi.init_decode_state(tcfg, 1, 8, device="cpu")
-    for call in (lambda: tapi.logits_fn(tcfg, tp, tb, ctx=object()),
-                 lambda: tapi.prefill_fn(tcfg, tp, tb, state, ctx=object()),
-                 lambda: tapi.decode_fn(tcfg, tp, tb["tokens"][:, :1], state, ctx=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 5"):
-            call()
+    ctx = TT.DistContext(ep_axis=None, dp_axes=())
+    outs = []
+    for c in (None, ctx):
+        state = tapi.init_decode_state(tcfg, 1, 8, device="cpu")
+        outs.append((tapi.logits_fn(tcfg, tp, tb, ctx=c)[0],
+                     tapi.prefill_fn(tcfg, tp, tb, state, ctx=c)[0]))
+        outs[-1] += (tapi.decode_fn(tcfg, tp, tb["tokens"][:, :1], state, ctx=c)[0],)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_sampling():
