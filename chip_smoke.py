@@ -12,7 +12,8 @@ Phases, one JSON line each:
    unless the SASS (``cuobjdump -sass``) of every tensor-core kernel holds
    ``HGMMA`` (warpgroup tensor-core) instructions: the forward's
    ``flash_wgmma`` for bf16 and for float32 k/v (``flash_wgmma_split``),
-   the backward's ``bwd_wgmma`` and ``bwd_wide``.
+   the backward's ``bwd_wgmma``, ``bwd_wide`` and ``bwd_dq_ds`` (the dS
+   path's dQ).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -224,7 +225,16 @@ Phases, one JSON line each:
    over k/v [4, 1500, 16, 64], non-causal); each forward with lse within
    2e-5 and each backward within ``BWD_TOL`` of the plain versions (from
    the kernel's own o and lse), the islands reassembled (dq concatenated,
-   dk and dv summed) within the same limits of one full-length call.
+   dk and dv summed) within the same limits of one full-length call.  The
+   gemma3 islands are under one wave of SMs, so their keys split
+   (``csrc/attn_plan.h``): the phase fails unless ``kernel.split_launches``
+   shows each of the 15 islands that see more than 256 keys split
+   (``flash_tiled``) and the first not, every one of the 16 backwards on
+   the dS path (the first with one chunk), and minicpm-2b's islands neither;
+   both split kernels must repeat bit-equal at the last island, whose
+   backward row carries the device time of each pass (``torch.profiler``:
+   the prologues, the dK/dV pass, the dQ from dS and its merge) and whose
+   forward row the split kernel's and the merge's.
    (c) head width 112 at kimi-k2's attention (q [1, 4096, 64, 112], k/v 8
    heads): the bf16-k/v forward (``flash_wgmma``), the float32 training
    forward and the backward through the port's entry points, each against
@@ -348,6 +358,14 @@ SPMD_CROSS = ("whisper-medium", 4, 128, 1500)   # arch, B, decoder positions, fr
 SPMD_DP_LAYERS, SPMD_DP_STEPS = 8, 3
 SPMD_MOE_B, SPMD_MOE_T = 4, 2048
 SPMD_PG_TIMEOUT_S = 300
+# the attention backward's kernels by pass (profiler names, first match
+# wins): the prologues, the dS path's dQ and its merge, the recomputing dQ
+# pass (bwd_wide<true, ...>, bwd_wgmma<HD, true>), the dK/dV pass (the rest:
+# bwd_wide<false, DS>, bwd_wgmma<HD, false>)
+BWD_PASSES = {"prologues": ("bwd_prep",), "dq_from_ds": ("bwd_dq_ds",),
+              "dq_merge": ("bwd_dq_merge",),
+              "dq_recompute": ("bwd_wide<true", "32, true>", "64, true>", "128, true>"),
+              "dkdv": ("bwd_wide<false", "bwd_wgmma<")}
 # every path runs at its full size and depth but these
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
@@ -563,6 +581,9 @@ def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
         # the calls of each flash design (each also counted above)
         **{f"flash_attention/{d}": n for d, n in fa_k.fwd_design_launches.items()},
         **{f"flash_attention_bwd/{d}": n for d, n in fa_k.bwd_design_launches.items()},
+        # the calls that took the key split (flash_tiled: more than one
+        # chunk; bwd_wide: the dS path)
+        **{f"key_split/{d}": n for d, n in fa_k.split_launches.items()},
     }
 
 
@@ -572,7 +593,7 @@ def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     sr_k.launches = 0
     fa_k.launches = 0
     fa_k.bwd_launches = 0
-    for designs in (fa_k.fwd_design_launches, fa_k.bwd_design_launches):
+    for designs in (fa_k.fwd_design_launches, fa_k.bwd_design_launches, fa_k.split_launches):
         for design in designs:
             designs[design] = 0
 
@@ -1856,9 +1877,37 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
             launches.setdefault(k, {})
             launches[k][name] = launches[k].get(name, 0) + c - before[k]
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    filler = torch.zeros(1, device=dev)
+
+    def pass_ms(fn, groups, reps=5):
+        """Device ms of each group of kernels (label -> name substrings, first
+        match wins) in one call of ``fn``, and its launches per call:
+        ``torch.profiler`` over ``reps`` calls, L2 flushed before each, the
+        mean.  Late in this script's process a short session has kept only
+        its last kernels (3 of 5 calls missing on an H100), so 64 tiny
+        kernels and a sleep kernel lead; where the launches per call still
+        come out fractional, the times are not kept ("not measured")."""
+        def run():
+            for _ in range(64):
+                filler.add_(1.0)
+            torch.cuda._sleep(Timer.SLEEP_CYCLES)
+            for _ in range(reps):
+                timer.scratch.zero_()  # 128 MB > the 50 MB L2
+                fn()
+        t = trace(torch, run, groups={**groups, "other": ("",)})
+        out = {g: {"ms": ms / reps, "launches": n / reps}
+               for g, (ms, n) in t["by_group_ms"].items() if g != "other"}
+        seen = [row["launches"] * reps for row in out.values()]
+        if not sum(seen) or any(n % reps for n in seen):
+            return {"not measured": f"the profiler kept a fraction of the launches: {out}"}
+        return out
+
     def fwd_row(name, q, k, v, kw, design):
         """The forward with lse at ``kw`` (q_offset, causal): time, bound
-        (its design's engine), the plain version, SDPA."""
+        (its design's engine), the plain version, SDPA; its kernels' device
+        times and, for ``flash_tiled``, the key split's chunks."""
         full = dict(causal=kw["causal"], window=0, q_offset=kw["q_offset"], kv_len=k.shape[1])
         nbytes, ops = flash_work(torch, q, k, **full)
         nbytes += 4 * q.shape[0] * q.shape[2] * q.shape[1]  # lse
@@ -1869,7 +1918,15 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
                       "ms": ms, "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **kw)),
                       "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
                       "bytes": nbytes, "operations": ops,
-                      "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full))}
+                      "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full)),
+                      "passes_ms": pass_ms(lambda: fa_k.flash_attention_lse(q, k, v, **kw), {
+                          "merge": ("flash_tiled_merge",), "prologue": ("fwd_prep_kv",),
+                          "kernel": ("flash_",)})}
+        if design == "flash_tiled":
+            b_, tq_, h_, _ = q.shape
+            rows[name]["key_split_chunks"] = fa_k.tiled_plan(
+                b_, tq_, k.shape[1], h_, k.shape[2], causal=kw["causal"], window=0,
+                q_offset=kw["q_offset"], kv_len=k.shape[1], sms=sms).chunks
 
     def bwd_row(name, q, k, v, kw):
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
@@ -1891,7 +1948,15 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
                                                                           **kw)),
                       "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
                       "bytes": nbytes, "operations": 10 * hd * pairs, "split": fa_k.BWD_SPLIT,
-                      "library_ms": library_ms}
+                      "library_ms": library_ms,
+                      # the device time of each pass
+                      "passes_ms": pass_ms(
+                          lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                          BWD_PASSES),
+                      "key_split_chunks": fa_k.bwd_plan(
+                          hd, q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                          causal=kw["causal"], window=0, q_offset=kw["q_offset"],
+                          sms=sms).chunks}
         del leaves, out
 
     def through_port(q_l, k, v, do_l, call):
@@ -1924,12 +1989,15 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
             fail(f"spmd {cell}: the reference's rule picks {plan}, not the sequence split")
         tl = TRAIN_SEQ // tps
         parts, dk, dv, fwd_err, bwd_err = [], torch.zeros_like(k), torch.zeros_like(v), 0.0, 0.0
+        split_by_island = []
         for r in range(tps):
             sl = slice(r * tl, (r + 1) * tl)
             q_l, do_l = q[:, sl].contiguous(), do[:, sl].contiguous()
+            split0 = dict(fa_k.split_launches)
             with path(f"spmd_islands/{cell}"):
                 got = through_port(q_l, k, v, do_l, lambda a, b_, c, r=r: L.attention_island(
                     a, b_, c, r, tps, plan="seq", causal=True))
+            split_by_island.append({d: n - split0[d] for d, n in fa_k.split_launches.items()})
             fe, be = against_plain(f"{cell} island {r}", q_l, k, v, do_l, got,
                                    dict(causal=True, window=0, softcap=0.0, q_offset=r * tl))
             fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
@@ -1943,11 +2011,32 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
         errs((torch.cat([p_[0] for p_ in parts], 1),), (o_f,), FLASH_TOL, f"{cell} reassembled o")
         whole = errs((torch.cat([p_[1] for p_ in parts], 1), dk, dv), g_f, BWD_TOL,
                      f"{cell} reassembled gradients")
+        # the key split (csrc/attn_plan.h): gemma3's 32-block islands split the
+        # keys they see past the first island's 256 (forward), and every
+        # backward takes the dS path (the first with one chunk); minicpm-2b's
+        # (hd 64) never
+        wide = hd == 256
+        want_split = [{"flash_tiled": int(wide and r > 0), "bwd_wide": int(wide)}
+                      for r in range(tps)]
+        if split_by_island != want_split:
+            fail(f"spmd {cell}: key-split calls by island {split_by_island}, want {want_split}")
+        first_bwd = fa_k.bwd_plan(hd, b, tl, TRAIN_SEQ, h, kvh, causal=True, window=0,
+                                  q_offset=0, sms=sms).chunks
+        if wide and first_bwd != 1:
+            fail(f"spmd {cell}: the first island's backward plans {first_bwd} chunks, want 1")
         checks[cell] = {"islands": tps, "rows_each": tl, "plan": plan, "fwd_max_abs_err": fwd_err,
-                        "bwd_max_abs_err": bwd_err, "reassembled_max_abs_err": whole}
-        # the last island (the most keys) timed, forward and backward
+                        "bwd_max_abs_err": bwd_err, "reassembled_max_abs_err": whole,
+                        "key_split_by_island": split_by_island}
+        # the last island (the most keys) timed, forward and backward, and
+        # both kernels repeated: bit-equal
         last = dict(kw, q_offset=TRAIN_SEQ - tl)
-        q_l = q[:, -tl:].contiguous()
+        q_l, do_l = q[:, -tl:].contiguous(), do[:, -tl:].contiguous()
+        runs = [fa_k.flash_attention_lse(q_l, k, v, **last) for _ in range(2)]
+        grads = [fa_k.flash_attention_bwd(q_l, k, v, *runs[0], do_l, **last) for _ in range(2)]
+        if not all(torch.equal(a, b_) for a, b_ in (*zip(*runs), *zip(*grads))):
+            fail(f"spmd {cell}: the last island's forward or backward does not repeat bit-equal")
+        checks[cell]["bit_equal_repeat"] = True
+        del runs, grads, do_l
         design = fa_k.fwd_design(hd, torch.float32, tl * h // kvh, lse=True)
         fwd_row(f"flash_attention/{design}@{cell}", q_l, k, v, last, design)
         bwd_row(f"flash_attention_bwd/{fa_k.bwd_design(hd)}@{cell}", q_l, k, v, last)
@@ -2143,11 +2232,11 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
         "flash_wgmma", "fwd_prep_kv", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_wide",
-        "bwd_prep", "probe_kernel", "build_index")}})
+        "bwd_dq", "bwd_prep", "probe_kernel", "build_index")}})
     # flash_wgmma<HD, false> (bf16 k/v) and <HD, true> (flash_wgmma_split),
-    # bwd_wgmma and bwd_wide: every instance on the tensor cores
+    # bwd_wgmma, bwd_wide and bwd_dq_ds: every instance on the tensor cores
     for name, instances in (("flash_wgmma", ("ELb0E", "ELb1E")), ("bwd_wgmma", ("",)),
-                            ("bwd_wide", ("",))):
+                            ("bwd_wide", ("",)), ("bwd_dq_ds", ("",))):
         hgmma = sass_has(_build.build(), name, "HGMMA")
         if not all(any(i in f for f in hgmma) for i in instances) or not all(hgmma.values()):
             fail(f"{name}'s SASS holds no HGMMA (tensor-core) instruction: {hgmma}")

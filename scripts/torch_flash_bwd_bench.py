@@ -23,9 +23,13 @@ cache slice of 4128 positions, window 1024 and 0), its global layer at
 32,768 keys (q [1, 512, 8, 256] at q_offset 32,256; v of mean 0 and 1), and
 the float32-k/v training forwards with lse: minicpm-2b's [2, 4096, 36, 64],
 h2o-danube's hd 120 (32 / 8 heads, window 4096) and gemma3-4b's global
-layer (8 / 4 heads of 256).  Backward shapes: minicpm-2b's, h2o-danube's,
-gemma3-4b's local and global layers (window 1024 and 0), and two ragged
-ones.  Needs a CUDA device.
+layer (8 / 4 heads of 256), and gemma3-4b's last sequence-split island at
+tp 16 (q [1, 256, 8, 256] at q_offset 3840 over k/v [1, 4096, 4, 256]).
+Backward shapes: minicpm-2b's, h2o-danube's, gemma3-4b's local and global
+layers (window 1024 and 0), two ragged ones, and the gemma3 island; each
+backward line also carries the device time of each pass (``torch.profiler``
+through ``chip_smoke.trace``, mean of 3 calls, L2 flushed before each).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,11 +53,14 @@ FWD_SHAPES = (
     ("minicpm_train_fwd", 2, 4096, 4096, 36, 36, 64, "float32", 0, 0, None, 0.0, True),
     ("h2o_hd120_fwd", 1, 4096, 4096, 32, 8, 120, "float32", 4096, 0, None, 0.0, True),
     ("gemma3_global_f32_fwd", 1, 4096, 4096, 8, 4, 256, "float32", 0, 0, None, 0.0, True),
+    ("gemma3_island_fwd", 1, 256, 4096, 8, 4, 256, "float32", 0, 3840, None, 0.0, True),
 )
-# (b, t, h, kvh, hd, window): minicpm-2b's train shape, h2o-danube's, gemma3-4b's
-# local and global layers, ragged ones
-BWD_SHAPES = ((2, 4096, 36, 36, 64, 0), (1, 4096, 32, 8, 120, 4096), (1, 4096, 8, 4, 256, 1024),
-              (1, 4096, 8, 4, 256, 0), (1, 4097, 8, 2, 64, 300), (2, 333, 8, 4, 32, 50))
+# (b, tq, tk, h, kvh, hd, window, q_offset): minicpm-2b's train shape,
+# h2o-danube's, gemma3-4b's local and global layers, ragged ones, the gemma3 island
+BWD_SHAPES = ((2, 4096, 4096, 36, 36, 64, 0, 0), (1, 4096, 4096, 32, 8, 120, 4096, 0),
+              (1, 4096, 4096, 8, 4, 256, 1024, 0), (1, 4096, 4096, 8, 4, 256, 0, 0),
+              (1, 4097, 4097, 8, 2, 64, 300, 0), (2, 333, 333, 8, 4, 32, 50, 0),
+              (1, 256, 4096, 8, 4, 256, 0, 3840))
 
 
 def limits(got, exp, tol: float, names) -> dict:
@@ -72,14 +79,14 @@ def run_one(src: str, reps: int, only: str | None) -> None:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from chip_smoke import Timer
+    from chip_smoke import BWD_PASSES, Timer, trace
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
 
     t0 = time.perf_counter()
     _build.library()
     ptx = {name.split("_cu_")[-1]: [r["registers"], r["spill_store_bytes"]]
-           for pat in ("flash_wgmma", "bwd_wgmma", "bwd_wide")
+           for pat in ("flash_wgmma", "flash_tiled", "bwd_wgmma", "bwd_wide", "bwd_dq")
            for name, r in _build.ptxas_report(pat).items()}
     print(json.dumps({"src": src, "build_s": time.perf_counter() - t0, "ptxas": ptx}), flush=True)
     dev = torch.device("cuda")
@@ -98,7 +105,7 @@ def run_one(src: str, reps: int, only: str | None) -> None:
                "kv_dtype": kv_dtype,
                "design": fwd_design(hd, k.dtype, tq * h // kvh, lse=lse) if fwd_design else None}
         if lse:
-            kw = dict(causal=True, window=window)
+            kw = dict(causal=True, window=window, q_offset=q_offset)
             call = lambda: fa_k.flash_attention_lse(q, k, v, **kw)  # noqa: E731
             got, exp = call(), fa_r.attention_lse_ref(q, k, v, **kw)
             out.update(limits(got, exp, FLASH_TOL, ("o", "lse")))
@@ -115,20 +122,28 @@ def run_one(src: str, reps: int, only: str | None) -> None:
         print(json.dumps(out), flush=True)
         del q, k, v, got
         torch.cuda.empty_cache()
-    for b, t, h, kvh, hd, window in (BWD_SHAPES if only != "fwd" else ()):
+    for b, t, tk, h, kvh, hd, window, q_offset in (BWD_SHAPES if only != "fwd" else ()):
         q, do = (torch.randn(b, t, h, hd, generator=gen, device=dev) for _ in range(2))
-        k, v = (torch.randn(b, t, kvh, hd, generator=gen, device=dev) for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=0.0)
+        k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=0.0, q_offset=q_offset)
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
         got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        out = {"src": src, "shape": [b, t, h, kvh, hd, window],
+        out = {"src": src, "shape": [b, t, tk, h, kvh, hd, window, q_offset],
                "design": bwd_design(hd) if bwd_design else None,
                **limits(got, exp, BWD_TOL, ("dq", "dk", "dv"))}
         again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         out["repeat_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, again))
         del exp, again
         out["ms"] = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+
+        def three():
+            for _ in range(3):
+                timer.scratch.zero_()
+                fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        passes = trace(torch, three, groups={**BWD_PASSES, "flush": ("",)})["by_group_ms"]
+        out["passes_ms"] = {g: ms / 3 for g, (ms, _) in passes.items() if g != "flush"}
         print(json.dumps(out), flush=True)
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()

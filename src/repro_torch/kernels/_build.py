@@ -14,6 +14,11 @@ non-zero result.  The library links ``libcuda`` for the TMA descriptor
 encoder ``cuTensorMapEncodeTiled``.  ptxas reports each
 kernel's registers, shared memory and spills; the report is kept beside the
 library as ``build.log`` (:func:`ptxas_report`).
+
+:func:`plan_library` builds the attention key-split rule
+(``csrc/attn_plan.h``, which the CUDA sources include) with the host C++
+compiler into a second small library, so that the wrappers, and the CPU
+tests without ``nvcc``, read the rule the CUDA entry points apply.
 """
 
 from __future__ import annotations
@@ -33,7 +38,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash_partition.cu", "join_probe.cu", "segment_reduce.cu", "flash_attention.cu",
            "flash_attention_bwd.cu")
-HEADERS = ("wgmma.cuh",)  # included by the sources; hashed with them
+HEADERS = ("wgmma.cuh", "attn_plan.h")  # included by the sources; hashed with them
+# the attention key-split rule (attn_plan.h) for the wrappers: a host-only
+# library, built by the host C++ compiler (plan_library)
+PLAN_SOURCE = "attn_plan.cc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,13 +66,16 @@ SIGNATURES = {
     "rt_segment_sum_f32": (_P, _P, _I64, _I64, _P, _P),
     "rt_flash_attention": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F32, _P, _P, _P, _I, _I,
-        _I, _I, _P,
+        _I, _I, _P, _I64, _I, _P,
     ),
     "rt_flash_attention_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F32,
-        _P,
+        _I, _P,
     ),
-    "rt_flash_attention_bwd_scratch": (_I, _I, _I, _I, _I, _I, _P),
+}
+PLAN_SIGNATURES = {
+    "rt_flash_tiled_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "rt_flash_attention_bwd_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -164,6 +175,41 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def plan_library() -> ctypes.CDLL:
+    """The attention key-split rule (``csrc/attn_plan.cc`` over
+    ``attn_plan.h``, the header the CUDA entry points decide with), built on
+    first call by the host C++ compiler into ``build/repro_torch/plan-<hash>/``
+    (no CUDA needed: the CPU tests read the plan too)."""
+    h = hashlib.sha256()
+    for name in (PLAN_SOURCE, "attn_plan.h"):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    out_dir = BUILD_ROOT / f"plan-{h.hexdigest()[:16]}"
+    lib = out_dir / "libattn_plan.so"
+    if not lib.is_file():
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (c++ / g++): the attention plan cannot "
+                               "be built")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            staged = Path(tmp) / lib.name
+            done = subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                                   str(CSRC / PLAN_SOURCE), "-o", str(staged)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {PLAN_SOURCE} (exit {done.returncode}):\n"
+                                   f"{done.stdout}")
+            os.replace(staged, lib)  # atomic: a concurrent loader sees all or nothing
+    plan = ctypes.CDLL(str(lib))
+    for name, argtypes in PLAN_SIGNATURES.items():
+        fn = getattr(plan, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return plan
 
 
 def stream(device: torch.device) -> int:

@@ -1,0 +1,158 @@
+// The key split of the two hd-256 float32 attention designs, in one place:
+// flash_tiled (the forward, flash_attention.cu) and bwd_wide's dQ
+// (flash_attention_bwd.cu).  Plain C++: the CUDA entry points include it to
+// decide, and attn_plan.cc exports it to the Python wrappers (built by the
+// host compiler), which ask it for the scratch a call needs and count the
+// split launches; nothing else holds the rule.
+//
+// The rule.  A design whose grid has fewer blocks than the card has SMs
+// leaves SMs idle while each block streams every key it sees in series
+// (gemma3-4b's sequence-split islands: q [1, 256, 8, 256] over 4,096 keys,
+// 32 blocks of 216 KB on 132 SMs).  There the keys the rows can see
+// (visible_keys) are cut into chunks, one block per (row block, chunk):
+// runs of whole 64-key tiles, each of at least kMinChunkKeys keys, as many
+// as keep the grid within one wave (blocks x chunks <= SMs).  A grid that
+// already fills a wave runs one chunk, the unsplit path.  The chunks'
+// partial results are merged in chunk order (deterministic).
+
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define ATTN_PLAN_FN __host__ __device__ __forceinline__
+#else
+#define ATTN_PLAN_FN inline
+#endif
+
+namespace attn_plan {
+
+constexpr int kTile = 64;           // keys of flash_tiled's tile: chunks hold whole tiles
+constexpr int kMinChunkKeys = 256;  // no chunk under four tiles' worth of keys
+constexpr int kMaxChunks = 256;     // chunks a call may have (bounds arrays)
+constexpr int kHd = 256;            // the head width of both designs
+constexpr int kRows = 64;           // rows of a block in both designs
+constexpr int kParts = 3;           // bwd: bf16 parts of each float32 operand
+constexpr int kPadRows = 128;       // bwd: lse and D rows padded to this
+
+inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+inline int64_t align256(int64_t n) { return cdiv(n, 256) * 256; }
+
+// Keys [*lo, *hi) that some query row can see: rows at q_offset ..
+// q_offset + Tq - 1 over keys 0 .. min(kv_len, Tk) - 1, causal and a
+// sliding window (0 = none).  All Tk keys when the first or the last row
+// sees none (rows that see nothing lie at the two ends): such a row is the
+// mean of v over every key.
+inline void visible_keys(int Tq, int Tk, int causal, int window, int q_offset, int kv_len,
+                         int* lo, int* hi) {
+  const int last_key = (kv_len < Tk ? kv_len : Tk) - 1;
+  auto key_lo = [&](int p) { return window > 0 ? (p - window + 1 > 0 ? p - window + 1 : 0) : 0; };
+  auto key_hi = [&](int p) { return causal ? (last_key < p ? last_key : p) : last_key; };
+  const int first = q_offset, last = q_offset + Tq - 1;
+  if (key_lo(first) > key_hi(first) || key_lo(last) > key_hi(last)) {
+    *lo = 0;
+    *hi = Tk;
+    return;
+  }
+  *lo = key_lo(first);
+  *hi = key_hi(last) + 1;
+}
+
+// The first key of chunk c of nchunk over keys [k_begin, k_end); c = nchunk
+// gives k_end.  Inner bounds fall on multiples of kTile, so every tile
+// belongs to one chunk.
+ATTN_PLAN_FN int chunk_begin(int c, int nchunk, int k_begin, int k_end) {
+  if (c <= 0) return k_begin;
+  if (c >= nchunk) return k_end;
+  const int64_t at = k_begin + static_cast<int64_t>(c) * (k_end - k_begin) / nchunk;
+  return static_cast<int>(at / kTile * kTile);
+}
+
+// Chunks of keys [k_begin, k_end) for a grid of `blocks` blocks on `sms`
+// SMs: 1 when the grid fills a wave; else the most chunks that keep
+// blocks x chunks <= sms with every chunk at least kMinChunkKeys keys.
+inline int key_chunks(int64_t blocks, int sms, int k_begin, int k_end) {
+  if (blocks >= sms) return 1;
+  int64_t n = sms / blocks;
+  const int64_t by_size = (k_end - k_begin) / kMinChunkKeys;
+  if (n > by_size) n = by_size;
+  if (n > kMaxChunks) n = kMaxChunks;
+  for (; n > 1; --n) {  // inner bounds rounded down to a tile: each chunk still long enough?
+    bool ok = true;
+    for (int c = 0; c < n && ok; ++c)
+      ok = chunk_begin(c + 1, static_cast<int>(n), k_begin, k_end) -
+               chunk_begin(c, static_cast<int>(n), k_begin, k_end) >= kMinChunkKeys;
+    if (ok) break;
+  }
+  return n < 1 ? 1 : static_cast<int>(n);
+}
+
+// ---------------------------------------------------------------------------
+// flash_tiled (float32 k/v at hd 256): a block = 64 rows (position, group)
+// of one kv head, grid (rows / 64, B x KV).  Split: grid z = the chunk; each
+// block writes its rows' unnormalised (m, l) and acc[256] per chunk, and a
+// merge launch writes o and lse.
+// ---------------------------------------------------------------------------
+
+inline int tiled_chunks(int B, int Tq, int Tk, int H, int KV, int q_offset, int window, int kv_len,
+                        int causal, int sms, int* k_begin, int* k_end) {
+  visible_keys(Tq, Tk, causal, window, q_offset, kv_len, k_begin, k_end);
+  const int64_t blocks = cdiv(static_cast<int64_t>(Tq) * (H / KV), kRows) * B * KV;
+  return key_chunks(blocks, sms, *k_begin, *k_end);
+}
+
+// Floats of the split's partials: acc [nchunk][B KV][M][256], then (m, l)
+// [nchunk][B KV][M][2], M = Tq x groups.
+inline int64_t tiled_acc_floats(int nchunk, int B, int Tq, int H, int KV) {
+  return static_cast<int64_t>(nchunk) * B * KV * Tq * (H / KV) * kHd;
+}
+inline int64_t tiled_scratch_bytes(int nchunk, int B, int Tq, int H, int KV) {
+  if (nchunk <= 1) return 0;
+  return 4 * (tiled_acc_floats(nchunk, B, Tq, H, KV) +
+              static_cast<int64_t>(nchunk) * B * KV * Tq * (H / KV) * 2);
+}
+
+// ---------------------------------------------------------------------------
+// bwd_wide's dQ (hd 256).  The recomputing pass bwd_wide<true> has a grid of
+// B x H x ceil(Tq / 64) blocks.  Under one wave, the dS path instead: the
+// dK/dV pass also stores dS (float32, [B H][Tq][Tk], the pairs it visits),
+// and bwd_dq_ds computes dQ = dS K / sqrt(hd) over chunks of the visible
+// keys, partials [nchunk][B H][Tq][256] merged in chunk order (none for one
+// chunk).  0 chunks: the recomputing pass.
+// ---------------------------------------------------------------------------
+
+inline int bwd_dq_chunks(int hd, int B, int Tq, int Tk, int H, int q_offset, int window,
+                         int causal, int sms, int* k_begin, int* k_end) {
+  visible_keys(Tq, Tk, causal, window, q_offset, Tk, k_begin, k_end);
+  const int64_t blocks = static_cast<int64_t>(B) * H * cdiv(Tq, kRows);
+  if (hd != kHd || blocks >= sms) return 0;
+  return key_chunks(blocks, sms, *k_begin, *k_end);
+}
+
+// The backward's scratch, in this order, each part 256-byte aligned: the
+// bf16 parts of q / sqrt(hd), dO ([3][B H][Tq][hdk] each) and of k, v
+// ([3][B KV][Tk][hdk]); lse and D as [B H][Tp] float32 (Tp: Tq padded to
+// kPadRows); on the dS path the dQ partials (more than one chunk) and dS.
+struct BwdLayout {
+  int64_t qp, dop, kp, vp, lse, d, dq_part, ds, total;  // byte offsets, and the size
+};
+
+inline BwdLayout bwd_layout(int hdk, int B, int Tq, int Tk, int H, int KV, int nchunk) {
+  BwdLayout l;
+  const int64_t qpart = 2 * static_cast<int64_t>(B) * H * Tq * hdk;   // bytes of one part
+  const int64_t kpart = 2 * static_cast<int64_t>(B) * KV * Tk * hdk;
+  const int64_t tp = cdiv(Tq, kPadRows) * kPadRows;
+  l.qp = 0;
+  l.dop = l.qp + align256(kParts * qpart);
+  l.kp = l.dop + align256(kParts * qpart);
+  l.vp = l.kp + align256(kParts * kpart);
+  l.lse = l.vp + align256(kParts * kpart);
+  l.d = l.lse + align256(4 * static_cast<int64_t>(B) * H * tp);
+  l.dq_part = l.d + align256(4 * static_cast<int64_t>(B) * H * tp);
+  l.ds = l.dq_part +
+         (nchunk > 1 ? align256(4 * static_cast<int64_t>(nchunk) * B * H * Tq * kHd) : 0);
+  l.total = l.ds + (nchunk > 0 ? align256(4 * static_cast<int64_t>(B) * H * Tq * Tk) : 0);
+  return l;
+}
+
+}  // namespace attn_plan

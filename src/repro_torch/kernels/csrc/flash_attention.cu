@@ -82,10 +82,20 @@
 //   Registers at hd 64: 32 for O, 16 for S, 24 for p's parts, 32 for the
 //   fresh P . V product (launch bound 204 a thread at two blocks); hd 128:
 //   64 for O, 2 x 32 for the fresh products.
-// * flash_tiled (float32 k/v at hd 256, R > 8: gemma3's cache-free forward;
-//   its parts would be 192 KB a stage): 256 threads per 64 rows; q, k, v and
-//   p staged in shared memory as float32; both products 4x4 register
-//   micro-tiles of float32 FMAs.
+// * flash_tiled (float32 k/v at hd 256, R > 8: gemma3's cache-free forward
+//   and its training forward with lse; its parts would be 192 KB a stage):
+//   256 threads per 64 rows; q, k, v and p staged in shared memory as
+//   float32; both products 4x4 register micro-tiles of float32 FMAs.  Bound:
+//   operations on the float32 CUDA cores.  One block of 216 KB fits an SM,
+//   and a block streams its keys in series, 64-key tiles: where the grid is
+//   under one wave of SMs (gemma3-4b's sequence-split islands: q [1, 256, 8,
+//   256] at q_offset 3840 over 4,096 keys, 32 blocks on 132 SMs, 64 tiles
+//   each) the keys are split (attn_plan.h: tiled_chunks, one block per (row
+//   block, chunk), 4 chunks of 16 tiles at the island).  Each block then
+//   writes its rows' unnormalised (m, l) and acc into scratch (a row that
+//   sees no key of its chunk: m = -inf, l = 0), and flash_tiled_merge
+//   weights the chunks in chunk order (deterministic) into o and lse.  A grid
+//   that fills a wave runs one chunk: no scratch, no merge.
 // * flash_decode (R <= 8: decode).  Bound: bytes, k and v over the keys the
 //   rows can see.  The first design read v 2 bytes per thread, reduced each
 //   key's score across a warp, and merged its chunks in a second launch
@@ -109,6 +119,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_plan.h"
 #include "wgmma.cuh"
 
 namespace {
@@ -214,8 +225,16 @@ struct Tiled {
       sizeof(float) * (size_t(BM) * LDQ + size_t(BN) * LDK + size_t(BN) * LDV + size_t(BN) * LDP);
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
+// KEY_SPLIT false: grid (rows / 64, B * KV), every key, o and lse written here
+// (the unsplit path, compiled as before the split; the other arguments are
+// unused).  KEY_SPLIT true: grid (rows / 64, B * KV, nchunk), blockIdx.z the
+// block's chunk of the keys [k_begin, k_end) (attn_plan::chunk_begin); the
+// rows' unnormalised partials of the chunk go to `part`
+// (tiled_scratch_bytes: acc [nchunk][B KV][M][HD], then (m, l) [nchunk]
+// [B KV][M][2]), merged by flash_tiled_merge.
+template <int HD, bool KEY_SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tiled(Args a, int nchunk, int k_begin, int k_end, float* part) {
   using C = Tiled<HD>;
   using T = float;  // k/v: the bf16 ones go to flash_wgmma
   extern __shared__ float4 smem4[];
@@ -245,6 +264,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
 
   int k_lo, k_hi;
   block_keys(a, m0, m_last, k_lo, k_hi);
+  const int chunk = blockIdx.z;
+  if constexpr (KEY_SPLIT) {  // this block's chunk of them (inner chunk bounds: multiples of BN)
+    k_lo = max(k_lo, attn_plan::chunk_begin(chunk, nchunk, k_begin, k_end));
+    k_hi = min(k_hi, attn_plan::chunk_begin(chunk + 1, nchunk, k_begin, k_end) - 1);
+  }
 
   int klo[4], khi[4];  // the keys each of the thread's rows may see
   float m_i[4], l_i[4], acc[4][C::DPT];
@@ -369,6 +393,29 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
     }
   }
 
+  if constexpr (KEY_SPLIT) {  // the chunk's partials: acc, then (m, l)
+    const int64_t rows = static_cast<int64_t>(gridDim.y) * M;  // B KV x M
+    const int64_t at = (static_cast<int64_t>(chunk) * gridDim.y + bkv) * M;
+    float* acc_p = part + at * HD;
+    float* ml_p = part + static_cast<int64_t>(nchunk) * rows * HD + at * 2;
+    const bool none = k_lo > k_hi;  // no tile of this chunk: weight 0 in the merge
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty * 4 + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int ch = 0; ch < C::NCH; ++ch)
+        *reinterpret_cast<float4*>(acc_p + static_cast<int64_t>(m) * HD + tx * C::VEC +
+                                   16 * C::VEC * ch) =
+            make_float4(acc[i][ch * C::VEC], acc[i][ch * C::VEC + 1], acc[i][ch * C::VEC + 2],
+                        acc[i][ch * C::VEC + 3]);
+      if (tx == 0) {
+        ml_p[2 * m] = none ? -INFINITY : m_i[i];
+        ml_p[2 * m + 1] = l_i[i];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -387,6 +434,56 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tiled(Args a) {
     if (a.lse != nullptr && tx == 0)
       a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Tq + t] = m_i[i] + logf(den);
   }
+}
+
+// flash_tiled's split: one warp per row (batch x kv head, m) merges the
+// nchunk partials in chunk order: weights w_c = exp(m_c - max), l = sum_c
+// l_c w_c, o = sum_c acc_c w_c / l, lse = max + log l.  A chunk with m_c =
+// -inf (no key of it seen) weighs 0.  Lane l holds columns 4 l + 128 j.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_tiled_merge(Args a, int B, int nchunk,
+                                                               const float* part) {
+  const int64_t M = static_cast<int64_t>(a.Tq) * a.groups;
+  const int64_t rows = static_cast<int64_t>(B) * a.KV * M;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* ml = part + static_cast<int64_t>(nchunk) * rows * HD;
+  float mx = -INFINITY;
+  for (int c = 0; c < nchunk; ++c) mx = fmaxf(mx, ml[(c * rows + row) * 2]);
+  float l = 0.f;
+  float4 s[HD / 128];
+#pragma unroll
+  for (int j = 0; j < HD / 128; ++j) s[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nchunk; ++c) {
+    const float mc = ml[(c * rows + row) * 2];
+    const float w = mc == -INFINITY ? 0.f : expf(mc - mx);
+    l = fmaf(ml[(c * rows + row) * 2 + 1], w, l);
+    const float* acc = part + (c * rows + row) * HD + 4 * lane;
+#pragma unroll
+    for (int j = 0; j < HD / 128; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(acc + 128 * j);
+      s[j].x = fmaf(x.x, w, s[j].x);
+      s[j].y = fmaf(x.y, w, s[j].y);
+      s[j].z = fmaf(x.z, w, s[j].z);
+      s[j].w = fmaf(x.w, w, s[j].w);
+    }
+  }
+  const float den = fmaxf(l, 1e-30f);
+  const int bkv = static_cast<int>(row / M), m = static_cast<int>(row % M);
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int t = m / a.groups, h = kvh * a.groups + m % a.groups;
+  float* op = a.o + b * a.sob + t * a.sot + h * a.soh;
+#pragma unroll
+  for (int j = 0; j < HD / 128; ++j) {
+    const int col = 4 * lane + 128 * j;
+    const float x[4] = {s[j].x / den, s[j].y / den, s[j].z / den, s[j].w / den};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < a.hd) op[col + e] = x[e];
+  }
+  if (a.lse != nullptr && lane == 0)
+    a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Tq + t] = mx + logf(den);
 }
 
 // ---------------------------------------------------------------------------
@@ -1043,15 +1140,38 @@ cudaError_t launch_split(const Args& a, int B, uint32_t* parts, cudaStream_t str
   return launch_flash_wgmma<HD, true>(mk, mv, a, B, 0, 0, stream);
 }
 
+// flash_tiled, its keys split by attn_plan::tiled_chunks: one chunk (keys
+// 0 .. Tk, no scratch), or nchunk chunks into `split` (tiled_scratch_bytes
+// of it), then flash_tiled_merge.
 template <int HD>
-cudaError_t launch_tiled(const Args& a, int B, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(flash_tiled<HD>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(Tiled<HD>::kSmem));
+cudaError_t launch_tiled(const Args& a, int B, float* split, int64_t split_bytes, int sms,
+                         cudaStream_t stream) {
+  int k_begin, k_end;
+  const int nchunk = attn_plan::tiled_chunks(B, a.Tq, a.Tk, a.H, a.KV, a.q_offset, a.window,
+                                             a.kv_len, a.causal, sms, &k_begin, &k_end);
+  if (nchunk > 1 &&
+      (split == nullptr || reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
+       split_bytes < attn_plan::tiled_scratch_bytes(nchunk, B, a.Tq, a.H, a.KV)))
+    return cudaErrorInvalidValue;
+  // the opt-in above 48 KB holds per device, so it is set on every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      nchunk == 1 ? flash_tiled<HD, false> : flash_tiled<HD, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Tiled<HD>::kSmem));
   if (e != cudaSuccess) return e;
   const int M = a.Tq * a.groups;
-  const dim3 grid((M + BM - 1) / BM, B * a.KV);
-  flash_tiled<HD><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a);
+  const dim3 grid((M + BM - 1) / BM, B * a.KV, nchunk);
+  if (nchunk == 1) {
+    flash_tiled<HD, false><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a, 1, 0, a.Tk, nullptr);
+    return cudaGetLastError();
+  }
+  flash_tiled<HD, true><<<grid, kThreads, Tiled<HD>::kSmem, stream>>>(a, nchunk, k_begin, k_end,
+                                                                       split);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return e2;
+  const int64_t rows = static_cast<int64_t>(B) * a.KV * M;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  flash_tiled_merge<HD><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock),
+                          kThreads, 0, stream>>>(a, B, nchunk, split);
   return cudaGetLastError();
 }
 
@@ -1072,13 +1192,14 @@ cudaError_t launch_decode(const Args& a, int B, float* scratch, int nsplit, int 
 
 template <int HD>
 cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t* kv_parts,
-                     int nsplit, int k_begin, int k_end, int chunk, cudaStream_t s) {
+                     int nsplit, int k_begin, int k_end, int chunk, float* split,
+                     int64_t split_bytes, int sms, cudaStream_t s) {
   if (scratch == nullptr) {
     if (kv_bf16) return launch_wgmma<HD>(a, B, s);
     if constexpr (HD <= 128) {
       return launch_split<HD>(a, B, kv_parts, s);
     } else {
-      return launch_tiled<HD>(a, B, s);
+      return launch_tiled<HD>(a, B, split, split_bytes, sms, s);
     }
   }
   const bool two = a.Tq * a.groups <= 2;
@@ -1100,12 +1221,16 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t
 // log-sum-exp.  Otherwise the decode design over keys [k_begin, k_end) in
 // nsplit chunks of `chunk` keys, with part its scratch (see flash_decode):
 // counters that are 0 when the call starts and 0 again when it ends.
+// flash_tiled splits its keys on a card of `sms` SMs as attn_plan.h's
+// tiled_chunks decides, into `split` (split_bytes, at least
+// tiled_scratch_bytes; null when it runs one chunk).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   int kv_bf16, int hd, int B, int Tq, int Tk, int H, int KV,
                                   const void* strides, int q_offset, int window, int kv_len,
                                   int causal, float softcap, void* lse, void* kv_parts,
                                   void* part, int nsplit, int k_begin, int k_end, int chunk,
-                                  void* stream) {
+                                  void* split, int64_t split_bytes, int sms, void* stream) {
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* st = static_cast<const int64_t*>(strides);
   if (part != nullptr &&
       (Tq * (H / KV) > kMaxSplitRows || chunk < 1 || nsplit < 1 || nsplit > kMaxChunks))
@@ -1133,14 +1258,27 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
   uint32_t* kp = static_cast<uint32_t*>(kv_parts);
+  float* sp = static_cast<float*>(split);
   cudaError_t e;
   switch (hd) {
-    case 32: e = dispatch<32>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
-    case 64: e = dispatch<64>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
+    case 32:
+      e = dispatch<32>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, sp, split_bytes, sms,
+                       s);
+      break;
+    case 64:
+      e = dispatch<64>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, sp, split_bytes, sms,
+                       s);
+      break;
     case 112:
     case 120:
-    case 128: e = dispatch<128>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
-    case 256: e = dispatch<256>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, s); break;
+    case 128:
+      e = dispatch<128>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, sp, split_bytes,
+                        sms, s);
+      break;
+    case 256:
+      e = dispatch<256>(kv_bf16, a, B, pp, kp, nsplit, k_begin, k_end, chunk, sp, split_bytes,
+                        sms, s);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

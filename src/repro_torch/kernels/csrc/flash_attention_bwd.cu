@@ -120,6 +120,25 @@
 //   The fixed operands are read unpadded, with each 8-byte slot s of row r
 //   at s ^ ((r & 3) << 2): the 16 lanes of a half-warp (4 rows x 4 slots)
 //   hit 16 different bank pairs.
+//   The dS path (attn_plan.h: bwd_dq_chunks).  Where the dQ grid (B x H x
+//   Tq / 64 blocks) is under one wave of SMs (gemma3-4b's sequence-split
+//   islands: 32 blocks on 132 SMs, each streaming 4,096 / 16 key tiles),
+//   bwd_wide<true> is replaced: the dK/dV pass, which forms dS for every
+//   (key tile, query tile) pair it visits, also stores it (bwd_wide<false,
+//   true>, its own instance, so the full layers' pass is unchanged; float32, [B H]
+//   [Tq][Tk], 33.5 MB at the island), and bwd_dq_ds computes dQ = dS K /
+//   sqrt(hd) from it on the tensor cores, its grid also over chunks of the
+//   visible keys (4 of 1,024 at the island: 128 blocks), each chunk's dQ a
+//   partial that bwd_dq_merge sums in chunk order (one chunk: dQ directly).
+//   bwd_dq_ds keeps bwd_wide's product: two consumer warpgroups of 128
+//   columns, per 16-key tile dS (64 x 16, read from memory into the A
+//   fragment and split into three bf16 parts in registers) times k's parts
+//   (streamed by TMA through an 8-slot ring), two 64-column slices of six
+//   m64n64k16 products in fresh accumulators.  It reads dS only inside
+//   each row's visible keys (zeros elsewhere), which the dK/dV pass always
+//   writes: a row's visible keys lie in key blocks whose stream range holds
+//   the row.  Its bound: 2 hd per visible pair of the 10 hd above, at the
+//   six products' rate.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -127,6 +146,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_plan.h"
 #include "wgmma.cuh"
 
 namespace {
@@ -155,6 +175,7 @@ struct BwdArgs {
   uint32_t* vp;
   float* lse_p;
   float* d_p;
+  float* ds;  // the dS path: dS [B H][Tq][Tk] float32, stored by bwd_wide<false, true>; else null
   int B, Tq, Tk, Tp, H, KV, groups, hd;  // Tp: Tq padded to kPadRows
   int q_offset, window, causal;
   float softcap, sqrt_hd;
@@ -201,7 +222,8 @@ struct Bw {
   static constexpr int ROWS = 64 * NWG;            // fixed rows per block
 };
 
-constexpr int kPadRows = 128;  // lse and D rows padded to a multiple of every block's rows
+constexpr int kPadRows = attn_plan::kPadRows;  // lse and D rows padded to a multiple of every
+                                              // block's rows
 
 // The streamed rows [lo, hi] that fixed rows r_first .. r_last can reach:
 // dK/dV pass (fixed keys) the queries that see one of the keys; dQ pass
@@ -644,8 +666,9 @@ __device__ __forceinline__ void add_slice(float (&o)[Wd::HALF / 2], float (&t)[W
 // rows.  str0 / str1: the streamed operands' parts [part][batch x head][T]
 // [256], boxes of 16 rows; dK/dV pass q (0) and dO (1), dQ pass v (0) and k
 // (1): the order in which a tile's two operands are last read, so the ring
-// frees its slots in order.
-template <bool DQ>
+// frees its slots in order.  DS (the dK/dV pass on the dS path): dS also
+// stored, to a.ds.
+template <bool DQ, bool DS = false>
 __global__ void __launch_bounds__(Wd::THREADS, 1)
     bwd_wide(const __grid_constant__ CUtensorMap str0, const __grid_constant__ CUtensorMap str1,
              BwdArgs a) {
@@ -818,6 +841,22 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
           acc_s[i] = p;
         }
     }
+    if constexpr (DS) {
+      // the dS path: dS^T's key row r0 + r_lo + 8 wg (both warpgroups hold
+      // the same dS; each stores one of its two rows) into dS [q head][query][key]
+      const int key = r0 + r_lo + 8 * wg;
+      if (key < a.Tk) {
+        float* dst = a.ds + static_cast<int64_t>(sbh) * a.Tq * a.Tk + key;
+#pragma unroll
+        for (int j = 0; j < C::BS / 8; ++j)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const int qi = row0 + 8 * j + cq + f;
+            if (qi < a.Tq)
+              dst[static_cast<int64_t>(qi) * a.Tk] = wg ? acc_dp[4 * j + 2 + f] : acc_dp[4 * j + f];
+          }
+      }
+    }
     uint32_t fp[kParts][4], fd[kParts][4];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
@@ -881,14 +920,164 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
   }
 }
 
-// Bytes of scratch the tensor-core design needs (kernel.py's
-// bwd_scratch_bytes mirrors it): the parts of q, dO ([3][B H][T][HDK] bf16
-// each) and of k, v ([3][B KV][T][HDK]), then lse and D as [B H][Tp].
-int64_t wgmma_scratch_bytes(int HDK, int B, int Tq, int Tk, int H, int KV) {
-  const int64_t tp = (static_cast<int64_t>(Tq) + kPadRows - 1) / kPadRows * kPadRows;
-  return 2 * 2 * kParts * static_cast<int64_t>(B) * HDK *
-             (static_cast<int64_t>(Tq) * H + static_cast<int64_t>(Tk) * KV) +
-         2 * 4 * static_cast<int64_t>(B) * H * tp;
+// ---------------------------------------------------------------------------
+// bwd_dq_ds (the dS path's dQ, hd 256).  Grid (B x H, Tq / 64, nchunk), the
+// longest row tiles first; 384 threads as bwd_wide's: warpgroup 0 the
+// producer (one thread streams k's parts, 16-row items, through a ring of
+// kDsSlots), warpgroups 1, 2 the consumers, each owning 128 of dQ's 256
+// columns, with bwd_wide's fragment layout.  kmap: k's parts [part][B KV]
+// [Tk][256], boxes of 16 rows.  part == nullptr (one chunk): dQ / sqrt(hd)
+// written here; else the chunk's partial [nchunk][B H][Tq][256] (unscaled).
+// ---------------------------------------------------------------------------
+
+constexpr int kDsSlots = 8;
+constexpr size_t kDsSmem = kDsSlots * Wd::ITEM + 2 * kDsSlots * 8 + 1024;  // + base alignment
+
+__global__ void __launch_bounds__(Wd::THREADS, 1)
+    bwd_dq_ds(const __grid_constant__ CUtensorMap kmap, BwdArgs a, int nchunk, int k_begin,
+              int k_end, float* part) {
+  using C = Wd;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t s_ring = smem_u32(smem);
+  const uint32_t bar_full = s_ring + kDsSlots * C::ITEM, bar_empty = bar_full + 8 * kDsSlots;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / a.groups;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int chunk = blockIdx.z;
+  int lo, hi;  // the keys of this chunk that the block's rows see, as 16-key items
+  stream_range<true>(a, r0, r0 + 63, lo, hi);
+  lo = max(lo, attn_plan::chunk_begin(chunk, nchunk, k_begin, k_end));
+  hi = min(hi, attn_plan::chunk_begin(chunk + 1, nchunk, k_begin, k_end) - 1);
+  const int s_first = lo / C::BS;
+  const int n_items = hi >= lo ? hi / C::BS - s_first + 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDsSlots; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      const int nbh = a.B * a.KV;
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % kDsSlots;
+        mbar_wait(bar_empty + 8 * s, ((i / kDsSlots) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, C::ITEM);
+        for (int p = 0; p < kParts; ++p)
+#pragma unroll
+          for (int c = 0; c < C::NATOM; ++c)
+            tma_load_3d(s_ring + s * C::ITEM + p * C::ITEM_PART + c * C::BS * C::SW, &kmap,
+                        bar_full + 8 * s, c * C::ATOM, (s_first + i) * C::BS,
+                        p * nbh + b * a.KV + kvh);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = (tid >> 7) - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  int vlo[2], vhi[2];  // the keys each of the thread's rows sees (none past Tq)
+  const float* ds_row[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + r_lo + 8 * e;
+    row_range<true>(a, r, vlo[e], vhi[e]);  // a row past Tq sees none
+    ds_row[e] = a.ds + (r < a.Tq ? (static_cast<int64_t>(bh) * a.Tq + r) * a.Tk : 0);
+  }
+  // item i's A fragment (dS, rows r_lo, r_lo + 8 x keys cq, cq + 1, cq + 8,
+  // cq + 9 of the item): zeros outside each row's visible keys, which are
+  // never read
+  auto load = [&](int i, float (&x)[8]) {
+    const int k0 = (s_first + i) * C::BS + cq;
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = f & 1, key = k0 + 8 * (f >> 1) + u;
+        x[2 * f + u] = vlo[e] <= key && key <= vhi[e] ? __ldg(ds_row[e] + key) : 0.f;
+      }
+  };
+  float o0[C::HALF / 2];
+#pragma unroll
+  for (int i = 0; i < C::HALF / 2; ++i) o0[i] = 0.f;
+  float cur[8];
+  if (n_items > 0) load(0, cur);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % kDsSlots;
+    const uint32_t item = s_ring + s * C::ITEM;
+    float nxt[8];  // the next item's dS, in flight during this item's products
+    if (i + 1 < n_items) load(i + 1, nxt);
+    uint32_t fd[kParts][4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) split3(cur[2 * f], cur[2 * f + 1], fd[0][f], fd[1][f], fd[2][f]);
+    mbar_wait(bar_full + 8 * s, (i / kDsSlots) & 1);
+    // dQ += dS . K: TN-column slices, two fresh accumulators in turn
+    constexpr int NSL = C::HALF / C::TN;
+    float tt[2][C::TN / 2];
+#pragma unroll
+    for (int q = 0; q <= NSL; ++q) {
+      if (q < NSL) wide_slice(tt[q & 1], fd, item, wg, q);
+      if (q > 0) {
+        if (q < NSL) {
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        add_slice(o0, tt[(q - 1) & 1], q - 1);
+      }
+    }
+    mbar_arrive(bar_empty + 8 * s);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) cur[u] = i + 1 < n_items ? nxt[u] : 0.f;
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + r_lo + 8 * e;
+    if (r >= a.Tq) continue;
+    float* dst = part == nullptr
+                     ? a.dq + q_row(a, b, r, h)
+                     : part + ((static_cast<int64_t>(chunk) * a.B * a.H + bh) * a.Tq + r) * C::HD;
+    const float div = part == nullptr ? a.sqrt_hd : 1.f;  // a partial is merged unscaled
+#pragma unroll
+    for (int j = 0; j < C::HALF / 8; ++j) {
+      const int col = C::HALF * wg + 8 * j + cq;
+      *reinterpret_cast<float2*>(dst + col) =
+          make_float2(o0[4 * j + 2 * e] / div, o0[4 * j + 2 * e + 1] / div);
+    }
+  }
+}
+
+// dQ = the chunks' partials summed in chunk order / sqrt(hd): one thread per
+// 4 columns of a (b, t, h) row.
+__global__ void __launch_bounds__(kThreads) bwd_dq_merge(BwdArgs a, int nchunk, const float* part) {
+  constexpr int V = Wd::HD / 4;
+  const int64_t n = static_cast<int64_t>(a.B) * a.H * a.Tq * V;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int col = static_cast<int>(i % V) * 4;
+  const int64_t row = i / V;  // (b H + h) Tq + t
+  const int t = static_cast<int>(row % a.Tq);
+  const int bh = static_cast<int>(row / a.Tq), b = bh / a.H, h = bh % a.H;
+  const int64_t stride = static_cast<int64_t>(a.B) * a.H * a.Tq * Wd::HD;
+  float4 sum = *reinterpret_cast<const float4*>(part + row * Wd::HD + col);
+  for (int c = 1; c < nchunk; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(part + c * stride + row * Wd::HD + col);
+    sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+  }
+  *reinterpret_cast<float4*>(a.dq + q_row(a, b, t, h) + col) =
+      make_float4(sum.x / a.sqrt_hd, sum.y / a.sqrt_hd, sum.z / a.sqrt_hd, sum.w / a.sqrt_hd);
 }
 
 template <int HD, bool DQ>
@@ -917,7 +1106,30 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool DQ>
+// The dS path's dQ: bwd_dq_ds over nchunk chunks of keys [k_begin, k_end),
+// then (more than one chunk) bwd_dq_merge of the partials in `part`.
+cudaError_t launch_dq_ds(const BwdArgs& a, int nchunk, int k_begin, int k_end, float* part,
+                         cudaStream_t s) {
+  using C = Wd;
+  CUtensorMap km;
+  if (!make_parts_map(&km, a.kp, C::HD, a.Tk, static_cast<int64_t>(kParts) * a.B * a.KV, C::BS,
+                      C::ATOM, C::SW))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(bwd_dq_ds, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(kDsSmem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B * a.H, (a.Tq + 63) / 64, nchunk);
+  bwd_dq_ds<<<grid, C::THREADS, kDsSmem, s>>>(km, a, nchunk, k_begin, k_end,
+                                               nchunk > 1 ? part : nullptr);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || nchunk == 1) return e2;
+  const int64_t n = static_cast<int64_t>(a.B) * a.H * a.Tq * (C::HD / 4);
+  bwd_dq_merge<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      a, nchunk, part);
+  return cudaGetLastError();
+}
+
+template <bool DQ, bool DS = false>
 cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
   using C = Wd;
   CUtensorMap s0, s1;
@@ -930,27 +1142,31 @@ cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
     return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
   const cudaError_t e = cudaFuncSetAttribute(
-      bwd_wide<DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+      bwd_wide<DQ, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (e != cudaSuccess) return e;
   const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (tfix + 63) / 64);
-  bwd_wide<DQ><<<grid, C::THREADS, C::kSmem, s>>>(s0, s1, a);
+  bwd_wide<DQ, DS><<<grid, C::THREADS, C::kSmem, s>>>(s0, s1, a);
   return cudaGetLastError();
 }
 
 // The prologues, then the two passes: bwd_wgmma<HD, false / true>, or at hd
-// 256 bwd_wide<false / true>.
+// 256 bwd_wide<false>, then bwd_wide<true> or, where attn_plan.h's
+// bwd_dq_chunks picks the dS path (nchunk > 0), bwd_wide<false, true> (dS
+// stored) and bwd_dq_ds.  The scratch as
+// attn_plan::bwd_layout lays it out.
 template <int HD>
-cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
+cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int k_end,
+                         cudaStream_t s) {
   a.Tp = (a.Tq + kPadRows - 1) / kPadRows * kPadRows;
-  const int64_t qpart = static_cast<int64_t>(a.B) * a.H * a.Tq * HD;  // bf16 per part
-  const int64_t kpart = static_cast<int64_t>(a.B) * a.KV * a.Tk * HD;
-  uint16_t* p = static_cast<uint16_t*>(scratch);
-  a.qp = reinterpret_cast<uint32_t*>(p);
-  a.dop = reinterpret_cast<uint32_t*>(p + kParts * qpart);
-  a.kp = reinterpret_cast<uint32_t*>(p + 2 * kParts * qpart);
-  a.vp = reinterpret_cast<uint32_t*>(p + 2 * kParts * qpart + kParts * kpart);
-  a.lse_p = reinterpret_cast<float*>(p + 2 * kParts * (qpart + kpart));
-  a.d_p = a.lse_p + static_cast<int64_t>(a.B) * a.H * a.Tp;
+  const attn_plan::BwdLayout l = attn_plan::bwd_layout(HD, a.B, a.Tq, a.Tk, a.H, a.KV, nchunk);
+  uint8_t* p = static_cast<uint8_t*>(scratch);
+  a.qp = reinterpret_cast<uint32_t*>(p + l.qp);
+  a.dop = reinterpret_cast<uint32_t*>(p + l.dop);
+  a.kp = reinterpret_cast<uint32_t*>(p + l.kp);
+  a.vp = reinterpret_cast<uint32_t*>(p + l.vp);
+  a.lse_p = reinterpret_cast<float*>(p + l.lse);
+  a.d_p = reinterpret_cast<float*>(p + l.d);
+  a.ds = nchunk > 0 ? reinterpret_cast<float*>(p + l.ds) : nullptr;
   const int64_t qrows = static_cast<int64_t>(a.B) * a.Tp * a.H;
   const int64_t krows = static_cast<int64_t>(a.B) * a.Tk * a.KV;
   constexpr int kRowsPerBlock = kThreads / 32;
@@ -963,9 +1179,14 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (HD == 256) {
-    e = launch_wide<false>(a, s);
+    if (nchunk == 0) {
+      e = launch_wide<false>(a, s);
+      if (e != cudaSuccess) return e;
+      return launch_wide<true>(a, s);
+    }
+    e = launch_wide<false, true>(a, s);
     if (e != cudaSuccess) return e;
-    return launch_wide<true>(a, s);
+    return launch_dq_ds(a, nchunk, k_begin, k_end, reinterpret_cast<float*>(p + l.dq_part), s);
   } else {
     e = launch_pass<HD, false>(a, s);
     if (e != cudaSuccess) return e;
@@ -979,20 +1200,26 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, cudaStream_t s) {
 // H, Tq]; all float32 and contiguous.  q row i sits at position q_offset +
 // i; a causal or windowed call needs 0 <= q_offset and q_offset + Tq <= Tk
 // (every row then sees its own key).  scratch: scratch_bytes of device
-// memory, at least rt_flash_attention_bwd_scratch's (16-byte aligned).  hd
-// 32, 64, 112 and 120 (the 128-wide template), 128: bwd_wgmma; 256:
-// bwd_wide; four launches each, all on `stream`.
+// memory, at least attn_plan::bwd_layout's total for the dQ plan a card of
+// `sms` SMs gets (attn_plan.h's bwd_dq_chunks; rt_flash_attention_bwd_plan
+// in attn_plan.cc gives it), 16-byte aligned.  hd 32, 64, 112 and 120 (the
+// 128-wide template), 128: bwd_wgmma; 256: bwd_wide, on the dS path where
+// its dQ grid is under one wave; four or five launches, all on `stream`.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dk,
                                       void* dv, void* scratch, int64_t scratch_bytes, int hd,
                                       int B, int Tq, int Tk, int H, int KV, int q_offset,
-                                      int window, int causal, float softcap, void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0)
+                                      int window, int causal, float softcap, int sms,
+                                      void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((causal || window > 0) && (q_offset < 0 || q_offset + Tq > Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hdk = hd == 112 || hd == 120 ? 128 : hd;
-  const int64_t need = wgmma_scratch_bytes(hdk, B, Tq, Tk, H, KV);
+  int k_begin = 0, k_end = 0;
+  const int nchunk = attn_plan::bwd_dq_chunks(hd, B, Tq, Tk, H, q_offset, window, causal, sms,
+                                              &k_begin, &k_end);
+  const int64_t need = attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, nchunk).total;
   if (scratch == nullptr || scratch_bytes < need ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1013,26 +1240,13 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (hd) {
-    case 32: e = launch_wgmma<32>(a, scratch, s); break;
-    case 64: e = launch_wgmma<64>(a, scratch, s); break;
+    case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, s); break;
+    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, s); break;
     case 112:
     case 120:
-    case 128: e = launch_wgmma<128>(a, scratch, s); break;
-    case 256: e = launch_wgmma<256>(a, scratch, s); break;
+    case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, s); break;
+    case 256: e = launch_wgmma<256>(a, scratch, nchunk, k_begin, k_end, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
-}
-
-// The scratch bytes rt_flash_attention_bwd needs for these sizes, into
-// *bytes; cudaErrorInvalidValue for a head width it does not take.
-extern "C" int rt_flash_attention_bwd_scratch(int hd, int B, int Tq, int Tk, int H, int KV,
-                                              void* bytes) {
-  int64_t* out = static_cast<int64_t*>(bytes);
-  switch (hd) {
-    case 32: case 64: case 128: case 256: *out = wgmma_scratch_bytes(hd, B, Tq, Tk, H, KV); break;
-    case 112: case 120: *out = wgmma_scratch_bytes(128, B, Tq, Tk, H, KV); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaSuccess);
 }

@@ -15,15 +15,25 @@ with at most ``SPLIT_ROWS`` (decode) ``flash_decode`` cuts the keys the rows
 can see into chunks, one block each, and the last block of each kv head to
 finish merges them, in the same launch.
 
+The key split of the hd-256 float32 designs (``csrc/attn_plan.h``): where
+``flash_tiled``'s grid, or ``bwd_wide``'s dQ grid, is under one wave of the
+card's SMs (gemma3-4b's sequence-split islands), the CUDA entry point cuts
+the visible keys into chunks of whole 64-key tiles and merges the chunks'
+partials in chunk order; the wrappers ask the same rule for the scratch
+(``tiled_plan``, ``bwd_plan``) and count the calls that take it
+(``split_launches``: "flash_tiled" the forwards with more than one chunk,
+"bwd_wide" the backwards on the dS path).
+
 ``flash_attention_lse`` is the training path's forward: a float32-k/v
 design, which also writes each row's log-sum-exp, at any ``q_offset`` and
 Tq, Tk (a sequence-split island, a cross-attention); ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
 design ``bwd_design`` names for the head width, both on the bf16 tensor
 cores (``BWD_SPLIT`` bf16 products per float32 product) in four CUDA
-launches (the two split prologues, dK/dV, dQ): ``bwd_wgmma`` for every
-width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward calls and
-``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
+launches (the two split prologues, dK/dV, dQ; five on ``bwd_wide``'s dS
+path with more than one chunk: dQ from dS, then its merge): ``bwd_wgmma``
+for every width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward
+calls and ``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
 backward calls, and ``bwd_design_launches`` the backward calls of each
 design.
 
@@ -34,6 +44,7 @@ the 128-wide kernels with a run-time valid width (``kernel_head_dim``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -45,6 +56,8 @@ fwd_design_launches = {"flash_wgmma": 0, "flash_wgmma_split": 0, "flash_tiled": 
                        "flash_decode": 0}
 bwd_launches = 0
 bwd_design_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
+# calls that took the key split (each also counted above)
+split_launches = {"flash_tiled": 0, "bwd_wide": 0}
 
 HEAD_DIMS = (32, 64, 112, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
@@ -52,6 +65,7 @@ BWD_SPLIT = 6      # bf16 products per float32 product in bwd_wgmma (csrc kSplit
 MIN_CHUNK = 64     # keys per block of the decode design: at least this,
 MAX_CHUNK = 1024   # and at most this while it takes no more than
 MAX_CHUNKS = 1024  # this many chunks per kv head (csrc kMaxChunks)
+MAX_PLAN_CHUNKS = 256  # key-split chunks a call may have (csrc attn_plan::kMaxChunks)
 
 # per device: the decode design's scratch, and how many of its leading
 # words are known to be zero (see _decode_scratch)
@@ -109,6 +123,54 @@ def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.T
         buf[_zeroed[key]:counters].zero_()
     _zeroed[key] = counters  # this call writes its partials past its counters
     return buf
+
+
+@dataclasses.dataclass(frozen=True)
+class KeySplit:
+    """A call's key split, as ``csrc/attn_plan.h`` decides it: ``chunks``
+    (``tiled_plan``: 1 = unsplit; ``bwd_plan``: 0 = the recomputing dQ pass),
+    the call's scratch bytes, and the chunks' key bounds (chunk c holds keys
+    ``bounds[c]`` .. ``bounds[c + 1] - 1``)."""
+
+    chunks: int
+    scratch_bytes: int
+    bounds: tuple[int, ...]
+
+
+def _plan_call(fn, *args) -> KeySplit:
+    nchunk, nbytes = ctypes.c_int(), ctypes.c_int64()
+    bounds = (ctypes.c_int * (MAX_PLAN_CHUNKS + 1))()
+    rc = fn(*(int(a) for a in args), ctypes.addressof(nchunk), ctypes.addressof(nbytes),
+            ctypes.addressof(bounds))
+    if rc != 0:
+        raise ValueError(f"flash_attention: no key-split plan for sizes {args}")
+    n = nchunk.value
+    return KeySplit(n, nbytes.value, tuple(bounds[:n + 1]) if n else ())
+
+
+def tiled_plan(b: int, tq: int, tk: int, h: int, kvh: int, *, causal: bool, window: int,
+               q_offset: int, kv_len: int, sms: int) -> KeySplit:
+    """``flash_tiled``'s key split on a card of ``sms`` SMs (the rule the CUDA
+    entry point applies)."""
+    return _plan_call(_build.plan_library().rt_flash_tiled_plan, b, tq, tk, h, kvh, q_offset,
+                      window, kv_len, causal, sms)
+
+
+def bwd_plan(hd: int, b: int, tq: int, tk: int, h: int, kvh: int, *, causal: bool, window: int,
+             q_offset: int, sms: int) -> KeySplit:
+    """The backward's dQ plan and scratch on a card of ``sms`` SMs (the rule
+    the CUDA entry point applies): 0 chunks for the recomputing pass (every
+    width but 256, and ``bwd_wide`` where its dQ grid fills a wave), else
+    ``bwd_wide``'s dS path."""
+    return _plan_call(_build.plan_library().rt_flash_attention_bwd_plan, hd, b, tq, tk, h, kvh,
+                      q_offset, window, causal, sms)
+
+
+def _scratch_bytes(nbytes: int, dev: torch.device) -> torch.Tensor:
+    """A call's own scratch (the key split's partials and dS, the backward's
+    parts): uninitialised, from the caching allocator; the kernels write
+    every word they read."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def kernel_head_dim(hd: int) -> int:
@@ -192,25 +254,34 @@ def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len, lse=None) 
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                     *o.stride()[:3])
     design = fwd_design(hd, k.dtype, tq * (h // kvh), lse=lse is not None)
+    sms = _sm_count(dev.index or 0)
     part, kv_parts, nsplit, k_begin, k_end, chunk = None, None, 0, 0, 0, 0
+    split = None  # flash_tiled's key-split partials (none unsplit)
     if design == "flash_decode":
         k_begin, k_end = key_range(tq, tk, causal=causal, window=window, q_offset=q_offset,
                                    kv_len=kv_len)
-        nsplit, chunk = split_plan(k_end - k_begin, b * kvh, _sm_count(dev.index or 0))
+        nsplit, chunk = split_plan(k_end - k_begin, b * kvh, sms)
         part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh)
                                * (2 + kernel_head_dim(hd)))
     elif design == "flash_wgmma_split":
         kv_parts = torch.empty(kv_parts_bytes(hd, b, tk, kvh), dtype=torch.uint8, device=dev)
+    elif design == "flash_tiled":
+        plan = tiled_plan(b, tq, tk, h, kvh, causal=causal, window=window, q_offset=q_offset,
+                          kv_len=kv_len, sms=sms)
+        if plan.scratch_bytes:
+            split = _scratch_bytes(plan.scratch_bytes, dev)
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(k.dtype == torch.bfloat16), hd, b, tq, tk, h, kvh, ctypes.addressof(strides),
         q_offset, window, kv_len, int(causal), float(softcap), _build.ptr(lse),
         _build.ptr(kv_parts), _build.ptr(part), nsplit, k_begin, k_end, chunk,
-        _build.stream(dev),
+        _build.ptr(split), 0 if split is None else split.numel(), sms, _build.stream(dev),
     )
     _build.check(rc, "flash_attention")
     launches += 1
     fwd_design_launches[design] += 1
+    if split is not None:
+        split_launches["flash_tiled"] += 1
 
 
 def flash_attention(
@@ -325,19 +396,21 @@ def flash_attention_bwd(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.library()
-    # the split parts of q, dO, k, v and the padded lse, D
-    nbytes = ctypes.c_int64()
-    _build.check(lib.rt_flash_attention_bwd_scratch(hd, b, t, tk, h, kvh,
-                                                    ctypes.addressof(nbytes)),
-                 "flash_attention_bwd")
-    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-    rc = lib.rt_flash_attention_bwd(
+    sms = _sm_count(dev.index or 0)
+    # the split parts of q, dO, k, v, the padded lse, D, and on the dS path
+    # dS and the dQ partials
+    plan = bwd_plan(hd, b, t, tk, h, kvh, causal=bool(causal), window=int(window),
+                    q_offset=int(q_offset), sms=sms)
+    scratch = _scratch_bytes(plan.scratch_bytes, dev)
+    rc = _build.library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), nbytes.value, hd, b, t, tk,
-        h, kvh, int(q_offset), int(window), int(causal), float(softcap), _build.stream(dev),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), scratch.numel(), hd, b, t,
+        tk, h, kvh, int(q_offset), int(window), int(causal), float(softcap), sms,
+        _build.stream(dev),
     )
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     bwd_design_launches[bwd_design(hd)] += 1
+    if plan.chunks:
+        split_launches["bwd_wide"] += 1
     return dq, dk, dv

@@ -21,7 +21,10 @@ of the backward kernel (``csrc/flash_attention_bwd.cu``);
 :func:`attention_fwd_split_ref` and :func:`attention_bwd_split_ref` emulate
 the numerics of the float32-k/v forward's and the backward's tensor-core
 designs (every product of float32 operands as a sum of products of their
-bf16 parts), for the tests only.
+bf16 parts), for the tests only.  :func:`attention_fwd_chunked_ref` and
+:func:`attention_bwd_ds_ref` emulate the key split of ``flash_tiled`` and
+``bwd_wide`` (``csrc/attn_plan.h``: per-chunk partials merged in chunk
+order; dQ from a stored dS), for the tests only.
 """
 
 from __future__ import annotations
@@ -308,6 +311,95 @@ def attention_bwd_split_ref(
     dq = _split_product("bkgqs,bskh->bkgqh", ds, kf, parts, pairs) / math.sqrt(q.shape[3])
     dk = _split_product("bkgqs,bkgqh->bskh", ds, qf, parts, pairs)
     return _unheads(dq), dk, dv
+
+
+def attention_fwd_chunked_ref(
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd]
+    v: torch.Tensor,
+    bounds,                # chunk c holds keys bounds[c] .. bounds[c + 1] - 1
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_tiled``'s key split: each chunk's unnormalised partial (m, l,
+    acc) over its keys, logits masked to -1e30 as in ``attention_ref``; a
+    row that sees no key of a chunk (but some key of the call) gives m =
+    -inf, l = 0, acc = 0; then the merge in chunk order: w_c = exp(m_c -
+    max), l = sum_c l_c w_c, o = sum_c acc_c w_c / l, lse = max + log l.  A
+    row that sees no key at all keeps its -1e30 logits in every chunk: the
+    mean of v over the chunks' keys (all Tk, as the plan gives such a call).
+    (o [B, Tq, H, hd], lse [B, H, Tq]) float32.  Tests only."""
+    b, tq, h, _ = q.shape
+    vf = v.float()
+    _, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                         kv_len=kv_len)
+    s = s.masked_fill(~mask, MASK_VALUE)
+    sees_any = mask.any(-1)                                     # [Tq]
+    parts = []
+    for c in range(len(bounds) - 1):
+        lo, hi = int(bounds[c]), int(bounds[c + 1])
+        sc = s[..., lo:hi]
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        l, acc = p.sum(-1), torch.einsum("bkgqs,bskh->bkgqh", p, vf[:, lo:hi])
+        none = sees_any & ~mask[:, lo:hi].any(-1)               # rows with no key here
+        m = torch.where(none, float("-inf"), m)
+        l = torch.where(none, 0.0, l)
+        acc = torch.where(none[:, None], 0.0, acc)
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_sum, o = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(m == float("-inf"), 0.0, torch.exp(m - mx))
+        l_sum = l_sum + l * w
+        o = o + acc * w[..., None]
+    den = l_sum.clamp_min(1e-30)
+    return _unheads(o / den[..., None]), (mx + torch.log(den)).reshape(b, h, tq)
+
+
+def attention_bwd_ds_ref(
+    q: torch.Tensor,       # [B, Tq, H, hd]
+    k: torch.Tensor,       # [B, Tk, KV, hd]
+    v: torch.Tensor,
+    o: torch.Tensor,       # [B, Tq, H, hd]: the forward's output
+    lse: torch.Tensor,     # [B, H, Tq]: the forward's log-sum-exp
+    do: torch.Tensor,      # [B, Tq, H, hd]: the gradient of o
+    bounds,                # dQ's key chunks, as ``attention_fwd_chunked_ref``'s
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``bwd_wide``'s dS path: :func:`attention_bwd_ref`'s formulas, with dS
+    stored as the dK/dV pass stores it ([B, H, Tq, Tk]; here NaN wherever a
+    row cannot see the key, which the dQ kernel must never read) and dQ =
+    the chunks' dS K (each row's visible keys only) summed in chunk order,
+    then / sqrt(hd).  float32.  Tests only."""
+    kvh = k.shape[2]
+    qf, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                          q_offset=q_offset, kv_len=None)
+    of, dof = _heads(o, kvh), _heads(do, kvh)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqh->bskh", p, dof)
+    ds = p * (torch.einsum("bkgqh,bskh->bkgqs", dof, v.float()) - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dk = torch.einsum("bkgqs,bkgqh->bskh", ds, qf)
+    stored = torch.where(mask, ds, float("nan"))
+    kf = k.float()
+    dq = None
+    for c in range(len(bounds) - 1):
+        lo, hi = int(bounds[c]), int(bounds[c + 1])
+        read = torch.where(mask[:, lo:hi], stored[..., lo:hi], 0.0)
+        part = torch.einsum("bkgqs,bskh->bkgqh", read, kf[:, lo:hi])
+        dq = part if dq is None else dq + part
+    return _unheads(dq / math.sqrt(q.shape[3])), dk, dv
 
 
 def attention_heads_ref(

@@ -10,7 +10,9 @@ expert's ``cap`` rows contributes zero.  Routing is exact against the
 reference: the same ``topi``, stable order, counts, slots and ``keep``.
 
 The expert-parallel dispatch (``_moe_ep``, with a ``ctx`` whose
-``ep_axis`` is set; forward only) is the dataframe shuffle at the tensor
+``ep_axis`` is set; forward only: under autograd, with an input that
+requires a gradient, it raises ``NotImplementedError`` before any
+collective, since its collectives have no autograd rules yet) is the dataframe shuffle at the tensor
 level: the experts are split over the ep axis, each rank routes its share
 of the tokens, all-to-alls the per-expert buckets to the experts' ranks
 (``core.backends.direct``), runs its own experts and sends the results
@@ -144,6 +146,11 @@ def _moe_local(x2d, router, wi, wo, cfg: ArchConfig):
 def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
     """Expert-parallel dispatch over ``ctx.ep_axis`` (forward only).
 
+    Under autograd (grad mode on and any of ``x2d``, ``router``, ``wi``,
+    ``wo`` requiring a gradient) it raises ``NotImplementedError`` before
+    any collective: ``direct.alltoall`` and ``direct.allgather`` have no
+    autograd rules, so the experts' gradients would be lost (ROADMAP A 7 c).
+
     Every rank of the ep axis holds the same ``x2d`` (the activations are
     replicated over it).  The tokens are padded to a multiple of the axis
     size and rank r routes the r-th share; its per-expert buckets [E_pad,
@@ -153,6 +160,10 @@ def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
     all-gathered.  ``wi`` / ``wo`` hold every padded expert or only this
     rank's E_pad / p.  The aux loss is the mean of the ranks' (as the
     reference's ``pmean``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x2d, router, wi, wo)):
+        raise NotImplementedError("moe._moe_ep is forward only: its gradient through the "
+                                  "expert all-to-alls is ROADMAP A 7 c; run it under "
+                                  "torch.no_grad, or train without ep_axis (_moe_local)")
     axes = tuple(ctx.ep_axis) if isinstance(ctx.ep_axis, (tuple, list)) else (ctx.ep_axis,)
     mesh = ctx.mesh
     p, rank = direct.axis_size(axes, mesh), direct.axis_index(axes, mesh)

@@ -603,3 +603,194 @@ def test_decode_scratch_zeroes_counters_a_wider_call_needs():
     assert not bool(again[:64].any())         # the wider call's counters are zero
     assert bool((again[64:] == 7.0).all())    # its partial area is not cleared
     fa_k._scratch.pop(str(dev), None)
+
+
+# -- the key split of the hd-256 float32 designs (flash_tiled, bwd_wide's dQ) -----
+
+# The plan is csrc/attn_plan.h's rule, read here through the same functions
+# the wrappers use (kernel.tiled_plan, kernel.bwd_plan: the host-compiled
+# plan library); an H100 has 132 SMs.  gemma3-4b: 8 q / 4 kv heads of 256;
+# its training attention over tp 16 is 16 sequence-split islands of 256 rows
+# at q_offset 256 r over 4,096 keys.
+SMS = 132
+GEMMA3 = dict(h=8, kvh=4)
+
+
+def _visible_range(tq, tk, causal, window, q_offset, kv_len):
+    mask = _visible(tq, tk, causal, window, q_offset, kv_len)
+    if not mask.any(axis=1).all():
+        return 0, tk
+    cols = np.nonzero(mask.any(axis=0))[0]
+    return int(cols.min()), int(cols.max()) + 1
+
+
+def _check_chunks(plan, lo, hi, blocks):
+    """The chunks cover [lo, hi) exactly once, in order, none empty and (more
+    than one) each of >= 256 keys with inner bounds on 64-key tiles, and the
+    grid stays within one wave when it splits."""
+    bounds = plan.bounds
+    assert len(bounds) == plan.chunks + 1 and bounds[0] == lo and bounds[-1] == hi
+    sizes = np.diff(bounds)
+    assert (sizes > 0).all()
+    if plan.chunks > 1:
+        assert (sizes >= 256).all() and all(x % 64 == 0 for x in bounds[1:-1])
+        assert blocks * plan.chunks <= SMS
+
+
+@pytest.mark.parametrize("r", range(16))
+def test_key_split_plan_at_gemma3_islands(r):
+    """Island r sees 256 (r + 1) keys: the first runs one chunk (forward
+    unsplit; backward on the dS path with one chunk), the second 2, the
+    third 3, every later one 4 (32 blocks x 4 = 128 of 132 SMs)."""
+    kw = dict(causal=True, window=0, q_offset=256 * r)
+    fwd = fa_k.tiled_plan(1, 256, 4096, **GEMMA3, kv_len=4096, sms=SMS, **kw)
+    bwd = fa_k.bwd_plan(256, 1, 256, 4096, **GEMMA3, sms=SMS, **kw)
+    want = min(r + 1, 4)
+    assert fwd.chunks == bwd.chunks == want
+    assert fwd.bounds == bwd.bounds
+    blocks = 256 * 2 // 64 * 4   # rows (position, group) / 64 x kv heads; dQ: 8 heads x 4
+    _check_chunks(fwd, 0, 256 * (r + 1), blocks)
+    assert fwd.scratch_bytes == (0 if want == 1 else want * 4 * 512 * 258 * 4)
+    if r == 15:
+        assert fwd.bounds == (0, 1024, 2048, 3072, 4096)
+        # dS [8 heads][256][4096] and the dQ partials [4][8][256][256], float32
+        recompute = fa_k.bwd_plan(256, 1, 256, 4096, **GEMMA3, sms=32, **kw)
+        assert recompute.chunks == 0  # 32 blocks fill a wave of 32 SMs
+        assert bwd.scratch_bytes - recompute.scratch_bytes == 4 * (8 * 256 * 4096 +
+                                                                   4 * 8 * 256 * 256)
+
+
+@pytest.mark.parametrize("tq,window", [(4096, 0), (4096, 1024)])
+def test_key_split_plan_keeps_full_layers_whole(tq, window):
+    """gemma3-4b's full layers fill the card: the forward runs one chunk with
+    no scratch, the backward the recomputing dQ pass (0 chunks): the
+    unsplit kernels."""
+    kw = dict(causal=True, window=window, q_offset=0)
+    fwd = fa_k.tiled_plan(1, tq, 4096, **GEMMA3, kv_len=4096, sms=SMS, **kw)
+    assert (fwd.chunks, fwd.scratch_bytes) == (1, 0)
+    assert fa_k.bwd_plan(256, 1, tq, 4096, **GEMMA3, sms=SMS, **kw).chunks == 0
+    # every other width: the recomputing pass whatever the grid
+    assert fa_k.bwd_plan(64, 1, 64, 4096, 4, 4, sms=SMS, **dict(kw, q_offset=4032)).chunks == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_key_split_plan_covers_the_visible_keys(seed):
+    """Across random shapes (windows, offsets, kv_len, GQA, rows that see no
+    key): the chunks cover the visible key range exactly once, as the
+    forward's key_range and the plain mask give it, none empty."""
+    rng = np.random.default_rng(seed)
+    for _ in range(150):
+        b, kvh = int(rng.integers(1, 3)), int(rng.choice([1, 2, 4]))
+        h = kvh * int(rng.choice([1, 2, 4]))
+        tq, tk = int(rng.integers(1, 400)), int(rng.integers(1, 5000))
+        causal, window = bool(rng.integers(0, 2)), int(rng.choice([0, 1, 100, 1024]))
+        q_offset = int(rng.integers(0, tk + 50))
+        kv_len = int(rng.integers(0, tk + 10))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        plan = fa_k.tiled_plan(b, tq, tk, h, kvh, kv_len=kv_len, sms=SMS, **kw)
+        lo, hi = _visible_range(tq, tk, causal, window, q_offset, kv_len)
+        assert (lo, hi) == fa_k.key_range(tq, tk, kv_len=kv_len, **kw)
+        _check_chunks(plan, lo, hi, -(-tq * (h // kvh) // 64) * b * kvh)
+        if causal or window:
+            q_offset = min(q_offset, tk - min(tq, tk))   # the gradient's shapes
+            tq = min(tq, tk - q_offset)
+            kw["q_offset"] = q_offset
+        bwd = fa_k.bwd_plan(256, b, tq, tk, h, kvh, sms=SMS, **kw)
+        blocks = b * h * -(-tq // 64)
+        assert (bwd.chunks == 0) == (blocks >= SMS)   # the dS path exactly under one wave
+        if bwd.chunks:
+            _check_chunks(bwd, *_visible_range(tq, tk, causal, window, q_offset, tk), blocks)
+
+
+# island-like shapes (q_offset > 0, Tq < Tk, GQA 2, hd 256) that split:
+# name -> (b, tq, tk, h, kvh, causal, window, softcap, q_offset)
+CHUNK_CASES = {
+    "island": (1, 64, 512, 4, 2, True, 0, 0.0, 448),
+    "island_mid": (1, 96, 1000, 4, 2, True, 0, 0.0, 500),
+    "island_window_softcap": (1, 80, 1500, 4, 2, True, 600, 30.0, 1300),
+    "causal_full": (1, 512, 512, 4, 2, True, 0, 0.0, 0),
+    "cross": (2, 40, 700, 4, 2, False, 0, 0.0, 0),
+}
+
+
+def _chunk_inputs(case):
+    b, tq, tk, h, kvh, causal, window, softcap, off = CHUNK_CASES[case]
+    q, k, v, do = _offset_inputs(b, tq, tk, h, kvh, 256, len(case) + 40)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    return (b, tq, tk, h, kvh), (q, k, v, do), kw
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunked_forward_ref_matches_lse_ref_and_jax(case):
+    """flash_tiled's split (ref.attention_fwd_chunked_ref, the chunks as the
+    plan gives them) against the plain forward with lse and the reference's
+    blocked _attention_flash (its blocks dividing Tq and Tk) or
+    _attention_direct: rows at the start of a causal island see no key of
+    the later chunks."""
+    (b, tq, tk, h, kvh), (q, k, v, _), kw = _chunk_inputs(case)
+    plan = fa_k.tiled_plan(b, tq, tk, h, kvh, kv_len=tk, sms=SMS,
+                           **{x: kw[x] for x in ("causal", "window", "q_offset")})
+    assert plan.chunks >= 2
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    got_o, got_lse = fa_r.attention_fwd_chunked_ref(qt, kt, vt, plan.bounds, **kw)
+    exp_o, exp_lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    np.testing.assert_allclose(got_o.numpy(), exp_o.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), exp_lse.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    jkw = dict(causal=kw["causal"], window=jnp.asarray(kw["window"]), softcap=kw["softcap"],
+               q_offset=kw["q_offset"], kv_len=None)
+    if tq % 16 == 0 and tk % 64 == 0:
+        exp_j = JL._attention_flash(*(jnp.asarray(x) for x in (q, k, v)), **jkw, q_block=16,
+                                    kv_block=64)
+    else:
+        exp_j = JL._attention_direct(*(jnp.asarray(x) for x in (q, k, v)), **jkw)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(exp_j), atol=F32_TOL, rtol=F32_TOL)
+    if case == "causal_full":  # row 0 sees no key of the second chunk: its partial weighs 0
+        assert not _visible(tq, tk, True, 0, 0, tk)[0, plan.bounds[1]:].any()
+
+
+def test_chunked_forward_ref_rows_without_any_key():
+    """kv_len and a window leave the last rows with no key at all: the plan
+    then splits all Tk keys, and the merge gives those rows the mean of v
+    over all of them, as the plain forward does."""
+    b, tq, tk, h, kvh = 1, 70, 800, 4, 2
+    q, k, v, _ = _offset_inputs(b, tq, tk, h, kvh, 256, 71)
+    kw = dict(causal=True, window=16, q_offset=300, kv_len=320)
+    plan = fa_k.tiled_plan(b, tq, tk, h, kvh, sms=SMS, **{x: kw[x] for x in kw if x != "softcap"})
+    assert plan.chunks >= 2 and plan.bounds[0] == 0 and plan.bounds[-1] == tk
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    got, _ = fa_r.attention_fwd_chunked_ref(qt, kt, vt, plan.bounds, **kw)
+    exp = fa_r.attention_ref(qt, kt, vt, **kw)
+    np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+    mean = vt.mean(1, keepdim=True).repeat_interleave(2, 2)
+    np.testing.assert_allclose(got[:, -1:].numpy(), mean.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_ds_path_dq_ref_matches_bwd_ref_and_jax_grad(case):
+    """bwd_wide's dS path (ref.attention_bwd_ds_ref: dS stored with NaN where
+    a row cannot see the key, dQ from each row's visible keys, the plan's
+    chunks summed in order) against the plain backward and jax.grad of the
+    reference's attention at the same offset."""
+    import jax
+
+    (b, tq, tk, h, kvh), (q, k, v, do), kw = _chunk_inputs(case)
+    plan = fa_k.bwd_plan(256, b, tq, tk, h, kvh, sms=SMS,
+                         **{x: kw[x] for x in ("causal", "window", "q_offset")})
+    assert plan.chunks >= 2
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    got = fa_r.attention_bwd_ds_ref(qt, kt, vt, o, lse, dot, plan.bounds, **kw)
+    exp = fa_r.attention_bwd_ref(qt, kt, vt, o, lse, dot, **kw)
+    for name, g, e in zip("qkv", got, exp):
+        assert bool(torch.isfinite(g).all()), f"d{name}"
+        np.testing.assert_allclose(g.numpy(), e.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+
+    def f(q_, k_, v_):
+        out = JL.attention(q_, k_, v_, impl="direct", **kw)
+        return jnp.sum(out * jnp.asarray(do))
+
+    exp_g = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, e in zip("qkv", got, exp_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"jax d{name}")

@@ -457,7 +457,7 @@ def test_flash_bwd_at_offset_matches_plain(cuda, b, tq, tk, h, kvh, hd, causal, 
     _bwd_check(q, k, v, dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset))
 
 
-@pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2)])
+@pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2), (256, 4)])
 def test_flash_bwd_islands_reassemble_the_full_call(cuda, hd, tps):
     """The sequence split's islands (rank r: rows r T / tps .. at q_offset
     r T / tps, every key): dq concatenated and dk, dv summed give the full
@@ -478,6 +478,106 @@ def test_flash_bwd_islands_reassemble_the_full_call(cuda, hd, tps):
         dv += g[2]
     for name, a, e in zip("qkv", (torch.cat(dq, 1), dk, dv), full):
         torch.testing.assert_close(a, e, atol=BWD_TOL, rtol=BWD_TOL, msg=f"d{name}")
+
+
+# -- the key split of the hd-256 float32 designs (csrc/attn_plan.h) ---------------
+
+# islands that split: name -> (tq, tk, h, kvh, q_offset): gemma3-4b's last
+# island at tp 16 (32 blocks, 4 chunks), and a smaller one (8 blocks, 4 chunks)
+SPLIT_ISLANDS = {
+    "gemma3_island": (256, 4096, 8, 4, 3840),
+    "small_island": (128, 1024, 4, 2, 896),
+}
+
+
+def _island(cuda, name, seed=0):
+    tq, tk, h, kvh, off = SPLIT_ISLANDS[name]
+    q, k, v = _flash_inputs(cuda, 1, tq, tk, h, kvh, 256, torch.float32, seed=seed + tq)
+    return q, k, v, dict(causal=True, window=0, softcap=0.0, q_offset=off)
+
+
+def _split_check(q, k, v, kw):
+    """The split forward (with lse) and the dS-path backward against their
+    plain versions; each call counted once in split_launches."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    b, tq, h, _ = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    pkw = dict(causal=kw["causal"], window=kw["window"], q_offset=kw["q_offset"])
+    assert fa_k.tiled_plan(b, tq, tk, h, kvh, kv_len=tk, sms=sms, **pkw).chunks > 1
+    assert fa_k.bwd_plan(256, b, tq, tk, h, kvh, sms=sms, **pkw).chunks > 1
+    before = dict(fa_k.split_launches)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    torch.testing.assert_close(lse, lse_r, atol=FLASH_TOL, rtol=FLASH_TOL)
+    got, _, _ = _bwd_check(q, k, v, kw)       # one more split forward, and the backward
+    after = fa_k.split_launches
+    assert {d: after[d] - before[d] for d in after} == {"flash_tiled": 2, "bwd_wide": 1}
+    return (o, lse), got
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_ISLANDS))
+def test_key_split_matches_plain_at_islands(cuda, name):
+    _split_check(*_island(cuda, name))
+
+
+def test_key_split_rows_without_keys(cuda):
+    """kv_len = 0, and rows past kv_len + window: the split forward (no lse,
+    all Tk keys in chunks) gives them the uniform mean of v."""
+    q, k, v = _flash_inputs(cuda, 1, 200, 1500, 4, 2, 256, torch.float32, seed=2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kw in (dict(kv_len=0), dict(kv_len=300, window=16, q_offset=280)):
+        full = dict(dict(window=0, q_offset=0), **kw)
+        assert fa_k.tiled_plan(1, 200, 1500, 4, 2, causal=True, sms=sms, **full).chunks > 1
+        before = fa_k.split_launches["flash_tiled"]
+        got = fa_k.flash_attention(q, k, v, causal=True, **kw)
+        assert fa_k.split_launches["flash_tiled"] == before + 1
+        torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=True, **kw),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)
+    mean = v.mean(1, keepdim=True).repeat_interleave(2, 2).expand(-1, 200, -1, -1)
+    torch.testing.assert_close(fa_k.flash_attention(q, k, v, kv_len=0), mean,
+                               atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+def test_key_split_is_deterministic(cuda):
+    """The chunks merge in chunk order: repeats of the split forward and the
+    dS-path backward are bit-equal."""
+    q, k, v, kw = _island(cuda, "gemma3_island", seed=1)
+    do = torch.randn_like(q)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(3):
+        o2, lse2 = fa_k.flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_ISLANDS))
+def test_key_split_reads_no_unwritten_scratch(cuda, name, monkeypatch):
+    """Every byte of the calls' scratch starts as 0xff (a float32 NaN): the
+    forward's partials and the backward's dS and dQ partials are read only
+    where the kernels wrote them, so the results stay finite and right."""
+    made = []
+
+    def nan_scratch(nbytes, dev):
+        made.append(nbytes)
+        return torch.full((nbytes,), 255, dtype=torch.uint8, device=dev)
+
+    monkeypatch.setattr(fa_k, "_scratch_bytes", nan_scratch)
+    (o, lse), grads = _split_check(*_island(cuda, name, seed=2))
+    assert len(made) == 3   # two split forwards and the backward
+    assert all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads))
+
+
+def test_key_split_wider_after_narrower(cuda):
+    """A wider split call right after a narrower one, and back (the C 5
+    pattern): each call's scratch is its own, so both are right in either
+    order."""
+    narrow, wide = _island(cuda, "small_island", seed=3), _island(cuda, "gemma3_island", seed=3)
+    for case in (narrow, wide, narrow, wide):
+        _split_check(*case)
 
 
 def test_kimi_head_width_runs(cuda):

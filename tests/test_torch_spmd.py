@@ -39,6 +39,7 @@ Tolerances, each with its reason:
   reference test's limit.
 """
 
+import datetime
 import os
 import pickle
 import subprocess
@@ -496,3 +497,65 @@ def test_moe_ep_matches_local_dispatch(runs, experts):
         np.testing.assert_array_equal(got["out"], ranks[(r // 4) * 4]["moe"][experts]["out"])
         assert np.isfinite(got["aux"])
         assert res["moe"]["expert_rows"] == 2   # 8 experts over 4 ranks
+
+
+def _moe_guard_inputs():
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced(**ranks_.MOE_OVER)
+    g = torch.Generator()
+    g.manual_seed(3)
+    blk = {k: w[0] for k, w in moe.init_moe_block(cfg, g, 1, "cpu").items()}
+    x = torch.tensor(np.random.default_rng(3).normal(size=(2, 16, cfg.d_model)),
+                     dtype=torch.float32)
+    return cfg, blk, x
+
+
+@pytest.mark.parametrize("leaf", ["x2d", "router", "wi", "wo"])
+def test_moe_ep_refuses_autograd_before_any_collective(leaf):
+    """_moe_ep has no gradient yet (ROADMAP A 7 c): with grad mode on and
+    any one of its inputs requiring a gradient it raises NotImplementedError
+    naming A 7 c.  The context has no mesh, so a collective reached first
+    would raise another error: the guard comes before every one."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import DistContext
+
+    cfg, blk, x = _moe_guard_inputs()
+    if leaf == "x2d":
+        x.requires_grad_()
+    else:
+        blk[leaf].requires_grad_()
+    ctx = DistContext(mesh=None, ep_axis="model")
+    with pytest.raises(NotImplementedError, match="A 7 c"):
+        moe.moe_block(x, blk, cfg, ctx)
+    with pytest.raises(NotImplementedError, match="A 7 c"):
+        moe._moe_ep(x.reshape(-1, cfg.d_model), blk["router"], blk["wi"], blk["wo"], cfg, ctx)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="no device mesh"):
+        moe.moe_block(x, blk, cfg, ctx)   # no grad: past the guard, to the first collective
+
+
+def test_moe_ep_forward_under_no_grad_matches_local(tmp_path):
+    """Under torch.no_grad, with inputs that require a gradient, _moe_ep runs
+    its dispatch as before: at world 1 (an in-process gloo group) it gives
+    the local dispatch's output and aux loss at 2e-4."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import DistContext
+
+    cfg, blk, x = _moe_guard_inputs()
+    for w in blk.values():
+        w.requires_grad_()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        with torch.no_grad():
+            y, aux = moe.moe_block(x, blk, cfg, DistContext(mesh=mesh, ep_axis="model"))
+            y_loc, aux_loc = moe.moe_block(x, blk, cfg, None)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(y.numpy(), y_loc.numpy(), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(float(aux), float(aux_loc), atol=2e-4, rtol=2e-4)
