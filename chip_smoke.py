@@ -140,6 +140,22 @@ Phases, one JSON line each:
    TFLOP/s), each against the bytes.  Its time, the plain version's time
    and autograd through float32 ``scaled_dot_product_attention`` as the
    library yardstick.
+6b. kernel — the families' training attention (``FAMILY_TRAIN_SHAPES``),
+   each forward with lse and its backward against the plain versions from
+   the same o and lse, timed as phase 6 times: recurrentgemma-9b's local
+   MQA (q [1, 4096, 16, 256] over bf16 k/v [1, 4096, 1, 256], window 2048:
+   ``flash_wgmma`` and ``bwd_wide``), whisper-medium's encoder (bf16 q/k/v
+   [4, 1500, 16, 64], non-causal, a ragged 1500: ``flash_wgmma`` and
+   ``bwd_wgmma``), its cross-attention (q [4, 448, 16, 64] over bf16 k/v [4,
+   1500, 16, 64]) and its decoder's self-attention (float32, causal, [4,
+   448, 16, 64]: ``flash_wgmma_split``).  bf16 k/v enter the backward as
+   their float32 values, and dk, dv come back rounded to bfloat16: held at
+   ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
+   operands need (``attn_products``: 1 for a product of two bf16 values, 3
+   where one operand is one, 6 where neither is; 4.2 a product for the
+   backward on bf16 k/v, 3.2 where q is a bf16 value too), and
+   ``bound_ms_as_run`` those the design makes (``FLASH_SPLIT``,
+   ``BWD_SPLIT``).
 7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
    weights from ``--seed``, made on the card): B = 4 requests of 4096
    prompt tokens, 32 new tokens each, greedy.  The one run that is counted
@@ -180,6 +196,25 @@ Phases, one JSON line each:
    projection zeroed.  The phase sets
    ``allow_bf16_reduced_precision_reduction`` False (Griffin and Whisper
    refuse to run on the card without it) and restores it after.
+8c. families_train — the families' training at full width through
+   ``make_train_step`` (AdamW at lr 3e-4, constant; C 2), 4 steps on one
+   batch from ``--seed`` each (``FAMILY_TRAIN``): rwkv6-7b at 4 of its 32
+   layers, B 1 x 4096; recurrentgemma-9b at 3 of its 38 (one rec, rec, attn
+   group), B 1 x 4096; whisper-medium at full depth, B 4 x 448 decoder
+   tokens over 1500 frames.  Each line gives the losses, the step wall
+   (median of steps 2-4), tokens/s, the peak memory and the flash
+   attention calls by design, and the per-kernel times of its attention
+   shapes (phase 6b); the run fails unless the losses are finite and step
+   4's is below step 1's, the peak is under 75 GB, and the calls by design
+   are those its layers make (each layer's forward and its recompute, and
+   one backward); then a fifth step under the profiler (a ``trace``
+   line).  ``families_train_check``: each family at ``reduced()``,
+   one step on the card against the CPU from the same master weights and
+   batch: the loss and each gradient (the norm of the difference against
+   the CPU's) within 1e-4 where the family computes in float32 and 2e-2
+   where its activations are bfloat16; and AdamW's update from the CPU's
+   gradient on both sides within 1e-6 (+ 1e-6 of the weight;
+   ``FAMILY_UPDATE_TOL``: a 200th of a step at lr 3e-4).
 9. train   — ``launch.train.train`` on minicpm-2b at full width and depth
    (2,724,880,896 parameters, random from ``--seed``): B 2 x 4096 tokens
    from its own pipeline (``data_iter``), 6 steps with its own
@@ -247,7 +282,9 @@ Phases, one JSON line each:
    parameters after 3 steps within 2 x 3 x lr of each other (the reference
    test's bound), the residual in (0, 1), peak memory under 75 GB.  (e)
    ``_moe_ep`` at world 1 on one full-width qwen3-moe layer (9.66 GB of
-   padded bf16 experts), 4 x 2048 tokens, against ``_moe_local`` at 2e-4.
+   padded bf16 experts), 4 x 2048 tokens, against ``_moe_local`` at 2e-4,
+   forward and backward: the gradients of x, the router, wi and wo (the
+   bf16-stored ones rounded once more).
 
 After each of the join, groupby, serve and train runs, a ``trace`` line:
 one more run (or step) of the same cell under ``torch.profiler``, with the
@@ -257,8 +294,8 @@ longest.
 The launch counters of every kernel are set to 0 just before each of the
 main-path runs (join, each of the comm phase's four joins, groupby, each
 bsp run, the codec's join and groupbys, the jobs' map_reduce, serve, each
-families run, train, and the spmd phase's joins, groupbys, islands, hd 112
-calls and dp steps) and read just after; a kernel
+families run, each families_train run, train, and the spmd phase's joins,
+groupbys, islands, hd 112 calls and dp steps) and read just after; a kernel
 of the path that did not launch, a serve run without exactly 34 + 31 x 34
 flash-attention launches, a families run without its calls by design, or a
 train run without the counts above, fails the run.  Then a ``launches`` line (each counter by run: the kernels, and
@@ -273,6 +310,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import statistics
 import subprocess
@@ -289,6 +327,24 @@ OPS_PER_S = {
 # q and p (bf16 k/v are exact), flash_wgmma_split and the backward split both
 # operands of every product
 FLASH_SPLIT = {"flash_wgmma": 3, "flash_wgmma_split": 6}
+
+
+def products_needed(a_bf16: bool, b_bf16: bool) -> int:
+    """bf16 products that one product of two operands needs for float32
+    accuracy: 1 where both are bf16 values, 3 where one is (the other split
+    in three), 6 where neither is."""
+    return 1 if a_bf16 and b_bf16 else 3 if a_bf16 or b_bf16 else 6
+
+
+def attn_products(q_bf16: bool, kv_bf16: bool) -> tuple[float, float]:
+    """The bf16 products per float32 product, averaged over its matrix
+    products, that attention's forward (S = q k^T, o = p v) and backward
+    (S, dP = do v^T, dV = p^T do, dK = dS^T q, dQ = dS k) need when q and
+    k/v are or are not bf16 values; p, do and dS are float32."""
+    fwd = (products_needed(q_bf16, kv_bf16) + products_needed(False, kv_bf16)) / 2
+    bwd = (products_needed(q_bf16, kv_bf16) + 2 * products_needed(False, kv_bf16)
+           + products_needed(False, False) + products_needed(False, q_bf16)) / 5
+    return fwd, bwd
 
 JOIN_P, JOIN_ROWS = 8, int(9.1e6)            # benchmarks/scaling_join.py:50
 GROUPBY_P, GROUPBY_ROWS, GROUPS = 4, int(50e6), 1000  # benchmarks/groupby_scaling.py:16-17
@@ -345,6 +401,47 @@ FAMILY_CHECK = (("qwen3-moe-235b-a22b", {"num_layers": 1}), ("rwkv6-7b", {"num_l
                 ("recurrentgemma-9b", {"num_layers": 3}),
                 ("whisper-medium", {"num_layers": 2, "encoder_layers": 2}))
 FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW = 2, 16, 16
+# the families_train phase: make_train_step (AdamW at TRAIN_LR, constant, C 2)
+# on one fixed batch from --seed, FAMILY_TRAIN_STEPS steps per family at full
+# width: (run, arch, config overrides, B, tokens, the attention calls by
+# design the run must make).  rwkv6-7b at 4 of its 32 layers, recurrentgemma
+# at 3 of its 38 (one rec, rec, attn group), whisper-medium at full depth over
+# its 1500 frames with openai/whisper's n_text_ctx of 448 decoder tokens.
+# Each layer runs forward and, under remat, again in the backward: per step
+# recurrentgemma 2 flash_wgmma (bf16 k/v) + 1 bwd_wide; whisper 24 x 2
+# encoder + 24 x 2 cross flash_wgmma, 24 x 2 decoder flash_wgmma_split
+# (float32 k/v), 72 bwd_wgmma
+FAMILY_TRAIN_STEPS = 4
+FAMILY_TRAIN = (
+    ("rwkv6", "rwkv6-7b", {"num_layers": 4}, 1, 4096, {}),
+    ("recurrentgemma", "recurrentgemma-9b", {"num_layers": 3}, 1, 4096,
+     {"flash_wgmma": 4 * 2, "bwd_wide": 4}),
+    ("whisper", "whisper-medium", {}, 4, 448,
+     {"flash_wgmma": 4 * 96, "flash_wgmma_split": 4 * 48, "bwd_wgmma": 4 * 72}),
+)
+# the one-step card-vs-CPU check at reduced(): loss and every gradient (the
+# norm of the difference against the CPU gradient's) within 1e-4 where the
+# family computes in float32, 2e-2 where its activations are bfloat16 (its
+# products round to bfloat16 in another order on the card)
+FAMILY_TRAIN_CHECK_B, FAMILY_TRAIN_CHECK_T = 2, 64
+# AdamW's update on the card from the CPU's gradient against the CPU's
+# (absolute, and relative to the weight): float32 rounding only
+FAMILY_UPDATE_TOL = 1e-6
+# the families' training attention shapes (bf16 k/v but Whisper's decoder):
+# (cell, q, k/v, kv dtype, mask, the family run whose path launches it)
+FAMILY_TRAIN_SHAPES = (
+    ("griffin_local_train", (1, 4096, 16, 256), (1, 4096, 1, 256), "bfloat16",
+     dict(causal=True, window=2048), "recurrentgemma"),
+    ("whisper_encoder_train", (4, 1500, 16, 64), (4, 1500, 16, 64), "bfloat16",
+     dict(causal=False, window=0), "whisper"),
+    ("whisper_cross_train", (4, 448, 16, 64), (4, 1500, 16, 64), "bfloat16",
+     dict(causal=False, window=0), "whisper"),
+    ("whisper_self_train", (4, 448, 16, 64), (4, 448, 16, 64), "float32",
+     dict(causal=True, window=0), "whisper"),
+)
+# dk and dv of bf16 k/v come back rounded to bfloat16: BWD_TOL of their
+# float32 values plus one rounding (half an ulp is 2^-9 of the value)
+BF16_ROUND = 2.0**-8
 # the spmd phase: one NCCL rank (NCCL refuses two ranks on one card); the
 # islands of attention_sharded at the training shapes (minicpm-2b's 36 heads
 # do not split over tp 8: the sequence split, 8 islands of 512 rows;
@@ -378,6 +475,9 @@ SIZE_CUTS: list[str] = [
     "step (at 40 the compressed step's residual adds 10.9 GB to the train phase's 70 GB "
     "peak; 8 keeps the phase near a minute)",
     "spmd (e): qwen3-moe-235b-a22b at 1 of its 94 layers (9.66 GB of padded bf16 experts)",
+    "families_train: rwkv6-7b at 4 of its 32 layers, recurrentgemma-9b at 3 of its 38 (one "
+    "rec, rec, attn group; its 2.75B parameters hold 44 GB of float32 state), "
+    f"{FAMILY_TRAIN_STEPS} steps each on one batch",
 ]
 
 # flash attention against its plain version: both read the same k/v (bfloat16
@@ -729,6 +829,97 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes.values()),
         "shapes": shapes, "small_checks_max_abs_err": small, "tol": BWD_TOL, "ptxas": ptx,
     }
+
+
+def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
+    """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b):
+    the forward with lse (``flash_wgmma`` on bf16 k/v, ``flash_wgmma_split``
+    on Whisper's float32 decoder) and the backward (``bwd_wide`` at hd 256,
+    ``bwd_wgmma`` at 64; bf16 k/v enter as their float32 values) against
+    the plain versions from the same o and lse; each timed with its bound
+    (the products its operands need) and the design's, the plain version
+    and SDPA (autograd for the backward).  One row per
+    kernel and shape, named ``<kernel>/<design>@<cell>``."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rows = {}
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for cell, q_shape, kv_shape, kv_dtype, mask_kw, run in FAMILY_TRAIN_SHAPES:
+        kvt = getattr(torch, kv_dtype)
+        q, do = randn(q_shape), randn(q_shape)
+        if cell == "whisper_encoder_train":   # the float32 values of bf16 q
+            q = q.to(torch.bfloat16).float()
+        k, v = randn(kv_shape, kvt), randn(kv_shape, kvt)
+        kw = dict(softcap=0.0, q_offset=0, **mask_kw)
+        hd, rows_per_kv = q_shape[3], q_shape[1] * q_shape[2] // kv_shape[2]
+        fdesign = fa_k.fwd_design(hd, kvt, rows_per_kv, lse=True)
+        bdesign = fa_k.bwd_design(hd)
+        before = dict(fa_k.fwd_design_launches), dict(fa_k.bwd_design_launches)
+        o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if (fa_k.fwd_design_launches[fdesign] != before[0][fdesign] + 1
+                or fa_k.bwd_design_launches[bdesign] != before[1][bdesign] + 1):
+            fail(f"family_train {cell}: not {fdesign} and {bdesign}")
+        o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+        ferr = max(float((a - e).abs().max()) for a, e in ((o, o_r), (lse, lse_r)))
+        if not all(bool(((a - e).abs() <= FLASH_TOL + FLASH_TOL * e.abs()).all())
+                   for a, e in ((o, o_r), (lse, lse_r))):
+            fail(f"family_train {cell}: the forward differs from the plain version by {ferr}")
+        exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        berr = 0.0
+        for name, a, e in zip(("dq", "dk", "dv"), got, exp):
+            rounded = BF16_ROUND if a.dtype == torch.bfloat16 else 0.0
+            err = (a.float() - e).abs()
+            berr = max(berr, float(err.max()))
+            if not bool((err <= BWD_TOL + (BWD_TOL + rounded) * e.abs()).all()):
+                fail(f"family_train {cell}: {name} differs from the plain version by "
+                     f"{float(err.max())}")
+        del o_r, lse_r, exp, got
+        full = dict(causal=kw["causal"], window=kw["window"], q_offset=0, kv_len=kv_shape[1])
+        nbytes, ops = flash_work(torch, q, k, **full)
+        nbytes += lse.numel() * 4
+        # the bound counts the products the operands need (a bf16 value
+        # needs no split); "as_run" counts those the design makes
+        f_split, b_split = attn_products(torch.equal(q.to(torch.bfloat16).float(), q),
+                                         kvt == torch.bfloat16)
+        bms, bby = bound(nbytes, ops, "bf16_tensor", f_split)
+        run_ms, _ = bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[fdesign])
+        ms = timer.ms(lambda: fa_k.flash_attention_lse(q, k, v, **kw))
+        base = {"q": list(q_shape), "kv": list(kv_shape), "kv_dtype": kv_dtype,
+                **kw, "path": f"families_train/{run}"}
+        rows[f"flash_attention/{fdesign}@{cell}"] = {
+            **base, "design": fdesign, "max_abs_err": ferr, "ms": ms,
+            "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **kw)),
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
+            "operations": ops, "split": f_split, "bound_ms_as_run": run_ms,
+            "split_as_run": FLASH_SPLIT[fdesign],
+            "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full))}
+        mask = fa_r.key_mask(q_shape[1], kv_shape[1], causal=kw["causal"], window=kw["window"],
+                             q_offset=0, kv_len=None, device=dev)
+        pairs = int(mask.sum()) * q_shape[0] * q_shape[2]
+        # q, o, do, dq float32; k, v, dk, dv in their own type; lse
+        nbytes = 4 * 4 * q.numel() + 4 * k.numel() * k.element_size() + 4 * lse.numel()
+        bms, bby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", b_split)
+        run_ms, _ = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
+        ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        leaves = [x.float().transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+        library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                          retain_graph=True))
+        rows[f"flash_attention_bwd/{bdesign}@{cell}"] = {
+            **base, "design": bdesign, "max_abs_err": berr, "ms": ms,
+            "plain_ms": timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)),
+            "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
+            "operations": 10 * hd * pairs, "split": b_split, "bound_ms_as_run": run_ms,
+            "split_as_run": fa_k.BWD_SPLIT, "library_ms": library_ms}
+        del q, do, k, v, o, lse, leaves, out, mask
+        torch.cuda.empty_cache()
+    return rows
 
 
 def blocked_pairs_for(world: int, fraction: float, seed: int = 0) -> list[tuple[int, int]]:
@@ -1751,6 +1942,140 @@ def families_check(torch, seed) -> dict:
     return out
 
 
+def family_batch(torch, cfg, b: int, t: int, gen, dev) -> dict:
+    """One training batch from ``gen``: tokens, a mask of ones, and Whisper's
+    frames."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "mask": torch.ones((b, t), device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, cfg.source_positions, cfg.d_model), generator=gen,
+                                      device=dev)
+    return batch
+
+
+def families_train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k, rows) -> None:
+    """The families' training at full width (module doc, phase 8c): per
+    family ``FAMILY_TRAIN_STEPS`` steps of ``make_train_step`` on one batch,
+    counted and timed, each family's state freed before the next."""
+    import dataclasses
+    import math
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    for run, arch, over, b, t, want in FAMILY_TRAIN:
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(cfg, gen, device=dev, master=True)
+        batch = family_batch(torch, cfg, b, t, gen, dev)
+        oc = opt.OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=FAMILY_TRAIN_STEPS,
+                           schedule="constant", state_dtype=cfg.opt_state_dtype)
+        state = opt.init_state(params, oc)
+        step = make_train_step(cfg, oc)
+        torch.cuda.synchronize()
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        losses, stamps = [], []
+        t0 = time.perf_counter()
+        for _ in range(FAMILY_TRAIN_STEPS):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            stamps.append(time.perf_counter())
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        peak = torch.cuda.max_memory_allocated()
+        designs = {d: n for d, n in {**fa_k.fwd_design_launches,
+                                     **fa_k.bwd_design_launches}.items() if n}
+        if designs != want:
+            fail(f"families_train {run}: flash attention ran {designs}, want {want}")
+        for name, c in got.items():
+            launches.setdefault(name, {})[f"families_train/{run}"] = c
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"families_train {run}: losses not finite and falling: {losses}")
+        if peak > 75e9:
+            fail(f"families_train {run}: peak {peak / 1e9:.1f} GB over 75 GB")
+        step_s = [stamps[0] - t0] + [y - x for x, y in zip(stamps, stamps[1:])]
+        median_s = statistics.median(step_s[1:])
+        kernel_ms = {name: {"ms": row["ms"], "bound_ms": row["bound_ms"]}
+                     for name, row in rows.items() if row["path"] == f"families_train/{run}"}
+        emit({"phase": "families_train", "run": run, "arch": arch, "layers": cfg.num_layers,
+              "encoder_layers": cfg.encoder_layers, "params": cfg.param_count(), "B": b,
+              "tokens": t, "steps": FAMILY_TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+              "step_s": step_s, "median_step_s_2_to_4": median_s,
+              "tokens_per_s": b * t / median_s, "peak_mem_bytes": peak, "launches": got,
+              "designs": designs, "attention_kernel_ms": kernel_ms})
+        emit({"phase": "trace", "cell": f"families_train/{run}", **trace(
+            torch, lambda: float(step(params, state, batch)[2]["loss"]), top=8,
+            groups={"products (gemm)": ("gemm",), "flash_attention_bwd": ("bwd_",),
+                    "flash_attention": ("flash_", "fwd_prep"), "other": ("",)})})
+        del params, state, batch, step
+        torch.cuda.empty_cache()
+
+
+def families_train_check(torch, seed) -> dict:
+    """Each training family at reduced(): one step's loss and gradients on
+    the card against the CPU's from the same master weights and batch
+    (``FAMILY_TRAIN_CHECK_*``), and AdamW's update from the CPU's gradient
+    on both (``FAMILY_UPDATE_TOL``)."""
+    from repro_torch import configs
+    from repro_torch.dist.treepath import flatten_with_path, path_str, tree_map
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import _make_grads_of
+
+    def leafwise(tree) -> dict:
+        return {path_str(p): t for p, t in flatten_with_path(tree)}
+
+    dev = torch.device("cuda")
+    out = {}
+    for run, arch, *_ in FAMILY_TRAIN:
+        cfg = configs.get(arch).reduced()
+        tol = SERVE_LOGIT_TOL if api.compute_dtype(cfg) == torch.bfloat16 else REDUCED_F32_TOL
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        p_cpu = api.init_params(cfg, gen, device="cpu", master=True)
+        batch = family_batch(torch, cfg, FAMILY_TRAIN_CHECK_B, FAMILY_TRAIN_CHECK_T, gen, "cpu")
+        grads_of = _make_grads_of(cfg, None, 1, torch.float32)
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        loss_d, _, g_d = grads_of(p_dev, {k: v.to(dev) for k, v in batch.items()})
+        loss_c, _, g_c = grads_of(p_cpu, batch)
+        row = {"tol": tol, "loss_card": float(loss_d), "loss_cpu": float(loss_c)}
+        if abs(float(loss_d) - float(loss_c)) > tol * abs(float(loss_c)):
+            fail(f"families_train_check {run}: loss on the card {float(loss_d)} vs the CPU "
+                 f"{float(loss_c)}")
+        worst = 0.0
+        gd_all = leafwise(g_d)
+        for name, gc in leafwise(g_c).items():
+            rel = float((gd_all[name].cpu() - gc).norm() / gc.norm().clamp(min=1e-30))
+            worst = max(worst, rel)
+            if not rel <= tol:
+                fail(f"families_train_check {run}: gradient {name} differs by {rel} of its norm")
+        # AdamW's first step moves each weight by about lr whatever its
+        # gradient, so the update is checked from the same gradient: the
+        # CPU's, on both sides
+        oc = opt.OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=1, schedule="constant")
+        g_cd = tree_map(lambda t: t.to(dev), g_c)
+        pc, sc = opt.apply_updates(p_cpu, g_c, opt.init_state(p_cpu, oc), oc)
+        pd, sd = opt.apply_updates(p_dev, g_cd, opt.init_state(p_dev, oc), oc)
+        pd_all = leafwise(pd)
+        moved = max(float((pd_all[name].cpu() - w).abs().max()) for name, w in leafwise(pc).items())
+        if not all(bool(((pd_all[name].cpu() - w).abs()
+                         <= FAMILY_UPDATE_TOL * (1 + w.abs())).all())
+                   for name, w in leafwise(pc).items()):
+            fail(f"families_train_check {run}: AdamW's update from the same gradient differs "
+                 f"by {moved} on the card")
+        out[run] = {**row, "grad_max_rel_norm_err": worst, "update_max_abs_err": moved,
+                    "update_tol": FAMILY_UPDATE_TOL}
+        del p_dev, g_d, g_cd, pd, sd
+        torch.cuda.empty_cache()
+    return out
+
+
 def spmd_group(torch, tmp: Path):
     """A process group of one rank on NCCL (a FileStore in ``tmp``) and its
     DeviceMesh("cuda", (1,), ("data",))."""
@@ -1761,6 +2086,9 @@ def spmd_group(torch, tmp: Path):
 
     dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store"), 1), rank=0,
                             world_size=1, timeout=timedelta(seconds=SPMD_PG_TIMEOUT_S))
+    # a phase that fails leaves the group up: destroy it at exit, or NCCL's
+    # watchdog holds the process until the group's timeout
+    atexit.register(lambda: dist.is_initialized() and dist.destroy_process_group())
     if dist.get_backend() != "nccl":
         fail(f"the spmd phase's process group runs {dist.get_backend()}, not nccl")
     mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
@@ -2182,10 +2510,42 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
         ep_wall = time.perf_counter() - t0
         y_loc, aux_loc = moe.moe_block(x, blk, mcfg, None)
     moe_err = errs((y_ep, aux_ep), (y_loc, aux_loc), 2e-4, "moe _moe_ep against _moe_local")
+    del y_ep, y_loc
+    # the backward through both dispatches: the gradients of <out, cot> + aux
+    # for x, the router, wi and wo at 2e-4 (the bf16-stored leaves' gradients
+    # are their float32 sums rounded once, so one rounding more)
+    cot = torch.randn(x.shape, generator=g, device=dev)
+
+    def moe_grads(ctx):
+        leaves = {k: w.detach().requires_grad_() for k, w in blk.items()}
+        xl = x.detach().requires_grad_()
+        y, aux = moe.moe_block(xl, leaves, mcfg, ctx)
+        ((y * cot).sum() + aux).backward()
+        return {"x": xl.grad, **{k: leaves[k].grad for k in ("router", "wi", "wo")}}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_ep = moe_grads(DistContext(mesh=mesh, ep_axis="data"))
+    torch.cuda.synchronize()
+    ep_bwd_wall = time.perf_counter() - t0
+    g_loc = moe_grads(None)
+    grad_err = {}
+    for name, ge in g_ep.items():
+        rounded = BF16_ROUND if ge.dtype == torch.bfloat16 else 0.0
+        grad_err[name] = 0.0
+        # 2^27 elements at a time: the experts' gradients are 9.66 GB in bf16
+        for a, b in zip(ge.reshape(-1).split(1 << 27), g_loc[name].reshape(-1).split(1 << 27)):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            grad_err[name] = max(grad_err[name], float(err.max()))
+            if not bool((err <= 2e-4 + (2e-4 + rounded) * b.abs()).all()):
+                fail(f"spmd moe: the gradient of {name} through _moe_ep differs from "
+                     f"_moe_local's by {grad_err[name]}")
     moe_row = {"arch": "qwen3-moe-235b-a22b", "x": list(x.shape),
                "expert_bytes": sum(w.numel() * w.element_size() for w in blk.values()),
-               "max_abs_err": moe_err, "tol": 2e-4, "wall_s": ep_wall}
-    del blk, x, y_ep, y_loc
+               "max_abs_err": moe_err, "tol": 2e-4, "wall_s": ep_wall,
+               "grad_max_abs_err": grad_err, "ep_fwd_bwd_wall_s": ep_bwd_wall}
+    del blk, x, g_ep, g_loc
     torch.cuda.empty_cache()
     return {"checks": checks, "rows": rows, "dp": dp, "moe": moe_row}
 
@@ -2845,6 +3205,9 @@ def main() -> int:
     # -- 6. flash attention backward at the training path's shapes ---------------
     kernels["flash_attention_bwd"] = flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r)
     emit({"phase": "kernel", **kernels["flash_attention_bwd"]})
+    # -- 6b. the families' training attention: bf16 k/v with lse, the backward
+    train_rows = family_train_rows(torch, gen, timer, fa_k, fa_r)
+    emit({"phase": "kernel", "part": "families_train", "rows": train_rows})
     del timer
     torch.cuda.empty_cache()
 
@@ -2981,6 +3344,11 @@ def main() -> int:
     families_phase(torch, args.seed, launches, hp_k, jp_k, sr_k, fa_k)
     emit({"phase": "families_check", **families_check(torch, args.seed),
           "families_wall_s": time.perf_counter() - t0})
+    # -- 8c. families_train: RWKV-6, Griffin, Whisper through make_train_step --------
+    t0 = time.perf_counter()
+    families_train_phase(torch, args.seed, launches, hp_k, jp_k, sr_k, fa_k, train_rows)
+    emit({"phase": "families_train_check", **families_train_check(torch, args.seed),
+          "families_train_wall_s": time.perf_counter() - t0})
     matmul.allow_bf16_reduced_precision_reduction = reduced_bf16
     torch.cuda.empty_cache()
 
@@ -3013,8 +3381,9 @@ def main() -> int:
         summary[f"flash_attention/{design}"] = {**fa, **fa["shapes"][shape],
                                                 "name": f"flash_attention/{design}"}
     summary["flash_attention_bwd/bwd_wgmma"] = {**bwd, "name": "flash_attention_bwd/bwd_wgmma"}
-    # the spmd phase's new shapes, each counted on its own path
-    for name, row in spmd["rows"].items():
+    # the spmd phase's and the families' training shapes, each counted on its
+    # own path
+    for name, row in {**spmd["rows"], **train_rows}.items():
         base = name.split("@")[0]
         src = bwd if base.startswith("flash_attention_bwd") else fa
         summary[name] = {**{k: src[k] for k in ("route", "source", "replaces")}, **row,

@@ -25,6 +25,18 @@ Every function returns a new tensor (the input is never written), on the
 input's device.  The variable-length collectives follow the paper's
 FMI-extension structure: a fixed-size count exchange first, then a
 fixed-capacity payload exchange with masking.
+
+Autograd.  ``allreduce`` (and so ``allreduce_mean``), ``allgather`` and
+``alltoall`` carry gradients, as ``lax.psum``, ``all_gather`` and
+``all_to_all`` do under ``jax.grad``.  Each rule is the exact gradient of
+the sum of every rank's loss, each rank's output being a function of every
+rank's input: ``allreduce``'s backward is the ``allreduce`` of the
+cotangents, ``allgather``'s the ``reduce_scatter`` of them (rank s gets the
+sum of every rank's cotangent piece s), and ``alltoall``'s the reverse
+all-to-all (``split_dim`` and ``concat_dim`` swapped).  Where every rank
+computes the same loss from replicated activations, that sum is P copies of
+it: the caller scales (``moe._moe_ep``).  Every rank must run the same
+backward, so that the backward's collectives meet.
 """
 
 from __future__ import annotations
@@ -111,8 +123,20 @@ def _all_reduce(x: torch.Tensor, axis, mesh, op) -> torch.Tensor:
     return out
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return _all_reduce(x, axis, mesh, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis, ctx.mesh, dist.ReduceOp.SUM), None, None
+
+
 def allreduce(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
-    return _all_reduce(x, axis, mesh, dist.ReduceOp.SUM)
+    """The sum over the axis, on every rank (``lax.psum``)."""
+    return _AllReduce.apply(x, axis, mesh)
 
 
 def allreduce_mean(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
@@ -127,7 +151,8 @@ def allreduce_max(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torc
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
-def reduce_scatter(x: torch.Tensor, axis: str, *, dim: int = 0, mesh=None) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, axis: str | Sequence[str], *, dim: int = 0,
+                   mesh=None) -> torch.Tensor:
     """Tiled ``psum_scatter``: ``x`` cut along ``dim`` into P pieces; rank r
     gets the sum of every rank's piece r."""
     p = axis_size(axis, mesh)
@@ -154,8 +179,7 @@ def allreduce_decomposed(x: torch.Tensor, axis: str, *, mean: bool = False,
     return full[: x.numel()].reshape(x.shape)
 
 
-def allgather(x: torch.Tensor, axis: str, *, dim: int = 0, mesh=None) -> torch.Tensor:
-    """Tiled ``all_gather``: the ranks' tensors concatenated along ``dim``."""
+def _allgather(x: torch.Tensor, axis, dim: int, mesh) -> torch.Tensor:
     p = axis_size(axis, mesh)
     xs = x.movedim(dim, 0).contiguous()
     out = torch.empty((p * xs.shape[0],) + tuple(xs.shape[1:]), dtype=x.dtype, device=x.device)
@@ -163,11 +187,44 @@ def allgather(x: torch.Tensor, axis: str, *, dim: int = 0, mesh=None) -> torch.T
     return out.movedim(0, dim)
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return _allgather(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, dim=ctx.dim, mesh=ctx.mesh), None, None, None
+
+
+def allgather(x: torch.Tensor, axis: str | Sequence[str], *, dim: int = 0,
+              mesh=None) -> torch.Tensor:
+    """Tiled ``all_gather``: the ranks' tensors concatenated along ``dim``."""
+    return _AllGather.apply(x, axis, dim, mesh)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim, mesh):
+        ctx.args = (axis, split_dim, concat_dim, mesh)
+        return _alltoall(x, axis, split_dim, concat_dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim, mesh = ctx.args
+        return _alltoall(g, axis, concat_dim, split_dim, mesh), None, None, None, None
+
+
 def alltoall(x: torch.Tensor, axis: str | Sequence[str], *, split_dim: int = 0,
              concat_dim: int = 0, mesh=None) -> torch.Tensor:
     """Fixed-capacity tiled all-to-all: ``x`` cut along ``split_dim`` into P
     pieces, piece s to rank s; the pieces received concatenated along
     ``concat_dim`` in source order (``lax.all_to_all(tiled=True)``)."""
+    return _AllToAll.apply(x, axis, split_dim, concat_dim, mesh)
+
+
+def _alltoall(x: torch.Tensor, axis, split_dim: int, concat_dim: int, mesh) -> torch.Tensor:
     p = axis_size(axis, mesh)
     xs = x.movedim(split_dim, 0).contiguous()
     recv = torch.empty_like(xs)

@@ -52,8 +52,13 @@ def leaves(tree: Any) -> list[Any]:
 
 
 def tree_map(fn, tree: Any) -> Any:
-    """``tree`` (nested dicts) with ``fn`` applied to every leaf."""
-    return {k: tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+    """``tree`` (nested dicts, lists and tuples) with ``fn`` applied to every
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def unflatten_like(tree: Any, new_leaves: Iterator[Any] | list) -> Any:

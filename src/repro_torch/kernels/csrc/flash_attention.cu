@@ -26,9 +26,12 @@
 // never stored.  Rows of 112 and 120 are 448 and 480 bytes in float32, 224
 // and 240 in bf16: 16-byte aligned.
 //
-// The float32-k/v designs can also write each row's log-sum-exp (m + log
-// l, [B, H, Tq] float32): the training path's forward, whose backward
-// (flash_attention_bwd.cu) recomputes p = exp(s - lse) from it.
+// The prefill designs can also write each row's log-sum-exp (m + log l,
+// [B, H, Tq] float32): the training path's forward, whose backward
+// (flash_attention_bwd.cu) recomputes p = exp(s - lse) from it.  With bf16
+// k/v (Griffin's local MQA, Whisper's encoder and cross-attention, whose
+// activations are bf16) that is flash_wgmma<HD, false>, whose epilogue is
+// the split design's.
 //
 // Layout: q [B, Tq, H, hd], k/v [B, Tk, KV, hd], o [B, Tq, H, hd], each
 // read or written through (batch, seq, head) strides with hd contiguous, so
@@ -137,7 +140,7 @@ struct Args {
   int64_t sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
   int q_offset, window, kv_len, causal;
   int hd;      // valid head width: HD, or 112 / 120 run in the 128-wide template
-  float* lse;  // float32 k/v only: [B, H, Tq] log-sum-exp per row, or null
+  float* lse;  // prefill designs only: [B, H, Tq] log-sum-exp per row, or null
   float softcap, sqrt_hd;
 };
 
@@ -1217,8 +1220,8 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t
 // part == nullptr: more than 8 rows per kv head or lse wanted: flash_wgmma
 // with bf16 k/v; with float32 k/v flash_wgmma on their parts (hd <= 128;
 // kv_parts: kv_parts_bytes of scratch, 16-byte aligned) or flash_tiled (hd
-// 256).  lse (float32 k/v only, else null): [B, H, Tq] float32, each row's
-// log-sum-exp.  Otherwise the decode design over keys [k_begin, k_end) in
+// 256).  lse (these designs only, else null): [B, H, Tq] float32, each
+// row's log-sum-exp.  Otherwise the decode design over keys [k_begin, k_end) in
 // nsplit chunks of `chunk` keys, with part its scratch (see flash_decode):
 // counters that are 0 when the call starts and 0 again when it ends.
 // flash_tiled splits its keys on a card of `sms` SMs as attn_plan.h's
@@ -1235,7 +1238,7 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   if (part != nullptr &&
       (Tq * (H / KV) > kMaxSplitRows || chunk < 1 || nsplit < 1 || nsplit > kMaxChunks))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (lse != nullptr && (part != nullptr || kv_bf16))  // lse: the float32 k/v designs only
+  if (lse != nullptr && part != nullptr)  // lse: flash_wgmma (either k/v type), flash_tiled
     return static_cast<int>(cudaErrorInvalidValue);
   if (part == nullptr && !kv_bf16 && hd <= 128 &&
       (kv_parts == nullptr || reinterpret_cast<uintptr_t>(kv_parts) % 16 != 0))

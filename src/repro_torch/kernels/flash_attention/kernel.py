@@ -24,12 +24,15 @@ partials in chunk order; the wrappers ask the same rule for the scratch
 (``split_launches``: "flash_tiled" the forwards with more than one chunk,
 "bwd_wide" the backwards on the dS path).
 
-``flash_attention_lse`` is the training path's forward: a float32-k/v
-design, which also writes each row's log-sum-exp, at any ``q_offset`` and
-Tq, Tk (a sequence-split island, a cross-attention); ``flash_attention_bwd``
+``flash_attention_lse`` is the training path's forward: a prefill design
+(``flash_wgmma`` for bfloat16 k/v, the float32-k/v designs else), which
+also writes each row's log-sum-exp, at any ``q_offset`` and Tq, Tk (a
+sequence-split island, a cross-attention); ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
 design ``bwd_design`` names for the head width, both on the bf16 tensor
-cores (``BWD_SPLIT`` bf16 products per float32 product) in four CUDA
+cores (``BWD_SPLIT`` bf16 products per float32 product; bfloat16 k/v go in
+as their float32 values, exact, so they pay the same six products where
+their own bf16 values would need fewer) in four CUDA
 launches (the two split prologues, dK/dV, dQ; five on ``bwd_wide``'s dS
 path with more than one chunk: dQ from dS, then its merge): ``bwd_wgmma``
 for every width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward
@@ -164,6 +167,12 @@ def bwd_plan(hd: int, b: int, tq: int, tk: int, h: int, kvh: int, *, causal: boo
     ``bwd_wide``'s dS path."""
     return _plan_call(_build.plan_library().rt_flash_attention_bwd_plan, hd, b, tq, tk, h, kvh,
                       q_offset, window, causal, sms)
+
+
+def _empty_out(shape: tuple, dev: torch.device) -> torch.Tensor:
+    """A float32 output of the training forward (o, lse): uninitialised; the
+    kernels write every element."""
+    return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
 def _scratch_bytes(nbytes: int, dev: torch.device) -> torch.Tensor:
@@ -338,7 +347,7 @@ def check_grad_shape(tq: int, tk: int, *, causal: bool, window: int, q_offset: i
 
 def flash_attention_lse(
     q: torch.Tensor,       # [B, Tq, H, hd] float32
-    k: torch.Tensor,       # [B, Tk, KV, hd] float32
+    k: torch.Tensor,       # [B, Tk, KV, hd] bfloat16 or float32
     v: torch.Tensor,
     *,
     causal: bool = True,
@@ -347,12 +356,10 @@ def flash_attention_lse(
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training path's forward: (o [B, Tq, H, hd], lse [B, H, Tq])
-    float32 from a float32-k/v design (``fwd_design``), kv_len Tk."""
-    if k.dtype != torch.float32:
-        raise ValueError(f"flash_attention_lse: want float32 k/v, got {k.dtype}")
+    float32 from a prefill design (``fwd_design`` with lse), kv_len Tk."""
     b, t, h, _ = q.shape
-    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    o = _empty_out(tuple(q.shape), q.device)
+    lse = _empty_out((b, h, t), q.device)
     _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
             kv_len=None, lse=lse)
     return o, lse
@@ -360,7 +367,7 @@ def flash_attention_lse(
 
 def flash_attention_bwd(
     q: torch.Tensor,       # [B, Tq, H, hd] float32
-    k: torch.Tensor,       # [B, Tk, KV, hd] float32
+    k: torch.Tensor,       # [B, Tk, KV, hd] float32 or bfloat16
     v: torch.Tensor,
     o: torch.Tensor,       # [B, Tq, H, hd]: the forward's output
     lse: torch.Tensor,     # [B, H, Tq]: the forward's log-sum-exp
@@ -372,11 +379,19 @@ def flash_attention_bwd(
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_lse``'s output (semantics of
-    ``ref.attention_bwd_ref``); every tensor float32, contiguous, on one card;
-    the shapes ``check_grad_shape`` admits."""
+    ``ref.attention_bwd_ref``); every tensor contiguous, on one card, the
+    shapes ``check_grad_shape`` admits.  k and v are float32 or both
+    bfloat16: bfloat16 k/v enter the kernel as their float32 values (exact)
+    and dk, dv come back rounded to bfloat16, as the gradient of the
+    reference's upcast is; everything else is float32."""
     global bwd_launches
     dev = _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
+    kv_dtype = k.dtype
+    if kv_dtype not in (torch.float32, torch.bfloat16) or v.dtype != kv_dtype:
+        raise ValueError(f"flash_attention_bwd: k/v must both be float32 or bfloat16, got "
+                         f"{k.dtype}, {v.dtype}")
+    k, v = k.float(), v.float()
+    for name, t in (("q", q), ("o", o), ("lse", lse), ("do", do)):
         if t.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be float32, got {t.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -413,4 +428,4 @@ def flash_attention_bwd(
     bwd_design_launches[bwd_design(hd)] += 1
     if plan.chunks:
         split_launches["bwd_wide"] += 1
-    return dq, dk, dv
+    return dq, dk.to(kv_dtype), dv.to(kv_dtype)

@@ -19,11 +19,16 @@ from repro_torch.kernels.flash_attention import kernel, ref
 class FlashAttention(torch.autograd.Function):
     """Attention with a hand-written backward.  forward saves q, k, v, o and
     lse; backward launches ``csrc/flash_attention_bwd.cu`` (a CPU tensor:
-    ``ref.attention_bwd_ref``)."""
+    ``ref.attention_bwd_ref``).  q of another float type is taken as its
+    float32 value, and k/v as they are (float32 or bfloat16, whose float32
+    values the kernels read); o is float32, and each gradient comes back in
+    its input's type."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float, q_offset: int):
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+        ctx.q_dtype = q.dtype
+        q = q.float()
         if q.device.type == "cpu":
             o, lse = ref.attention_lse_ref(q, k, v, **kw)
         else:
@@ -40,7 +45,7 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = ref.attention_bwd_ref(q, k, v, o, lse, do, **ctx.kw)
         else:
             dq, dk, dv = kernel.flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq.to(ctx.q_dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention(

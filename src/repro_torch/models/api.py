@@ -4,10 +4,10 @@
 
 - ``init_params(cfg, gen, device=None, master=False)``
 - ``logits_fn(cfg, params, batch, ctx)``   -> (logits, aux)
-- ``loss_fn(cfg, params, batch, ctx)``     -> (loss, {"ce", "aux"}); for the
-  transformer families from float32 master weights
-  (``transformer.forward_train``), for the others the serving forward's
-  value, without a gradient (their training is not ported)
+- ``loss_fn(cfg, params, batch, ctx)``     -> (loss, {"ce", "aux"}) from
+  float32 master weights (bfloat16 where ``cfg.param_dtype`` stores them):
+  ``transformer.forward_train``, and for the other families their
+  cache-free forwards, which cast in the graph and recompute per layer
 - ``init_decode_state(cfg, batch, max_len, dtype, device=None)``
 - ``prefill_fn(cfg, params, batch, state, ctx)``
 - ``decode_fn(cfg, params, tokens, state, ctx)``
@@ -107,6 +107,16 @@ def logits_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     return logits, aux
 
 
+def stacked_subtrees(cfg: ArchConfig) -> tuple[str, ...]:
+    """The top-level keys of ``cfg``'s parameter tree whose leaves are
+    stacked per layer along dim 0, [L, ...] (Griffin's ``group``: [G, ...]
+    per pattern position)."""
+    module = _module(cfg)
+    if module is encdec:
+        return ("encoder", "decoder")
+    return ("group",) if module is griffin else ("blocks",)
+
+
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     """CE of ``logits[:, :-1]`` against ``tokens[:, 1:]`` under ``mask[:, 1:]``
     plus the aux loss: (total, {"ce", "aux"}).
@@ -122,9 +132,8 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     if _module(cfg) is transformer:
         logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
                                                 prefix_embeds=batch.get("patches"), ctx=ctx)
-    else:
-        with torch.no_grad():
-            logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
+    else:  # the other families' forwards take master weights as they are
+        logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
     args = (logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
     if ctx is None or ctx.mesh is None or not ctx.dp_axes:
         loss = L.cross_entropy(*args)

@@ -18,6 +18,15 @@ holds each leaf in the type its products read (``hold_leaf``).  Attention
 reads the bfloat16 self-attention cache and cross K/V as they are
 (``layers.kv_as``), which keeps the kernel on its bf16 designs.
 
+Training (``forward``, through ``api.loss_fn``) takes float32 master weights
+(``init_params(..., master=True)``), cast to their products' types inside
+the autograd graph (the encoder's and the cross K/V's to bfloat16, whose
+transpose rounds their gradients), and runs every encoder and decoder
+layer under ``layers.remat``, each decoder layer making its cross K/V
+from the encoder states inside its recompute.  Attention's training path
+takes bfloat16 q/k/v (the encoder) and bfloat16 k/v (the cross-attention)
+as they are (``kernels/flash_attention``).
+
 A ``ctx`` (``transformer.DistContext``) passes through every entry point as
 in the reference, where it only hints activation shardings: a rank already
 holds only its shard, so it changes nothing here.
@@ -104,22 +113,29 @@ def _layer(tree: dict, i: int) -> dict:
     return {n: w[i] for n, w in tree.items()}
 
 
+def _enc_layer(cfg, x, blk):
+    dt = x.dtype
+    b, s, _ = x.shape
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    q = (y @ blk["wq"].to(dt)).view(b, s, h, hd)
+    k = (y @ blk["wk"].to(dt)).view(b, s, kv, hd)
+    v = (y @ blk["wv"].to(dt)).view(b, s, kv, hd)
+    att = L.attention(q, k, v, causal=False)
+    x = x + att.reshape(b, s, h * hd) @ blk["wo"].to(dt)
+    y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+
+
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
-    """frames: [B, S_src, d] (stub embeddings) -> encoder states in cfg.dtype."""
+    """frames: [B, S_src, d] (stub embeddings) -> encoder states in cfg.dtype;
+    each layer under ``layers.remat`` (which runs it plainly unless
+    autograd records and ``cfg.remat``)."""
     dt = getattr(torch, cfg.dtype)
     b, s, d = frames.shape
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     x = frames.to(dt) + _sinusoid(s, d).to(device=frames.device, dtype=dt)[None]
     for i in range(cfg.encoder_layers):
-        blk = _layer(params["encoder"], i)
-        y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-        q = (y @ blk["wq"].to(dt)).view(b, s, h, hd)
-        k = (y @ blk["wk"].to(dt)).view(b, s, kv, hd)
-        v = (y @ blk["wv"].to(dt)).view(b, s, kv, hd)
-        att = L.attention(q, k, v, causal=False)
-        x = x + att.reshape(b, s, h * hd) @ blk["wo"].to(dt)
-        y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-        x = x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+        x = L.remat(cfg, lambda x, blk: _enc_layer(cfg, x, blk), x, _layer(params["encoder"], i))
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -177,15 +193,17 @@ def _logits(cfg, params, x):
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.Tensor, *,
             ctx=None):
-    """Teacher-forced forward: (logits over the decoder positions, aux 0)."""
+    """Teacher-forced forward: (logits over the decoder positions, aux 0);
+    the training forward too, each layer under ``layers.remat`` (module
+    doc)."""
     L.check_products(tokens.device, compute_dtype(cfg))
     enc_out = encode(cfg, params, frames)
     t = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     pos = torch.arange(t, device=x.device)
     for i in range(cfg.num_layers):
-        blk = _layer(params["decoder"], i)
-        x = _dec_block(cfg, x, blk, pos, _cross_kv(cfg, blk, enc_out))
+        x = L.remat(cfg, lambda x, blk, enc: _dec_block(cfg, x, blk, pos, _cross_kv(cfg, blk, enc)),
+                    x, _layer(params["decoder"], i), enc_out)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -10,8 +10,9 @@ layers past the last whole group.  The RG-LRU linear recurrence
 
 has no torch counterpart of the reference's ``associative_scan``: it runs
 as a doubling scan over time (``_linear_scan``, log2(T) steps on [B, T, W]
-tensors), float32 sums in another order than XLA's.  Decode carries (h,
-conv window, local KV) state.
+tensors, each making new tensors, so that autograd follows it), float32
+sums in another order than XLA's.  Decode carries (h, conv window, local
+KV) state.
 
 Arithmetic follows the reference per leaf.  Activations are ``cfg.dtype``
 (bfloat16): ``w_gate``, ``w_in``, ``wq``, ``wk``, ``wv``, ``wo_a``, ``wi``,
@@ -22,6 +23,15 @@ and only then cast.  The port holds each cast leaf in ``cfg.dtype`` (the
 products' ``w.to(dt)`` is then a no-op) and the others in
 ``cfg.param_dtype``.  The attention layer reads its cache as ``q.dtype``
 (``layers.kv_as``): a bfloat16 cache goes to the kernel as it is.
+
+Training (the cache-free ``forward``, through ``api.loss_fn``) takes
+float32 master weights
+(``init_params(..., master=True)``): the products' ``w.to(dt)`` casts them
+inside the autograd graph, so their gradients are rounded to bfloat16 as
+the reference's are, and every layer runs under ``layers.remat`` (the
+reference checkpoints each pattern group: the same result).  The local
+attention's q, k, v are bfloat16, so its forward runs ``flash_wgmma`` with
+the log-sum-exp and its backward ``bwd_wide`` (``kernels/flash_attention``).
 
 A ``ctx`` (``transformer.DistContext``) passes through every entry point as
 in the reference, where it only hints activation shardings: a rank already
@@ -152,15 +162,14 @@ def _causal_conv(x, conv_w, carry=None):
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over dim 1, as a doubling scan:
-    after the step of span s, (a_t, b_t) compose the s steps ending at t.
-    log2(T) steps; every a <= 1, so no product overflows.  Each step's
-    product is made before it is written back, so the in-place updates
-    read the previous step's values."""
+    after the step of span s, (a_t, b_t) compose the s steps ending at t,
+    b_t + a_t b_{t-s} and a_t a_{t-s}, both from the previous step's values.
+    log2(T) steps; every a <= 1, so no product overflows.  Each step makes
+    new tensors (autograd saves the previous step's)."""
     t, span = a.shape[1], 1
-    a, b = a.clone(), b.clone()
     while span < t:
-        b[:, span:] += a[:, span:] * b[:, :-span]
-        a[:, span:] = a[:, span:] * a[:, :-span]
+        b = torch.cat([b[:, :span], b[:, span:] + a[:, span:] * b[:, :-span]], dim=1)
+        a = torch.cat([a[:, :span], a[:, span:] * a[:, :-span]], dim=1)
         span *= 2
     return b
 
@@ -264,18 +273,30 @@ def _run(cfg, x, kind, blk, st, pos, kv_len):
     return x
 
 
-def _apply_pattern(cfg, x, params, state, pos, kv_len: int):
-    """Every layer in order: the pattern groups, then the remainder.  With a
-    state, each layer's state is updated in place."""
+def _layers(cfg, params, state):
+    """(kind, weights, state or None) of every layer in order: the pattern
+    groups (entry g of each leaf of ``params["group"][j]``, a view of a
+    stacked [G, ...] leaf or a per-layer leaf of the train step's lists),
+    then the remainder."""
     ngroups, rem = _grouping(cfg)
     for g in range(ngroups):
         for j, kind in enumerate(cfg.block_pattern):
             blk = {n: w[g] for n, w in params["group"][j].items()}
             st = _layer_state(state["group"][j], g) if state is not None else None
-            x = _run(cfg, x, kind, blk, st, pos, kv_len)
+            yield kind, blk, st
     for j, kind in enumerate(rem):
-        st = state["remainder"][j] if state is not None else None
-        x = _run(cfg, x, kind, params["remainder"][j], st, pos, kv_len)
+        yield kind, params["remainder"][j], state["remainder"][j] if state is not None else None
+
+
+def _apply_pattern(cfg, x, params, state, pos, kv_len: int):
+    """Every layer in order.  With a state, each layer's state is updated in
+    place; without (training), each layer runs under ``layers.remat``."""
+    for kind, blk, st in _layers(cfg, params, state):
+        if state is None:
+            x = L.remat(cfg, lambda x, blk, kind=kind: _run(cfg, x, kind, blk, None, pos, kv_len),
+                        x, blk)
+        else:
+            x = _run(cfg, x, kind, blk, st, pos, kv_len)
     return x
 
 

@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backends import direct
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -70,6 +71,13 @@ def attention(
     out = fa_ops.flash_attention(q.float(), k, v, causal=causal, window=window,
                                  softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     return out.to(q.dtype)
+
+
+def copy_to_group(x: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """``x``, held alike by every rank of mesh axis ``axis``, into a
+    computation each rank runs on its own part of it: the backward sums the
+    ranks' gradients, so that every rank gets the whole gradient."""
+    return _CopyToGroup.apply(x, axis, mesh)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -159,13 +167,24 @@ def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,
         return attention(q, k, v, causal=causal, window=window, softcap=softcap,
                          q_offset=q_offset, kv_len=kv_len)
     rank = direct.axis_index(tp, mesh)
-    q, k, v = (_CopyToGroup.apply(x, tp, mesh) for x in (q, k, v))
+    q, k, v = (copy_to_group(x, tp, mesh) for x in (q, k, v))
     dim = 2 if plan == "head" else 1
     n = q.shape[dim] // tps
     q_l = q.narrow(dim, rank * n, n)
     out = attention_island(q_l, k, v, rank, tps, plan=plan, causal=causal, window=window,
                            softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     return _GatherFromGroup.apply(out.contiguous(), tp, mesh, dim)
+
+
+def remat(cfg, fn, x: torch.Tensor, *args):
+    """``fn(x, *args)``, one layer of a training forward: with ``cfg.remat``
+    and autograd recording, under ``torch.utils.checkpoint``, so that its
+    activations are recomputed in the backward (the reference's
+    ``jax.checkpoint`` saves its products instead, which changes memory,
+    not the result)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(x, *args)
 
 
 def check_products(device: torch.device, dtype: torch.dtype) -> None:

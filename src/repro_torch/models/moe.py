@@ -10,14 +10,14 @@ expert's ``cap`` rows contributes zero.  Routing is exact against the
 reference: the same ``topi``, stable order, counts, slots and ``keep``.
 
 The expert-parallel dispatch (``_moe_ep``, with a ``ctx`` whose
-``ep_axis`` is set; forward only: under autograd, with an input that
-requires a gradient, it raises ``NotImplementedError`` before any
-collective, since its collectives have no autograd rules yet) is the dataframe shuffle at the tensor
-level: the experts are split over the ep axis, each rank routes its share
-of the tokens, all-to-alls the per-expert buckets to the experts' ranks
+``ep_axis`` is set) is the dataframe shuffle at the tensor level: the
+experts are split over the ep axis, each rank routes its share of the
+tokens, all-to-alls the per-expert buckets to the experts' ranks
 (``core.backends.direct``), runs its own experts and sends the results
 back.  A rank holds either every expert or only its slice
-(``interop.expert_slice`` cuts it from the reference's state).
+(``interop.expert_slice`` cuts it from the reference's state).  It is
+differentiable, as the reference's ``shard_map`` is under ``jax.grad``
+(the collectives' autograd rules, and the rule in ``_moe_ep``'s doc).
 
 Memory.  The expert stacks hold ``num_experts_padded`` experts, as the
 reference's parameter tree does, but the padding experts are dead: the
@@ -143,41 +143,87 @@ def _moe_local(x2d, router, wi, wo, cfg: ArchConfig):
     return out, aux
 
 
+class _OneCopy(torch.autograd.Function):
+    """Identity forward on an output of the expert-parallel dispatch that
+    every rank of the ep axis holds alike and reads into the same loss; the
+    backward passes on 1/P of the cotangent: the share of one copy of that
+    loss (``_moe_ep``'s doc)."""
+
+    @staticmethod
+    def forward(ctx, x, p: int):
+        ctx.p = p
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.p, None
+
+
 def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
-    """Expert-parallel dispatch over ``ctx.ep_axis`` (forward only).
+    """Expert-parallel dispatch over ``ctx.ep_axis``.
 
-    Under autograd (grad mode on and any of ``x2d``, ``router``, ``wi``,
-    ``wo`` requiring a gradient) it raises ``NotImplementedError`` before
-    any collective: ``direct.alltoall`` and ``direct.allgather`` have no
-    autograd rules, so the experts' gradients would be lost (ROADMAP A 7 c).
-
-    Every rank of the ep axis holds the same ``x2d`` (the activations are
-    replicated over it).  The tokens are padded to a multiple of the axis
-    size and rank r routes the r-th share; its per-expert buckets [E_pad,
-    cap, d] go to the experts' owners ([E_pad / p, p cap, d] each), which run
-    their experts (the live ones: padding experts get no token) and send the
-    outputs back; each rank combines its tokens and the shares are
-    all-gathered.  ``wi`` / ``wo`` hold every padded expert or only this
+    The ep axis is either one the activations are replicated over (not a
+    dp axis of ``ctx``: a tensor-parallel axis, say) or a dp axis, whose
+    ranks hold their own shards of the batch.  Replicated: every rank of
+    the axis holds the same ``x2d``; the tokens are padded to a multiple of
+    the axis size and rank r routes the r-th share, and the shares'
+    outputs are all-gathered.  Over a dp axis each rank routes its own
+    ``x2d``, as the reference's ``shard_map`` does with the tokens sharded
+    over the axis.  Either way a rank's per-expert buckets [E_pad, cap, d]
+    go to the experts' owners ([E_pad / p, p cap, d] each), which run their
+    experts (the live ones: padding experts get no token) and send the
+    outputs back.  ``wi`` / ``wo`` hold every padded expert or only this
     rank's E_pad / p.  The aux loss is the mean of the ranks' (as the
-    reference's ``pmean``)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x2d, router, wi, wo)):
-        raise NotImplementedError("moe._moe_ep is forward only: its gradient through the "
-                                  "expert all-to-alls is ROADMAP A 7 c; run it under "
-                                  "torch.no_grad, or train without ep_axis (_moe_local)")
+    reference's ``pmean``).
+
+    Gradients.  The collectives' rules (``core.backends.direct``) give the
+    gradient of the sum of the ep ranks' losses.  Over a dp axis that is
+    the dp convention of ``api.loss_fn`` (each rank's gradient is dp times
+    its share, and ``train_step`` averages over the dp axes), so nothing is
+    added; an expert slice's owner then holds p dp-fold shares of its
+    experts' gradient, which ``train_step`` divides by p in place of the
+    mean over the ep axis (``train_step._reduce_expert_slices``).
+    Replicated, every rank computes the same loss, and the sum
+    counts it P times: the gather's backward sums P equal cotangents, and
+    the pmean's passes each rank the aux loss's whole cotangent.  So each
+    output (the combined tokens before the gather, the aux loss after the
+    pmean) passes 1/P of its cotangent back (``_OneCopy``): then each rank
+    holds its share's exact gradient (its ``x2d`` rows, its routing's part
+    of the router's, 1/P of each aux term's) and its experts' whole one
+    (their owner received every rank's rows).  The inputs every rank holds
+    alike (``x2d``, the router, a rank's every expert) then sum the ranks'
+    gradients (``layers.copy_to_group``), in float32 for the router (its
+    bfloat16 storage rounds the sum once, as the local dispatch's does)
+    and exactly for every expert (each is nonzero on its owner only); an
+    expert slice keeps its own.  Every rank then holds the whole gradient
+    of its inputs, as the model's other replicated layers do, and a slice
+    its experts' whole gradient."""
     axes = tuple(ctx.ep_axis) if isinstance(ctx.ep_axis, (tuple, list)) else (ctx.ep_axis,)
     mesh = ctx.mesh
+    sharded = set(axes) <= set(ctx.dp_axes)
+    if not sharded and set(axes) & set(ctx.dp_axes):
+        raise ValueError(f"moe._moe_ep: ep axes {axes} are partly dp axes {ctx.dp_axes}")
     p, rank = direct.axis_size(axes, mesh), direct.axis_index(axes, mesh)
     e_pad, k = cfg.num_experts_padded, cfg.experts_per_token
     e_loc = e_pad // p
-    if wi.shape[0] == e_pad and e_loc != e_pad:
+    every = wi.shape[0] == e_pad
+    copies = p > 1 and not sharded
+    if copies:
+        x2d, router = (L.copy_to_group(t, axes, mesh) for t in (x2d, router.float()))
+        if every:
+            wi, wo = (L.copy_to_group(w, axes, mesh) for w in (wi, wo))
+    if every and e_loc != e_pad:
         wi, wo = wi[rank * e_loc:(rank + 1) * e_loc], wo[rank * e_loc:(rank + 1) * e_loc]
     n_in = x2d.shape[0]
-    pad = (-n_in) % p
-    if pad:  # decode-scale batches: pad tokens to divide the EP axis
-        x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
-    n_local = x2d.shape[0] // p
-    x_local = x2d[rank * n_local:(rank + 1) * n_local]
-    cap = max(int(math.ceil(n_local * k / cfg.num_experts * cfg.capacity_factor)), 8)
+    if sharded:
+        x_local = x2d
+    else:
+        pad = (-n_in) % p
+        if pad:  # decode-scale batches: pad tokens to divide the EP axis
+            x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
+        n_local = x2d.shape[0] // p
+        x_local = x2d[rank * n_local:(rank + 1) * n_local]
+    cap = max(int(math.ceil(x_local.shape[0] * k / cfg.num_experts * cfg.capacity_factor)), 8)
     topv, topi, aux = _route(x_local, router, cfg)
     buf, (e_sorted, slot_row, tok_sorted, w_sorted, keep) = _bucket_by_expert(
         x_local, topv, topi, e_pad, cap)
@@ -193,5 +239,9 @@ def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
     out = torch.zeros_like(x_local)
     out.index_add_(0, tok_sorted, gathered * w_sorted[:, None].to(gathered.dtype))
-    out = direct.allgather(out, axes, dim=0, mesh=mesh)
-    return out[:n_in], direct.allreduce_mean(aux, axes, mesh)
+    aux = direct.allreduce_mean(aux, axes, mesh)
+    if copies:
+        out, aux = _OneCopy.apply(out, p), _OneCopy.apply(aux, p)
+    if not sharded:
+        out = direct.allgather(out, axes, dim=0, mesh=mesh)[:n_in]
+    return out, aux

@@ -20,8 +20,16 @@ in the sequence length.
 
 The model computes in float32 throughout, from float32 weights that no
 product rounds (the reference casts no leaf), so the port holds the
-reference's leaves as they are.  No kernel runs here: the family has no
-attention.
+reference's leaves as they are, and training's master weights are the
+same leaves.  No kernel runs here: the family has no attention.
+
+Training (``forward``, through ``api.loss_fn``) runs every layer under
+``layers.remat``, as
+the reference's ``cfg.remat`` checkpoints its scan body.  In a layer's
+backward each span of ``_CHUNKS_AT_ONCE`` chunks keeps its intra-chunk
+terms for autograd: about four [B, 32, 16, 16, H, 64] float32 tensors
+(134 MB each at B 1 and rwkv6-7b's 64 heads of 64), so ~0.54 GB a span and
+~4.3 GB for a 4096-token layer, alive for one layer at a time.
 
 A ``ctx`` (``transformer.DistContext``) passes through every entry point as
 in the reference, where it only hints activation shardings: a rank already
@@ -179,11 +187,33 @@ def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) ->
     }
 
 
+def _block(params: dict, i: int) -> dict:
+    """Layer i's weights: entry i of each leaf of ``params["blocks"]`` (a
+    view of a stacked [L, ...] leaf, or a per-layer leaf of the train
+    step's lists)."""
+    return {n: w[i] for n, w in params["blocks"].items()}
+
+
+def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int):
+    """One layer: (x, S', last x of the time mix, of the channel mix)."""
+    y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    att, S, x_tm = _time_mix(cfg, y, x_tm, blk, S, chunk)
+    x = x + att
+    y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    ff, x_cm = _channel_mix(y2, x_cm, blk)
+    return x + ff, S, x_tm, x_cm
+
+
+def _logits(cfg, params, x):
+    return L.mm(L.rms_norm(x, params["final_norm"], cfg.norm_eps), params["lm_head"])
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict | None = None,
             chunk: int = 16, ctx=None, last_only: bool = False):
     """(logits, aux 0, new state): full-sequence logits (``last_only``: the
     last position's), carrying ``state`` (zeros when None) through the
-    tokens.  The new state is made afresh; ``state`` is left as it was."""
+    tokens.  The new state is made afresh; ``state`` is left as it was.
+    The training forward too: each layer under ``layers.remat``."""
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
     chunk = min(chunk, t)
@@ -192,22 +222,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
     x = L.embed(tokens, params["embed"]).float()
     st = state or init_state(cfg, b, device=x.device)
     S_new, x_tm_new, x_cm_new = [], [], []
-    blocks = params["blocks"]
     for i in range(cfg.num_layers):
-        blk = {n: w[i] for n, w in blocks.items()}
-        y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-        att, S_i, x_tm = _time_mix(cfg, y, st["x_tm"][i], blk, st["S"][i], chunk)
-        x = x + att
-        y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-        ff, x_cm = _channel_mix(y2, st["x_cm"][i], blk)
-        x = x + ff
+        x, S_i, x_tm, x_cm = L.remat(cfg, lambda x, blk, i=i: _layer(
+            cfg, x, blk, st["S"][i], st["x_tm"][i], st["x_cm"][i], chunk), x, _block(params, i))
         S_new.append(S_i)
         x_tm_new.append(x_tm)
         x_cm_new.append(x_cm)
-    if last_only:
-        x = x[:, -1:]
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.mm(x, params["lm_head"])
+    logits = _logits(cfg, params, x[:, -1:] if last_only else x)
     new_state = {"S": torch.stack(S_new).to(st["S"].dtype),
                  "x_tm": torch.stack(x_tm_new).to(st["x_tm"].dtype),
                  "x_cm": torch.stack(x_cm_new).to(st["x_cm"].dtype),

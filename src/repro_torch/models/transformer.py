@@ -33,8 +33,7 @@ the autograd graph (``w.to(bfloat16).float()``, whose gradient is rounded to
 bfloat16 as the reference's is); the embedding rows are gathered from the
 bfloat16 table, as the reference's ``take`` is.  With ``cfg.remat`` each
 layer runs under ``torch.utils.checkpoint`` (its activations are recomputed
-in the backward; the reference's ``jax.checkpoint`` saves its products,
-which changes memory, not the result).  Serving keeps the pre-rounded
+in the backward; ``layers.remat``).  Serving keeps the pre-rounded
 weights and pays no per-step cast.
 
 bfloat16 weight storage (``cfg.param_dtype == "bfloat16"``: qwen3-moe,
@@ -62,7 +61,6 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -258,13 +256,10 @@ def _index(tree, i: int):
 
 
 def _layer(params: dict, i: int) -> dict:
-    """Layer i's weights: views of the stacked [L, ...] leaves (nested for
-    the MoE block), or entry i of a list of per-layer dicts (the train
-    step's per-layer gradient leaves)."""
-    blocks = params["blocks"]
-    if isinstance(blocks, list):
-        return blocks[i]
-    return _index(blocks, i)
+    """Layer i's weights: entry i of each leaf of ``params["blocks"]``
+    (nested for the MoE block): a view of a stacked [L, ...] leaf, or a
+    per-layer leaf of the train step's lists."""
+    return _index(params["blocks"], i)
 
 
 def _embed_input(cfg: ArchConfig, table, tokens, prefix_embeds) -> torch.Tensor:
@@ -299,25 +294,16 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                   prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Full-sequence logits [B, T, V] float32 and the MoE aux loss from
     float32 master weights, with the reference's in-graph casts (module
-    doc).  ``params["blocks"]`` is the stacked dict or a list of per-layer
-    dicts."""
+    doc).  Each leaf of ``params["blocks"]`` is stacked [L, ...] or a list
+    of per-layer leaves (the train step's); each layer runs under
+    ``layers.remat``."""
     _check(cfg, tokens.device)
     x = _embed_input(cfg, params["embed"].to(_dtype(cfg.dtype)), tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
     for i, window in enumerate(_layer_windows(cfg)):
-        blk = _layer(params, i)
-        names = tuple(blk)
-
-        def layer(x, *ws, window=window, names=names):
-            return _block_fn(cfg, x, dict(zip(names, ws)), window, pos, master=True, ctx=ctx)
-
-        if remat:
-            x, aux_l = checkpoint(layer, x, *blk.values(), use_reentrant=False,
-                                  preserve_rng_state=False)
-        else:
-            x, aux_l = layer(x, *blk.values())
+        x, aux_l = L.remat(cfg, lambda x, blk, window=window: _block_fn(
+            cfg, x, blk, window, pos, master=True, ctx=ctx), x, _layer(params, i))
         aux = aux if aux_l is None else aux + aux_l
     return _logits(cfg, params, x, master=True), aux
 

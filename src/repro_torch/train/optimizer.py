@@ -130,12 +130,16 @@ def _node(tree: Any, path: tuple) -> Any:
     return tree
 
 
-def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig) -> tuple[Any, dict]:
+def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig,
+                  gnorm: torch.Tensor | None = None) -> tuple[Any, dict]:
     """One AdamW step; updates ``params`` and ``state`` in place and returns
-    them (int8 moments are replaced by their new quantization)."""
+    them (int8 moments are requantized in place).  ``gnorm``, the norm the
+    clip reads, defaults to ``global_norm(grads)``; a rank holding a slice
+    of a leaf passes the whole tree's."""
     step = state["step"] + 1
     lr = lr_at(step, cfg)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     sf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(cfg.beta1, sf)
@@ -150,8 +154,8 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig) -> tuple
         v_f.mul_(cfg.beta2).add_((1 - cfg.beta2) * g.square())
         del g
         delta = m_f / bc1
-        delta.div_(torch.sqrt(v_f / bc2).add_(cfg.eps)).add_(cfg.weight_decay * p)
-        p.sub_(lr * delta)
+        delta.div_(torch.sqrt(v_f / bc2).add_(cfg.eps)).add_(cfg.weight_decay * p.float())
+        p.sub_(lr * delta)  # in float32, rounded to p's dtype
         return (_quantize(m_f) if _is_qdict(m) else m_f,
                 _quantize(v_f) if _is_qdict(v) else v_f)
 
@@ -168,9 +172,10 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig) -> tuple
                             for k in dst:
                                 dst[k][i] = new[k]
             else:
-                new_m, new_v = upd(p, g, m, v)
-                _node(state["m"], path[:-1])[path[-1]] = new_m
-                _node(state["v"], path[:-1])[path[-1]] = new_v
+                for dst, new in zip((m, v), upd(p, g, m, v)):
+                    if _is_qdict(dst):  # float32 moments were updated in place
+                        for k in dst:
+                            dst[k].copy_(new[k])
     state["step"] = step
     return params, state
 

@@ -3,10 +3,14 @@
 
 The step runs eagerly.  Gradients land in stacked float32 buffers shaped
 like the parameters: each layer's weights enter the graph as leaves that
-are views of the stacked tensors, and each leaf's ``.grad`` is preset to the
-matching view of the buffer, so autograd accumulates each layer's gradient
-straight into it (a stacked leaf indexed per layer would add a full-size
-gradient per layer instead).  Microbatch gradients accumulate in the same
+are views of the stacked tensors (the subtrees ``api.stacked_subtrees``
+names: each leaf a list of per-layer leaves), and each leaf's ``.grad`` is
+preset to the matching view of the buffer, so autograd accumulates each
+layer's gradient straight into it (a stacked leaf indexed per layer would
+add a full-size gradient per layer instead).  A bfloat16 leaf (bf16 weight
+storage) gets its gradient in bfloat16, as the reference's ``jax.grad``
+does; it is added to the float32 buffer after each backward
+(``g.astype(grad_dtype)``).  Microbatch gradients accumulate in the same
 buffers, in the reference's order (0 + g1 + g2 ...), and are divided by the
 count, as its ``lax.scan`` does.  The optimizer then updates the parameters
 in place.
@@ -16,7 +20,11 @@ Data parallelism is explicit, on the mesh axes of
 batch, with the same parameters and optimizer state.
 ``make_train_step(ctx=...)`` averages the ranks' gradients over
 ``ctx.dp_axes`` (``allreduce_mean``; ``api.loss_fn`` makes each rank's the
-dp-fold share of the global loss's gradient).
+dp-fold share of the global loss's gradient).  MoE expert stacks that hold
+only this rank's slice of the experts (``interop.expert_slice``) are
+averaged over the dp axes outside ``ctx.ep_axis`` only, divided by the ep
+axes' size where those are dp axes, and their squares summed over the ep
+axes for the clip's norm (``_reduce_expert_slices``).
 ``make_compressed_dp_train_step`` is the reference's explicit int8
 reduction (``cfg.grad_compression``): each rank's gradient of its own
 shard's loss crosses the wire as int8 + per-block scales
@@ -35,22 +43,40 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as opt
 
 
-def _leaf(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """A graph leaf viewing ``w`` whose gradient accumulates into ``g``."""
-    leaf = w.detach().requires_grad_()
-    leaf.grad = g
-    return leaf
+def _graph_params(cfg: ArchConfig, params: dict, grads: dict) -> tuple[dict, list]:
+    """``params`` as the forward's leaves, and the (leaf, buffer) pairs whose
+    gradients are added to their buffers after a backward: top-level leaves
+    as they are (on the same storage), the stacked subtrees' leaves as lists
+    of per-layer views.  A leaf of the buffer's dtype has the buffer as its
+    ``.grad``, so autograd accumulates into it."""
+    pending = []
+
+    def leaf(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        out = w.detach().requires_grad_()
+        if w.dtype == g.dtype:
+            out.grad = g
+        else:
+            pending.append((out, g))
+        return out
+
+    stacked = api.stacked_subtrees(cfg)
+    out = {}
+    for k, w in params.items():
+        if k in stacked:
+            out[k] = _zip_map(lambda w_, g_: [leaf(w_[i], g_[i]) for i in range(w_.shape[0])],
+                              w, grads[k])
+        else:
+            out[k] = _zip_map(leaf, w, grads[k])
+    return out, pending
 
 
-def _graph_params(params: dict, grads: dict) -> dict:
-    """``params`` as the forward's leaves: top-level leaves as they are (on
-    the same storage), blocks as a list of per-layer dicts of views."""
-    out = {k: _leaf(w, grads[k]) for k, w in params.items() if k != "blocks"}
-    blocks = params["blocks"]
-    n = next(iter(blocks.values())).shape[0]
-    out["blocks"] = [{name: _leaf(w[i], grads["blocks"][name][i]) for name, w in blocks.items()}
-                     for i in range(n)]
-    return out
+def _zip_map(fn, tree, other):
+    """``tree`` with ``fn(leaf, the same leaf of other)`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
 
 
 def _make_grads_of(cfg: ArchConfig, ctx, microbatches: int, grad_dtype):
@@ -58,13 +84,17 @@ def _make_grads_of(cfg: ArchConfig, ctx, microbatches: int, grad_dtype):
 
     def grads_of(params, batch):
         grads = treepath.tree_map(lambda p: torch.zeros_like(p, dtype=grad_dtype), params)
-        leaves = _graph_params(params, grads)
+        leaves, pending = _graph_params(cfg, params, grads)
         loss_sum, metrics = None, None
         for i in range(microbatches):
             mb = {k: x.reshape((microbatches, x.shape[0] // microbatches) + x.shape[1:])[i]
                   for k, x in batch.items()}
             loss, metrics = api.loss_fn(cfg, leaves, mb, ctx=ctx)
             loss.backward()
+            for leaf, g in pending:
+                if leaf.grad is not None:
+                    g.add_(leaf.grad)
+                    leaf.grad = None
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -75,6 +105,47 @@ def _make_grads_of(cfg: ArchConfig, ctx, microbatches: int, grad_dtype):
         return loss_sum / microbatches, metrics, grads
 
     return grads_of
+
+
+def _expert_slice_axes(cfg: ArchConfig, ctx, params: dict) -> tuple:
+    """The ep axes when this rank's expert stacks (``blocks.moe.wi`` /
+    ``wo``, [L, E, ...]) hold only its slice of the padded experts, else
+    ()."""
+    ep = ctx.ep_axis if ctx is not None and ctx.mesh is not None else None
+    if ep is None or cfg.family != "moe":
+        return ()
+    if params["blocks"]["moe"]["wi"].shape[1] == cfg.num_experts_padded:
+        return ()
+    return tuple(ep) if isinstance(ep, (tuple, list)) else (ep,)
+
+
+def _reduce_expert_slices(grads: dict, dp: tuple, ep: tuple, mesh) -> torch.Tensor:
+    """Reduce the gradients of a step whose expert stacks are sliced over
+    ``ep``; returns the global norm of the whole gradient.
+
+    ``moe._moe_ep`` leaves on each slice's owner the gradient of the sum of
+    the ep ranks' losses.  Over a replicated ep axis that is the slice's
+    whole gradient at this rank's dp share, so the slices are averaged over
+    the dp axes like every other leaf.  Where the ep axes are dp axes, the
+    p ranks' losses are p dp-fold shares (``api.loss_fn``): averaged over
+    the other dp axes and divided by p, the slice holds its experts' rows
+    of the global gradient.  The other leaves are the same on every rank,
+    the slices are not: their squares are summed over the ep axes."""
+    moe = grads["blocks"]["moe"]
+    sliced = [moe["wi"], moe["wo"]]
+    rest = tuple(a for a in dp if a not in ep)
+    for g in treepath.leaves(grads):
+        if any(g is s for s in sliced):
+            if rest:
+                g.copy_(direct.allreduce_mean(g, rest, mesh))
+            if set(ep) <= set(dp):
+                g.div_(direct.axis_size(ep, mesh))
+        elif dp:
+            g.copy_(direct.allreduce_mean(g, dp, mesh))
+    shared = sum(g.float().square().sum() for g in treepath.leaves(grads)
+                 if not any(g is s for s in sliced))
+    own = sum(s.float().square().sum() for s in sliced)
+    return torch.sqrt(shared + direct.allreduce(own, ep, mesh))
 
 
 def make_train_step(
@@ -94,12 +165,17 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grads_of(params, batch)
-        for g in treepath.leaves(grads) if dp else ():
-            g.copy_(direct.allreduce_mean(g, dp, ctx.mesh))
-        params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg)
+        ep = _expert_slice_axes(cfg, ctx, params)
+        if ep:
+            gnorm = _reduce_expert_slices(grads, dp, ep, ctx.mesh)
+        else:
+            for g in treepath.leaves(grads) if dp else ():
+                g.copy_(direct.allreduce_mean(g, dp, ctx.mesh))
+            gnorm = opt.global_norm(grads)
+        params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg, gnorm=gnorm)
         metrics = dict(metrics)
         metrics["loss"] = loss
-        metrics["grad_norm"] = opt.global_norm(grads)
+        metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
     return train_step

@@ -5,9 +5,11 @@ with numpy from fixed seeds), its results pickled beside it.
 
     python tests/_torch_spmd_ranks.py JOB RANK WORLD STORE INPUTS OUT [DEVICE]
 
-JOB ``main`` runs the world-4 checks (collectives, compression, the
-dataframe operators, attention_sharded, the dense model, the dp train
-steps, the driver's gate); ``moe`` the world-8 expert-parallel dispatch.
+JOB ``main`` runs the world-4 checks (collectives and their backward,
+compression, the dataframe operators, attention_sharded, the dense model,
+the dp train steps, the driver's gate, the expert-parallel dispatch over a
+replicated axis of 4 and over the dp axis); ``moe`` the world-8
+expert-parallel dispatch on a (2, 4) mesh.
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
 
     python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
@@ -74,6 +76,15 @@ SUMS = ("allreduce", "allreduce_mean", "reduce_scatter_dim0", "reduce_scatter_di
         "compressed_pmean_ef", "compressed_pmean_ef_err",
         *(f"allreduce_decomposed_{m}{n}" for m in ("", "mean_") for n in ("64", "3x5", "13")))
 
+# each differentiable collective's output shape at world 4 on the [8, 12]
+# input (the cotangent each rank puts on it)
+BACKWARD_SHAPES = {"allreduce": (8, 12), "allreduce_mean": (8, 12), "allgather_dim0": (32, 12),
+                   "allgather_dim1": (8, 48), "alltoall_00": (8, 12), "alltoall_01": (2, 48),
+                   "alltoall_10": (32, 3), "alltoall_11": (8, 12)}
+# the MoE train step: qwen3-moe at MOE_OVER, float32 storage, 2 layers
+MOE_STEP_OVER = dict(MOE_OVER, num_layers=2, vocab_size=CFG_OVER["vocab_size"],
+                     param_dtype="float32")
+
 DEV = torch.device("cpu")  # this rank's device (main sets it)
 
 
@@ -82,7 +93,9 @@ def t_(a) -> torch.Tensor:
 
 
 def np_(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor as numpy; bfloat16 as its float32 values (exact)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def make_inputs() -> dict:
@@ -141,6 +154,14 @@ def make_inputs() -> dict:
     inp["moe_params"] = {"blocks": {"moe": interop.params_to_numpy(
         api.init_params(mcfg, torch.Generator().manual_seed(4), device="cpu"))["blocks"]["moe"]}}
     inp["moe_x"] = rng.normal(size=(8, 16, MOE_OVER["d_model"])).astype(np.float32)
+    # the backward checks: a cotangent per rank for each collective's output,
+    # one for the MoE output of each dp shard, and the MoE train step's batch
+    inp["cot"] = {name: rng.normal(size=(p,) + shape).astype(np.float32)
+                  for name, shape in BACKWARD_SHAPES.items()}
+    inp["moe_cot"] = rng.normal(size=(8, 16, MOE_OVER["d_model"])).astype(np.float32)
+    inp["moe_cot_aux"] = np.float32(rng.normal() * 10)
+    inp["moe_batch"] = {"tokens": rng.integers(0, CFG_OVER["vocab_size"], (8, 16)).astype(np.int32),
+                        "mask": (rng.random((8, 16)) < 0.8).astype(np.float32)}
     return inp
 
 
@@ -225,6 +246,22 @@ def collectives(inp, rank, out):
     r["two_axes_alltoall"] = np_(direct.alltoall(x, both, mesh=mesh22))
     r["model_axis_allgather"] = np_(direct.allgather(x, "model", dim=0, mesh=mesh22))
     out["collectives"] = r
+    # each differentiable collective's backward: this rank's gradient of the
+    # sum over ranks of <output_r, cot_r>
+    bwd = {}
+    with direct.use_mesh(mesh):
+        calls = {"allreduce": lambda t: direct.allreduce(t, "data"),
+                 "allreduce_mean": lambda t: direct.allreduce_mean(t, "data"),
+                 "allgather_dim0": lambda t: direct.allgather(t, "data", dim=0),
+                 "allgather_dim1": lambda t: direct.allgather(t, "data", dim=1),
+                 **{f"alltoall_{s_}{c_}": (lambda t, s_=s_, c_=c_: direct.alltoall(
+                     t, "data", split_dim=s_, concat_dim=c_)) for s_ in (0, 1) for c_ in (0, 1)}}
+        for name, call in calls.items():
+            leaf = x.detach().clone().requires_grad_()
+            y = call(leaf)
+            (y * t_(inp["cot"][name][rank])).sum().backward()
+            bwd[name] = np_(leaf.grad)
+    out["collectives_backward"] = bwd
 
 
 def dataframe(inp, rank, out):
@@ -325,28 +362,81 @@ def driver(inp, rank, out, ckpt_dir: Path):
     out["driver"] = {"full": full, "resumed": resumed, "log": lines}
 
 
-def moe_ep(inp, rank, out):
+def _moe_run(cfg, x, cot, cot_aux, tree, ctx, shares: int = 0) -> dict:
+    """One MoE layer's output, aux loss and gradients (of <out, cot> +
+    cot_aux x aux: every rank of the ep axis computes the same loss) for x,
+    the router, wi and wo.  The leaves are the float32 values of the stored
+    bfloat16 weights, so that the gradients stay float32 (a bfloat16 leaf's
+    gradient is its float32 sum rounded, whose ulp is no tolerance of
+    the dispatch)."""
+    blk = {k: w[0].detach().float().requires_grad_() for k, w in tree["blocks"]["moe"].items()}
+    x = x.clone().requires_grad_()
+    y, aux = moe.moe_block(x, blk, cfg, ctx)
+    if shares:  # the replicated dispatch's aux loss: the mean of each token share's
+        x2d = x.reshape(-1, x.shape[-1])
+        aux = sum(moe._route(part, blk["router"], cfg)[2] for part in x2d.chunk(shares)) / shares
+    ((y * cot).sum() + cot_aux * aux).backward()
+    return {"out": np_(y), "aux": float(aux), "grads": {"x": np_(x.grad),
+            **{k: np_(blk[k].grad) for k in ("router", "wi", "wo")}}}
+
+
+def moe_ep(inp, rank, out, mesh, ep_axis, shard_axis=None):
+    """The expert-parallel dispatch over ``ep_axis`` of ``mesh`` (the tokens
+    replicated over it: each dp shard of ``shard_axis`` holds its own), each
+    rank holding every expert or only its slice, against the local
+    dispatch of the same shard: outputs and gradients."""
     cfg = configs.get("qwen3-moe-235b-a22b").reduced(**inp["moe_over"])
-    mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
-    ctx = DistContext(mesh=mesh, ep_axis="model", dp_axes=("data",), tp_axis="model")
-    d, m = direct.axis_index("data", mesh), direct.axis_index("model", mesh)
-    x = t_(inp["moe_x"])
-    n = x.shape[0] // 2
-    x = x[d * n:(d + 1) * n]
+    ctx = DistContext(mesh=mesh, ep_axis=ep_axis, tp_axis=ep_axis,
+                      dp_axes=(shard_axis,) if shard_axis else ())
+    m = direct.axis_index(ep_axis, mesh)
+    p = direct.axis_size(ep_axis, mesh)
+    x, cot = t_(inp["moe_x"]), t_(inp["moe_cot"])
+    if shard_axis:
+        d, n = direct.axis_index(shard_axis, mesh), x.shape[0] // direct.axis_size(shard_axis,
+                                                                                    mesh)
+        x, cot = x[d * n:(d + 1) * n], cot[d * n:(d + 1) * n]
+    cot_aux = float(inp["moe_cot_aux"])
     full = interop.params_from_numpy(cfg, inp["moe_params"], DEV)
-    sliced = interop.params_from_numpy(cfg, interop.expert_slice(cfg, inp["moe_params"], m, 4),
+    sliced = interop.params_from_numpy(cfg, interop.expert_slice(cfg, inp["moe_params"], m, p),
                                        DEV)
-    r = {}
-    with torch.no_grad():
-        for name, tree in (("full", full), ("slice", sliced)):
-            blk = {k: w[0] for k, w in tree["blocks"]["moe"].items()}
-            y, aux = moe.moe_block(x, blk, cfg, ctx)
-            r[name] = {"out": np_(y), "aux": float(aux)}
-        blk = {k: w[0] for k, w in full["blocks"]["moe"].items()}
-        y, aux = moe.moe_block(x, blk, cfg, None)
-        r["local"] = {"out": np_(y), "aux": float(aux)}
+    r = {name: _moe_run(cfg, x, cot, cot_aux, tree, ctx)
+         for name, tree in (("full", full), ("slice", sliced))}
+    r["local"] = _moe_run(cfg, x, cot, cot_aux, full, None, shares=p)
     r["expert_rows"] = int(sliced["blocks"]["moe"]["wi"].shape[1])
-    out["moe"] = r
+    r["ep_rank"], r["ep_size"] = m, p
+    return r
+
+
+def moe_train_step(inp, mesh, ep_axis, dp_axis):
+    """make_train_step on a 2-layer qwen3-moe, each rank on its dp shard of
+    the batch, with the experts over ``ep_axis`` (every expert on every
+    rank, and each rank's slice) and without: the losses, gradient norms
+    and updated parameters of each.  Over a replicated axis
+    the aux loss is off: there the reference's is the mean of the token
+    shares' (``pmean``), not the dp shard's, so the two steps' losses
+    differ by definition (the dispatch's checks hold that aux loss and its
+    gradient against the shares' mean)."""
+    over = MOE_STEP_OVER if ep_axis == dp_axis else dict(MOE_STEP_OVER, router_aux_coef=0.0)
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced(**over)
+    oc = opt.OptConfig(**inp["opt"])
+    d, n = direct.axis_index(dp_axis, mesh), 8 // direct.axis_size(dp_axis, mesh)
+    shard = {k: t_(v[d * n:(d + 1) * n]) for k, v in inp["moe_batch"].items()}
+    e_rank, n_ep = direct.axis_index(ep_axis, mesh), direct.axis_size(ep_axis, mesh)
+    r = {"ep_rank": e_rank, "expert_rows": cfg.num_experts_padded // n_ep}
+    for name, ep in (("ep", ep_axis), ("ep_slice", ep_axis), ("local", None)):
+        p = api.init_params(cfg, torch.Generator(device=DEV).manual_seed(5), device=DEV,
+                            master=True)
+        if name == "ep_slice":
+            moe, rows = p["blocks"]["moe"], r["expert_rows"]
+            for w in ("wi", "wo"):
+                moe[w] = moe[w][:, e_rank * rows:(e_rank + 1) * rows].clone()
+        state = opt.init_state(p, oc)
+        step = ts.make_train_step(cfg, oc, ctx=DistContext(mesh=mesh, ep_axis=ep,
+                                                           dp_axes=(dp_axis,)))
+        p, state, m = step(p, state, shard)
+        r[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "params": interop.params_to_numpy(p)}
+    return r
 
 
 def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
@@ -367,8 +457,15 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         attention(inp, rank, out)
         dense(inp, rank, out)
         driver(inp, rank, out, Path(out_dir) / f"ckpt_{device}")
+        # the MoE over a replicated axis of 4, and over the dp axis itself
+        model = init_device_mesh(DEV.type, (4,), mesh_dim_names=("model",))
+        data = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
+        out["moe"] = moe_ep(inp, rank, out, model, "model")
+        out["moe"]["step_over_dp"] = moe_train_step(inp, data, "data", "data")
     else:
-        moe_ep(inp, rank, out)
+        mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
+        out["moe"] = moe_ep(inp, rank, out, mesh, "model", "data")
+        out["moe"]["step"] = moe_train_step(inp, mesh, "model", "data")
     (Path(out_dir) / f"{job}_{device}_rank{rank}.pkl").write_bytes(pickle.dumps(out))
     dist.barrier()
     dist.destroy_process_group()

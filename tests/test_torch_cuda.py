@@ -967,3 +967,113 @@ def test_flash_decode_after_a_narrower_decode(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, fa_r.attention_ref(q, k, v, causal=False),
                                    atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+# -- the training path with bfloat16 k/v (the families' training) -----------------
+
+# (q, k/v shapes, mask): q float32 (Whisper's encoder: the float32 values of
+# bfloat16 q, as ``layers.attention`` passes them), k/v bfloat16
+BF16_TRAIN_SHAPES = {
+    # recurrentgemma-9b's local MQA: 16 query heads over 1 kv head of 256
+    "griffin_local": ((1, 4096, 16, 256), (1, 4096, 1, 256), dict(causal=True, window=2048)),
+    # whisper-medium's encoder over its 1500 frames (non-causal, 23 x 64 + 28)
+    "whisper_encoder": ((4, 1500, 16, 64), (4, 1500, 16, 64), dict(causal=False)),
+    # its cross-attention: 448 decoder positions over the 1500 frames
+    "whisper_cross": ((4, 448, 16, 64), (4, 1500, 16, 64), dict(causal=False)),
+}
+# dk and dv come back rounded to bfloat16: BWD_TOL on their float32 values,
+# plus one rounding (half an ulp is 2^-9 of the value; 2^-8 allowed)
+BF16_ROUND = 2.0**-8
+
+
+def _bf16_train_inputs(cuda, name, seed=0):
+    q_shape, kv_shape, kw = BF16_TRAIN_SHAPES[name]
+    rng = np.random.default_rng(seed + q_shape[1])
+    q = torch.tensor(rng.normal(size=q_shape), dtype=torch.float32, device=cuda)
+    if name == "whisper_encoder":
+        q = q.to(torch.bfloat16).float()
+    k, v = (torch.tensor(rng.normal(size=kv_shape), dtype=torch.float32,
+                         device=cuda).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, dict(dict(window=0, softcap=0.0, q_offset=0), **kw)
+
+
+def _bf16_train_check(q, k, v, kw, seed=0):
+    """flash_attention_lse (flash_wgmma, bf16 k/v) and flash_attention_bwd
+    against the plain versions: o and lse within FLASH_TOL, dq within
+    BWD_TOL, dk and dv (bfloat16) within BWD_TOL plus one rounding."""
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    do = torch.randn(q.shape, generator=g, device=q.device)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    dq, dk, dv = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.float32 and dk.dtype == dv.dtype == torch.bfloat16
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_r, atol=FLASH_TOL, rtol=FLASH_TOL, msg="o")
+    torch.testing.assert_close(lse, lse_r, atol=FLASH_TOL, rtol=FLASH_TOL, msg="lse")
+    exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.testing.assert_close(dq, exp[0], atol=BWD_TOL, rtol=BWD_TOL, msg="dq")
+    for name, got, e in (("dk", dk, exp[1]), ("dv", dv, exp[2])):
+        err = (got.float() - e).abs()
+        assert bool((err <= BWD_TOL + (BWD_TOL + BF16_ROUND) * e.abs()).all()), \
+            (name, float(err.max()))
+    return o, lse, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_TRAIN_SHAPES))
+def test_flash_bf16_kv_training_matches_plain(cuda, name):
+    """The families' training attention with bfloat16 k/v: the forward with
+    lse in flash_wgmma, the backward in bwd_wgmma (hd 64) or bwd_wide (hd
+    256, Griffin's 16 query heads over one kv head) from the float32 values
+    of k and v, each against its plain version."""
+    q, k, v, kw = _bf16_train_inputs(cuda, name)
+    fwd0, bwd0 = dict(fa_k.fwd_design_launches), dict(fa_k.bwd_design_launches)
+    _bf16_train_check(q, k, v, kw)
+    assert fa_k.fwd_design_launches["flash_wgmma"] == fwd0["flash_wgmma"] + 1
+    design = fa_k.bwd_design(q.shape[3])
+    assert fa_k.bwd_design_launches[design] == bwd0[design] + 1
+
+
+@pytest.mark.parametrize("name", sorted(BF16_TRAIN_SHAPES))
+def test_flash_bf16_kv_training_reads_no_unwritten_memory(cuda, name, monkeypatch):
+    """Every byte of the forward's o and lse and of the backward's scratch
+    starts as 0xff (a float32 NaN): the kernels write what they read, so the
+    results stay finite and right."""
+    made = []
+
+    def nan_bytes(nbytes, dev):
+        made.append(nbytes)
+        return torch.full((nbytes,), 255, dtype=torch.uint8, device=dev)
+
+    def nan_out(shape, dev):
+        made.append(shape)
+        return torch.full(shape, float("nan"), dtype=torch.float32, device=dev)
+
+    monkeypatch.setattr(fa_k, "_scratch_bytes", nan_bytes)
+    monkeypatch.setattr(fa_k, "_empty_out", nan_out)
+    q, k, v, kw = _bf16_train_inputs(cuda, name, seed=1)
+    o, lse, grads = _bf16_train_check(q, k, v, kw, seed=1)
+    assert len(made) == 3   # o, lse and the backward's scratch
+    assert all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads))
+
+
+def test_flash_autograd_with_bf16_inputs(cuda):
+    """ops.flash_attention on bfloat16 q, k, v requiring grad: the forward
+    with lse on bf16 k/v, the backward kernel, each gradient in bfloat16,
+    equal to the CPU path's (plain versions) within the kernels' limits
+    plus one bfloat16 rounding."""
+    q, k, v = _flash_inputs(cuda, 2, 200, 200, 8, 2, 64, torch.bfloat16, seed=10)
+    q = q.to(torch.bfloat16)
+    do = torch.randn(q.shape, device=cuda)
+    kw = dict(causal=True, window=64, softcap=0.0)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, **kw)
+    out.backward(do)
+    cpu = [x.cpu().requires_grad_() for x in (q, k, v)]
+    out_c = fa_ops.flash_attention(*cpu, **kw)
+    out_c.backward(do.cpu())
+    torch.testing.assert_close(out.detach().cpu(), out_c.detach(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    for a, e in zip(leaves, cpu):
+        assert a.grad.dtype == e.grad.dtype == torch.bfloat16
+        err = (a.grad.cpu().float() - e.grad.float()).abs()
+        assert bool((err <= BWD_TOL + (BWD_TOL + 2 * BF16_ROUND) * e.grad.float().abs()).all())

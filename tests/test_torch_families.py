@@ -373,6 +373,36 @@ def test_linear_scan_is_the_recurrence():
     torch.testing.assert_close(TG._linear_scan(a, b), torch.stack(want, 1), atol=1e-5, rtol=1e-5)
 
 
+def _linear_scan_in_place(a, b):
+    """The doubling scan as it ran before it made new tensors per step (in
+    place on clones: no gradient)."""
+    t, span = a.shape[1], 1
+    a, b = a.clone(), b.clone()
+    while span < t:
+        b[:, span:] += a[:, span:] * b[:, :-span]
+        a[:, span:] = a[:, span:] * a[:, :-span]
+        span *= 2
+    return b
+
+
+@pytest.mark.parametrize("t", [1, 2, 37, 64, 4096])
+def test_linear_scan_equals_the_in_place_scan(t):
+    """The out-of-place scan keeps the in-place one's order of sums: bit for
+    bit, so serving's results do not move."""
+    rng = np.random.default_rng(t)
+    a = torch.from_numpy(rng.random((2, t, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(2, t, 8)).astype(np.float32))
+    assert torch.equal(TG._linear_scan(a, b), _linear_scan_in_place(a, b))
+
+
+def test_linear_scan_gradcheck():
+    """Autograd through the scan against finite differences, float64."""
+    rng = np.random.default_rng(14)
+    a = torch.from_numpy(rng.uniform(0.2, 0.9, (2, 11, 3))).requires_grad_()
+    b = torch.from_numpy(rng.normal(size=(2, 11, 3))).requires_grad_()
+    assert torch.autograd.gradcheck(TG._linear_scan, (a, b))
+
+
 def test_causal_conv_matches():
     rng = np.random.default_rng(13)
     x = rng.normal(size=(2, 9, 6)).astype(np.float32)

@@ -36,7 +36,16 @@ Tolerances, each with its reason:
   implicit step's, parameters within 2 x 3 x lr after three steps, the
   residual alive and below 1;
 - the expert-parallel MoE against the port's local dispatch: 2e-4, the
-  reference test's limit.
+  reference test's limit, for the outputs and for the gradients of x, the
+  router, wi and wo (the experts' bucket rows sum in another order);
+- each collective's backward against its definition: 1e-6 (float32 sums
+  over 4 ranks in another order);
+- make_train_step with the experts over an ep axis against the same step
+  without: the loss 1e-5 relative, the gradient norm 1e-4, and every
+  parameter within 2 lr, 99.9% within 2 bf16 ulps of lr (the first AdamW
+  step moves a weight by +-lr whatever its gradient's size, so only a
+  flipped sign where |g| is tiny, or a bf16-rounded weight gradient on its
+  neighbouring value, moves it further).
 """
 
 import datetime
@@ -484,6 +493,94 @@ def test_driver_gates_on_flag_and_resumes(runs):
 # -- the expert-parallel MoE ------------------------------------------------------------------
 
 
+def _moe_ranks(runs, world):
+    """The MoE results of every rank of the world-8 job ((2, 4) mesh, ep over
+    "model", dp over "data") or of the world-4 one (ep over all 4)."""
+    _, main, moe, _ = runs
+    return [r["moe"] for r in (moe if world == 8 else main)]
+
+
+@pytest.mark.parametrize("experts", ["full", "slice"])
+@pytest.mark.parametrize("world", [4, 8])
+def test_moe_ep_grads_match_local_dispatch(runs, world, experts):
+    """The gradients of x, the router, wi and wo through _moe_ep (the
+    collectives' backward, then one copy's gradient: ``_moe_ep``'s doc)
+    against the local dispatch's at 2e-4, with every expert on every rank
+    or each rank's slice (its rows of the local gradient), the same on
+    every rank of the ep axis but the slices.  The loss weighs the aux
+    loss, whose local counterpart is the reference's pmean: the mean of
+    the ranks' token shares' aux losses (1e-5)."""
+    ranks = _moe_ranks(runs, world)
+    for r, res in enumerate(ranks):
+        got, exp = res[experts]["grads"], res["local"]["grads"]
+        n = res["expert_rows"]
+        m = res["ep_rank"]
+        for name, g in got.items():
+            e = exp[name]
+            if experts == "slice" and name in ("wi", "wo"):
+                e = e[m * n:(m + 1) * n]
+            np.testing.assert_allclose(g, e, atol=2e-4, rtol=2e-4, err_msg=f"rank {r} {name}")
+        np.testing.assert_allclose(res[experts]["aux"], res["local"]["aux"], rtol=1e-5)
+        first = ranks[r - m]
+        for name in ("x", "router") + (("wi", "wo") if experts == "full" else ()):
+            np.testing.assert_array_equal(got[name], first[experts]["grads"][name])
+
+
+@pytest.mark.parametrize("over", ["replicated", "dp", "replicated-slice", "dp-slice"])
+def test_moe_train_step_with_ep_matches_without(runs, over):
+    """make_train_step(ctx=DistContext(ep_axis=...)) gives the update of the
+    same step without ep_axis: over "model" of the (2, 4) mesh (dp over
+    "data", which the step averages its gradients over), and over the dp
+    axis of 4 itself (each rank routes its own shard); with every expert on
+    every rank, or each rank's slice of them (its rows of the update
+    without ep_axis, and the same norm for the clip)."""
+    ranks = [r["moe"]["step"] for r in runs[2]] if over.startswith("replicated") else \
+        [r["moe"]["step_over_dp"] for r in runs[1]]
+    run = "ep_slice" if over.endswith("slice") else "ep"
+    sliced = ("blocks.moe.wi", "blocks.moe.wo") if run == "ep_slice" else ()
+    lr = OPT["lr"]
+    for res in ranks:
+        got, exp = res[run], res["local"]
+        np.testing.assert_allclose(got["loss"], exp["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], exp["grad_norm"], rtol=1e-4)
+        m, n = res["ep_rank"], res["expert_rows"]
+        for name, e in _flat(exp["params"]).items():
+            if name in sliced:
+                e = e[:, m * n:(m + 1) * n]
+            err = np.abs(_flat(got["params"])[name] - e)
+            assert err.max() <= 2 * lr + 1e-6, (name, float(err.max()))
+            assert np.mean(err <= lr * 2 * BF16_ULP + 1e-6) >= 0.999, name
+    for res in ranks:  # a slice equals its ep peers', every other leaf every rank's
+        peer = next(r_ for r_ in ranks if r_["ep_rank"] == res["ep_rank"])
+        for name, v in _flat(res[run]["params"]).items():
+            first = peer if name in sliced else ranks[0]
+            np.testing.assert_array_equal(v, _flat(first[run]["params"])[name])
+
+
+@pytest.mark.parametrize("name", sorted(ranks_.BACKWARD_SHAPES))
+def test_collective_backward_matches_definition(runs, name):
+    """Each differentiable collective's backward at world 4: rank s's
+    gradient of sum_r <output_r, cot_r>, from the collective's definition
+    on the ranks' inputs (numpy)."""
+    _, ranks, _, inp = runs
+    xs, cots, p = inp["x"], inp["cot"][name], 4
+    for s_, res in enumerate(ranks):
+        if name == "allreduce":
+            exp = cots.sum(0)
+        elif name == "allreduce_mean":
+            exp = cots.sum(0) / p
+        elif name.startswith("allgather"):
+            dim = int(name[-1])
+            exp = sum(np.split(c, p, axis=dim)[s_] for c in cots)
+        else:   # alltoall_<split><concat>: piece r of x_s went to rank r, at its slot s
+            split, concat = int(name[-2]), int(name[-1])
+            exp = np.concatenate([np.split(cots[r], p, axis=concat)[s_] for r in range(p)],
+                                 axis=split)
+        assert exp.shape == xs[s_].shape
+        np.testing.assert_allclose(res["collectives_backward"][name], exp, atol=1e-6, rtol=1e-6,
+                                   err_msg=f"rank {s_}")
+
+
 @pytest.mark.parametrize("experts", ["full", "slice"])
 def test_moe_ep_matches_local_dispatch(runs, experts):
     """_moe_ep on a (2, 4) mesh (ep over "model"), each rank holding every
@@ -512,29 +609,6 @@ def _moe_guard_inputs():
     return cfg, blk, x
 
 
-@pytest.mark.parametrize("leaf", ["x2d", "router", "wi", "wo"])
-def test_moe_ep_refuses_autograd_before_any_collective(leaf):
-    """_moe_ep has no gradient yet (ROADMAP A 7 c): with grad mode on and
-    any one of its inputs requiring a gradient it raises NotImplementedError
-    naming A 7 c.  The context has no mesh, so a collective reached first
-    would raise another error: the guard comes before every one."""
-    from repro_torch.models import moe
-    from repro_torch.models.transformer import DistContext
-
-    cfg, blk, x = _moe_guard_inputs()
-    if leaf == "x2d":
-        x.requires_grad_()
-    else:
-        blk[leaf].requires_grad_()
-    ctx = DistContext(mesh=None, ep_axis="model")
-    with pytest.raises(NotImplementedError, match="A 7 c"):
-        moe.moe_block(x, blk, cfg, ctx)
-    with pytest.raises(NotImplementedError, match="A 7 c"):
-        moe._moe_ep(x.reshape(-1, cfg.d_model), blk["router"], blk["wi"], blk["wo"], cfg, ctx)
-    with torch.no_grad(), pytest.raises(RuntimeError, match="no device mesh"):
-        moe.moe_block(x, blk, cfg, ctx)   # no grad: past the guard, to the first collective
-
-
 def test_moe_ep_forward_under_no_grad_matches_local(tmp_path):
     """Under torch.no_grad, with inputs that require a gradient, _moe_ep runs
     its dispatch as before: at world 1 (an in-process gloo group) it gives
@@ -559,3 +633,36 @@ def test_moe_ep_forward_under_no_grad_matches_local(tmp_path):
         dist.destroy_process_group()
     np.testing.assert_allclose(y.numpy(), y_loc.numpy(), atol=2e-4, rtol=2e-4)
     np.testing.assert_allclose(float(aux), float(aux_loc), atol=2e-4, rtol=2e-4)
+
+
+def test_moe_ep_grads_at_world_1(tmp_path):
+    """At world 1 (an in-process gloo group) _moe_ep under autograd gives the
+    local dispatch's gradients of x, the router, wi and wo at 2e-4."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import DistContext
+
+    cfg, blk, x = _moe_guard_inputs()
+    cot = torch.tensor(np.random.default_rng(4).normal(size=x.shape), dtype=torch.float32)
+
+    def grads(ctx):
+        leaves = {k: w.clone().requires_grad_() for k, w in blk.items()}
+        xl = x.clone().requires_grad_()
+        y, aux = moe.moe_block(xl, leaves, cfg, ctx)
+        ((y * cot).sum() + 3.0 * aux).backward()
+        return {"x": xl.grad, **{k: leaves[k].grad for k in ("router", "wi", "wo")}}
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        got = grads(DistContext(mesh=mesh, ep_axis="model"))
+    finally:
+        dist.destroy_process_group()
+    exp = grads(None)
+    for name, g in got.items():
+        assert g is not None and bool(g.abs().sum() > 0), name
+        np.testing.assert_allclose(g.numpy(), exp[name].numpy(), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)

@@ -26,6 +26,20 @@ Tolerances, each with its reason:
   step differs from its own ``value_and_grad`` by more at one microbatch
   than at two: its gradient norm moves by 2e-6 relative.)  The optimizer
   alone, from identical gradients, holds ``F32_PARAM_TOL`` 1e-6.
+- the bfloat16-activation families (recurrentgemma-9b, whisper-medium at
+  their stock ``dtype``): ``BF16_FAMILY_LOSS_TOL`` 1e-3 relative for the
+  loss and, for every leaf, ``BF16_FAMILY_GRAD_TOL`` 5e-2 of the norm of
+  the reference's gradient for the norm of the difference.  Their products
+  and elementwise steps round to bfloat16 in another order than the
+  reference's compiled graph (XLA fuses elementwise chains and keeps their
+  intermediates in float32; the port, like the reference run op by op,
+  rounds each), and the backward through a few bfloat16 layers compounds
+  it: measured 2.4e-2 (Griffin) and 1.2e-2 (Whisper) at worst, a loss
+  1.5e-4 apart.  The same configs at ``dtype="float32"`` (the ``-f32``
+  cases) hold the float32 limits (measured 1.3e-6), which pins the
+  gradients' structure; the bf16 cases pin the in-graph casts (the cast
+  leaves' gradients are bfloat16 values in both packages), and the loose
+  limit must reject a model that lost its attention output projection.
 - ``lr_at``: 1e-6 relative (float32 schedule arithmetic; cos in two libms).
 - int8 quantization: bit-exact; ``apply_updates`` float32 moments 1e-6
   relative plus 1e-6 of the leaf's largest (beta m + (1 - beta) g can
@@ -64,12 +78,29 @@ BF16_ULP = 2.0**-7
 F32_PARAM_TOL = 1e-6
 LR_TOL = 1e-6
 
+BF16_FAMILY_LOSS_TOL = 1e-3
+BF16_FAMILY_GRAD_TOL = 5e-2
+
 MATRIX = ("wq", "wk", "wv", "wo_att", "wi", "wo", "lm_head")
 
+# the first cases, held to the embedding bound they passed before the
+# repeated-token rows were bounded (``_close_bf16``)
+SEED_CASES = ("minicpm-2b", "gemma3-4b", "minicpm-2b-untied")
+# every arch of configs.ARCH_IDS at reduced(): (arch, config overrides)
 CASES = {
     "minicpm-2b": ("minicpm-2b", dict(num_layers=2)),
     "gemma3-4b": ("gemma3-4b", dict(num_layers=6)),  # 5 local (window 32) + 1 global, qk-norm, GQA
     "minicpm-2b-untied": ("minicpm-2b", dict(num_layers=2, tie_embeddings=False)),
+    "starcoder2-3b": ("starcoder2-3b", {}),
+    "h2o-danube-3-4b": ("h2o-danube-3-4b", {}),
+    "internvl2-2b": ("internvl2-2b", {}),                 # patches over the first positions
+    "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}),   # aux loss, bf16 weight storage
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {}),           # + a shared expert
+    "rwkv6-7b": ("rwkv6-7b", {}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}),       # bf16 activations: BF16_FAMILY_*
+    "recurrentgemma-9b-f32": ("recurrentgemma-9b", dict(dtype="float32")),
+    "whisper-medium": ("whisper-medium", {}),             # frames; bf16 encoder: BF16_FAMILY_*
+    "whisper-medium-f32": ("whisper-medium", dict(dtype="float32")),
 }
 
 
@@ -84,34 +115,52 @@ def _np_params(jcfg, seed=0):
 
 
 def _batch(cfg, b, t, seed=0):
+    """tokens and mask, and the family's stub inputs: ``frames`` (audio),
+    ``patches`` (vlm)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
     mask = (rng.uniform(size=(b, t)) > 0.2).astype(np.float32)
-    return {"tokens": tokens, "mask": mask}
+    out = {"tokens": tokens, "mask": mask}
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(size=(b, cfg.source_positions, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(size=(b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _tbatch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def _items(tree):
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
 def _flat(tree, prefix=""):
+    """numpy leaves by path (a bfloat16 leaf as its float32 values)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in _items(tree):
+        if isinstance(v, (dict, tuple, list)):
             out.update(_flat(v, f"{prefix}{k}/"))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v)
+            out[f"{prefix}{k}"] = np.asarray(v).astype(np.float32)
     return out
 
 
-def _close_bf16(got, exp, name, tied=False):
+def _close_bf16(got, exp, name, tied=False, summed_rows=None):
     """A tied embedding's gradient is the float32 sum of two bfloat16-rounded
     terms (the lookup's and the head's), each of which can flip by one ulp of
     its own size, which cancellation can make large against the sum: there
-    the bound is one bfloat16 ulp of the leaf's largest gradient."""
+    the bound is one bfloat16 ulp of the leaf's largest gradient.  So is an
+    embedding row whose token occurs more than once in the batch
+    (``summed_rows``, a row mask): the lookup's transpose sums the rounded
+    cotangents of its positions in bfloat16, in another order in each
+    package."""
     scale = max(float(np.abs(exp).max()), 1e-30)
     err = np.abs(got - exp)
     bound = BF16_ULP * scale if tied else BF16_ULP * np.abs(exp) + F32_GRAD_TOL * scale
+    if summed_rows is not None:
+        bound = np.where(summed_rows[:, None], BF16_ULP * scale, bound)
     assert (err <= bound).all(), (name, float(err.max()))
     assert np.mean(got == exp) >= 0.99, (name, float(np.mean(got == exp)))
 
@@ -153,38 +202,109 @@ def _port_loss_and_grads(tcfg, np_params, batch):
     loss, metrics = tapi.loss_fn(tcfg, params, _tbatch(batch))
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},
-            {k: g.numpy() for k, g in zip(leaves, grads)})
+            {k: g.float().numpy() for k, g in zip(leaves, grads)})
 
 
 def _flat_t(tree, prefix=""):
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in _items(tree):
+        if isinstance(v, (dict, tuple, list)):
             out.update(_flat_t(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = v
     return out
 
 
+def _bf16_activations(tcfg) -> bool:
+    return tapi.compute_dtype(tcfg) == torch.bfloat16
+
+
+def _close_norm(got, exp, name) -> bool:
+    """The bfloat16-activation families' limit (module doc)."""
+    return bool(np.linalg.norm(got - exp) <= BF16_FAMILY_GRAD_TOL * np.linalg.norm(exp))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_loss_fn_and_grads_match(case):
     """loss_fn's value and the gradient of every leaf, against
-    jax.value_and_grad(repro.models.api.loss_fn)."""
+    jax.value_and_grad(repro.models.api.loss_fn).  The transformer
+    families' matrix weights (every leaf, with bf16 weight storage) take
+    bfloat16-rounded gradients; RWKV-6 and the -f32 cases are float32
+    throughout; the bf16-activation families take the norm limit."""
     jcfg, tcfg = _cfgs(case)
     np_params = _np_params(jcfg)
     batch = _batch(jcfg, 2, 48)
     jl, jm, jg = _jax_loss_and_grads(jcfg, np_params, batch)
     tl, tm, tg = _port_loss_and_grads(tcfg, np_params, batch)
-    np.testing.assert_allclose(tl, jl, rtol=LOSS_TOL)
-    np.testing.assert_allclose(tm["ce"], jm["ce"], rtol=LOSS_TOL)
-    assert tm["aux"] == jm["aux"] == 0.0
+    loss_tol = BF16_FAMILY_LOSS_TOL if _bf16_activations(tcfg) else LOSS_TOL
+    np.testing.assert_allclose(tl, jl, rtol=loss_tol)
+    np.testing.assert_allclose(tm["ce"], jm["ce"], rtol=loss_tol)
+    if tcfg.family == "moe":
+        assert jm["aux"] > 0
+        np.testing.assert_allclose(tm["aux"], jm["aux"], rtol=LOSS_TOL)
+    else:
+        assert tm["aux"] == jm["aux"] == 0.0
     assert sorted(tg) == sorted(jg)
+    transformer = tcfg.family in ("dense", "moe", "vlm")
+    bf16_store = tcfg.param_dtype == "bfloat16"
     for name, exp in jg.items():
         leaf = name.rsplit("/", 1)[-1]
-        if leaf in MATRIX or leaf == "embed":
-            _close_bf16(tg[name], exp, name, tied=leaf == "embed" and tcfg.tie_embeddings)
+        if _bf16_activations(tcfg):
+            assert _close_norm(tg[name], exp, name), (
+                name, float(np.linalg.norm(tg[name] - exp) / np.linalg.norm(exp)))
+        elif transformer and (bf16_store or leaf in MATRIX or leaf == "embed"):
+            summed = None
+            if leaf == "embed" and case not in SEED_CASES:
+                summed = np.bincount(batch["tokens"].ravel(), minlength=exp.shape[0]) > 1
+            _close_bf16(tg[name], exp, name, tied=leaf == "embed" and tcfg.tie_embeddings,
+                        summed_rows=summed)
         else:
             _close_f32(tg[name], exp, name)
+
+
+# the bf16-activation families' leaves whose products cast them to bfloat16
+# inside the graph (the transpose of the cast rounds their gradients), and
+# the leaf whose loss from the port's gradients must fail the norm limit
+BF16_CAST = {
+    "recurrentgemma-9b": (("w_gate", "w_in", "wq", "wk", "wv", "wo_a", "wi", "wo", "lm_head"),
+                          "group/2/wo_a"),
+    "whisper-medium": (("encoder/wq", "encoder/wk", "encoder/wv", "encoder/wo", "encoder/wi",
+                        "encoder/wo_m", "decoder/xk", "decoder/xv"), "decoder/xo"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CAST))
+def test_bf16_family_casts_and_limit(case):
+    """The bf16-activation families: every cast leaf's gradient is a
+    bfloat16 value in both packages (the in-graph casts sit where the
+    reference's do), and the norm limit rejects the gradients of the same
+    model with an attention output projection zeroed."""
+    cast, lost = BF16_CAST[case]
+    jcfg, tcfg = _cfgs(case)
+    np_params = _np_params(jcfg, seed=2)
+    batch = _batch(jcfg, 2, 32, seed=2)
+    _, _, jg = _jax_loss_and_grads(jcfg, np_params, batch)
+    _, _, tg = _port_loss_and_grads(tcfg, np_params, batch)
+    checked = 0
+    for grads in (jg, tg):
+        for name, g in grads.items():
+            if name.endswith(cast) and "/" in name or name == "lm_head" and "lm_head" in cast:
+                bf = np.asarray(jnp.asarray(g).astype(jnp.bfloat16), np.float32)
+                assert np.array_equal(g, bf), name
+                checked += 1
+    assert checked >= 2 * len(cast)
+    faulted = _flat(np_params)
+    faulted[lost] = np.zeros_like(faulted[lost])
+    tree = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(np_params), [
+        faulted[k] for k in _paths(np_params)])
+    _, _, fg = _port_loss_and_grads(tcfg, tree, batch)
+    assert not all(_close_norm(fg[name], exp, name) for name, exp in jg.items())
+
+
+def _paths(tree):
+    """The leaves' paths of a numpy tree in ``jax.tree_util``'s order."""
+    return ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+            for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
 def test_weight_grads_are_bf16_exact():
