@@ -12,8 +12,10 @@ Phases, one JSON line each:
    unless the SASS (``cuobjdump -sass``) of every tensor-core kernel holds
    ``HGMMA`` (warpgroup tensor-core) instructions: the forward's
    ``flash_wgmma`` for bf16 and for float32 k/v (``flash_wgmma_split``),
-   the backward's ``bwd_wgmma``, ``bwd_wide`` and ``bwd_dq_ds`` (the dS
-   path's dQ).
+   the backward's ``bwd_wgmma``, ``bwd_dq_ds`` (the dS path's dQ) and each
+   of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
+   recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
+   and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -148,14 +150,18 @@ Phases, one JSON line each:
    [4, 1500, 16, 64], non-causal, a ragged 1500: ``flash_wgmma`` and
    ``bwd_wgmma``), its cross-attention (q [4, 448, 16, 64] over bf16 k/v [4,
    1500, 16, 64]) and its decoder's self-attention (float32, causal, [4,
-   448, 16, 64]: ``flash_wgmma_split``).  bf16 k/v enter the backward as
-   their float32 values, and dk, dv come back rounded to bfloat16: held at
+   448, 16, 64]: ``flash_wgmma_split``).  bf16 k/v enter ``bwd_wide`` as
+   they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
+   float32 values, and dk, dv come back rounded to bfloat16: held at
    ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
    operands need (``attn_products``: 1 for a product of two bf16 values, 3
    where one operand is one, 6 where neither is; 4.2 a product for the
    backward on bf16 k/v, 3.2 where q is a bf16 value too), and
    ``bound_ms_as_run`` those the design makes (``FLASH_SPLIT``,
-   ``BWD_SPLIT``).
+   ``BWD_SPLIT``, and ``kernel.bwd_products`` of the instance that runs:
+   ``bwd_wide`` takes bf16 k/v as they are, 4.2).  Each backward row also
+   names its plan (the head subsets of its dK/dV pass, the k/v parts) and
+   gives the device ms of each pass (``BWD_PASSES``, ``torch.profiler``).
 7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
    weights from ``--seed``, made on the card): B = 4 requests of 4096
    prompt tokens, 32 new tokens each, greedy.  The one run that is counted
@@ -207,7 +213,9 @@ Phases, one JSON line each:
    shapes (phase 6b); the run fails unless the losses are finite and step
    4's is below step 1's, the peak is under 75 GB, and the calls by design
    are those its layers make (each layer's forward and its recompute, and
-   one backward); then a fifth step under the profiler (a ``trace``
+   one backward; recurrentgemma's 4 backwards on bf16 k/v with the head
+   split, ``csrc/attn_plan.h``, and no other path of the script with
+   either); then a fifth step under the profiler (a ``trace``
    line).  ``families_train_check``: each family at ``reduced()``,
    one step on the card against the CPU from the same master weights and
    batch: the loss and each gradient (the norm of the difference against
@@ -408,14 +416,15 @@ FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW = 2, 16, 16
 # at 3 of its 38 (one rec, rec, attn group), whisper-medium at full depth over
 # its 1500 frames with openai/whisper's n_text_ctx of 448 decoder tokens.
 # Each layer runs forward and, under remat, again in the backward: per step
-# recurrentgemma 2 flash_wgmma (bf16 k/v) + 1 bwd_wide; whisper 24 x 2
+# recurrentgemma 2 flash_wgmma (bf16 k/v) + 1 bwd_wide, on bf16 k/v with its
+# 16-head group split over the SMs (attn_plan.h: 2 subsets); whisper 24 x 2
 # encoder + 24 x 2 cross flash_wgmma, 24 x 2 decoder flash_wgmma_split
 # (float32 k/v), 72 bwd_wgmma
 FAMILY_TRAIN_STEPS = 4
 FAMILY_TRAIN = (
     ("rwkv6", "rwkv6-7b", {"num_layers": 4}, 1, 4096, {}),
     ("recurrentgemma", "recurrentgemma-9b", {"num_layers": 3}, 1, 4096,
-     {"flash_wgmma": 4 * 2, "bwd_wide": 4}),
+     {"flash_wgmma": 4 * 2, "bwd_wide": 4, "head_split/bwd_wide": 4, "bf16_kv/bwd_wide": 4}),
     ("whisper", "whisper-medium", {}, 4, 448,
      {"flash_wgmma": 4 * 96, "flash_wgmma_split": 4 * 48, "bwd_wgmma": 4 * 72}),
 )
@@ -456,13 +465,21 @@ SPMD_DP_LAYERS, SPMD_DP_STEPS = 8, 3
 SPMD_MOE_B, SPMD_MOE_T = 4, 2048
 SPMD_PG_TIMEOUT_S = 300
 # the attention backward's kernels by pass (profiler names, first match
-# wins): the prologues, the dS path's dQ and its merge, the recomputing dQ
-# pass (bwd_wide<true, ...>, bwd_wgmma<HD, true>), the dK/dV pass (the rest:
-# bwd_wide<false, DS>, bwd_wgmma<HD, false>)
+# wins): the prologues, the dS path's dQ and its merge, the head split's
+# dK/dV merge, the recomputing dQ pass (bwd_wide<true, ...>, bwd_wgmma<HD,
+# true>), the dK/dV pass (the rest: bwd_wide<false, ...>, bwd_wgmma<HD,
+# false>)
 BWD_PASSES = {"prologues": ("bwd_prep",), "dq_from_ds": ("bwd_dq_ds",),
-              "dq_merge": ("bwd_dq_merge",),
+              "dq_merge": ("bwd_dq_merge",), "dkdv_merge": ("bwd_kv_merge",),
               "dq_recompute": ("bwd_wide<true", "32, true>", "64, true>", "128, true>"),
               "dkdv": ("bwd_wide<false", "bwd_wgmma<")}
+# bwd_wide's instances as their mangled template arguments <DQ, DS, HS, KV1>:
+# the recomputing dK/dV and dQ passes, the dS path's dK/dV pass, the
+# head-split dK/dV pass, and on bf16 k/v the dK/dV pass (whole and split)
+# and the dQ pass
+BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb0E",
+                      "ILb0ELb0ELb1ELb0E", "ILb0ELb0ELb0ELb1E", "ILb0ELb0ELb1ELb1E",
+                      "ILb1ELb0ELb0ELb1E")
 # every path runs at its full size and depth but these
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
@@ -682,8 +699,11 @@ def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
         **{f"flash_attention/{d}": n for d, n in fa_k.fwd_design_launches.items()},
         **{f"flash_attention_bwd/{d}": n for d, n in fa_k.bwd_design_launches.items()},
         # the calls that took the key split (flash_tiled: more than one
-        # chunk; bwd_wide: the dS path)
+        # chunk; bwd_wide: the dS path), the head split (bwd_wide's dK/dV
+        # pass) and bf16 k/v as they are (bwd_wide)
         **{f"key_split/{d}": n for d, n in fa_k.split_launches.items()},
+        **{f"head_split/{d}": n for d, n in fa_k.head_split_launches.items()},
+        **{f"bf16_kv/{d}": n for d, n in fa_k.bf16_kv_launches.items()},
     }
 
 
@@ -693,9 +713,36 @@ def reset_counters(hp_k, jp_k, sr_k, fa_k) -> None:
     sr_k.launches = 0
     fa_k.launches = 0
     fa_k.bwd_launches = 0
-    for designs in (fa_k.fwd_design_launches, fa_k.bwd_design_launches, fa_k.split_launches):
+    for designs in (fa_k.fwd_design_launches, fa_k.bwd_design_launches, fa_k.split_launches,
+                    fa_k.head_split_launches, fa_k.bf16_kv_launches):
         for design in designs:
             designs[design] = 0
+
+
+def pass_ms(torch, timer, fn, groups, reps=5) -> dict:
+    """Device ms of each group of kernels (label -> name substrings, first
+    match wins) in one call of ``fn``, and its launches per call:
+    ``torch.profiler`` over ``reps`` calls, L2 flushed before each, the
+    mean.  Late in this script's process a short session has kept only its
+    last kernels (3 of 5 calls missing on an H100), so 64 tiny kernels and a
+    sleep kernel lead; where the launches per call still come out
+    fractional, the times are not kept ("not measured")."""
+    filler = torch.zeros(1, device="cuda")
+
+    def run():
+        for _ in range(64):
+            filler.add_(1.0)
+        torch.cuda._sleep(Timer.SLEEP_CYCLES)
+        for _ in range(reps):
+            timer.scratch.zero_()  # 128 MB > the 50 MB L2
+            fn()
+    t = trace(torch, run, groups={**groups, "other": ("",)})
+    out = {g: {"ms": ms / reps, "launches": n / reps}
+           for g, (ms, n) in t["by_group_ms"].items() if g != "other"}
+    seen = [row["launches"] * reps for row in out.values()]
+    if not sum(seen) or any(n % reps for n in seen):
+        return {"not measured": f"the profiler kept a fraction of the launches: {out}"}
+    return out
 
 
 def flash_work(torch, q, k, *, causal, window, q_offset, kv_len) -> tuple[int, int]:
@@ -835,10 +882,11 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
     """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b):
     the forward with lse (``flash_wgmma`` on bf16 k/v, ``flash_wgmma_split``
     on Whisper's float32 decoder) and the backward (``bwd_wide`` at hd 256,
-    ``bwd_wgmma`` at 64; bf16 k/v enter as their float32 values) against
+    bf16 k/v as they are; ``bwd_wgmma`` at 64, their float32 values) against
     the plain versions from the same o and lse; each timed with its bound
     (the products its operands need) and the design's, the plain version
-    and SDPA (autograd for the backward).  One row per
+    and SDPA (autograd for the backward); the backward also with its plan
+    (head subsets, k/v parts) and its device ms by pass.  One row per
     kernel and shape, named ``<kernel>/<design>@<cell>``."""
     import torch.nn.functional as F
 
@@ -905,7 +953,14 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
         # q, o, do, dq float32; k, v, dk, dv in their own type; lse
         nbytes = 4 * 4 * q.numel() + 4 * k.numel() * k.element_size() + 4 * lse.numel()
         bms, bby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", b_split)
-        run_ms, _ = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
+        # the instance that runs: its k/v parts give its products
+        plan = fa_k.bwd_plan(hd, q_shape[0], q_shape[1], kv_shape[1], q_shape[2], kv_shape[2],
+                             causal=kw["causal"], window=kw["window"], q_offset=0,
+                             sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                             kv_bf16=kvt == torch.bfloat16)
+        products = fa_k.bwd_products(plan.kv_parts)
+        run_split = sum(products.values()) / len(products)
+        run_ms, _ = bound(nbytes, 10 * hd * pairs, "bf16_tensor", run_split)
         ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         leaves = [x.float().transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
@@ -916,7 +971,11 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
             "plain_ms": timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)),
             "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
             "operations": 10 * hd * pairs, "split": b_split, "bound_ms_as_run": run_ms,
-            "split_as_run": fa_k.BWD_SPLIT, "library_ms": library_ms}
+            "split_as_run": run_split, "head_splits": plan.head_splits, "kv_parts": plan.kv_parts,
+            "library_ms": library_ms,
+            "passes_ms": pass_ms(torch, timer,
+                                 lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                                 BWD_PASSES)}
         del q, do, k, v, o, lse, leaves, out, mask
         torch.cuda.empty_cache()
     return rows
@@ -1989,8 +2048,10 @@ def families_train_phase(torch, seed, launches, hp_k, jp_k, sr_k, fa_k, rows) ->
             stamps.append(time.perf_counter())
         got = counters(hp_k, jp_k, sr_k, fa_k)
         peak = torch.cuda.max_memory_allocated()
-        designs = {d: n for d, n in {**fa_k.fwd_design_launches,
-                                     **fa_k.bwd_design_launches}.items() if n}
+        designs = {d: n for d, n in {
+            **fa_k.fwd_design_launches, **fa_k.bwd_design_launches,
+            **{f"head_split/{d}": n for d, n in fa_k.head_split_launches.items()},
+            **{f"bf16_kv/{d}": n for d, n in fa_k.bf16_kv_launches.items()}}.items() if n}
         if designs != want:
             fail(f"families_train {run}: flash attention ran {designs}, want {want}")
         for name, c in got.items():
@@ -2207,31 +2268,6 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    filler = torch.zeros(1, device=dev)
-
-    def pass_ms(fn, groups, reps=5):
-        """Device ms of each group of kernels (label -> name substrings, first
-        match wins) in one call of ``fn``, and its launches per call:
-        ``torch.profiler`` over ``reps`` calls, L2 flushed before each, the
-        mean.  Late in this script's process a short session has kept only
-        its last kernels (3 of 5 calls missing on an H100), so 64 tiny
-        kernels and a sleep kernel lead; where the launches per call still
-        come out fractional, the times are not kept ("not measured")."""
-        def run():
-            for _ in range(64):
-                filler.add_(1.0)
-            torch.cuda._sleep(Timer.SLEEP_CYCLES)
-            for _ in range(reps):
-                timer.scratch.zero_()  # 128 MB > the 50 MB L2
-                fn()
-        t = trace(torch, run, groups={**groups, "other": ("",)})
-        out = {g: {"ms": ms / reps, "launches": n / reps}
-               for g, (ms, n) in t["by_group_ms"].items() if g != "other"}
-        seen = [row["launches"] * reps for row in out.values()]
-        if not sum(seen) or any(n % reps for n in seen):
-            return {"not measured": f"the profiler kept a fraction of the launches: {out}"}
-        return out
-
     def fwd_row(name, q, k, v, kw, design):
         """The forward with lse at ``kw`` (q_offset, causal): time, bound
         (its design's engine), the plain version, SDPA; its kernels' device
@@ -2247,7 +2283,8 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
                       "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms,
                       "bytes": nbytes, "operations": ops,
                       "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full)),
-                      "passes_ms": pass_ms(lambda: fa_k.flash_attention_lse(q, k, v, **kw), {
+                      "passes_ms": pass_ms(torch, timer,
+                                           lambda: fa_k.flash_attention_lse(q, k, v, **kw), {
                           "merge": ("flash_tiled_merge",), "prologue": ("fwd_prep_kv",),
                           "kernel": ("flash_",)})}
         if design == "flash_tiled":
@@ -2279,6 +2316,7 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
                       "library_ms": library_ms,
                       # the device time of each pass
                       "passes_ms": pass_ms(
+                          torch, timer,
                           lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw),
                           BWD_PASSES),
                       "key_split_chunks": fa_k.bwd_plan(
@@ -2592,11 +2630,12 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
         "flash_wgmma", "fwd_prep_kv", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_wide",
-        "bwd_dq", "bwd_prep", "probe_kernel", "build_index")}})
+        "bwd_dq", "bwd_kv", "bwd_prep", "probe_kernel", "build_index")}})
     # flash_wgmma<HD, false> (bf16 k/v) and <HD, true> (flash_wgmma_split),
-    # bwd_wgmma, bwd_wide and bwd_dq_ds: every instance on the tensor cores
+    # bwd_wgmma, bwd_wide's seven instances and bwd_dq_ds: every instance on
+    # the tensor cores
     for name, instances in (("flash_wgmma", ("ELb0E", "ELb1E")), ("bwd_wgmma", ("",)),
-                            ("bwd_wide", ("",)), ("bwd_dq_ds", ("",))):
+                            ("bwd_wide", BWD_WIDE_INSTANCES), ("bwd_dq_ds", ("",))):
         hgmma = sass_has(_build.build(), name, "HGMMA")
         if not all(any(i in f for f in hgmma) for i in instances) or not all(hgmma.values()):
             fail(f"{name}'s SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
@@ -3395,6 +3434,14 @@ def main() -> int:
             fail(f"kernel {name} was not launched on the main path")
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    # the head split and bf16 k/v as they are: recurrentgemma's training
+    # backwards (one attention layer a step), no other path (serve, train,
+    # spmd: the gemma3 islands and full layers keep the whole group)
+    for counter in ("head_split/bwd_wide", "bf16_kv/bwd_wide"):
+        by_path = {run: n for run, n in launches.get(counter, {}).items() if n}
+        if by_path != {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS}:
+            fail(f"{counter} ran on {by_path}, want families_train/recurrentgemma only "
+                 f"({FAMILY_TRAIN_STEPS})")
     emit({"phase": "launches", **launches})
 
     keys_out = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -26,20 +26,28 @@ h2o-danube's hd 120 (32 / 8 heads, window 4096) and gemma3-4b's global
 layer (8 / 4 heads of 256), and gemma3-4b's last sequence-split island at
 tp 16 (q [1, 256, 8, 256] at q_offset 3840 over k/v [1, 4096, 4, 256]).
 Backward shapes: minicpm-2b's, h2o-danube's, gemma3-4b's local and global
-layers (window 1024 and 0), two ragged ones, and the gemma3 island; each
+layers (window 1024 and 0), two ragged ones, the gemma3 island, and
+recurrentgemma-9b's local MQA (16 query heads over one kv head of 256,
+window 2048) on bf16 k/v (its training path) and on float32 k/v; each
 backward line also carries the device time of each pass (``torch.profiler``
-through ``chip_smoke.trace``, mean of 3 calls, L2 flushed before each).
+through ``chip_smoke.trace``, mean of 3 calls, L2 flushed before each) and,
+where the package has them, its plan's head subsets and k/v parts.  dk and
+dv of bf16 k/v come back as bfloat16: held at the limit plus one rounding
+(2^-8 of the value).
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FLASH_TOL = 2e-5
@@ -55,21 +63,29 @@ FWD_SHAPES = (
     ("gemma3_global_f32_fwd", 1, 4096, 4096, 8, 4, 256, "float32", 0, 0, None, 0.0, True),
     ("gemma3_island_fwd", 1, 256, 4096, 8, 4, 256, "float32", 0, 3840, None, 0.0, True),
 )
-# (b, tq, tk, h, kvh, hd, window, q_offset): minicpm-2b's train shape,
-# h2o-danube's, gemma3-4b's local and global layers, ragged ones, the gemma3 island
-BWD_SHAPES = ((2, 4096, 4096, 36, 36, 64, 0, 0), (1, 4096, 4096, 32, 8, 120, 4096, 0),
-              (1, 4096, 4096, 8, 4, 256, 1024, 0), (1, 4096, 4096, 8, 4, 256, 0, 0),
-              (1, 4097, 4097, 8, 2, 64, 300, 0), (2, 333, 333, 8, 4, 32, 50, 0),
-              (1, 256, 4096, 8, 4, 256, 0, 3840))
+BF16_ROUND = 2.0**-8
+# (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype): minicpm-2b's train
+# shape, h2o-danube's, gemma3-4b's local and global layers, ragged ones, the
+# gemma3 island, recurrentgemma-9b's local MQA (bf16 k/v, and float32)
+BWD_SHAPES = ((2, 4096, 4096, 36, 36, 64, 0, 0, "float32"),
+              (1, 4096, 4096, 32, 8, 120, 4096, 0, "float32"),
+              (1, 4096, 4096, 8, 4, 256, 1024, 0, "float32"),
+              (1, 4096, 4096, 8, 4, 256, 0, 0, "float32"),
+              (1, 4097, 4097, 8, 2, 64, 300, 0, "float32"),
+              (2, 333, 333, 8, 4, 32, 50, 0, "float32"),
+              (1, 256, 4096, 8, 4, 256, 0, 3840, "float32"),
+              (1, 4096, 4096, 16, 1, 256, 2048, 0, "bfloat16"),
+              (1, 4096, 4096, 16, 1, 256, 2048, 0, "float32"))
 
 
 def limits(got, exp, tol: float, names) -> dict:
-    out = {"max_abs_err": max(float((a - e).abs().max()) for a, e in zip(got, exp))}
+    out = {"max_abs_err": max(float((a.float() - e).abs().max()) for a, e in zip(got, exp))}
     for name, a, e in zip(names, got, exp):
-        bad = (a - e).abs() > tol + tol * e.abs()
+        rounded = BF16_ROUND if a.dtype == torch.bfloat16 else 0.0
+        bad = (a.float() - e).abs() > tol + (tol + rounded) * e.abs()
         if bool(bad.any()):
             out[f"{name}_over_limit"] = int(bad.sum())
-            out[f"{name}_median_rel_dev"] = float(((a - e) / e)[bad].median())
+            out[f"{name}_median_rel_dev"] = float(((a.float() - e) / e)[bad].median())
     out["within_tol"] = not any(key.endswith("_over_limit") for key in out)
     return out
 
@@ -77,8 +93,6 @@ def limits(got, exp, tol: float, names) -> dict:
 def run_one(src: str, reps: int, only: str | None) -> None:
     sys.path.insert(0, src)
     sys.path.insert(0, str(ROOT))
-    import torch
-
     from chip_smoke import BWD_PASSES, Timer, trace
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
@@ -86,7 +100,7 @@ def run_one(src: str, reps: int, only: str | None) -> None:
     t0 = time.perf_counter()
     _build.library()
     ptx = {name.split("_cu_")[-1]: [r["registers"], r["spill_store_bytes"]]
-           for pat in ("flash_wgmma", "flash_tiled", "bwd_wgmma", "bwd_wide", "bwd_dq")
+           for pat in ("flash_wgmma", "flash_tiled", "bwd_wgmma", "bwd_wide", "bwd_dq", "bwd_kv")
            for name, r in _build.ptxas_report(pat).items()}
     print(json.dumps({"src": src, "build_s": time.perf_counter() - t0, "ptxas": ptx}), flush=True)
     dev = torch.device("cuda")
@@ -122,16 +136,22 @@ def run_one(src: str, reps: int, only: str | None) -> None:
         print(json.dumps(out), flush=True)
         del q, k, v, got
         torch.cuda.empty_cache()
-    for b, t, tk, h, kvh, hd, window, q_offset in (BWD_SHAPES if only != "fwd" else ()):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, t, tk, h, kvh, hd, window, q_offset, kv_dtype in (BWD_SHAPES if only != "fwd" else ()):
         q, do = (torch.randn(b, t, h, hd, generator=gen, device=dev) for _ in range(2))
-        k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev).to(getattr(torch, kv_dtype))
+                for _ in range(2))
         kw = dict(causal=True, window=window, softcap=0.0, q_offset=q_offset)
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
         got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        out = {"src": src, "shape": [b, t, tk, h, kvh, hd, window, q_offset],
+        out = {"src": src, "shape": [b, t, tk, h, kvh, hd, window, q_offset], "kv_dtype": kv_dtype,
                "design": bwd_design(hd) if bwd_design else None,
                **limits(got, exp, BWD_TOL, ("dq", "dk", "dv"))}
+        if "kv_bf16" in inspect.signature(fa_k.bwd_plan).parameters:  # a parent may predate it
+            plan = fa_k.bwd_plan(hd, b, t, tk, h, kvh, causal=True, window=window,
+                                 q_offset=q_offset, sms=sms, kv_bf16=kv_dtype == "bfloat16")
+            out.update(head_splits=plan.head_splits, kv_parts=plan.kv_parts)
         again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         out["repeat_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, again))
         del exp, again

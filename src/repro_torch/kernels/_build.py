@@ -15,10 +15,10 @@ encoder ``cuTensorMapEncodeTiled``.  ptxas reports each
 kernel's registers, shared memory and spills; the report is kept beside the
 library as ``build.log`` (:func:`ptxas_report`).
 
-:func:`plan_library` builds the attention key-split rule
-(``csrc/attn_plan.h``, which the CUDA sources include) with the host C++
-compiler into a second small library, so that the wrappers, and the CPU
-tests without ``nvcc``, read the rule the CUDA entry points apply.
+:func:`plan_library` builds the attention split rules (``csrc/attn_plan.h``,
+which the CUDA sources include) with the host C++ compiler into a second
+small library, so that the wrappers, and the CPU tests without ``nvcc``,
+read the rules the CUDA entry points apply.
 """
 
 from __future__ import annotations
@@ -70,12 +70,13 @@ SIGNATURES = {
     ),
     "rt_flash_attention_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F32,
-        _I, _P,
+        _I, _I, _P,
     ),
 }
 PLAN_SIGNATURES = {
     "rt_flash_tiled_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "rt_flash_attention_bwd_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "rt_flash_attention_bwd_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                    _P),
 }
 
 

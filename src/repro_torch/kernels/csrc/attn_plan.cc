@@ -1,4 +1,4 @@
-// The key-split rule of attn_plan.h for the Python wrappers, with a plain C
+// The split rules of attn_plan.h for the Python wrappers, with a plain C
 // interface (loaded with ctypes; built by the host C++ compiler, so that the
 // wrappers and the CPU tests read the same rule the CUDA entry points
 // apply).  Each returns 0, or 1 for sizes it does not take.
@@ -28,18 +28,25 @@ extern "C" int rt_flash_tiled_plan(int B, int Tq, int Tk, int H, int KV, int q_o
   return 0;
 }
 
-// The backward at head width hd: *nchunk 0 for the recomputing dQ pass,
-// else the dS path's chunks (and bounds[0 .. *nchunk]); the scratch bytes
-// of the call.
+// The backward at head width hd with k/v bfloat16 (kv_bf16) or float32:
+// *nchunk 0 for the recomputing dQ pass, else the dS path's chunks (and
+// bounds[0 .. *nchunk]); *nsplit the dK/dV pass's head subsets (1:
+// unsplit); *kv_parts the bf16 parts it holds of k and v (1: bf16 k/v taken
+// as they are; 3: float32 values, which the wrapper must pass); the
+// scratch bytes of the call.
 extern "C" int rt_flash_attention_bwd_plan(int hd, int B, int Tq, int Tk, int H, int KV,
-                                           int q_offset, int window, int causal, int sms,
-                                           int* nchunk, int64_t* scratch_bytes, int* bounds) {
+                                           int q_offset, int window, int causal, int kv_bf16,
+                                           int sms, int* nchunk, int* nsplit, int* kv_parts,
+                                           int64_t* scratch_bytes, int* bounds) {
   if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0 || sms < 1) return 1;
   if (hd != 32 && hd != 64 && hd != 112 && hd != 120 && hd != 128 && hd != 256) return 1;
   int lo, hi;
   *nchunk = attn_plan::bwd_dq_chunks(hd, B, Tq, Tk, H, q_offset, window, causal, sms, &lo, &hi);
+  *nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tk, H, KV, *nchunk, sms);
+  *kv_parts = attn_plan::bwd_kv_parts(hd, kv_bf16, *nchunk);
   const int hdk = hd == 112 || hd == 120 ? 128 : hd;
-  *scratch_bytes = attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, *nchunk).total;
+  *scratch_bytes =
+      attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, *nchunk, *nsplit, *kv_parts).total;
   if (*nchunk > 0) fill_bounds(*nchunk, lo, hi, bounds);
   return 0;
 }

@@ -1,11 +1,12 @@
-// The key split of the two hd-256 float32 attention designs, in one place:
-// flash_tiled (the forward, flash_attention.cu) and bwd_wide's dQ
-// (flash_attention_bwd.cu).  Plain C++: the CUDA entry points include it to
-// decide, and attn_plan.cc exports it to the Python wrappers (built by the
-// host compiler), which ask it for the scratch a call needs and count the
-// split launches; nothing else holds the rule.
+// The split rules of the two hd-256 attention designs, in one
+// place: flash_tiled (the forward, flash_attention.cu) and bwd_wide
+// (flash_attention_bwd.cu): the key split, the backward's head split and
+// its k/v parts.  Plain C++: the CUDA entry points include it to decide,
+// and attn_plan.cc exports it to the Python wrappers (built by the host
+// compiler), which ask it for the scratch a call needs and count the split
+// launches; nothing else holds the rules.
 //
-// The rule.  A design whose grid has fewer blocks than the card has SMs
+// The key split.  A design whose grid has fewer blocks than the card has SMs
 // leaves SMs idle while each block streams every key it sees in series
 // (gemma3-4b's sequence-split islands: q [1, 256, 8, 256] over 4,096 keys,
 // 32 blocks of 216 KB on 132 SMs).  There the keys the rows can see
@@ -14,7 +15,14 @@
 // as keep the grid within one wave (blocks x chunks <= SMs).  A grid that
 // already fills a wave runs one chunk, the unsplit path.  The chunks'
 // partial results are merged in chunk order (deterministic).
-
+//
+// The head split (bwd_kv_head_splits).  bwd_wide's dK/dV pass has one block
+// per (batch, kv head, 64-key tile), each streaming the query tiles of every
+// query head of the GQA group; recurrentgemma-9b's local MQA (16 query heads
+// over one kv head, 4,096 keys) gives 64 blocks on 132 SMs, each streaming
+// 16 heads' tiles.  Under one wave the group's query heads are cut into n
+// contiguous subsets instead, one block per (key tile, subset), each
+// writing a partial dK and dV that a merge sums in subset order.
 #pragma once
 
 #include <stdint.h>
@@ -129,15 +137,46 @@ inline int bwd_dq_chunks(int hd, int B, int Tq, int Tk, int H, int q_offset, int
   return key_chunks(blocks, sms, *k_begin, *k_end);
 }
 
+// bwd_wide's dK/dV pass (hd 256): n subsets of the group's query heads
+// (subset s holds heads head_begin(s) .. head_begin(s + 1) - 1 of the
+// group).  Where the pass's grid (B x KV x ceil(Tk / 64) blocks) is under
+// one wave and a group has more than one head: the most subsets that keep
+// blocks x n <= SMs, at most one per head (recurrentgemma-9b: 64 blocks,
+// n = 2).  Else 1, the unsplit pass: every other hd-256 call on a path
+// (gemma3-4b's full layers and islands: 256 blocks), and the dS path
+// (nchunk > 0), whose dK/dV pass also stores dS.  Partials [n][B KV][Tk]
+// [256] float32 of dK, then of dV, summed in subset order (none for n = 1).
+inline int bwd_kv_head_splits(int hd, int B, int Tk, int H, int KV, int nchunk, int sms) {
+  const int groups = H / KV;
+  const int64_t blocks = static_cast<int64_t>(B) * KV * cdiv(Tk, kRows);
+  if (hd != kHd || groups < 2 || nchunk > 0 || blocks >= sms) return 1;
+  int64_t n = sms / blocks;
+  if (n > groups) n = groups;
+  return n < 1 ? 1 : static_cast<int>(n);
+}
+
+ATTN_PLAN_FN int head_begin(int s, int n, int groups) { return s * groups / n; }
+
+// The bf16 parts the backward holds of k and v: 1 where they are bfloat16
+// and bwd_wide's recomputing passes run (hd 256, nchunk 0: k and v enter as
+// they are, each product with them takes three bf16 products where float32
+// operands take six), else 3 (float32 values, or bf16 ones taken as their
+// float32 values: bwd_wgmma and the dS path).
+inline int bwd_kv_parts(int hd, int kv_bf16, int nchunk) {
+  return kv_bf16 && hd == kHd && nchunk == 0 ? 1 : kParts;
+}
+
 // The backward's scratch, in this order, each part 256-byte aligned: the
 // bf16 parts of q / sqrt(hd), dO ([3][B H][Tq][hdk] each) and of k, v
-// ([3][B KV][Tk][hdk]); lse and D as [B H][Tp] float32 (Tp: Tq padded to
-// kPadRows); on the dS path the dQ partials (more than one chunk) and dS.
+// ([kv_parts][B KV][Tk][hdk]); lse and D as [B H][Tp] float32 (Tp: Tq padded
+// to kPadRows); on the dS path the dQ partials (more than one chunk) and dS;
+// with a head split the dK and dV partials.
 struct BwdLayout {
-  int64_t qp, dop, kp, vp, lse, d, dq_part, ds, total;  // byte offsets, and the size
+  int64_t qp, dop, kp, vp, lse, d, dq_part, ds, kv_part, total;  // byte offsets, and the size
 };
 
-inline BwdLayout bwd_layout(int hdk, int B, int Tq, int Tk, int H, int KV, int nchunk) {
+inline BwdLayout bwd_layout(int hdk, int B, int Tq, int Tk, int H, int KV, int nchunk,
+                            int nsplit, int kv_parts) {
   BwdLayout l;
   const int64_t qpart = 2 * static_cast<int64_t>(B) * H * Tq * hdk;   // bytes of one part
   const int64_t kpart = 2 * static_cast<int64_t>(B) * KV * Tk * hdk;
@@ -145,13 +184,15 @@ inline BwdLayout bwd_layout(int hdk, int B, int Tq, int Tk, int H, int KV, int n
   l.qp = 0;
   l.dop = l.qp + align256(kParts * qpart);
   l.kp = l.dop + align256(kParts * qpart);
-  l.vp = l.kp + align256(kParts * kpart);
-  l.lse = l.vp + align256(kParts * kpart);
+  l.vp = l.kp + align256(kv_parts * kpart);
+  l.lse = l.vp + align256(kv_parts * kpart);
   l.d = l.lse + align256(4 * static_cast<int64_t>(B) * H * tp);
   l.dq_part = l.d + align256(4 * static_cast<int64_t>(B) * H * tp);
   l.ds = l.dq_part +
          (nchunk > 1 ? align256(4 * static_cast<int64_t>(nchunk) * B * H * Tq * kHd) : 0);
-  l.total = l.ds + (nchunk > 0 ? align256(4 * static_cast<int64_t>(B) * H * Tq * Tk) : 0);
+  l.kv_part = l.ds + (nchunk > 0 ? align256(4 * static_cast<int64_t>(B) * H * Tq * Tk) : 0);
+  l.total = l.kv_part +
+            (nsplit > 1 ? align256(2 * 4 * static_cast<int64_t>(nsplit) * B * KV * Tk * kHd) : 0);
   return l;
 }
 

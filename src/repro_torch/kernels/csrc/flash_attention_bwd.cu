@@ -7,8 +7,9 @@
 // transpose of the forward, on the TPU.  The port's forward is a hand-written
 // kernel with no gradient, so its backward is one too.
 //
-// Semantics: the gradient of ref.attention_ref with q [B, Tq, H, hd] and
-// k, v [B, Tk, KV, hd] float32 (H % KV == 0), query row i at position
+// Semantics: the gradient of ref.attention_ref with q [B, Tq, H, hd]
+// float32 and k, v [B, Tk, KV, hd] float32 or (bwd_wide) bfloat16 (H % KV
+// == 0), query row i at position
 // q_offset + i and kv_len Tk, causal or not, a run-time sliding window (0 =
 // none) and a tanh softcap c (d/ds of c tanh(s / c) is 1 - (s' / c)^2 with
 // s' the capped score).  Every row sees at least its own key: a non-causal,
@@ -26,9 +27,10 @@
 //
 // Bound: operations.  The least work is five products of 2 hd operations
 // per visible (query, key) pair: S, dP, dV, dK, dQ, 10 hd in all (4 hd for
-// the forward).  Every operand is float32 (q, k, v, dO are float32 products
-// of float32 activations; P and dS are computed here), so on the bf16
-// tensor cores each float32 product becomes BWD_SPLIT = 6 bf16 products:
+// the forward).  With float32 k/v every operand is float32 (q, k, v, dO are
+// float32 products of float32 activations; P and dS are computed here), so
+// on the bf16 tensor cores each float32 product becomes BWD_SPLIT = 6 bf16
+// products:
 // both operands split into three bf16 parts x = x0 + x1 + x2 (x0 = bf16(x),
 // x1 = bf16(x - x0), x2 = bf16(x - x0 - x1)), and the cross products x_i y_j
 // with i + j <= 2 summed in float32 (the smallest first); the dropped ones
@@ -39,16 +41,22 @@
 // train step's bf16-rounded weight gradients off the plain backward's (5
 // products: 0.45%), where train_check (a) allows 1% between the card and
 // the CPU in all and the card's float32 products already spend up to 0.8%;
-// 6 move 0.08% (scripts/torch_bwd_split_choice.py).
+// 6 move 0.08% (scripts/torch_bwd_split_choice.py).  bf16 k/v have one
+// non-zero part: bwd_wide takes them as they are (attn_plan.h:
+// bwd_kv_parts), and the products with k or v (S, dP, dQ) make three bf16
+// products, the non-zero three of the six in the same order, so the sums
+// equal the float32-k/v path's on the same values; dV and dK stay at six:
+// 4.2 a product on average, the bound of bf16 k/v.
 //
 // Two designs, by head width (the wrapper, kernel.bwd_design, mirrors it),
 // both deterministic with no atomics: each output element is written once
-// by the thread whose registers summed it (the kill/resume drill replays a
-// loss trace bit for bit).  Both start with the same two prologues:
+// by the thread whose registers summed it, and partials (the head split's,
+// the dS path's) are summed in a fixed order (the kill/resume drill replays
+// a loss trace bit for bit).  Both start with the same two prologues:
 // bwd_prep_q (D = rowsum(dO * O), and q / sqrt(hd) and dO split into their
 // three bf16 parts, lse and D copied into rows padded to 128) and
-// bwd_prep_kv (k and v split), into wrapper scratch in head-major order
-// [part][batch x head][T][hd].  Then two passes, FA2's split: one for dK
+// bwd_prep_kv (k and v split, or bf16 k/v copied as their one part), into
+// wrapper scratch in head-major order [part][batch x head][T][hd].  Then two passes, FA2's split: one for dK
 // and dV, one for dQ, each with a block's 64 "fixed" rows (keys, or
 // queries) against tiles of the other rows streamed through a ring by TMA
 // (q and dO of every query tile of every q head of the GQA group that can
@@ -120,6 +128,27 @@
 //   The fixed operands are read unpadded, with each 8-byte slot s of row r
 //   at s ^ ((r & 3) << 2): the 16 lanes of a half-warp (4 rows x 4 slots)
 //   hit 16 different bank pairs.
+//   The head split (attn_plan.h: bwd_kv_head_splits).  Where the dK/dV grid
+//   (B x KV x Tk / 64 blocks) is under one wave and the GQA group has more
+//   than one head (recurrentgemma-9b's local MQA: 16 query heads over one kv
+//   head, 64 blocks on 132 SMs, each streaming 16 x 132 tiles), the group's
+//   heads are cut into n contiguous subsets (n = 2 there: 128 blocks),
+//   blockIdx.z the subset: bwd_wide<false, false, true> streams its
+//   subset's heads only and writes a partial dK and dV ([n][B KV][Tk][256]
+//   float32), and bwd_kv_merge sums them in subset order into dk, dv
+//   (deterministic).  Each subset's sums keep the fresh accumulators.  Its
+//   own instance: the full layers' pass is unchanged.
+//   bf16 k/v (the KV1 instances: bwd_wide<false, false, false / true,
+//   true> and bwd_wide<true, false, false, true>).  bwd_prep_kv copies k
+//   and v as their one part, [B KV][Tk][256] bf16.  dK/dV pass: the fixed k
+//   and v sit in shared memory as bf16 (2 x 32 KB; each 4-byte pair slot s
+//   of row r at s ^ ((r & 7) << 2), so a warp's 8 rows x 4 slots hit 32
+//   banks), read straight into the A fragment with no split, and S^T, dP^T
+//   take the three products with k's or v's part 0; the ring holds six
+//   24-KB slots of q's and dO's parts (225.1 KB in all).  dQ pass: the
+//   streamed k and v are one part, 8-KB slots, eight of them (209.1 KB), and
+//   S, dP and dQ take the three products with their part 0.  Per tile 18 of
+//   the 24 products of the dK/dV pass, 9 of the 18 of the dQ pass.
 //   The dS path (attn_plan.h: bwd_dq_chunks).  Where the dQ grid (B x H x
 //   Tq / 64 blocks) is under one wave of SMs (gemma3-4b's sequence-split
 //   islands: 32 blocks on 132 SMs, each streaming 4,096 / 16 key tiles),
@@ -159,8 +188,10 @@ constexpr int kThreads = 256;
 
 struct BwdArgs {
   const float* q;     // [B, T, H, hd]
-  const float* k;     // [B, T, KV, hd]
+  const float* k;     // [B, T, KV, hd] float32 (null for bf16 k/v)
   const float* v;
+  const uint32_t* k16;  // [B, T, KV, hd] bf16 pairs (bf16 k/v; else null)
+  const uint32_t* v16;
   const float* o;     // [B, T, H, hd]
   const float* lse;   // [B, H, T]
   const float* dout;  // [B, T, H, hd]
@@ -176,6 +207,8 @@ struct BwdArgs {
   float* lse_p;
   float* d_p;
   float* ds;  // the dS path: dS [B H][Tq][Tk] float32, stored by bwd_wide<false, true>; else null
+  float* kv_part;  // the head split: partial dK, then dV, [nsplit][B KV][Tk][256]; else null
+  int nsplit;      // the dK/dV pass's head subsets (1: unsplit)
   int B, Tq, Tk, Tp, H, KV, groups, hd;  // Tp: Tq padded to kPadRows
   int q_offset, window, causal;
   float softcap, sqrt_hd;
@@ -287,8 +320,9 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_q(BwdArgs a) {
 }
 
 // Prologue, kv side: k and v of each (b, t, kv head) row split into three
-// bf16 parts, [part][b * KV + kvh][t][HDK].
-template <int HDK>
+// bf16 parts, [part][b * KV + kvh][t][HDK]; KV1 (bf16 k/v, HDK == hd):
+// copied as their one part.
+template <int HDK, bool KV1 = false>
 __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -297,10 +331,18 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
   const int64_t bt = row / a.KV;
   const int t = static_cast<int>(bt % a.Tk);
   const int64_t b = bt / a.Tk;
-  const int64_t part = static_cast<int64_t>(a.B) * a.KV * a.Tk * HDK / 2;
   const int64_t dst = ((b * a.KV + kvh) * a.Tk + t) * HDK / 2;
-  split_row<HDK>(a.k + row * a.hd, a.hd, 1.f, a.kp + dst, part, lane);
-  split_row<HDK>(a.v + row * a.hd, a.hd, 1.f, a.vp + dst, part, lane);
+  if constexpr (KV1) {
+#pragma unroll
+    for (int c = lane; c < HDK / 8; c += 32) {  // 16 bytes a lane
+      reinterpret_cast<uint4*>(a.kp + dst)[c] = reinterpret_cast<const uint4*>(a.k16 + row * HDK / 2)[c];
+      reinterpret_cast<uint4*>(a.vp + dst)[c] = reinterpret_cast<const uint4*>(a.v16 + row * HDK / 2)[c];
+    }
+  } else {
+    const int64_t part = static_cast<int64_t>(a.B) * a.KV * a.Tk * HDK / 2;
+    split_row<HDK>(a.k + row * a.hd, a.hd, 1.f, a.kp + dst, part, lane);
+    split_row<HDK>(a.v + row * a.hd, a.hd, 1.f, a.vp + dst, part, lane);
+  }
 }
 
 // acc = X . S^T over the kSplit part products: X the 64 fixed rows (three
@@ -569,21 +611,44 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
 struct Wd {
   static constexpr int HD = 256;
   static constexpr int BS = 16;                     // rows of a streamed tile
-  static constexpr int SLOTS = 3;                   // the ring: one operand's tile per slot
   static constexpr int SW = 128, ATOM = 64, NATOM = HD / ATOM;
   static constexpr uint64_t LAYOUT = 1;             // 128-byte swizzle
   static constexpr int HALF = HD / 2;               // columns of a consumer warpgroup
   static constexpr int TN = 64;                     // output columns per fresh product
   static constexpr int ITEM_PART = NATOM * BS * SW; // one part of a streamed tile: 8 KB
-  static constexpr int ITEM = kParts * ITEM_PART;   // a slot: 24 KB
+  static constexpr int ITEM = kParts * ITEM_PART;   // a tile's three parts: 24 KB
   static constexpr int FIX_FLOATS = 64 * HD;        // one fixed operand, float32: 64 KB
   static constexpr int XCH_FLOATS = 2 * 16 * 128;   // both consumers' S and dP partials: 16 KB
-  static constexpr int OFF_FIX = SLOTS * ITEM;
-  static constexpr int OFF_XCH = OFF_FIX + 2 * 4 * FIX_FLOATS;
-  static constexpr int OFF_BAR = OFF_XCH + 4 * XCH_FLOATS;
-  static constexpr size_t kSmem = OFF_BAR + 2 * SLOTS * 8 + 1024;  // + base alignment
   static constexpr int THREADS = 384;
 };
+
+// An instance's shared memory: the ring of SLOTS items (one operand of a
+// streamed tile, SP parts), the two fixed operands (float32, or bf16 where
+// FIX16: k and v of the dK/dV pass on bf16 k/v), the S/dP swap, barriers.
+// float32 k/v: 3 x 24 KB + 2 x 64 KB + 16 KB; bf16 k/v: dK/dV 6 x 24 KB + 2
+// x 32 KB + 16 KB, dQ 8 x 8 KB + 2 x 64 KB + 16 KB.
+template <bool DQ, bool KV1>
+struct WdL {
+  static constexpr bool FIX16 = !DQ && KV1;
+  static constexpr int FP = FIX16 ? 1 : kParts;          // parts of a fixed operand's A fragment
+  static constexpr int SP = DQ && KV1 ? 1 : kParts;      // parts of a streamed item
+  static constexpr int ITEM = SP * Wd::ITEM_PART;
+  static constexpr int SLOTS = !KV1 ? 3 : DQ ? 8 : 6;
+  static constexpr int FIX_BYTES = FIX16 ? 2 * Wd::FIX_FLOATS : 4 * Wd::FIX_FLOATS;
+  static constexpr int OFF_FIX = SLOTS * ITEM;
+  static constexpr int OFF_XCH = OFF_FIX + 2 * FIX_BYTES;
+  static constexpr int OFF_BAR = OFF_XCH + 4 * Wd::XCH_FLOATS;
+  static constexpr size_t kSmem = OFF_BAR + 2 * SLOTS * 8 + 1024;  // + base alignment
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// The first of the kSplit products whose parts an A operand of ap parts and
+// a B operand of bp parts hold (it overwrites the accumulator).
+__host__ __device__ constexpr int first_pair(int ap, int bp) {
+  for (int p = 0; p < kSplit; ++p)
+    if (pair_a(p) < ap && pair_b(p) < bp) return p;
+  return 0;
+}
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -606,28 +671,48 @@ __device__ __forceinline__ void fix_frag(const float* fix, int r, int cq, int kk
   split3(x3.x, x3.y, fr[0][3], fr[1][3], fr[2][3]);
 }
 
+// The A fragment of k-step kk of a bf16 fixed operand (shared memory, [row]
+// [128 pair slots], slot s of row r stored at s ^ ((r & 7) << 2)), rows r
+// and r + 8: its one part, read as it is.
+__device__ __forceinline__ void fix_frag16(const uint32_t* fix, int r, int cq, int kk,
+                                           uint32_t (&fr)[1][4]) {
+  const int sw = (r & 7) << 2;  // r + 8: the same
+  const int s0 = (8 * kk + cq / 2) ^ sw, s1 = (8 * kk + cq / 2 + 4) ^ sw;
+  fr[0][0] = fix[r * (Wd::HD / 2) + s0];
+  fr[0][1] = fix[(r + 8) * (Wd::HD / 2) + s0];
+  fr[0][2] = fix[r * (Wd::HD / 2) + s1];
+  fr[0][3] = fix[(r + 8) * (Wd::HD / 2) + s1];
+}
+
 // acc = X . S^T over this warpgroup's 128 columns: X the fixed operand
-// (A, split in registers), S the streamed tile's 16 rows (three parts at
-// `item`, K-major, the B operand); kSplit products per k-step, the first
-// overwrites.  Each k-step's products are a group, two groups in flight: a
-// k-step's split registers are rewritten once the one before it has
-// finished.
-__device__ __forceinline__ void wide_scores(float (&acc)[8], const float* fix, uint32_t item,
+// (A: FP == 3 float32, split in registers; FP == 1 bf16), S the streamed
+// tile's 16 rows (SP parts at `item`, K-major, the B operand); the kSplit
+// products whose parts both hold, per k-step, the first overwrites.  Each
+// k-step's products are a group, two groups in flight: a k-step's fragment
+// registers are rewritten once the one before it has finished.
+template <int FP, int SP>
+__device__ __forceinline__ void wide_scores(float (&acc)[8], const void* fix, uint32_t item,
                                             int wg, int r, int cq) {
   using C = Wd;
   constexpr int NK = C::HALF / 16;  // k-steps of this warpgroup's columns
-  uint32_t fr[2][kParts][4];
+  constexpr int P0 = first_pair(FP, SP);
+  uint32_t fr[2][FP][4];
 #pragma unroll
   for (int u = 0; u < NK; ++u) {
     const int kk = wg * NK + u;
-    fix_frag(fix, r, cq, kk, fr[u & 1]);
+    if constexpr (FP == 1) {
+      fix_frag16(static_cast<const uint32_t*>(fix), r, cq, kk, fr[u & 1]);
+    } else {
+      fix_frag(static_cast<const float*>(fix), r, cq, kk, fr[u & 1]);
+    }
     wgmma_fence();
     const uint32_t col = (kk * 16 / C::ATOM) * (C::BS * C::SW) + (kk * 16 % C::ATOM) * 2;
 #pragma unroll
     for (int p = 0; p < kSplit; ++p)
-      wgmma_rs_n16_k(acc, fr[u & 1][pair_a(p)],
-                     gmma_desc(item + pair_b(p) * C::ITEM_PART + col, 16, 8 * C::SW, C::LAYOUT),
-                     u | p);
+      if (pair_a(p) < FP && pair_b(p) < SP)
+        wgmma_rs_n16_k(acc, fr[u & 1][pair_a(p) < FP ? pair_a(p) : 0],
+                       gmma_desc(item + pair_b(p) * C::ITEM_PART + col, 16, 8 * C::SW, C::LAYOUT),
+                       u | (p != P0));
     wgmma_commit();
     wgmma_wait<1>();
   }
@@ -637,8 +722,10 @@ __device__ __forceinline__ void wide_scores(float (&acc)[8], const float* fix, u
 
 // t = A . S over one TN-column slice (c) of this warpgroup's columns: A
 // (64 x 16: P^T, dS^T or dS) as three bf16 parts in registers, S the
-// streamed tile (three parts at `item`, MN-major through the transpose
-// bit), in a fresh accumulator (finding 7); committed, not waited for.
+// streamed tile (SP parts at `item`, MN-major through the transpose bit),
+// the kSplit products whose parts S holds, in a fresh accumulator (finding
+// 7); committed, not waited for.
+template <int SP>
 __device__ __forceinline__ void wide_slice(float (&t)[Wd::TN / 2], const uint32_t (&fr)[kParts][4],
                                            uint32_t item, int wg, int c) {
   using C = Wd;
@@ -649,8 +736,9 @@ __device__ __forceinline__ void wide_slice(float (&t)[Wd::TN / 2], const uint32_
   wgmma_fence();
 #pragma unroll
   for (int p = 0; p < kSplit; ++p)
-    wgmma_rs<C::TN>(t, fr[pair_a(p)], gmma_desc(start + pair_b(p) * C::ITEM_PART, C::BS * C::SW,
-                                                8 * C::SW, C::LAYOUT));
+    if (pair_b(p) < SP)
+      wgmma_rs<C::TN>(t, fr[pair_a(p)], gmma_desc(start + pair_b(p) * C::ITEM_PART, C::BS * C::SW,
+                                                  8 * C::SW, C::LAYOUT));
   wgmma_commit();
 }
 
@@ -663,23 +751,27 @@ __device__ __forceinline__ void add_slice(float (&o)[Wd::HALF / 2], float (&t)[W
 }
 
 // One block of either pass.  Grid (heads, tiles) as bwd_wgmma's, 64 fixed
-// rows.  str0 / str1: the streamed operands' parts [part][batch x head][T]
-// [256], boxes of 16 rows; dK/dV pass q (0) and dO (1), dQ pass v (0) and k
-// (1): the order in which a tile's two operands are last read, so the ring
-// frees its slots in order.  DS (the dK/dV pass on the dS path): dS also
-// stored, to a.ds.
-template <bool DQ, bool DS = false>
+// rows; HS (the dK/dV pass's head split): grid z the subset of the group's
+// query heads, and partial dK, dV written to a.kv_part.  str0 / str1: the
+// streamed operands' parts [part][batch x head][T][256], boxes of 16 rows;
+// dK/dV pass q (0) and dO (1), dQ pass v (0) and k (1): the order in which
+// a tile's two operands are last read, so the ring frees its slots in
+// order.  DS (the dK/dV pass on the dS path): dS also stored, to a.ds.
+// KV1: bf16 k/v, one part (WdL).
+template <bool DQ, bool DS = false, bool HS = false, bool KV1 = false>
 __global__ void __launch_bounds__(Wd::THREADS, 1)
     bwd_wide(const __grid_constant__ CUtensorMap str0, const __grid_constant__ CUtensorMap str1,
              BwdArgs a) {
   using C = Wd;
+  using L = WdL<DQ, KV1>;
+  static_assert(!(DS && (DQ || HS || KV1)) && !(HS && DQ), "no such instance");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t s_ring = smem_u32(smem);
-  float* fix = reinterpret_cast<float*>(smem + C::OFF_FIX);  // [S's, dP's][64][256]
-  float* xch = reinterpret_cast<float*>(smem + C::OFF_XCH);  // [consumer][16][128]
-  const uint32_t bar_full = s_ring + C::OFF_BAR, bar_empty = bar_full + 8 * C::SLOTS;
+  uint8_t* fix = smem + L::OFF_FIX;                          // [S's, dP's][64][256]
+  float* xch = reinterpret_cast<float*>(smem + L::OFF_XCH);  // [consumer][16][128]
+  const uint32_t bar_full = s_ring + L::OFF_BAR, bar_empty = bar_full + 8 * L::SLOTS;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -689,18 +781,23 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
   const int h = DQ ? bh % a.H : 0;                   // dQ pass: the q head
   const int kvh = DQ ? h / a.groups : bh % a.KV;
   const int nbh_str = DQ ? a.B * a.KV : a.B * a.H;
+  // the dK/dV pass's query heads of the group: all, or the block's subset
+  const int split = HS ? static_cast<int>(blockIdx.z) : 0;
+  const int h0 = HS ? attn_plan::head_begin(split, a.nsplit, a.groups) : 0;
+  const int nheads = DQ ? 1 : HS ? attn_plan::head_begin(split + 1, a.nsplit, a.groups) - h0
+                                 : a.groups;
   int lo, hi;
   stream_range<DQ>(a, r0, r0 + 63, lo, hi);
   const int s_first = lo / C::BS;
   const int per_head = hi >= lo ? hi / C::BS - s_first + 1 : 0;
-  const int n_tiles = (DQ ? 1 : a.groups) * per_head;
+  const int n_tiles = nheads * per_head;
   auto streamed = [&](int t, int& row0, int& sbh) {
     row0 = (s_first + t % per_head) * C::BS;
-    sbh = DQ ? b * a.KV + kvh : b * a.H + kvh * a.groups + t / per_head;
+    sbh = DQ ? b * a.KV + kvh : b * a.H + kvh * a.groups + h0 + t / per_head;
   };
 
   if (tid == 0) {
-    for (int s = 0; s < C::SLOTS; ++s) {
+    for (int s = 0; s < L::SLOTS; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, 256);
     }
@@ -712,15 +809,15 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
       for (int i = 0; i < 2 * n_tiles; ++i) {  // item i: operand i & 1 of tile i >> 1
-        const int s = i % C::SLOTS;
-        mbar_wait(bar_empty + 8 * s, ((i / C::SLOTS) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, C::ITEM);
+        const int s = i % L::SLOTS;
+        mbar_wait(bar_empty + 8 * s, ((i / L::SLOTS) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, L::ITEM);
         int row0, sbh;
         streamed(i >> 1, row0, sbh);
-        for (int part = 0; part < kParts; ++part)
+        for (int part = 0; part < L::SP; ++part)
 #pragma unroll
           for (int c = 0; c < C::NATOM; ++c)
-            tma_load_3d(s_ring + s * C::ITEM + part * C::ITEM_PART + c * C::BS * C::SW,
+            tma_load_3d(s_ring + s * L::ITEM + part * C::ITEM_PART + c * C::BS * C::SW,
                         (i & 1) ? &str1 : &str0, bar_full + 8 * s, c * C::ATOM, row0,
                         part * nbh_str + sbh);
       }
@@ -733,28 +830,46 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
   const int r_lo = warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
 
-  // the fixed rows' two operands, this warpgroup's columns, as float32:
-  // dK/dV pass k (S^T's) and v (dP^T's); dQ pass q / sqrt(hd) (S's) and dO
-  // (dP's); zeros past T
-  for (int i = ltid; i < 2 * 64 * (C::HALF / 4); i += 128) {
-    const int f = i / (64 * (C::HALF / 4)), r = i / (C::HALF / 4) % 64;
-    const int col = C::HALF * wg + 4 * (i % (C::HALF / 4));
-    const int row = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < fixed_rows<DQ>(a)) {
-      const float* src = DQ ? (f ? a.dout : a.q) + q_row(a, b, row, h)
-                            : (f ? a.v : a.k) + kv_row(a, b, row, kvh);
-      x = *reinterpret_cast<const float4*>(src + col);
-      if (DQ && f == 0) {
-        x.x /= a.sqrt_hd; x.y /= a.sqrt_hd; x.z /= a.sqrt_hd; x.w /= a.sqrt_hd;
-      }
+  // the fixed rows' two operands, this warpgroup's columns: dK/dV pass k
+  // (S^T's) and v (dP^T's), float32 or (FIX16) bf16 from their one part;
+  // dQ pass q / sqrt(hd) (S's) and dO (dP's), float32; zeros past T
+  if constexpr (L::FIX16) {
+    uint32_t* fix16 = reinterpret_cast<uint32_t*>(fix);
+    constexpr int V = C::HALF / 8;  // 16-byte pieces of a row's half
+    for (int i = ltid; i < 2 * 64 * V; i += 128) {
+      const int f = i / (64 * V), r = i / V % 64;
+      const int slot = C::HALF / 2 * wg + 4 * (i % V);  // its first pair slot
+      const int row = r0 + r;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row < a.Tk)
+        x = *reinterpret_cast<const uint4*>(
+            (f ? a.vp : a.kp) + (static_cast<int64_t>(b * a.KV + kvh) * a.Tk + row) * (C::HD / 2) +
+            slot);
+      *reinterpret_cast<uint4*>(fix16 + f * (64 * C::HD / 2) + r * (C::HD / 2) +
+                                (slot ^ ((r & 7) << 2))) = x;  // 4-slot runs stay together
     }
-    const int slot = (col / 2) ^ ((r & 3) << 2);  // even: the pair stays together
-    *reinterpret_cast<float4*>(fix + f * C::FIX_FLOATS + r * C::HD + 2 * slot) = x;
+  } else {
+    float* fix32 = reinterpret_cast<float*>(fix);
+    for (int i = ltid; i < 2 * 64 * (C::HALF / 4); i += 128) {
+      const int f = i / (64 * (C::HALF / 4)), r = i / (C::HALF / 4) % 64;
+      const int col = C::HALF * wg + 4 * (i % (C::HALF / 4));
+      const int row = r0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < fixed_rows<DQ>(a)) {
+        const float* src = DQ ? (f ? a.dout : a.q) + q_row(a, b, row, h)
+                              : (f ? a.v : a.k) + kv_row(a, b, row, kvh);
+        x = *reinterpret_cast<const float4*>(src + col);
+        if (DQ && f == 0) {
+          x.x /= a.sqrt_hd; x.y /= a.sqrt_hd; x.z /= a.sqrt_hd; x.w /= a.sqrt_hd;
+        }
+      }
+      const int slot = (col / 2) ^ ((r & 3) << 2);  // even: the pair stays together
+      *reinterpret_cast<float4*>(fix32 + f * C::FIX_FLOATS + r * C::HD + 2 * slot) = x;
+    }
   }
   named_bar_sync(2 + wg, 128);
-  const float* fix_s = fix;
-  const float* fix_dp = fix + C::FIX_FLOATS;
+  const void* fix_s = fix;
+  const void* fix_dp = fix + L::FIX_BYTES;
 
   int vlo[2], vhi[2];  // the streamed rows each of the thread's rows sees
 #pragma unroll
@@ -776,25 +891,25 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
   const float* xch_other = xch + (1 - wg) * 16 * 128;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int s0 = (2 * t) % C::SLOTS, s1 = (2 * t + 1) % C::SLOTS;
-    const uint32_t it0 = s_ring + s0 * C::ITEM, it1 = s_ring + s1 * C::ITEM;
+    const int s0 = (2 * t) % L::SLOTS, s1 = (2 * t + 1) % L::SLOTS;
+    const uint32_t it0 = s_ring + s0 * L::ITEM, it1 = s_ring + s1 * L::ITEM;
     int row0, sbh;
     streamed(t, row0, sbh);
 
     // this warpgroup's part of S (S^T) and dP (dP^T), item 0's first
     float acc_s[8], acc_dp[8];
-    mbar_wait(bar_full + 8 * s0, ((2 * t) / C::SLOTS) & 1);
+    mbar_wait(bar_full + 8 * s0, ((2 * t) / L::SLOTS) & 1);
     if constexpr (DQ) {
-      wide_scores(acc_dp, fix_dp, it0, wg, r_lo, cq);
+      wide_scores<L::FP, L::SP>(acc_dp, fix_dp, it0, wg, r_lo, cq);
     } else {
-      wide_scores(acc_s, fix_s, it0, wg, r_lo, cq);
+      wide_scores<L::FP, L::SP>(acc_s, fix_s, it0, wg, r_lo, cq);
     }
-    mbar_wait(bar_full + 8 * s1, ((2 * t + 1) / C::SLOTS) & 1);
+    mbar_wait(bar_full + 8 * s1, ((2 * t + 1) / L::SLOTS) & 1);
     if constexpr (DQ) {
-      wide_scores(acc_s, fix_s, it1, wg, r_lo, cq);
+      wide_scores<L::FP, L::SP>(acc_s, fix_s, it1, wg, r_lo, cq);
       mbar_arrive(bar_empty + 8 * s0);  // v is read for the last time
     } else {
-      wide_scores(acc_dp, fix_dp, it1, wg, r_lo, cq);
+      wide_scores<L::FP, L::SP>(acc_dp, fix_dp, it1, wg, r_lo, cq);
     }
 
     // the two halves summed (a + b == b + a: both warpgroups get the same S, dP)
@@ -875,9 +990,9 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
     for (int q = 0; q <= NS; ++q) {
       if (q < NS) {
         if (DQ || q < NSL) {
-          wide_slice(tt[q & 1], fd, DQ ? it1 : it0, wg, q % NSL);
+          wide_slice<L::SP>(tt[q & 1], fd, DQ ? it1 : it0, wg, q % NSL);
         } else {
-          wide_slice(tt[q & 1], fp, it1, wg, q % NSL);
+          wide_slice<L::SP>(tt[q & 1], fp, it1, wg, q % NSL);
         }
       }
       if (q > 0) {
@@ -898,12 +1013,18 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
     mbar_arrive(bar_empty + 8 * s1);
   }
 
-  // dK/dV pass: rows are keys of kv head kvh; dQ pass: queries of head h
+  // dK/dV pass: rows are keys of kv head kvh (HS: the subset's partials
+  // [split][b KV + kvh][key]); dQ pass: queries of head h
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = r0 + r_lo + 8 * e;
     if (r >= fixed_rows<DQ>(a)) continue;
-    const int64_t at = DQ ? q_row(a, b, r, h) : kv_row(a, b, r, kvh);
+    const int64_t at =
+        DQ ? q_row(a, b, r, h)
+           : HS ? ((static_cast<int64_t>(split) * a.B * a.KV + bh) * a.Tk + r) * C::HD
+                : kv_row(a, b, r, kvh);
+    float* dk = HS ? a.kv_part : a.dk;
+    float* dv = HS ? a.kv_part + static_cast<int64_t>(a.nsplit) * a.B * a.KV * a.Tk * C::HD : a.dv;
 #pragma unroll
     for (int j = 0; j < C::HALF / 8; ++j) {
       const int col = C::HALF * wg + 8 * j + cq;
@@ -911,9 +1032,9 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
         *reinterpret_cast<float2*>(a.dq + at + col) =
             make_float2(o0[4 * j + 2 * e] / a.sqrt_hd, o0[4 * j + 2 * e + 1] / a.sqrt_hd);
       } else {
-        *reinterpret_cast<float2*>(a.dk + at + col) =
+        *reinterpret_cast<float2*>(dk + at + col) =
             make_float2(o0[4 * j + 2 * e], o0[4 * j + 2 * e + 1]);
-        *reinterpret_cast<float2*>(a.dv + at + col) =
+        *reinterpret_cast<float2*>(dv + at + col) =
             make_float2(o1[4 * j + 2 * e], o1[4 * j + 2 * e + 1]);
       }
     }
@@ -1027,7 +1148,7 @@ __global__ void __launch_bounds__(Wd::THREADS, 1)
     float tt[2][C::TN / 2];
 #pragma unroll
     for (int q = 0; q <= NSL; ++q) {
-      if (q < NSL) wide_slice(tt[q & 1], fd, item, wg, q);
+      if (q < NSL) wide_slice<kParts>(tt[q & 1], fd, item, wg, q);
       if (q > 0) {
         if (q < NSL) {
           wgmma_wait<1>();
@@ -1080,6 +1201,31 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_merge(BwdArgs a, int nchunk, 
       make_float4(sum.x / a.sqrt_hd, sum.y / a.sqrt_hd, sum.z / a.sqrt_hd, sum.w / a.sqrt_hd);
 }
 
+// dk, dv = the head subsets' partials summed in subset order: one thread per
+// 4 columns of a (b, t, kv head) row.
+__global__ void __launch_bounds__(kThreads) bwd_kv_merge(BwdArgs a) {
+  constexpr int V = Wd::HD / 4;
+  const int64_t n = static_cast<int64_t>(a.B) * a.KV * a.Tk * V;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int col = static_cast<int>(i % V) * 4;
+  const int64_t row = i / V;  // (b KV + kvh) Tk + t
+  const int t = static_cast<int>(row % a.Tk);
+  const int bkv = static_cast<int>(row / a.Tk), b = bkv / a.KV, kvh = bkv % a.KV;
+  const int64_t stride = static_cast<int64_t>(a.B) * a.KV * a.Tk * Wd::HD;
+  const float* pk = a.kv_part + row * Wd::HD + col;
+  const float* pv = pk + a.nsplit * stride;
+  float4 sk = *reinterpret_cast<const float4*>(pk), sv = *reinterpret_cast<const float4*>(pv);
+  for (int c = 1; c < a.nsplit; ++c) {
+    const float4 xk = *reinterpret_cast<const float4*>(pk + c * stride);
+    const float4 xv = *reinterpret_cast<const float4*>(pv + c * stride);
+    sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
+    sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
+  }
+  *reinterpret_cast<float4*>(a.dk + kv_row(a, b, t, kvh) + col) = sk;
+  *reinterpret_cast<float4*>(a.dv + kv_row(a, b, t, kvh) + col) = sv;
+}
+
 template <int HD, bool DQ>
 cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   using C = Bw<HD>;
@@ -1129,36 +1275,54 @@ cudaError_t launch_dq_ds(const BwdArgs& a, int nchunk, int k_begin, int k_end, f
   return cudaGetLastError();
 }
 
-template <bool DQ, bool DS = false>
+template <bool DQ, bool DS = false, bool HS = false, bool KV1 = false>
 cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
   using C = Wd;
+  using L = WdL<DQ, KV1>;
   CUtensorMap s0, s1;
   // streamed: dK/dV pass q, dO; dQ pass v, k (16-row boxes)
   const void* str[2] = {DQ ? a.vp : a.qp, DQ ? a.kp : a.dop};
-  const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? a.B * a.KV : a.B * a.H);
+  const int64_t nstr = static_cast<int64_t>(L::SP) * (DQ ? a.B * a.KV : a.B * a.H);
   const int tfix = DQ ? a.Tq : a.Tk, tstr = DQ ? a.Tk : a.Tq;
   if (!make_parts_map(&s0, str[0], C::HD, tstr, nstr, C::BS, C::ATOM, C::SW) ||
       !make_parts_map(&s1, str[1], C::HD, tstr, nstr, C::BS, C::ATOM, C::SW))
     return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      bwd_wide<DQ, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  const cudaError_t e = cudaFuncSetAttribute(bwd_wide<DQ, DS, HS, KV1>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(L::kSmem));
   if (e != cudaSuccess) return e;
-  const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (tfix + 63) / 64);
-  bwd_wide<DQ, DS><<<grid, C::THREADS, C::kSmem, s>>>(s0, s1, a);
+  const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (tfix + 63) / 64, HS ? a.nsplit : 1);
+  bwd_wide<DQ, DS, HS, KV1><<<grid, C::THREADS, L::kSmem, s>>>(s0, s1, a);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || !HS) return e2;
+  const int64_t n = static_cast<int64_t>(a.B) * a.KV * a.Tk * (C::HD / 4);
+  bwd_kv_merge<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
+// bwd_wide's recomputing passes: dK/dV (head split where nsplit > 1), then
+// dQ; KV1 the bf16-k/v instances.
+template <bool KV1>
+cudaError_t launch_wide_passes(const BwdArgs& a, cudaStream_t s) {
+  const cudaError_t e = a.nsplit > 1 ? launch_wide<false, false, true, KV1>(a, s)
+                                     : launch_wide<false, false, false, KV1>(a, s);
+  if (e != cudaSuccess) return e;
+  return launch_wide<true, false, false, KV1>(a, s);
+}
+
 // The prologues, then the two passes: bwd_wgmma<HD, false / true>, or at hd
-// 256 bwd_wide<false>, then bwd_wide<true> or, where attn_plan.h's
-// bwd_dq_chunks picks the dS path (nchunk > 0), bwd_wide<false, true> (dS
-// stored) and bwd_dq_ds.  The scratch as
+// 256 bwd_wide's recomputing passes (launch_wide_passes) or, where
+// attn_plan.h's bwd_dq_chunks picks the dS path (nchunk > 0),
+// bwd_wide<false, true> (dS stored) and bwd_dq_ds.  kv_parts 1: bf16 k/v
+// (bwd_wide's recomputing passes only).  The scratch as
 // attn_plan::bwd_layout lays it out.
 template <int HD>
 cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int k_end,
-                         cudaStream_t s) {
+                         int nsplit, int kv_parts, cudaStream_t s) {
   a.Tp = (a.Tq + kPadRows - 1) / kPadRows * kPadRows;
-  const attn_plan::BwdLayout l = attn_plan::bwd_layout(HD, a.B, a.Tq, a.Tk, a.H, a.KV, nchunk);
+  const attn_plan::BwdLayout l =
+      attn_plan::bwd_layout(HD, a.B, a.Tq, a.Tk, a.H, a.KV, nchunk, nsplit, kv_parts);
   uint8_t* p = static_cast<uint8_t*>(scratch);
   a.qp = reinterpret_cast<uint32_t*>(p + l.qp);
   a.dop = reinterpret_cast<uint32_t*>(p + l.dop);
@@ -1167,6 +1331,8 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
   a.lse_p = reinterpret_cast<float*>(p + l.lse);
   a.d_p = reinterpret_cast<float*>(p + l.d);
   a.ds = nchunk > 0 ? reinterpret_cast<float*>(p + l.ds) : nullptr;
+  a.kv_part = nsplit > 1 ? reinterpret_cast<float*>(p + l.kv_part) : nullptr;
+  a.nsplit = nsplit;
   const int64_t qrows = static_cast<int64_t>(a.B) * a.Tp * a.H;
   const int64_t krows = static_cast<int64_t>(a.B) * a.Tk * a.KV;
   constexpr int kRowsPerBlock = kThreads / 32;
@@ -1174,16 +1340,21 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
                    0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_prep_kv<HD><<<static_cast<unsigned>((krows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads,
-                    0, s>>>(a);
+  const unsigned kv_blocks = static_cast<unsigned>((krows + kRowsPerBlock - 1) / kRowsPerBlock);
+  if constexpr (HD == 256) {
+    if (kv_parts == 1) {
+      bwd_prep_kv<HD, true><<<kv_blocks, kThreads, 0, s>>>(a);
+    } else {
+      bwd_prep_kv<HD><<<kv_blocks, kThreads, 0, s>>>(a);
+    }
+  } else {
+    bwd_prep_kv<HD><<<kv_blocks, kThreads, 0, s>>>(a);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (HD == 256) {
-    if (nchunk == 0) {
-      e = launch_wide<false>(a, s);
-      if (e != cudaSuccess) return e;
-      return launch_wide<true>(a, s);
-    }
+    if (nchunk == 0)
+      return kv_parts == 1 ? launch_wide_passes<true>(a, s) : launch_wide_passes<false>(a, s);
     e = launch_wide<false, true>(a, s);
     if (e != cudaSuccess) return e;
     return launch_dq_ds(a, nchunk, k_begin, k_end, reinterpret_cast<float*>(p + l.dq_part), s);
@@ -1197,20 +1368,24 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
 }  // namespace
 
 // q, o, dout, dq: [B, Tq, H, hd]; k, v, dk, dv: [B, Tk, KV, hd]; lse: [B,
-// H, Tq]; all float32 and contiguous.  q row i sits at position q_offset +
-// i; a causal or windowed call needs 0 <= q_offset and q_offset + Tq <= Tk
-// (every row then sees its own key).  scratch: scratch_bytes of device
-// memory, at least attn_plan::bwd_layout's total for the dQ plan a card of
-// `sms` SMs gets (attn_plan.h's bwd_dq_chunks; rt_flash_attention_bwd_plan
-// in attn_plan.cc gives it), 16-byte aligned.  hd 32, 64, 112 and 120 (the
+// H, Tq]; all contiguous, float32 but k and v, which are bfloat16 where
+// kv_bf16 (taken only where attn_plan.h's bwd_kv_parts gives 1: bwd_wide's
+// recomputing passes; else the caller passes their float32 values).  q row
+// i sits at position q_offset + i; a causal or windowed call needs 0 <=
+// q_offset and q_offset + Tq <= Tk (every row then sees its own key).
+// scratch: scratch_bytes of device memory, at least attn_plan::bwd_layout's
+// total for the plan a card of `sms` SMs gets (attn_plan.h's bwd_dq_chunks,
+// bwd_kv_head_splits, bwd_kv_parts; rt_flash_attention_bwd_plan in
+// attn_plan.cc gives it), 16-byte aligned.  hd 32, 64, 112 and 120 (the
 // 128-wide template), 128: bwd_wgmma; 256: bwd_wide, on the dS path where
-// its dQ grid is under one wave; four or five launches, all on `stream`.
+// its dQ grid is under one wave, with the head split where its dK/dV grid
+// is; four to six launches, all on `stream`.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dk,
                                       void* dv, void* scratch, int64_t scratch_bytes, int hd,
                                       int B, int Tq, int Tk, int H, int KV, int q_offset,
-                                      int window, int causal, float softcap, int sms,
-                                      void* stream) {
+                                      int window, int causal, float softcap, int kv_bf16,
+                                      int sms, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((causal || window > 0) && (q_offset < 0 || q_offset + Tq > Tk))
@@ -1219,14 +1394,19 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   int k_begin = 0, k_end = 0;
   const int nchunk = attn_plan::bwd_dq_chunks(hd, B, Tq, Tk, H, q_offset, window, causal, sms,
                                               &k_begin, &k_end);
-  const int64_t need = attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, nchunk).total;
+  const int nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tk, H, KV, nchunk, sms);
+  const int kv_parts = attn_plan::bwd_kv_parts(hd, kv_bf16, nchunk);
+  if (kv_bf16 && kv_parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t need = attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, nchunk, nsplit, kv_parts).total;
   if (scratch == nullptr || scratch_bytes < need ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a = {};
   a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
+  a.k = kv_bf16 ? nullptr : static_cast<const float*>(k);
+  a.v = kv_bf16 ? nullptr : static_cast<const float*>(v);
+  a.k16 = kv_bf16 ? static_cast<const uint32_t*>(k) : nullptr;
+  a.v16 = kv_bf16 ? static_cast<const uint32_t*>(v) : nullptr;
   a.o = static_cast<const float*>(o);
   a.lse = static_cast<const float*>(lse);
   a.dout = static_cast<const float*>(dout);
@@ -1240,12 +1420,12 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (hd) {
-    case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, s); break;
-    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, s); break;
+    case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, 1, kParts, s); break;
+    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, 1, kParts, s); break;
     case 112:
     case 120:
-    case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, s); break;
-    case 256: e = launch_wgmma<256>(a, scratch, nchunk, k_begin, k_end, s); break;
+    case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, 1, kParts, s); break;
+    case 256: e = launch_wgmma<256>(a, scratch, nchunk, k_begin, k_end, nsplit, kv_parts, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

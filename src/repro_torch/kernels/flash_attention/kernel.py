@@ -15,14 +15,18 @@ with at most ``SPLIT_ROWS`` (decode) ``flash_decode`` cuts the keys the rows
 can see into chunks, one block each, and the last block of each kv head to
 finish merges them, in the same launch.
 
-The key split of the hd-256 float32 designs (``csrc/attn_plan.h``): where
+The split rules of the hd-256 designs (``csrc/attn_plan.h``): where
 ``flash_tiled``'s grid, or ``bwd_wide``'s dQ grid, is under one wave of the
 card's SMs (gemma3-4b's sequence-split islands), the CUDA entry point cuts
 the visible keys into chunks of whole 64-key tiles and merges the chunks'
-partials in chunk order; the wrappers ask the same rule for the scratch
-(``tiled_plan``, ``bwd_plan``) and count the calls that take it
-(``split_launches``: "flash_tiled" the forwards with more than one chunk,
-"bwd_wide" the backwards on the dS path).
+partials in chunk order; where ``bwd_wide``'s dK/dV grid is
+(recurrentgemma-9b's 16-head MQA group over one kv head), it cuts the
+group's query heads into subsets and merges their partial dK, dV in subset
+order.  The wrappers ask the same rules for the scratch (``tiled_plan``,
+``bwd_plan``) and count the calls that take them (``split_launches``:
+"flash_tiled" the forwards with more than one chunk, "bwd_wide" the
+backwards on the dS path; ``head_split_launches``: the backwards whose
+dK/dV pass splits the heads).
 
 ``flash_attention_lse`` is the training path's forward: a prefill design
 (``flash_wgmma`` for bfloat16 k/v, the float32-k/v designs else), which
@@ -30,13 +34,16 @@ also writes each row's log-sum-exp, at any ``q_offset`` and Tq, Tk (a
 sequence-split island, a cross-attention); ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
 design ``bwd_design`` names for the head width, both on the bf16 tensor
-cores (``BWD_SPLIT`` bf16 products per float32 product; bfloat16 k/v go in
-as their float32 values, exact, so they pay the same six products where
-their own bf16 values would need fewer) in four CUDA
-launches (the two split prologues, dK/dV, dQ; five on ``bwd_wide``'s dS
-path with more than one chunk: dQ from dS, then its merge): ``bwd_wgmma``
-for every width but 256, ``bwd_wide`` for 256.  ``launches`` counts forward
-calls and ``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
+cores (``BWD_SPLIT`` bf16 products per float32 product of float32 operands)
+in four CUDA launches (the two prologues, dK/dV, dQ; one more for each
+merge: the dK/dV partials of a head split, the dQ partials of the dS path
+with more than one chunk): ``bwd_wgmma`` for every width but 256,
+``bwd_wide`` for 256.  bfloat16 k/v: ``bwd_wide``'s recomputing passes take
+them as they are (``bwd_plan(...).kv_parts`` 1; ``bf16_kv_launches``),
+where each product with k or v makes three bf16 products
+(``bwd_products``); ``bwd_wgmma`` and the dS path take their float32
+values (exact) and make six.  ``launches`` counts forward calls and
+``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
 backward calls, and ``bwd_design_launches`` the backward calls of each
 design.
 
@@ -61,10 +68,14 @@ bwd_launches = 0
 bwd_design_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 # calls that took the key split (each also counted above)
 split_launches = {"flash_tiled": 0, "bwd_wide": 0}
+# backward calls whose dK/dV pass took the head split, and those that took
+# bf16 k/v as they are (each also counted above)
+head_split_launches = {"bwd_wide": 0}
+bf16_kv_launches = {"bwd_wide": 0}
 
 HEAD_DIMS = (32, 64, 112, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
-BWD_SPLIT = 6      # bf16 products per float32 product in bwd_wgmma (csrc kSplit)
+BWD_SPLIT = 6      # bf16 products per product of two float32 operands (csrc kSplit)
 MIN_CHUNK = 64     # keys per block of the decode design: at least this,
 MAX_CHUNK = 1024   # and at most this while it takes no more than
 MAX_CHUNKS = 1024  # this many chunks per kv head (csrc kMaxChunks)
@@ -130,25 +141,35 @@ def _decode_scratch(dev: torch.device, bkv: int, partial_floats: int) -> torch.T
 
 @dataclasses.dataclass(frozen=True)
 class KeySplit:
-    """A call's key split, as ``csrc/attn_plan.h`` decides it: ``chunks``
+    """A call's plan, as ``csrc/attn_plan.h`` decides it: ``chunks``
     (``tiled_plan``: 1 = unsplit; ``bwd_plan``: 0 = the recomputing dQ pass),
     the call's scratch bytes, and the chunks' key bounds (chunk c holds keys
-    ``bounds[c]`` .. ``bounds[c + 1] - 1``)."""
+    ``bounds[c]`` .. ``bounds[c + 1] - 1``); for the backward also the dK/dV
+    pass's ``head_splits`` (1 = unsplit) and the bf16 ``kv_parts`` it holds
+    of k and v (1: bf16 k/v taken as they are; 3: float32 values)."""
 
     chunks: int
     scratch_bytes: int
     bounds: tuple[int, ...]
+    head_splits: int = 1
+    kv_parts: int = 3
 
 
-def _plan_call(fn, *args) -> KeySplit:
+def _plan_call(fn, *args, extra: int = 0) -> KeySplit:
+    """``fn``'s plan for ``args``: its outputs are the chunk count, ``extra``
+    more ints (the backward's head splits and k/v parts), the scratch bytes
+    and the chunks' bounds."""
     nchunk, nbytes = ctypes.c_int(), ctypes.c_int64()
+    more = [ctypes.c_int() for _ in range(extra)]
     bounds = (ctypes.c_int * (MAX_PLAN_CHUNKS + 1))()
-    rc = fn(*(int(a) for a in args), ctypes.addressof(nchunk), ctypes.addressof(nbytes),
+    rc = fn(*(int(a) for a in args), ctypes.addressof(nchunk),
+            *(ctypes.addressof(m) for m in more), ctypes.addressof(nbytes),
             ctypes.addressof(bounds))
     if rc != 0:
         raise ValueError(f"flash_attention: no key-split plan for sizes {args}")
     n = nchunk.value
-    return KeySplit(n, nbytes.value, tuple(bounds[:n + 1]) if n else ())
+    return KeySplit(n, nbytes.value, tuple(bounds[:n + 1]) if n else (),
+                    *(m.value for m in more))
 
 
 def tiled_plan(b: int, tq: int, tk: int, h: int, kvh: int, *, causal: bool, window: int,
@@ -160,13 +181,26 @@ def tiled_plan(b: int, tq: int, tk: int, h: int, kvh: int, *, causal: bool, wind
 
 
 def bwd_plan(hd: int, b: int, tq: int, tk: int, h: int, kvh: int, *, causal: bool, window: int,
-             q_offset: int, sms: int) -> KeySplit:
-    """The backward's dQ plan and scratch on a card of ``sms`` SMs (the rule
-    the CUDA entry point applies): 0 chunks for the recomputing pass (every
-    width but 256, and ``bwd_wide`` where its dQ grid fills a wave), else
-    ``bwd_wide``'s dS path."""
+             q_offset: int, sms: int, kv_bf16: bool = False) -> KeySplit:
+    """The backward's plan and scratch on a card of ``sms`` SMs, for float32
+    or (``kv_bf16``) bfloat16 k/v (the rules the CUDA entry point applies):
+    0 chunks for the recomputing dQ pass (every width but 256, and
+    ``bwd_wide`` where its dQ grid fills a wave), else ``bwd_wide``'s dS
+    path; the dK/dV pass's head subsets (more than 1 only in ``bwd_wide``
+    under a wave of dK/dV blocks); 1 k/v part where ``bwd_wide``'s
+    recomputing passes take bf16 k/v as they are, else 3."""
     return _plan_call(_build.plan_library().rt_flash_attention_bwd_plan, hd, b, tq, tk, h, kvh,
-                      q_offset, window, causal, sms)
+                      q_offset, window, causal, kv_bf16, sms, extra=2)
+
+
+def bwd_products(kv_parts: int) -> dict[str, int]:
+    """bf16 products per float32 product of each of the backward's five
+    matrix products in the instance that runs with ``kv_parts`` parts of k
+    and v (``bwd_plan``): ``BWD_SPLIT`` each for 3 (float32 values); for 1
+    (bf16 k/v in ``bwd_wide``) 3 in S, dP and dQ, whose one operand is k or
+    v, and ``BWD_SPLIT`` in dV and dK."""
+    kv = {3: BWD_SPLIT, 1: 3}[kv_parts]
+    return {"S": kv, "dP": kv, "dV": BWD_SPLIT, "dK": BWD_SPLIT, "dQ": kv}
 
 
 def _empty_out(shape: tuple, dev: torch.device) -> torch.Tensor:
@@ -381,16 +415,16 @@ def flash_attention_bwd(
     """(dq, dk, dv) of ``flash_attention_lse``'s output (semantics of
     ``ref.attention_bwd_ref``); every tensor contiguous, on one card, the
     shapes ``check_grad_shape`` admits.  k and v are float32 or both
-    bfloat16: bfloat16 k/v enter the kernel as their float32 values (exact)
-    and dk, dv come back rounded to bfloat16, as the gradient of the
-    reference's upcast is; everything else is float32."""
+    bfloat16: bfloat16 k/v enter the kernel as they are where ``bwd_plan``
+    gives one k/v part (``bwd_wide``'s recomputing passes), else as their
+    float32 values (exact); dk, dv come back rounded to bfloat16, as the
+    gradient of the reference's upcast is; everything else is float32."""
     global bwd_launches
     dev = _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     kv_dtype = k.dtype
     if kv_dtype not in (torch.float32, torch.bfloat16) or v.dtype != kv_dtype:
         raise ValueError(f"flash_attention_bwd: k/v must both be float32 or bfloat16, got "
                          f"{k.dtype}, {v.dtype}")
-    k, v = k.float(), v.float()
     for name, t in (("q", q), ("o", o), ("lse", lse), ("do", do)):
         if t.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be float32, got {t.dtype}")
@@ -409,18 +443,21 @@ def flash_attention_bwd(
     if max(b * t * h, b * tk * kvh) * hd >= 2**31:
         raise ValueError("flash_attention_bwd: sizes must fit int32")
     dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=dev)
     sms = _sm_count(dev.index or 0)
-    # the split parts of q, dO, k, v, the padded lse, D, and on the dS path
-    # dS and the dQ partials
+    # the parts of q, dO, k, v, the padded lse, D, on the dS path dS and the
+    # dQ partials, with a head split the dK and dV partials
     plan = bwd_plan(hd, b, t, tk, h, kvh, causal=bool(causal), window=int(window),
-                    q_offset=int(q_offset), sms=sms)
+                    q_offset=int(q_offset), sms=sms, kv_bf16=kv_dtype == torch.bfloat16)
+    kv_bf16 = plan.kv_parts == 1
+    if not kv_bf16:
+        k, v = k.float(), v.float()
     scratch = _scratch_bytes(plan.scratch_bytes, dev)
     rc = _build.library().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), scratch.numel(), hd, b, t,
-        tk, h, kvh, int(q_offset), int(window), int(causal), float(softcap), sms,
+        tk, h, kvh, int(q_offset), int(window), int(causal), float(softcap), int(kv_bf16), sms,
         _build.stream(dev),
     )
     _build.check(rc, "flash_attention_bwd")
@@ -428,4 +465,8 @@ def flash_attention_bwd(
     bwd_design_launches[bwd_design(hd)] += 1
     if plan.chunks:
         split_launches["bwd_wide"] += 1
+    if plan.head_splits > 1:
+        head_split_launches["bwd_wide"] += 1
+    if kv_bf16:
+        bf16_kv_launches["bwd_wide"] += 1
     return dq, dk.to(kv_dtype), dv.to(kv_dtype)

@@ -20,8 +20,11 @@ class FlashAttention(torch.autograd.Function):
     """Attention with a hand-written backward.  forward saves q, k, v, o and
     lse; backward launches ``csrc/flash_attention_bwd.cu`` (a CPU tensor:
     ``ref.attention_bwd_ref``).  q of another float type is taken as its
-    float32 value, and k/v as they are (float32 or bfloat16, whose float32
-    values the kernels read); o is float32, and each gradient comes back in
+    float32 value, and k/v as they are (float32 or bfloat16: the forward
+    reads bf16 k/v as they are, and so does the backward's hd-256 design
+    ``bwd_wide`` where ``kernel.bwd_plan`` gives one k/v part, its products
+    with k or v then three bf16 products each; elsewhere the backward reads
+    their float32 values); o is float32, and each gradient comes back in
     its input's type."""
 
     @staticmethod

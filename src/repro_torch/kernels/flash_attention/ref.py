@@ -21,7 +21,9 @@ of the backward kernel (``csrc/flash_attention_bwd.cu``);
 :func:`attention_fwd_split_ref` and :func:`attention_bwd_split_ref` emulate
 the numerics of the float32-k/v forward's and the backward's tensor-core
 designs (every product of float32 operands as a sum of products of their
-bf16 parts), for the tests only.  :func:`attention_fwd_chunked_ref` and
+bf16 parts; the backward's also with k and v as one part, its bf16-k/v
+instances, and with the dK/dV pass's head split), for the tests only.
+:func:`attention_fwd_chunked_ref` and
 :func:`attention_bwd_ds_ref` emulate the key split of ``flash_tiled`` and
 ``bwd_wide`` (``csrc/attn_plan.h``: per-chunk partials merged in chunk
 order; dQ from a stored dS), for the tests only.
@@ -210,16 +212,20 @@ BWD_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
 
 
 def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, parts: int,
-                   pairs: int) -> torch.Tensor:
+                   pairs: int, b_parts: int | None = None) -> torch.Tensor:
     """``einsum(eq, a, b)`` of float32 ``a`` and ``b`` as the float32 sum of
     the products of their bf16 parts that the first ``pairs`` of
-    ``BWD_PAIRS`` name, smallest first."""
+    ``BWD_PAIRS`` name, smallest first.  ``b_parts``: ``b`` held as that
+    many parts (k or v as one, where they are bf16 values: the pairs with a
+    later part of ``b``, zeros then, are left out)."""
     use = BWD_PAIRS[:pairs]
     if not 1 <= pairs <= len(BWD_PAIRS) or max(max(p) for p in use) >= parts:
         raise ValueError(f"pairs {pairs} need more than {parts} parts (or are out of range)")
-    pa, pb = split_bf16(a, parts), split_bf16(b, parts)
+    pa, pb = split_bf16(a, parts), split_bf16(b, parts if b_parts is None else b_parts)
     out = None
     for i, j in reversed(use):
+        if j >= len(pb):
+            continue
         term = torch.einsum(eq, pa[i].float(), pb[j].float())
         out = term if out is None else out + term
     return out
@@ -287,29 +293,41 @@ def attention_bwd_split_ref(
     q_offset: int = 0,
     parts: int = 3,
     pairs: int = 6,
+    kv_parts: int | None = None,
+    head_splits: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's tensor-core arithmetic: :func:`attention_bwd_ref`
     with each of its five products (S = Qs K^T, dP = dO V^T, dV = P^T dO,
     dK = dS^T Qs, dQ = dS K; Qs = q / sqrt(hd)) a sum of products of the
     operands' ``parts`` bf16 parts (``pairs`` of ``BWD_PAIRS``, the first
-    operand's part first), every sum in float32.  Tests only."""
+    operand's part first), every sum in float32.  ``kv_parts``: k and v held
+    as that many parts (1: ``bwd_wide``'s bf16-k/v instances, exact for bf16
+    values).  ``head_splits``: the dK/dV pass's head split, each of the n
+    contiguous subsets of a group's query heads summed on its own, the
+    subsets then added in order.  Tests only."""
     kvh = k.shape[2]
     qf = _heads(q, kvh) / math.sqrt(q.shape[3])
     mask = key_mask(q.shape[1], k.shape[1], causal=causal, window=int(window),
                     q_offset=int(q_offset), kv_len=None, device=q.device)
     kf, vf = k.float(), v.float()
     of, dof = _heads(o, kvh), _heads(do, kvh)
-    s = _split_product("bkgqh,bskh->bkgqs", qf, kf, parts, pairs)
+    s = _split_product("bkgqh,bskh->bkgqs", qf, kf, parts, pairs, kv_parts)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
     delta = (dof * of).sum(-1, keepdim=True)
-    dv = _split_product("bkgqs,bkgqh->bskh", p, dof, parts, pairs)
-    ds = p * (_split_product("bkgqh,bskh->bkgqs", dof, vf, parts, pairs) - delta)
+    ds = p * (_split_product("bkgqh,bskh->bkgqs", dof, vf, parts, pairs, kv_parts) - delta)
     if softcap > 0:
         ds = ds * (1.0 - (s / softcap) ** 2)
-    dq = _split_product("bkgqs,bskh->bkgqh", ds, kf, parts, pairs) / math.sqrt(q.shape[3])
-    dk = _split_product("bkgqs,bkgqh->bskh", ds, qf, parts, pairs)
+    dq = _split_product("bkgqs,bskh->bkgqh", ds, kf, parts, pairs, kv_parts) / math.sqrt(q.shape[3])
+    groups = qf.shape[2]
+    bounds = [i * groups // head_splits for i in range(head_splits + 1)]
+    dk = dv = None
+    for h0, h1 in zip(bounds, bounds[1:]):
+        dv_s = _split_product("bkgqs,bkgqh->bskh", p[:, :, h0:h1], dof[:, :, h0:h1], parts, pairs)
+        dk_s = _split_product("bkgqs,bkgqh->bskh", ds[:, :, h0:h1], qf[:, :, h0:h1], parts, pairs)
+        dv = dv_s if dv is None else dv + dv_s
+        dk = dk_s if dk is None else dk + dk_s
     return _unheads(dq), dk, dv
 
 

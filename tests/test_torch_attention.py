@@ -258,6 +258,8 @@ GRAD_CASES = {
     "window_softcap_hd120": (1, 72, 4, 2, 120, True, 16, 50.0),
     "bidirectional_hd120": (1, 40, 2, 1, 120, False, 0, 0.0),
     "bidirectional_window_hd32": (1, 40, 4, 2, 32, False, 8, 0.0),
+    # recurrentgemma-9b's local MQA group: 16 query heads over one kv head of 256
+    "mqa16_window_hd256": (1, 80, 16, 1, 256, True, 24, 0.0),
 }
 
 
@@ -518,6 +520,81 @@ def test_bwd_design_by_head_width():
         fa_k.bwd_design(96)
 
 
+# bwd_wide's bf16-k/v instances (k and v as one bf16 part: three products in
+# S, dP and dQ) and its head split (the dK/dV pass over n subsets of a
+# group's query heads, the subsets' partial dK, dV added in order): name ->
+# (b, t, h, kvh, causal, window, softcap, head subsets), hd 256
+BWD_HEAD_SPLIT_CASES = {
+    "mqa16_window_2_subsets": (1, 80, 16, 1, True, 24, 0.0, 2),
+    "mqa16_16_subsets": (1, 50, 16, 1, True, 0, 0.0, 16),
+    "gqa4_softcap_3_subsets": (1, 70, 8, 2, True, 0, 30.0, 3),
+    "mqa8_bidirectional_4_subsets": (1, 40, 8, 1, False, 10, 0.0, 4),
+}
+
+
+def _bf16_kv_bwd_inputs(b, t, h, kvh, causal, window, softcap, seed):
+    """q and dO float32; k and v bfloat16 (the training path's cache type)."""
+    q, k, v, do = _grad_inputs(b, t, h, kvh, 256, seed)
+    k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    q, do = torch.from_numpy(q), torch.from_numpy(do)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa_r.attention_lse_ref(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("case", sorted(BWD_HEAD_SPLIT_CASES))
+def test_bwd_split_ref_one_kv_part_and_head_splits(case):
+    """k and v as one bf16 part with the head split: within BWD_TOL of the
+    plain backward and of jax.grad of the reference's attention (on the
+    float32 values of the bf16 k/v), and bit-equal to the six-product
+    emulation with the same head split, whose k/v parts past the first are
+    zeros."""
+    import jax
+
+    *shape, n = BWD_HEAD_SPLIT_CASES[case]
+    args, kw = _bf16_kv_bwd_inputs(*shape, seed=len(case))
+    got = fa_r.attention_bwd_split_ref(*args, **kw, kv_parts=1, head_splits=n)
+    six = fa_r.attention_bwd_split_ref(*args, **kw, head_splits=n)
+    exp = fa_r.attention_bwd_ref(*args, **kw)
+    q, k, v, _, _, do = (x.float().numpy() for x in args)
+
+    def f(q_, k_, v_):
+        return jnp.sum(JL.attention(q_, k_, v_, impl="direct", **kw) * jnp.asarray(do))
+
+    exp_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, g, s6, e, ej in zip("qkv", got, six, exp, exp_j):
+        assert torch.equal(g, s6), f"d{name}"
+        np.testing.assert_allclose(g.numpy(), e.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+        np.testing.assert_allclose(g.numpy(), np.asarray(ej), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"jax d{name}")
+
+
+def test_bwd_split_ref_one_kv_part_needs_bf16_values():
+    """One k/v part is exact only for bf16 values: on float32 k/v it rounds
+    k and v to bfloat16, which moves the gradients past BWD_TOL; so the
+    bf16 instances are taken for bf16 k/v only (``bwd_plan``)."""
+    args, kw = _bwd_inputs(1, 80, 16, 1, 256, True, 24, 0.0, seed=5)
+    exp = fa_r.attention_bwd_ref(*args, **kw)
+    got = fa_r.attention_bwd_split_ref(*args, **kw, kv_parts=1, head_splits=2)
+    assert not all(torch.allclose(g, e, atol=BWD_TOL, rtol=BWD_TOL) for g, e in zip(got, exp))
+    three = fa_r.attention_bwd_split_ref(*args, **kw, head_splits=2)
+    for name, g, e in zip("qkv", three, exp):
+        np.testing.assert_allclose(g.numpy(), e.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_bwd_products_by_kv_parts():
+    """The instance's products: six in each of the five for float32 k/v;
+    for bf16 k/v, three where k or v is an operand (S, dP, dQ): 4.2 on
+    average, what chip_smoke.attn_products counts as needed."""
+    assert fa_k.bwd_products(3) == dict.fromkeys(("S", "dP", "dV", "dK", "dQ"), fa_k.BWD_SPLIT)
+    bf16 = fa_k.bwd_products(1)
+    assert bf16 == {"S": 3, "dP": 3, "dV": 6, "dK": 6, "dQ": 3}
+    assert sum(bf16.values()) / 5 == 4.2
+    assert sum(1 for _, j in fa_r.BWD_PAIRS if j < 1) == bf16["S"]
+
+
 # -- the float32-k/v forward's tensor-core arithmetic (flash_wgmma_split) --------
 
 # ref.attention_fwd_split_ref emulates it: q / sqrt(hd), k and v split into
@@ -700,6 +777,86 @@ def test_key_split_plan_covers_the_visible_keys(seed):
         assert (bwd.chunks == 0) == (blocks >= SMS)   # the dS path exactly under one wave
         if bwd.chunks:
             _check_chunks(bwd, *_visible_range(tq, tk, causal, window, q_offset, tk), blocks)
+
+
+def _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, nchunk, nsplit, kv_parts):
+    """csrc/attn_plan.h's bwd_layout total, written out: parts of q and dO,
+    k/v parts, lse and D padded to 128 rows, the dQ partials and dS (dS
+    path), the dK and dV partials (head split); each 256-byte aligned."""
+    def a256(n):
+        return -(-n // 256) * 256
+
+    tp = -(-tq // 128) * 128
+    total = 2 * a256(3 * 2 * b * h * tq * hdk) + 2 * a256(kv_parts * 2 * b * kvh * tk * hdk)
+    total += 2 * a256(4 * b * h * tp)
+    total += a256(4 * nchunk * b * h * tq * 256) if nchunk > 1 else 0
+    total += a256(4 * b * h * tq * tk) if nchunk > 0 else 0
+    total += a256(2 * 4 * nsplit * b * kvh * tk * 256) if nsplit > 1 else 0
+    return total
+
+
+GRIFFIN = dict(h=16, kvh=1)   # recurrentgemma-9b's local MQA: 16 q heads over 1 kv head of 256
+
+
+@pytest.mark.parametrize("kv_bf16", [True, False])
+def test_head_split_plan_at_griffin_and_gemma3(kv_bf16):
+    """recurrentgemma-9b's training attention ([1, 4096, 16 / 1, 256],
+    window 2048) has 64 dK/dV blocks: 2 head subsets (128 blocks of 132
+    SMs), the dK and dV partials [2][1][4096][256] float32 in the scratch
+    (16.8 MB), one k/v part for bf16 k/v.  gemma3-4b's full layers and its
+    islands keep the whole group (256 dK/dV blocks); the islands' dS path
+    takes bf16 k/v as their float32 values."""
+    kw = dict(causal=True, window=2048, q_offset=0)
+    griffin = fa_k.bwd_plan(256, 1, 4096, 4096, **GRIFFIN, sms=SMS, kv_bf16=kv_bf16, **kw)
+    parts = 1 if kv_bf16 else 3
+    assert (griffin.chunks, griffin.head_splits, griffin.kv_parts) == (0, 2, parts)
+    assert griffin.scratch_bytes == _bwd_layout_bytes(256, 1, 4096, 4096, 16, 1, 0, 2, parts)
+    whole = fa_k.bwd_plan(256, 1, 4096, 4096, **GRIFFIN, sms=64, kv_bf16=kv_bf16, **kw)
+    assert whole.head_splits == 1   # 64 blocks fill a wave of 64 SMs
+    assert griffin.scratch_bytes - whole.scratch_bytes == 2 * 4 * 2 * 4096 * 256
+    for window in (0, 1024):
+        full = fa_k.bwd_plan(256, 1, 4096, 4096, **GEMMA3, sms=SMS, kv_bf16=kv_bf16,
+                             causal=True, window=window, q_offset=0)
+        assert (full.chunks, full.head_splits, full.kv_parts) == (0, 1, parts)
+        assert full.scratch_bytes == _bwd_layout_bytes(256, 1, 4096, 4096, 8, 4, 0, 1, parts)
+    island = fa_k.bwd_plan(256, 1, 256, 4096, **GEMMA3, sms=SMS, kv_bf16=kv_bf16, causal=True,
+                           window=0, q_offset=3840)
+    assert (island.chunks, island.head_splits, island.kv_parts) == (4, 1, 3)
+    assert island.scratch_bytes == _bwd_layout_bytes(256, 1, 256, 4096, 8, 4, 4, 1, 3)
+    # every other width: the whole group, k/v as float32 values
+    mini = fa_k.bwd_plan(64, 1, 4096, 4096, 4, 1, sms=SMS, kv_bf16=kv_bf16, **kw)
+    assert (mini.head_splits, mini.kv_parts) == (1, 3)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_head_split_plan_rule(seed):
+    """Across random shapes: the dK/dV pass splits the heads only at hd 256
+    off the dS path with a group of more than one head and fewer dK/dV
+    blocks than SMs, then into the most subsets that keep the grid within
+    one wave, at most one per head; the scratch is bwd_layout's."""
+    rng = np.random.default_rng(seed)
+    for _ in range(150):
+        hd = int(rng.choice([64, 128, 256, 256]))
+        b, kvh = int(rng.integers(1, 3)), int(rng.choice([1, 2, 4]))
+        h = kvh * int(rng.choice([1, 2, 8, 16]))
+        tk = int(rng.integers(1, 5000))
+        tq = int(rng.integers(1, tk + 1))
+        causal, window = bool(rng.integers(0, 2)), int(rng.choice([0, 100, 2048]))
+        q_offset = int(rng.integers(0, tk - tq + 1))
+        sms = int(rng.choice([16, 132]))
+        kv_bf16 = bool(rng.integers(0, 2))
+        plan = fa_k.bwd_plan(hd, b, tq, tk, h, kvh, causal=causal, window=window,
+                             q_offset=q_offset, sms=sms, kv_bf16=kv_bf16)
+        blocks = b * kvh * -(-tk // 64)
+        n = plan.head_splits
+        if hd == 256 and h > kvh and plan.chunks == 0 and blocks < sms:
+            assert n == min(h // kvh, sms // blocks) and n * blocks <= sms
+        else:
+            assert n == 1
+        assert plan.kv_parts == (1 if kv_bf16 and hd == 256 and plan.chunks == 0 else 3)
+        hdk = 128 if hd in (112, 120) else hd
+        assert plan.scratch_bytes == _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, plan.chunks, n,
+                                                       plan.kv_parts)
 
 
 # island-like shapes (q_offset > 0, Tq < Tk, GQA 2, hd 256) that split:

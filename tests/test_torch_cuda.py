@@ -384,6 +384,8 @@ BWD_TOL = 1e-4
 
 
 def _bwd_check(q, k, v, kw, seed=0):
+    """The backward against its plain version from the same o and lse; with
+    bf16 k/v, dk and dv (bfloat16) within BWD_TOL plus one rounding."""
     g = torch.Generator(device=q.device)
     g.manual_seed(seed)
     do = torch.randn(q.shape, generator=g, device=q.device)
@@ -394,7 +396,12 @@ def _bwd_check(q, k, v, kw, seed=0):
     torch.cuda.synchronize()
     exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for name, a, e in zip("qkv", got, exp):
-        torch.testing.assert_close(a, e, atol=BWD_TOL, rtol=BWD_TOL, msg=f"d{name}")
+        if a.dtype == torch.bfloat16:
+            err = (a.float() - e).abs()
+            assert bool((err <= BWD_TOL + (BWD_TOL + BF16_ROUND) * e.abs()).all()), \
+                (f"d{name}", float(err.max()))
+        else:
+            torch.testing.assert_close(a, e, atol=BWD_TOL, rtol=BWD_TOL, msg=f"d{name}")
     return got, exp, do
 
 
@@ -455,6 +462,122 @@ def test_flash_bwd_at_offset_matches_plain(cuda, b, tq, tk, h, kvh, hd, causal, 
                                            q_offset):
     q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, hd, torch.float32, seed=tq + hd)
     _bwd_check(q, k, v, dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset))
+
+
+# bwd_wide's head split (csrc/attn_plan.h: bwd_kv_head_splits): hd-256 shapes
+# whose dK/dV grid is under a wave of SMs and whose dQ grid is not (off the
+# dS path), GQA groups of 16, 8 and 4: (b, tq, tk, h, kvh, causal, window,
+# softcap, q_offset)
+HEAD_SPLIT_SHAPES = {
+    # recurrentgemma-9b's training attention: 64 dK/dV blocks, 2 subsets of 8
+    "griffin": (1, 4096, 4096, 16, 1, True, 2048, 0.0, 0),
+    # ragged T, softcap: 10 blocks, 13 subsets of 1 or 2 heads
+    "mqa16_ragged_softcap": (1, 577, 577, 16, 1, True, 100, 30.0, 0),
+    # 18 blocks, 7 subsets of 1 or 2
+    "mqa8_ragged": (1, 1100, 1100, 8, 1, True, 0, 0.0, 0),
+    # 44 blocks, 3 subsets of 1, 1, 2 heads; bidirectional, window, softcap
+    "gqa4_bidirectional": (2, 700, 700, 8, 2, False, 200, 20.0, 0),
+    # at a query offset (an island of 600 rows over 1000 keys): 8 subsets
+    "mqa16_offset": (1, 600, 1000, 16, 1, True, 0, 0.0, 400),
+    # a cross-attention, Tq != Tk: 48 blocks, 2 subsets of 4
+    "gqa8_cross": (1, 530, 1500, 16, 2, False, 0, 0.0, 0),
+    # an island with a window and a softcap: 60 blocks, 2 subsets of 2
+    "gqa4_offset_window_softcap": (1, 700, 900, 16, 4, True, 50, 25.0, 200),
+}
+
+
+def _head_split_inputs(cuda, name, kv_dtype, seed=0):
+    b, tq, tk, h, kvh, causal, window, softcap, off = HEAD_SPLIT_SHAPES[name]
+    q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, 256, torch.float32, seed=seed + tq)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    return q, k.to(kv_dtype), v.to(kv_dtype), kw
+
+
+def _head_split_plan(q, k, kw):
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    b, tq, h, hd = q.shape
+    return fa_k.bwd_plan(hd, b, tq, k.shape[1], h, k.shape[2], causal=kw["causal"],
+                         window=kw["window"], q_offset=kw["q_offset"], sms=sms,
+                         kv_bf16=k.dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(HEAD_SPLIT_SHAPES))
+def test_flash_bwd_head_split_matches_plain(cuda, name, kv_dtype):
+    """The head-split dK/dV pass (partials merged in subset order), float32
+    k/v and bf16 k/v taken as they are (one part), against the plain
+    backward; each call counted once in head_split_launches, and bf16 k/v
+    in bf16_kv_launches."""
+    q, k, v, kw = _head_split_inputs(cuda, name, kv_dtype)
+    plan = _head_split_plan(q, k, kw)
+    bf16 = kv_dtype == torch.bfloat16
+    assert plan.chunks == 0 and plan.head_splits > 1 and plan.kv_parts == (1 if bf16 else 3)
+    before = fa_k.head_split_launches["bwd_wide"], fa_k.bf16_kv_launches["bwd_wide"]
+    _bwd_check(q, k, v, kw)
+    assert (fa_k.head_split_launches["bwd_wide"], fa_k.bf16_kv_launches["bwd_wide"]) == \
+        (before[0] + 1, before[1] + int(bf16))
+
+
+@pytest.mark.parametrize("name", ["griffin", "mqa16_ragged_softcap", "gqa4_bidirectional",
+                                  "gemma3_full_gqa2"])
+def test_flash_bwd_bf16_kv_equals_float32_kv_path(cuda, name):
+    """bwd_wide on bf16 k/v (one part: the three non-zero products of the
+    six, in the same order) against the same call on their float32 values
+    (three parts, two of them zeros): the dropped products add exact zeros,
+    so dq is bit-equal and dk, dv are the float32 path's rounded to
+    bfloat16.  gemma3_full_gqa2: the unsplit bf16 instance (72 dK/dV
+    blocks)."""
+    if name == "gemma3_full_gqa2":
+        q, k, v = _flash_inputs(cuda, 1, 1100, 1100, 8, 4, 256, torch.float32, seed=11)
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        kw = dict(causal=True, window=300, softcap=0.0, q_offset=0)
+        assert _head_split_plan(q, k, kw).head_splits == 1
+    else:
+        q, k, v, kw = _head_split_inputs(cuda, name, torch.bfloat16, seed=11)
+    assert _head_split_plan(q, k, kw).kv_parts == 1
+    do = torch.randn_like(q)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    before = fa_k.bf16_kv_launches["bwd_wide"]
+    dq, dk, dv = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa_k.bf16_kv_launches["bwd_wide"] == before + 1
+    dq32, dk32, dv32 = fa_k.flash_attention_bwd(q, k.float(), v.float(), o, lse, do, **kw)
+    assert fa_k.bf16_kv_launches["bwd_wide"] == before + 1
+    assert torch.equal(dq, dq32)
+    assert torch.equal(dk, dk32.to(torch.bfloat16)) and torch.equal(dv, dv32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_head_split_is_deterministic(cuda, kv_dtype):
+    """recurrentgemma-9b's training shape: the subsets' partials merge in
+    subset order, so repeats are bit-equal."""
+    q, k, v, kw = _head_split_inputs(cuda, "griffin", kv_dtype, seed=4)
+    assert _head_split_plan(q, k, kw).head_splits == 2
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    do = torch.randn_like(q)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(3):
+        again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["mqa16_ragged_softcap", "gqa4_bidirectional"])
+def test_flash_bwd_head_split_reads_no_unwritten_scratch(cuda, name, kv_dtype, monkeypatch):
+    """Every byte of the backward's scratch starts as 0xff (a float32 NaN):
+    the dK and dV partials and the k/v parts are read only where the
+    kernels wrote them, so the gradients stay finite and right."""
+    made = []
+
+    def nan_scratch(nbytes, dev):
+        made.append(nbytes)
+        return torch.full((nbytes,), 255, dtype=torch.uint8, device=dev)
+
+    monkeypatch.setattr(fa_k, "_scratch_bytes", nan_scratch)
+    q, k, v, kw = _head_split_inputs(cuda, name, kv_dtype, seed=2)
+    plan = _head_split_plan(q, k, kw)
+    got, _, _ = _bwd_check(q, k, v, kw)
+    assert made == [plan.scratch_bytes]
+    assert all(bool(torch.isfinite(x).all()) for x in got)
 
 
 @pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2), (256, 4)])
@@ -1051,8 +1174,12 @@ def test_flash_bf16_kv_training_reads_no_unwritten_memory(cuda, name, monkeypatc
     monkeypatch.setattr(fa_k, "_scratch_bytes", nan_bytes)
     monkeypatch.setattr(fa_k, "_empty_out", nan_out)
     q, k, v, kw = _bf16_train_inputs(cuda, name, seed=1)
+    split0 = fa_k.head_split_launches["bwd_wide"]
     o, lse, grads = _bf16_train_check(q, k, v, kw, seed=1)
     assert len(made) == 3   # o, lse and the backward's scratch
+    # Griffin's backward takes the head split: its dK and dV partials lie in
+    # that scratch too
+    assert fa_k.head_split_launches["bwd_wide"] == split0 + int(name == "griffin_local")
     assert all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads))
 
 
