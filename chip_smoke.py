@@ -250,6 +250,25 @@ Phases, one JSON line each:
    Lambda session: 2 steps, exit, resume to 4 must give the loss trace of
    4 uninterrupted steps, bit for bit, and the resumed call must log its
    re-bootstrap through the session.
+10b. reshard — the resharded ranged restore (``dist.checkpoint.
+   restore_sharded`` under ``dist.sharding.param_specs``) at full width:
+   minicpm-2b's float32 masters (random from ``--seed``) and AdamW state
+   with int8 moments (made non-zero by one ``apply_updates`` from a seeded
+   random gradient; no backward), 16.4 GB, saved once into an ``S3Store``
+   and restored onto the card: whole (``restore``), then each model coord
+   of ``benchmarks/ckpt_store.py``'s (1, 4) mesh and coords
+   ``PRODUCTION_COORDS`` of ``launch.mesh.make_production_mesh()`` (16 x
+   16, ZeRO on).  It fails unless the full restore is the saved tree bit
+   for bit, every shard is ``sharding.local_shard``'s block of it bit for
+   bit and on the card, the (1, 4) shards concatenated along each leaf's
+   model dim give the full tree, model 0 restored once more into a CPU
+   like_tree logs the same store ops as on the card, and, on the spmd
+   phase's NCCL group, ``distribute_tensor`` with ``shardings_for``'s
+   placements on ``make_host_mesh(model=1)`` gives ``local_shard``'s
+   tensors for a reduced minicpm-2b.  Each restore's line: host wall,
+   GETs, bytes, modeled seconds and USD, and the bytes and modeled
+   seconds as shares of the full restore's (no gate; the reference's plan,
+   ``scripts/torch_reshard_plan.py`` prices it without data).
 11. spmd   — the SPMD surface (``core/backends/direct.py`` over a
    ``DeviceMesh``) on one NCCL rank: NCCL refuses two ranks on one card,
    so the process group (a ``FileStore`` in a temporary directory) has
@@ -464,6 +483,8 @@ SPMD_CROSS = ("whisper-medium", 4, 128, 1500)   # arch, B, decoder positions, fr
 SPMD_DP_LAYERS, SPMD_DP_STEPS = 8, 3
 SPMD_MOE_B, SPMD_MOE_T = 4, 2048
 SPMD_PG_TIMEOUT_S = 300
+# phase 10b: the production mesh's shards restored (first, middle, last)
+PRODUCTION_COORDS = ((0, 0), (7, 11), (15, 15))
 # the attention backward's kernels by pass (profiler names, first match
 # wins): the prologues, the dS path's dQ and its merge, the head split's
 # dK/dV merge, the recomputing dQ pass (bwd_wide<true, ...>, bwd_wgmma<HD,
@@ -1812,6 +1833,151 @@ def train_check_phase(torch, seed) -> dict:
         fail(f"train_check (c): the resumed run did not re-bootstrap its session: {rlog}")
     out["c"] = {"uninterrupted": ref, "killed_and_resumed": first + rest, "bit_equal": True,
                 "rebootstrap_log": reboot[0], "rebootstrap_s": resumed.rebootstrap_time_s}
+    return out
+
+
+def reshard_phase(torch, seed) -> dict:
+    """minicpm-2b's full-width training state saved once into an ``S3Store``
+    and restored onto the card whole and shard by shard (module doc, phase
+    10b); then ``shardings_for``'s placements on the spmd group's
+    ``make_host_mesh(model=1)``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist import sharding
+    from repro_torch.dist.object_store import S3Store
+    from repro_torch.dist.treepath import flatten_with_path, leaves, path_str, tree_map
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(TRAIN_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    params = api.init_params(cfg, gen, device=dev, master=True)
+    ocfg = opt.OptConfig(state_dtype="int8")
+    state = opt.init_state(params, ocfg)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev), params)
+    opt.apply_updates(params, grads, state, ocfg)  # non-zero int8 moments, no backward
+    del grads
+    tree = {"params": params, "opt": state}
+    if not all(bool(state[k]["blocks"]["wi"]["q"].any()) for k in ("m", "v")):
+        fail("reshard: the int8 moments are zero after the update")
+    tree_bytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+    store = S3Store()
+    t0 = time.perf_counter()
+    ref = ckpt.save(store, 1, tree)
+    save_wall = time.perf_counter() - t0
+
+    def same_bits(a, b) -> bool:
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+    def restored(fn) -> tuple:
+        """``fn()``'s tree, its host wall (the card synchronised), its priced
+        totals and its op log."""
+        store.reset_ops()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        priced = {"host_wall_s": wall, "gets": store.gets, "bytes": store.bytes_got,
+                  "modeled_s": store.op_time_s, "usd": store.request_cost_usd()}
+        return out, priced, [(o.kind, o.key, o.nbytes, o.time_s) for o in store.ops]
+
+    full, full_ops, _ = restored(lambda: ckpt.restore(ref, tree))
+    for (path, a), b in zip(flatten_with_path(full), leaves(tree)):
+        if a.device.type != "cuda" or not same_bits(a, b):
+            fail(f"reshard: the full restore's {path_str(path)} is not the saved leaf")
+    del tree, params, state
+    torch.cuda.empty_cache()
+
+    def shares(ops) -> dict:
+        return {**ops, "bytes_share": ops["bytes"] / full_ops["bytes"],
+                "modeled_s_share": ops["modeled_s"] / full_ops["modeled_s"]}
+
+    def check_shard(shard, specs, sizes, at, what):
+        exp = sharding.local_shard(full, specs, sizes, at)
+        for (path, a), b in zip(flatten_with_path(shard), leaves(exp)):
+            if a.device.type != "cuda" or not same_bits(a, b):
+                fail(f"reshard: {what} {at}: {path_str(path)} is not local_shard's block")
+
+    out = {"arch": TRAIN_ARCH, "params": cfg.param_count(), "tree_bytes": tree_bytes,
+           "leaves": len(leaves(full)), "save_wall_s": save_wall, "full": full_ops}
+    # the reference benchmark's mesh: every model coord, then the reassembly
+    sizes = {"data": 1, "model": 4}
+    specs = sharding.param_specs(cfg, full, sizes)
+    shards, rows, logs = [], [], []
+    for m in range(4):
+        at = {"data": 0, "model": m}
+        shard, ops, log = restored(lambda: ckpt.restore_sharded(ref, full, specs, sizes, at))
+        check_shard(shard, specs, sizes, at, "(1, 4)")
+        shards.append(shard)
+        rows.append({"coords": [0, m], **shares(ops)})
+        logs.append(log)
+    for i, ((path, whole), spec) in enumerate(zip(flatten_with_path(full), leaves(specs))):
+        dim = next((d for d, e in enumerate(spec)
+                    if "model" in (e if isinstance(e, tuple) else (e,))), None)
+        parts = [leaves(s)[i] for s in shards]
+        back = parts[0] if dim is None else torch.cat(parts, dim)
+        if not same_bits(back, whole) or (dim is None and not all(same_bits(p, whole)
+                                                                 for p in parts)):
+            fail(f"reshard: the (1, 4) shards of {path_str(path)} do not reassemble the leaf")
+    out["ckpt_store_1x4"] = rows
+    # where the leaves land does not change the price: model 0 once more,
+    # into a CPU like_tree (zero-storage tensors of the global shapes)
+    at0 = {"data": 0, "model": 0}
+    cpu_like = tree_map(lambda t: torch.empty((), dtype=t.dtype).expand(t.shape), full)
+    cpu_shard, cpu_ops, cpu_log = restored(
+        lambda: ckpt.restore_sharded(ref, cpu_like, specs, sizes, at0))
+    if cpu_log != logs[0]:
+        fail("reshard: restoring (1, 4)'s model 0 into a CPU like_tree changed the op log")
+    for (path, a), b in zip(flatten_with_path(cpu_shard), leaves(shards[0])):
+        if a.device.type != "cpu" or not same_bits(a, b.cpu()):
+            fail(f"reshard: the CPU shard's {path_str(path)} is not the card's")
+    out["cpu_like_1x4_model0"] = {**shares(cpu_ops), "op_log_equal": True}
+    del shards, cpu_shard, cpu_like
+    torch.cuda.empty_cache()
+    # the production mesh (16 x 16, ZeRO as minicpm's config has it)
+    prod = make_production_mesh()
+    specs = sharding.param_specs(cfg, full, prod)
+    rows = []
+    for d, m in PRODUCTION_COORDS:
+        at = {"data": d, "model": m}
+        shard, ops, _ = restored(lambda: ckpt.restore_sharded(ref, full, specs, prod, at))
+        check_shard(shard, specs, prod, at, "16 x 16")
+        rows.append({"coords": [d, m], **shares(ops)})
+        del shard
+    out["production_16x16"] = rows
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del full
+    torch.cuda.empty_cache()
+    # shardings_for on the spmd phase's NCCL group: make_host_mesh(model=1)
+    if not dist.is_initialized() or dist.get_backend() != "nccl":
+        fail("reshard: the spmd phase's NCCL group is not up")
+    mesh = make_host_mesh(model=1)
+    rcfg = cfg.reduced()
+    small = api.init_params(rcfg, gen, device=dev, master=True)
+    specs = sharding.param_specs(rcfg, small, mesh)
+    placed = sharding.shardings_for(mesh, specs)
+    exp = sharding.local_shard(small, specs, mesh, {"data": 0, "model": 0})
+    checked = 0
+    for (path, leaf), e in zip(flatten_with_path(small), leaves(exp)):
+        pl = placed
+        for k in path:
+            pl = pl[k]
+        local = distribute_tensor(leaf, mesh, pl).to_local()
+        if local.device.type != "cuda" or not same_bits(local, e):
+            fail(f"reshard: distribute_tensor's local {path_str(path)} is not local_shard's")
+        checked += 1
+    out["nccl_distribute"] = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                              "leaves": checked, "bit_equal": True}
+    out["wall_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3397,6 +3563,10 @@ def main() -> int:
 
     # -- 10. train_check ----------------------------------------------------------
     emit({"phase": "train_check", **train_check_phase(torch, args.seed)})
+    torch.cuda.empty_cache()
+
+    # -- 10b. reshard: minicpm-2b's training state restored shard by shard ---------
+    emit({"phase": "reshard", **reshard_phase(torch, args.seed)})
     torch.cuda.empty_cache()
 
     # -- 11. spmd (b)-(e): the islands, hd 112, the dp steps, the MoE dispatch ------

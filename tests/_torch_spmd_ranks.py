@@ -9,7 +9,9 @@ JOB ``main`` runs the world-4 checks (collectives and their backward,
 compression, the dataframe operators, attention_sharded, the dense model,
 the dp train steps, the driver's gate, the expert-parallel dispatch over a
 replicated axis of 4 and over the dp axis); ``moe`` the world-8
-expert-parallel dispatch on a (2, 4) mesh.
+expert-parallel dispatch on a (2, 4) mesh; ``shard`` (world 4) distributes
+the ``shard_trees`` over ``launch.mesh.make_host_mesh``'s (2, 2) mesh with
+``dist.sharding.shardings_for``'s placements.
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
 
     python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
@@ -40,8 +42,9 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch import configs, interop
 from repro_torch.core.backends import direct, mediated
 from repro_torch.dataframe import ops_dist
-from repro_torch.dist import compression, treepath
+from repro_torch.dist import compression, sharding, treepath
 from repro_torch.interop import table_from_numpy, table_to_numpy
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api, moe
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import DistContext
@@ -439,6 +442,47 @@ def moe_train_step(inp, mesh, ep_axis, dp_axis):
     return r
 
 
+def shard_trees() -> dict:
+    """The ``shard`` job's trees, from seeded generators on the CPU: a reduced
+    minicpm-2b's float32 masters and a reduced qwen3-moe's bfloat16 weights
+    (its experts on the joint ('data', 'model') axis)."""
+    out = {}
+    for seed, arch, master in ((5, "minicpm-2b", True), (6, "qwen3-moe-235b-a22b", False)):
+        cfg = configs.get(arch).reduced()
+        out[arch] = (cfg, api.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu",
+                                          master=master))
+    return out
+
+
+def raw(t: torch.Tensor) -> tuple:
+    """(shape, dtype name, bytes) of a tensor: equal means bit-equal."""
+    t = t.detach().cpu().contiguous()
+    return (tuple(t.shape), str(t.dtype).removeprefix("torch."),
+            t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def shard(out) -> None:
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = make_host_mesh(model=2)
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out["coords"] = mesh.get_coordinate()
+    out["local"] = {}
+    for name, (cfg, tree) in shard_trees().items():
+        specs = sharding.param_specs(cfg, tree, mesh)
+        placed = sharding.shardings_for(mesh, specs)
+        out["local"][name] = {
+            treepath.path_str(path): raw(distribute_tensor(
+                leaf.to(DEV), mesh, _node(placed, path)).to_local())
+            for path, leaf in treepath.flatten_with_path(tree)}
+
+
+def _node(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
              device: str) -> None:
     global DEV
@@ -462,6 +506,8 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         data = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
         out["moe"] = moe_ep(inp, rank, out, model, "model")
         out["moe"]["step_over_dp"] = moe_train_step(inp, data, "data", "data")
+    elif job == "shard":
+        shard(out)
     else:
         mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
         out["moe"] = moe_ep(inp, rank, out, mesh, "model", "data")

@@ -19,6 +19,7 @@ from repro.dist import treepath as jtp
 from repro.train import optimizer as jopt
 from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist import object_store as obs
+from repro_torch.dist.sharding import PartitionSpec as PS
 from repro_torch.dist import treepath as tp
 from repro_torch.train import optimizer as topt
 
@@ -214,8 +215,12 @@ def test_s3_kill_between_puts_leaves_step_unmarked(surviving_puts):
     store.fail_after_puts = None
     assert ckpt.latest(store).step == 4  # no commit marker => no step 5
     _assert_trees_equal(_tree(1.0), ckpt.restore(ckpt.latest(store), _tree()))
-    with pytest.raises(NotImplementedError, match="A 8"):
-        ckpt.restore_sharded(ckpt.latest(store), _tree(), None, {}, {})
+    specs = {"a": PS(None, "model"), "nested": {"b": PS("model"), "step": PS()}}
+    shard = ckpt.restore_sharded(ckpt.latest(store), _tree(), specs, {"model": 2}, {"model": 1})
+    step4 = _tree(1.0)
+    _assert_trees_equal({"a": step4["a"][:, 2:], "nested": {"b": step4["nested"]["b"][3:],
+                                                           "step": step4["nested"]["step"]}},
+                        shard)
 
 
 def test_restore_places_leaves_on_the_like_device(tmp_path):

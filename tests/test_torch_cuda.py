@@ -1204,3 +1204,37 @@ def test_flash_autograd_with_bf16_inputs(cuda):
         assert a.grad.dtype == e.grad.dtype == torch.bfloat16
         err = (a.grad.cpu().float() - e.grad.float()).abs()
         assert bool((err <= BWD_TOL + (BWD_TOL + 2 * BF16_ROUND) * e.grad.float().abs()).all())
+
+
+def test_restore_sharded_onto_the_card(cuda):
+    """A reduced minicpm-2b training state (float32 masters, int8 moments)
+    restored shard by shard into a like_tree on the card: every leaf on the
+    card, bit-equal to the same shard restored onto the CPU, with the same
+    store ops."""
+    from repro_torch import configs
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist import object_store as obs
+    from repro_torch.dist import sharding, treepath
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+
+    cfg = configs.get("minicpm-2b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(3), device="cpu", master=True)
+    tree = {"params": params, "opt": opt.init_state(params, opt.OptConfig(state_dtype="int8"))}
+    store = obs.S3Store()
+    ref = ckpt.save(store, 1, tree)
+    sizes = {"data": 2, "model": 2}
+    specs = sharding.param_specs(cfg, tree, sizes)
+    on_card = treepath.tree_map(lambda t: t.to(cuda), tree)
+    for d in range(2):
+        for m in range(2):
+            at = {"data": d, "model": m}
+            store.reset_ops()
+            cpu = ckpt.restore_sharded(ref, tree, specs, sizes, at)
+            cpu_ops = list(store.ops)
+            store.reset_ops()
+            card = ckpt.restore_sharded(ref, on_card, specs, sizes, at)
+            assert store.ops == cpu_ops
+            for a, b in zip(treepath.leaves(card), treepath.leaves(cpu)):
+                assert a.device.type == "cuda" and a.dtype == b.dtype
+                assert torch.equal(a.cpu(), b)

@@ -178,6 +178,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import repro_torch.kernels.hash_partition.kernel, repro_torch.kernels.join_probe.kernel,"
         " repro_torch.kernels.segment_reduce.kernel, repro_torch.kernels.flash_attention.kernel;"
         "import repro_torch.configs, repro_torch.models.api, repro_torch.serve.serve_step;"
+        "import repro_torch.dist.sharding, repro_torch.launch.mesh, repro_torch.launch.shapes;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
