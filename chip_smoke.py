@@ -16,6 +16,21 @@ Phases, one JSON line each:
    of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
    recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
    and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
+1b. dryrun — (run right after phase 1, while the script's own process
+   holds nothing on the card) in a child process (its default process
+   group is a ``fake`` one of 256 ranks), rank (0, 0) of the 16 x 16 production mesh
+   for ``DRYRUN_CELLS`` (minicpm-2b ``train_4k``, gemma3-4b
+   ``decode_32k``), its state held as ``local_shard``s and gathered at
+   use: (a) traced on fake CUDA tensors (``launch.dryrun``), its FLOPs,
+   wire bytes by kind, argument bytes and peak equal to the committed
+   ``experiments/dryrun_torch/`` records (traced on the CPU); (b) the same
+   rank programs run once for real on the card (the fake group's
+   collectives move nothing, so values are not checked): the counted FLOPs
+   must equal (a)'s, ``max_memory_allocated`` is reported against (a)'s
+   peak, a second step is timed and its launches join the counts under
+   ``dryrun_rank``; and minicpm-2b's rank-(0, 0) island (q [4, 256, 36,
+   64] at q_offset 0 over k/v [4, 4096, 36, 64] float32) through
+   ``flash_wgmma_split`` and ``bwd_wgmma`` against the plain versions.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -338,6 +353,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import json
 import statistics
 import subprocess
@@ -502,6 +518,15 @@ BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb
                       "ILb0ELb0ELb1ELb0E", "ILb0ELb0ELb0ELb1E", "ILb0ELb0ELb1ELb1E",
                       "ILb1ELb0ELb0ELb1E")
 # every path runs at its full size and depth but these
+# the dryrun phase: one rank, (0, 0), of the 16 x 16 production mesh under a
+# fake process group, each cell traced on fake CUDA tensors (held against
+# experiments/dryrun_torch/, traced on the CPU) and run once for real; the
+# real run's peak is reported against the estimate (DRYRUN_PEAK_TOL)
+DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("gemma3-4b", "decode_32k"))
+DRYRUN_COORDS = {"data": 0, "model": 0}
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_TIMEOUT_S = 600
+
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
     "runs 3)",
@@ -2754,6 +2779,171 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
     return {"checks": checks, "rows": rows, "dp": dp, "moe": moe_row}
 
 
+def dryrun_child(seed: int) -> int:
+    """The dryrun phase's child process (the fake process group must be its
+    default group).  (a) Each of ``DRYRUN_CELLS`` traced at rank (0, 0) on
+    fake CUDA tensors: its FLOPs, wire bytes by kind, argument bytes and
+    peak must equal the committed record (a fake's device changes no
+    shape).  (b) The same rank programs run for real on the card under the
+    fake group (its collectives move nothing, so values are not checked):
+    one counted step (FLOPs must equal (a)'s; ``max_memory_allocated``
+    against the estimate), then one step timed and its kernel launches
+    counted.  Also minicpm-2b's rank-(0, 0) attention island held against
+    its plain version.  Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
+    from repro_torch.kernels.hash_partition import kernel as hp_k
+    from repro_torch.kernels.join_probe import kernel as jp_k
+    from repro_torch.kernels.segment_reduce import kernel as sr_k
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_production_mesh()
+    out: dict = {"cells": {}}
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, coords=DRYRUN_COORDS, device="cuda", save=False)
+        art = json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json").read_text())
+        got = {"flops": rec["cost_analysis"]["flops"],
+               "wire_by_kind": rec["collectives"]["by_kind"],
+               "argument_size_bytes": rec["memory_analysis"]["argument_size_bytes"],
+               "peak_bytes_per_device": rec["memory_analysis"]["peak_bytes_per_device"]}
+        want = {"flops": art["cost_analysis"]["flops"],
+                "wire_by_kind": art["collectives"]["by_kind"],
+                "argument_size_bytes": art["memory_analysis"]["argument_size_bytes"],
+                "peak_bytes_per_device": art["memory_analysis"]["peak_bytes_per_device"]}
+        if got != want:
+            fail(f"dryrun (a) {arch} {shape}: the fake-CUDA trace {got} != the record {want}")
+        out["cells"][f"{arch}/{shape}"] = {"a": {**got, "trace_s": rec["trace_s"]}}
+    mesh_dev = dryrun.fake_mesh(mesh, DRYRUN_COORDS, "cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    launches: dict[str, int] = {}
+    for arch, shape in DRYRUN_CELLS:
+        cfg, cell = configs.get(arch), shapes.SHAPES[shape]
+        rc = dryrun.rank_cell(cfg, cell, mesh, DRYRUN_COORDS)
+
+        def make(t, cfg=cfg, rc=rc):
+            if t.dtype == torch.int32:  # tokens from --seed (a 0-d step counter: 0)
+                if t.dim() == 0:
+                    return torch.zeros((), dtype=torch.int32, device=dev)
+                return torch.randint(0, cfg.vocab_size, tuple(t.shape), generator=gen,
+                                     device=dev, dtype=torch.int32)
+            if not t.dtype.is_floating_point or rc.kind != "train" and t.dim() >= 5:
+                return torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)  # caches, int8
+            return (torch.randn(tuple(t.shape), generator=gen, device=dev) * 0.02).to(t.dtype)
+
+        torch.cuda.empty_cache()
+        args = dryrun.materialize(rc, make)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # the arguments held, none of their making
+        _, stats = dryrun.count_rank(cfg, rc, mesh_dev, args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        est = out["cells"][f"{arch}/{shape}"]["a"]
+        if stats.flops != est["flops"]:
+            fail(f"dryrun (b) {arch} {shape}: the card's step counted {stats.flops} FLOPs, "
+                 f"the estimate {est['flops']}")
+        step = dryrun.rank_step(cfg, rc, mesh_dev, args)
+        reset_counters(hp_k, jp_k, sr_k, fa_k)
+        t0 = time.perf_counter()
+        with torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+        out["cells"][f"{arch}/{shape}"]["b"] = {
+            "flops": stats.flops, "flops_equal": True, "step_s": wall,
+            "counted_step_s": stats.seconds, "max_memory_allocated": peak,
+            "estimate_peak": est["peak_bytes_per_device"],
+            "peak_over_estimate": peak / est["peak_bytes_per_device"],
+            "within_tol": abs(peak / est["peak_bytes_per_device"] - 1) <= DRYRUN_PEAK_TOL,
+            "launches": {k: v for k, v in got.items() if v}}
+        del args, step
+        torch.cuda.empty_cache()
+    # minicpm-2b's island at rank (0, 0): q rows 0-255 of 4096 (tp 16, the
+    # sequence split) over the whole keys, float32 k/v
+    cfg = configs.get("minicpm-2b")
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = torch.randn(4, 256, h, hd, generator=gen, device=dev)
+    k, v, do = (torch.randn(4, 4096, h, hd, generator=gen, device=dev) for _ in range(3))
+    do = do[:, :256].contiguous()
+    kw = dict(causal=True, window=0, q_offset=0)
+    before = dict(fa_k.fwd_design_launches), dict(fa_k.bwd_design_launches)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    grads = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    grads_r = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    fwd_err = max(float((a - e).abs().max()) for a, e in ((o, o_r), (lse, lse_r)))
+    bwd_err = max(float((a - e).abs().max()) for a, e in zip(grads, grads_r))
+    if not all(bool(((a - e).abs() <= FLASH_TOL + FLASH_TOL * e.abs()).all())
+               for a, e in ((o, o_r), (lse, lse_r))):
+        fail(f"dryrun island forward differs from the plain version: {fwd_err}")
+    if not all(bool(((a - e).abs() <= BWD_TOL + BWD_TOL * e.abs()).all())
+               for a, e in zip(grads, grads_r)):
+        fail(f"dryrun island backward differs from the plain version: {bwd_err}")
+    designs = tuple({d: n - was[d] for d, n in now.items() if n - was[d]} for now, was in (
+        (fa_k.fwd_design_launches, before[0]), (fa_k.bwd_design_launches, before[1])))
+    if designs != ({"flash_wgmma_split": 1}, {"bwd_wgmma": 1}):
+        fail(f"dryrun island ran {designs}, want flash_wgmma_split + bwd_wgmma")
+    out["island"] = {"q": list(q.shape), "kv": list(k.shape), **kw, "designs": designs,
+                     "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+                     "tol": [FLASH_TOL, BWD_TOL]}
+    # the dispatcher's host cost per flash call: the custom op against the
+    # wrapper it dispatches to, at a decode call whose device time is a few
+    # us (the host sets the pace), 2,000 calls a side, alternating, median
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    qd = torch.randn(1, 1, 8, 256, generator=gen, device=dev)
+    kd = torch.randn(1, 64, 4, 256, generator=gen, device=dev).to(torch.bfloat16)
+    sides = {"wrapper": lambda: fa_k.flash_attention(qd, kd, kd, kv_len=64),
+             "custom_op": lambda: fa_ops.flash_attention(qd, kd, kd, kv_len=64)}
+    per_call: dict[str, list[float]] = {name: [] for name in sides}
+    for _ in range(3):
+        for name, fn in sides.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            torch.cuda.synchronize()
+            per_call[name].append((time.perf_counter() - t0) / 2000 * 1e6)
+    med = {name: statistics.median(v) for name, v in per_call.items()}
+    out["dispatch_us_per_call"] = {**per_call, "median": med,
+                                   "custom_op_minus_wrapper": med["custom_op"] - med["wrapper"]}
+    out["launches"] = launches
+    print(json.dumps(out), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def dryrun_phase(torch, seed: int, launches: dict) -> dict:
+    """Run ``dryrun_child`` in a child process; its kernel launches join the
+    launch counts under the path ``dryrun_rank``."""
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
+                           "--seed", str(seed)], capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"the dryrun child failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-5000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, c in out.pop("launches").items():
+        launches.setdefault(name, {})["dryrun_rank"] = c
+    return {**out, "parent_allocated_bytes": parent_bytes, "wall_s": time.perf_counter() - t0}
+
+
 def _ptxas(pattern: str) -> dict:
     """Registers and spills of each built kernel whose name holds ``pattern``."""
     from repro_torch.kernels import _build
@@ -2764,6 +2954,7 @@ def _ptxas(pattern: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -2772,6 +2963,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.dryrun_child:
+        return dryrun_child(args.seed)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import make_communicator
     from repro_torch.dataframe import Table, ops_dist
@@ -2805,6 +2998,14 @@ def main() -> int:
         hgmma = sass_has(_build.build(), name, "HGMMA")
         if not all(any(i in f for f in hgmma) for i in instances) or not all(hgmma.values()):
             fail(f"{name}'s SASS holds no HGMMA (tensor-core) instruction: {hgmma}")
+
+    # counter name -> main-path run -> launches (see ``counters``)
+    launches: dict[str, dict[str, int]] = {}
+
+    # -- 1b. dryrun: one rank of the 16 x 16 mesh, traced and run for real ----------
+    # first, while this process holds nothing on the card: the child's rank
+    # programs need up to ~53 GB
+    emit({"phase": "dryrun", **dryrun_phase(torch, args.seed, launches)})
 
     timer = Timer(torch)
     kernels: dict[str, dict] = {}
@@ -2975,9 +3176,6 @@ def main() -> int:
     emit({"phase": "kernel", **kernels["segment_reduce"]})
     del timer
     torch.cuda.empty_cache()
-
-    # counter name -> main-path run -> launches (see ``counters``)
-    launches: dict[str, dict[str, int]] = {}
 
     # -- 3. sim_join at the weak-scaling size -----------------------------------
     p, rows = JOIN_P, JOIN_ROWS

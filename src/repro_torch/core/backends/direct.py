@@ -26,8 +26,8 @@ input's device.  The variable-length collectives follow the paper's
 FMI-extension structure: a fixed-size count exchange first, then a
 fixed-capacity payload exchange with masking.
 
-Autograd.  ``allreduce`` (and so ``allreduce_mean``), ``allgather`` and
-``alltoall`` carry gradients, as ``lax.psum``, ``all_gather`` and
+Autograd.  ``allreduce`` (and so ``allreduce_mean``), ``allgather``,
+``allgather_alike`` and ``alltoall`` carry gradients, as ``lax.psum``, ``all_gather`` and
 ``all_to_all`` do under ``jax.grad``.  Each rule is the exact gradient of
 the sum of every rank's loss, each rank's output being a function of every
 rank's input: ``allreduce``'s backward is the ``allreduce`` of the
@@ -82,14 +82,20 @@ def group(axis: str | Sequence[str], mesh=None):
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
     if key not in _groups:
-        # every rank makes every group of the sub-mesh, in one order
+        # every rank makes every group of the sub-mesh, in one order (the
+        # mesh's rank tensor is a real one: outside any dispatch mode, such
+        # as a dry-run's fake tensors)
+        from torch.utils._python_dispatch import _disable_current_modes
+
         names = list(mesh.mesh_dim_names)
         dims = [names.index(a) for a in axes]
-        rest = [d for d in range(mesh.mesh.dim()) if d not in dims]
-        ranks = mesh.mesh.permute(*rest, *dims).reshape(
-            -1, math.prod(mesh.mesh.shape[d] for d in dims))
+        with _disable_current_modes():
+            ranks = mesh.mesh
+            rest = [d for d in range(ranks.dim()) if d not in dims]
+            rows = ranks.permute(*rest, *dims).reshape(
+                -1, math.prod(ranks.shape[d] for d in dims)).tolist()
         me = dist.get_rank()
-        for row in ranks.tolist():
+        for row in rows:
             g = dist.new_group(row)
             if me in row:
                 _groups[key] = g
@@ -202,6 +208,27 @@ def allgather(x: torch.Tensor, axis: str | Sequence[str], *, dim: int = 0,
               mesh=None) -> torch.Tensor:
     """Tiled ``all_gather``: the ranks' tensors concatenated along ``dim``."""
     return _AllGather.apply(x, axis, dim, mesh)
+
+
+class _AllGatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = axis_index(axis, mesh)
+        return _allgather(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+def allgather_alike(x: torch.Tensor, axis: str | Sequence[str], *, dim: int = 0,
+                    mesh=None) -> torch.Tensor:
+    """:func:`allgather` for a result every rank of the axis then computes
+    alike from (activations replicated over it): the ranks' cotangents are
+    equal, so the backward keeps this rank's piece of its own (a
+    ``reduce_scatter`` would count it P times)."""
+    return _AllGatherAlike.apply(x, axis, dim, mesh)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -31,6 +31,21 @@ mapping.  Trees are nested dicts / lists / tuples walked in
 leaf of such a tree.  :func:`shardings_for` turns specs into DTensor
 placements and :func:`local_shard` cuts the block a rank holds, the block
 ``dist.checkpoint.restore_sharded`` restores.
+
+Gather at use (:func:`use`, :func:`use_state`, :func:`own_state`) is the
+per-rank program's counterpart of the reference's ``jit(in_shardings=...)``:
+a rank whose ``DistContext`` carries spec trees holds each leaf of its
+parameters, optimizer state and decode state as its ``local_shard`` and
+all-gathers a leaf's sharded dims just before the leaf is used, over each
+dim's axes in ``_shard_bounds``' row-major order.  Two kinds of sharded dim
+stay local, because the rank's own computation splits them along the same
+axes: the batch dim of a decode state over the dp axes, and the expert dim
+of the MoE stacks over ``ctx.ep_axis`` (what ``moe._moe_ep`` consumes).  A
+gather over dp axes (ZeRO) has the ``reduce_scatter`` of the ranks'
+cotangents as its backward (``direct.allgather``); one over other axes,
+whose activations are replicated, keeps the rank's own piece
+(``direct.allgather_alike``).  Without specs on the context every helper
+hands its argument back as it is.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 import torch
 
+from repro_torch.core.backends import direct
 from repro_torch.dist import treepath
 from repro_torch.dist.checkpoint import _axis_sizes, _shard_bounds
 
@@ -340,6 +356,151 @@ def local_shard(tree: Any, specs: Any, mesh_or_sizes: Any, coords) -> Any:
         bounds = _shard_bounds(shape, spec, sizes, coords)
         out.append(leaf[tuple(slice(s, e) for s, e in bounds)])
     return treepath.unflatten_like(tree, out)
+
+
+# ---------------------------------------------------------------------------
+# gather at use
+# ---------------------------------------------------------------------------
+
+
+def axes_of(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None: none)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
+    """Every mesh axis a leaf of ``spec`` is sharded over."""
+    return tuple(a for entry in spec for a in axes_of(entry))
+
+
+def _ep_axes(ctx) -> tuple[str, ...]:
+    return axes_of(tuple(ctx.ep_axis) if isinstance(ctx.ep_axis, list) else ctx.ep_axis)
+
+
+def _specs_at(specs: Any, path: tuple) -> Any:
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def _walk(tree: Any, specs: Any, fn, names: tuple[str, ...]) -> Any:
+    """``fn(leaf, spec, names)`` at every leaf of ``tree``, whose spec tree
+    ``specs`` mirrors it (``names``: the path's keys)."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, specs[k], fn, names + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, s, fn, names + (str(i),))
+                          for i, (v, s) in enumerate(zip(tree, specs)))
+    return fn(tree, specs, names)
+
+
+def _entries(spec: PartitionSpec, ndim: int, layer: bool) -> tuple:
+    """``spec``'s entries for a leaf of ``ndim`` dims; ``layer``: for one
+    layer's view of a stacked [L, ...] leaf (whose layer dim no rule
+    shards)."""
+    e = tuple(spec)
+    if layer:
+        if e and e[0] is not None:
+            raise ValueError(f"a stacked leaf's layer dim is sharded: {spec}")
+        e = e[1:]
+    return e + (None,) * (ndim - len(e))
+
+
+def _gather(x: torch.Tensor, entries: tuple, ctx, keep=()) -> torch.Tensor:
+    """``x`` all-gathered along every dim with an entry but those in
+    ``keep``: the entry's axes in runs of dp and of other axes, the
+    innermost run first (so that the blocks land in row-major order)."""
+    dp = set(ctx.dp_axes)
+    for dim, entry in enumerate(entries):
+        axes = axes_of(entry)
+        if not axes or dim in keep:
+            continue
+        runs: list[list[str]] = []
+        for a in axes:
+            if runs and (a in dp) == (runs[-1][0] in dp):
+                runs[-1].append(a)
+            else:
+                runs.append([a])
+        for run in reversed(runs):
+            fn = direct.allgather if run[0] in dp else direct.allgather_alike
+            x = fn(x, tuple(run), dim=dim, mesh=ctx.mesh)
+    return x
+
+
+def _block(x: torch.Tensor, dim: int, axes: tuple[str, ...], ctx) -> torch.Tensor:
+    """``x`` narrowed along ``dim`` to this rank's block over ``axes``
+    (row-major, the first axis slowest: ``_shard_bounds``)."""
+    index = 0
+    for a in axes:
+        index = index * direct.axis_size(a, ctx.mesh) + direct.axis_index(a, ctx.mesh)
+    n = x.shape[dim] // math.prod(direct.axis_size(a, ctx.mesh) for a in axes)
+    return x.narrow(dim, index * n, n)
+
+
+def use(ctx, tree: Any, *path, layer: bool = False) -> Any:
+    """``tree``, the subtree of a rank's parameters at ``path`` (``layer``:
+    one layer's view of a stacked subtree), with every leaf gathered as
+    ``ctx.param_specs`` says, but an MoE expert stack's expert dim over
+    ``ctx.ep_axis``.  Unchanged without specs."""
+    specs = getattr(ctx, "param_specs", None) if ctx is not None else None
+    if specs is None:
+        return tree
+    ep = _ep_axes(ctx)
+
+    def leaf(x, spec, names):
+        entries = _entries(spec, x.dim(), layer)
+        expert = "moe" in names and names[-1] in _EXPERT
+        keep = {d for d, e in enumerate(entries) if expert and axes_of(e) == ep}
+        return _gather(x, entries, ctx, keep)
+
+    return _walk(tree, _specs_at(specs, path), leaf, tuple(str(k) for k in path))
+
+
+def _state_entries(ctx, x: torch.Tensor, path: tuple, layer: bool):
+    specs = getattr(ctx, "state_specs", None) if ctx is not None else None
+    return None if specs is None else _entries(_specs_at(specs, path), x.dim(), layer)
+
+
+def use_state(ctx, local: torch.Tensor, *path, batch_dim: int, layer: bool = False
+              ) -> torch.Tensor:
+    """A rank's block ``local`` of the decode-state leaf at ``path`` (one
+    layer's view with ``layer``), as the rank computes on it: the rank's
+    rows along ``batch_dim`` (its dp shard where the batch divides the dp
+    axes, as ``batch_specs`` shards the inputs; else every row), every
+    other dim whole.  A batch dim sharded over the dp axes stays local,
+    every other sharded dim is gathered, and where the rules put the dp
+    axes on another dim (a layer dim of the global batch's size) the
+    gathered leaf is cut to the rank's rows.  ``local`` itself where
+    nothing is sharded."""
+    entries = _state_entries(ctx, local, path, layer)
+    if entries is None:
+        return local
+    dp = tuple(ctx.dp_axes)
+    batch_local = axes_of(entries[batch_dim]) == dp
+    x = _gather(local, entries, ctx, {batch_dim} if batch_local else ())
+    if batch_local or not dp or local.shape[batch_dim] % direct.axis_size(dp, ctx.mesh):
+        return x
+    return _block(x, batch_dim, dp, ctx)
+
+
+def own_state(ctx, full: torch.Tensor, like: torch.Tensor, *path, batch_dim: int,
+              layer: bool = False) -> torch.Tensor:
+    """``use_state``'s inverse: the block of ``full`` (the rank's rows,
+    every other dim whole) that replaces ``like``, the rank's block of the
+    leaf at ``path``, as ``local_shard`` cuts it."""
+    entries = _state_entries(ctx, full, path, layer)
+    if entries is None:
+        return full
+    dp = tuple(ctx.dp_axes)
+    batch_local = axes_of(entries[batch_dim]) == dp
+    if not batch_local and full.shape[batch_dim] != like.shape[batch_dim]:
+        full = direct.allgather(full, dp, dim=batch_dim, mesh=ctx.mesh)  # every rank's rows
+    for dim, entry in enumerate(entries):
+        if axes_of(entry) and not (batch_local and dim == batch_dim):
+            full = _block(full, dim, axes_of(entry), ctx)
+    return full
 
 
 def repartition_states(states: list, new_world: int) -> list:

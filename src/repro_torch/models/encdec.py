@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -113,7 +114,8 @@ def _layer(tree: dict, i: int) -> dict:
     return {n: w[i] for n, w in tree.items()}
 
 
-def _enc_layer(cfg, x, blk):
+def _enc_layer(cfg, x, blk, ctx=None):
+    blk = sharding.use(ctx, blk, "encoder", layer=True)
     dt = x.dtype
     b, s, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -127,7 +129,7 @@ def _enc_layer(cfg, x, blk):
     return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
 
 
-def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, ctx=None) -> torch.Tensor:
     """frames: [B, S_src, d] (stub embeddings) -> encoder states in cfg.dtype;
     each layer under ``layers.remat`` (which runs it plainly unless
     autograd records and ``cfg.remat``)."""
@@ -135,13 +137,18 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     b, s, d = frames.shape
     x = frames.to(dt) + _sinusoid(s, d).to(device=frames.device, dtype=dt)[None]
     for i in range(cfg.encoder_layers):
-        x = L.remat(cfg, lambda x, blk: _enc_layer(cfg, x, blk), x, _layer(params["encoder"], i))
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x = L.remat(cfg, lambda x, blk: _enc_layer(cfg, x, blk, ctx), x,
+                    _layer(params["encoder"], i))
+    return L.rms_norm(x, sharding.use(ctx, params["enc_norm"], "enc_norm"), cfg.norm_eps)
 
 
-def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0):
-    """One decoder layer; with ``self_cache`` ([2, B, S, KV, hd]) the
-    layer's k/v are written into it in place."""
+def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0, ctx=None):
+    """One decoder layer (``blk`` gathered: ``_dec_weights``); with
+    ``self_cache`` ([2, B, S, KV, hd]) the layer's k/v are written into it
+    in place.  ``enc_kv``: the cross K/V, or a function of the weights that
+    makes them."""
+    if callable(enc_kv):
+        enc_kv = enc_kv(blk)
     dt = x.dtype
     b, t, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -155,8 +162,14 @@ def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0):
         start = kv_len if t == 1 else 0
         if start + t > self_cache.shape[2]:
             raise ValueError(f"KV cache of {self_cache.shape[2]} positions is full")
+        local, self_cache = self_cache, sharding.use_state(ctx, self_cache, "self_kv",
+                                                              batch_dim=1, layer=True)
         self_cache[0, :, start:start + t] = k
         self_cache[1, :, start:start + t] = v
+        if self_cache is not local:  # write the rank's block of the new positions back
+            local[:, :, start:start + t] = sharding.own_state(
+                ctx, self_cache[:, :, start:start + t], local, "self_kv", batch_dim=1,
+                layer=True)
         k, v = L.kv_as(self_cache[0], dt), L.kv_as(self_cache[1], dt)
         q_off, att_kv_len = start, kv_len + t
     att = L.attention(q, k, v, causal=True, q_offset=q_off, kv_len=att_kv_len)
@@ -181,14 +194,19 @@ def _cross_kv(cfg, blk, enc_out):
     return k, v
 
 
-def _embed(cfg, params, tokens):
-    return L.embed(tokens, params["embed"].to(getattr(torch, cfg.dtype)), scale=True)
+def _dec_weights(ctx, blk):
+    return sharding.use(ctx, blk, "decoder", layer=True)
 
 
-def _logits(cfg, params, x):
+def _embed(cfg, params, tokens, ctx=None):
+    table = sharding.use(ctx, params["embed"], "embed").to(getattr(torch, cfg.dtype))
+    return L.embed(tokens, table, scale=True)
+
+
+def _logits(cfg, params, x, ctx=None):
     """The tied output head: the embedding cast to cfg.dtype."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.mm(x, params["embed"].to(getattr(torch, cfg.dtype)).T)
+    x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
+    return L.mm(x, sharding.use(ctx, params["embed"], "embed").to(getattr(torch, cfg.dtype)).T)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.Tensor, *,
@@ -197,14 +215,15 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
     the training forward too, each layer under ``layers.remat`` (module
     doc)."""
     L.check_products(tokens.device, compute_dtype(cfg))
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, ctx)
     t = tokens.shape[1]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
     for i in range(cfg.num_layers):
-        x = L.remat(cfg, lambda x, blk, enc: _dec_block(cfg, x, blk, pos, _cross_kv(cfg, blk, enc)),
-                    x, _layer(params["decoder"], i), enc_out)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        x = L.remat(cfg, lambda x, blk, enc: _dec_block(
+            cfg, x, _dec_weights(ctx, blk), pos, lambda w: _cross_kv(cfg, w, enc), ctx=ctx),
+            x, _layer(params["decoder"], i), enc_out)
+    return _logits(cfg, params, x, ctx), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -227,27 +246,29 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
     """Encode the source, store the cross K/V, run the prompt into the
     cache (in place); returns last-position logits and the cache."""
     L.check_products(tokens.device, compute_dtype(cfg))
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, ctx)
     t = tokens.shape[1]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
     for i in range(cfg.num_layers):
-        blk = _layer(params["decoder"], i)
+        blk = _dec_weights(ctx, _layer(params["decoder"], i))
         xk, xv = _cross_kv(cfg, blk, enc_out)
-        cache["cross_k"][i] = xk
-        cache["cross_v"][i] = xv
-        x = _dec_block(cfg, x, blk, pos, (xk, xv), self_cache=cache["self_kv"][i], kv_len=0)
-    return _logits(cfg, params, x[:, -1:]), {**cache, "len": t}
+        for n, t_ in (("cross_k", xk), ("cross_v", xv)):
+            cache[n][i] = sharding.own_state(ctx, t_, cache[n][i], n, batch_dim=0, layer=True)
+        x = _dec_block(cfg, x, blk, pos, (xk, xv), self_cache=cache["self_kv"][i], kv_len=0,
+                       ctx=ctx)
+    return _logits(cfg, params, x[:, -1:], ctx), {**cache, "len": t}
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *, ctx=None):
     """One token: the self-attention cache is updated in place."""
     L.check_products(tokens.device, compute_dtype(cfg))
     kv_len = int(cache["len"])
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     for i in range(cfg.num_layers):
-        x = _dec_block(cfg, x, _layer(params["decoder"], i), pos,
-                       (cache["cross_k"][i], cache["cross_v"][i]),
-                       self_cache=cache["self_kv"][i], kv_len=kv_len)
-    return _logits(cfg, params, x), {**cache, "len": kv_len + 1}
+        cross = tuple(sharding.use_state(ctx, cache[n][i], n, batch_dim=0, layer=True)
+                      for n in ("cross_k", "cross_v"))
+        x = _dec_block(cfg, x, _dec_weights(ctx, _layer(params["decoder"], i)), pos, cross,
+                       self_cache=cache["self_kv"][i], kv_len=kv_len, ctx=ctx)
+    return _logits(cfg, params, x, ctx), {**cache, "len": kv_len + 1}

@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -262,51 +263,66 @@ def _layer_state(st, g: int | None):
     return {n: s[g] for n, s in st.items()} if isinstance(st, dict) else st[g]
 
 
-def _run(cfg, x, kind, blk, st, pos, kv_len):
-    """One layer; a rec layer's new state is written into ``st`` in place."""
+def _run(cfg, x, kind, blk, st, pos, kv_len, ctx=None, where: tuple = (), layer: bool = False):
+    """One layer; its state is updated in place.  With spec trees on
+    ``ctx``, ``blk`` and ``st`` are the rank's blocks of the leaves at
+    ``where`` (``layer``: one layer's view of the stacked group): gathered
+    here, and the rank's block of the new state written back."""
+    blk = sharding.use(ctx, blk, *where, layer=layer)
     if kind == "attn":
-        return _attn_layer(cfg, x, blk, pos, cache=st, kv_len=kv_len)
-    x, new = _rec_layer(cfg, x, blk, st)
+        full = None if st is None else sharding.use_state(ctx, st, *where, batch_dim=1,
+                                                          layer=layer)
+        x = _attn_layer(cfg, x, blk, pos, cache=full, kv_len=kv_len)
+        if full is not st:
+            st.copy_(sharding.own_state(ctx, full, st, *where, batch_dim=1, layer=layer))
+        return x
+    full = None if st is None else {
+        n: sharding.use_state(ctx, t, *where, n, batch_dim=0, layer=layer) for n, t in st.items()}
+    x, new = _rec_layer(cfg, x, blk, full)
     if st is not None:
-        st["h"].copy_(new["h"])
-        st["conv"].copy_(new["conv"])
+        for n in ("h", "conv"):
+            st[n].copy_(sharding.own_state(ctx, new[n], st[n], *where, n, batch_dim=0,
+                                           layer=layer))
     return x
 
 
 def _layers(cfg, params, state):
-    """(kind, weights, state or None) of every layer in order: the pattern
-    groups (entry g of each leaf of ``params["group"][j]``, a view of a
-    stacked [G, ...] leaf or a per-layer leaf of the train step's lists),
-    then the remainder."""
+    """(kind, weights, state or None, the leaves' path, whether a layer's
+    view of a stacked subtree) of every layer in order: the pattern groups
+    (entry g of each leaf of ``params["group"][j]``, a view of a stacked
+    [G, ...] leaf or a per-layer leaf of the train step's lists), then the
+    remainder."""
     ngroups, rem = _grouping(cfg)
     for g in range(ngroups):
         for j, kind in enumerate(cfg.block_pattern):
             blk = {n: w[g] for n, w in params["group"][j].items()}
             st = _layer_state(state["group"][j], g) if state is not None else None
-            yield kind, blk, st
+            yield kind, blk, st, ("group", j), True
     for j, kind in enumerate(rem):
-        yield kind, params["remainder"][j], state["remainder"][j] if state is not None else None
+        st = state["remainder"][j] if state is not None else None
+        yield kind, params["remainder"][j], st, ("remainder", j), False
 
 
-def _apply_pattern(cfg, x, params, state, pos, kv_len: int):
+def _apply_pattern(cfg, x, params, state, pos, kv_len: int, ctx=None):
     """Every layer in order.  With a state, each layer's state is updated in
     place; without (training), each layer runs under ``layers.remat``."""
-    for kind, blk, st in _layers(cfg, params, state):
+    for kind, blk, st, where, layer in _layers(cfg, params, state):
         if state is None:
-            x = L.remat(cfg, lambda x, blk, kind=kind: _run(cfg, x, kind, blk, None, pos, kv_len),
-                        x, blk)
+            x = L.remat(cfg, lambda x, blk, kind=kind, where=where, layer=layer: _run(
+                cfg, x, kind, blk, None, pos, kv_len, ctx, where, layer), x, blk)
         else:
-            x = _run(cfg, x, kind, blk, st, pos, kv_len)
+            x = _run(cfg, x, kind, blk, st, pos, kv_len, ctx, where, layer)
     return x
 
 
-def _logits(cfg, params, x):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+def _logits(cfg, params, x, ctx=None):
+    x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
+    return x @ sharding.use(ctx, params["lm_head"], "lm_head").to(x.dtype)
 
 
-def _embed(cfg, params, tokens):
-    return L.embed(tokens, params["embed"].float(), scale=True).to(getattr(torch, cfg.dtype))
+def _embed(cfg, params, tokens, ctx=None):
+    table = sharding.use(ctx, params["embed"], "embed").float()
+    return L.embed(tokens, table, scale=True).to(getattr(torch, cfg.dtype))
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict | None = None,
@@ -316,10 +332,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
     length.  ``last_only``: the last position's logits only."""
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
-    x = _apply_pattern(cfg, x, params, state, pos, 0)
-    logits = _logits(cfg, params, x[:, -1:] if last_only else x)
+    x = _apply_pattern(cfg, x, params, state, pos, 0, ctx)
+    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx)
     if state is not None:
         state = {**state, "len": int(state["len"]) + t}
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), state
@@ -328,8 +344,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, state: dict, *, ctx=None):
     """One token; carries the h / conv / local-KV state (updated in place)."""
     L.check_products(tokens.device, compute_dtype(cfg))
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     kv_len = int(state["len"])
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
-    x = _apply_pattern(cfg, x, params, state, pos, kv_len)
-    return _logits(cfg, params, x), {**state, "len": kv_len + 1}
+    x = _apply_pattern(cfg, x, params, state, pos, kv_len, ctx)
+    return _logits(cfg, params, x, ctx), {**state, "len": kv_len + 1}

@@ -95,22 +95,6 @@ class _CopyToGroup(torch.autograd.Function):
         return direct.allreduce(g, ctx.axis, ctx.mesh), None, None
 
 
-class _GatherFromGroup(torch.autograd.Function):
-    """All-gather of the ranks' pieces along ``dim``; downstream every rank
-    computes alike from the whole tensor, so the backward keeps this rank's
-    piece of the gradient (a sum over ranks would count it P times)."""
-
-    @staticmethod
-    def forward(ctx, x, axis, mesh, dim):
-        ctx.axis, ctx.mesh, ctx.dim = axis, mesh, dim
-        ctx.rank, ctx.n = direct.axis_index(axis, mesh), x.shape[dim]
-        return direct.allgather(x, axis, dim=dim, mesh=mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None, None
-
-
 def shard_plan(h: int, kvh: int, t: int, tps: int) -> str | None:
     """The reference's choice for ``attention_sharded``: ``"head"`` when the
     q heads split over the tp ranks (H % tp == 0, and each rank's heads map
@@ -173,7 +157,7 @@ def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,
     q_l = q.narrow(dim, rank * n, n)
     out = attention_island(q_l, k, v, rank, tps, plan=plan, causal=causal, window=window,
                            softcap=softcap, q_offset=q_offset, kv_len=kv_len)
-    return _GatherFromGroup.apply(out.contiguous(), tp, mesh, dim)
+    return direct.allgather_alike(out.contiguous(), tp, dim=dim, mesh=mesh)
 
 
 def remat(cfg, fn, x: torch.Tensor, *args):

@@ -55,6 +55,14 @@ def init_moe_block(cfg: ArchConfig, gen: torch.Generator | None, lcount: int, de
     }
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``idx`` (int64 [n]): ``torch.bincount``
+    with ``minlength=n`` for indices below n, at a length fixed by ``n``
+    alone, so a step traces on tensors without data (fake tensors)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx.long(), torch.ones(idx.shape, dtype=torch.int64, device=idx.device))
+
+
 def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     """Top-k routing. x2d: [N, d] -> (weights [N, k], experts [N, k], aux)."""
     logits = x2d.float() @ router.float()               # [N, E]
@@ -63,7 +71,7 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
     e = cfg.num_experts
-    density = torch.bincount(topi[:, 0], minlength=e).float() / topi.shape[0]
+    density = _counts(topi[:, 0], e).float() / topi.shape[0]
     mean_probs = probs.mean(0)
     aux = cfg.router_aux_coef * e * torch.sum(density * mean_probs)
     return topv, topi, aux
@@ -79,7 +87,7 @@ def _bucket_by_expert(x2d, topv, topi, num_experts: int, cap: int):
     flat_tok = torch.arange(n, device=topi.device).repeat_interleave(k)
     order = torch.sort(flat_e, stable=True).indices
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=num_experts)
+    counts = _counts(flat_e, num_experts)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n * k, device=topi.device) - starts[e_sorted]
     keep = pos < cap
@@ -162,67 +170,66 @@ class _OneCopy(torch.autograd.Function):
 def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
     """Expert-parallel dispatch over ``ctx.ep_axis``.
 
-    The ep axis is either one the activations are replicated over (not a
-    dp axis of ``ctx``: a tensor-parallel axis, say) or a dp axis, whose
-    ranks hold their own shards of the batch.  Replicated: every rank of
-    the axis holds the same ``x2d``; the tokens are padded to a multiple of
-    the axis size and rank r routes the r-th share, and the shares'
-    outputs are all-gathered.  Over a dp axis each rank routes its own
-    ``x2d``, as the reference's ``shard_map`` does with the tokens sharded
-    over the axis.  Either way a rank's per-expert buckets [E_pad, cap, d]
-    go to the experts' owners ([E_pad / p, p cap, d] each), which run their
-    experts (the live ones: padding experts get no token) and send the
-    outputs back.  ``wi`` / ``wo`` hold every padded expert or only this
-    rank's E_pad / p.  The aux loss is the mean of the ranks' (as the
-    reference's ``pmean``).
+    Each axis of ``ctx.ep_axis`` is either a dp axis of ``ctx``, whose ranks
+    hold their own shards of the batch, or one the activations are
+    replicated over (a tensor-parallel axis, say); the production mesh's
+    joint ('data', 'model') axis is both.  Over the replicated axes R every
+    rank holds the same ``x2d``: the tokens are padded to a multiple of R's
+    size and the rank at R-index r routes the r-th share, and the shares'
+    outputs are all-gathered over R.  Over the dp axes each rank routes its
+    own tokens, as the reference's ``shard_map`` does with the tokens
+    sharded over the axis.  Either way a rank's per-expert buckets [E_pad,
+    cap, d] go to the experts' owners over the whole ep axis ([E_pad / p, p
+    cap, d] each), which run their experts (the live ones: padding experts
+    get no token) and send the outputs back.  ``wi`` / ``wo`` hold every
+    padded expert or only this rank's E_pad / p.  The aux loss is the mean
+    of the ranks' (as the reference's ``pmean``).
 
     Gradients.  The collectives' rules (``core.backends.direct``) give the
-    gradient of the sum of the ep ranks' losses.  Over a dp axis that is
+    gradient of the sum of the ep ranks' losses.  Over the dp axes that is
     the dp convention of ``api.loss_fn`` (each rank's gradient is dp times
     its share, and ``train_step`` averages over the dp axes), so nothing is
-    added; an expert slice's owner then holds p dp-fold shares of its
-    experts' gradient, which ``train_step`` divides by p in place of the
-    mean over the ep axis (``train_step._reduce_expert_slices``).
-    Replicated, every rank computes the same loss, and the sum
-    counts it P times: the gather's backward sums P equal cotangents, and
-    the pmean's passes each rank the aux loss's whole cotangent.  So each
-    output (the combined tokens before the gather, the aux loss after the
-    pmean) passes 1/P of its cotangent back (``_OneCopy``): then each rank
-    holds its share's exact gradient (its ``x2d`` rows, its routing's part
-    of the router's, 1/P of each aux term's) and its experts' whole one
-    (their owner received every rank's rows).  The inputs every rank holds
-    alike (``x2d``, the router, a rank's every expert) then sum the ranks'
-    gradients (``layers.copy_to_group``), in float32 for the router (its
-    bfloat16 storage rounds the sum once, as the local dispatch's does)
-    and exactly for every expert (each is nonzero on its owner only); an
-    expert slice keeps its own.  Every rank then holds the whole gradient
-    of its inputs, as the model's other replicated layers do, and a slice
-    its experts' whole gradient."""
+    added there; an expert slice's owner then holds the dp-fold gradient of
+    its experts, which ``train_step`` divides by the size of the ep axes
+    that are dp axes (``train_step._reduce``).  Over R every rank computes
+    the same loss, and the sum counts it |R| times: the gather's backward
+    sums |R| equal cotangents, and the pmean's passes each rank the aux
+    loss's whole cotangent.  So each output (the combined tokens before the
+    gather, the aux loss after the pmean) passes 1/|R| of its cotangent back
+    (``_OneCopy``): then each rank holds its share's exact gradient (its
+    ``x2d`` rows, its routing's part of the router's, 1/|R| of each aux
+    term's) and its experts' whole one (their owner received every rank's
+    rows).  The inputs every rank of R holds alike (``x2d``, the router, a
+    rank's every expert) then sum R's gradients (``layers.copy_to_group``),
+    in float32 for the router (its bfloat16 storage rounds the sum once, as
+    the local dispatch's does) and exactly for every expert (each is nonzero
+    on its owner only); an expert slice keeps its own.  Every rank then
+    holds the whole gradient of its inputs, as the model's other replicated
+    layers do, and a slice its experts' whole gradient."""
     axes = tuple(ctx.ep_axis) if isinstance(ctx.ep_axis, (tuple, list)) else (ctx.ep_axis,)
     mesh = ctx.mesh
-    sharded = set(axes) <= set(ctx.dp_axes)
-    if not sharded and set(axes) & set(ctx.dp_axes):
-        raise ValueError(f"moe._moe_ep: ep axes {axes} are partly dp axes {ctx.dp_axes}")
+    rep = tuple(a for a in axes if a not in ctx.dp_axes)
     p, rank = direct.axis_size(axes, mesh), direct.axis_index(axes, mesh)
+    pr = direct.axis_size(rep, mesh) if rep else 1
     e_pad, k = cfg.num_experts_padded, cfg.experts_per_token
     e_loc = e_pad // p
     every = wi.shape[0] == e_pad
-    copies = p > 1 and not sharded
-    if copies:
-        x2d, router = (L.copy_to_group(t, axes, mesh) for t in (x2d, router.float()))
+    if pr > 1:
+        x2d, router = (L.copy_to_group(t, rep, mesh) for t in (x2d, router.float()))
         if every:
-            wi, wo = (L.copy_to_group(w, axes, mesh) for w in (wi, wo))
+            wi, wo = (L.copy_to_group(w, rep, mesh) for w in (wi, wo))
     if every and e_loc != e_pad:
         wi, wo = wi[rank * e_loc:(rank + 1) * e_loc], wo[rank * e_loc:(rank + 1) * e_loc]
     n_in = x2d.shape[0]
-    if sharded:
+    if not rep:
         x_local = x2d
     else:
-        pad = (-n_in) % p
-        if pad:  # decode-scale batches: pad tokens to divide the EP axis
+        pad = (-n_in) % pr
+        if pad:  # decode-scale batches: pad tokens to divide the replicated axes
             x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
-        n_local = x2d.shape[0] // p
-        x_local = x2d[rank * n_local:(rank + 1) * n_local]
+        n_local = x2d.shape[0] // pr
+        r = direct.axis_index(rep, mesh)
+        x_local = x2d[r * n_local:(r + 1) * n_local]
     cap = max(int(math.ceil(x_local.shape[0] * k / cfg.num_experts * cfg.capacity_factor)), 8)
     topv, topi, aux = _route(x_local, router, cfg)
     buf, (e_sorted, slot_row, tok_sorted, w_sorted, keep) = _bucket_by_expert(
@@ -240,8 +247,8 @@ def _moe_ep(x2d, router, wi, wo, cfg: ArchConfig, ctx):
     out = torch.zeros_like(x_local)
     out.index_add_(0, tok_sorted, gathered * w_sorted[:, None].to(gathered.dtype))
     aux = direct.allreduce_mean(aux, axes, mesh)
-    if copies:
-        out, aux = _OneCopy.apply(out, p), _OneCopy.apply(aux, p)
-    if not sharded:
-        out = direct.allgather(out, axes, dim=0, mesh=mesh)[:n_in]
+    if pr > 1:
+        out, aux = _OneCopy.apply(out, pr), _OneCopy.apply(aux, pr)
+    if rep:
+        out = direct.allgather(out, rep, dim=0, mesh=mesh)[:n_in]
     return out, aux

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -194,8 +195,10 @@ def _block(params: dict, i: int) -> dict:
     return {n: w[i] for n, w in params["blocks"].items()}
 
 
-def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int):
-    """One layer: (x, S', last x of the time mix, of the channel mix)."""
+def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int, ctx=None):
+    """One layer: (x, S', last x of the time mix, of the channel mix); the
+    rank's block of the weights is gathered here (``sharding.use``)."""
+    blk = sharding.use(ctx, blk, "blocks", layer=True)
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
     att, S, x_tm = _time_mix(cfg, y, x_tm, blk, S, chunk)
     x = x + att
@@ -204,8 +207,9 @@ def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int):
     return x + ff, S, x_tm, x_cm
 
 
-def _logits(cfg, params, x):
-    return L.mm(L.rms_norm(x, params["final_norm"], cfg.norm_eps), params["lm_head"])
+def _logits(cfg, params, x, ctx=None):
+    x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
+    return L.mm(x, sharding.use(ctx, params["lm_head"], "lm_head"))
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict | None = None,
@@ -219,19 +223,20 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict 
     chunk = min(chunk, t)
     if t % chunk:
         raise ValueError(f"seq {t} not divisible by chunk {chunk}")
-    x = L.embed(tokens, params["embed"]).float()
+    x = L.embed(tokens, sharding.use(ctx, params["embed"], "embed")).float()
     st = state or init_state(cfg, b, device=x.device)
-    S_new, x_tm_new, x_cm_new = [], [], []
+    names = ("S", "x_tm", "x_cm")
+    # the rank's rows of each state leaf, every layer (O(1) in the length)
+    full = {n: sharding.use_state(ctx, st[n], n, batch_dim=1) for n in names}
+    new = {n: [] for n in names}
     for i in range(cfg.num_layers):
-        x, S_i, x_tm, x_cm = L.remat(cfg, lambda x, blk, i=i: _layer(
-            cfg, x, blk, st["S"][i], st["x_tm"][i], st["x_cm"][i], chunk), x, _block(params, i))
-        S_new.append(S_i)
-        x_tm_new.append(x_tm)
-        x_cm_new.append(x_cm)
-    logits = _logits(cfg, params, x[:, -1:] if last_only else x)
-    new_state = {"S": torch.stack(S_new).to(st["S"].dtype),
-                 "x_tm": torch.stack(x_tm_new).to(st["x_tm"].dtype),
-                 "x_cm": torch.stack(x_cm_new).to(st["x_cm"].dtype),
+        x, *s_i = L.remat(cfg, lambda x, blk, i=i: _layer(
+            cfg, x, blk, *(full[n][i] for n in names), chunk, ctx), x, _block(params, i))
+        for n, s_n in zip(names, s_i):
+            new[n].append(s_n)
+    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx)
+    new_state = {**{n: sharding.own_state(ctx, torch.stack(new[n]).to(st[n].dtype), st[n], n,
+                                          batch_dim=1) for n in names},
                  "len": int(st["len"]) + t}
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), new_state
 

@@ -62,6 +62,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.moe import init_moe_block, moe_block
@@ -92,6 +93,12 @@ class DistContext:
     ep_axis: str | tuple[str, ...] | None = None  # expert-parallel mesh axis ("model")
     dp_axes: tuple[str, ...] = ()
     tp_axis: str | None = None
+    # the rank's PartitionSpec trees (``dist.sharding``): with them the rank
+    # holds its parameters, optimizer state and decode state as their
+    # ``local_shard`` and gathers each leaf at use (``sharding.use``)
+    param_specs: Any = None
+    opt_specs: Any = None
+    state_specs: Any = None
 
     def shard(self, x, *spec):
         """The reference's sharding constraint, a no-op here: a rank already
@@ -205,10 +212,12 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
     [2, B, S, KV, hd] or None; with a cache, the layer's k/v are written
     into it in place.  ``master``: the matrix weights are float32 master
     weights, cast to cfg.dtype here; else each is read as its float32 value
-    (a no-op for float32 storage)."""
+    (a no-op for float32 storage).  With spec trees on ``ctx``, ``blk`` and
+    ``cache_l`` are the rank's blocks, gathered here (``sharding.use``)."""
     b, t, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     read = (lambda w: round_to_compute(cfg, w)) if master else (lambda w: w.float())
+    blk = sharding.use(ctx, blk, "blocks", layer=True)
     blk = {n: read(w) if n in MATRIX_LEAVES else w for n, w in blk.items()}
 
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
@@ -225,8 +234,13 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
         start = kv_len if t == 1 else 0
         if start + t > cache_l.shape[2]:
             raise ValueError(f"KV cache of {cache_l.shape[2]} positions is full")
+        local, cache_l = cache_l, sharding.use_state(ctx, cache_l, "kv", batch_dim=1,
+                                                      layer=True)
         cache_l[0, :, start:start + t] = k
         cache_l[1, :, start:start + t] = v
+        if cache_l is not local:  # write the rank's block of the new positions back
+            local[:, :, start:start + t] = sharding.own_state(
+                ctx, cache_l[:, :, start:start + t], local, "kv", batch_dim=1, layer=True)
         cd = _dtype(cfg.dtype)
         k_att, v_att = cache_l[0], cache_l[1]
         if k_att.dtype != cd:
@@ -269,10 +283,12 @@ def _embed_input(cfg: ArchConfig, table, tokens, prefix_embeds) -> torch.Tensor:
     return x
 
 
-def _logits(cfg: ArchConfig, params: dict, x, master: bool = False) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params.get("lm_head")
-    head = params["embed"].T if head is None else head
+def _logits(cfg: ArchConfig, params: dict, x, master: bool = False, ctx=None) -> torch.Tensor:
+    x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
+    if "lm_head" in params:
+        head = sharding.use(ctx, params["lm_head"], "lm_head")
+    else:
+        head = sharding.use(ctx, params["embed"], "embed").T
     return x @ (round_to_compute(cfg, head) if master else head.float())
 
 
@@ -281,13 +297,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """Full-sequence logits [B, T, V] float32 and the MoE aux loss summed
     over the layers (0 for a dense model)."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
+    x = _embed_input(cfg, sharding.use(ctx, params["embed"], "embed"), tokens, prefix_embeds)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
         x, aux_l = _block_fn(cfg, x, _layer(params, i), window, pos, ctx=ctx)
         aux = aux if aux_l is None else aux + aux_l
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, ctx=ctx), aux
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
@@ -298,14 +314,16 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     of per-layer leaves (the train step's); each layer runs under
     ``layers.remat``."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, params["embed"].to(_dtype(cfg.dtype)), tokens, prefix_embeds)
+    table = sharding.use(ctx, params["embed"], "embed").to(_dtype(cfg.dtype))
+    x = _embed_input(cfg, table, tokens, prefix_embeds)
+    del table
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
         x, aux_l = L.remat(cfg, lambda x, blk, window=window: _block_fn(
             cfg, x, blk, window, pos, master=True, ctx=ctx), x, _layer(params, i))
         aux = aux if aux_l is None else aux + aux_l
-    return _logits(cfg, params, x, master=True), aux
+    return _logits(cfg, params, x, master=True, ctx=ctx), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -324,24 +342,24 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Run the prompt, filling the cache in place; returns last-position logits."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, params["embed"], tokens, prefix_embeds)
+    x = _embed_input(cfg, sharding.use(ctx, params["embed"], "embed"), tokens, prefix_embeds)
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
         x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=0, ctx=ctx)
-    return _logits(cfg, params, x[:, -1:]), {"kv": kv, "len": t}
+    return _logits(cfg, params, x[:, -1:], ctx=ctx), {"kv": kv, "len": t}
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *, ctx=None):
     """One decode step: tokens [B, 1] -> logits [B, 1, V]; the cache is
     updated in place and returned with its length + 1."""
     _check(cfg, tokens.device)
-    x = L.embed(tokens, params["embed"], scale=True)
+    x = L.embed(tokens, sharding.use(ctx, params["embed"], "embed"), scale=True)
     kv_len = int(cache["len"])
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     kv = cache["kv"]
     for i, window in enumerate(_layer_windows(cfg)):
         x, _ = _block_fn(cfg, x, _layer(params, i), window, pos, cache_l=kv[i], kv_len=kv_len,
                          ctx=ctx)
-    return _logits(cfg, params, x), {"kv": kv, "len": kv_len + 1}
+    return _logits(cfg, params, x, ctx=ctx), {"kv": kv, "len": kv_len + 1}

@@ -11,7 +11,14 @@ port of ``repro.train.optimizer``.
 
 Trees are nested dicts of tensors, walked in ``jax.tree_util``'s order
 (``dist.treepath``), so the global norm sums its leaves in the reference's
-order.  ``apply_updates`` updates the parameters and float32 moments **in
+order.  A rank whose ``DistContext`` carries spec trees holds the
+``local_shard`` of every leaf and updates its own blocks
+(``apply_updates(..., ctx=)``): AdamW is elementwise, except that an int8
+moment's scale is the largest magnitude of its 256-wide block, and a shard
+boundary may cut a block, or the scales be sharded otherwise than the
+moment (``_ShardedBlocks``); the blocks' maxima are then combined over the
+ranks, so every local block comes out as the whole update's.
+``apply_updates`` updates the parameters and float32 moments **in
 place** (the full-width state does not fit twice on the card) and returns
 them; stacked leaves of at least 2^28 elements are updated one layer at a
 time, as the reference's ``lax.scan`` does, to bound the float32 scratch.
@@ -25,7 +32,11 @@ from typing import Any
 
 import torch
 
-from repro_torch.dist import treepath
+import torch.nn.functional as F
+
+from repro_torch.core.backends import direct
+from repro_torch.dist import sharding, treepath
+from repro_torch.dist.checkpoint import _axis_sizes, _shard_bounds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +110,75 @@ def _is_qdict(x) -> bool:
     return isinstance(x, dict) and set(x) == {"q", "scale"}
 
 
+class _ShardedBlocks:
+    """The int8 blocks of one moment leaf held as a rank's shards: ``q``
+    under ``q_entries`` (the parameter's spec), ``scale`` under
+    ``s_entries``, for a local block of ``local`` (its shape).  Exact: the
+    scales of the blocks the rank's q touches come from the whole scale
+    (gathered), and the new scales from the blocks' maxima combined over
+    the ranks."""
+
+    def __init__(self, ctx, local: tuple, q_entries: tuple, s_entries: tuple):
+        self.ctx, self.q_entries, self.s_entries = ctx, q_entries, s_entries
+        mesh = ctx.mesh
+        sizes = _axis_sizes(mesh)
+        coords = {a: direct.axis_index(a, mesh) for a in sizes}
+        n = [math.prod(sizes[a] for a in sharding.axes_of(e)) for e in q_entries]
+        self.shape = tuple(d * k for d, k in zip(local, n))  # the whole leaf
+        self.bounds = _shard_bounds(self.shape, q_entries, sizes, coords)
+        s_shape = self.shape[:-1] + (self.shape[-1] // _BLOCK,)
+        self.s_bounds = _shard_bounds(s_shape, s_entries, sizes, coords)
+
+    @staticmethod
+    def aligned(local: tuple, q_entries: tuple, s_entries: tuple) -> bool:
+        """Whether the rank's scale block is exactly that of its q block."""
+        return q_entries == s_entries and (q_entries[-1] is None or local[-1] % _BLOCK == 0)
+
+    def _gather(self, x: torch.Tensor, entries: tuple) -> torch.Tensor:
+        for dim, entry in enumerate(entries):
+            axes = sharding.axes_of(entry)
+            if axes:
+                x = direct.allgather(x, axes, dim=dim, mesh=self.ctx.mesh)
+        return x
+
+    def _scales_of_q(self, s_whole: torch.Tensor) -> torch.Tensor:
+        """Each element of the rank's q block's scale, from the whole scale."""
+        for dim, (lo, hi) in enumerate(self.bounds[:-1]):
+            s_whole = s_whole.narrow(dim, lo, hi - lo)
+        c0, c1 = self.bounds[-1]
+        s = s_whole[..., c0 // _BLOCK: -(-c1 // _BLOCK)].repeat_interleave(_BLOCK, -1)
+        return s[..., c0 % _BLOCK: c0 % _BLOCK + (c1 - c0)]
+
+    def dequantize(self, md: dict) -> torch.Tensor:
+        s_whole = self._gather(md["scale"], self.s_entries)
+        return md["q"].float() * self._scales_of_q(s_whole)
+
+    def quantize(self, m: torch.Tensor) -> dict:
+        c0, c1 = self.bounds[-1]
+        off, w = c0 % _BLOCK, c1 - c0
+        nbl = -(-(off + w) // _BLOCK)
+        part = F.pad(m.abs(), (off, nbl * _BLOCK - off - w))
+        part = part.reshape(part.shape[:-1] + (nbl, _BLOCK)).amax(-1)  # blocks c0 // 256 ...
+        for dim, entry in enumerate(self.q_entries[:-1]):
+            axes = sharding.axes_of(entry)
+            if axes:
+                part = direct.allgather(part, axes, dim=dim, mesh=self.ctx.mesh)
+        axes = sharding.axes_of(self.q_entries[-1])
+        if axes:  # rank j's partial maxima start at block j w // 256; shared blocks take the max
+            part = direct.allgather(part, axes, dim=-1 % part.dim(), mesh=self.ctx.mesh)
+            ranks = part.shape[-1] // nbl
+            first = torch.tensor([j * w // _BLOCK for j in range(ranks)], device=m.device)
+            idx = (first[:, None] + torch.arange(nbl, device=m.device)).reshape(-1)
+            whole = torch.zeros(part.shape[:-1] + (self.shape[-1] // _BLOCK,), dtype=part.dtype,
+                                device=m.device)
+            part = whole.scatter_reduce(-1, idx.expand(part.shape), part, "amax")
+        s_whole = part / 127.0
+        q = torch.round(m / torch.clamp(self._scales_of_q(s_whole), min=1e-12)).to(torch.int8)
+        for dim, (lo, hi) in enumerate(self.s_bounds):
+            s_whole = s_whole.narrow(dim, lo, hi - lo)
+        return {"q": q, "scale": s_whole.float()}
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -130,12 +210,31 @@ def _node(tree: Any, path: tuple) -> Any:
     return tree
 
 
+def _codec(ctx, path: tuple, moment: Any, local: tuple, layer: bool):
+    """(dequantize, quantize) of an int8 moment leaf at ``path``: the plain
+    block functions, or ``_ShardedBlocks``' where the rank's shards do not
+    hold whole blocks of their own scales."""
+    plain = (lambda md: _dequantize(md, local)), _quantize
+    specs = getattr(ctx, "opt_specs", None) if ctx is not None else None
+    if specs is None:
+        return plain
+    node = specs["m"]
+    for k in path:
+        node = node[k]
+    q_e, s_e = (sharding._entries(node[k], len(local), layer) for k in ("q", "scale"))
+    if _ShardedBlocks.aligned(local, q_e, s_e):
+        return plain
+    blocks = _ShardedBlocks(ctx, local, q_e, s_e)
+    return blocks.dequantize, blocks.quantize
+
+
 def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig,
-                  gnorm: torch.Tensor | None = None) -> tuple[Any, dict]:
+                  gnorm: torch.Tensor | None = None, ctx=None) -> tuple[Any, dict]:
     """One AdamW step; updates ``params`` and ``state`` in place and returns
     them (int8 moments are requantized in place).  ``gnorm``, the norm the
     clip reads, defaults to ``global_norm(grads)``; a rank holding a slice
-    of a leaf passes the whole tree's."""
+    of a leaf passes the whole tree's.  ``ctx``: a ``DistContext`` whose
+    spec trees say how the leaves are sharded (module doc)."""
     step = state["step"] + 1
     lr = lr_at(step, cfg)
     if gnorm is None:
@@ -145,19 +244,19 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig,
     bc1 = 1.0 - torch.pow(cfg.beta1, sf)
     bc2 = 1.0 - torch.pow(cfg.beta2, sf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, codec):
         """p and float32 m, v in place; returns the new (m, v)."""
         g = g.float() * clip
-        m_f = _dequantize(m, tuple(p.shape)) if _is_qdict(m) else m
-        v_f = _dequantize(v, tuple(p.shape)) if _is_qdict(v) else v
+        m_f = codec[0](m) if _is_qdict(m) else m
+        v_f = codec[0](v) if _is_qdict(v) else v
         m_f.mul_(cfg.beta1).add_((1 - cfg.beta1) * g)
         v_f.mul_(cfg.beta2).add_((1 - cfg.beta2) * g.square())
         del g
         delta = m_f / bc1
         delta.div_(torch.sqrt(v_f / bc2).add_(cfg.eps)).add_(cfg.weight_decay * p.float())
         p.sub_(lr * delta)  # in float32, rounded to p's dtype
-        return (_quantize(m_f) if _is_qdict(m) else m_f,
-                _quantize(v_f) if _is_qdict(v) else v_f)
+        return (codec[1](m_f) if _is_qdict(m) else m_f,
+                codec[1](v_f) if _is_qdict(v) else v_f)
 
     def layer(x, i):
         return {k: t[i] for k, t in x.items()} if _is_qdict(x) else x[i]
@@ -166,13 +265,15 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: OptConfig,
         for path, p in treepath.flatten_with_path(params):
             g, m, v = (_node(t, path) for t in (grads, state["m"], state["v"]))
             if p.dim() >= 3 and p.numel() >= _CHUNK_THRESHOLD:
+                codec = _codec(ctx, path, m, tuple(p.shape[1:]), True) if _is_qdict(m) else None
                 for i in range(p.shape[0]):  # one layer's float32 scratch at a time
-                    for dst, new in zip((m, v), upd(p[i], g[i], layer(m, i), layer(v, i))):
+                    for dst, new in zip((m, v), upd(p[i], g[i], layer(m, i), layer(v, i), codec)):
                         if _is_qdict(dst):  # float32 moments were updated in place
                             for k in dst:
                                 dst[k][i] = new[k]
             else:
-                for dst, new in zip((m, v), upd(p, g, m, v)):
+                codec = _codec(ctx, path, m, tuple(p.shape), False) if _is_qdict(m) else None
+                for dst, new in zip((m, v), upd(p, g, m, v, codec)):
                     if _is_qdict(dst):  # float32 moments were updated in place
                         for k in dst:
                             dst[k].copy_(new[k])

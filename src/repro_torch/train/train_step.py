@@ -17,14 +17,15 @@ in place.
 
 Data parallelism is explicit, on the mesh axes of
 ``core.backends.direct``: every rank runs the step on its own shard of the
-batch, with the same parameters and optimizer state.
-``make_train_step(ctx=...)`` averages the ranks' gradients over
-``ctx.dp_axes`` (``allreduce_mean``; ``api.loss_fn`` makes each rank's the
-dp-fold share of the global loss's gradient).  MoE expert stacks that hold
-only this rank's slice of the experts (``interop.expert_slice``) are
-averaged over the dp axes outside ``ctx.ep_axis`` only, divided by the ep
-axes' size where those are dp axes, and their squares summed over the ep
-axes for the clip's norm (``_reduce_expert_slices``).
+batch.  ``make_train_step(ctx=...)`` reduces the ranks' gradients over
+``ctx.dp_axes`` (``_reduce``; ``api.loss_fn`` makes each rank's the
+dp-fold share of the global loss's gradient): a leaf every rank holds
+whole is averaged, and a leaf a rank holds a shard of (MoE expert stacks
+that hold only its slice of the experts, ``interop.expert_slice``; or,
+with spec trees on the context, every leaf as its ``local_shard``,
+gathered at use) is reduced by the rule in ``_reduce``, and its squares
+summed over its shard axes for the clip's norm.  The optimizer then updates
+the rank's blocks (``optimizer.apply_updates(..., ctx=)``).
 ``make_compressed_dp_train_step`` is the reference's explicit int8
 reduction (``cfg.grad_compression``): each rank's gradient of its own
 shard's loss crosses the wire as int8 + per-block scales
@@ -37,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.backends import direct
-from repro_torch.dist import compression, treepath
+from repro_torch.dist import compression, sharding, treepath
 from repro_torch.models import api
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import optimizer as opt
@@ -119,33 +120,46 @@ def _expert_slice_axes(cfg: ArchConfig, ctx, params: dict) -> tuple:
     return tuple(ep) if isinstance(ep, (tuple, list)) else (ep,)
 
 
-def _reduce_expert_slices(grads: dict, dp: tuple, ep: tuple, mesh) -> torch.Tensor:
-    """Reduce the gradients of a step whose expert stacks are sliced over
-    ``ep``; returns the global norm of the whole gradient.
+def _shard_axes(cfg: ArchConfig, ctx, params: dict) -> list[tuple[str, ...]]:
+    """For each leaf of ``params`` (``treepath`` order), the mesh axes its
+    rank's block is a shard over: every axis of its spec (in the mesh's
+    order) where the context carries spec trees; else the ep axes for an
+    expert slice (``interop.expert_slice``) and none for the rest."""
+    specs = getattr(ctx, "param_specs", None) if ctx is not None else None
+    if specs is not None:
+        order = list(ctx.mesh.mesh_dim_names)
+        return [tuple(sorted(sharding.spec_axes(sp), key=order.index))
+                for sp in treepath.leaves(specs)]
+    ep = _expert_slice_axes(cfg, ctx, params)
+    return [ep if "moe" in path and path[-1] in ("wi", "wo") else ()
+            for path, _ in treepath.flatten_with_path(params)]
 
-    ``moe._moe_ep`` leaves on each slice's owner the gradient of the sum of
-    the ep ranks' losses.  Over a replicated ep axis that is the slice's
-    whole gradient at this rank's dp share, so the slices are averaged over
-    the dp axes like every other leaf.  Where the ep axes are dp axes, the
-    p ranks' losses are p dp-fold shares (``api.loss_fn``): averaged over
-    the other dp axes and divided by p, the slice holds its experts' rows
-    of the global gradient.  The other leaves are the same on every rank,
-    the slices are not: their squares are summed over the ep axes."""
-    moe = grads["blocks"]["moe"]
-    sliced = [moe["wi"], moe["wo"]]
-    rest = tuple(a for a in dp if a not in ep)
-    for g in treepath.leaves(grads):
-        if any(g is s for s in sliced):
-            if rest:
-                g.copy_(direct.allreduce_mean(g, rest, mesh))
-            if set(ep) <= set(dp):
-                g.div_(direct.axis_size(ep, mesh))
-        elif dp:
-            g.copy_(direct.allreduce_mean(g, dp, mesh))
-    shared = sum(g.float().square().sum() for g in treepath.leaves(grads)
-                 if not any(g is s for s in sliced))
-    own = sum(s.float().square().sum() for s in sliced)
-    return torch.sqrt(shared + direct.allreduce(own, ep, mesh))
+
+def _reduce(grads: dict, axes: list, dp: tuple, mesh) -> torch.Tensor:
+    """Reduce each rank's gradients over the dp axes; returns the global
+    norm of the whole gradient.
+
+    ``api.loss_fn`` makes each rank's gradient the dp-fold share of its
+    shard's (``axes``: each leaf's shard axes, ``_shard_axes``).  A leaf
+    held whole is averaged over the dp axes.  A shard over some dp axes G
+    already holds the sum over G of the ranks' shares: the backward of its
+    gather is a ``reduce_scatter`` over G (``sharding.use``), and an expert
+    slice's owner received the rows of every rank of the ep axes
+    (``moe._moe_ep``); so it is averaged over the other dp axes and divided
+    by G's size.  A shard over other axes (tp) holds its piece of a
+    gradient every rank of them computes alike.  The norm sums each block
+    once: the squares of each leaf's block, summed over its shard axes."""
+    sums: dict[tuple, torch.Tensor] = {}
+    for g, own in zip(treepath.leaves(grads), axes):
+        rest = tuple(a for a in dp if a not in own)
+        if rest:
+            g.copy_(direct.allreduce_mean(g, rest, mesh))
+        over = tuple(a for a in own if a in dp)
+        if over:
+            g.div_(direct.axis_size(over, mesh))
+        sums[own] = sums.get(own, 0) + g.float().square().sum()
+    return torch.sqrt(sum(direct.allreduce(t, own, mesh) if own else t
+                          for own, t in sums.items()))
 
 
 def make_train_step(
@@ -165,14 +179,10 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grads_of(params, batch)
-        ep = _expert_slice_axes(cfg, ctx, params)
-        if ep:
-            gnorm = _reduce_expert_slices(grads, dp, ep, ctx.mesh)
-        else:
-            for g in treepath.leaves(grads) if dp else ():
-                g.copy_(direct.allreduce_mean(g, dp, ctx.mesh))
-            gnorm = opt.global_norm(grads)
-        params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg, gnorm=gnorm)
+        gnorm = _reduce(grads, _shard_axes(cfg, ctx, params), dp,
+                        ctx.mesh if ctx is not None else None)
+        params, opt_state = opt.apply_updates(params, grads, opt_state, opt_cfg, gnorm=gnorm,
+                                              ctx=ctx)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm

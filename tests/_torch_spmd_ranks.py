@@ -11,7 +11,9 @@ the dp train steps, the driver's gate, the expert-parallel dispatch over a
 replicated axis of 4 and over the dp axis); ``moe`` the world-8
 expert-parallel dispatch on a (2, 4) mesh; ``shard`` (world 4) distributes
 the ``shard_trees`` over ``launch.mesh.make_host_mesh``'s (2, 2) mesh with
-``dist.sharding.shardings_for``'s placements.
+``dist.sharding.shardings_for``'s placements; ``sharded`` (world 4, the same
+mesh) runs one train step, and a prefill with two decode steps, on every
+leaf held whole and again on each leaf's ``local_shard``, gathered at use.
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
 
     python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
@@ -483,6 +485,81 @@ def _node(tree, path):
     return tree
 
 
+def _own(tree, specs, mesh) -> dict:
+    """This rank's ``local_shard`` of ``tree``, each leaf a copy of its own."""
+    coords = {n: direct.axis_index(n, mesh) for n in mesh.mesh_dim_names}
+    local = sharding.local_shard(tree, specs, mesh, coords)
+    return treepath.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, local)
+
+
+def sharded_steps(inp, out) -> None:
+    """The ``sharded`` job: per case of ``inp["sharded"]`` (arch, optimizer
+    state type), one ``make_train_step`` on the rank's dp shard of the batch
+    with every leaf whole (replicated over the mesh), and one on the
+    ``local_shard`` of params and optimizer state under the spec trees
+    (``DistContext.param_specs`` / ``opt_specs``); the MoE over the joint
+    ('data', 'model') ep axis.  Then per case of ``inp["sharded"]["serve"]``
+    a prefill and two decode steps, whole and on sharded params and decode
+    state (``state_specs``)."""
+    mesh = make_host_mesh(model=2)
+    data = direct.axis_index("data", mesh)
+    res = {}
+    for case, (arch, state_dtype) in inp["sharded"]["cases"].items():
+        cfg = configs.get(arch).reduced()
+        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                          ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe" else None)
+        params = interop.params_from_numpy(cfg, inp["sharded"]["params"][arch], DEV, master=True)
+        ocfg = opt.OptConfig(**inp["opt"], state_dtype=state_dtype)
+        state = opt.init_state(params, ocfg)
+        p_specs = sharding.param_specs(cfg, params, mesh)
+        o_specs = sharding.param_specs(cfg, state, mesh)
+        lp, lo = _own(params, p_specs, mesh), _own(state, o_specs, mesh)
+        n = inp["sharded"]["batch"]["tokens"].shape[0] // 2
+        batch = {k: t_(v[data * n:(data + 1) * n]) for k, v in inp["sharded"]["batch"].items()}
+        p1, o1, m1 = ts.make_train_step(cfg, ocfg, ctx=ctx)(params, state, batch)
+        sctx = dataclasses.replace(ctx, param_specs=p_specs, opt_specs=o_specs)
+        p2, o2, m2 = ts.make_train_step(cfg, ocfg, ctx=sctx)(lp, lo, batch)
+        res[case] = {
+            "loss": (float(m1["loss"]), float(m2["loss"])),
+            "want": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
+                {"params": _own(p1, p_specs, mesh), "opt": _own(o1, o_specs, mesh)})},
+            "got": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
+                {"params": p2, "opt": o2})},
+        }
+    # serving: per case a prefill and two decode steps
+    res["serve"] = {}
+    for case, (arch, over) in inp["sharded"]["serve"].items():
+        cfg = configs.get(arch).reduced(**over)
+        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model")
+        params = interop.params_from_numpy(cfg, inp["sharded"]["serve_params"][case], DEV)
+        prompt = inp["sharded"]["prompt"]
+        b, t = prompt.shape
+        n = b // 2
+        whole = api.init_decode_state(cfg, b, t + 2, torch.float32, device=DEV)
+        s_specs = sharding.cache_specs(cfg, whole, mesh, b)
+        sctx = dataclasses.replace(ctx, param_specs=sharding.param_specs(cfg, params, mesh),
+                                   state_specs=s_specs)
+        runs = {"whole": (ctx, params,
+                          api.init_decode_state(cfg, n, t + 2, torch.float32, device=DEV)),
+                "sharded": (sctx, _own(params, sctx.param_specs, mesh),
+                            _own(whole, s_specs, mesh))}
+        batch = {"tokens": t_(prompt[data * n:(data + 1) * n])}
+        if cfg.family == "audio":
+            batch["frames"] = t_(inp["sharded"]["frames"][data * n:(data + 1) * n])
+        logits = {}
+        with torch.inference_mode():
+            for name, (c, p, st) in runs.items():
+                lg, st = api.prefill_fn(cfg, p, batch, st, ctx=c)
+                steps = [np_(lg)]
+                for i in range(2):
+                    tok = t_(inp["sharded"]["decode"][i][data * n:(data + 1) * n])
+                    lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
+                    steps.append(np_(lg))
+                logits[name] = steps
+        res["serve"][case] = logits
+    out["sharded"] = res
+
+
 def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
              device: str) -> None:
     global DEV
@@ -508,6 +585,8 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         out["moe"]["step_over_dp"] = moe_train_step(inp, data, "data", "data")
     elif job == "shard":
         shard(out)
+    elif job == "sharded":
+        sharded_steps(inp, out)
     else:
         mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
         out["moe"] = moe_ep(inp, rank, out, mesh, "model", "data")

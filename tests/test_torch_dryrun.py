@@ -1,0 +1,414 @@
+"""The dry-run slice: gather at use, the attention custom ops, the
+fixed-length expert counts, ``launch.dryrun.trace_cell`` on the fake 16 x 16
+mesh, and the committed ``experiments/dryrun_torch/*.json`` against the
+reference's ``experiments/dryrun/*.json``.
+
+The sharded step runs on four gloo ranks (``tests/_torch_spmd_ranks.py``'s
+``sharded`` job) from the reference's parameters; the traces run in child
+processes, because the fake process group is a process's default group.
+"""
+
+from __future__ import annotations
+
+import json
+import pickle
+import random
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_spmd_ranks as ranks_
+from _torch_spmd_ranks import OPT, REPO
+from repro_torch import configs
+from repro_torch.dist import sharding
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_r
+from repro_torch.launch import dryrun, hlo_analysis, shapes
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import moe
+
+TRAIN_TOL = 2e-5
+SERVE_TOL = 1e-4
+CASES = {"dense": ("minicpm-2b", "float32"), "dense_int8": ("minicpm-2b", "int8"),
+         "moe": ("qwen3-moe-235b-a22b", "float32")}
+# serving: the KV cache's kv heads (minicpm-2b), RWKV-6's wkv state (its
+# head dim) and Whisper's self and cross caches are sharded over 'model'
+# (and, with as many layers as the batch has sequences, RWKV-6's state
+# leaves get the dp axes on their layer dim, as rwkv6-7b's prefill_32k does)
+# float32 compute and caches: a bf16 cache would round the sharded and the
+# whole run's k/v (float32 sums in another order) to neighbouring values
+SERVE = {"dense": ("minicpm-2b", {"dtype": "float32"}), "ssm": ("rwkv6-7b", {}),
+         "ssm_layer_dim": ("rwkv6-7b", {"num_layers": 8}),
+         "audio": ("whisper-medium", {"dtype": "float32"})}
+ARTIFACTS = REPO / "experiments" / "dryrun_torch"
+REFERENCE = REPO / "experiments" / "dryrun"
+
+
+# -- (1) the sharded step and serving on four gloo ranks ------------------------------
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    import jax
+
+    from repro import configs as jconfigs
+    from repro.models import api as japi
+
+    rng = np.random.default_rng(26)
+    def init(arch, i, **over):
+        return jax.tree.map(np.asarray, japi.init_params(jconfigs.get(arch).reduced(**over),
+                                                         jax.random.PRNGKey(i)))
+
+    params = {arch: init(arch, i) for i, arch in enumerate(
+        ("minicpm-2b", "qwen3-moe-235b-a22b"))}
+    serve_params = {case: init(arch, i, **over) for i, (case, (arch, over)) in enumerate(
+        sorted(SERVE.items()))}
+    wcfg = jconfigs.get("whisper-medium").reduced()
+    inp = {"opt": OPT, "sharded": {
+        "cases": CASES, "serve": SERVE, "params": params, "serve_params": serve_params,
+        "frames": rng.normal(size=(8, wcfg.source_positions, wcfg.d_model)).astype(np.float32),
+        "batch": {"tokens": rng.integers(0, 512, (8, 16)).astype(np.int32),
+                  "mask": (rng.random((8, 16)) < 0.8).astype(np.float32)},
+        "prompt": rng.integers(0, 512, (8, 12)).astype(np.int32),
+        "decode": rng.integers(0, 512, (2, 8, 1)).astype(np.int32)}}
+    tmp = tmp_path_factory.mktemp("sharded")
+    inputs = tmp / "inputs.pkl"
+    inputs.write_bytes(pickle.dumps(inp))
+    procs = ranks_.launch("sharded", 4, tmp, inputs)
+    try:
+        ranks_.wait(procs, "the world-4 sharded job")
+    except RuntimeError as e:
+        pytest.fail(str(e))
+    return [r["sharded"] for r in ranks_.load(tmp, "sharded", 4)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sharded_step_equals_replicated(sharded, case):
+    """One train step on each rank's ``local_shard`` of params and optimizer
+    state (gathered at use) leaves every block equal to ``local_shard`` of
+    the step with every leaf whole, on every rank of the (2, 2) mesh; the
+    loss is the same.  int8 moments: the quantized blocks within one step
+    (a clip factor a rounding apart may move a value across a half), the
+    scales at 2e-5."""
+    for rank in sharded:
+        r = rank[case]
+        assert r["loss"][0] == r["loss"][1]
+        assert r["want"].keys() == r["got"].keys()
+        for k, want in r["want"].items():
+            got = r["got"][k]
+            assert got.shape == want.shape and got.dtype == want.dtype, k
+            if want.dtype == np.int8:
+                assert np.abs(got.astype(np.int32) - want).max() <= 1, k
+            else:
+                np.testing.assert_allclose(got, want, rtol=TRAIN_TOL, atol=TRAIN_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("case", sorted(SERVE))
+def test_sharded_serving_equals_whole(sharded, case):
+    """A prefill and two decode steps on sharded params and decode state
+    (gathered at use, the rank's block of the new state written back) give
+    the logits of the run on whole leaves."""
+    for rank in sharded:
+        whole, shard = rank["serve"][case]["whole"], rank["serve"][case]["sharded"]
+        assert len(whole) == len(shard) == 3
+        for a, b in zip(whole, shard):
+            np.testing.assert_allclose(b, a, rtol=SERVE_TOL, atol=SERVE_TOL)
+
+
+# -- (2) the attention custom ops ------------------------------------------------------
+
+OP_CASES = [
+    dict(b=2, tq=48, tk=48, h=4, kvh=2, hd=32, causal=True, window=0, q_offset=0, kv_len=None),
+    dict(b=1, tq=16, tk=64, h=4, kvh=1, hd=64, causal=True, window=20, q_offset=40, kv_len=57),
+    dict(b=2, tq=24, tk=40, h=2, kvh=2, hd=32, causal=False, window=0, q_offset=0, kv_len=None),
+]
+
+
+def _qkv(c, kv_dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(c["b"], c["tq"], c["h"], c["hd"], generator=g)
+    k, v = (torch.randn(c["b"], c["tk"], c["kvh"], c["hd"], generator=g).to(kv_dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("i", range(len(OP_CASES)))
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_the_plain_version_bit_for_bit(i, kv_dtype):
+    """On CPU tensors each op's implementation is the plain version: its
+    outputs are the plain version's, bit for bit (forward, forward + lse,
+    backward, head-major)."""
+    c = OP_CASES[i]
+    q, k, v = _qkv(c, kv_dtype, seed=i)
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+    assert torch.equal(fa_ops.flash_attention(q, k, v, kv_len=c["kv_len"], **kw),
+                       fa_r.attention_ref(q, k, v, kv_len=c["kv_len"], **kw))
+    o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, c["causal"], c["window"], 0.0,
+                                                       c["q_offset"])
+    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+    assert torch.equal(o, o_r) and torch.equal(lse, lse_r)
+    if c["causal"] and not 0 <= c["q_offset"] <= c["tk"] - c["tq"]:
+        return
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9))
+    got = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do, c["causal"],
+                                                    c["window"], 0.0, c["q_offset"])
+    exp = fa_r.attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+    for a, e, t in zip(got, exp, (q, k, v)):
+        assert a.dtype == t.dtype and torch.equal(a, e.to(t.dtype))
+    # the head-major contract: [B KV, G Tq, hd]
+    g = c["h"] // c["kvh"]
+    qh = q.permute(0, 2, 1, 3).reshape(c["b"] * c["h"], c["tq"], c["hd"])
+    kh, vh = (t.permute(0, 2, 1, 3).reshape(c["b"] * c["kvh"], c["tk"], c["hd"]) for t in (k, v))
+    kv_len = c["kv_len"] or c["tk"]
+    hk = dict(groups=g, causal=c["causal"], window=c["window"])
+    assert torch.equal(fa_ops.flash_attention_heads(qh, kh, vh, kv_len, **hk),
+                       fa_r.attention_heads_ref(qh, kh, vh, kv_len, **hk))
+
+
+def test_visible_pairs_closed_form_equals_the_mask():
+    """``ops.visible_pairs`` equals the row sums of ``ref.key_mask`` (a row
+    that sees no key counted as Tk) over random masks of every kind."""
+    rnd = random.Random(26)
+    for _ in range(1500):
+        tq, tk = rnd.randint(1, 70), rnd.randint(1, 90)
+        kw = dict(causal=rnd.random() < 0.7, window=rnd.choice([0, 0, rnd.randint(1, 40)]),
+                  q_offset=rnd.randint(-10, 100), kv_len=rnd.choice([None, rnd.randint(0, 100)]))
+        rows = fa_r.key_mask(tq, tk, device="cpu", **kw).sum(1)
+        assert fa_ops.visible_pairs(tq, tk, **kw) == int(torch.where(rows > 0, rows, tk).sum())
+
+
+def _flash_work(q_shape, k_shape, **kw) -> int:
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    # flash_work reads shapes only: zero-stride tensors of the kernel phase's shapes
+    q, k = (torch.zeros(1).expand(s) for s in (q_shape, k_shape))
+    return chip_smoke.flash_work(torch, q, k, **kw)[1]
+
+
+# the kernel phase's shapes (chip_smoke.py phase 5): q, k, mask
+KERNEL_SHAPES = {
+    "prefill_local": ((4, 4096, 8, 256), (4, 4128, 4, 256),
+                      dict(causal=True, window=1024, q_offset=0, kv_len=4096)),
+    "decode": ((4, 1, 8, 256), (4, 4128, 4, 256),
+               dict(causal=True, window=0, q_offset=4096, kv_len=4097)),
+    "prefill_global_32k": ((1, 512, 8, 256), (1, 32768, 4, 256),
+                           dict(causal=True, window=0, q_offset=32256, kv_len=32768)),
+    "whisper_encoder": ((4, 1500, 16, 64), (4, 1500, 16, 64),
+                        dict(causal=False, window=0, q_offset=0, kv_len=None)),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(KERNEL_SHAPES))
+def test_flop_formula_equals_flash_work(cell):
+    """``FlopCounterMode`` counts a forward call on fake tensors as
+    ``chip_smoke.flash_work``'s operations at the kernel phase's shapes,
+    and the backward as 10 / 4 of the forward's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    q_shape, k_shape, kw = KERNEL_SHAPES[cell]
+    with FakeTensorMode():
+        q, k = torch.empty(q_shape), torch.empty(k_shape, dtype=torch.bfloat16)
+        with FlopCounterMode(display=False) as fc:
+            fa_ops.flash_attention(q, k, k, **kw)
+        fwd = fc.get_total_flops()
+        if kw["kv_len"] in (None, k_shape[1]) and kw["q_offset"] + q_shape[1] <= k_shape[1]:
+            with FlopCounterMode(display=False) as fc:
+                o, lse = torch.ops.repro_torch.flash_attention_lse(
+                    q, k, k, kw["causal"], kw["window"], 0.0, kw["q_offset"])
+                torch.ops.repro_torch.flash_attention_bwd(q, k, k, o, lse, q, kw["causal"],
+                                                          kw["window"], 0.0, kw["q_offset"])
+            assert fc.get_total_flops() == fwd + fwd * 10 // 4
+    assert fwd == _flash_work(q_shape, k_shape, **kw)
+
+
+# -- (3) the fixed-length expert counts -------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 7, 130])
+def test_expert_counts_equal_bincount(n):
+    idx = torch.randint(0, n, (4096,), generator=torch.Generator().manual_seed(n))
+    idx[:3] = 0
+    got = moe._counts(idx, n)
+    assert got.dtype == torch.int64 and torch.equal(got, torch.bincount(idx, minlength=n))
+
+
+# -- (4) trace_cell on the fake 16 x 16 mesh ----------------------------------------
+
+TRACE = r'''
+import json, sys
+import torch
+from repro_torch import configs
+from repro_torch.dist import sharding
+from repro_torch.kernels.flash_attention import ref
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.mesh import make_production_mesh
+
+def refuse(*a, **k):
+    raise AssertionError("a plain attention version was called")
+
+for name in ("attention_ref", "attention_lse_ref", "attention_bwd_ref", "attention_heads_ref"):
+    setattr(ref, name, refuse)
+coords = json.loads(sys.argv[1])
+cfg = configs.get("minicpm-2b").reduced()
+cell = shapes.ShapeCell("t", "train", 2048, 32, microbatches=2)
+mesh = make_production_mesh()
+rc, st = dryrun.trace_cell(cfg, cell, mesh, coords)
+sizes = mesh.shape
+p, o = shapes.params_specs(cfg), shapes.opt_state_specs(cfg)
+b = shapes.input_specs(cfg, cell)
+local = [sharding.local_shard(t, s, sizes, coords) for t, s in (
+    (p, sharding.param_specs(cfg, p, sizes)), (o, sharding.param_specs(cfg, o, sizes)),
+    (b, sharding.batch_specs(cfg, b, sizes)))]
+print(json.dumps({
+    "args": sum(dryrun.tree_bytes(t) for t in rc.args.values()),
+    "local_shard": sum(dryrun.tree_bytes(t) for t in local),
+    "flops": st.flops, "wire": st.collective_wire_bytes, "peak": st.peak_bytes,
+    "counts": st.collective_counts,
+    "scores": 32 // 16 // 2 * cfg.num_heads * 2048 * 2048 * 4}))
+'''
+
+
+@pytest.fixture(scope="module")
+def traces():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+    procs = {c: subprocess.Popen([sys.executable, "-c", textwrap.dedent(TRACE),
+                                  json.dumps(dict(zip(("data", "model"), c)))],
+                                 env=env, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for c in ((0, 0), (9, 13))}
+    out = {}
+    for c, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        assert p.returncode == 0, stderr[-4000:]
+        out[c] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (9, 13)])
+def test_trace_cell_on_the_fake_production_mesh(traces, coords):
+    """A reduced minicpm-2b train step, one rank of the 16 x 16 mesh on fake
+    tensors: its argument bytes are the ``local_shard`` byte sum, it does
+    work and moves bytes, no plain attention version runs (the fakes reach
+    the ops' fake implementations), and its peak stays below one layer's
+    T x T float32 scores (the fused kernel never holds them)."""
+    t = traces[coords]
+    assert t["args"] == t["local_shard"] > 0
+    assert t["flops"] > 0 and t["wire"] > 0
+    assert set(t["counts"]) >= {"all-gather", "reduce-scatter", "all-reduce"}
+    assert 0 < t["peak"] < t["scores"]
+
+
+# -- (5) the committed artifacts --------------------------------------------------------
+
+def _artifacts() -> dict:
+    return {p.name: json.loads(p.read_text()) for p in sorted(ARTIFACTS.glob("*.json"))}
+
+
+def test_artifacts_split_and_reasons():
+    """40 records, 34 ``ok`` and 6 ``skipped``, each skip with
+    ``cell_supported``'s reason and the reference record's."""
+    arts = _artifacts()
+    assert len(arts) == 40
+    assert sum(a["status"] == "ok" for a in arts.values()) == 34
+    for name, a in arts.items():
+        ok, reason = shapes.cell_supported(configs.get(a["arch"]), shapes.SHAPES[a["shape"]])
+        ref = json.loads((REFERENCE / name).read_text())
+        assert a["status"] == ("ok" if ok else "skipped") == ref["status"], name
+        if not ok:
+            assert a["reason"] == reason == ref["reason"], name
+        else:
+            assert a["memory_analysis"]["peak_bytes_per_device"] > 0, name
+            assert a["cost_analysis"]["flops"] > 0, name
+
+
+def test_argument_bytes_equal_the_references():
+    """``argument_size_bytes`` is the reference's compiled figure in every ok
+    cell, less the 4 bytes of its int32 ``len`` where the port's state has
+    it as a host int (decode; RWKV's and Griffin's prefill).  Whisper's two
+    serving cells hold what the reference's compiled program drops because
+    it never reads it: at prefill the cross K/V state (only written), at
+    decode the encoder, its norm and the decoder's cross projections."""
+    mesh = make_production_mesh()
+    coords = {"data": 0, "model": 0}
+    unread_of = {}
+    for name, a in _artifacts().items():
+        if a["status"] != "ok":
+            continue
+        ref = json.loads((REFERENCE / name).read_text())["memory_analysis"]["argument_size_bytes"]
+        cfg, cell = configs.get(a["arch"]), shapes.SHAPES[a["shape"]]
+        got = a["memory_analysis"]["argument_size_bytes"]
+        rc = dryrun.rank_cell(cfg, cell, mesh, coords)
+        assert got == sum(dryrun.tree_bytes(t) for t in rc.args.values()), name
+        has_len = cell.kind == "decode" or (cell.kind == "prefill"
+                                            and cfg.family in ("ssm", "hybrid"))
+        unread = 0
+        if cfg.family == "audio" and cell.kind == "prefill":
+            unread = dryrun.tree_bytes({k: rc.args["state"][k] for k in ("cross_k", "cross_v")})
+        elif cfg.family == "audio" and cell.kind == "decode":
+            p = rc.args["params"]
+            unread = dryrun.tree_bytes([p["encoder"], p["enc_norm"], p["decoder"]["xk"],
+                                   p["decoder"]["xv"]])
+        assert got == ref - 4 * has_len + unread, name
+        unread_of[name] = unread
+    # the differences the records show (the reference's own figures)
+    assert unread_of["whisper-medium__prefill_32k__16x16.json"] == 18_432_000
+    assert unread_of["whisper-medium__decode_32k__16x16.json"] - 4 == 7_278_588
+
+
+def test_roofline_reproduces_the_reference_at_its_constants():
+    """``Roofline`` at ``TPU_V5E`` fed the reference's own counts, and
+    ``model_flops``, give each reference record's ``roofline`` dict."""
+    n = 0
+    for path in sorted(REFERENCE.glob("*.json")):
+        ref = json.loads(path.read_text())
+        if ref["status"] != "ok":
+            continue
+        r = ref["roofline"]
+        mf = hlo_analysis.model_flops(configs.get(ref["arch"]), shapes.SHAPES[ref["shape"]])
+        got = hlo_analysis.Roofline(r["flops_per_device"], r["hbm_bytes_per_device"],
+                                    r["collective_wire_bytes"], mf, ref["chips"],
+                                    hlo_analysis.TPU_V5E).as_dict()
+        assert got.keys() == r.keys()
+        for k, v in r.items():
+            assert got[k] == (v if isinstance(v, str) else pytest.approx(v, rel=1e-12)), (path, k)
+        n += 1
+    assert n == 34
+
+
+def test_artifacts_keep_the_reference_figures_beside_the_ports():
+    """Each ok record copies the reference's compiled figures (no gate) and
+    carries the port's roofline on the H100 and at the reference's
+    constants."""
+    for name, a in _artifacts().items():
+        if a["status"] != "ok":
+            continue
+        ref = json.loads((REFERENCE / name).read_text())
+        assert a["reference"]["memory_analysis"] == ref["memory_analysis"], name
+        assert a["reference"]["roofline"] == ref["roofline"], name
+        assert a["roofline"]["compute_s"] == pytest.approx(
+            a["cost_analysis"]["flops"] / hlo_analysis.H100.peak_flops)
+        assert a["roofline_tpu_v5e"]["compute_s"] == pytest.approx(
+            a["cost_analysis"]["flops"] / hlo_analysis.TPU_V5E.peak_flops)
+        assert a["coords"] == {"data": 0, "model": 0} and a["trace_s"] > 0
+
+
+def test_gather_at_use_without_specs_is_the_identity():
+    """With no spec trees on the context every helper hands back its input."""
+    t = torch.ones(3)
+    assert sharding.use(None, t, "embed") is t
+    assert sharding.use_state(None, t, "kv", batch_dim=1, layer=True) is t
+    assert sharding.own_state(None, t, t, "kv", batch_dim=1) is t
+
+
+def test_importing_the_dry_run_leaves_jax_unloaded():
+    """The port's dry-run imports neither ``jax`` nor anything of ``repro``."""
+    code = ("import sys; import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
+            " or m == 'repro']; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], env={"PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
