@@ -19,18 +19,25 @@ Phases, one JSON line each:
 1b. dryrun — (run right after phase 1, while the script's own process
    holds nothing on the card) in a child process (its default process
    group is a ``fake`` one of 256 ranks), rank (0, 0) of the 16 x 16 production mesh
-   for ``DRYRUN_CELLS`` (minicpm-2b ``train_4k``, gemma3-4b
+   for ``DRYRUN_CELLS`` (minicpm-2b and gemma3-4b ``train_4k``, gemma3-4b
    ``decode_32k``), its state held as ``local_shard``s and gathered at
-   use: (a) traced on fake CUDA tensors (``launch.dryrun``), its FLOPs,
+   use, but the blocks its tensor-parallel products take as they are
+   (the projections, MLPs and vocabulary the rules split over 'model'):
+   (a) traced on fake CUDA tensors (``launch.dryrun``), its FLOPs,
    wire bytes by kind, argument bytes and peak equal to the committed
    ``experiments/dryrun_torch/`` records (traced on the CPU); (b) the same
    rank programs run once for real on the card (the fake group's
    collectives move nothing, so values are not checked): the counted FLOPs
-   must equal (a)'s, ``max_memory_allocated`` is reported against (a)'s
-   peak, a second step is timed and its launches join the counts under
-   ``dryrun_rank``; and minicpm-2b's rank-(0, 0) island (q [4, 256, 36,
-   64] at q_offset 0 over k/v [4, 4096, 36, 64] float32) through
-   ``flash_wgmma_split`` and ``bwd_wgmma`` against the plain versions.
+   must equal (a)'s, ``max_memory_allocated`` must be within
+   ``DRYRUN_PEAK_TOL`` of (a)'s peak and under the card's memory, a
+   second step is timed and its launches join the counts under
+   ``dryrun_rank``; and the training ranks' islands (``DRYRUN_ISLANDS``:
+   q [4, 256, H, hd] over k/v [4, 4096, KV, hd] float32; minicpm-2b's at
+   q_offset 0 through ``flash_wgmma_split`` and ``bwd_wgmma``, gemma3-4b's
+   at 0 and 3840, and at 3840 on a sliding-window layer, through
+   ``flash_tiled`` and ``bwd_wide``, each split where ``attn_plan.h``
+   splits, ``bwd_wide`` on the dS path at full attention) against the
+   plain versions.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -521,8 +528,20 @@ BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb
 # the dryrun phase: one rank, (0, 0), of the 16 x 16 production mesh under a
 # fake process group, each cell traced on fake CUDA tensors (held against
 # experiments/dryrun_torch/, traced on the CPU) and run once for real; the
-# real run's peak is reported against the estimate (DRYRUN_PEAK_TOL)
-DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("gemma3-4b", "decode_32k"))
+# real run's peak must be within DRYRUN_PEAK_TOL of the estimate
+DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("gemma3-4b", "train_4k"),
+                ("gemma3-4b", "decode_32k"))
+# the rank-(0, 0) training islands held against the plain versions: (arch,
+# q_offset, on a sliding-window layer) with the designs the path runs (the
+# hd-256 islands: flash_tiled and bwd_wide, each split where
+# csrc/attn_plan.h splits it; bwd_wide's split is the dS path, whose dQ pass
+# is bwd_dq_ds, and the full-attention islands must take it); q [4, 256, H,
+# hd] over k/v [4, 4096, KV, hd] float32, the 4 sequences of a microbatch,
+# tp 16's sequence split.  gemma3-4b: five of six layers slide a 1024 window
+DRYRUN_ISLANDS = (("minicpm-2b", 0, False, "flash_wgmma_split", "bwd_wgmma"),
+                  ("gemma3-4b", 0, False, "flash_tiled", "bwd_wide"),
+                  ("gemma3-4b", 3840, False, "flash_tiled", "bwd_wide"),
+                  ("gemma3-4b", 3840, True, "flash_tiled", "bwd_wide"))
 DRYRUN_COORDS = {"data": 0, "model": 0}
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_TIMEOUT_S = 600
@@ -2787,9 +2806,10 @@ def dryrun_child(seed: int) -> int:
     shape).  (b) The same rank programs run for real on the card under the
     fake group (its collectives move nothing, so values are not checked):
     one counted step (FLOPs must equal (a)'s; ``max_memory_allocated``
-    against the estimate), then one step timed and its kernel launches
-    counted.  Also minicpm-2b's rank-(0, 0) attention island held against
-    its plain version.  Prints one JSON line."""
+    within ``DRYRUN_PEAK_TOL`` of the estimate and under the card's memory), then one step timed and its kernel launches
+    counted.  Also the training ranks' attention islands
+    (``DRYRUN_ISLANDS``) held against their plain versions.  Prints one
+    JSON line."""
     import torch
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2841,7 +2861,9 @@ def dryrun_child(seed: int) -> int:
         args = dryrun.materialize(rc, make)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()  # the arguments held, none of their making
-        _, stats = dryrun.count_rank(cfg, rc, mesh_dev, args)
+        # the step's result holds the rank's parameters and optimizer state:
+        # dropped here, so that they do not outlive the cell's arguments
+        stats = dryrun.count_rank(cfg, rc, mesh_dev, args)[1]
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         est = out["cells"][f"{arch}/{shape}"]["a"]
@@ -2865,36 +2887,59 @@ def dryrun_child(seed: int) -> int:
             "peak_over_estimate": peak / est["peak_bytes_per_device"],
             "within_tol": abs(peak / est["peak_bytes_per_device"] - 1) <= DRYRUN_PEAK_TOL,
             "launches": {k: v for k, v in got.items() if v}}
+        card = torch.cuda.get_device_properties(dev).total_memory
+        if not out["cells"][f"{arch}/{shape}"]["b"]["within_tol"] or peak > card:
+            fail(f"dryrun (b) {arch} {shape}: max_memory_allocated {peak} B against the "
+                 f"estimate {est['peak_bytes_per_device']} B (within {DRYRUN_PEAK_TOL:.0%}) "
+                 f"and the card's {card} B")
         del args, step
         torch.cuda.empty_cache()
-    # minicpm-2b's island at rank (0, 0): q rows 0-255 of 4096 (tp 16, the
-    # sequence split) over the whole keys, float32 k/v
-    cfg = configs.get("minicpm-2b")
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = torch.randn(4, 256, h, hd, generator=gen, device=dev)
-    k, v, do = (torch.randn(4, 4096, h, hd, generator=gen, device=dev) for _ in range(3))
-    do = do[:, :256].contiguous()
-    kw = dict(causal=True, window=0, q_offset=0)
-    before = dict(fa_k.fwd_design_launches), dict(fa_k.bwd_design_launches)
-    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
-    grads = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
-    grads_r = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
-    fwd_err = max(float((a - e).abs().max()) for a, e in ((o, o_r), (lse, lse_r)))
-    bwd_err = max(float((a - e).abs().max()) for a, e in zip(grads, grads_r))
-    if not all(bool(((a - e).abs() <= FLASH_TOL + FLASH_TOL * e.abs()).all())
-               for a, e in ((o, o_r), (lse, lse_r))):
-        fail(f"dryrun island forward differs from the plain version: {fwd_err}")
-    if not all(bool(((a - e).abs() <= BWD_TOL + BWD_TOL * e.abs()).all())
-               for a, e in zip(grads, grads_r)):
-        fail(f"dryrun island backward differs from the plain version: {bwd_err}")
-    designs = tuple({d: n - was[d] for d, n in now.items() if n - was[d]} for now, was in (
-        (fa_k.fwd_design_launches, before[0]), (fa_k.bwd_design_launches, before[1])))
-    if designs != ({"flash_wgmma_split": 1}, {"bwd_wgmma": 1}):
-        fail(f"dryrun island ran {designs}, want flash_wgmma_split + bwd_wgmma")
-    out["island"] = {"q": list(q.shape), "kv": list(k.shape), **kw, "designs": designs,
-                     "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-                     "tol": [FLASH_TOL, BWD_TOL]}
+    # the training ranks' islands: q rows [q_offset, q_offset + 256) of 4096
+    # (tp 16, the sequence split) over the whole keys, float32 k/v; model
+    # rank 0 at q_offset 0 and, for gemma3-4b, model rank 15 at 3840 (the
+    # most keys), on a full-attention layer and on a sliding-window one
+    out["islands"] = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for arch, q_off, sliding, fwd_design, bwd_design in DRYRUN_ISLANDS:
+        cfg = configs.get(arch)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, do = (torch.randn(4, 256, h, hd, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(4, 4096, kvh, hd, generator=gen, device=dev) for _ in range(2))
+        kw = dict(causal=True, window=cfg.sliding_window if sliding else 0, q_offset=q_off)
+        before = [dict(c) for c in (fa_k.fwd_design_launches, fa_k.bwd_design_launches,
+                                    fa_k.split_launches)]
+        o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        grads = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        designs = tuple({d: n - was[d] for d, n in now.items() if n - was[d]} for now, was in zip(
+            (fa_k.fwd_design_launches, fa_k.bwd_design_launches, fa_k.split_launches), before))
+        o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+        grads_r = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        fwd_err = max(float((a - e).abs().max()) for a, e in ((o, o_r), (lse, lse_r)))
+        bwd_err = max(float((a - e).abs().max()) for a, e in zip(grads, grads_r))
+        what = f"dryrun island {arch} at q_offset {q_off}, window {kw['window']}"
+        if not all(bool(((a - e).abs() <= FLASH_TOL + FLASH_TOL * e.abs()).all())
+                   for a, e in ((o, o_r), (lse, lse_r))):
+            fail(f"{what}: the forward differs from the plain version: {fwd_err}")
+        if not all(bool(((a - e).abs() <= BWD_TOL + BWD_TOL * e.abs()).all())
+                   for a, e in zip(grads, grads_r)):
+            fail(f"{what}: the backward differs from the plain version: {bwd_err}")
+        # the hd-256 designs: each splits where its plan does; on a
+        # full-attention layer the backward takes the dS path (bwd_dq_ds)
+        split = {}
+        if hd == 256:
+            fwd_chunks = fa_k.tiled_plan(4, 256, 4096, h, kvh, kv_len=4096, sms=sms, **kw).chunks
+            ds = fa_k.bwd_plan(hd, 4, 256, 4096, h, kvh, sms=sms, **kw).chunks > 0
+            if not (ds or sliding):
+                fail(f"{what}: the backward's plan leaves the dS path")
+            split = {d: 1 for d, on in (("flash_tiled", fwd_chunks > 1), ("bwd_wide", ds)) if on}
+        want = ({fwd_design: 1}, {bwd_design: 1}, split)
+        if designs != want:
+            fail(f"{what} ran {designs}, want {want}")
+        out["islands"][f"{arch}@{q_off}" + ("/window" if sliding else "")] = {
+            "q": list(q.shape), "kv": list(k.shape), **kw, "designs": designs,
+            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+            "tol": [FLASH_TOL, BWD_TOL]}
+        del q, k, v, do, o, lse, grads, o_r, lse_r, grads_r
     # the dispatcher's host cost per flash call: the custom op against the
     # wrapper it dispatches to, at a decode call whose device time is a few
     # us (the host sets the pace), 2,000 calls a side, alternating, median

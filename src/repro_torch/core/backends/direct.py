@@ -26,16 +26,20 @@ input's device.  The variable-length collectives follow the paper's
 FMI-extension structure: a fixed-size count exchange first, then a
 fixed-capacity payload exchange with masking.
 
-Autograd.  ``allreduce`` (and so ``allreduce_mean``), ``allgather``,
-``allgather_alike`` and ``alltoall`` carry gradients, as ``lax.psum``, ``all_gather`` and
-``all_to_all`` do under ``jax.grad``.  Each rule is the exact gradient of
+Autograd.  ``allreduce`` (and so ``allreduce_mean``), ``allreduce_alike``,
+``allgather``, ``allgather_alike``, ``alltoall`` and ``ppermute`` carry
+gradients, as ``lax.psum``, ``all_gather``, ``all_to_all`` and
+``ppermute`` do under ``jax.grad``.  Each rule is the exact gradient of
 the sum of every rank's loss, each rank's output being a function of every
 rank's input: ``allreduce``'s backward is the ``allreduce`` of the
 cotangents, ``allgather``'s the ``reduce_scatter`` of them (rank s gets the
 sum of every rank's cotangent piece s), and ``alltoall``'s the reverse
-all-to-all (``split_dim`` and ``concat_dim`` swapped).  Where every rank
-computes the same loss from replicated activations, that sum is P copies of
-it: the caller scales (``moe._moe_ep``).  Every rank must run the same
+all-to-all (``split_dim`` and ``concat_dim`` swapped), ``ppermute``'s the
+inverse pairs.  Where every rank computes the same loss from replicated
+activations, that sum is P copies of it: the caller scales
+(``moe._moe_ep``), or takes the ``_alike`` variant, whose backward passes
+the rank's own cotangent on (``allreduce_alike``: the identity;
+``allgather_alike``: its piece).  Every rank must run the same
 backward, so that the backward's collectives meet.
 """
 
@@ -143,6 +147,24 @@ class _AllReduce(torch.autograd.Function):
 def allreduce(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
     """The sum over the axis, on every rank (``lax.psum``)."""
     return _AllReduce.apply(x, axis, mesh)
+
+
+class _AllReduceAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return _all_reduce(x, axis, mesh, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def allreduce_alike(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
+    """:func:`allreduce` for a sum every rank of the axis then computes alike
+    from (the partial sums of a row-parallel product, Megatron's *g*): the
+    ranks' cotangents are equal and each is the whole one, so the backward
+    is the identity (an all-reduce would count it P times)."""
+    return _AllReduceAlike.apply(x, axis, mesh)
 
 
 def allreduce_mean(x: torch.Tensor, axis: str | Sequence[str], mesh=None) -> torch.Tensor:
@@ -272,9 +294,27 @@ def bcast(x: torch.Tensor, axis: str, *, root: int = 0, mesh=None) -> torch.Tens
     return out
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm, mesh):
+        ctx.args = (axis, [(dst, src) for src, dst in perm], mesh)
+        return _ppermute(x, axis, perm, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, inverse, mesh = ctx.args
+        return _ppermute(g, axis, inverse, mesh), None, None, None
+
+
 def ppermute(x: torch.Tensor, axis: str, perm: list[tuple[int, int]], mesh=None) -> torch.Tensor:
     """Each (src, dst) pair of axis ranks sends src's tensor to dst; a rank
-    that receives nothing gets zeros (``lax.ppermute``)."""
+    that receives nothing gets zeros (``lax.ppermute``).  The backward sends
+    each cotangent back along the inverse pairs (a rank that sent nothing
+    gets a zero gradient)."""
+    return _PPermute.apply(x, axis, perm, mesh)
+
+
+def _ppermute(x: torch.Tensor, axis: str, perm, mesh) -> torch.Tensor:
     g = group(axis, mesh)
     me = dist.get_rank(g)
     x = x.contiguous()

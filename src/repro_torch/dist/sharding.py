@@ -37,10 +37,12 @@ per-rank program's counterpart of the reference's ``jit(in_shardings=...)``:
 a rank whose ``DistContext`` carries spec trees holds each leaf of its
 parameters, optimizer state and decode state as its ``local_shard`` and
 all-gathers a leaf's sharded dims just before the leaf is used, over each
-dim's axes in ``_shard_bounds``' row-major order.  Two kinds of sharded dim
-stay local, because the rank's own computation splits them along the same
-axes: the batch dim of a decode state over the dp axes, and the expert dim
-of the MoE stacks over ``ctx.ep_axis`` (what ``moe._moe_ep`` consumes).  A
+dim's axes in ``_shard_bounds``' row-major order.  Three kinds of sharded
+dim stay local, because the rank's own computation splits them along the
+same axes: the batch dim of a decode state over the dp axes, the expert dim
+of the MoE stacks over ``ctx.ep_axis`` (what ``moe._moe_ep`` consumes), and
+the tp dim of the leaves a caller runs tensor-parallel products on
+(``use(..., keep_tp=)``, each leaf's role from its spec: :func:`tp_role`).  A
 gather over dp axes (ZeRO) has the ``reduce_scatter`` of the ranks'
 cotangents as its backward (``direct.allgather``); one over other axes,
 whose activations are replicated, keeps the rank's own piece
@@ -439,23 +441,52 @@ def _block(x: torch.Tensor, dim: int, axes: tuple[str, ...], ctx) -> torch.Tenso
     return x.narrow(dim, index * n, n)
 
 
-def use(ctx, tree: Any, *path, layer: bool = False) -> Any:
+def use(ctx, tree: Any, *path, layer: bool = False, keep_tp=()) -> Any:
     """``tree``, the subtree of a rank's parameters at ``path`` (``layer``:
     one layer's view of a stacked subtree), with every leaf gathered as
     ``ctx.param_specs`` says, but an MoE expert stack's expert dim over
-    ``ctx.ep_axis``.  Unchanged without specs."""
+    ``ctx.ep_axis``, and the dim over ``ctx.tp_axis`` alone of a leaf named
+    in ``keep_tp``, which the caller's tensor-parallel product takes as the
+    rank's block (:func:`tp_role`; its dp entries are gathered all the
+    same).  Unchanged without specs."""
     specs = getattr(ctx, "param_specs", None) if ctx is not None else None
     if specs is None:
         return tree
     ep = _ep_axes(ctx)
+    tp = (ctx.tp_axis,)
 
     def leaf(x, spec, names):
         entries = _entries(spec, x.dim(), layer)
         expert = "moe" in names and names[-1] in _EXPERT
-        keep = {d for d, e in enumerate(entries) if expert and axes_of(e) == ep}
+        local = ep if expert else tp if names[-1] in keep_tp else None
+        keep = {d for d, e in enumerate(entries) if axes_of(e) == local}
         return _gather(x, entries, ctx, keep)
 
     return _walk(tree, _specs_at(specs, path), leaf, tuple(str(k) for k in path))
+
+
+def tp_role(ctx, *path) -> str | None:
+    """The tensor-parallel role ``ctx.param_specs`` gives the parameter leaf
+    at ``path`` (its keys): ``"vocab"`` for an ``embed`` table whose vocab
+    dim is on ``ctx.tp_axis``, ``"column"`` for a leaf whose last dim is on
+    it (a product's output columns), ``"row"`` for one whose second-to-last
+    dim is (its input rows); None where no dim is on the tp axis alone (the
+    leaf is used whole), and for every leaf without specs or with a tp axis
+    of one rank."""
+    specs = getattr(ctx, "param_specs", None) if ctx is not None else None
+    if specs is None or ctx.tp_axis is None or ctx.mesh is None:
+        return None
+    if direct.axis_size(ctx.tp_axis, ctx.mesh) == 1:
+        return None
+    entries = tuple(_specs_at(specs, path))
+    on_tp = [axes_of(e) == (ctx.tp_axis,) for e in entries]
+    if path[-1] == "embed":
+        return "vocab" if on_tp and on_tp[0] else None
+    if len(on_tp) >= 1 and on_tp[-1]:
+        return "column"
+    if len(on_tp) >= 2 and on_tp[-2]:
+        return "row"
+    return None
 
 
 def _state_entries(ctx, x: torch.Tensor, path: tuple, layer: bool):

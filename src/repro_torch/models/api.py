@@ -128,18 +128,26 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     do), and the aux loss is the shards' mean.  The sums carry autograd
     (``torch.distributed.nn``: the backward sums the ranks' gradients too),
     so each rank's parameter gradients are dp times its share, and their
-    mean over the dp axes (``train_step``) is the global gradient."""
+    mean over the dp axes (``train_step``) is the global gradient.  Where
+    the transformer's logits are the rank's vocab block
+    (``transformer.vocab_split``), the terms are the vocabulary-parallel
+    ones (``layers.vocab_parallel_cross_entropy_terms``), alike over tp."""
+    split = False
     if _module(cfg) is transformer:
         logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
                                                 prefix_embeds=batch.get("patches"), ctx=ctx)
+        split = transformer.vocab_split(ctx, params)
     else:  # the other families' forwards take master weights as they are
         logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
     args = (logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
+    if split:  # the rank's vocab block of the logits (``transformer.vocab_split``)
+        total, count = L.vocab_parallel_cross_entropy_terms(*args, ctx.tp_axis, ctx.mesh)
+    else:
+        total, count = L.cross_entropy_terms(*args)
     if ctx is None or ctx.mesh is None or not ctx.dp_axes:
-        loss = L.cross_entropy(*args)
+        loss = total / torch.clamp(count, min=1)
         return loss + aux, {"ce": loss, "aux": aux}
     group = direct.group(ctx.dp_axes, ctx.mesh)
-    total, count = L.cross_entropy_terms(*args)
     total = dist_nn.all_reduce(total, group=group)
     count = direct.allreduce(count.detach(), ctx.dp_axes, ctx.mesh)
     loss = total / torch.clamp(count, min=1)

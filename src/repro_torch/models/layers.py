@@ -9,6 +9,15 @@ requires a gradient (the training forward), the call goes through the
 kernel's ``autograd.Function``, whose backward is the hand-written backward
 kernel.  ``attention_sharded`` splits a call over a mesh's tensor-parallel
 axis (``core.backends.direct``), each rank's island a plain local call.
+
+Tensor-parallel products (the reference's column / row / vocab rules, run
+on the rank's block of each weight): ``column_parallel`` (input through
+``copy_to_group``, Megatron's *f*), ``row_parallel`` (partial sums through
+``direct.allreduce_alike``, *g*), ``split_to_group``, the gated MLP's
+``gate_up_exchange``, ``embed_parallel`` and
+``vocab_parallel_cross_entropy_terms``.  Their convention: an activation
+is alike on every rank of the axis, and so is its cotangent, which is the
+whole one; a rank-local block's cotangent is the whole one of that block.
 """
 
 from __future__ import annotations
@@ -95,6 +104,84 @@ class _CopyToGroup(torch.autograd.Function):
         return direct.allreduce(g, ctx.axis, ctx.mesh), None, None
 
 
+class _SplitToGroup(torch.autograd.Function):
+    """The rank's block of the last dim of a tensor every rank of ``axis``
+    holds alike; the backward all-gathers the ranks' cotangent blocks (each
+    rank's is the whole one of its block), so every rank gets the whole
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        p, r = direct.axis_size(axis, mesh), direct.axis_index(axis, mesh)
+        n = x.shape[-1] // p
+        ctx.args = (axis, mesh)
+        return x[..., r * n:(r + 1) * n]
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh = ctx.args
+        return direct.allgather_alike(g, axis, dim=-1, mesh=mesh), None, None
+
+
+def split_to_group(x: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """``x``, held alike by every rank of ``axis``, narrowed to the rank's
+    block of its last dim (Megatron's *scatter*), for a computation each
+    rank runs on its own block."""
+    return _SplitToGroup.apply(x, axis, mesh)
+
+
+def column_parallel(y: torch.Tensor, w_local: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """The rank's output columns of ``y @ w`` from its column block
+    ``w_local`` of ``w`` (the reference's column-parallel product); ``y``,
+    alike on every rank of ``axis``, goes through :func:`copy_to_group`.
+    Callers that run several such products on one ``y`` copy it once."""
+    return copy_to_group(y, axis, mesh) @ w_local
+
+
+def row_parallel(x_local: torch.Tensor, w_local: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """``x @ w`` from the rank's row block ``w_local`` of ``w`` and its
+    matching columns ``x_local`` of ``x``: the ranks' partial products
+    summed over ``axis`` (``direct.allreduce_alike``), alike on every rank."""
+    return direct.allreduce_alike(x_local @ w_local, axis, mesh)
+
+
+def gate_up_exchange(gu_local: torch.Tensor, axis, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gate, up), each the rank's ff / P columns, from its block of a fused
+    ``gate || up`` product ([.., 2 ff] split into P contiguous column blocks
+    of 2 ff / P over ``axis``).  Block s is two ff / P halves: half j holds
+    columns [(2s + j) ff / P, ...) of ``gate || up``, so it is rank (2s + j)'s
+    gate where 2s + j < P and rank (2s + j - P)'s up else.  Four partial
+    ``ppermute``s (each rank receives at most once in each) move each half
+    to its rank; a rank's gate (its up) is the sum of what it received in
+    the two gate (up) rounds, the other being zeros.  The backward sends the
+    cotangents back along the same pairs."""
+    p = direct.axis_size(axis, mesh)
+    w = gu_local.shape[-1] // 2
+    halves = gu_local[..., :w].contiguous(), gu_local[..., w:].contiguous()
+
+    def gather(up: bool) -> torch.Tensor:
+        return sum(direct.ppermute(halves[j], axis, [(s, 2 * s + j - p * up) for s in range(p)
+                                                     if (2 * s + j >= p) == up], mesh)
+                   for j in (0, 1))
+
+    return gather(False), gather(True)
+
+
+def activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The gated MLP's activation: SiLU or :func:`gelu`."""
+    return F.silu(x) if name == "silu" else gelu(x)
+
+
+def gated_mlp_parallel(y: torch.Tensor, wi_local: torch.Tensor, wo_local: torch.Tensor, axis,
+                       mesh, act: str = "silu") -> torch.Tensor:
+    """:func:`gated_mlp` with ``wi``'s columns and ``wo``'s rows split over
+    ``axis`` (P ranks, P dividing ff): the column-parallel ``gate || up``
+    block, :func:`gate_up_exchange` to the rank's own gate and up columns,
+    and the row-parallel ``wo``."""
+    gate, up = gate_up_exchange(column_parallel(y, wi_local, axis, mesh), axis, mesh)
+    return row_parallel(activation(gate, act) * up, wo_local, axis, mesh)
+
+
 def shard_plan(h: int, kvh: int, t: int, tps: int) -> str | None:
     """The reference's choice for ``attention_sharded``: ``"head"`` when the
     q heads split over the tp ranks (H % tp == 0, and each rank's heads map
@@ -112,20 +199,23 @@ def shard_plan(h: int, kvh: int, t: int, tps: int) -> str | None:
 
 def attention_island(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: int, tps: int,
                      *, plan: str, causal: bool = True, window: int = 0, softcap: float = 0.0,
-                     q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+                     q_offset: int = 0, kv_len: int | None = None,
+                     kv_local: bool = False) -> torch.Tensor:
     """Tp rank ``rank``'s island of :func:`attention_sharded`: a plain local
     attention call, no collective.  ``q_l`` is the rank's piece of q (plan
     ``"head"``: its H / tp heads; ``"seq"``: its T / tp rows), k and v the
-    whole (replicated) tensors.  A head split reads the kv heads its q heads
-    map to (a contiguous slice, no copy); a sequence split offsets the
-    positions by the piece's first row, so it attends at ``q_offset + rank
-    x T / tp`` over every key (the backward at a query offset, Tq < Tk)."""
-    if plan == "head":
+    whole (replicated) tensors, or with ``kv_local`` (plan ``"head"``) the
+    kv heads the rank's q heads map to.  A head split reads the kv heads its
+    q heads map to (a contiguous slice, no copy); a sequence split offsets
+    the positions by the piece's first row, so it attends at ``q_offset +
+    rank x T / tp`` over every key (the backward at a query offset, Tq <
+    Tk)."""
+    if plan == "head" and not kv_local:
         h_local, g = q_l.shape[2], q_l.shape[2] * tps // k.shape[2]
         first = rank * h_local // g
         n_kv = max(1, h_local // g)
         k, v = k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
-    else:
+    elif plan == "seq":
         q_offset = q_offset + rank * q_l.shape[1]
     return attention(q_l, k, v, causal=causal, window=window, softcap=softcap,
                      q_offset=q_offset, kv_len=kv_len)
@@ -133,7 +223,8 @@ def attention_island(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: 
 
 def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,
                       causal: bool = True, window: int = 0, softcap: float = 0.0,
-                      q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+                      q_offset: int = 0, kv_len: int | None = None, q_local: bool = False,
+                      kv_local: bool = False, out_local: bool = False) -> torch.Tensor:
     """Attention split over the tensor-parallel axis ``ctx.tp_axis``: each tp
     rank runs a fully local flash island on its heads (``"head"``) or its
     rows (``"seq"``, context-parallel: k/v whole, positions offset), then
@@ -143,21 +234,42 @@ def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,
     whole (the copy's backward sums the islands' pieces).  The reference's
     ``b % dp`` condition has no counterpart: a rank already holds only its
     dp shard of the batch.  Without a tp axis of size > 1 in the mesh, or
-    with no admissible split, this is :func:`attention`."""
+    with no admissible split, this is :func:`attention`.
+
+    Tensor-parallel callers: ``q_local``, q is already the rank's H / tp
+    heads (plan ``"head"``, a column-parallel product's whole heads), taken
+    as the island's piece with no copy and no narrow; ``kv_local``, so are
+    k and v (the kv heads those map to).  ``out_local``: the result is the
+    rank's block of the output's flattened heads, [B, T, H hd / tp], the
+    rows a row-parallel output projection takes, in place of the whole
+    output: the head island's output as it is, the sequence islands' by an
+    all-to-all, a whole output by :func:`split_to_group`."""
     mesh, tp = ctx.mesh, ctx.tp_axis
     tps = direct.axis_size(tp, mesh) if mesh is not None and tp in mesh.mesh_dim_names else 1
-    plan = shard_plan(q.shape[2], k.shape[2], q.shape[1], tps) if tps > 1 else None
+    h = q.shape[2] * (tps if q_local else 1)
+    kvh = k.shape[2] * (tps if kv_local else 1)
+    plan = shard_plan(h, kvh, q.shape[1], tps) if tps > 1 else None
+    if (q_local or kv_local) and plan != "head":
+        raise ValueError(f"attention_sharded: local heads need the head split, not {plan}")
+    if kv_local and not q_local:
+        raise ValueError("attention_sharded: local k/v heads need local q heads")
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset, kv_len=kv_len)
     if plan is None:
-        return attention(q, k, v, causal=causal, window=window, softcap=softcap,
-                         q_offset=q_offset, kv_len=kv_len)
+        out = attention(q, k, v, **kw)
+        return split_to_group(out.flatten(2), tp, mesh) if out_local and tps > 1 else out
     rank = direct.axis_index(tp, mesh)
-    q, k, v = (copy_to_group(x, tp, mesh) for x in (q, k, v))
     dim = 2 if plan == "head" else 1
-    n = q.shape[dim] // tps
-    q_l = q.narrow(dim, rank * n, n)
-    out = attention_island(q_l, k, v, rank, tps, plan=plan, causal=causal, window=window,
-                           softcap=softcap, q_offset=q_offset, kv_len=kv_len)
-    return direct.allgather_alike(out.contiguous(), tp, dim=dim, mesh=mesh)
+    if not kv_local:
+        k, v = copy_to_group(k, tp, mesh), copy_to_group(v, tp, mesh)
+    if not q_local:
+        n = q.shape[dim] // tps
+        q = copy_to_group(q, tp, mesh).narrow(dim, rank * n, n)
+    out = attention_island(q, k, v, rank, tps, plan=plan, kv_local=kv_local, **kw)
+    if not out_local:
+        return direct.allgather_alike(out.contiguous(), tp, dim=dim, mesh=mesh)
+    if plan == "head":
+        return out.flatten(2)
+    return direct.alltoall(out.flatten(2), tp, split_dim=2, concat_dim=1, mesh=mesh)
 
 
 def remat(cfg, fn, x: torch.Tensor, *args):
@@ -225,11 +337,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """wi: [d, 2*ff] (gate||up fused); wo: [ff, d]."""
+    return gated_down(x @ wi, wo, act)
+
+
+def gated_down(gu: torch.Tensor, wo: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP after its fused product: act(gate) * up of ``gu`` =
+    gate || up [..., 2*ff], times wo [ff, d]."""
     ff = wo.shape[0]
-    gu = x @ wi
-    gate, up = gu[..., :ff], gu[..., ff:]
-    a = F.silu(gate) if act == "silu" else gelu(gate)
-    return (a * up) @ wo
+    return (activation(gu[..., :ff], act) * gu[..., ff:]) @ wo
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> torch.Tensor:
@@ -238,6 +353,30 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> tor
     x = table[tokens]
     if scale:
         x = x.float() * np.float32(np.sqrt(table.shape[-1])).item()
+    return x
+
+
+def _vocab_block(ids: torch.Tensor, n: int, axis, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each id's row in the rank's block of ``n`` vocab rows over ``axis``,
+    0 where the block does not hold it; whether it does)."""
+    local = ids.long() - direct.axis_index(axis, mesh) * n
+    inside = (local >= 0) & (local < n)
+    return torch.where(inside, local, 0), inside
+
+
+def embed_parallel(tokens: torch.Tensor, table_local: torch.Tensor, axis, mesh,
+                   scale: bool = False) -> torch.Tensor:
+    """:func:`embed` from the rank's block of a table whose vocab rows split
+    over ``axis`` (rank r holds rows [r V / P, (r + 1) V / P)): each rank
+    takes the rows its block holds and zeros for the other tokens, in
+    float32 (a bfloat16 row's value is exact there), and the ranks' rows
+    are summed (``direct.allreduce_alike``: one term of each sum is not
+    zero, so the sum is that row)."""
+    local, inside = _vocab_block(tokens, table_local.shape[0], axis, mesh)
+    rows = table_local[local].float()
+    x = direct.allreduce_alike(torch.where(inside[..., None], rows, 0.0), axis, mesh)
+    if scale:
+        x = x * np.float32(np.sqrt(table_local.shape[-1])).item()
     return x
 
 
@@ -276,6 +415,31 @@ def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    per_tok = (lse - ll) + z_coef * lse.square()
+    if mask is None:
+        return per_tok.sum(), labels.numel()
+    return (per_tok * mask).sum(), mask.sum()
+
+
+def vocab_parallel_cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                                       mask: torch.Tensor | None, axis, mesh,
+                                       z_coef: float = 1e-4) -> tuple[torch.Tensor,
+                                                                      torch.Tensor | int]:
+    """:func:`cross_entropy_terms` from the rank's block of the logits, whose
+    vocab columns split over ``axis`` (rank r holds [r V / P, (r + 1) V /
+    P)), in float32: the max over the ranks (``direct.allreduce_max``, held
+    constant: the log-sum-exp's value and gradient do not depend on it), the
+    sum of the exponentials and the label's logit (the rank that holds it;
+    zeros elsewhere) summed over them with ``direct.allreduce_alike``.  The
+    terms are alike on every rank; the gradient of the rank's logits is its
+    columns of the whole one (softmax minus one-hot, the z-loss's factor)."""
+    lf = logits.float()
+    m = direct.allreduce_max(lf.detach().amax(-1), axis, mesh)
+    se = direct.allreduce_alike(torch.exp(lf - m[..., None]).sum(-1), axis, mesh)
+    lse = m + torch.log(se)
+    local, inside = _vocab_block(labels, lf.shape[-1], axis, mesh)
+    ll = torch.take_along_dim(lf, local[..., None], dim=-1)[..., 0]
+    ll = direct.allreduce_alike(torch.where(inside, ll, 0.0), axis, mesh)
     per_tok = (lse - ll) + z_coef * lse.square()
     if mask is None:
         return per_tok.sum(), labels.numel()

@@ -43,10 +43,25 @@ float32 value (``w.float()``, the reference's ``astype(cfg.dtype)`` of a
 bfloat16 leaf), one layer at a time.
 
 Sharded execution (``ctx``, a :class:`DistContext`): every rank runs the
-same program on its own shard, the dp shard of the batch, replicated over
-the tensor-parallel axis.  Attention runs as ``layers.attention_sharded``
-(islands over ``ctx.tp_axis``) and the MoE layers as ``moe._moe_ep`` (an
-all-to-all over ``ctx.ep_axis``); ``api.loss_fn`` averages over the dp axes.
+same program on its own shard, the dp shard of the batch, its activations
+alike over the tensor-parallel axis.  Attention runs as
+``layers.attention_sharded`` (islands over ``ctx.tp_axis``) and the MoE
+layers as ``moe._moe_ep`` (an all-to-all over ``ctx.ep_axis``);
+``api.loss_fn`` averages over the dp axes.  With spec trees on ``ctx``
+(``param_specs``), the products of the leaves the rules put on the tp
+axis run on the rank's block, as the reference's partitioner runs them
+(``sharding.tp_role``): ``wq`` / ``wk`` / ``wv`` / ``wi`` / ``wi_sh``
+column-parallel, ``wo_att`` / ``wo`` / ``wo_sh`` row-parallel, ``embed`` /
+``lm_head`` vocab-parallel.  The q heads stay local where the "head" plan
+takes whole heads (and k / v where their heads split evenly too); every
+other step that needs whole heads (qk-norm and rope on split heads, the
+"seq" plan, decode) all-gathers the columns, and the attention output
+reaches ``wo_att`` as its row block (``attention_sharded(out_local=)``).
+The gated MLP exchanges its gate and up halves once
+(``layers.gated_mlp_parallel``); the training logits stay vocab-split
+(``vocab_split``), serving's are all-gathered.  Leaves the rules keep
+whole (an odd vocabulary, the router, a width tp does not divide) are
+used whole.
 
 Four entry points sharing weights:
 - ``forward``       : full-sequence logits (pre-rounded weights)
@@ -62,6 +77,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.backends import direct
 from repro_torch.dist import sharding
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -206,6 +222,44 @@ def round_matrix_leaves(cfg: ArchConfig, params: dict) -> None:
                 w.copy_(round_to_compute(cfg, w))
 
 
+# the leaves whose products run on the rank's block where the rules split
+# them over ctx.tp_axis (``sharding.tp_role``): column-parallel q / k / v and
+# MLP inputs, row-parallel output projections
+TP_LEAVES = ("wq", "wk", "wv", "wo_att", "wi", "wo", "wi_sh", "wo_sh")
+
+
+def _roles(ctx: DistContext | None, blk: dict) -> dict:
+    """Name -> tensor-parallel role (``sharding.tp_role``) of each leaf of
+    ``TP_LEAVES`` in the layer ``blk`` that the rules split over tp; empty
+    without specs or tp axis."""
+    return {n: role for n in TP_LEAVES
+            if n in blk and (role := sharding.tp_role(ctx, "blocks", n)) is not None}
+
+
+def _heads(x, hd: int, role: str | None, ctx, whole: bool) -> torch.Tensor:
+    """A q / k / v product's output [B, T, n hd] as [B, T, n, hd]: its
+    rank's columns (``role`` "column") all-gathered over tp first where
+    ``whole`` (the next step needs every head)."""
+    if role == "column" and whole:
+        x = direct.allgather_alike(x.contiguous(), ctx.tp_axis, dim=-1, mesh=ctx.mesh)
+    return x.reshape(x.shape[0], x.shape[1], -1, hd)
+
+
+def _mlp(y, wi, wo, act: str, wi_role: str | None, wo_role: str | None, ctx):
+    """The gated MLP on ``wi`` / ``wo`` as the rank holds them: both split
+    (``layers.gated_mlp_parallel``); ``wi``'s columns only, where tp does
+    not divide ff and the rules keep ``wo`` whole: the rank's ``gate || up``
+    columns all-gathered (tp times the exchange's bytes); neither: whole.
+    The rules split ``wi``'s columns wherever they split ``wo``'s rows."""
+    if wi_role != "column":
+        return L.gated_mlp(y, wi, wo, act)
+    tp, mesh = ctx.tp_axis, ctx.mesh
+    if wo_role == "row":
+        return L.gated_mlp_parallel(y, wi, wo, tp, mesh, act)
+    return L.gated_down(direct.allgather_alike(L.column_parallel(y, wi, tp, mesh), tp, dim=-1,
+                                               mesh=mesh), wo, act)
+
+
 def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0,
               master: bool = False, ctx: DistContext | None = None):
     """One transformer layer -> (x, the MoE aux loss or None). cache_l:
@@ -213,20 +267,38 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
     into it in place.  ``master``: the matrix weights are float32 master
     weights, cast to cfg.dtype here; else each is read as its float32 value
     (a no-op for float32 storage).  With spec trees on ``ctx``, ``blk`` and
-    ``cache_l`` are the rank's blocks, gathered here (``sharding.use``)."""
+    ``cache_l`` are the rank's blocks, gathered here (``sharding.use``),
+    but the leaves the rules split over ``ctx.tp_axis``, whose products run
+    on the rank's block (module doc)."""
     b, t, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     read = (lambda w: round_to_compute(cfg, w)) if master else (lambda w: w.float())
-    blk = sharding.use(ctx, blk, "blocks", layer=True)
+    roles = _roles(ctx, blk)
+    blk = sharding.use(ctx, blk, "blocks", layer=True, keep_tp=roles)
     blk = {n: read(w) if n in MATRIX_LEAVES else w for n, w in blk.items()}
+    tp, mesh = (ctx.tp_axis, ctx.mesh) if roles else (None, None)
+    tps = direct.axis_size(tp, mesh) if roles else 1
 
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = (y @ blk["wq"]).view(b, t, h, hd)
-    k = (y @ blk["wk"]).view(b, t, kv, hd)
-    v = (y @ blk["wv"]).view(b, t, kv, hd)
+    # column-parallel q / k / v: one copy of y for the products on blocks
+    yc = L.copy_to_group(y, tp, mesh) if roles.keys() & {"wq", "wk", "wv"} else y
+    q, k, v = ((yc if n in roles else y) @ blk[n] for n in ("wq", "wk", "wv"))
+    # the "head" plan on whole heads takes the rank's q heads as they are, and
+    # its k / v heads where those split evenly too (and no cache is written);
+    # every other step gathers whole heads (qk-norm and rope act on a head)
+    plan = L.shard_plan(h, kv, t, tps) if tps > 1 and t > 1 else None
+    q_local = plan == "head" and roles.get("wq") == "column"
+    kv_local = q_local and roles.get("wk") == "column" and kv % tps == 0 and cache_l is None
+    q = _heads(q, hd, roles.get("wq"), ctx, not q_local)
+    k, v = (_heads(a, hd, roles.get("wk"), ctx, not kv_local) for a in (k, v))
     if cfg.qk_norm:
-        q = L.rms_norm(q, blk["qnorm"], cfg.norm_eps)
-        k = L.rms_norm(k, blk["knorm"], cfg.norm_eps)
+        qn, kn = blk["qnorm"], blk["knorm"]
+        if q_local:  # a replicated scale on the rank's heads: its gradient sums the ranks'
+            qn = L.copy_to_group(qn, tp, mesh)
+        if kv_local:
+            kn = L.copy_to_group(kn, tp, mesh)
+        q = L.rms_norm(q, qn, cfg.norm_eps)
+        k = L.rms_norm(k, kn, cfg.norm_eps)
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
 
@@ -251,17 +323,28 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
 
     att_kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, q_offset=q_off,
                   kv_len=att_kv_len)
+    rows = roles.get("wo_att") == "row"
     if ctx is not None and ctx.mesh is not None and t > 1:
-        att = L.attention_sharded(q, k_att, v_att, ctx, **att_kw)
+        att = L.attention_sharded(q, k_att, v_att, ctx, q_local=q_local, kv_local=kv_local,
+                                  out_local=rows, **att_kw)
     else:
         att = L.attention(q, k_att, v_att, **att_kw)
-    x = x + att.reshape(b, t, h * hd) @ blk["wo_att"]
+        if rows:
+            att = L.split_to_group(att.flatten(2), tp, mesh)
+    if rows:
+        x = x + L.row_parallel(att, blk["wo_att"], tp, mesh)
+    else:
+        x = x + att.reshape(b, t, h * hd) @ blk["wo_att"]
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
     if cfg.family != "moe":
-        return x + L.gated_mlp(y2, blk["wi"], blk["wo"], cfg.act), None
+        return x + _mlp(y2, blk["wi"], blk["wo"], cfg.act, roles.get("wi"), roles.get("wo"),
+                        ctx), None
+    # y2 is alike over tp (the row-parallel sums are), as _moe_ep's gradient
+    # convention over its replicated axes needs
     ff, aux = moe_block(y2, blk["moe"], cfg, ctx)
     if cfg.n_shared_experts:
-        ff = ff + L.gated_mlp(y2, blk["wi_sh"], blk["wo_sh"], cfg.act)
+        ff = ff + _mlp(y2, blk["wi_sh"], blk["wo_sh"], cfg.act, roles.get("wi_sh"),
+                       roles.get("wo_sh"), ctx)
     return x + ff, aux
 
 
@@ -276,20 +359,52 @@ def _layer(params: dict, i: int) -> dict:
     return _index(params["blocks"], i)
 
 
-def _embed_input(cfg: ArchConfig, table, tokens, prefix_embeds) -> torch.Tensor:
-    x = L.embed(tokens, table, scale=True)
+def vocab_split(ctx: DistContext | None, params: dict) -> bool:
+    """Whether the rules split the head's vocab columns over ``ctx.tp_axis``
+    (``lm_head``'s columns, or the tied ``embed``'s rows): the rank's head
+    product then makes its [.., V / tp] block of the logits, which
+    ``forward_train`` returns as it is (the reference's vocab-sharded
+    logits; ``api.loss_fn`` takes them so) and serving all-gathers."""
+    if "lm_head" in params:
+        return sharding.tp_role(ctx, "lm_head") == "column"
+    return sharding.tp_role(ctx, "embed") == "vocab"
+
+
+def _use_vocab(ctx: DistContext | None, params: dict, name: str) -> tuple[torch.Tensor, bool]:
+    """(leaf ``name`` (``embed`` / ``lm_head``) as the rank uses it, whether
+    that is its vocab block): gathered at use, but the vocab dim where the
+    rules split it over tp."""
+    split = sharding.tp_role(ctx, name) in ("vocab", "column")
+    return sharding.use(ctx, params[name], name, keep_tp=(name,) if split else ()), split
+
+
+def _embed_input(cfg: ArchConfig, table, split: bool, tokens, prefix_embeds,
+                 ctx=None) -> torch.Tensor:
+    if split:
+        x = L.embed_parallel(tokens, table, ctx.tp_axis, ctx.mesh, scale=True)
+    else:
+        x = L.embed(tokens, table, scale=True)
     if prefix_embeds is not None:
         x[:, : prefix_embeds.shape[1]] = round_to_compute(cfg, prefix_embeds.float())
     return x
 
 
-def _logits(cfg: ArchConfig, params: dict, x, master: bool = False, ctx=None) -> torch.Tensor:
+def _logits(cfg: ArchConfig, params: dict, x, master: bool = False, ctx=None,
+            gather: bool = True) -> torch.Tensor:
+    """The head's logits; where the rules split the vocab over tp, the
+    rank's block of them, all-gathered over tp if ``gather``."""
     x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
     if "lm_head" in params:
-        head = sharding.use(ctx, params["lm_head"], "lm_head")
+        head, split = _use_vocab(ctx, params, "lm_head")
     else:
-        head = sharding.use(ctx, params["embed"], "embed").T
-    return x @ (round_to_compute(cfg, head) if master else head.float())
+        head, split = _use_vocab(ctx, params, "embed")
+        head = head.T
+    head = round_to_compute(cfg, head) if master else head.float()
+    if not split:
+        return x @ head
+    logits = L.column_parallel(x, head, ctx.tp_axis, ctx.mesh)
+    return direct.allgather_alike(logits, ctx.tp_axis, dim=-1, mesh=ctx.mesh) if gather \
+        else logits
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
@@ -297,7 +412,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """Full-sequence logits [B, T, V] float32 and the MoE aux loss summed
     over the layers (0 for a dense model)."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, sharding.use(ctx, params["embed"], "embed"), tokens, prefix_embeds)
+    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
@@ -312,10 +427,11 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     float32 master weights, with the reference's in-graph casts (module
     doc).  Each leaf of ``params["blocks"]`` is stacked [L, ...] or a list
     of per-layer leaves (the train step's); each layer runs under
-    ``layers.remat``."""
+    ``layers.remat``.  Where ``vocab_split``, the logits are the rank's
+    [B, T, V / tp] block."""
     _check(cfg, tokens.device)
-    table = sharding.use(ctx, params["embed"], "embed").to(_dtype(cfg.dtype))
-    x = _embed_input(cfg, table, tokens, prefix_embeds)
+    table, split = _use_vocab(ctx, params, "embed")
+    x = _embed_input(cfg, table.to(_dtype(cfg.dtype)), split, tokens, prefix_embeds, ctx)
     del table
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -323,7 +439,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x, aux_l = L.remat(cfg, lambda x, blk, window=window: _block_fn(
             cfg, x, blk, window, pos, master=True, ctx=ctx), x, _layer(params, i))
         aux = aux if aux_l is None else aux + aux_l
-    return _logits(cfg, params, x, master=True, ctx=ctx), aux
+    return _logits(cfg, params, x, master=True, ctx=ctx, gather=False), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -342,7 +458,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Run the prompt, filling the cache in place; returns last-position logits."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, sharding.use(ctx, params["embed"], "embed"), tokens, prefix_embeds)
+    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]
@@ -355,7 +471,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     """One decode step: tokens [B, 1] -> logits [B, 1, V]; the cache is
     updated in place and returned with its length + 1."""
     _check(cfg, tokens.device)
-    x = L.embed(tokens, sharding.use(ctx, params["embed"], "embed"), scale=True)
+    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, None, ctx)
     kv_len = int(cache["len"])
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     kv = cache["kv"]

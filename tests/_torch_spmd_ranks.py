@@ -13,7 +13,10 @@ expert-parallel dispatch on a (2, 4) mesh; ``shard`` (world 4) distributes
 the ``shard_trees`` over ``launch.mesh.make_host_mesh``'s (2, 2) mesh with
 ``dist.sharding.shardings_for``'s placements; ``sharded`` (world 4, the same
 mesh) runs one train step, and a prefill with two decode steps, on every
-leaf held whole and again on each leaf's ``local_shard``, gathered at use.
+leaf held whole and again on each leaf's ``local_shard``, gathered at use;
+``tp`` (world 4, the (1, 4) and (2, 2) meshes) holds the tensor-parallel
+products (gradients, serving, the pieces alone, the FLOP count) against
+the whole leaves' run.
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
 
     python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
@@ -492,39 +495,64 @@ def _own(tree, specs, mesh) -> dict:
     return treepath.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, local)
 
 
+def _step_spying(step, params, state, batch):
+    """``step(params, state, batch)``, and the reduced gradients and clip
+    norm its AdamW update was handed."""
+    seen, real = {}, opt.apply_updates
+
+    def spy(p, grads, st, cfg, gnorm=None, ctx=None):
+        seen["grads"], seen["gnorm"] = grads, float(gnorm)
+        return real(p, grads, st, cfg, gnorm=gnorm, ctx=ctx)
+
+    opt.apply_updates = spy
+    try:
+        return step(params, state, batch) + (seen,)
+    finally:
+        opt.apply_updates = real
+
+
 def sharded_steps(inp, out) -> None:
     """The ``sharded`` job: per case of ``inp["sharded"]`` (arch, optimizer
-    state type), one ``make_train_step`` on the rank's dp shard of the batch
-    with every leaf whole (replicated over the mesh), and one on the
-    ``local_shard`` of params and optimizer state under the spec trees
-    (``DistContext.param_specs`` / ``opt_specs``); the MoE over the joint
-    ('data', 'model') ep axis.  Then per case of ``inp["sharded"]["serve"]``
-    a prefill and two decode steps, whole and on sharded params and decode
-    state (``state_specs``)."""
+    state type, config overrides, AdamW eps), one ``make_train_step`` on the
+    rank's dp shard of the batch with every leaf whole (replicated over the
+    mesh), and one on the ``local_shard`` of params and optimizer state
+    under the spec trees (``DistContext.param_specs`` / ``opt_specs``); the
+    MoE over the joint ('data', 'model') ep axis.  Each step's reduced
+    gradients and clip norm are kept beside its result.  Then per case of
+    ``inp["sharded"]["serve"]`` a prefill and two decode steps, whole and on
+    sharded params and decode state (``state_specs``)."""
     mesh = make_host_mesh(model=2)
     data = direct.axis_index("data", mesh)
     res = {}
-    for case, (arch, state_dtype) in inp["sharded"]["cases"].items():
-        cfg = configs.get(arch).reduced()
+    for case, (arch, state_dtype, over, eps) in inp["sharded"]["cases"].items():
+        cfg = configs.get(arch).reduced(**over)
         ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
                           ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe" else None)
-        params = interop.params_from_numpy(cfg, inp["sharded"]["params"][arch], DEV, master=True)
-        ocfg = opt.OptConfig(**inp["opt"], state_dtype=state_dtype)
+        params = interop.params_from_numpy(cfg, inp["sharded"]["params"][case], DEV, master=True)
+        ocfg = opt.OptConfig(**inp["opt"], eps=eps, state_dtype=state_dtype)
         state = opt.init_state(params, ocfg)
         p_specs = sharding.param_specs(cfg, params, mesh)
         o_specs = sharding.param_specs(cfg, state, mesh)
         lp, lo = _own(params, p_specs, mesh), _own(state, o_specs, mesh)
         n = inp["sharded"]["batch"]["tokens"].shape[0] // 2
         batch = {k: t_(v[data * n:(data + 1) * n]) for k, v in inp["sharded"]["batch"].items()}
-        p1, o1, m1 = ts.make_train_step(cfg, ocfg, ctx=ctx)(params, state, batch)
+        p1, o1, m1, s1 = _step_spying(ts.make_train_step(cfg, ocfg, ctx=ctx), params, state,
+                                      batch)
         sctx = dataclasses.replace(ctx, param_specs=p_specs, opt_specs=o_specs)
-        p2, o2, m2 = ts.make_train_step(cfg, ocfg, ctx=sctx)(lp, lo, batch)
+        p2, o2, m2, s2 = _step_spying(ts.make_train_step(cfg, ocfg, ctx=sctx), lp, lo, batch)
+
+        def flat(tree):
+            return {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(tree)}
+
         res[case] = {
             "loss": (float(m1["loss"]), float(m2["loss"])),
-            "want": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
-                {"params": _own(p1, p_specs, mesh), "opt": _own(o1, o_specs, mesh)})},
-            "got": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
-                {"params": p2, "opt": o2})},
+            "gnorm": (s1["gnorm"], s2["gnorm"]),
+            "lr": float(opt.lr_at(torch.ones((), dtype=torch.int32), ocfg)),
+            "grads": (flat(_own(s1["grads"], p_specs, mesh)), flat(s2["grads"])),
+            "bf16": sorted("params/" + treepath.path_str(pa) for pa, t
+                           in treepath.flatten_with_path(p2) if t.dtype == torch.bfloat16),
+            "want": flat({"params": _own(p1, p_specs, mesh), "opt": _own(o1, o_specs, mesh)}),
+            "got": flat({"params": p2, "opt": o2}),
         }
     # serving: per case a prefill and two decode steps
     res["serve"] = {}
@@ -560,6 +588,153 @@ def sharded_steps(inp, out) -> None:
     out["sharded"] = res
 
 
+def _tp_collectives(inp, mesh) -> dict:
+    """The tensor-parallel pieces on ``mesh``'s 'model' axis, each rank on
+    its block of the inputs (``inp["tp"]["unit"]``): values and gradients,
+    each against the same rank's block of the whole computation in the test."""
+    u, r = inp["tp"]["unit"], {}
+    tp, p = "model", direct.axis_size("model", mesh)
+    m, d = direct.axis_index("model", mesh), direct.axis_index("data", mesh)
+
+    def block(a, dim):
+        n = a.shape[dim] // p
+        return t_(np.take(a, range(m * n, (m + 1) * n), axis=dim))
+
+    # the row-parallel sum (g), and a planted all-reduce in its place
+    x, w, cot = t_(u["x"]), t_(u["w"]), t_(u["cot"])
+    for name, fn in (("g", direct.allreduce_alike), ("planted", direct.allreduce)):
+        xl = block(u["x"], -1).requires_grad_()
+        wl = block(u["w"], 0).requires_grad_()
+        y = fn(xl @ wl, tp, mesh)
+        (y * cot).sum().backward()
+        r[name] = {"y": np_(y), "dx": np_(xl.grad), "dw": np_(wl.grad)}
+    # the column-parallel product (f): y alike, w's columns split
+    y0 = x.clone().requires_grad_()
+    wl = block(u["w"], -1).requires_grad_()
+    out = L.column_parallel(y0, wl, tp, mesh)
+    (out * block(u["cot"], -1)).sum().backward()
+    r["f"] = {"out": np_(out), "dy": np_(y0.grad), "dw": np_(wl.grad)}
+    # the split of an alike tensor to the rank's columns (Megatron's scatter)
+    xs = x.clone().requires_grad_()
+    part = L.split_to_group(xs, tp, mesh)
+    (part * block(u["cot"][:, :x.shape[-1]], -1)).sum().backward()
+    r["split"] = {"out": np_(part), "dx": np_(xs.grad)}
+    # the gate / up exchange: the rank's columns of gate and up, and the
+    # gradient of the rank's block of gate || up
+    gu = block(u["gu"], -1).requires_grad_()
+    gate, up = L.gate_up_exchange(gu, tp, mesh)
+    ((gate * block(u["cot_gate"], -1)).sum() + (up * block(u["cot_up"], -1)).sum()).backward()
+    r["exchange"] = {"gate": np_(gate), "up": np_(up), "dgu": np_(gu.grad)}
+    # ppermute's backward along the inverse pairs
+    xp = x.clone().requires_grad_()
+    perm = [(s, s + 1) for s in range(p - 1)]   # the last rank sends nothing
+    (direct.ppermute(xp, tp, perm, mesh) * cot[..., :x.shape[-1]] * (m + 1)).sum().backward()
+    r["ppermute_dx"] = np_(xp.grad)
+    # the vocabulary-parallel embedding and cross-entropy, each dp rank on its rows
+    n = u["tokens"].shape[0] // direct.axis_size("data", mesh)
+    rows = slice(d * n, (d + 1) * n)
+    tokens, labels, mask = (t_(u[k][rows]) for k in ("tokens", "labels", "mask"))
+    table = block(u["table"], 0).requires_grad_()
+    e = L.embed_parallel(tokens, table, tp, mesh, scale=True)
+    (e * t_(u["cot_embed"][rows])).sum().backward()
+    r["embed"] = {"x": np_(e), "dtable": np_(table.grad)}
+    logits = block(u["logits"][rows], -1).requires_grad_()
+    total, count = L.vocab_parallel_cross_entropy_terms(logits, labels, mask, tp, mesh)
+    total.backward()
+    r["ce"] = {"total": float(total), "count": float(count), "dlogits": np_(logits.grad)}
+    return r
+
+
+def _tp_flops(inp, mesh) -> dict:
+    """The rank's FLOPs of one serving forward (``count_step``) per flop
+    case: the whole products and the sharded ones."""
+    from repro_torch.launch import hlo_analysis
+
+    out = {}
+    for case, (arch, over) in inp["tp"]["flops"].items():
+        cfg = configs.get(arch).reduced(**over)
+        params = interop.params_from_numpy(cfg, inp["tp"]["params"][case], DEV)
+        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                          param_specs=sharding.param_specs(cfg, params, mesh))
+        tokens = t_(inp["tp"]["tokens"][case])
+        local = _own(params, ctx.param_specs, mesh)
+        with torch.no_grad():
+            _, st = hlo_analysis.count_step(lambda: api.logits_fn(cfg, local, {"tokens": tokens},
+                                                                  ctx=ctx))
+        out[case] = st.flops
+    return out
+
+
+def tp_steps(inp, out) -> None:
+    """The ``tp`` job: per mesh of ``inp["tp"]["meshes"]`` (model sizes of
+    ``make_host_mesh``) and per case of ``inp["tp"]["cases"]``: the
+    gradients of one microbatch (``train_step``'s, reduced over dp, and the
+    clip's norm) on every leaf whole and on each leaf's ``local_shard``
+    under ``param_specs`` (the tensor-parallel products); a prefill and two
+    decode steps the same two ways; and the tp run's full-sequence logits.
+    Then the tensor-parallel pieces alone and the FLOP count."""
+    res = {}
+    for model in inp["tp"]["meshes"]:
+        mesh = make_host_mesh(model=model)
+        data = direct.axis_index("data", mesh)
+        n_dp = direct.axis_size("data", mesh)
+        r = {}
+        for case, (arch, over) in inp["tp"]["cases"].items():
+            cfg = configs.get(arch).reduced(**over)
+            ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                              ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe"
+                              else None)
+            tree = inp["tp"]["params"][case]
+            master = interop.params_from_numpy(cfg, tree, DEV, master=True)
+            specs = sharding.param_specs(cfg, master, mesh)
+            sctx = dataclasses.replace(ctx, param_specs=specs)
+            batch = inp["tp"]["batch"][case]
+            n = batch["tokens"].shape[0] // n_dp
+            shard = {k: t_(v[data * n:(data + 1) * n]) for k, v in batch.items()}
+            got = {}
+            for name, c, p in (("whole", ctx, master), ("tp", sctx, _own(master, specs, mesh))):
+                loss, _, grads = ts._make_grads_of(cfg, c, 1, torch.float32)(p, shard)
+                gnorm = ts._reduce(grads, ts._shard_axes(cfg, c, p), ("data",), mesh)
+                got[name] = (float(loss), float(gnorm), grads)
+            rc = {"loss": (got["whole"][0], got["tp"][0]), "gnorm": (got["whole"][1],
+                                                                       got["tp"][1]),
+                  "want": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
+                      _own(got["whole"][2], specs, mesh))},
+                  "got": {treepath.path_str(pa): np_(t)
+                          for pa, t in treepath.flatten_with_path(got["tp"][2])}}
+            # serving from the same weights (held as serving holds them)
+            params = interop.params_from_numpy(cfg, tree, DEV)
+            local = _own(params, specs, mesh)
+            with torch.inference_mode():
+                rc["logits"] = np_(api.logits_fn(cfg, local, shard, ctx=sctx)[0])
+                prompt = inp["tp"]["prompt"][case]
+                b, t = prompt.shape
+                m = b // n_dp
+                whole = api.init_decode_state(cfg, b, t + 2, torch.float32, device=DEV)
+                s_specs = sharding.cache_specs(cfg, whole, mesh, b)
+                runs = {"whole": (ctx, params, api.init_decode_state(cfg, m, t + 2, torch.float32,
+                                                                     device=DEV)),
+                        "tp": (dataclasses.replace(sctx, state_specs=s_specs), local,
+                               _own(whole, s_specs, mesh))}
+                steps = {}
+                for name, (c, p, st) in runs.items():
+                    lg, st = api.prefill_fn(cfg, p, {"tokens": t_(prompt[data * m:(data + 1) * m])},
+                                            st, ctx=c)
+                    steps[name] = [np_(lg)]
+                    for i in range(2):
+                        tok = t_(inp["tp"]["decode"][case][i][data * m:(data + 1) * m])
+                        lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
+                        steps[name].append(np_(lg))
+                rc["serve"] = steps
+            r[case] = rc
+        r["unit"] = _tp_collectives(inp, mesh)
+        r["coords"] = {"data": data, "model": direct.axis_index("model", mesh)}
+        if model == 4:
+            r["flops"] = _tp_flops(inp, mesh)
+        res[model] = r
+    out["tp"] = res
+
+
 def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
              device: str) -> None:
     global DEV
@@ -587,6 +762,8 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         shard(out)
     elif job == "sharded":
         sharded_steps(inp, out)
+    elif job == "tp":
+        tp_steps(inp, out)
     else:
         mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
         out["moe"] = moe_ep(inp, rank, out, mesh, "model", "data")

@@ -30,11 +30,27 @@ from repro_torch.kernels.flash_attention import ref as fa_r
 from repro_torch.launch import dryrun, hlo_analysis, shapes
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import moe
+from repro_torch.train.optimizer import OptConfig
 
 TRAIN_TOL = 2e-5
 SERVE_TOL = 1e-4
-CASES = {"dense": ("minicpm-2b", "float32"), "dense_int8": ("minicpm-2b", "int8"),
-         "moe": ("qwen3-moe-235b-a22b", "float32")}
+# the training cases: (arch, optimizer state type, config overrides, AdamW
+# eps).  The sharded step runs the tensor-parallel products, whose partial
+# sums meet in another order than the whole product's.  At the configs' own
+# dtype (bfloat16 products) and AdamW's eps the two steps' gradients agree to
+# bfloat16 rounding; the "_f32" cases (float32 products and storage, eps
+# above float32 rounding) hold the whole step at TRAIN_TOL.
+F32 = {"dtype": "float32", "param_dtype": "float32"}
+# a leaf's reduced gradients at bfloat16: within one bfloat16 ulp (2^-7) of
+# its largest (measured on the CPU: up to 3.9e-3 of it, at qwen3-moe's wo_att)
+GRAD_TOL = 2.0 ** -7
+CLIP = OptConfig(**OPT).grad_clip
+CASES = {"dense": ("minicpm-2b", "float32", {}, 1e-8),
+         "dense_int8": ("minicpm-2b", "int8", {}, 1e-8),
+         "moe": ("qwen3-moe-235b-a22b", "float32", {}, 1e-8),
+         "dense_f32": ("minicpm-2b", "float32", F32, 1e-5),
+         "dense_int8_f32": ("minicpm-2b", "int8", F32, 1e-5),
+         "moe_f32": ("qwen3-moe-235b-a22b", "float32", F32, 1e-5)}
 # serving: the KV cache's kv heads (minicpm-2b), RWKV-6's wkv state (its
 # head dim) and Whisper's self and cross caches are sharded over 'model'
 # (and, with as many layers as the batch has sequences, RWKV-6's state
@@ -62,8 +78,8 @@ def sharded(tmp_path_factory):
         return jax.tree.map(np.asarray, japi.init_params(jconfigs.get(arch).reduced(**over),
                                                          jax.random.PRNGKey(i)))
 
-    params = {arch: init(arch, i) for i, arch in enumerate(
-        ("minicpm-2b", "qwen3-moe-235b-a22b"))}
+    seeds = {"minicpm-2b": 0, "qwen3-moe-235b-a22b": 1}
+    params = {case: init(arch, seeds[arch], **over) for case, (arch, _, over, _) in CASES.items()}
     serve_params = {case: init(arch, i, **over) for i, (case, (arch, over)) in enumerate(
         sorted(SERVE.items()))}
     wcfg = jconfigs.get("whisper-medium").reduced()
@@ -85,6 +101,13 @@ def sharded(tmp_path_factory):
     return [r["sharded"] for r in ranks_.load(tmp, "sharded", 4)]
 
 
+def _first_step(g, gnorm, eps):
+    """AdamW's first normalized step, m^ / (sqrt(v^) + eps) = g c / (|g c| +
+    eps) with c the clip factor, from a run's reduced gradient and norm."""
+    gc = g.astype(np.float64) * min(1.0, CLIP / max(gnorm, 1e-9))
+    return gc / (np.abs(gc) + eps)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_step_equals_replicated(sharded, case):
     """One train step on each rank's ``local_shard`` of params and optimizer
@@ -92,18 +115,46 @@ def test_sharded_step_equals_replicated(sharded, case):
     the step with every leaf whole, on every rank of the (2, 2) mesh; the
     loss is the same.  int8 moments: the quantized blocks within one step
     (a clip factor a rounding apart may move a value across a half), the
-    scales at 2e-5."""
+    scales at 2e-5.
+
+    The "_f32" cases hold the reduced gradients, the clip's norm and every
+    block at 2e-5.  At the configs' own dtype each leaf's reduced gradient
+    is within GRAD_TOL of its largest, and the clip's norm within GRAD_TOL;
+    the moments at 2e-5; a parameter within 2e-5 of the whole step's plus
+    lr times the difference of the two runs' first AdamW steps (each from
+    its own gradient: near zero, g / (|g| + 1e-8) turns a rounding into up
+    to a whole step) plus, for a bfloat16 leaf, one ulp of its storage."""
+    eps, f32 = CASES[case][3], bool(CASES[case][2])
     for rank in sharded:
         r = rank[case]
         assert r["loss"][0] == r["loss"][1]
+        gw, gs = r["grads"]
+        assert gw.keys() == gs.keys()
+        np.testing.assert_allclose(r["gnorm"][1], r["gnorm"][0],
+                                   rtol=TRAIN_TOL if f32 else GRAD_TOL)
+        for k, want in gw.items():
+            got = gs[k]
+            assert got.shape == want.shape, k
+            if f32:
+                np.testing.assert_allclose(got, want, rtol=TRAIN_TOL, atol=TRAIN_TOL, err_msg=k)
+            else:
+                assert np.abs(got - want).max() <= GRAD_TOL * np.abs(want).max(), k
         assert r["want"].keys() == r["got"].keys()
         for k, want in r["want"].items():
             got = r["got"][k]
             assert got.shape == want.shape and got.dtype == want.dtype, k
             if want.dtype == np.int8:
                 assert np.abs(got.astype(np.int32) - want).max() <= 1, k
-            else:
+            elif f32 or not k.startswith("params/"):
                 np.testing.assert_allclose(got, want, rtol=TRAIN_TOL, atol=TRAIN_TOL, err_msg=k)
+            else:
+                leaf = k[len("params/"):]
+                room = r["lr"] * np.abs(_first_step(gs[leaf], r["gnorm"][1], eps)
+                                        - _first_step(gw[leaf], r["gnorm"][0], eps))
+                if k in r["bf16"]:  # float32 spacing x 2^16 is bfloat16's
+                    room += np.spacing(np.maximum(np.abs(got), np.abs(want))) * 2.0 ** 16
+                diff = np.abs(got.astype(np.float64) - want)
+                assert np.all(diff <= TRAIN_TOL * (1 + np.abs(want)) + room), k
 
 
 @pytest.mark.parametrize("case", sorted(SERVE))
