@@ -16,22 +16,28 @@ Phases, one JSON line each:
    of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
    recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
    and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
-1b. dryrun — (run right after phase 1, while the script's own process
-   holds nothing on the card) in a child process (its default process
-   group is a ``fake`` one of 256 ranks), rank (0, 0) of the 16 x 16 production mesh
-   for ``DRYRUN_CELLS`` (minicpm-2b and gemma3-4b ``train_4k``, gemma3-4b
-   ``decode_32k``), its state held as ``local_shard``s and gathered at
-   use, but the blocks its tensor-parallel products take as they are
-   (the projections, MLPs and vocabulary the rules split over 'model'):
-   (a) traced on fake CUDA tensors (``launch.dryrun``), its FLOPs,
-   wire bytes by kind, argument bytes and peak equal to the committed
-   ``experiments/dryrun_torch/`` records (traced on the CPU); (b) the same
-   rank programs run once for real on the card (the fake group's
-   collectives move nothing, so values are not checked): the counted FLOPs
-   must equal (a)'s, ``max_memory_allocated`` must be within
-   ``DRYRUN_PEAK_TOL`` of (a)'s peak and under the card's memory, a
-   second step is timed and its launches join the counts under
-   ``dryrun_rank``; and the training ranks' islands (``DRYRUN_ISLANDS``:
+1b. dryrun — in two child processes (each one's default process group a
+   ``fake`` one of 256 ranks; ``--dryrun-child trace`` and ``run``): (a)
+   begun before phase 1's build (fake tensors: no kernel, nothing on the
+   card) and (b) right after it, while the script's own process holds
+   nothing on the card; both are waited for before phase 2, so that no
+   busy host process runs beside the timed phases.  Rank (0, 0) of the
+   16 x 16 production mesh
+   for ``DRYRUN_CELLS`` (minicpm-2b, gemma3-4b and recurrentgemma-9b
+   ``train_4k``, gemma3-4b ``decode_32k``, rwkv6-7b ``prefill_32k``,
+   whisper-medium ``train_4k``), its state held as ``local_shard``s and
+   gathered at use, but the blocks its tensor-parallel products take as
+   they are (the projections, MLPs, recurrences, heads and vocabulary the
+   rules split over 'model'): (a) the first four traced on fake CUDA
+   tensors (``launch.dryrun``), their FLOPs, wire bytes by kind, argument
+   bytes and peak equal to the committed ``experiments/dryrun_torch/``
+   records (traced on the CPU); (b) every cell's rank program run once for
+   real on the card (the fake group's collectives move nothing, so values
+   are not checked): its FLOPs (``FlopCounterMode``) must equal the
+   record's, ``max_memory_allocated`` must be within ``DRYRUN_PEAK_TOL`` of
+   the record's peak and under the card's memory, a second step is timed
+   and its launches join the counts under ``dryrun_rank``; and the
+   training ranks' islands (``DRYRUN_ISLANDS``:
    q [4, 256, H, hd] over k/v [4, 4096, KV, hd] float32; minicpm-2b's at
    q_offset 0 through ``flash_wgmma_split`` and ``bwd_wgmma``, gemma3-4b's
    at 0 and 3840, and at 3840 on a sliding-window layer, through
@@ -172,7 +178,11 @@ Phases, one JSON line each:
    [4, 1500, 16, 64], non-causal, a ragged 1500: ``flash_wgmma`` and
    ``bwd_wgmma``), its cross-attention (q [4, 448, 16, 64] over bf16 k/v [4,
    1500, 16, 64]) and its decoder's self-attention (float32, causal, [4,
-   448, 16, 64]: ``flash_wgmma_split``).  bf16 k/v enter ``bwd_wide`` as
+   448, 16, 64]: ``flash_wgmma_split``).  6c (run last, after phase 11,
+   so that the end-to-end phases run as before it): the same at a
+   tensor-parallel training rank's shapes (``TP_RANK_SHAPES``: one q head a
+   rank at tp 16, 4 sequences), each backward's plan (head subsets, k/v
+   parts) held to the one the cell names.  bf16 k/v enter ``bwd_wide`` as
    they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
    float32 values, and dk, dv come back rounded to bfloat16: held at
    ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
@@ -479,16 +489,36 @@ FAMILY_TRAIN_CHECK_B, FAMILY_TRAIN_CHECK_T = 2, 64
 # (absolute, and relative to the weight): float32 rounding only
 FAMILY_UPDATE_TOL = 1e-6
 # the families' training attention shapes (bf16 k/v but Whisper's decoder):
-# (cell, q, k/v, kv dtype, mask, the family run whose path launches it)
+# (cell, q, k/v, kv dtype, mask, the path that launches it, whether q holds
+# bf16 values, the backward's plan (head subsets, k/v parts) the cell must
+# take or None)
 FAMILY_TRAIN_SHAPES = (
     ("griffin_local_train", (1, 4096, 16, 256), (1, 4096, 1, 256), "bfloat16",
-     dict(causal=True, window=2048), "recurrentgemma"),
+     dict(causal=True, window=2048), "families_train/recurrentgemma", False, None),
     ("whisper_encoder_train", (4, 1500, 16, 64), (4, 1500, 16, 64), "bfloat16",
-     dict(causal=False, window=0), "whisper"),
+     dict(causal=False, window=0), "families_train/whisper", True, None),
     ("whisper_cross_train", (4, 448, 16, 64), (4, 1500, 16, 64), "bfloat16",
-     dict(causal=False, window=0), "whisper"),
+     dict(causal=False, window=0), "families_train/whisper", False, None),
     ("whisper_self_train", (4, 448, 16, 64), (4, 448, 16, 64), "float32",
-     dict(causal=True, window=0), "whisper"),
+     dict(causal=True, window=0), "families_train/whisper", False, None),
+)
+# the same for a training rank of the 16 x 16 mesh whose tensor-parallel
+# products leave it one q head (tp 16), a microbatch of 4 sequences: the
+# recurrentgemma-9b train_4k rank's local MQA (its q the float32 value of
+# bf16, over the whole bf16 kv head: flash_wgmma, and bwd_wide with neither
+# head subsets, a group of one, nor the dS path, its dQ grid of 256 blocks
+# filling a wave: bf16 k/v as they are), and whisper-medium train_4k's
+# encoder, decoder self- and cross-attention (bwd_wgmma), as the dryrun
+# phase's recurrentgemma-9b and whisper-medium ranks run them
+TP_RANK_SHAPES = (
+    ("griffin_rank_train", (4, 4096, 1, 256), (4, 4096, 1, 256), "bfloat16",
+     dict(causal=True, window=2048), "dryrun_rank", True, (1, 1)),
+    ("whisper_rank_encoder", (4, 1500, 1, 64), (4, 1500, 1, 64), "bfloat16",
+     dict(causal=False, window=0), "dryrun_rank", True, (1, 3)),
+    ("whisper_rank_self", (4, 4096, 1, 64), (4, 4096, 1, 64), "float32",
+     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+    ("whisper_rank_cross", (4, 4096, 1, 64), (4, 1500, 1, 64), "bfloat16",
+     dict(causal=False, window=0), "dryrun_rank", False, (1, 3)),
 )
 # dk and dv of bf16 k/v come back rounded to bfloat16: BWD_TOL of their
 # float32 values plus one rounding (half an ulp is 2^-9 of the value)
@@ -526,11 +556,14 @@ BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb
                       "ILb1ELb0ELb0ELb1E")
 # every path runs at its full size and depth but these
 # the dryrun phase: one rank, (0, 0), of the 16 x 16 production mesh under a
-# fake process group, each cell traced on fake CUDA tensors (held against
-# experiments/dryrun_torch/, traced on the CPU) and run once for real; the
-# real run's peak must be within DRYRUN_PEAK_TOL of the estimate
-DRYRUN_CELLS = (("minicpm-2b", "train_4k"), ("gemma3-4b", "train_4k"),
-                ("gemma3-4b", "decode_32k"))
+# fake process group, each cell (arch, shape, whether it is also traced on
+# fake CUDA tensors and held against its experiments/dryrun_torch/ record,
+# traced on the CPU; rwkv6-7b prefill_32k's trace alone took 206 s there)
+# run once for real; the real run's FLOPs must equal the record's and its
+# peak be within DRYRUN_PEAK_TOL of the record's estimate
+DRYRUN_CELLS = (("minicpm-2b", "train_4k", True), ("gemma3-4b", "train_4k", True),
+                ("gemma3-4b", "decode_32k", True), ("recurrentgemma-9b", "train_4k", True),
+                ("rwkv6-7b", "prefill_32k", False), ("whisper-medium", "train_4k", False))
 # the rank-(0, 0) training islands held against the plain versions: (arch,
 # q_offset, on a sliding-window layer) with the designs the path runs (the
 # hd-256 islands: flash_tiled and bwd_wide, each split where
@@ -943,16 +976,18 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
     }
 
 
-def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
-    """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b):
-    the forward with lse (``flash_wgmma`` on bf16 k/v, ``flash_wgmma_split``
-    on Whisper's float32 decoder) and the backward (``bwd_wide`` at hd 256,
-    bf16 k/v as they are; ``bwd_wgmma`` at 64, their float32 values) against
-    the plain versions from the same o and lse; each timed with its bound
-    (the products its operands need) and the design's, the plain version
-    and SDPA (autograd for the backward); the backward also with its plan
-    (head subsets, k/v parts) and its device ms by pass.  One row per
-    kernel and shape, named ``<kernel>/<design>@<cell>``."""
+def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES) -> dict:
+    """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b;
+    ``TP_RANK_SHAPES``, a tensor-parallel rank's): the forward with lse
+    (``flash_wgmma`` on bf16 k/v, ``flash_wgmma_split`` on Whisper's float32
+    decoder) and the backward (``bwd_wide`` at hd 256, bf16 k/v as they are;
+    ``bwd_wgmma`` at 64, their float32 values) against the plain versions
+    from the same o and lse; each timed with its bound (the products its
+    operands need) and the design's, the plain version and SDPA (autograd
+    for the backward); the backward also with its plan (head subsets, k/v
+    parts; the cell's own where it names one, else the run fails) and its
+    device ms by pass.  One row per kernel and shape, named
+    ``<kernel>/<design>@<cell>``."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -961,10 +996,10 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for cell, q_shape, kv_shape, kv_dtype, mask_kw, run in FAMILY_TRAIN_SHAPES:
+    for cell, q_shape, kv_shape, kv_dtype, mask_kw, path, q_bf16, want_plan in shapes:
         kvt = getattr(torch, kv_dtype)
         q, do = randn(q_shape), randn(q_shape)
-        if cell == "whisper_encoder_train":   # the float32 values of bf16 q
+        if q_bf16:   # the float32 values of bf16 q
             q = q.to(torch.bfloat16).float()
         k, v = randn(kv_shape, kvt), randn(kv_shape, kvt)
         kw = dict(softcap=0.0, q_offset=0, **mask_kw)
@@ -1004,7 +1039,7 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
         run_ms, _ = bound(nbytes, ops, "bf16_tensor", FLASH_SPLIT[fdesign])
         ms = timer.ms(lambda: fa_k.flash_attention_lse(q, k, v, **kw))
         base = {"q": list(q_shape), "kv": list(kv_shape), "kv_dtype": kv_dtype,
-                **kw, "path": f"families_train/{run}"}
+                **kw, "path": path}
         rows[f"flash_attention/{fdesign}@{cell}"] = {
             **base, "design": fdesign, "max_abs_err": ferr, "ms": ms,
             "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **kw)),
@@ -1023,6 +1058,9 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r) -> dict:
                              causal=kw["causal"], window=kw["window"], q_offset=0,
                              sms=torch.cuda.get_device_properties(dev).multi_processor_count,
                              kv_bf16=kvt == torch.bfloat16)
+        if want_plan is not None and (plan.head_splits, plan.kv_parts) != want_plan:
+            fail(f"{cell}: the backward's plan takes {plan.head_splits} head subsets and "
+                 f"{plan.kv_parts} k/v parts, want {want_plan}")
         products = fa_k.bwd_products(plan.kv_parts)
         run_split = sum(products.values()) / len(products)
         run_ms, _ = bound(nbytes, 10 * hd * pairs, "bf16_tensor", run_split)
@@ -2798,19 +2836,62 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
     return {"checks": checks, "rows": rows, "dp": dp, "moe": moe_row}
 
 
-def dryrun_child(seed: int) -> int:
-    """The dryrun phase's child process (the fake process group must be its
-    default group).  (a) Each of ``DRYRUN_CELLS`` traced at rank (0, 0) on
-    fake CUDA tensors: its FLOPs, wire bytes by kind, argument bytes and
-    peak must equal the committed record (a fake's device changes no
-    shape).  (b) The same rank programs run for real on the card under the
-    fake group (its collectives move nothing, so values are not checked):
-    one counted step (FLOPs must equal (a)'s; ``max_memory_allocated``
-    within ``DRYRUN_PEAK_TOL`` of the estimate and under the card's memory), then one step timed and its kernel launches
-    counted.  Also the training ranks' attention islands
-    (``DRYRUN_ISLANDS``) held against their plain versions.  Prints one
+def _dryrun_figures(rec: dict) -> dict:
+    """The figures of a dry-run record that a trace must reproduce."""
+    return {"flops": rec["cost_analysis"]["flops"],
+            "wire_by_kind": rec["collectives"]["by_kind"],
+            "argument_size_bytes": rec["memory_analysis"]["argument_size_bytes"],
+            "peak_bytes_per_device": rec["memory_analysis"]["peak_bytes_per_device"]}
+
+
+def dryrun_trace_child() -> int:
+    """The dryrun phase's part (a), a child process of its own (the fake
+    process group must be its default group; fake tensors: no memory on the
+    card), which runs beside phase 1's build and part (b): the cells of
+    ``DRYRUN_CELLS`` so marked traced at rank (0, 0) on fake CUDA tensors,
+    each one's FLOPs, wire bytes by kind, argument bytes and peak equal to
+    the committed record (a fake's device changes no shape).  Prints one
     JSON line."""
     import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    # the flags the card's products run under (layers.check_products refuses
+    # Griffin's and Whisper's bf16 products without the second, fakes too)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for arch, shape, on_card in DRYRUN_CELLS:
+        if not on_card:
+            continue
+        want = _dryrun_figures(json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json")
+                                          .read_text()))
+        rec = dryrun.run_cell(arch, shape, coords=DRYRUN_COORDS, device="cuda", save=False)
+        got = _dryrun_figures(rec)
+        if got != want:
+            fail(f"dryrun (a) {arch} {shape}: the fake-CUDA trace {got} != the record {want}")
+        out[f"{arch}/{shape}"] = {**got, "trace_s": rec["trace_s"]}
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def dryrun_child(seed: int) -> int:
+    """The dryrun phase's part (b), a child process (the fake process group
+    must be its default group): every cell of ``DRYRUN_CELLS``'s rank
+    program at (0, 0) run for real on the card under the fake group (its
+    collectives move nothing, so values are not checked): one step counted
+    (``FlopCounterMode`` alone: its FLOPs must equal the committed record's;
+    ``max_memory_allocated`` within ``DRYRUN_PEAK_TOL`` of the record's
+    estimate and under the card's memory), then one step timed and its
+    kernel launches counted.  Also the training ranks' attention islands
+    (``DRYRUN_ISLANDS``) held against their plain versions.  Prints one JSON
+    line."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import configs
@@ -2822,28 +2903,17 @@ def dryrun_child(seed: int) -> int:
     from repro_torch.launch.mesh import make_production_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the reference's bf16 products sum in float32: Griffin's and Whisper's
+    # ranks refuse to run on the card without it (layers.check_products)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     mesh = make_production_mesh()
     out: dict = {"cells": {}}
-    for arch, shape in DRYRUN_CELLS:
-        rec = dryrun.run_cell(arch, shape, coords=DRYRUN_COORDS, device="cuda", save=False)
-        art = json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json").read_text())
-        got = {"flops": rec["cost_analysis"]["flops"],
-               "wire_by_kind": rec["collectives"]["by_kind"],
-               "argument_size_bytes": rec["memory_analysis"]["argument_size_bytes"],
-               "peak_bytes_per_device": rec["memory_analysis"]["peak_bytes_per_device"]}
-        want = {"flops": art["cost_analysis"]["flops"],
-                "wire_by_kind": art["collectives"]["by_kind"],
-                "argument_size_bytes": art["memory_analysis"]["argument_size_bytes"],
-                "peak_bytes_per_device": art["memory_analysis"]["peak_bytes_per_device"]}
-        if got != want:
-            fail(f"dryrun (a) {arch} {shape}: the fake-CUDA trace {got} != the record {want}")
-        out["cells"][f"{arch}/{shape}"] = {"a": {**got, "trace_s": rec["trace_s"]}}
     mesh_dev = dryrun.fake_mesh(mesh, DRYRUN_COORDS, "cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     launches: dict[str, int] = {}
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, _ in DRYRUN_CELLS:
         cfg, cell = configs.get(arch), shapes.SHAPES[shape]
         rc = dryrun.rank_cell(cfg, cell, mesh, DRYRUN_COORDS)
 
@@ -2857,20 +2927,28 @@ def dryrun_child(seed: int) -> int:
                 return torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)  # caches, int8
             return (torch.randn(tuple(t.shape), generator=gen, device=dev) * 0.02).to(t.dtype)
 
+        est = _dryrun_figures(json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json")
+                                         .read_text()))
+        out["cells"][f"{arch}/{shape}"] = {"record": est}
         torch.cuda.empty_cache()
         args = dryrun.materialize(rc, make)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()  # the arguments held, none of their making
-        # the step's result holds the rank's parameters and optimizer state:
-        # dropped here, so that they do not outlive the cell's arguments
-        stats = dryrun.count_rank(cfg, rc, mesh_dev, args)[1]
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        est = out["cells"][f"{arch}/{shape}"]["a"]
-        if stats.flops != est["flops"]:
-            fail(f"dryrun (b) {arch} {shape}: the card's step counted {stats.flops} FLOPs, "
-                 f"the estimate {est['flops']}")
         step = dryrun.rank_step(cfg, rc, mesh_dev, args)
+        # the step's result holds the rank's parameters and optimizer state:
+        # not kept, so that they do not outlive the cell's arguments
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as flop_mode, \
+                torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
+            step()
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        flops = float(flop_mode.get_total_flops())
+        del flop_mode
+        peak = torch.cuda.max_memory_allocated()
+        if flops != est["flops"]:
+            fail(f"dryrun (b) {arch} {shape}: the card's step counted {flops} FLOPs, "
+                 f"the estimate {est['flops']}")
         reset_counters(hp_k, jp_k, sr_k, fa_k)
         t0 = time.perf_counter()
         with torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
@@ -2881,8 +2959,8 @@ def dryrun_child(seed: int) -> int:
         for name, c in got.items():
             launches[name] = launches.get(name, 0) + c
         out["cells"][f"{arch}/{shape}"]["b"] = {
-            "flops": stats.flops, "flops_equal": True, "step_s": wall,
-            "counted_step_s": stats.seconds, "max_memory_allocated": peak,
+            "flops": flops, "flops_equal": True, "step_s": wall,
+            "counted_step_s": counted_s, "max_memory_allocated": peak,
             "estimate_peak": est["peak_bytes_per_device"],
             "peak_over_estimate": peak / est["peak_bytes_per_device"],
             "within_tol": abs(peak / est["peak_bytes_per_device"] - 1) <= DRYRUN_PEAK_TOL,
@@ -2971,6 +3049,34 @@ def dryrun_child(seed: int) -> int:
     return 0
 
 
+def dryrun_trace_start(tmp: Path) -> tuple:
+    """Start ``dryrun_trace_child``, its output to files under ``tmp``:
+    (the process, the files, the start time)."""
+    files = tuple(open(tmp / f"dryrun_trace.{n}", "w+") for n in ("out", "err"))
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
+                             "trace"], stdout=files[0], stderr=files[1], text=True)
+    return proc, files, time.perf_counter()
+
+
+def dryrun_trace_finish(started: tuple) -> dict:
+    """Wait for the child of ``dryrun_trace_start`` (at most
+    ``DRYRUN_TIMEOUT_S`` from its start, killed past it) and read its line."""
+    proc, files, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"the dryrun trace child ran past {DRYRUN_TIMEOUT_S} s")
+    out, err = (f.seek(0) or f.read() for f in files)
+    for f in files:
+        f.close()
+    if proc.returncode != 0:
+        fail(f"the dryrun trace child failed ({proc.returncode}):\n{out[-3000:]}\n{err[-5000:]}")
+    return {"cells": json.loads(out.strip().splitlines()[-1]),
+            "wall_s": time.perf_counter() - t0}
+
+
 def dryrun_phase(torch, seed: int, launches: dict) -> dict:
     """Run ``dryrun_child`` in a child process; its kernel launches join the
     launch counts under the path ``dryrun_rank``."""
@@ -2978,7 +3084,7 @@ def dryrun_phase(torch, seed: int, launches: dict) -> dict:
     parent_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
-                           "--seed", str(seed)], capture_output=True, text=True,
+                           "run", "--seed", str(seed)], capture_output=True, text=True,
                           timeout=DRYRUN_TIMEOUT_S)
     if proc.returncode != 0:
         fail(f"the dryrun child failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
@@ -2999,7 +3105,7 @@ def _ptxas(pattern: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dryrun-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", choices=("trace", "run"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -3008,7 +3114,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    if args.dryrun_child:
+    if args.dryrun_child == "trace":
+        return dryrun_trace_child()
+    if args.dryrun_child == "run":
         return dryrun_child(args.seed)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import make_communicator
@@ -3026,6 +3134,13 @@ def main() -> int:
     # -- 1. device + build ----------------------------------------------------
     smi = smi_line()
     print(smi, flush=True)
+    # phase 1b (a), the dryrun traces on fake tensors (no kernel, nothing on
+    # the card), in a child of its own from here to the end of phase 1b
+    import tempfile
+
+    trace_tmp = tempfile.TemporaryDirectory()
+    tracing = dryrun_trace_start(Path(trace_tmp.name))
+    atexit.register(lambda: tracing[0].poll() is None and tracing[0].kill())
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -3048,9 +3163,13 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {}
 
     # -- 1b. dryrun: one rank of the 16 x 16 mesh, traced and run for real ----------
-    # first, while this process holds nothing on the card: the child's rank
-    # programs need up to ~53 GB
-    emit({"phase": "dryrun", **dryrun_phase(torch, args.seed, launches)})
+    # (b) first, while this process holds nothing on the card (the child's
+    # rank programs need up to ~53 GB); then (a)'s child is waited for, so
+    # that no busy host process runs beside the timed phases
+    dryrun_run = dryrun_phase(torch, args.seed, launches)
+    emit({"phase": "dryrun", "part": "run", **dryrun_run})
+    emit({"phase": "dryrun", "part": "trace", **dryrun_trace_finish(tracing)})
+    trace_tmp.cleanup()
 
     timer = Timer(torch)
     kernels: dict[str, dict] = {}
@@ -3823,6 +3942,13 @@ def main() -> int:
     spmd_tmp.cleanup()
     torch.cuda.empty_cache()
 
+    # -- 12. kernel (6c): a tensor-parallel training rank's attention, one q head
+    # a rank; after the timed end-to-end phases, which run as they ran before
+    # it (its profiler sessions come after theirs)
+    tp_rows = family_train_rows(torch, gen, Timer(torch), fa_k, fa_r, TP_RANK_SHAPES)
+    emit({"phase": "kernel", "part": "dryrun_rank", "rows": tp_rows})
+    torch.cuda.empty_cache()
+
     # the summary: one row per kernel, and for flash attention one per design
     # the main path runs, each at its main-path shape, then the spmd phase's
     # shapes (flash_tiled and bwd_wide run only there)
@@ -3835,7 +3961,7 @@ def main() -> int:
     summary["flash_attention_bwd/bwd_wgmma"] = {**bwd, "name": "flash_attention_bwd/bwd_wgmma"}
     # the spmd phase's and the families' training shapes, each counted on its
     # own path
-    for name, row in {**spmd["rows"], **train_rows}.items():
+    for name, row in {**spmd["rows"], **train_rows, **tp_rows}.items():
         base = name.split("@")[0]
         src = bwd if base.startswith("flash_attention_bwd") else fa
         summary[name] = {**{k: src[k] for k in ("route", "source", "replaces")}, **row,
@@ -3848,13 +3974,19 @@ def main() -> int:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     # the head split and bf16 k/v as they are: recurrentgemma's training
-    # backwards (one attention layer a step), no other path (serve, train,
-    # spmd: the gemma3 islands and full layers keep the whole group)
-    for counter in ("head_split/bwd_wide", "bf16_kv/bwd_wide"):
+    # backwards (one attention layer a step), and bf16 k/v also on the
+    # recurrentgemma-9b dryrun rank (its groups of one head split nothing);
+    # no other path (serve, train, spmd: the gemma3 islands and full layers
+    # keep the whole group)
+    rank_bwd = sum(c["b"]["launches"].get("flash_attention_bwd/bwd_wide", 0)
+                   for name, c in dryrun_run["cells"].items()
+                   if name.startswith("recurrentgemma-9b/"))
+    for counter, want in (("head_split/bwd_wide", {}),
+                          ("bf16_kv/bwd_wide", {"dryrun_rank": rank_bwd} if rank_bwd else {})):
+        want = {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS, **want}
         by_path = {run: n for run, n in launches.get(counter, {}).items() if n}
-        if by_path != {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS}:
-            fail(f"{counter} ran on {by_path}, want families_train/recurrentgemma only "
-                 f"({FAMILY_TRAIN_STEPS})")
+        if by_path != want:
+            fail(f"{counter} ran on {by_path}, want {want}")
     emit({"phase": "launches", **launches})
 
     keys_out = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -42,7 +42,10 @@ dim stay local, because the rank's own computation splits them along the
 same axes: the batch dim of a decode state over the dp axes, the expert dim
 of the MoE stacks over ``ctx.ep_axis`` (what ``moe._moe_ep`` consumes), and
 the tp dim of the leaves a caller runs tensor-parallel products on
-(``use(..., keep_tp=)``, each leaf's role from its spec: :func:`tp_role`).  A
+(``use(..., keep_tp=)``, each leaf's role from its spec: :func:`tp_role`;
+a layer's whole set of them: :func:`tp_roles`), and of a decode state's
+head dim that such products make and read as the rank's heads
+(``use_state(..., keep_tp=True)``, Whisper's caches).  A
 gather over dp axes (ZeRO) has the ``reduce_scatter`` of the ranks'
 cotangents as its backward (``direct.allgather``); one over other axes,
 whose activations are replicated, keeps the rank's own piece
@@ -489,13 +492,47 @@ def tp_role(ctx, *path) -> str | None:
     return None
 
 
+def vocab_split(ctx, params: dict) -> bool:
+    """Whether the rules split the output head's vocab columns over
+    ``ctx.tp_axis`` (``lm_head``'s columns, or a tied ``embed``'s rows): the
+    rank's head product then makes its [.., V / tp] block of the logits,
+    which a training forward returns as it is (the reference's
+    vocab-sharded logits; ``api.loss_fn`` takes them so) and serving
+    all-gathers."""
+    if "lm_head" in params:
+        return tp_role(ctx, "lm_head") == "column"
+    return tp_role(ctx, "embed") == "vocab"
+
+
+def use_vocab(ctx, params: dict, name: str) -> tuple[torch.Tensor, bool]:
+    """(leaf ``name`` (``embed`` / ``lm_head``) as the rank uses it, whether
+    that is its vocab block): gathered at use, but the vocab dim where the
+    rules split it over tp."""
+    split = tp_role(ctx, name) in ("vocab", "column")
+    return use(ctx, params[name], name, keep_tp=(name,) if split else ()), split
+
+
+def tp_roles(ctx, expect: dict, *path) -> dict:
+    """``expect`` (leaf name -> the :func:`tp_role` a layer's
+    tensor-parallel products need it to have) where ``ctx.param_specs``
+    gives every leaf named there under ``path`` that role, else {}: the
+    layer then runs on every leaf whole, as it does without specs."""
+    got = {n: tp_role(ctx, *path, n) for n in expect}
+    return dict(expect) if got == expect else {}
+
+
 def _state_entries(ctx, x: torch.Tensor, path: tuple, layer: bool):
     specs = getattr(ctx, "state_specs", None) if ctx is not None else None
     return None if specs is None else _entries(_specs_at(specs, path), x.dim(), layer)
 
 
-def use_state(ctx, local: torch.Tensor, *path, batch_dim: int, layer: bool = False
-              ) -> torch.Tensor:
+def _tp_dims(ctx, entries: tuple, keep_tp: bool) -> set:
+    """The dims whose entry is ``ctx.tp_axis`` alone, where ``keep_tp``."""
+    return {d for d, e in enumerate(entries) if axes_of(e) == (ctx.tp_axis,)} if keep_tp else set()
+
+
+def use_state(ctx, local: torch.Tensor, *path, batch_dim: int, layer: bool = False,
+              keep_tp: bool = False) -> torch.Tensor:
     """A rank's block ``local`` of the decode-state leaf at ``path`` (one
     layer's view with ``layer``), as the rank computes on it: the rank's
     rows along ``batch_dim`` (its dp shard where the batch divides the dp
@@ -503,24 +540,28 @@ def use_state(ctx, local: torch.Tensor, *path, batch_dim: int, layer: bool = Fal
     other dim whole.  A batch dim sharded over the dp axes stays local,
     every other sharded dim is gathered, and where the rules put the dp
     axes on another dim (a layer dim of the global batch's size) the
-    gathered leaf is cut to the rank's rows.  ``local`` itself where
-    nothing is sharded."""
+    gathered leaf is cut to the rank's rows.  ``keep_tp``: a dim over
+    ``ctx.tp_axis`` alone stays local too (a cache's heads, which the
+    caller's tensor-parallel products make and read as the rank's block).
+    ``local`` itself where nothing is sharded."""
     entries = _state_entries(ctx, local, path, layer)
     if entries is None:
         return local
     dp = tuple(ctx.dp_axes)
     batch_local = axes_of(entries[batch_dim]) == dp
-    x = _gather(local, entries, ctx, {batch_dim} if batch_local else ())
+    keep = _tp_dims(ctx, entries, keep_tp) | ({batch_dim} if batch_local else set())
+    x = _gather(local, entries, ctx, keep)
     if batch_local or not dp or local.shape[batch_dim] % direct.axis_size(dp, ctx.mesh):
         return x
     return _block(x, batch_dim, dp, ctx)
 
 
 def own_state(ctx, full: torch.Tensor, like: torch.Tensor, *path, batch_dim: int,
-              layer: bool = False) -> torch.Tensor:
+              layer: bool = False, keep_tp: bool = False) -> torch.Tensor:
     """``use_state``'s inverse: the block of ``full`` (the rank's rows,
-    every other dim whole) that replaces ``like``, the rank's block of the
-    leaf at ``path``, as ``local_shard`` cuts it."""
+    every other dim whole, but a dim over ``ctx.tp_axis`` alone already the
+    rank's block with ``keep_tp``) that replaces ``like``, the rank's block
+    of the leaf at ``path``, as ``local_shard`` cuts it."""
     entries = _state_entries(ctx, full, path, layer)
     if entries is None:
         return full
@@ -528,8 +569,9 @@ def own_state(ctx, full: torch.Tensor, like: torch.Tensor, *path, batch_dim: int
     batch_local = axes_of(entries[batch_dim]) == dp
     if not batch_local and full.shape[batch_dim] != like.shape[batch_dim]:
         full = direct.allgather(full, dp, dim=batch_dim, mesh=ctx.mesh)  # every rank's rows
+    kept = _tp_dims(ctx, entries, keep_tp)
     for dim, entry in enumerate(entries):
-        if axes_of(entry) and not (batch_local and dim == batch_dim):
+        if axes_of(entry) and not (batch_local and dim == batch_dim) and dim not in kept:
             full = _block(full, dim, axes_of(entry), ctx)
     return full
 

@@ -26,6 +26,7 @@ import torch.distributed.nn.functional as dist_nn
 
 from repro_torch.core.backends import direct
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.kernels.flash_attention import kernel as fa_k
 from repro_torch.models import encdec, griffin, rwkv, transformer
 from repro_torch.models import layers as L
@@ -129,18 +130,21 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, ctx=None):
     (``torch.distributed.nn``: the backward sums the ranks' gradients too),
     so each rank's parameter gradients are dp times its share, and their
     mean over the dp axes (``train_step``) is the global gradient.  Where
-    the transformer's logits are the rank's vocab block
-    (``transformer.vocab_split``), the terms are the vocabulary-parallel
-    ones (``layers.vocab_parallel_cross_entropy_terms``), alike over tp."""
-    split = False
-    if _module(cfg) is transformer:
+    the logits are the rank's vocab block (``sharding.vocab_split``: the
+    heads but Whisper's, where the rules split them), the terms are the
+    vocabulary-parallel ones
+    (``layers.vocab_parallel_cross_entropy_terms``), alike over tp."""
+    module = _module(cfg)
+    if module is transformer:
         logits, aux = transformer.forward_train(cfg, params, batch["tokens"],
                                                 prefix_embeds=batch.get("patches"), ctx=ctx)
-        split = transformer.vocab_split(ctx, params)
-    else:  # the other families' forwards take master weights as they are
-        logits, aux = logits_fn(cfg, params, batch, ctx=ctx)
+    elif module is encdec:  # the other families' forwards take master weights as they are
+        logits, aux = encdec.forward(cfg, params, batch["tokens"], batch["frames"], ctx=ctx)
+    else:
+        logits, aux, _ = module.forward(cfg, params, batch["tokens"], ctx=ctx, gather=False)
     args = (logits[:, :-1], batch["tokens"][:, 1:], batch["mask"][:, 1:])
-    if split:  # the rank's vocab block of the logits (``transformer.vocab_split``)
+    # the rank's vocab block of the logits; Whisper's tied head is used whole
+    if module is not encdec and sharding.vocab_split(ctx, params):
         total, count = L.vocab_parallel_cross_entropy_terms(*args, ctx.tp_axis, ctx.mesh)
     else:
         total, count = L.cross_entropy_terms(*args)

@@ -27,9 +27,21 @@ from the encoder states inside its recompute.  Attention's training path
 takes bfloat16 q/k/v (the encoder) and bfloat16 k/v (the cross-attention)
 as they are (``kernels/flash_attention``).
 
-A ``ctx`` (``transformer.DistContext``) passes through every entry point as
-in the reference, where it only hints activation shardings: a rank already
-holds only its shard, so it changes nothing here.
+Sharded execution (``ctx``, a ``transformer.DistContext``): a rank holds
+its dp shard of the batch, its activations alike over the tensor-parallel
+axis.  With spec trees on ``ctx`` each leaf is gathered at use
+(``sharding.use``), but where the rules put the encoder's or the
+decoder's product leaves on ``ctx.tp_axis`` (``TP_ROLES``) and its heads
+divide over it (``_tp``), their products run on the rank's block, as the
+reference's partitioner runs them: ``wq`` / ``wk`` / ``wv`` / ``xq`` /
+``xk`` / ``xv`` column-parallel, so that the encoder's attention, the
+decoder's self- and cross-attention run on the rank's H / tp heads,
+``wo`` / ``xo`` row-parallel, the MLPs ``layers.gated_mlp_parallel``.
+The decoder's caches (``self_kv``, ``cross_k``, ``cross_v``) are read and
+written as the rank's head blocks, which their specs split over the axis
+(``sharding.use_state(..., keep_tp=True)``).  The tied head is used whole
+(whisper-medium's 51,865-row vocabulary divides no tp axis, and the
+reference's rules keep it so).
 """
 
 from __future__ import annotations
@@ -114,19 +126,48 @@ def _layer(tree: dict, i: int) -> dict:
     return {n: w[i] for n, w in tree.items()}
 
 
+# the tensor-parallel role (``sharding.tp_role``) each product's leaf needs
+# for the encoder's and the decoder's layers to run on the rank's heads
+TP_ROLES = {
+    "encoder": {**{n: "column" for n in ("wq", "wk", "wv", "wi")}, "wo": "row", "wo_m": "row"},
+    "decoder": {**{n: "column" for n in ("wq", "wk", "wv", "xq", "xk", "xv", "wi")},
+                **{n: "row" for n in ("wo", "xo", "wo_m")}},
+}
+
+
+def _tp(cfg: ArchConfig, ctx, part: str) -> tuple[dict, L.TP]:
+    """(the roles, the axis) the layers of ``part`` ("encoder" / "decoder")
+    run their products on: ``TP_ROLES[part]`` and ``ctx.tp_axis`` where the
+    rules give every such leaf its role and the q and kv heads divide over
+    the axis, else none: the layers run on whole leaves."""
+    roles = sharding.tp_roles(ctx, TP_ROLES[part], part)
+    if not roles:
+        return {}, L.TP()
+    tp = L.TP(ctx.tp_axis, ctx.mesh)
+    if cfg.num_heads % tp.size or cfg.num_kv_heads % tp.size:
+        return {}, L.TP()
+    return roles, tp
+
+
+def _mlp(y, wi, wo, tp: L.TP):
+    if tp.axis is None:
+        return L.gated_mlp(y, wi, wo, "gelu")
+    return L.gated_mlp_parallel(y, wi, wo, tp.axis, tp.mesh, "gelu")
+
+
 def _enc_layer(cfg, x, blk, ctx=None):
-    blk = sharding.use(ctx, blk, "encoder", layer=True)
+    roles, tp = _tp(cfg, ctx, "encoder")
+    blk = sharding.use(ctx, blk, "encoder", layer=True, keep_tp=roles)
     dt = x.dtype
     b, s, _ = x.shape
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = (y @ blk["wq"].to(dt)).view(b, s, h, hd)
-    k = (y @ blk["wk"].to(dt)).view(b, s, kv, hd)
-    v = (y @ blk["wv"].to(dt)).view(b, s, kv, hd)
+    yc = tp.copy(y)   # one copy for q, k and v: the rank's heads
+    q, k, v = ((yc @ blk[n].to(dt)).view(b, s, -1, hd) for n in ("wq", "wk", "wv"))
     att = L.attention(q, k, v, causal=False)
-    x = x + att.reshape(b, s, h * hd) @ blk["wo"].to(dt)
+    x = x + tp.sum(att.reshape(b, s, -1) @ blk["wo"].to(dt))
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+    return x + _mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), tp)
 
 
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, ctx=None) -> torch.Tensor:
@@ -142,60 +183,80 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, ctx=None) -> tor
     return L.rms_norm(x, sharding.use(ctx, params["enc_norm"], "enc_norm"), cfg.norm_eps)
 
 
-def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0, ctx=None):
+def _dec_block(cfg, x, blk, pos, enc_kv, self_cache=None, kv_len: int = 0, ctx=None,
+               tp: L.TP = L.TP()):
     """One decoder layer (``blk`` gathered: ``_dec_weights``); with
     ``self_cache`` ([2, B, S, KV, hd]) the layer's k/v are written into it
     in place.  ``enc_kv``: the cross K/V, or a function of the weights that
-    makes them."""
+    makes them.  On ``tp``'s axis every attention runs on the rank's heads,
+    and the caches hold them (the specs put their heads on the axis)."""
     if callable(enc_kv):
         enc_kv = enc_kv(blk)
     dt = x.dtype
     b, t, _ = x.shape
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     # self attention (causal, cached on decode)
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = L.rope((y @ blk["wq"].to(dt)).view(b, t, h, hd), pos, cfg.rope_theta)
-    k = L.rope((y @ blk["wk"].to(dt)).view(b, t, kv, hd), pos, cfg.rope_theta)
-    v = (y @ blk["wv"].to(dt)).view(b, t, kv, hd)
+    yc = tp.copy(y)
+    q = L.rope((yc @ blk["wq"].to(dt)).view(b, t, -1, hd), pos, cfg.rope_theta)
+    k = L.rope((yc @ blk["wk"].to(dt)).view(b, t, -1, hd), pos, cfg.rope_theta)
+    v = (yc @ blk["wv"].to(dt)).view(b, t, -1, hd)
     q_off, att_kv_len = 0, None
     if self_cache is not None:
         start = kv_len if t == 1 else 0
         if start + t > self_cache.shape[2]:
             raise ValueError(f"KV cache of {self_cache.shape[2]} positions is full")
+        keep = tp.axis is not None
         local, self_cache = self_cache, sharding.use_state(ctx, self_cache, "self_kv",
-                                                              batch_dim=1, layer=True)
+                                                              batch_dim=1, layer=True,
+                                                              keep_tp=keep)
+        _check_heads(self_cache, k)
         self_cache[0, :, start:start + t] = k
         self_cache[1, :, start:start + t] = v
         if self_cache is not local:  # write the rank's block of the new positions back
             local[:, :, start:start + t] = sharding.own_state(
                 ctx, self_cache[:, :, start:start + t], local, "self_kv", batch_dim=1,
-                layer=True)
+                layer=True, keep_tp=keep)
         k, v = L.kv_as(self_cache[0], dt), L.kv_as(self_cache[1], dt)
         q_off, att_kv_len = start, kv_len + t
     att = L.attention(q, k, v, causal=True, q_offset=q_off, kv_len=att_kv_len)
-    x = x + att.reshape(b, t, h * hd) @ blk["wo"].to(dt)
+    x = x + tp.sum(att.reshape(b, t, -1) @ blk["wo"].to(dt))
     # cross attention to the encoder states (precomputed K/V)
     y = L.rms_norm(x, blk["ln_x"], cfg.norm_eps)
-    xq = (y @ blk["xq"].to(dt)).view(b, t, h, hd)
+    xq = (tp.copy(y) @ blk["xq"].to(dt)).view(b, t, -1, hd)
     xk, xv = enc_kv
     att = L.attention(xq, L.kv_as(xk, dt), L.kv_as(xv, dt), causal=False)
-    x = x + att.reshape(b, t, h * hd) @ blk["xo"].to(dt)
+    x = x + tp.sum(att.reshape(b, t, -1) @ blk["xo"].to(dt))
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), "gelu")
+    return x + _mlp(y2, blk["wi"].to(dt), blk["wo_m"].to(dt), tp)
 
 
-def _cross_kv(cfg, blk, enc_out):
-    """Layer ``blk``'s cross K/V from the encoder states: [B, S_src, KV, hd] x2."""
+def _check_heads(cache: torch.Tensor, k: torch.Tensor) -> None:
+    """A cache as a layer reads it must hold the heads its products make
+    (with the products split over tp, the state specs must split the
+    cache's heads over it too, as ``sharding.cache_specs`` does)."""
+    if cache.shape[-2] != k.shape[2]:
+        raise ValueError(f"a cache of {cache.shape[-2]} heads for k/v of {k.shape[2]}: "
+                         "tensor-parallel products need the cache's heads on the tp axis")
+
+
+def _cross_kv(cfg, blk, enc_out, tp: L.TP = L.TP()):
+    """Layer ``blk``'s cross K/V from the encoder states: [B, S_src, KV, hd] x2
+    (the rank's KV / tp heads on ``tp``'s axis)."""
     dt = enc_out.dtype
     b, s, _ = enc_out.shape
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = (enc_out @ blk["xk"].to(dt)).view(b, s, kv, hd)
-    v = (enc_out @ blk["xv"].to(dt)).view(b, s, kv, hd)
+    hd = cfg.resolved_head_dim
+    ec = tp.copy(enc_out)
+    k = (ec @ blk["xk"].to(dt)).view(b, s, -1, hd)
+    v = (ec @ blk["xv"].to(dt)).view(b, s, -1, hd)
     return k, v
 
 
-def _dec_weights(ctx, blk):
-    return sharding.use(ctx, blk, "decoder", layer=True)
+def _dec_weights(cfg, ctx, blk) -> tuple[dict, L.TP]:
+    """A decoder layer's weights gathered at use, but the blocks its
+    tensor-parallel products take, and their axis (``_tp``)."""
+    roles, tp = _tp(cfg, ctx, "decoder")
+    return sharding.use(ctx, blk, "decoder", layer=True, keep_tp=roles), tp
 
 
 def _embed(cfg, params, tokens, ctx=None):
@@ -219,10 +280,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
     t = tokens.shape[1]
     x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
+
+    def layer(x, blk, enc):
+        blk, tp = _dec_weights(cfg, ctx, blk)
+        return _dec_block(cfg, x, blk, pos, lambda w: _cross_kv(cfg, w, enc, tp), ctx=ctx, tp=tp)
+
     for i in range(cfg.num_layers):
-        x = L.remat(cfg, lambda x, blk, enc: _dec_block(
-            cfg, x, _dec_weights(ctx, blk), pos, lambda w: _cross_kv(cfg, w, enc), ctx=ctx),
-            x, _layer(params["decoder"], i), enc_out)
+        x = L.remat(cfg, layer, x, _layer(params["decoder"], i), enc_out)
     return _logits(cfg, params, x, ctx), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -251,12 +315,13 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, frames: torch.T
     x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
     for i in range(cfg.num_layers):
-        blk = _dec_weights(ctx, _layer(params["decoder"], i))
-        xk, xv = _cross_kv(cfg, blk, enc_out)
+        blk, tp = _dec_weights(cfg, ctx, _layer(params["decoder"], i))
+        xk, xv = _cross_kv(cfg, blk, enc_out, tp)
         for n, t_ in (("cross_k", xk), ("cross_v", xv)):
-            cache[n][i] = sharding.own_state(ctx, t_, cache[n][i], n, batch_dim=0, layer=True)
+            cache[n][i] = sharding.own_state(ctx, t_, cache[n][i], n, batch_dim=0, layer=True,
+                                             keep_tp=tp.axis is not None)
         x = _dec_block(cfg, x, blk, pos, (xk, xv), self_cache=cache["self_kv"][i], kv_len=0,
-                       ctx=ctx)
+                       ctx=ctx, tp=tp)
     return _logits(cfg, params, x[:, -1:], ctx), {**cache, "len": t}
 
 
@@ -267,8 +332,10 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     for i in range(cfg.num_layers):
-        cross = tuple(sharding.use_state(ctx, cache[n][i], n, batch_dim=0, layer=True)
+        blk, tp = _dec_weights(cfg, ctx, _layer(params["decoder"], i))
+        cross = tuple(sharding.use_state(ctx, cache[n][i], n, batch_dim=0, layer=True,
+                                         keep_tp=tp.axis is not None)
                       for n in ("cross_k", "cross_v"))
-        x = _dec_block(cfg, x, _dec_weights(ctx, _layer(params["decoder"], i)), pos, cross,
-                       self_cache=cache["self_kv"][i], kv_len=kv_len, ctx=ctx)
+        x = _dec_block(cfg, x, blk, pos, cross, self_cache=cache["self_kv"][i], kv_len=kv_len,
+                       ctx=ctx, tp=tp)
     return _logits(cfg, params, x, ctx), {**cache, "len": kv_len + 1}

@@ -33,9 +33,25 @@ reference checkpoints each pattern group: the same result).  The local
 attention's q, k, v are bfloat16, so its forward runs ``flash_wgmma`` with
 the log-sum-exp and its backward ``bwd_wide`` (``kernels/flash_attention``).
 
-A ``ctx`` (``transformer.DistContext``) passes through every entry point as
-in the reference, where it only hints activation shardings: a rank already
-holds only its shard, so it changes nothing here.
+Sharded execution (``ctx``, a ``transformer.DistContext``): a rank holds
+its dp shard of the batch, its activations alike over the tensor-parallel
+axis.  With spec trees on ``ctx`` each leaf is gathered at use
+(``sharding.use``), but where the rules put a layer's product leaves on
+``ctx.tp_axis`` (``TP_ROLES``, ``_tp``) its products run on the rank's
+block.  The recurrent branch: ``w_gate`` and ``w_in`` column-parallel,
+the causal conv on the rank's W / tp channels with its block of
+``conv_w``, the gates' ``wa`` and ``wi_g`` column-parallel on the whole
+branch input (one all-gather of it), the RG-LRU on the rank's channels
+(``a_param`` cut so, ``layers.split_to_group``), ``gate * h`` row-parallel
+into ``w_out``.  The attention layer: the rank's H / tp q heads stay
+local; ``wk`` / ``wv`` make the rank's columns of the kv heads, which are
+all-gathered before rope (the cache keeps whole kv heads, as its specs
+do), and the rank's q heads attend over them; ``wo_a`` row-parallel.  The
+MLPs are ``layers.gated_mlp_parallel``; the embedding and head split
+their vocab (training keeps the rank's block of the logits,
+``sharding.vocab_split``).  The recurrent state stays whole over 'model' (its
+specs): cut to the rank's channels at use, the new values all-gathered
+before ``sharding.own_state``.
 """
 
 from __future__ import annotations
@@ -175,12 +191,15 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rg_lru(x, blk, h0=None):
+def _rg_lru(x, blk, h0=None, tp: L.TP = L.TP()):
     """x: [B,T,W] float32 -> (h [B,T,W], h_last [B,W]).  Gates from the
-    branch input; the recurrence by ``_linear_scan``."""
-    r = torch.sigmoid(L.mm(x, blk["wa"]))
-    i = torch.sigmoid(L.mm(x, blk["wi_g"]))
-    log_a = -_C * F.softplus(blk["a_param"].float()) * r      # <= 0
+    branch input; the recurrence by ``_linear_scan``.  On ``tp``'s axis x,
+    h and h0 are the rank's W / tp channels, and the gates' column-parallel
+    products read the whole branch input (one all-gather)."""
+    xw = tp.copy(tp.gather(x))
+    r = torch.sigmoid(L.mm(xw, blk["wa"]))
+    i = torch.sigmoid(L.mm(xw, blk["wi_g"]))
+    log_a = -_C * F.softplus(tp.split(blk["a_param"].float())) * r      # <= 0
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     b = x * i * mult
@@ -190,31 +209,46 @@ def _rg_lru(x, blk, h0=None):
     return h, h[:, -1]
 
 
-def _rec_layer(cfg, x, blk, state=None):
-    """Recurrent temporal block + MLP. state: {'h': [B,W], 'conv': [B,cw-1,W]}."""
+def _mlp(cfg, y, blk, dt, tp: L.TP):
+    """The gated MLP; on ``tp``'s axis ``layers.gated_mlp_parallel``."""
+    wi, wo = blk["wi"].to(dt), blk["wo"].to(dt)
+    if tp.axis is None:
+        return L.gated_mlp(y, wi, wo, cfg.act)
+    return L.gated_mlp_parallel(y, wi, wo, tp.axis, tp.mesh, cfg.act)
+
+
+def _rec_layer(cfg, x, blk, state=None, tp: L.TP = L.TP()):
+    """Recurrent temporal block + MLP. state: {'h': [B,W], 'conv': [B,cw-1,W]}
+    (on ``tp``'s axis the rank's W / tp channels: module doc)."""
     dt = x.dtype
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    gate = L.gelu(y @ blk["w_gate"].to(dt))
+    yc = tp.copy(y)   # one copy for the two column-parallel products
+    gate = L.gelu(yc @ blk["w_gate"].to(dt))
     # the recurrent branch in float32; its carried state is float32
-    u = (y @ blk["w_in"].to(dt)).float()
+    u = (yc @ blk["w_in"].to(dt)).float()
     u, conv_carry = _causal_conv(u, blk["conv_w"], state["conv"] if state else None)
-    h, h_last = _rg_lru(u, blk, state["h"] if state else None)
-    x = x + L.mm(gate.float() * h, blk["w_out"]).to(dt)
+    h, h_last = _rg_lru(u, blk, state["h"] if state else None, tp)
+    x = x + tp.sum(L.mm(gate.float() * h, blk["w_out"])).to(dt)
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    x = x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo"].to(dt), cfg.act)
+    x = x + _mlp(cfg, y2, blk, dt, tp)
     return x, {"h": h_last, "conv": conv_carry}
 
 
-def _attn_layer(cfg, x, blk, pos, cache=None, kv_len: int = 0):
+def _attn_layer(cfg, x, blk, pos, cache=None, kv_len: int = 0, tp: L.TP = L.TP()):
     """Local MQA temporal block + MLP. cache: [2,B,S,KV,hd] | None; with a
-    cache, the layer's k/v are written into it in place."""
+    cache, the layer's k/v are written into it in place.  On ``tp``'s axis
+    q is the rank's H / tp heads and k / v the rank's columns of the kv
+    heads, all-gathered (module doc)."""
     dt = x.dtype
     b, t, _ = x.shape
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    q = L.rope((y @ blk["wq"].to(dt)).view(b, t, h, hd), pos, cfg.rope_theta)
-    k = L.rope((y @ blk["wk"].to(dt)).view(b, t, kv, hd), pos, cfg.rope_theta)
-    v = (y @ blk["wv"].to(dt)).view(b, t, kv, hd)
+    yc = tp.copy(y)
+    q = L.rope((yc @ blk["wq"].to(dt)).view(b, t, -1, hd), pos, cfg.rope_theta)
+    # every rank's q heads read k / v: the copy sums the ranks' shares of
+    # their gradient, the gather keeps the rank's columns of it
+    k = L.rope(tp.copy(tp.gather(yc @ blk["wk"].to(dt))).view(b, t, -1, hd), pos, cfg.rope_theta)
+    v = tp.copy(tp.gather(yc @ blk["wv"].to(dt))).view(b, t, -1, hd)
     q_off, att_kv_len = 0, None
     if cache is not None:
         start = kv_len if t == 1 else 0
@@ -224,11 +258,13 @@ def _attn_layer(cfg, x, blk, pos, cache=None, kv_len: int = 0):
         cache[1, :, start:start + t] = v
         k, v = L.kv_as(cache[0], q.dtype), L.kv_as(cache[1], q.dtype)
         q_off, att_kv_len = start, kv_len + t
-    att = L.attention(q, k, v, causal=True, window=cfg.sliding_window or 2048,
-                      q_offset=q_off, kv_len=att_kv_len)
-    x = x + att.reshape(b, t, h * hd) @ blk["wo_a"].to(dt)
+    # the rank's q heads over the kv heads they map to (every kv head at tp 1)
+    att = L.attention_island(q, k, v, tp.rank, tp.size, plan="head", causal=True,
+                             window=cfg.sliding_window or 2048, q_offset=q_off,
+                             kv_len=att_kv_len)
+    x = x + tp.sum(att.reshape(b, t, -1) @ blk["wo_a"].to(dt))
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + L.gated_mlp(y2, blk["wi"].to(dt), blk["wo"].to(dt), cfg.act)
+    return x + _mlp(cfg, y2, blk, dt, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -263,26 +299,51 @@ def _layer_state(st, g: int | None):
     return {n: s[g] for n, s in st.items()} if isinstance(st, dict) else st[g]
 
 
+# the tensor-parallel role (``sharding.tp_role``) each product's leaf needs
+# for a layer of each kind to run on the rank's channels or heads
+TP_ROLES = {
+    "rec": {**{n: "column" for n in ("w_in", "w_gate", "wa", "wi_g", "conv_w", "wi")},
+            "w_out": "row", "wo": "row"},
+    "attn": {**{n: "column" for n in ("wq", "wk", "wv", "wi")}, "wo_a": "row", "wo": "row"},
+}
+
+
+def _tp(cfg: ArchConfig, ctx, kind: str, where: tuple) -> tuple[dict, L.TP]:
+    """(the roles, the axis) a layer of ``kind`` at ``where`` runs its
+    products on: ``TP_ROLES[kind]`` and ``ctx.tp_axis`` where the rules
+    give every such leaf its role (and the q heads divide over the axis),
+    else none: the layer runs on whole leaves."""
+    roles = sharding.tp_roles(ctx, TP_ROLES[kind], *where)
+    if not roles:
+        return {}, L.TP()
+    tp = L.TP(ctx.tp_axis, ctx.mesh)
+    return ({}, L.TP()) if kind == "attn" and cfg.num_heads % tp.size else (roles, tp)
+
+
 def _run(cfg, x, kind, blk, st, pos, kv_len, ctx=None, where: tuple = (), layer: bool = False):
     """One layer; its state is updated in place.  With spec trees on
     ``ctx``, ``blk`` and ``st`` are the rank's blocks of the leaves at
     ``where`` (``layer``: one layer's view of the stacked group): gathered
-    here, and the rank's block of the new state written back."""
-    blk = sharding.use(ctx, blk, *where, layer=layer)
+    here, but the leaves whose products run on the rank's block (``_tp``),
+    and the rank's block of the new state written back (the recurrent
+    state's rank's channels all-gathered first)."""
+    roles, tp = _tp(cfg, ctx, kind, where)
+    blk = sharding.use(ctx, blk, *where, layer=layer, keep_tp=roles)
     if kind == "attn":
         full = None if st is None else sharding.use_state(ctx, st, *where, batch_dim=1,
                                                           layer=layer)
-        x = _attn_layer(cfg, x, blk, pos, cache=full, kv_len=kv_len)
+        x = _attn_layer(cfg, x, blk, pos, cache=full, kv_len=kv_len, tp=tp)
         if full is not st:
             st.copy_(sharding.own_state(ctx, full, st, *where, batch_dim=1, layer=layer))
         return x
     full = None if st is None else {
-        n: sharding.use_state(ctx, t, *where, n, batch_dim=0, layer=layer) for n, t in st.items()}
-    x, new = _rec_layer(cfg, x, blk, full)
+        n: tp.block(sharding.use_state(ctx, t, *where, n, batch_dim=0, layer=layer), -1)
+        for n, t in st.items()}
+    x, new = _rec_layer(cfg, x, blk, full, tp)
     if st is not None:
         for n in ("h", "conv"):
-            st[n].copy_(sharding.own_state(ctx, new[n], st[n], *where, n, batch_dim=0,
-                                           layer=layer))
+            st[n].copy_(sharding.own_state(ctx, tp.gather(new[n]), st[n], *where, n,
+                                           batch_dim=0, layer=layer))
     return x
 
 
@@ -315,27 +376,33 @@ def _apply_pattern(cfg, x, params, state, pos, kv_len: int, ctx=None):
     return x
 
 
-def _logits(cfg, params, x, ctx=None):
+def _logits(cfg, params, x, ctx=None, gather: bool = True):
     x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
-    return x @ sharding.use(ctx, params["lm_head"], "lm_head").to(x.dtype)
+    head, split = sharding.use_vocab(ctx, params, "lm_head")
+    head = head.to(x.dtype)
+    return L.head_parallel(x, head, ctx.tp_axis, ctx.mesh, gather) if split else x @ head
 
 
 def _embed(cfg, params, tokens, ctx=None):
-    table = sharding.use(ctx, params["embed"], "embed").float()
-    return L.embed(tokens, table, scale=True).to(getattr(torch, cfg.dtype))
+    dt = getattr(torch, cfg.dtype)
+    table, split = sharding.use_vocab(ctx, params, "embed")
+    if split:
+        return L.embed_parallel(tokens, table, ctx.tp_axis, ctx.mesh, scale=True).to(dt)
+    return L.embed(tokens, table.float(), scale=True).to(dt)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict | None = None,
-            ctx=None, last_only: bool = False):
+            ctx=None, last_only: bool = False, gather: bool = True):
     """(logits, aux 0, state): the cache-free forward (``state`` None), or
     the prefill, which fills ``state`` in place and returns it with its
-    length.  ``last_only``: the last position's logits only."""
+    length.  ``last_only``: the last position's logits only; ``gather=False``
+    keeps the rank's vocab block of them where ``sharding.vocab_split``."""
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
     x = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(t, device=x.device)
     x = _apply_pattern(cfg, x, params, state, pos, 0, ctx)
-    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx)
+    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx, gather)
     if state is not None:
         state = {**state, "len": int(state["len"]) + t}
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), state

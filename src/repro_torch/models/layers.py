@@ -15,7 +15,8 @@ on the rank's block of each weight): ``column_parallel`` (input through
 ``copy_to_group``, Megatron's *f*), ``row_parallel`` (partial sums through
 ``direct.allreduce_alike``, *g*), ``split_to_group``, the gated MLP's
 ``gate_up_exchange``, ``embed_parallel`` and
-``vocab_parallel_cross_entropy_terms``.  Their convention: an activation
+``vocab_parallel_cross_entropy_terms``; :class:`TP` binds them to one
+axis (or none) for the families that split per head or channel.  Their convention: an activation
 is alike on every rank of the axis, and so is its cotangent, which is the
 whole one; a rank-local block's cotangent is the whole one of that block.
 """
@@ -143,6 +144,44 @@ def row_parallel(x_local: torch.Tensor, w_local: torch.Tensor, axis, mesh) -> to
     matching columns ``x_local`` of ``x``: the ranks' partial products
     summed over ``axis`` (``direct.allreduce_alike``), alike on every rank."""
     return direct.allreduce_alike(x_local @ w_local, axis, mesh)
+
+
+class TP:
+    """The pieces above bound to one tensor-parallel axis ``axis`` of
+    ``mesh``, or to none (``TP()``): then every method is the whole
+    computation's identity (and ``size`` 1, ``rank`` 0), so that one code
+    path runs a layer split over the axis or whole.  The families whose
+    products split per head or channel (RWKV-6, Griffin, Whisper) use it."""
+
+    def __init__(self, axis=None, mesh=None):
+        self.axis, self.mesh = axis, mesh
+        self.size = 1 if axis is None else direct.axis_size(axis, mesh)
+        self.rank = 0 if axis is None else direct.axis_index(axis, mesh)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`copy_to_group`."""
+        return x if self.axis is None else copy_to_group(x, self.axis, self.mesh)
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`split_to_group`: the rank's block of the last dim."""
+        return x if self.axis is None else split_to_group(x, self.axis, self.mesh)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums, summed (*g*)."""
+        return x if self.axis is None else direct.allreduce_alike(x, self.axis, self.mesh)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' blocks along ``dim``, all-gathered into a tensor every
+        rank then computes alike from (``direct.allgather_alike``)."""
+        if self.axis is None:
+            return x
+        return direct.allgather_alike(x.contiguous(), self.axis, dim=dim, mesh=self.mesh)
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's block of ``dim`` (a view; a state leaf, not a graph
+        input)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
 
 
 def gate_up_exchange(gu_local: torch.Tensor, axis, mesh) -> tuple[torch.Tensor, torch.Tensor]:
@@ -354,6 +393,15 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> tor
     if scale:
         x = x.float() * np.float32(np.sqrt(table.shape[-1])).item()
     return x
+
+
+def head_parallel(x: torch.Tensor, head_local: torch.Tensor, axis, mesh,
+                  gather: bool = True) -> torch.Tensor:
+    """The rank's vocab block of the logits from its column block
+    ``head_local`` of the head (:func:`column_parallel`), all-gathered over
+    ``axis`` into the whole logits where ``gather`` (serving)."""
+    logits = column_parallel(x, head_local, axis, mesh)
+    return direct.allgather_alike(logits, axis, dim=-1, mesh=mesh) if gather else logits
 
 
 def _vocab_block(ids: torch.Tensor, n: int, axis, mesh) -> tuple[torch.Tensor, torch.Tensor]:

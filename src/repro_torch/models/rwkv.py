@@ -31,9 +31,26 @@ terms for autograd: about four [B, 32, 16, 16, H, 64] float32 tensors
 (134 MB each at B 1 and rwkv6-7b's 64 heads of 64), so ~0.54 GB a span and
 ~4.3 GB for a 4096-token layer, alive for one layer at a time.
 
-A ``ctx`` (``transformer.DistContext``) passes through every entry point as
-in the reference, where it only hints activation shardings: a rank already
-holds only its shard, so it changes nothing here.
+Sharded execution (``ctx``, a ``transformer.DistContext``): a rank holds
+its dp shard of the batch, its activations alike over the tensor-parallel
+axis.  With spec trees on ``ctx`` each leaf is gathered at use
+(``sharding.use``), but where the rules put every leaf of ``TP_ROLES`` on
+``ctx.tp_axis`` and the heads divide over it (``_tp``), the products run
+on the rank's block, as the reference's partitioner runs them: r / k / v /
+g column-parallel on the rank's H / tp heads (one copy of the layer's
+input, before its shift, and of ``mu``), the decay LoRA column-parallel ``wA`` and
+row-parallel ``wB`` (alike over tp), plus ``w0`` and cut to the rank's
+channels, ``u`` cut so too (``layers.split_to_group``), the wkv recurrence
+on the rank's heads unchanged, ``out * g`` row-parallel into ``wo``.  The
+channel mix: ``ck`` column-parallel, ``cv`` row-parallel, and the gate
+``sigmoid(xr @ cr)`` on the rank's columns of ``cr``, all-gathered: the
+other choice, the rank's columns of ``cv``'s sum times its gate columns,
+then gathered, moves as many bytes forward and adds a gather to the
+backward (``split_to_group``'s).  The embedding and head split their
+vocab (``layers.embed_parallel``; training keeps the rank's block of the
+logits, ``sharding.vocab_split``).  The state keeps the reference's specs (``S``'s
+dk on 'model'): it is gathered at use, cut to the rank's heads, and the
+new ``S`` all-gathered over the heads before ``sharding.own_state``.
 """
 
 from __future__ import annotations
@@ -129,9 +146,9 @@ def _wkv_chunk(S, r, k, v, logw, u, chunk: int):
     increment = torch.einsum("bnchk,bnchv->bnhkv", k_dec, v)
     decay = torch.exp(logA_C)[..., None]             # [B,n,H,dk,1]
     states = []
-    for c in range(n):
+    for inc, dec in zip(increment.unbind(1), decay.unbind(1)):
         states.append(S)
-        S = torch.addcmul(increment[:, c], S, decay[:, c])
+        S = torch.addcmul(inc, S, dec)
     # state contribution: o_state[t] = (r_t * exp(logA_excl[t])) @ S of t's chunk
     o_state = torch.einsum("bnchk,bnhkv->bnchv", r * torch.exp(logA_excl), torch.stack(states, 1))
     return S, (o_state + o_intra + o_bonus).reshape(b, t, h, v.shape[-1])
@@ -142,37 +159,45 @@ def _shift(x, x_prev):
     return torch.cat([x_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _time_mix(cfg, x, x_prev, blk, S, chunk: int):
-    """x: [B,T,d] (T multiple of chunk); returns (out, S', last x)."""
+def _time_mix(cfg, x, x_prev, blk, S, chunk: int, tp: L.TP):
+    """x: [B,T,d] (T multiple of chunk); returns (out, S', last x).  On
+    ``tp``'s axis (module doc) r / k / v / g and the decay are the rank's
+    heads' channels and ``S`` its heads [B, H / tp, hs, hs]."""
     b, t, d = x.shape
     hs = cfg.rwkv_head_size
-    h = d // hs
-    xx = _shift(x, x_prev)
-    mu = blk["mu"]
-    xr, xk, xv, xw, xg = [x + (xx - x) * mu[i] for i in range(5)]
-    r = L.mm(xr, blk["wr"]).view(b, t, h, hs)
-    k = L.mm(xk, blk["wk"]).view(b, t, h, hs)
-    v = L.mm(xv, blk["wv"]).view(b, t, h, hs)
+    xc = tp.copy(x)   # the mixes feed column-parallel products only
+    xx = _shift(xc, x_prev)
+    mu = tp.copy(blk["mu"])
+    xr, xk, xv, xw, xg = [xc + (xx - xc) * mu[i] for i in range(5)]
+    r = L.mm(xr, blk["wr"]).view(b, t, -1, hs)
+    k = L.mm(xk, blk["wk"]).view(b, t, -1, hs)
+    v = L.mm(xv, blk["wv"]).view(b, t, -1, hs)
     g = F.silu(L.mm(xg, blk["wg"]))
-    logw = -torch.exp(blk["w0"] + L.mm(torch.tanh(L.mm(xw, blk["wA"])), blk["wB"]))
-    logw = logw.view(b, t, h, hs)                    # log decay, always < 0
-    u = blk["u"].reshape(h, hs)
+    # the decay LoRA: column-parallel wA, row-parallel wB, alike over tp
+    lora = tp.sum(L.mm(torch.tanh(L.mm(xw, blk["wA"])), blk["wB"]))
+    logw = -torch.exp(tp.split(blk["w0"] + lora))
+    logw = logw.view(b, t, -1, hs)                   # log decay, always < 0
+    u = tp.split(blk["u"]).reshape(-1, hs)
     outs, span = [], chunk * _CHUNKS_AT_ONCE
     for c in range(0, t, span):
         S, o = _wkv_chunk(S, r[:, c:c + span], k[:, c:c + span], v[:, c:c + span],
                           logw[:, c:c + span], u, chunk)
         outs.append(o)
-    out = torch.cat(outs, dim=1).reshape(b, t, d)
-    return L.mm(out * g, blk["wo"]), S, x[:, -1]
+    out = torch.cat(outs, dim=1).reshape(b, t, -1)
+    return tp.sum(L.mm(out * g, blk["wo"])), S, x[:, -1]
 
 
-def _channel_mix(x, x_prev, blk):
-    xx = _shift(x, x_prev)
-    mu = blk["mu_c"]
-    xk = x + (xx - x) * mu[0]
-    xr = x + (xx - x) * mu[1]
+def _channel_mix(x, x_prev, blk, tp: L.TP):
+    """On ``tp``'s axis: ``ck`` column-parallel, ``cv`` row-parallel, and
+    the receptance gate the rank's columns of ``cr`` all-gathered (module
+    doc)."""
+    xc = tp.copy(x)
+    xx = _shift(xc, x_prev)
+    mu = tp.copy(blk["mu_c"])
+    xk = xc + (xx - xc) * mu[0]
+    xr = xc + (xx - xc) * mu[1]
     kk = torch.square(torch.relu(L.mm(xk, blk["ck"])))
-    return torch.sigmoid(L.mm(xr, blk["cr"])) * L.mm(kk, blk["cv"]), x[:, -1]
+    return tp.gather(torch.sigmoid(L.mm(xr, blk["cr"]))) * tp.sum(L.mm(kk, blk["cv"])), x[:, -1]
 
 
 def init_state(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None) -> dict:
@@ -195,50 +220,95 @@ def _block(params: dict, i: int) -> dict:
     return {n: w[i] for n, w in params["blocks"].items()}
 
 
-def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int, ctx=None):
+# the tensor-parallel role (``sharding.tp_role``) each product's leaf needs
+# for a layer to run on the rank's heads (module doc)
+TP_ROLES = {**{n: "column" for n in ("wr", "wk", "wv", "wg", "wA", "ck", "cr")},
+            **{n: "row" for n in ("wo", "wB", "cv")}}
+
+
+def _tp(cfg: ArchConfig, ctx) -> L.TP:
+    """The axis the layers' products split over: ``ctx.tp_axis`` where the
+    rules give every leaf of ``TP_ROLES`` its role and the heads divide
+    over it, else none."""
+    if not sharding.tp_roles(ctx, TP_ROLES, "blocks"):
+        return L.TP()
+    tp = L.TP(ctx.tp_axis, ctx.mesh)
+    return tp if (cfg.d_model // cfg.rwkv_head_size) % tp.size == 0 else L.TP()
+
+
+def _layer(cfg, x, blk, S, x_tm, x_cm, chunk: int, ctx=None, tp: L.TP = L.TP()):
     """One layer: (x, S', last x of the time mix, of the channel mix); the
-    rank's block of the weights is gathered here (``sharding.use``)."""
-    blk = sharding.use(ctx, blk, "blocks", layer=True)
+    rank's block of the weights is gathered here (``sharding.use``), but
+    the leaves whose products run on ``tp``'s axis."""
+    blk = sharding.use(ctx, blk, "blocks", layer=True,
+                       keep_tp=TP_ROLES if tp.axis is not None else ())
     y = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
-    att, S, x_tm = _time_mix(cfg, y, x_tm, blk, S, chunk)
+    att, S, x_tm = _time_mix(cfg, y, x_tm, blk, S, chunk, tp)
     x = x + att
     y2 = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    ff, x_cm = _channel_mix(y2, x_cm, blk)
+    ff, x_cm = _channel_mix(y2, x_cm, blk, tp)
     return x + ff, S, x_tm, x_cm
 
 
-def _logits(cfg, params, x, ctx=None):
+def _logits(cfg, params, x, ctx=None, gather: bool = True):
     x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
-    return L.mm(x, sharding.use(ctx, params["lm_head"], "lm_head"))
+    head, split = sharding.use_vocab(ctx, params, "lm_head")
+    return L.head_parallel(x, head, ctx.tp_axis, ctx.mesh, gather) if split else L.mm(x, head)
+
+
+def _embed(params, tokens, ctx=None) -> torch.Tensor:
+    """The token rows in float32; from the rank's vocab rows where the rules
+    split them over tp (``layers.embed_parallel``; RWKV scales nothing)."""
+    table, split = sharding.use_vocab(ctx, params, "embed")
+    if split:
+        return L.embed_parallel(tokens, table, ctx.tp_axis, ctx.mesh)
+    return L.embed(tokens, table).float()
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *, state: dict | None = None,
-            chunk: int = 16, ctx=None, last_only: bool = False):
+            chunk: int = 16, ctx=None, last_only: bool = False, gather: bool = True):
     """(logits, aux 0, new state): full-sequence logits (``last_only``: the
-    last position's), carrying ``state`` (zeros when None) through the
-    tokens.  The new state is made afresh; ``state`` is left as it was.
-    The training forward too: each layer under ``layers.remat``."""
+    last position's), carrying ``state`` through the tokens; the new state
+    is made afresh (``state`` is left as it was), and None without a
+    ``state`` (zeros are carried).  The training forward too: each layer
+    under ``layers.remat``; ``gather=False`` keeps the rank's vocab block
+    of the logits where ``sharding.vocab_split``."""
     L.check_products(tokens.device, compute_dtype(cfg))
     b, t = tokens.shape
     chunk = min(chunk, t)
     if t % chunk:
         raise ValueError(f"seq {t} not divisible by chunk {chunk}")
-    x = L.embed(tokens, sharding.use(ctx, params["embed"], "embed")).float()
-    st = state or init_state(cfg, b, device=x.device)
+    x = _embed(params, tokens, ctx)
+    tp = _tp(cfg, ctx)
     names = ("S", "x_tm", "x_cm")
-    # the rank's rows of each state leaf, every layer (O(1) in the length)
-    full = {n: sharding.use_state(ctx, st[n], n, batch_dim=1) for n in names}
+    if state is None:  # zeros, of S the rank's heads
+        hs, lc = cfg.rwkv_head_size, cfg.num_layers
+        shift = torch.zeros((lc, b, cfg.d_model), dtype=torch.float32, device=x.device)
+        full = {"S": torch.zeros((lc, b, cfg.d_model // hs // tp.size, hs, hs),
+                                 dtype=torch.float32, device=x.device),
+                "x_tm": shift, "x_cm": shift}
+    else:
+        st = state
+        # the rank's rows of each state leaf, every layer (O(1) in the length),
+        # and of S its heads
+        full = {n: sharding.use_state(ctx, st[n], n, batch_dim=1) for n in names}
+        full["S"] = tp.block(full["S"], 2)
     new = {n: [] for n in names}
     for i in range(cfg.num_layers):
         x, *s_i = L.remat(cfg, lambda x, blk, i=i: _layer(
-            cfg, x, blk, *(full[n][i] for n in names), chunk, ctx), x, _block(params, i))
-        for n, s_n in zip(names, s_i):
-            new[n].append(s_n)
-    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx)
-    new_state = {**{n: sharding.own_state(ctx, torch.stack(new[n]).to(st[n].dtype), st[n], n,
-                                          batch_dim=1) for n in names},
+            cfg, x, blk, *(full[n][i] for n in names), chunk, ctx, tp), x, _block(params, i))
+        if state is not None:  # a token shift is a view of its layer's [B, T, d] input: copied
+            for n, s_n in zip(names, s_i):
+                new[n].append(s_n if n == "S" else s_n.clone())
+    logits = _logits(cfg, params, x[:, -1:] if last_only else x, ctx, gather)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if state is None:
+        return logits, aux, None
+    new = {n: torch.stack(v).to(st[n].dtype) for n, v in new.items()}
+    new["S"] = tp.gather(new["S"], dim=2)   # every head, then the rank's block of it
+    new_state = {**{n: sharding.own_state(ctx, new[n], st[n], n, batch_dim=1) for n in names},
                  "len": int(st["len"]) + t}
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device), new_state
+    return logits, aux, new_state
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, state: dict, *, ctx=None):

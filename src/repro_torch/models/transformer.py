@@ -59,7 +59,7 @@ other step that needs whole heads (qk-norm and rope on split heads, the
 reaches ``wo_att`` as its row block (``attention_sharded(out_local=)``).
 The gated MLP exchanges its gate and up halves once
 (``layers.gated_mlp_parallel``); the training logits stay vocab-split
-(``vocab_split``), serving's are all-gathered.  Leaves the rules keep
+(``sharding.vocab_split``), serving's are all-gathered.  Leaves the rules keep
 whole (an odd vocabulary, the router, a width tp does not divide) are
 used whole.
 
@@ -359,25 +359,6 @@ def _layer(params: dict, i: int) -> dict:
     return _index(params["blocks"], i)
 
 
-def vocab_split(ctx: DistContext | None, params: dict) -> bool:
-    """Whether the rules split the head's vocab columns over ``ctx.tp_axis``
-    (``lm_head``'s columns, or the tied ``embed``'s rows): the rank's head
-    product then makes its [.., V / tp] block of the logits, which
-    ``forward_train`` returns as it is (the reference's vocab-sharded
-    logits; ``api.loss_fn`` takes them so) and serving all-gathers."""
-    if "lm_head" in params:
-        return sharding.tp_role(ctx, "lm_head") == "column"
-    return sharding.tp_role(ctx, "embed") == "vocab"
-
-
-def _use_vocab(ctx: DistContext | None, params: dict, name: str) -> tuple[torch.Tensor, bool]:
-    """(leaf ``name`` (``embed`` / ``lm_head``) as the rank uses it, whether
-    that is its vocab block): gathered at use, but the vocab dim where the
-    rules split it over tp."""
-    split = sharding.tp_role(ctx, name) in ("vocab", "column")
-    return sharding.use(ctx, params[name], name, keep_tp=(name,) if split else ()), split
-
-
 def _embed_input(cfg: ArchConfig, table, split: bool, tokens, prefix_embeds,
                  ctx=None) -> torch.Tensor:
     if split:
@@ -395,16 +376,14 @@ def _logits(cfg: ArchConfig, params: dict, x, master: bool = False, ctx=None,
     rank's block of them, all-gathered over tp if ``gather``."""
     x = L.rms_norm(x, sharding.use(ctx, params["final_norm"], "final_norm"), cfg.norm_eps)
     if "lm_head" in params:
-        head, split = _use_vocab(ctx, params, "lm_head")
+        head, split = sharding.use_vocab(ctx, params, "lm_head")
     else:
-        head, split = _use_vocab(ctx, params, "embed")
+        head, split = sharding.use_vocab(ctx, params, "embed")
         head = head.T
     head = round_to_compute(cfg, head) if master else head.float()
     if not split:
         return x @ head
-    logits = L.column_parallel(x, head, ctx.tp_axis, ctx.mesh)
-    return direct.allgather_alike(logits, ctx.tp_axis, dim=-1, mesh=ctx.mesh) if gather \
-        else logits
+    return L.head_parallel(x, head, ctx.tp_axis, ctx.mesh, gather)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
@@ -412,7 +391,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """Full-sequence logits [B, T, V] float32 and the MoE aux loss summed
     over the layers (0 for a dense model)."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
+    x = _embed_input(cfg, *sharding.use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(_layer_windows(cfg)):
@@ -427,10 +406,10 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     float32 master weights, with the reference's in-graph casts (module
     doc).  Each leaf of ``params["blocks"]`` is stacked [L, ...] or a list
     of per-layer leaves (the train step's); each layer runs under
-    ``layers.remat``.  Where ``vocab_split``, the logits are the rank's
+    ``layers.remat``.  Where ``sharding.vocab_split``, the logits are the rank's
     [B, T, V / tp] block."""
     _check(cfg, tokens.device)
-    table, split = _use_vocab(ctx, params, "embed")
+    table, split = sharding.use_vocab(ctx, params, "embed")
     x = _embed_input(cfg, table.to(_dtype(cfg.dtype)), split, tokens, prefix_embeds, ctx)
     del table
     pos = torch.arange(x.shape[1], device=x.device)
@@ -458,7 +437,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict, *,
             prefix_embeds: torch.Tensor | None = None, ctx=None):
     """Run the prompt, filling the cache in place; returns last-position logits."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
+    x = _embed_input(cfg, *sharding.use_vocab(ctx, params, "embed"), tokens, prefix_embeds, ctx)
     t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     kv = cache["kv"]
@@ -471,7 +450,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     """One decode step: tokens [B, 1] -> logits [B, 1, V]; the cache is
     updated in place and returned with its length + 1."""
     _check(cfg, tokens.device)
-    x = _embed_input(cfg, *_use_vocab(ctx, params, "embed"), tokens, None, ctx)
+    x = _embed_input(cfg, *sharding.use_vocab(ctx, params, "embed"), tokens, None, ctx)
     kv_len = int(cache["len"])
     pos = torch.arange(kv_len, kv_len + 1, device=x.device)
     kv = cache["kv"]

@@ -16,7 +16,10 @@ mesh) runs one train step, and a prefill with two decode steps, on every
 leaf held whole and again on each leaf's ``local_shard``, gathered at use;
 ``tp`` (world 4, the (1, 4) and (2, 2) meshes) holds the tensor-parallel
 products (gradients, serving, the pieces alone, the FLOP count) against
-the whole leaves' run.
+the whole leaves' run; ``tp_families`` does the same for RWKV-6, Griffin
+and Whisper, with each rank's final decode state against ``local_shard``
+of the whole run's and the vocabulary-parallel cross-entropy on bfloat16
+logits.
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, one card a rank).
 
     python tests/_torch_spmd_ranks.py cards [WORLD] [OUT]
@@ -645,94 +648,150 @@ def _tp_collectives(inp, mesh) -> dict:
     return r
 
 
-def _tp_flops(inp, mesh) -> dict:
+def _batch(b, rows=slice(None)) -> dict:
+    """A batch of the ``tp`` inputs as tensors (``rows`` of each): a dict of
+    arrays, or a token array alone."""
+    b = b if isinstance(b, dict) else {"tokens": b}
+    return {k: t_(v[rows]) for k, v in b.items()}
+
+
+def _tp_flops(tpi, mesh) -> dict:
     """The rank's FLOPs of one serving forward (``count_step``) per flop
-    case: the whole products and the sharded ones."""
+    case of ``tpi``: the whole products and the sharded ones."""
     from repro_torch.launch import hlo_analysis
 
     out = {}
-    for case, (arch, over) in inp["tp"]["flops"].items():
+    for case, (arch, over) in tpi["flops"].items():
         cfg = configs.get(arch).reduced(**over)
-        params = interop.params_from_numpy(cfg, inp["tp"]["params"][case], DEV)
+        params = interop.params_from_numpy(cfg, tpi["params"][case], DEV)
         ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
                           param_specs=sharding.param_specs(cfg, params, mesh))
-        tokens = t_(inp["tp"]["tokens"][case])
+        batch = _batch(tpi["tokens"][case])
         local = _own(params, ctx.param_specs, mesh)
         with torch.no_grad():
-            _, st = hlo_analysis.count_step(lambda: api.logits_fn(cfg, local, {"tokens": tokens},
-                                                                  ctx=ctx))
+            _, st = hlo_analysis.count_step(lambda: api.logits_fn(cfg, local, batch, ctx=ctx))
         out[case] = st.flops
     return out
 
 
-def tp_steps(inp, out) -> None:
-    """The ``tp`` job: per mesh of ``inp["tp"]["meshes"]`` (model sizes of
-    ``make_host_mesh``) and per case of ``inp["tp"]["cases"]``: the
-    gradients of one microbatch (``train_step``'s, reduced over dp, and the
-    clip's norm) on every leaf whole and on each leaf's ``local_shard``
-    under ``param_specs`` (the tensor-parallel products); a prefill and two
-    decode steps the same two ways; and the tp run's full-sequence logits.
-    Then the tensor-parallel pieces alone and the FLOP count."""
+def _global_state(whole, like, mesh):
+    """The whole run's decode state (each rank's dp rows) all-gathered over
+    'data' into the global batch's, ``like`` (a global state) giving each
+    leaf's shape."""
+    def leaf(t, g):
+        if not isinstance(t, torch.Tensor) or t.shape == g.shape:
+            return t
+        dim = next(i for i, (a, b) in enumerate(zip(t.shape, g.shape)) if a != b)
+        return direct.allgather(t.contiguous(), "data", dim=dim, mesh=mesh)
+
+    return treepath.unflatten_like(whole, [leaf(t, g) for t, g in zip(treepath.leaves(whole),
+                                                                       treepath.leaves(like))])
+
+
+def _tp_case(tpi, case, mesh) -> dict:
+    """One case of ``tpi["cases"]`` on ``mesh``: the gradients of one
+    microbatch (``train_step``'s, reduced over dp, and the clip's norm) on
+    every leaf whole and on each leaf's ``local_shard`` under
+    ``param_specs`` (the tensor-parallel products); a prefill and two
+    decode steps the same two ways (with ``tpi["states"]``, the tp run's
+    final state beside ``local_shard`` of the whole runs' global one); and
+    the tp run's full-sequence logits."""
+    arch, over = tpi["cases"][case]
+    data = direct.axis_index("data", mesh)
+    n_dp = direct.axis_size("data", mesh)
+    cfg = configs.get(arch).reduced(**over)
+    ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                      ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe" else None)
+    tree = tpi["params"][case]
+    master = interop.params_from_numpy(cfg, tree, DEV, master=True)
+    specs = sharding.param_specs(cfg, master, mesh)
+    sctx = dataclasses.replace(ctx, param_specs=specs)
+    batch = tpi["batch"][case]
+    n = batch["tokens"].shape[0] // n_dp
+    shard = _batch(batch, slice(data * n, (data + 1) * n))
+    got = {}
+    for name, c, p in (("whole", ctx, master), ("tp", sctx, _own(master, specs, mesh))):
+        loss, _, grads = ts._make_grads_of(cfg, c, 1, torch.float32)(p, shard)
+        gnorm = ts._reduce(grads, ts._shard_axes(cfg, c, p), ("data",), mesh)
+        got[name] = (float(loss), float(gnorm), grads)
+
+    def flat(tree):
+        return {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(tree)
+                if isinstance(t, torch.Tensor)}
+
+    rc = {"loss": (got["whole"][0], got["tp"][0]), "gnorm": (got["whole"][1], got["tp"][1]),
+          "want": flat(_own(got["whole"][2], specs, mesh)), "got": flat(got["tp"][2])}
+    # serving from the same weights (held as serving holds them)
+    params = interop.params_from_numpy(cfg, tree, DEV)
+    local = _own(params, specs, mesh)
+    with torch.inference_mode():
+        rc["logits"] = np_(api.logits_fn(cfg, local, shard, ctx=sctx)[0])
+        prompt = tpi["prompt"][case]
+        b, t = (prompt if isinstance(prompt, np.ndarray) else prompt["tokens"]).shape
+        m = b // n_dp
+        whole = api.init_decode_state(cfg, b, t + 2, torch.float32, device=DEV)
+        s_specs = sharding.cache_specs(cfg, whole, mesh, b)
+        runs = {"whole": (ctx, params, api.init_decode_state(cfg, m, t + 2, torch.float32,
+                                                             device=DEV)),
+                "tp": (dataclasses.replace(sctx, state_specs=s_specs), local,
+                       _own(whole, s_specs, mesh))}
+        steps, final = {}, {}
+        for name, (c, p, st) in runs.items():
+            lg, st = api.prefill_fn(cfg, p, _batch(prompt, slice(data * m, (data + 1) * m)), st,
+                                    ctx=c)
+            steps[name] = [np_(lg)]
+            for i in range(2):
+                tok = t_(tpi["decode"][case][i][data * m:(data + 1) * m])
+                lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
+                steps[name].append(np_(lg))
+            final[name] = st
+        rc["serve"] = steps
+        if tpi.get("states"):
+            coords = {a: direct.axis_index(a, mesh) for a in mesh.mesh_dim_names}
+            glob = _global_state(final["whole"], whole, mesh)
+            rc["state"] = {"want": flat(sharding.local_shard(glob, s_specs, mesh, coords)),
+                           "got": flat(final["tp"]),
+                           "specs": {treepath.path_str(pa): tuple(sp) for pa, sp in
+                                     treepath.flatten_with_path(s_specs)}}
+    return rc
+
+
+def tp_steps(inp, out, key: str = "tp") -> None:
+    """The ``tp`` job (and ``tp_families``, on ``inp[key]``): per mesh of
+    ``inp[key]["meshes"]`` (model sizes of ``make_host_mesh``) each case
+    (``_tp_case``); for ``tp`` the tensor-parallel pieces alone; then the
+    FLOP count."""
     res = {}
-    for model in inp["tp"]["meshes"]:
+    for model in inp[key]["meshes"]:
         mesh = make_host_mesh(model=model)
-        data = direct.axis_index("data", mesh)
-        n_dp = direct.axis_size("data", mesh)
-        r = {}
-        for case, (arch, over) in inp["tp"]["cases"].items():
-            cfg = configs.get(arch).reduced(**over)
-            ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
-                              ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe"
-                              else None)
-            tree = inp["tp"]["params"][case]
-            master = interop.params_from_numpy(cfg, tree, DEV, master=True)
-            specs = sharding.param_specs(cfg, master, mesh)
-            sctx = dataclasses.replace(ctx, param_specs=specs)
-            batch = inp["tp"]["batch"][case]
-            n = batch["tokens"].shape[0] // n_dp
-            shard = {k: t_(v[data * n:(data + 1) * n]) for k, v in batch.items()}
-            got = {}
-            for name, c, p in (("whole", ctx, master), ("tp", sctx, _own(master, specs, mesh))):
-                loss, _, grads = ts._make_grads_of(cfg, c, 1, torch.float32)(p, shard)
-                gnorm = ts._reduce(grads, ts._shard_axes(cfg, c, p), ("data",), mesh)
-                got[name] = (float(loss), float(gnorm), grads)
-            rc = {"loss": (got["whole"][0], got["tp"][0]), "gnorm": (got["whole"][1],
-                                                                       got["tp"][1]),
-                  "want": {treepath.path_str(pa): np_(t) for pa, t in treepath.flatten_with_path(
-                      _own(got["whole"][2], specs, mesh))},
-                  "got": {treepath.path_str(pa): np_(t)
-                          for pa, t in treepath.flatten_with_path(got["tp"][2])}}
-            # serving from the same weights (held as serving holds them)
-            params = interop.params_from_numpy(cfg, tree, DEV)
-            local = _own(params, specs, mesh)
-            with torch.inference_mode():
-                rc["logits"] = np_(api.logits_fn(cfg, local, shard, ctx=sctx)[0])
-                prompt = inp["tp"]["prompt"][case]
-                b, t = prompt.shape
-                m = b // n_dp
-                whole = api.init_decode_state(cfg, b, t + 2, torch.float32, device=DEV)
-                s_specs = sharding.cache_specs(cfg, whole, mesh, b)
-                runs = {"whole": (ctx, params, api.init_decode_state(cfg, m, t + 2, torch.float32,
-                                                                     device=DEV)),
-                        "tp": (dataclasses.replace(sctx, state_specs=s_specs), local,
-                               _own(whole, s_specs, mesh))}
-                steps = {}
-                for name, (c, p, st) in runs.items():
-                    lg, st = api.prefill_fn(cfg, p, {"tokens": t_(prompt[data * m:(data + 1) * m])},
-                                            st, ctx=c)
-                    steps[name] = [np_(lg)]
-                    for i in range(2):
-                        tok = t_(inp["tp"]["decode"][case][i][data * m:(data + 1) * m])
-                        lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
-                        steps[name].append(np_(lg))
-                rc["serve"] = steps
-            r[case] = rc
-        r["unit"] = _tp_collectives(inp, mesh)
-        r["coords"] = {"data": data, "model": direct.axis_index("model", mesh)}
+        r = {case: _tp_case(inp[key], case, mesh) for case in inp[key]["cases"]}
+        if key == "tp":
+            r["unit"] = _tp_collectives(inp, mesh)
+        else:
+            r["unit"] = _tp_family_pieces(inp[key], mesh)
+        r["coords"] = {"data": direct.axis_index("data", mesh),
+                       "model": direct.axis_index("model", mesh)}
         if model == 4:
-            r["flops"] = _tp_flops(inp, mesh)
+            r["flops"] = _tp_flops(inp[key], mesh)
         res[model] = r
-    out["tp"] = res
+    out[key] = res
+
+
+def _tp_family_pieces(tpi, mesh) -> dict:
+    """The vocabulary-parallel cross-entropy on bfloat16 logits (Griffin's
+    head makes them): each rank's terms and the gradient of its block, the
+    dp rank's rows of ``tpi["unit"]``."""
+    u = tpi["unit"]
+    p, m = direct.axis_size("model", mesh), direct.axis_index("model", mesh)
+    n = u["logits"].shape[0] // direct.axis_size("data", mesh)
+    rows = slice(direct.axis_index("data", mesh) * n, (direct.axis_index("data", mesh) + 1) * n)
+    v = u["logits"].shape[-1] // p
+    logits = t_(u["logits"][rows, :, m * v:(m + 1) * v]).to(torch.bfloat16).requires_grad_()
+    total, count = L.vocab_parallel_cross_entropy_terms(
+        logits, t_(u["labels"][rows]), t_(u["mask"][rows]), "model", mesh)
+    total.backward()
+    return {"ce_bf16": {"total": float(total), "count": float(count),
+                        "dlogits": np_(logits.grad), "grad_dtype": str(logits.grad.dtype)}}
 
 
 def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_dir: str,
@@ -764,6 +823,8 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         sharded_steps(inp, out)
     elif job == "tp":
         tp_steps(inp, out)
+    elif job == "tp_families":
+        tp_steps(inp, out, "tp_families")
     else:
         mesh = init_device_mesh(DEV.type, (2, 4), mesh_dim_names=("data", "model"))
         out["moe"] = moe_ep(inp, rank, out, mesh, "model", "data")
