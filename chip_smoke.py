@@ -24,12 +24,15 @@ Phases, one JSON line each:
    busy host process runs beside the timed phases.  Rank (0, 0) of the
    16 x 16 production mesh
    for ``DRYRUN_CELLS`` (minicpm-2b, gemma3-4b and recurrentgemma-9b
-   ``train_4k``, gemma3-4b ``decode_32k``, rwkv6-7b ``prefill_32k``,
-   whisper-medium ``train_4k``), its state held as ``local_shard``s and
-   gathered at use, but the blocks its tensor-parallel products take as
-   they are (the projections, MLPs, recurrences, heads and vocabulary the
-   rules split over 'model'): (a) the first four traced on fake CUDA
-   tensors (``launch.dryrun``), their FLOPs, wire bytes by kind, argument
+   ``train_4k``, gemma3-4b and internvl2-2b ``decode_32k``, rwkv6-7b
+   ``prefill_32k``, whisper-medium and kimi-k2 ``train_4k``), its state held
+   as ``local_shard``s and gathered at use, but the blocks its
+   tensor-parallel products take as they are (the projections, MLPs,
+   recurrences, heads and vocabulary the rules split over 'model'; a
+   decode step's attention on the rank's own q heads; kimi-k2's 2 of 512
+   experts a layer, behind the expert-parallel dispatch's two all-to-alls
+   over the joint ('data', 'model') axis): (a) the first five traced on
+   fake CUDA tensors (``launch.dryrun``), their FLOPs, wire bytes by kind, argument
    bytes and peak equal to the committed ``experiments/dryrun_torch/``
    records (traced on the CPU); (b) every cell's rank program run once for
    real on the card (the fake group's collectives move nothing, so values
@@ -155,7 +158,10 @@ Phases, one JSON line each:
    local prefill (q [4, 4096, 16, 256], k/v [4, 4096, 1, 256], window
    2048), and decode at 16 rows per kv head (``flash_wgmma``): qwen3-moe q
    [4, 1, 64, 128] over [4, 2080, 4, 128], recurrentgemma q [4, 1, 16, 256]
-   over [4, 4128, 1, 256].
+   over [4, 4128, 1, 256]; and the dryrun phase's tp-16 decode islands
+   (``RANK_DECODE_SHAPES``, ``flash_decode``): one q head over one bf16 kv
+   head of 32,768 at the last position, 8 sequences, internvl2-2b's hd 128
+   and gemma3-4b's hd 256 on a global and a window-1024 layer.
 6. kernel  — flash_attention_bwd (the hand-written backward) against its
    plain version (``ref.attention_bwd_ref``) from the same o and lse, at
    minicpm-2b's train shape (q/k/v [2, 4096, 36, 64], causal), gemma3-4b's
@@ -181,8 +187,9 @@ Phases, one JSON line each:
    448, 16, 64]: ``flash_wgmma_split``).  6c (run last, after phase 11,
    so that the end-to-end phases run as before it): the same at a
    tensor-parallel training rank's shapes (``TP_RANK_SHAPES``: one q head a
-   rank at tp 16, 4 sequences), each backward's plan (head subsets, k/v
-   parts) held to the one the cell names.  bf16 k/v enter ``bwd_wide`` as
+   rank at tp 16, 4 sequences; kimi-k2's island, q [2, 4096, 4, 112] over
+   float32 k/v [2, 4096, 1, 112], causal), each backward's plan (head
+   subsets, k/v parts) held to the one the cell names.  bf16 k/v enter ``bwd_wide`` as
    they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
    float32 values, and dk, dv come back rounded to bfloat16: held at
    ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
@@ -503,13 +510,14 @@ FAMILY_TRAIN_SHAPES = (
      dict(causal=True, window=0), "families_train/whisper", False, None),
 )
 # the same for a training rank of the 16 x 16 mesh whose tensor-parallel
-# products leave it one q head (tp 16), a microbatch of 4 sequences: the
+# products leave it one q head (tp 16; kimi-k2's four), a microbatch of 4
+# sequences (kimi-k2's 2): the
 # recurrentgemma-9b train_4k rank's local MQA (its q the float32 value of
 # bf16, over the whole bf16 kv head: flash_wgmma, and bwd_wide with neither
 # head subsets, a group of one, nor the dS path, its dQ grid of 256 blocks
 # filling a wave: bf16 k/v as they are), and whisper-medium train_4k's
 # encoder, decoder self- and cross-attention (bwd_wgmma), as the dryrun
-# phase's recurrentgemma-9b and whisper-medium ranks run them
+# phase's recurrentgemma-9b, whisper-medium and kimi-k2 ranks run them
 TP_RANK_SHAPES = (
     ("griffin_rank_train", (4, 4096, 1, 256), (4, 4096, 1, 256), "bfloat16",
      dict(causal=True, window=2048), "dryrun_rank", True, (1, 1)),
@@ -519,6 +527,24 @@ TP_RANK_SHAPES = (
      dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
     ("whisper_rank_cross", (4, 4096, 1, 64), (4, 1500, 1, 64), "bfloat16",
      dict(causal=False, window=0), "dryrun_rank", False, (1, 3)),
+    # kimi-k2 train_4k's expert-parallel rank: the head plan's island, 4 of
+    # 64 q heads over kv head 0 of 8 (float32 products), 2 sequences a
+    # microbatch: flash_wgmma_split (hd 112 in the 128-wide template), bwd_wgmma
+    ("kimi_rank_train", (2, 4096, 4, 112), (2, 4096, 1, 112), "float32",
+     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+)
+# the decode islands of the dryrun phase's decode_32k ranks, tp 16: one q
+# head a rank (float32) over the bf16 kv head it maps to, 8 sequences at the
+# 32,768-position cache's last position: internvl2-2b's (hd 128, 24 a step)
+# and gemma3-4b's (hd 256) on a global layer (5 a step) and a window-1024
+# layer (29); flash_decode, held with phase 5's shapes
+RANK_DECODE_SHAPES = (
+    ("internvl2_rank_decode", (8, 1, 1, 128), (8, 32768, 1, 128),
+     dict(causal=True, window=0, q_offset=32767, kv_len=32768)),
+    ("gemma3_rank_decode_global", (8, 1, 1, 256), (8, 32768, 1, 256),
+     dict(causal=True, window=0, q_offset=32767, kv_len=32768)),
+    ("gemma3_rank_decode_local", (8, 1, 1, 256), (8, 32768, 1, 256),
+     dict(causal=True, window=1024, q_offset=32767, kv_len=32768)),
 )
 # dk and dv of bf16 k/v come back rounded to bfloat16: BWD_TOL of their
 # float32 values plus one rounding (half an ulp is 2^-9 of the value)
@@ -558,12 +584,15 @@ BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb
 # the dryrun phase: one rank, (0, 0), of the 16 x 16 production mesh under a
 # fake process group, each cell (arch, shape, whether it is also traced on
 # fake CUDA tensors and held against its experiments/dryrun_torch/ record,
-# traced on the CPU; rwkv6-7b prefill_32k's trace alone took 206 s there)
-# run once for real; the real run's FLOPs must equal the record's and its
-# peak be within DRYRUN_PEAK_TOL of the record's estimate
+# traced on the CPU; rwkv6-7b prefill_32k's trace alone took 206 s there,
+# kimi-k2 train_4k's 162 s) run once for real; the real run's FLOPs must
+# equal the record's and its peak be within DRYRUN_PEAK_TOL of the record's
+# estimate.  kimi-k2's rank holds 2 of the 512 padded experts a layer and
+# runs the expert-parallel dispatch over the joint ('data', 'model') axis
 DRYRUN_CELLS = (("minicpm-2b", "train_4k", True), ("gemma3-4b", "train_4k", True),
-                ("gemma3-4b", "decode_32k", True), ("recurrentgemma-9b", "train_4k", True),
-                ("rwkv6-7b", "prefill_32k", False), ("whisper-medium", "train_4k", False))
+                ("gemma3-4b", "decode_32k", True), ("internvl2-2b", "decode_32k", True),
+                ("recurrentgemma-9b", "train_4k", True), ("rwkv6-7b", "prefill_32k", False),
+                ("whisper-medium", "train_4k", False), ("kimi-k2-1t-a32b", "train_4k", False))
 # the rank-(0, 0) training islands held against the plain versions: (arch,
 # q_offset, on a sliding-window layer) with the designs the path runs (the
 # hd-256 islands: flash_tiled and bwd_wide, each split where
@@ -3700,8 +3729,9 @@ def main() -> int:
     # recurrentgemma's 16 / 1 past its window); qwen3-moe's prefill (16
     # query heads per kv head, its 2048-token prompt in a 2080-position
     # cache) and whisper's decoder self-attention over its 128-position
-    # cache (the 4-token prompt, and the last decode step); bf16 k/v, each
-    # within 2e-5 and failing it given one key too few
+    # cache (the 4-token prompt, and the last decode step); the dryrun
+    # phase's decode islands (RANK_DECODE_SHAPES); bf16 k/v, each within 2e-5
+    # and failing it given one key too few
     for cell, q_shape, kv_shape, kw in (
         ("whisper_encoder", (4, 1500, 16, 64), (4, 1500, 16, 64),
          dict(causal=False, window=0, q_offset=0, kv_len=None)),
@@ -3719,6 +3749,7 @@ def main() -> int:
          dict(causal=True, window=0, q_offset=2048, kv_len=2049)),
         ("griffin_decode", (4, 1, 16, 256), (4, 4128, 1, 256),
          dict(causal=True, window=2048, q_offset=4096, kv_len=4097)),
+        *RANK_DECODE_SHAPES,
     ):
         fq = randn(*q_shape)
         copies = [(randn(*kv_shape, dtype=torch.bfloat16), randn(*kv_shape, dtype=torch.bfloat16))

@@ -1,7 +1,9 @@
 """Host-bound timings of the serving and RWKV-6, Griffin and Whisper paths,
-two trees of the port side by side on one card.
+or of the dry-run's decode ranks, two trees of the port side by side on one
+card.
 
     python scripts/torch_host_ab.py PARENT_TREE [CHANGE_TREE]
+    python scripts/torch_host_ab.py --rank-decode [--steps N] PARENT_TREE [CHANGE_TREE]
 
 Each tree (a checkout of the repo; CHANGE_TREE defaults to this one) runs in
 a process of its own with its ``src`` first on ``PYTHONPATH``, in turns:
@@ -14,7 +16,14 @@ tokens, each step ended by its token on the host; and whisper-medium's
 training step (``make_train_step``, B 4 x 448 tokens over 1500 frames). It
 prints per run the median token gap of steps 3-32 (ms) and the median of
 training steps 2-5 (s), one JSON line each, and the card's name and power
-limit.  Only for the card: it exits 2 without one.
+limit.  With ``--rank-decode`` a run holds rank (0, 0) of the 16 x 16
+production mesh under a ``fake`` process group (``launch.dryrun``: its
+collectives move nothing) for gemma3-4b and internvl2-2b ``decode_32k``,
+its arguments made on the card from a generator seeded 0 (the caches
+zeros), and times N serving steps (default 100) after 3, each ended by
+``cuda.synchronize``: it prints their median and 10th and 90th percentile
+walls (s) and the aten ops one step dispatches (a ``TorchDispatchMode``
+count: the host's work).  Only for the card: it exits 2 without one.
 """
 
 from __future__ import annotations
@@ -83,9 +92,71 @@ res["whisper-medium/train_step_s"] = statistics.median(steps[1:])
 print(json.dumps(res))
 '''
 
+RANK_DECODE = r'''
+import json, statistics, sys, time, torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch import configs
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.mesh import make_production_mesh
+
+
+class Ops(TorchDispatchMode):
+    n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+steps = int(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+mesh = make_production_mesh()
+coords = {"data": 0, "model": 0}
+mesh_dev = dryrun.fake_mesh(mesh, coords, "cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+res = {}
+for arch in ("gemma3-4b", "internvl2-2b"):
+    cfg = configs.get(arch)
+    rc = dryrun.rank_cell(cfg, shapes.SHAPES["decode_32k"], mesh, coords)
+
+    def make(t, cfg=cfg):
+        if t.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, tuple(t.shape), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        if not t.dtype.is_floating_point or t.dim() >= 5:   # the caches
+            return torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)
+        return (torch.randn(tuple(t.shape), generator=gen, device=dev) * 0.02).to(t.dtype)
+
+    args = dryrun.materialize(rc, make)
+    step = dryrun.rank_step(cfg, rc, mesh_dev, args)
+    walls = []
+    with torch.no_grad():
+        for _ in range(3 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ops = Ops()
+        with ops:
+            step()
+    deciles = statistics.quantiles(walls[3:], n=10)
+    res[arch] = {"step_s": statistics.median(walls[3:]), "p10_s": deciles[0],
+                 "p90_s": deciles[-1], "steps": steps, "aten_ops": ops.n}
+    del args, step
+    torch.cuda.empty_cache()
+print(json.dumps(res))
+'''
+
 
 def main() -> int:
-    if len(sys.argv) < 2:
+    argv = sys.argv[1:]
+    rank_decode = "--rank-decode" in argv
+    steps = argv[argv.index("--steps") + 1] if "--steps" in argv else "100"
+    paths = [a for i, a in enumerate(argv) if not a.startswith("--")
+             and (i == 0 or argv[i - 1] != "--steps")]
+    if not paths:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     import torch
@@ -93,12 +164,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_host_ab: no CUDA device", file=sys.stderr)
         return 2
-    trees = {"parent": Path(sys.argv[1]).resolve(),
-             "change": Path(sys.argv[2] if len(sys.argv) > 2 else
+    trees = {"parent": Path(paths[0]).resolve(),
+             "change": Path(paths[1] if len(paths) > 1 else
                             Path(__file__).resolve().parents[1]).resolve()}
+    body = [RANK_DECODE, steps] if rank_decode else [RUN]
     for name in ("parent", "change", "change", "parent"):
         env = dict(os.environ, PYTHONPATH=str(trees[name] / "src"))
-        proc = subprocess.run([sys.executable, "-c", RUN], env=env, cwd=trees[name],
+        proc = subprocess.run([sys.executable, "-c", *body], env=env, cwd=trees[name],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)

@@ -236,28 +236,55 @@ def shard_plan(h: int, kvh: int, t: int, tps: int) -> str | None:
     return None
 
 
+def head_block(h: int, tps: int, rank: int) -> tuple[int, int]:
+    """Tp rank ``rank``'s q heads [first, end) where ``h`` heads split over
+    ``tps`` ranks: a contiguous block of ceil(h / tps) whole heads from head
+    rank x ceil(h / tps), cut at the last head, so that a rank past it has
+    none (where tps divides h, the heads of a column-parallel ``wq``)."""
+    c = -(-h // tps)
+    return min(rank * c, h), min((rank + 1) * c, h)
+
+
 def attention_island(q_l: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: int, tps: int,
-                     *, plan: str, causal: bool = True, window: int = 0, softcap: float = 0.0,
-                     q_offset: int = 0, kv_len: int | None = None,
+                     *, plan: str, h: int | None = None, causal: bool = True, window: int = 0,
+                     softcap: float = 0.0, q_offset: int = 0, kv_len: int | None = None,
                      kv_local: bool = False) -> torch.Tensor:
     """Tp rank ``rank``'s island of :func:`attention_sharded`: a plain local
     attention call, no collective.  ``q_l`` is the rank's piece of q (plan
-    ``"head"``: its H / tp heads; ``"seq"``: its T / tp rows), k and v the
-    whole (replicated) tensors, or with ``kv_local`` (plan ``"head"``) the
-    kv heads the rank's q heads map to.  A head split reads the kv heads its
-    q heads map to (a contiguous slice, no copy); a sequence split offsets
-    the positions by the piece's first row, so it attends at ``q_offset +
-    rank x T / tp`` over every key (the backward at a query offset, Tq <
-    Tk)."""
-    if plan == "head" and not kv_local:
-        h_local, g = q_l.shape[2], q_l.shape[2] * tps // k.shape[2]
-        first = rank * h_local // g
-        n_kv = max(1, h_local // g)
-        k, v = k[:, :, first:first + n_kv], v[:, :, first:first + n_kv]
-    elif plan == "seq":
-        q_offset = q_offset + rank * q_l.shape[1]
-    return attention(q_l, k, v, causal=causal, window=window, softcap=softcap,
-                     q_offset=q_offset, kv_len=kv_len)
+    ``"head"``: its :func:`head_block` of the ``h`` heads, by default
+    ``q_l``'s heads x tp; ``"seq"``: its T / tp rows), k and v the whole
+    (replicated) tensors, or with ``kv_local`` (plan ``"head"``) the rank's
+    equal share of the kv heads.  A head split reads the kv heads its q
+    heads map to by the reference's island rule (q head i reads kv head
+    i // (h / kv heads); a contiguous slice, no copy), and raises where they
+    are not among those held or the kernel's grouping of the island would
+    pair them otherwise; its output has ceil(h / tp) heads, zero past the
+    rank's own (no call on a rank past the last head).  A sequence split
+    offsets the positions by the piece's first row, so it attends at
+    ``q_offset + rank x T / tp`` over every key (the backward at a query
+    offset, Tq < Tk)."""
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
+    if plan == "seq":
+        return attention(q_l, k, v, q_offset=q_offset + rank * q_l.shape[1], **kw)
+    h = h or q_l.shape[2] * tps
+    h0, h1 = head_block(h, tps, rank)
+    if q_l.shape[2] != h1 - h0:
+        raise ValueError(f"attention_island: {q_l.shape[2]} q heads, not heads {h0}..{h1 - 1}")
+    kv0 = rank * k.shape[2] if kv_local else 0
+    g = h // (k.shape[2] * (tps if kv_local else 1))
+    idx = [i // g - kv0 for i in range(h0, h1)]   # the kv heads read, as held
+    c = -(-h // tps)
+    if not idx:
+        return q_l.new_zeros(q_l.shape[0], q_l.shape[1], c, q_l.shape[3])
+    n = idx[-1] - idx[0] + 1
+    if idx[0] < 0 or idx[-1] >= k.shape[2] or any(idx[0] + j // (len(idx) // n) != i
+                                                    for j, i in enumerate(idx)):
+        raise ValueError(f"attention_island: q heads {h0}..{h1 - 1} read kv heads "
+                         f"{[i + kv0 for i in idx]}: not a grouping of the {k.shape[2]} held "
+                         f"from kv head {kv0}")
+    out = attention(q_l, k[:, :, idx[0]:idx[0] + n], v[:, :, idx[0]:idx[0] + n],
+                    q_offset=q_offset, **kw)
+    return F.pad(out, (0, 0, 0, c - len(idx))) if len(idx) < c else out
 
 
 def attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx, *,

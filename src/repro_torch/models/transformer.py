@@ -57,11 +57,14 @@ takes whole heads (and k / v where their heads split evenly too); every
 other step that needs whole heads (qk-norm and rope on split heads, the
 "seq" plan, decode) all-gathers the columns, and the attention output
 reaches ``wo_att`` as its row block (``attention_sharded(out_local=)``).
-The gated MLP exchanges its gate and up halves once
-(``layers.gated_mlp_parallel``); the training logits stay vocab-split
-(``sharding.vocab_split``), serving's are all-gathered.  Leaves the rules keep
-whole (an odd vocabulary, the router, a width tp does not divide) are
-used whole.
+A decode step then attends on the rank's own ceil(H / tp) q heads and the
+kv heads they read (``_decode_heads``), as the reference's partitioner
+splits its attention by ``wq``'s heads; a cache whose kv heads the rules
+put on the tp axis stays the rank's block.  The gated MLP exchanges its
+gate and up halves once (``layers.gated_mlp_parallel``); the training
+logits stay vocab-split (``sharding.vocab_split``), serving's are
+all-gathered.  Leaves the rules keep whole (an odd vocabulary, the router,
+a width tp does not divide) are used whole.
 
 Four entry points sharing weights:
 - ``forward``       : full-sequence logits (pre-rounded weights)
@@ -260,6 +263,26 @@ def _mlp(y, wi, wo, act: str, wi_role: str | None, wo_role: str | None, ctx):
                                                mesh=mesh), wo, act)
 
 
+def _decode_heads(q, k, v, kv_local: bool, tp, mesh, **kw) -> torch.Tensor:
+    """A decode step's attention on the tp rank's own q heads: its
+    ``layers.head_block`` of ``q`` [B, 1, H, hd] (every rank holds q whole),
+    over the kv heads they map to (``layers.attention_island``; ``k`` / ``v``
+    every kv head, or with ``kv_local`` the rank's block of them).  Returns
+    the rank's row block [B, 1, H hd / tp] of the flattened heads' output,
+    what a row-parallel ``wo_att`` takes: the island's output as it is where
+    tp divides H, else the ranks' (padded to ceil(H / tp) heads)
+    all-gathered, trimmed to H heads and cut to the block."""
+    h, hd = q.shape[2], q.shape[3]
+    tps, r = direct.axis_size(tp, mesh), direct.axis_index(tp, mesh)
+    h0, h1 = L.head_block(h, tps, r)
+    out = L.attention_island(q[:, :, h0:h1], k, v, r, tps, plan="head", h=h, kv_local=kv_local,
+                             **kw).flatten(2)
+    if h % tps == 0:
+        return out
+    whole = direct.allgather_alike(out.contiguous(), tp, dim=-1, mesh=mesh)[..., :h * hd]
+    return L.split_to_group(whole, tp, mesh)
+
+
 def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: int = 0,
               master: bool = False, ctx: DistContext | None = None):
     """One transformer layer -> (x, the MoE aux loss or None). cache_l:
@@ -302,17 +325,26 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
 
+    rows = roles.get("wo_att") == "row"
+    # a decode step attends on the rank's own q heads (``_decode_heads``) and
+    # keeps a cache whose kv heads the specs split over tp as its block
+    own_heads = rows and t == 1
     if cache_l is not None:
         start = kv_len if t == 1 else 0
         if start + t > cache_l.shape[2]:
             raise ValueError(f"KV cache of {cache_l.shape[2]} positions is full")
         local, cache_l = cache_l, sharding.use_state(ctx, cache_l, "kv", batch_dim=1,
-                                                      layer=True)
+                                                      layer=True, keep_tp=own_heads)
+        if cache_l.shape[-2] != kv:  # the rank's block of the kv heads
+            kv_local = True
+            kv0 = direct.axis_index(tp, mesh) * cache_l.shape[-2]
+            k, v = (a[:, :, kv0:kv0 + cache_l.shape[-2]] for a in (k, v))
         cache_l[0, :, start:start + t] = k
         cache_l[1, :, start:start + t] = v
         if cache_l is not local:  # write the rank's block of the new positions back
             local[:, :, start:start + t] = sharding.own_state(
-                ctx, cache_l[:, :, start:start + t], local, "kv", batch_dim=1, layer=True)
+                ctx, cache_l[:, :, start:start + t], local, "kv", batch_dim=1, layer=True,
+                keep_tp=own_heads)
         cd = _dtype(cfg.dtype)
         k_att, v_att = cache_l[0], cache_l[1]
         if k_att.dtype != cd:
@@ -323,14 +355,13 @@ def _block_fn(cfg: ArchConfig, x, blk, window: int, pos, cache_l=None, kv_len: i
 
     att_kw = dict(causal=True, window=window, softcap=cfg.attn_softcap, q_offset=q_off,
                   kv_len=att_kv_len)
-    rows = roles.get("wo_att") == "row"
-    if ctx is not None and ctx.mesh is not None and t > 1:
+    if own_heads:
+        att = _decode_heads(q, k_att, v_att, kv_local, tp, mesh, **att_kw)
+    elif ctx is not None and ctx.mesh is not None and t > 1:
         att = L.attention_sharded(q, k_att, v_att, ctx, q_local=q_local, kv_local=kv_local,
                                   out_local=rows, **att_kw)
     else:
         att = L.attention(q, k_att, v_att, **att_kw)
-        if rows:
-            att = L.split_to_group(att.flatten(2), tp, mesh)
     if rows:
         x = x + L.row_parallel(att, blk["wo_att"], tp, mesh)
     else:

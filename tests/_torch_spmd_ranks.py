@@ -31,6 +31,7 @@ of ``CARD_TOL``); it prints one JSON line and exits non-zero on a mismatch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -688,14 +689,38 @@ def _global_state(whole, like, mesh):
                                                                        treepath.leaves(like))])
 
 
+@contextlib.contextmanager
+def _island_heads(seen: list):
+    """Within the block, every ``layers.attention_island`` call appends
+    ("island", its q heads, the k / v heads it is handed) to ``seen``, and
+    every ``layers.attention`` call (an island's own too) ("attention", its
+    q heads, the k / v heads it reads)."""
+    island, plain = L.attention_island, L.attention
+
+    def island_spy(q_l, k, v, *args, **kw):
+        seen.append(("island", q_l.shape[2], k.shape[2]))
+        return island(q_l, k, v, *args, **kw)
+
+    def spy(q, k, v, **kw):
+        seen.append(("attention", q.shape[2], k.shape[2]))
+        return plain(q, k, v, **kw)
+
+    L.attention_island, L.attention = island_spy, spy
+    try:
+        yield
+    finally:
+        L.attention_island, L.attention = island, plain
+
+
 def _tp_case(tpi, case, mesh) -> dict:
     """One case of ``tpi["cases"]`` on ``mesh``: the gradients of one
     microbatch (``train_step``'s, reduced over dp, and the clip's norm) on
     every leaf whole and on each leaf's ``local_shard`` under
     ``param_specs`` (the tensor-parallel products); a prefill and two
     decode steps the same two ways (with ``tpi["states"]``, the tp run's
-    final state beside ``local_shard`` of the whole runs' global one); and
-    the tp run's full-sequence logits."""
+    final state beside ``local_shard`` of the whole runs' global one), and
+    the q and k / v heads of each attention island and call of the tp run's
+    decode steps; and the tp run's full-sequence logits."""
     arch, over = tpi["cases"][case]
     data = direct.axis_index("data", mesh)
     n_dp = direct.axis_size("data", mesh)
@@ -735,17 +760,19 @@ def _tp_case(tpi, case, mesh) -> dict:
                                                              device=DEV)),
                 "tp": (dataclasses.replace(sctx, state_specs=s_specs), local,
                        _own(whole, s_specs, mesh))}
-        steps, final = {}, {}
+        steps, final, heads = {}, {}, []
         for name, (c, p, st) in runs.items():
             lg, st = api.prefill_fn(cfg, p, _batch(prompt, slice(data * m, (data + 1) * m)), st,
                                     ctx=c)
             steps[name] = [np_(lg)]
             for i in range(2):
                 tok = t_(tpi["decode"][case][i][data * m:(data + 1) * m])
-                lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
+                with _island_heads(heads if name == "tp" else []):
+                    lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
                 steps[name].append(np_(lg))
             final[name] = st
         rc["serve"] = steps
+        rc["decode_heads"] = heads
         if tpi.get("states"):
             coords = {a: direct.axis_index(a, mesh) for a in mesh.mesh_dim_names}
             glob = _global_state(final["whole"], whole, mesh)

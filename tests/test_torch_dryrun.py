@@ -447,6 +447,44 @@ def test_artifacts_keep_the_reference_figures_beside_the_ports():
         assert a["coords"] == {"data": 0, "model": 0} and a["trace_s"] > 0
 
 
+# the transformer families' serving cells and their peak estimates while a
+# decode step still attended on every q head: each decode step now attends on
+# the rank's own ceil(H / tp) heads
+DECODE_PEAKS = {
+    ("gemma3-4b", "decode_32k"): 36_751_342_080,
+    ("gemma3-4b", "long_500k"): 73_260_362_240,
+    ("h2o-danube-3-4b", "decode_32k"): 24_289_798_144,
+    ("h2o-danube-3-4b", "long_500k"): 48_448_513_024,
+    ("internvl2-2b", "decode_32k"): 27_360_667_648,
+    ("kimi-k2-1t-a32b", "decode_32k"): 69_437_044_224,
+    ("minicpm-2b", "decode_32k"): 97_824_423_424,
+    ("qwen3-moe-235b-a22b", "decode_32k"): 54_469_933_568,
+    ("starcoder2-3b", "decode_32k"): 8_195_614_720,
+}
+
+
+def test_decode_cells_are_the_transformer_families():
+    """``DECODE_PEAKS`` holds every ok ``decode_32k`` / ``long_500k`` record
+    of the dense, vlm and moe families."""
+    got = {(a["arch"], a["shape"]) for a in _artifacts().values()
+           if a["status"] == "ok" and a["shape"] in ("decode_32k", "long_500k")
+           and configs.get(a["arch"]).family in ("dense", "vlm", "moe")}
+    assert got == set(DECODE_PEAKS)
+
+
+@pytest.mark.parametrize("arch, shape", sorted(DECODE_PEAKS))
+def test_decode_records_within_twice_the_references_work(arch, shape):
+    """The committed rank (0, 0) record of a transformer family's serving
+    cell counts at most 2x the reference's compiled
+    ``roofline.flops_per_device`` (1.0-11.4x while every rank attended on
+    all H heads), and its peak estimate is no higher than it was then."""
+    name = f"{arch}__{shape}__16x16.json"
+    port = json.loads((ARTIFACTS / name).read_text())
+    ref = json.loads((REFERENCE / name).read_text())
+    assert port["cost_analysis"]["flops"] <= 2.0 * ref["roofline"]["flops_per_device"]
+    assert port["memory_analysis"]["peak_bytes_per_device"] <= DECODE_PEAKS[(arch, shape)]
+
+
 def test_gather_at_use_without_specs_is_the_identity():
     """With no spec trees on the context every helper hands back its input."""
     t = torch.ones(3)

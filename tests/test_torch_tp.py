@@ -6,9 +6,12 @@ Four gloo ranks (``tests/_torch_spmd_ranks.py``'s ``tp`` job) on the (1, 4)
 and (2, 2) meshes of ``launch.mesh.make_host_mesh``, from the reference's
 parameters: each rank's gradients (reduced as the train step reduces them)
 and serving logits on its ``local_shard`` under ``param_specs`` against
-the run on every leaf whole, the tp run's logits against the reference's
-unsharded ``forward``, the collectives and the vocabulary-parallel pieces
-against a whole computation here, and the rank's FLOPs in closed form.
+the run on every leaf whole, the tp run's logits and decode steps against
+the reference's unsharded ``forward``, each rank's decode attention on its
+own q heads (counted at ``layers.attention_island`` and ``attention``) and
+its final KV cache as its ``local_shard`` of the whole run's, the
+collectives and the vocabulary-parallel pieces against a whole computation
+here, and the rank's FLOPs in closed form.
 """
 
 from __future__ import annotations
@@ -113,8 +116,8 @@ def tp(tmp_path_factory):
         flop_tokens[case] = rng.integers(0, over.get("vocab_size", 512),
                                          FLOP_TOKENS).astype(np.int32)
     inp = {"tp": {"meshes": MESHES, "cases": CASES, "params": params, "batch": batch,
-                  "prompt": prompt, "decode": decode, "unit": _unit(rng), "flops": FLOPS,
-                  "tokens": flop_tokens}}
+                  "prompt": prompt, "decode": decode, "states": True, "unit": _unit(rng),
+                  "flops": FLOPS, "tokens": flop_tokens}}
     tmp = tmp_path_factory.mktemp("tp")
     inputs = tmp / "inputs.pkl"
     inputs.write_bytes(pickle.dumps(inp))
@@ -156,12 +159,20 @@ def test_tp_gradients_equal_the_whole_run(tp, case, model):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tp_serving_equals_the_whole_run(tp, case, model):
     """A prefill and two decode steps with the tensor-parallel products (the
-    logits all-gathered over tp) give the whole run's logits."""
+    logits all-gathered over tp) give the whole run's logits, and each
+    rank's final KV cache is its ``local_shard`` of the whole runs' cache
+    (their dp rows gathered): the same block, kv heads split where the rules
+    put them on 'model', its values within the serving limit."""
     for rank in tp["ranks"]:
         s = rank[model][case]["serve"]
         assert len(s["whole"]) == len(s["tp"]) == 3
         for i, (a, b) in enumerate(zip(s["whole"], s["tp"])):
             _close(b, a, SERVE_TOL, f"step {i}")
+        st = rank[model][case]["state"]
+        assert st["want"].keys() == st["got"].keys() and st["want"]
+        for k, want in st["want"].items():
+            assert st["got"][k].shape == want.shape, k
+            _close(st["got"][k], want, SERVE_TOL, k)
 
 
 @pytest.mark.parametrize("model", MESHES)
@@ -178,6 +189,80 @@ def test_tp_logits_equal_the_references_forward(tp, case, model):
         n = tokens.shape[0] * model // 4
         d = rank[model]["coords"]["data"]
         _close(rank[model][case]["logits"], want[d * n:(d + 1) * n], LOGIT_TOL)
+
+
+@pytest.mark.parametrize("model", MESHES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tp_decode_equals_the_references_forward(tp, case, model):
+    """The tp run's prefill and two decode steps (each dp rank's rows) give
+    the reference's unsharded ``forward`` on the prompt and the two decoded
+    tokens, at their last three positions."""
+    from repro.models import api as japi
+
+    jcfg, jp = tp["jparams"][case]
+    prompt = tp["inp"]["prompt"][case]
+    tokens = np.concatenate([prompt, *tp["inp"]["decode"][case]], axis=1)
+    want = np.asarray(japi.logits_fn(jcfg, jp, {"tokens": tokens})[0])[:, -3:]
+    for rank in tp["ranks"]:
+        n = tokens.shape[0] * model // 4
+        d = rank[model]["coords"]["data"]
+        for i, got in enumerate(rank[model][case]["serve"]["tp"]):
+            _close(got[:, 0], want[d * n:(d + 1) * n, i], LOGIT_TOL, f"step {i}")
+
+
+def _cache_on_model(case: str, model: int) -> bool:
+    """Whether ``cache_specs`` puts the case's KV cache's kv heads on 'model'
+    on the (4 / model, model) mesh."""
+    from repro_torch.dist import sharding
+
+    cfg = configs.get(CASES[case][0]).reduced(**CASES[case][1])
+    b = SEQ[case][0]
+    meta = T.init_cache(cfg, b, 16, device="meta")
+    spec = sharding.cache_specs(cfg, meta, {"data": 4 // model, "model": model}, b)["kv"]
+    return "model" in sharding.spec_axes(spec)
+
+
+@pytest.mark.parametrize("model", MESHES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tp_decode_attends_on_the_ranks_own_heads(tp, case, model):
+    """Each decode step of a tp rank attends in one island a layer, of at
+    most ceil(H / tp) q heads, the tp ranks' islands together taking every
+    head once; each island is handed the cache's kv heads as the rank holds
+    them (its block where the rules put them on 'model') and reads only the
+    kv heads its q heads map to (q head i: kv head i // (H / KV)); a rank
+    past the last head calls no attention."""
+    arch, over = CASES[case]
+    cfg = configs.get(arch).reduced(**over)
+    h, g = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    held = cfg.num_kv_heads // model if _cache_on_model(case, model) else cfg.num_kv_heads
+    events, nq = {}, {}
+    for rank in tp["ranks"]:
+        c = rank[model]["coords"]
+        ev = events[c["data"], c["model"]] = rank[model][case]["decode_heads"]
+        assert ev and ev[0][0] == "island" and ev[0][1] <= -(-h // model)
+        nq[c["data"], c["model"]] = ev[0][1]
+    for (d, m), n in nq.items():
+        first = sum(nq[d, j] for j in range(m))
+        reads = len({i // g for i in range(first, first + n)})
+        want = [("island", n, held)] + ([("attention", n, reads)] if n else [])
+        assert events[d, m] == want * (2 * cfg.num_layers), (d, m)
+    for d in {d for d, _ in nq}:
+        assert sum(nq[d, m] for m in range(model)) == h
+
+
+def test_tp_decode_cases_cover_the_splits():
+    """The serving cases take each decode split: (a) H divisible by tp with
+    the cache whole over 'model' (gemma3 and kimi_moe on tp 4), (b) H not
+    divisible, a rank holding no head (minicpm_seq: 6 heads on tp 4, 2 a
+    rank), (c) the cache's kv heads on 'model' (gemma3 and minicpm_seq on
+    tp 2)."""
+    cfgs = {case: configs.get(arch).reduced(**over) for case, (arch, over) in CASES.items()}
+    for case in ("gemma3", "kimi_moe"):   # (a)
+        assert cfgs[case].num_heads % 4 == 0 and not _cache_on_model(case, 4)
+    h = cfgs["minicpm_seq"].num_heads   # (b)
+    assert h % 4 and 3 * -(-h // 4) >= h and not _cache_on_model("minicpm_seq", 4)
+    for case in ("gemma3", "minicpm_seq"):   # (c)
+        assert _cache_on_model(case, 2)
 
 
 def test_tp_plans_cover_the_cases():
