@@ -16,37 +16,43 @@ Phases, one JSON line each:
    of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
    recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
    and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
-1b. dryrun — in two child processes (each one's default process group a
+1b. dryrun — in child processes (each one's default process group a
    ``fake`` one of 256 ranks; ``--dryrun-child trace`` and ``run``): (a)
    begun before phase 1's build (fake tensors: no kernel, nothing on the
-   card) and (b) right after it, while the script's own process holds
-   nothing on the card; both are waited for before phase 2, so that no
-   busy host process runs beside the timed phases.  Rank (0, 0) of the
+   card; ``DRYRUN_TRACE_CHILDREN`` of them, each tracing its share of the
+   cells) and (b) right after it, while the script's own process holds
+   nothing on the card; all are waited for before phase 2, so that no
+   busy host process runs beside the timed phases, and (b) times a
+   cell's step only once (a) has ended, but the device-bound cells of
+   ``DRYRUN_BESIDE_TRACES``, which it runs first.  Rank (0, 0) of the
    16 x 16 production mesh
-   for ``DRYRUN_CELLS`` (minicpm-2b, gemma3-4b and recurrentgemma-9b
-   ``train_4k``, gemma3-4b and internvl2-2b ``decode_32k``, rwkv6-7b
-   ``prefill_32k``, whisper-medium and kimi-k2 ``train_4k``), its state held
+   for ``DRYRUN_CELLS`` (every architecture's ``train_4k``: minicpm-2b,
+   gemma3-4b, recurrentgemma-9b, whisper-medium, kimi-k2, qwen3-moe,
+   h2o-danube-3-4b, starcoder2-3b, internvl2-2b, rwkv6-7b; gemma3-4b and
+   internvl2-2b ``decode_32k``; rwkv6-7b ``prefill_32k``), its state held
    as ``local_shard``s and gathered at use, but the blocks its
    tensor-parallel products take as they are (the projections, MLPs,
    recurrences, heads and vocabulary the rules split over 'model'; a
    decode step's attention on the rank's own q heads; kimi-k2's 2 of 512
-   experts a layer, behind the expert-parallel dispatch's two all-to-alls
-   over the joint ('data', 'model') axis): (a) the first five traced on
-   fake CUDA tensors (``launch.dryrun``), their FLOPs, wire bytes by kind, argument
-   bytes and peak equal to the committed ``experiments/dryrun_torch/``
-   records (traced on the CPU); (b) every cell's rank program run once for
-   real on the card (the fake group's collectives move nothing, so values
-   are not checked): its FLOPs (``FlopCounterMode``) must equal the
-   record's, ``max_memory_allocated`` must be within ``DRYRUN_PEAK_TOL`` of
-   the record's peak and under the card's memory, a second step is timed
-   and its launches join the counts under ``dryrun_rank``; and the
-   training ranks' islands (``DRYRUN_ISLANDS``:
-   q [4, 256, H, hd] over k/v [4, 4096, KV, hd] float32; minicpm-2b's at
-   q_offset 0 through ``flash_wgmma_split`` and ``bwd_wgmma``, gemma3-4b's
+   experts a layer and qwen3-moe's 1 of 256, behind the expert-parallel
+   dispatch's two all-to-alls over the joint ('data', 'model') axis): (a)
+   the cells so marked traced on fake CUDA tensors (``launch.dryrun``),
+   their FLOPs, wire bytes by kind, argument bytes and peak equal to the
+   committed ``experiments/dryrun_torch/`` records (traced on the CPU);
+   (b) every cell's rank program run once for real on the card (the fake
+   group's collectives move nothing, so values are not checked): its
+   FLOPs (``FlopCounterMode``) must equal the record's,
+   ``max_memory_allocated`` must be within ``DRYRUN_PEAK_TOL`` of the
+   record's peak and under the card's memory, a second step is timed, its
+   flash calls by design must be ``DRYRUN_LAUNCHES``'s and its launches
+   join the counts under ``dryrun_rank``; and the sequence-split training
+   ranks' islands (``DRYRUN_ISLANDS``: q [4, 256, H, hd] over k/v [4, 4096,
+   KV, hd] float32; minicpm-2b's at q_offset 0 through
+   ``flash_wgmma_split`` and ``bwd_wgmma``, gemma3-4b's
    at 0 and 3840, and at 3840 on a sliding-window layer, through
    ``flash_tiled`` and ``bwd_wide``, each split where ``attn_plan.h``
    splits, ``bwd_wide`` on the dS path at full attention) against the
-   plain versions.
+   plain versions, each failing them given one key too few.
 2. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (hash_partition at the join's and the
    groupby's shuffle, segment_reduce at groupby_agg's three calls), with its
@@ -188,9 +194,14 @@ Phases, one JSON line each:
    so that the end-to-end phases run as before it): the same at a
    tensor-parallel training rank's shapes (``TP_RANK_SHAPES``: one q head a
    rank at tp 16, 4 sequences; kimi-k2's island, q [2, 4096, 4, 112] over
-   float32 k/v [2, 4096, 1, 112], causal), each backward's plan (head
-   subsets, k/v parts) held to the one the cell names.  bf16 k/v enter ``bwd_wide`` as
-   they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
+   float32 k/v [2, 4096, 1, 112], causal; qwen3-moe's, q [2, 4096, 4, 128]
+   over [2, 4096, 1, 128]; h2o-danube-3-4b's, q [4, 4096, 2, 120] over [4,
+   4096, 1, 120], window 4096; internvl2-2b's, q [4, 4096, 1, 128] over
+   one kv head; starcoder2-3b's sequence islands, q [4, 256, 24, 128] at
+   q_offset 0 and 3840 over [4, 4096, 2, 128]), each backward's plan (head
+   subsets, k/v parts) held to the one the cell names.  6b and 6c also fail
+   unless the limits reject the plain version given one key too few.  bf16
+   k/v enter ``bwd_wide`` as they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
    float32 values, and dk, dv come back rounded to bfloat16: held at
    ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
    operands need (``attn_products``: 1 for a product of two bf16 values, 3
@@ -532,6 +543,25 @@ TP_RANK_SHAPES = (
     # microbatch: flash_wgmma_split (hd 112 in the 128-wide template), bwd_wgmma
     ("kimi_rank_train", (2, 4096, 4, 112), (2, 4096, 1, 112), "float32",
      dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+    # qwen3-moe train_4k's expert-parallel rank: 4 of 64 q heads over kv head
+    # 0 of 4, hd 128, 2 sequences a microbatch; h2o-danube-3-4b's head plan,
+    # 2 of 32 q heads over kv head 0 of 8 at hd 120 (the 128-wide
+    # template), its window of 4096 on every layer; internvl2-2b's, 1 of 16
+    # q heads over kv head 0 of 8 (its 256-patch prefix inside the 4096);
+    # starcoder2-3b's sequence plan (24 heads do not split over 16): rows
+    # [q_offset, q_offset + 256) of 4096, every head, over both kv heads, at
+    # model rank 0 and 15 (the most keys).  All float32: flash_wgmma_split
+    # and bwd_wgmma
+    ("qwen3_rank_train", (2, 4096, 4, 128), (2, 4096, 1, 128), "float32",
+     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+    ("h2o_rank_train", (4, 4096, 2, 120), (4, 4096, 1, 120), "float32",
+     dict(causal=True, window=4096), "dryrun_rank", False, (1, 3)),
+    ("internvl2_rank_train", (4, 4096, 1, 128), (4, 4096, 1, 128), "float32",
+     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+    ("starcoder2_rank_seq0", (4, 256, 24, 128), (4, 4096, 2, 128), "float32",
+     dict(causal=True, window=0, q_offset=0), "dryrun_rank", False, (1, 3)),
+    ("starcoder2_rank_seq3840", (4, 256, 24, 128), (4, 4096, 2, 128), "float32",
+     dict(causal=True, window=0, q_offset=3840), "dryrun_rank", False, (1, 3)),
 )
 # the decode islands of the dryrun phase's decode_32k ranks, tp 16: one q
 # head a rank (float32) over the bf16 kv head it maps to, 8 sequences at the
@@ -588,23 +618,60 @@ BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb
 # kimi-k2 train_4k's 162 s) run once for real; the real run's FLOPs must
 # equal the record's and its peak be within DRYRUN_PEAK_TOL of the record's
 # estimate.  kimi-k2's rank holds 2 of the 512 padded experts a layer and
-# runs the expert-parallel dispatch over the joint ('data', 'model') axis
-DRYRUN_CELLS = (("minicpm-2b", "train_4k", True), ("gemma3-4b", "train_4k", True),
+# qwen3-moe's 1 of 256 (128 live), each behind the expert-parallel dispatch
+# over the joint ('data', 'model') axis.  Every architecture's train_4k rank
+# runs (qwen3-moe's CPU trace took 218 s, rwkv6-7b's 523 s)
+DRYRUN_CELLS = (("kimi-k2-1t-a32b", "train_4k", False),
+                ("qwen3-moe-235b-a22b", "train_4k", False),
+                ("minicpm-2b", "train_4k", True), ("gemma3-4b", "train_4k", True),
                 ("gemma3-4b", "decode_32k", True), ("internvl2-2b", "decode_32k", True),
                 ("recurrentgemma-9b", "train_4k", True), ("rwkv6-7b", "prefill_32k", False),
-                ("whisper-medium", "train_4k", False), ("kimi-k2-1t-a32b", "train_4k", False))
+                ("whisper-medium", "train_4k", False), ("h2o-danube-3-4b", "train_4k", True),
+                ("starcoder2-3b", "train_4k", True), ("internvl2-2b", "train_4k", True),
+                ("rwkv6-7b", "train_4k", False))
+# each cell's flash-attention calls by design in one step (the timed one):
+# a training rank's layers x microbatches x (forward, recompute) forwards
+# and layers x microbatches backwards; a decode step's one call a layer
+DRYRUN_LAUNCHES = {
+    "minicpm-2b/train_4k": {"flash_wgmma_split": 40 * 4 * 2, "bwd_wgmma": 40 * 4},
+    "gemma3-4b/train_4k": {"flash_tiled": 34 * 4 * 2, "bwd_wide": 34 * 4},
+    "gemma3-4b/decode_32k": {"flash_decode": 34},
+    "internvl2-2b/decode_32k": {"flash_decode": 24},
+    "recurrentgemma-9b/train_4k": {"flash_wgmma": 12 * 4 * 2, "bwd_wide": 12 * 4},
+    "rwkv6-7b/prefill_32k": {},
+    # the encoder and cross-attention (bf16 k/v) and the decoder's self-attention
+    "whisper-medium/train_4k": {"flash_wgmma": 2 * 24 * 4 * 2, "flash_wgmma_split": 24 * 4 * 2,
+                                "bwd_wgmma": 3 * 24 * 4},
+    "kimi-k2-1t-a32b/train_4k": {"flash_wgmma_split": 61 * 8 * 2, "bwd_wgmma": 61 * 8},
+    "qwen3-moe-235b-a22b/train_4k": {"flash_wgmma_split": 94 * 8 * 2, "bwd_wgmma": 94 * 8},
+    "h2o-danube-3-4b/train_4k": {"flash_wgmma_split": 24 * 4 * 2, "bwd_wgmma": 24 * 4},
+    "starcoder2-3b/train_4k": {"flash_wgmma_split": 30 * 4 * 2, "bwd_wgmma": 30 * 4},
+    "internvl2-2b/train_4k": {"flash_wgmma_split": 24 * 4 * 2, "bwd_wgmma": 24 * 4},
+    "rwkv6-7b/train_4k": {},
+}
 # the rank-(0, 0) training islands held against the plain versions: (arch,
 # q_offset, on a sliding-window layer) with the designs the path runs (the
 # hd-256 islands: flash_tiled and bwd_wide, each split where
 # csrc/attn_plan.h splits it; bwd_wide's split is the dS path, whose dQ pass
 # is bwd_dq_ds, and the full-attention islands must take it); q [4, 256, H,
 # hd] over k/v [4, 4096, KV, hd] float32, the 4 sequences of a microbatch,
-# tp 16's sequence split.  gemma3-4b: five of six layers slide a 1024 window
+# tp 16's sequence split.  gemma3-4b: five of six layers slide a 1024 window.
+# starcoder2-3b's islands (the same plan) are TP_RANK_SHAPES rows
 DRYRUN_ISLANDS = (("minicpm-2b", 0, False, "flash_wgmma_split", "bwd_wgmma"),
                   ("gemma3-4b", 0, False, "flash_tiled", "bwd_wide"),
                   ("gemma3-4b", 3840, False, "flash_tiled", "bwd_wide"),
                   ("gemma3-4b", 3840, True, "flash_tiled", "bwd_wide"))
 DRYRUN_COORDS = {"data": 0, "model": 0}
+# the cells whose timed step may run beside the fake-CUDA traces, first in
+# DRYRUN_CELLS: device-bound (float32 products at ~36 TFLOP/s; 45.7-46.4 s
+# a kimi-k2 step whether or not the traces ran beside it).  Every other
+# cell's step is host-bound in part and is timed only after the traces end
+DRYRUN_BESIDE_TRACES = ("kimi-k2-1t-a32b/train_4k", "qwen3-moe-235b-a22b/train_4k")
+# the fake-CUDA traces run in this many children side by side, each taking
+# every DRYRUN_TRACE_CHILDREN-th marked cell: one child tracing all eight
+# traced for 396 s of DRYRUN_TIMEOUT_S on an H100 machine's host beside the
+# run child (40-117 s a cell there), and a slower host's traces took 1.2x
+DRYRUN_TRACE_CHILDREN = 2
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_TIMEOUT_S = 600
 
@@ -890,6 +957,18 @@ def flash_work(torch, q, k, *, causal, window, q_offset, kv_len) -> tuple[int, i
     return nbytes, 4 * hd * pairs
 
 
+def flash_bwd_bytes(q, k, lse, mask) -> int:
+    """Bytes one flash-attention backward must move: q, o and dO read and dQ
+    written (float32), k and v read over the keys some query can see (all
+    Tk where a row sees none, as ``flash_work``), dK and dV written whole
+    in k's type, lse read.  ``mask`` is the plain version's [Tq, Tk]."""
+    b, _, _, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    keys = tk if bool((mask.sum(1) == 0).any()) else int(mask.any(0).sum())
+    return (4 * 4 * q.numel() + 2 * b * kvh * hd * keys * k.element_size()
+            + 2 * k.numel() * k.element_size() + 4 * lse.numel())
+
+
 def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len):
     """One ``scaled_dot_product_attention`` call computing the same function
     (the library yardstick; the port never calls it): k/v upcast to float32
@@ -952,8 +1031,7 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         torch.cuda.empty_cache()
         mask = fa_r.key_mask(t, t, causal=True, window=window, q_offset=0, kv_len=t, device=dev)
         pairs = int(mask.sum()) * b * h
-        # q, o, do, dq and k, v, dk, dv once each, lse once
-        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        nbytes = flash_bwd_bytes(q, k, lse, mask)
         design = fa_k.bwd_design(hd)
         tms, tby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
         fms, fby = bound(nbytes, 10 * hd * pairs)
@@ -1005,6 +1083,32 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
     }
 
 
+def one_key_too_few(torch, fa_r, q, k, v, o, lse, do, grads, kw) -> list[float] | None:
+    """The plain version given one key too few (causal: each row's oldest
+    visible key past a window one shorter than the longest row's reach;
+    else the last key, dropped) against a call's forward (o, lse) and
+    backward (``grads``) as the kernels gave them: the largest difference
+    of each, or None where either stays within FLASH_TOL / BWD_TOL (bf16
+    dk, dv plus one rounding), which would not tell the key."""
+    if kw["causal"]:
+        near, kn, vn = dict(kw, window=(kw["window"] or kw["q_offset"] + q.shape[1]) - 1), k, v
+    else:
+        near, kn, vn = kw, k[:, :-1], v[:, :-1]
+    o_n, lse_n = fa_r.attention_lse_ref(q, kn, vn, **near)
+    if all(bool(((a - e).abs() <= FLASH_TOL + FLASH_TOL * e.abs()).all())
+           for a, e in ((o, o_n), (lse, lse_n))):
+        return None
+    fwd = max(float((a - e).abs().max()) for a, e in ((o, o_n), (lse, lse_n)))
+    exp = fa_r.attention_bwd_ref(q, kn, vn, o_n, lse_n, do, **near)
+    within, bwd = True, 0.0
+    for a, e in zip(grads, exp):
+        rounded = BF16_ROUND if a.dtype == torch.bfloat16 else 0.0
+        err = (a.float()[:, :e.shape[1]] - e).abs()
+        bwd = max(bwd, float(err.max()))
+        within &= bool((err <= BWD_TOL + (BWD_TOL + rounded) * e.abs()).all())
+    return None if within else [fwd, bwd]
+
+
 def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES) -> dict:
     """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b;
     ``TP_RANK_SHAPES``, a tensor-parallel rank's): the forward with lse
@@ -1031,7 +1135,7 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
         if q_bf16:   # the float32 values of bf16 q
             q = q.to(torch.bfloat16).float()
         k, v = randn(kv_shape, kvt), randn(kv_shape, kvt)
-        kw = dict(softcap=0.0, q_offset=0, **mask_kw)
+        kw = {"softcap": 0.0, "q_offset": 0, **mask_kw}
         hd, rows_per_kv = q_shape[3], q_shape[1] * q_shape[2] // kv_shape[2]
         fdesign = fa_k.fwd_design(hd, kvt, rows_per_kv, lse=True)
         bdesign = fa_k.bwd_design(hd)
@@ -1056,8 +1160,13 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
             if not bool((err <= BWD_TOL + (BWD_TOL + rounded) * e.abs()).all()):
                 fail(f"family_train {cell}: {name} differs from the plain version by "
                      f"{float(err.max())}")
-        del o_r, lse_r, exp, got
-        full = dict(causal=kw["causal"], window=kw["window"], q_offset=0, kv_len=kv_shape[1])
+        del o_r, lse_r, exp
+        one_key_off = one_key_too_few(torch, fa_r, q, k, v, o, lse, do, got, kw)
+        if one_key_off is None:
+            fail(f"family_train {cell}: the limits do not tell one key too few")
+        del got
+        full = dict(causal=kw["causal"], window=kw["window"], q_offset=kw["q_offset"],
+                    kv_len=kv_shape[1])
         nbytes, ops = flash_work(torch, q, k, **full)
         nbytes += lse.numel() * 4
         # the bound counts the products the operands need (a bf16 value
@@ -1072,19 +1181,19 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
         rows[f"flash_attention/{fdesign}@{cell}"] = {
             **base, "design": fdesign, "max_abs_err": ferr, "ms": ms,
             "plain_ms": timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **kw)),
+            "one_key_off_max_abs_err": one_key_off[0],
             "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
             "operations": ops, "split": f_split, "bound_ms_as_run": run_ms,
             "split_as_run": FLASH_SPLIT[fdesign],
             "library_ms": timer.ms(sdpa_call(torch, q, k, v, **full))}
         mask = fa_r.key_mask(q_shape[1], kv_shape[1], causal=kw["causal"], window=kw["window"],
-                             q_offset=0, kv_len=None, device=dev)
+                             q_offset=kw["q_offset"], kv_len=None, device=dev)
         pairs = int(mask.sum()) * q_shape[0] * q_shape[2]
-        # q, o, do, dq float32; k, v, dk, dv in their own type; lse
-        nbytes = 4 * 4 * q.numel() + 4 * k.numel() * k.element_size() + 4 * lse.numel()
+        nbytes = flash_bwd_bytes(q, k, lse, mask)
         bms, bby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", b_split)
         # the instance that runs: its k/v parts give its products
         plan = fa_k.bwd_plan(hd, q_shape[0], q_shape[1], kv_shape[1], q_shape[2], kv_shape[2],
-                             causal=kw["causal"], window=kw["window"], q_offset=0,
+                             causal=kw["causal"], window=kw["window"], q_offset=kw["q_offset"],
                              sms=torch.cuda.get_device_properties(dev).multi_processor_count,
                              kv_bf16=kvt == torch.bfloat16)
         if want_plan is not None and (plan.head_splits, plan.kv_parts) != want_plan:
@@ -1099,7 +1208,8 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
         library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
                                                           retain_graph=True))
         rows[f"flash_attention_bwd/{bdesign}@{cell}"] = {
-            **base, "design": bdesign, "max_abs_err": berr, "ms": ms,
+            **base, "design": bdesign, "max_abs_err": berr,
+            "one_key_off_max_abs_err": one_key_off[1], "ms": ms,
             "plain_ms": timer.ms(lambda: fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)),
             "bound_ms": bms, "bound_by": bby, "share_of_bound": bms / ms, "bytes": nbytes,
             "operations": 10 * hd * pairs, "split": b_split, "bound_ms_as_run": run_ms,
@@ -2576,7 +2686,7 @@ def spmd_model_phase(torch, seed, mesh, launches, hp_k, jp_k, sr_k, fa_k) -> dic
         mask = fa_r.key_mask(q.shape[1], k.shape[1], causal=kw["causal"], window=0,
                              q_offset=kw["q_offset"], kv_len=None, device=dev)
         pairs = int(mask.sum()) * q.shape[0] * q.shape[2]
-        nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+        nbytes = flash_bwd_bytes(q, k, lse, mask)
         hd = q.shape[3]
         bms, bby = bound(nbytes, 10 * hd * pairs, "bf16_tensor", fa_k.BWD_SPLIT)
         ms = timer.ms(lambda: fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw))
@@ -2873,11 +2983,13 @@ def _dryrun_figures(rec: dict) -> dict:
             "peak_bytes_per_device": rec["memory_analysis"]["peak_bytes_per_device"]}
 
 
-def dryrun_trace_child() -> int:
-    """The dryrun phase's part (a), a child process of its own (the fake
-    process group must be its default group; fake tensors: no memory on the
-    card), which runs beside phase 1's build and part (b): the cells of
-    ``DRYRUN_CELLS`` so marked traced at rank (0, 0) on fake CUDA tensors,
+def dryrun_trace_child(part: int) -> int:
+    """The dryrun phase's part (a), child processes of their own (the fake
+    process group must be a process's default group; fake tensors: no
+    memory on the card), which run beside phase 1's build and part (b):
+    share ``part`` of the cells of ``DRYRUN_CELLS`` so marked (every
+    ``DRYRUN_TRACE_CHILDREN``-th from the ``part``-th) traced at rank (0,
+    0) on fake CUDA tensors,
     each one's FLOPs, wire bytes by kind, argument bytes and peak equal to
     the committed record (a fake's device changes no shape).  Prints one
     JSON line."""
@@ -2893,9 +3005,8 @@ def dryrun_trace_child() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     out = {}
-    for arch, shape, on_card in DRYRUN_CELLS:
-        if not on_card:
-            continue
+    marked = [(arch, shape) for arch, shape, on_card in DRYRUN_CELLS if on_card]
+    for arch, shape in marked[part::DRYRUN_TRACE_CHILDREN]:
         want = _dryrun_figures(json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json")
                                           .read_text()))
         rec = dryrun.run_cell(arch, shape, coords=DRYRUN_COORDS, device="cuda", save=False)
@@ -2908,17 +3019,18 @@ def dryrun_trace_child() -> int:
     return 0
 
 
-def dryrun_child(seed: int) -> int:
+def dryrun_child(seed: int, traces_done: Path) -> int:
     """The dryrun phase's part (b), a child process (the fake process group
     must be its default group): every cell of ``DRYRUN_CELLS``'s rank
     program at (0, 0) run for real on the card under the fake group (its
     collectives move nothing, so values are not checked): one step counted
     (``FlopCounterMode`` alone: its FLOPs must equal the committed record's;
     ``max_memory_allocated`` within ``DRYRUN_PEAK_TOL`` of the record's
-    estimate and under the card's memory), then one step timed and its
-    kernel launches counted.  Also the training ranks' attention islands
-    (``DRYRUN_ISLANDS``) held against their plain versions.  Prints one JSON
-    line."""
+    estimate and under the card's memory), then one step timed, once
+    ``traces_done`` exists (the traces have ended) but for the cells of
+    ``DRYRUN_BESIDE_TRACES``, and its kernel launches counted.  Also the
+    training ranks' attention islands (``DRYRUN_ISLANDS``) held against
+    their plain versions.  Prints one JSON line."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -2978,17 +3090,31 @@ def dryrun_child(seed: int) -> int:
         if flops != est["flops"]:
             fail(f"dryrun (b) {arch} {shape}: the card's step counted {flops} FLOPs, "
                  f"the estimate {est['flops']}")
+        t0 = time.perf_counter()
+        while f"{arch}/{shape}" not in DRYRUN_BESIDE_TRACES and not traces_done.exists():
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
+                fail(f"dryrun (b) {arch} {shape}: the traces did not end")
+            time.sleep(0.2)
+        waited = time.perf_counter() - t0
+        beside_traces = not traces_done.exists()
         reset_counters(hp_k, jp_k, sr_k, fa_k)
         t0 = time.perf_counter()
         with torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        beside_traces = beside_traces or not traces_done.exists()
         got = counters(hp_k, jp_k, sr_k, fa_k)
         for name, c in got.items():
             launches[name] = launches.get(name, 0) + c
+        designs = {name.split("/")[1]: c for name, c in got.items()
+                   if name.startswith(("flash_attention/", "flash_attention_bwd/")) and c}
+        if designs != DRYRUN_LAUNCHES[f"{arch}/{shape}"]:
+            fail(f"dryrun (b) {arch} {shape}: flash calls by design {designs}, want "
+                 f"{DRYRUN_LAUNCHES[f'{arch}/{shape}']}")
         out["cells"][f"{arch}/{shape}"]["b"] = {
             "flops": flops, "flops_equal": True, "step_s": wall,
+            "step_beside_traces": beside_traces, "waited_for_traces_s": waited,
             "counted_step_s": counted_s, "max_memory_allocated": peak,
             "estimate_peak": est["peak_bytes_per_device"],
             "peak_over_estimate": peak / est["peak_bytes_per_device"],
@@ -3030,6 +3156,9 @@ def dryrun_child(seed: int) -> int:
         if not all(bool(((a - e).abs() <= BWD_TOL + BWD_TOL * e.abs()).all())
                    for a, e in zip(grads, grads_r)):
             fail(f"{what}: the backward differs from the plain version: {bwd_err}")
+        off = one_key_too_few(torch, fa_r, q, k, v, o, lse, do, grads, kw)
+        if off is None:
+            fail(f"{what}: the limits do not tell one key too few")
         # the hd-256 designs: each splits where its plan does; on a
         # full-attention layer the backward takes the dS path (bwd_dq_ds)
         split = {}
@@ -3045,7 +3174,7 @@ def dryrun_child(seed: int) -> int:
         out["islands"][f"{arch}@{q_off}" + ("/window" if sliding else "")] = {
             "q": list(q.shape), "kv": list(k.shape), **kw, "designs": designs,
             "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-            "tol": [FLASH_TOL, BWD_TOL]}
+            "one_key_off_max_abs_err": off, "tol": [FLASH_TOL, BWD_TOL]}
         del q, k, v, do, o, lse, grads, o_r, lse_r, grads_r
     # the dispatcher's host cost per flash call: the custom op against the
     # wrapper it dispatches to, at a decode call whose device time is a few
@@ -3078,47 +3207,68 @@ def dryrun_child(seed: int) -> int:
     return 0
 
 
-def dryrun_trace_start(tmp: Path) -> tuple:
-    """Start ``dryrun_trace_child``, its output to files under ``tmp``:
-    (the process, the files, the start time)."""
-    files = tuple(open(tmp / f"dryrun_trace.{n}", "w+") for n in ("out", "err"))
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
-                             "trace"], stdout=files[0], stderr=files[1], text=True)
-    return proc, files, time.perf_counter()
+def child_start(tmp: Path, tag: str, *args: str) -> tuple:
+    """This script started again with ``args`` as a child process, its
+    output to files under ``tmp``: (the process, its files)."""
+    files = tuple(open(tmp / f"{tag}.{n}", "w+") for n in ("out", "err"))
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *args],
+                            stdout=files[0], stderr=files[1], text=True)
+    return proc, files
 
 
-def dryrun_trace_finish(started: tuple) -> dict:
-    """Wait for the child of ``dryrun_trace_start`` (at most
-    ``DRYRUN_TIMEOUT_S`` from its start, killed past it) and read its line."""
-    proc, files, t0 = started
+def child_line(child: tuple, t0: float, what: str) -> dict:
+    """Wait for ``child`` of ``child_start`` (at most ``DRYRUN_TIMEOUT_S``
+    from ``t0``, killed past it) and read the JSON object of its last
+    line."""
+    proc, files = child
     try:
         proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        fail(f"the dryrun trace child ran past {DRYRUN_TIMEOUT_S} s")
+        fail(f"{what} ran past {DRYRUN_TIMEOUT_S} s")
     out, err = (f.seek(0) or f.read() for f in files)
     for f in files:
         f.close()
     if proc.returncode != 0:
-        fail(f"the dryrun trace child failed ({proc.returncode}):\n{out[-3000:]}\n{err[-5000:]}")
-    return {"cells": json.loads(out.strip().splitlines()[-1]),
-            "wall_s": time.perf_counter() - t0}
+        fail(f"{what} failed ({proc.returncode}):\n{out[-3000:]}\n{err[-5000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
-def dryrun_phase(torch, seed: int, launches: dict) -> dict:
-    """Run ``dryrun_child`` in a child process; its kernel launches join the
-    launch counts under the path ``dryrun_rank``."""
+def dryrun_trace_start(tmp: Path) -> tuple:
+    """Start the ``DRYRUN_TRACE_CHILDREN`` children of ``dryrun_trace_child``:
+    ([each one's ``child_start``], the start time)."""
+    return [child_start(tmp, f"dryrun_trace{part}", "--dryrun-child", "trace",
+                        "--trace-part", str(part))
+            for part in range(DRYRUN_TRACE_CHILDREN)], time.perf_counter()
+
+
+def dryrun_trace_finish(started: tuple, done: Path) -> dict:
+    """Wait for the children of ``dryrun_trace_start``, then make ``done``
+    (the run child's sign that they have ended); merge their cells."""
+    children, t0 = started
+    cells = {}
+    for child in children:
+        cells.update(child_line(child, t0, "a dryrun trace child"))
+    wall = time.perf_counter() - t0
+    done.touch()
+    return {"cells": cells, "wall_s": wall}
+
+
+def dryrun_start(torch, tmp: Path, seed: int, traces_done: Path) -> tuple:
+    """Start ``dryrun_child`` while this process holds nothing on the card:
+    (its ``child_start``, the start time, the bytes this process holds)."""
     torch.cuda.empty_cache()
-    parent_bytes = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
-                           "run", "--seed", str(seed)], capture_output=True, text=True,
-                          timeout=DRYRUN_TIMEOUT_S)
-    if proc.returncode != 0:
-        fail(f"the dryrun child failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
-             f"{proc.stderr[-5000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return (child_start(tmp, "dryrun_run", "--dryrun-child", "run", "--seed", str(seed),
+                        "--traces-done", str(traces_done)),
+            time.perf_counter(), torch.cuda.memory_allocated())
+
+
+def dryrun_finish(started: tuple, launches: dict) -> dict:
+    """Wait for the child of ``dryrun_start``; its kernel launches join the
+    launch counts under the path ``dryrun_rank``."""
+    child, t0, parent_bytes = started
+    out = child_line(child, t0, "the dryrun child")
     for name, c in out.pop("launches").items():
         launches.setdefault(name, {})["dryrun_rank"] = c
     return {**out, "parent_allocated_bytes": parent_bytes, "wall_s": time.perf_counter() - t0}
@@ -3135,6 +3285,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dryrun-child", choices=("trace", "run"), help=argparse.SUPPRESS)
+    ap.add_argument("--trace-part", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--traces-done", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -3144,9 +3296,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     if args.dryrun_child == "trace":
-        return dryrun_trace_child()
+        return dryrun_trace_child(args.trace_part)
     if args.dryrun_child == "run":
-        return dryrun_child(args.seed)
+        return dryrun_child(args.seed, args.traces_done)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import make_communicator
     from repro_torch.dataframe import Table, ops_dist
@@ -3164,18 +3316,25 @@ def main() -> int:
     smi = smi_line()
     print(smi, flush=True)
     # phase 1b (a), the dryrun traces on fake tensors (no kernel, nothing on
-    # the card), in a child of its own from here to the end of phase 1b
+    # the card), in children of their own from here to the end of phase 1b
     import tempfile
 
-    trace_tmp = tempfile.TemporaryDirectory()
-    tracing = dryrun_trace_start(Path(trace_tmp.name))
-    atexit.register(lambda: tracing[0].poll() is None and tracing[0].kill())
+    child_tmp = tempfile.TemporaryDirectory()
+    tracing = dryrun_trace_start(Path(child_tmp.name))
+    children = list(tracing[0])
+    atexit.register(lambda: [p.kill() for p, _ in children if p.poll() is None])
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "size_cuts": SIZE_CUTS})
+    # phase 1b (b) from here, while this process holds nothing on the card
+    # (the child's rank programs need up to ~62 GB) and checks the build on
+    # the host alone (ptxas's report, the SASS)
+    traces_done = Path(child_tmp.name) / "traces_done"
+    running = dryrun_start(torch, Path(child_tmp.name), args.seed, traces_done)
+    children.append(running[0])
     emit({"phase": "ptxas", **{pat: _build.ptxas_report(pat) for pat in (
         "flash_wgmma", "fwd_prep_kv", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_wide",
         "bwd_dq", "bwd_kv", "bwd_prep", "probe_kernel", "build_index")}})
@@ -3192,13 +3351,13 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {}
 
     # -- 1b. dryrun: one rank of the 16 x 16 mesh, traced and run for real ----------
-    # (b) first, while this process holds nothing on the card (the child's
-    # rank programs need up to ~53 GB); then (a)'s child is waited for, so
-    # that no busy host process runs beside the timed phases
-    dryrun_run = dryrun_phase(torch, args.seed, launches)
+    # (a)'s children, then (b)'s, are waited for, so that no busy host
+    # process runs beside the timed phases
+    dryrun_trace = dryrun_trace_finish(tracing, traces_done)
+    dryrun_run = dryrun_finish(running, launches)
     emit({"phase": "dryrun", "part": "run", **dryrun_run})
-    emit({"phase": "dryrun", "part": "trace", **dryrun_trace_finish(tracing)})
-    trace_tmp.cleanup()
+    emit({"phase": "dryrun", "part": "trace", **dryrun_trace})
+    child_tmp.cleanup()
 
     timer = Timer(torch)
     kernels: dict[str, dict] = {}

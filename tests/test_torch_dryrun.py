@@ -1,7 +1,9 @@
 """The dry-run slice: gather at use, the attention custom ops, the
 fixed-length expert counts, ``launch.dryrun.trace_cell`` on the fake 16 x 16
-mesh, and the committed ``experiments/dryrun_torch/*.json`` against the
-reference's ``experiments/dryrun/*.json``.
+mesh, the attention islands of the training ranks ``chip_smoke.py`` runs
+on the card against the rows it times, and the committed
+``experiments/dryrun_torch/*.json`` against the reference's
+``experiments/dryrun/*.json``.
 
 The sharded step runs on four gloo ranks (``tests/_torch_spmd_ranks.py``'s
 ``sharded`` job) from the reference's parameters; the traces run in child
@@ -277,6 +279,35 @@ def test_flop_formula_equals_flash_work(cell):
     assert fwd == _flash_work(q_shape, k_shape, **kw)
 
 
+# backward islands: q, k/v, k/v type, mask, the keys some query sees
+BWD_ISLANDS = {
+    "starcoder2_rank_seq0": ((4, 256, 24, 128), (4, 4096, 2, 128), torch.float32,
+                             dict(causal=True, q_offset=0), 256),
+    "starcoder2_rank_seq3840": ((4, 256, 24, 128), (4, 4096, 2, 128), torch.float32,
+                                dict(causal=True, q_offset=3840), 4096),
+    "whisper_rank_cross": ((4, 4096, 1, 64), (4, 1500, 1, 64), torch.bfloat16,
+                           dict(causal=False, q_offset=0), 1500),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(BWD_ISLANDS))
+def test_backward_bytes_read_only_the_visible_keys(cell):
+    """``chip_smoke.flash_bwd_bytes``: q, o, dO and dQ float32, k and v read
+    over the keys some query sees (at q_offset 0 a sequence island's 256
+    rows see 256 of 4096), dK and dV written whole in k's type, lse."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    q_shape, k_shape, dtype, kw, keys = BWD_ISLANDS[cell]
+    (b, tq, h, hd), (_, tk, kvh, _) = q_shape, k_shape
+    q, k = torch.zeros(1).expand(q_shape), torch.zeros(1, dtype=dtype).expand(k_shape)
+    lse = torch.zeros(1).expand(b, h, tq)
+    mask = fa_r.key_mask(tq, tk, window=0, kv_len=None, device="cpu", **kw)
+    es = k.element_size()
+    want = 16 * q.numel() + 2 * b * kvh * hd * keys * es + 2 * k.numel() * es + 4 * b * h * tq
+    assert chip_smoke.flash_bwd_bytes(q, k, lse, mask) == want
+
+
 # -- (3) the fixed-length expert counts -------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 7, 130])
@@ -351,6 +382,114 @@ def test_trace_cell_on_the_fake_production_mesh(traces, coords):
     assert t["flops"] > 0 and t["wire"] > 0
     assert set(t["counts"]) >= {"all-gather", "reduce-scatter", "all-reduce"}
     assert 0 < t["peak"] < t["scores"]
+
+
+# the training ranks the dryrun phase added with every architecture: (cell,
+# the TP_RANK_SHAPES row of rank (0, 0)'s island, or None: no attention)
+RANK_CELLS = {"qwen3-moe-235b-a22b": "qwen3_rank_train", "h2o-danube-3-4b": "h2o_rank_train",
+              "starcoder2-3b": "starcoder2_rank_seq0", "internvl2-2b": "internvl2_rank_train",
+              "rwkv6-7b": None}
+# each cell's rank (0, 0) at 1 and 2 layers (rwkv6-7b, 7.8 s a layer, at 1):
+# the attention custom ops it calls, counted by (op, q, k/v, kv type, mask)
+RANK_TRACE = r'''
+import dataclasses, json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch import configs
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.mesh import make_production_mesh
+
+
+class Calls(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "repro_torch":
+            name = func.overloadpacket.__name__
+            causal, window, _, q_offset = args[3 if name != "flash_attention_bwd" else 6:][:4]
+            key = json.dumps([name, list(args[0].shape), list(args[1].shape),
+                              str(args[1].dtype).split(".")[1], causal, window, q_offset])
+            self.seen[key] = self.seen.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+mesh, coords = make_production_mesh(), {"data": 0, "model": 0}
+mesh_dev = dryrun.fake_mesh(mesh, coords)
+out = {}
+for arch in sys.argv[1:]:
+    for layers in ((1,) if arch == "rwkv6-7b" else (1, 2)):
+        cfg = dataclasses.replace(configs.get(arch), num_layers=layers)
+        rc = dryrun.rank_cell(cfg, shapes.SHAPES["train_4k"], mesh, coords)
+        calls = Calls()
+        with FakeTensorMode():
+            args = dryrun.materialize(rc, lambda t: torch.empty(t.shape, dtype=t.dtype))
+            step = dryrun.rank_step(cfg, rc, mesh_dev, args)
+            with calls:
+                step()
+        out[f"{arch}/{layers}"] = calls.seen
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def rank_calls():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RANK_TRACE), *RANK_CELLS],
+                          env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    def key(c):   # (op, q shape, k/v shape, kv type, causal, window, q_offset)
+        return tuple(tuple(x) if isinstance(x, list) else x for x in json.loads(c))
+
+    return {k: {key(c): n for c, n in v.items()}
+            for k, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+
+
+@pytest.mark.parametrize("arch", sorted(RANK_CELLS))
+def test_rank_islands_are_the_ones_the_card_times(rank_calls, arch):
+    """Each training rank the dryrun phase added, traced at (0, 0) on fake
+    tensors at 1 and 2 layers: every attention call it makes is the island
+    ``chip_smoke.TP_RANK_SHAPES`` holds and times for the cell (q, k/v, kv
+    type, mask; starcoder2-3b's sequence island also at model rank 15's
+    q_offset), each layer
+    makes the same calls and nothing else does, and at the config's depth
+    they are ``DRYRUN_LAUNCHES``'s flash calls by design: the rows timed
+    are the ones the rank runs, as often as the card's step must."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    assert (arch, "train_4k", arch in ("h2o-danube-3-4b", "starcoder2-3b", "internvl2-2b")) \
+        in chip_smoke.DRYRUN_CELLS
+    want = chip_smoke.DRYRUN_LAUNCHES[f"{arch}/train_4k"]
+    if RANK_CELLS[arch] is None:
+        assert rank_calls[f"{arch}/1"] == {} and want == {}
+        return
+    one, two = rank_calls[f"{arch}/1"], rank_calls[f"{arch}/2"]
+    assert one and two == {c: 2 * n for c, n in one.items()}   # per layer, nothing outside
+    row = next(r for r in chip_smoke.TP_RANK_SHAPES if r[0] == RANK_CELLS[arch])
+    _, q_shape, kv_shape, kv_dtype, mask, _, _, _ = row
+    island = (q_shape, kv_shape, kv_dtype, mask["causal"], mask["window"],
+              mask.get("q_offset", 0))
+    assert {c[1:] for c in one} == {island}
+    assert {c[0] for c in one} == {"flash_attention_lse", "flash_attention_bwd"}
+    layers = configs.get(arch).num_layers
+    hd, rows_per_kv = q_shape[3], q_shape[1] * q_shape[2] // kv_shape[2]
+    designs = {fa_k.fwd_design(hd, getattr(torch, kv_dtype), rows_per_kv, lse=True):
+               layers * one[("flash_attention_lse", *island)],
+               fa_k.bwd_design(hd): layers * one[("flash_attention_bwd", *island)]}
+    assert designs == want
+    if mask.get("q_offset") is not None:   # a sequence island, at model rank 0 and 15
+        cfg = configs.get(arch)
+        assert q_shape == (4, 256, cfg.num_heads, cfg.resolved_head_dim)
+        assert kv_shape == (4, 4096, cfg.num_kv_heads, cfg.resolved_head_dim)
+        seq = [r for r in chip_smoke.TP_RANK_SHAPES if r[0].startswith("starcoder2_rank_seq")]
+        assert {r[4]["q_offset"] for r in seq} == {0, 3840}
+        assert all(r[1:4] == row[1:4] for r in seq)
+        assert all(i[0] != arch for i in chip_smoke.DRYRUN_ISLANDS)   # held once
 
 
 # -- (5) the committed artifacts --------------------------------------------------------

@@ -47,10 +47,41 @@ CASES = {
     # the MoE layer with kimi-k2's shared expert, its untied head split
     "kimi_moe": ("kimi-k2-1t-a32b", {"dtype": "float32", "param_dtype": "float32",
                                      "capacity_factor": 8.0}),
+    # the other architectures' training ranks, each keeping the head ratios
+    # that choose its plan at tp 16 (`test_tp_added_cases_keep_their_plans`).
+    # h2o-danube-3-4b: GQA 4 (8 heads over 2 kv: 2 q heads a rank over one kv
+    # head on tp 4), the window on every layer (8 of 16 rows), head dim 24
+    # (no power of two, as its 120)
+    "h2o_window": ("h2o-danube-3-4b", {"dtype": "float32", "num_heads": 8, "num_kv_heads": 2,
+                                       "head_dim": 24, "sliding_window": 8}),
+    # starcoder2-3b: 6 heads over 2 kv heads do not split over tp 4 (its 24
+    # over 16): the sequence plan at 1024 rows with GQA; its GELU MLP
+    "starcoder2_seq": ("starcoder2-3b", {"dtype": "float32", "num_heads": 6,
+                                         "num_kv_heads": 2}),
+    # internvl2-2b: 8 patch embeddings over the first positions, an odd
+    # vocabulary (the head and embedding whole), 1 q head a rank over 1 kv
+    # head on tp 4
+    "internvl2_vlm": ("internvl2-2b", {"dtype": "float32", "vocab_size": 509}),
+    # qwen3-moe-235b-a22b: a q group of 4 wider than a rank's heads (1 on tp
+    # 4, 2 on tp 2), qk-norm, 4 experts: one a rank over the joint ('data',
+    # 'model') axis, as its 256 padded experts over 256 ranks
+    "qwen3_moe": ("qwen3-moe-235b-a22b", {"dtype": "float32", "param_dtype": "float32",
+                                          "num_experts": 4, "capacity_factor": 8.0}),
 }
+# the cases added with the other architectures' ranks draw their data from a
+# generator of their own, so the first three cases' data stay as they were
+ADDED = ("h2o_window", "starcoder2_seq", "internvl2_vlm", "qwen3_moe")
 # (sequences, rows); as many sequences as layers would put the dp axes on the
 # KV cache's layer dim (`sharding.cache_specs`)
-SEQ = {"gemma3": (8, 16), "minicpm_seq": (2, 1024), "kimi_moe": (8, 16)}
+SEQ = {"gemma3": (8, 16), "minicpm_seq": (2, 1024), "kimi_moe": (8, 16), "h2o_window": (8, 16),
+       "starcoder2_seq": (2, 1024), "internvl2_vlm": (8, 16), "qwen3_moe": (8, 16)}
+# the sequence plan's cases prefill their whole rows (the plan needs 256 a
+# rank); the others a 12-token prompt
+PROMPT_ROWS = {"minicpm_seq": 1024, "starcoder2_seq": 1024}
+# each added case's architecture at full size: the plan its training rank
+# takes at tp 16 (`chip_smoke.TP_RANK_SHAPES`), which the case takes at tp 4
+FULL_PLAN = {"h2o_window": "head", "starcoder2_seq": "seq", "internvl2_vlm": "head",
+             "qwen3_moe": "head"}
 # the FLOP count: every product split but the head (vocab 512), and one
 # with k / v (1 head of 30) and the head (vocab 509) whole
 FLOPS = {
@@ -98,18 +129,25 @@ def _unit(rng) -> dict:
 
 @pytest.fixture(scope="module")
 def tp(tmp_path_factory):
-    rng = np.random.default_rng(27)
+    rng, added = np.random.default_rng(27), np.random.default_rng(30)
     params, batch, prompt, decode, jparams = {}, {}, {}, {}, {}
-    for i, (case, (arch, over)) in enumerate(sorted(CASES.items())):
+    order = [c for c in sorted(CASES) if c not in ADDED] + list(ADDED)
+    for i, case in enumerate(order):
+        arch, over = CASES[case]
+        g = added if case in ADDED else rng
         jcfg, params[case] = _init(arch, over, i)
         jparams[case] = (jcfg, params[case])
         b, t = SEQ[case]
         v = over.get("vocab_size", 512)
-        mask = (rng.random((b, t)) < 0.8).astype(np.float32)
+        mask = (g.random((b, t)) < 0.8).astype(np.float32)
         mask[0] = 1.0
-        batch[case] = {"tokens": rng.integers(0, v, (b, t)).astype(np.int32), "mask": mask}
-        prompt[case] = rng.integers(0, v, (b, t if case == "minicpm_seq" else 12)).astype(np.int32)
-        decode[case] = rng.integers(0, v, (2, b, 1)).astype(np.int32)
+        batch[case] = {"tokens": g.integers(0, v, (b, t)).astype(np.int32), "mask": mask}
+        prompt[case] = g.integers(0, v, (b, PROMPT_ROWS.get(case, 12))).astype(np.int32)
+        decode[case] = g.integers(0, v, (2, b, 1)).astype(np.int32)
+        if jcfg.frontend_tokens:   # the vlm's patch embeddings, in training and serving
+            patches = g.normal(size=(b, jcfg.frontend_tokens, jcfg.d_model)).astype(np.float32)
+            batch[case]["patches"] = patches
+            prompt[case] = {"tokens": prompt[case], "patches": patches}
     flop_tokens = {}
     for i, (case, (arch, over)) in enumerate(sorted(FLOPS.items())):
         _, params[case] = _init(arch, over, 10 + i)
@@ -183,8 +221,10 @@ def test_tp_logits_equal_the_references_forward(tp, case, model):
     from repro.models import api as japi
 
     jcfg, jp = tp["jparams"][case]
-    tokens = tp["inp"]["batch"][case]["tokens"]
-    want = np.asarray(japi.logits_fn(jcfg, jp, {"tokens": tokens})[0])
+    batch = tp["inp"]["batch"][case]
+    tokens = batch["tokens"]
+    want = np.asarray(japi.logits_fn(jcfg, jp, {k: v for k, v in batch.items()
+                                                if k != "mask"})[0])
     for rank in tp["ranks"]:
         n = tokens.shape[0] * model // 4
         d = rank[model]["coords"]["data"]
@@ -201,8 +241,10 @@ def test_tp_decode_equals_the_references_forward(tp, case, model):
 
     jcfg, jp = tp["jparams"][case]
     prompt = tp["inp"]["prompt"][case]
+    extra = {k: v for k, v in prompt.items() if k != "tokens"} if isinstance(prompt, dict) else {}
+    prompt = prompt["tokens"] if isinstance(prompt, dict) else prompt
     tokens = np.concatenate([prompt, *tp["inp"]["decode"][case]], axis=1)
-    want = np.asarray(japi.logits_fn(jcfg, jp, {"tokens": tokens})[0])[:, -3:]
+    want = np.asarray(japi.logits_fn(jcfg, jp, {"tokens": tokens, **extra})[0])[:, -3:]
     for rank in tp["ranks"]:
         n = tokens.shape[0] * model // 4
         d = rank[model]["coords"]["data"]
@@ -278,6 +320,33 @@ def test_tp_plans_cover_the_cases():
     assert m.vocab_size % 2 and m.d_ff % 4 and 2 * m.d_ff % 4 == 0 and m.d_ff % 2 == 0
     assert k.family == "moe" and k.n_shared_experts and not k.tie_embeddings
     assert k.moe_d_ff * k.n_shared_experts % 4 == 0
+
+
+@pytest.mark.parametrize("case", ADDED)
+def test_tp_added_cases_keep_their_plans(case):
+    """Each added case takes at tp 4 the plan its architecture's training
+    rank takes at tp 16 (the q heads over the kv heads that choose it), and
+    keeps what it is chosen for: GQA 4 with 2 q heads a rank, the window on
+    every layer and a head dim of no power of two (h2o-danube); the
+    sequence plan with GQA and the GELU MLP (starcoder2); the patch prefix
+    and an odd vocabulary, 1 q head a rank (internvl2); a q group wider
+    than a rank's heads and one expert a rank over the joint axis (qwen3-moe)."""
+    arch, over = CASES[case]
+    full, cfg = configs.get(arch), configs.get(arch).reduced(**over)
+    assert L.shard_plan(full.num_heads, full.num_kv_heads, 4096, 16) == FULL_PLAN[case]
+    assert L.shard_plan(cfg.num_heads, cfg.num_kv_heads, SEQ[case][1], 4) == FULL_PLAN[case]
+    g = cfg.num_heads // cfg.num_kv_heads
+    if case == "h2o_window":
+        assert g == full.num_heads // full.num_kv_heads == 4 and cfg.num_heads // 4 == 2
+        assert set(T._layer_windows(cfg)) == {cfg.sliding_window} and 0 < cfg.sliding_window
+        assert cfg.sliding_window < SEQ[case][1] and cfg.head_dim & (cfg.head_dim - 1)
+    elif case == "starcoder2_seq":
+        assert cfg.num_heads % 4 and g > 1 and cfg.act == full.act == "gelu"
+    elif case == "internvl2_vlm":
+        assert cfg.frontend_tokens and cfg.vocab_size % 2 and cfg.num_heads // 4 == 1
+    else:
+        assert g > cfg.num_heads // 4 and g > cfg.num_heads // 2 and cfg.qk_norm
+        assert cfg.num_experts_padded // 4 == 1 == full.num_experts_padded // 256
 
 
 # -- the pieces alone --------------------------------------------------------------------
