@@ -195,8 +195,9 @@ Phases, one JSON line each:
    tensor-parallel training rank's shapes (``TP_RANK_SHAPES``: one q head a
    rank at tp 16, 4 sequences; kimi-k2's island, q [2, 4096, 4, 112] over
    float32 k/v [2, 4096, 1, 112], causal; qwen3-moe's, q [2, 4096, 4, 128]
-   over [2, 4096, 1, 128]; h2o-danube-3-4b's, q [4, 4096, 2, 120] over [4,
-   4096, 1, 120], window 4096; internvl2-2b's, q [4, 4096, 1, 128] over
+   over [2, 4096, 1, 128] (both with ``bwd_wgmma``'s dK/dV pass in 2 head
+   subsets, ``head_split/bwd_wgmma``); h2o-danube-3-4b's, q [4, 4096, 2,
+   120] over [4, 4096, 1, 120], window 4096; internvl2-2b's, q [4, 4096, 1, 128] over
    one kv head; starcoder2-3b's sequence islands, q [4, 256, 24, 128] at
    q_offset 0 and 3840 over [4, 4096, 2, 128]), each backward's plan (head
    subsets, k/v parts) held to the one the cell names.  6b and 6c also fail
@@ -541,8 +542,9 @@ TP_RANK_SHAPES = (
     # kimi-k2 train_4k's expert-parallel rank: the head plan's island, 4 of
     # 64 q heads over kv head 0 of 8 (float32 products), 2 sequences a
     # microbatch: flash_wgmma_split (hd 112 in the 128-wide template), bwd_wgmma
+    # with its dK/dV pass's 4 heads in 2 subsets (128 causal blocks in one wave)
     ("kimi_rank_train", (2, 4096, 4, 112), (2, 4096, 1, 112), "float32",
-     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+     dict(causal=True, window=0), "dryrun_rank", False, (2, 3)),
     # qwen3-moe train_4k's expert-parallel rank: 4 of 64 q heads over kv head
     # 0 of 4, hd 128, 2 sequences a microbatch; h2o-danube-3-4b's head plan,
     # 2 of 32 q heads over kv head 0 of 8 at hd 120 (the 128-wide
@@ -551,9 +553,9 @@ TP_RANK_SHAPES = (
     # starcoder2-3b's sequence plan (24 heads do not split over 16): rows
     # [q_offset, q_offset + 256) of 4096, every head, over both kv heads, at
     # model rank 0 and 15 (the most keys).  All float32: flash_wgmma_split
-    # and bwd_wgmma
+    # and bwd_wgmma, qwen3-moe's with kimi-k2's 2 head subsets
     ("qwen3_rank_train", (2, 4096, 4, 128), (2, 4096, 1, 128), "float32",
-     dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
+     dict(causal=True, window=0), "dryrun_rank", False, (2, 3)),
     ("h2o_rank_train", (4, 4096, 2, 120), (4, 4096, 1, 120), "float32",
      dict(causal=True, window=4096), "dryrun_rank", False, (1, 3)),
     ("internvl2_rank_train", (4, 4096, 1, 128), (4, 4096, 1, 128), "float32",
@@ -601,7 +603,7 @@ PRODUCTION_COORDS = ((0, 0), (7, 11), (15, 15))
 # false>)
 BWD_PASSES = {"prologues": ("bwd_prep",), "dq_from_ds": ("bwd_dq_ds",),
               "dq_merge": ("bwd_dq_merge",), "dkdv_merge": ("bwd_kv_merge",),
-              "dq_recompute": ("bwd_wide<true", "32, true>", "64, true>", "128, true>"),
+              "dq_recompute": ("bwd_wide<true", "32, true", "64, true", "128, true"),
               "dkdv": ("bwd_wide<false", "bwd_wgmma<")}
 # bwd_wide's instances as their mangled template arguments <DQ, DS, HS, KV1>:
 # the recomputing dK/dV and dQ passes, the dS path's dK/dV pass, the
@@ -662,6 +664,9 @@ DRYRUN_ISLANDS = (("minicpm-2b", 0, False, "flash_wgmma_split", "bwd_wgmma"),
                   ("gemma3-4b", 3840, False, "flash_tiled", "bwd_wide"),
                   ("gemma3-4b", 3840, True, "flash_tiled", "bwd_wide"))
 DRYRUN_COORDS = {"data": 0, "model": 0}
+# the cells whose backwards split the GQA group's heads in bwd_wgmma's dK/dV
+# pass (attn_plan.h: the causal GQA-4 islands, TP_RANK_SHAPES' (2, 3))
+DRYRUN_HEAD_SPLIT = ("kimi-k2-1t-a32b/train_4k", "qwen3-moe-235b-a22b/train_4k")
 # the cells whose timed step may run beside the fake-CUDA traces, first in
 # DRYRUN_CELLS: device-bound (float32 products at ~36 TFLOP/s; 45.7-46.4 s
 # a kimi-k2 step whether or not the traces ran beside it).  Every other
@@ -4166,14 +4171,18 @@ def main() -> int:
     # the head split and bf16 k/v as they are: recurrentgemma's training
     # backwards (one attention layer a step), and bf16 k/v also on the
     # recurrentgemma-9b dryrun rank (its groups of one head split nothing);
-    # no other path (serve, train, spmd: the gemma3 islands and full layers
-    # keep the whole group)
-    rank_bwd = sum(c["b"]["launches"].get("flash_attention_bwd/bwd_wide", 0)
-                   for name, c in dryrun_run["cells"].items()
-                   if name.startswith("recurrentgemma-9b/"))
-    for counter, want in (("head_split/bwd_wide", {}),
-                          ("bf16_kv/bwd_wide", {"dryrun_rank": rank_bwd} if rank_bwd else {})):
-        want = {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS, **want}
+    # bwd_wgmma's head split on every backward of the kimi-k2 and qwen3-moe
+    # ranks; no other path (serve, train, spmd: the gemma3 islands and full
+    # layers keep the whole group, kimi-k2's whole layer fills two waves)
+    def rank_calls(cells, design):
+        return sum(c["b"]["launches"].get(f"flash_attention_bwd/{design}", 0)
+                   for name, c in dryrun_run["cells"].items() if name.startswith(cells))
+    rank_bwd = rank_calls(("recurrentgemma-9b/",), "bwd_wide")
+    split_bwd = rank_calls(DRYRUN_HEAD_SPLIT, "bwd_wgmma")
+    rg = {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS}
+    for counter, want in (("head_split/bwd_wide", rg),
+                          ("bf16_kv/bwd_wide", {**rg, "dryrun_rank": rank_bwd} if rank_bwd else rg),
+                          ("head_split/bwd_wgmma", {"dryrun_rank": split_bwd})):
         by_path = {run: n for run, n in launches.get(counter, {}).items() if n}
         if by_path != want:
             fail(f"{counter} ran on {by_path}, want {want}")

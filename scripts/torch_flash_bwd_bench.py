@@ -4,6 +4,7 @@ backward, for one or more copies of the port (to compare a change with its
 parent in one call).
 
     python3 scripts/torch_flash_bwd_bench.py [SRC_DIR ...] [--reps N] [--only fwd|bwd]
+        [--shapes NAME,...]
 
 Each SRC_DIR is a ``src`` directory holding a ``repro_torch`` package
 (default: this checkout's ``src``); each runs in its own process, in the
@@ -26,12 +27,17 @@ h2o-danube's hd 120 (32 / 8 heads, window 4096) and gemma3-4b's global
 layer (8 / 4 heads of 256), and gemma3-4b's last sequence-split island at
 tp 16 (q [1, 256, 8, 256] at q_offset 3840 over k/v [1, 4096, 4, 256]).
 Backward shapes: minicpm-2b's, h2o-danube's, gemma3-4b's local and global
-layers (window 1024 and 0), two ragged ones, the gemma3 island, and
+layers (window 1024 and 0), two ragged ones, the gemma3 island,
 recurrentgemma-9b's local MQA (16 query heads over one kv head of 256,
-window 2048) on bf16 k/v (its training path) and on float32 k/v; each
-backward line also carries the device time of each pass (``torch.profiler``
-through ``chip_smoke.trace``, mean of 3 calls, L2 flushed before each) and,
-where the package has them, its plan's head subsets and k/v parts.  dk and
+window 2048) on bf16 k/v (its training path) and on float32 k/v, and the
+float32 islands of the dry-run's training ranks (``chip_smoke.TP_RANK_SHAPES``
+and the minicpm-2b sequence island; kimi-k2's whole-width layer at hd 112);
+each backward line also carries the device time of each pass
+(``torch.profiler`` through ``chip_smoke.trace``, mean of 3 calls, L2
+flushed before each), autograd through float32
+``scaled_dot_product_attention`` on the same inputs (``library_ms``) and,
+where the package has them, its plan's head subsets and k/v parts.
+``--shapes`` keeps the named shapes only (both tables' names).  dk and
 dv of bf16 k/v come back as bfloat16: held at the limit plus one rounding
 (2^-8 of the value).
 Needs a CUDA device.
@@ -64,18 +70,33 @@ FWD_SHAPES = (
     ("gemma3_island_fwd", 1, 256, 4096, 8, 4, 256, "float32", 0, 3840, None, 0.0, True),
 )
 BF16_ROUND = 2.0**-8
-# (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype): minicpm-2b's train
-# shape, h2o-danube's, gemma3-4b's local and global layers, ragged ones, the
-# gemma3 island, recurrentgemma-9b's local MQA (bf16 k/v, and float32)
-BWD_SHAPES = ((2, 4096, 4096, 36, 36, 64, 0, 0, "float32"),
-              (1, 4096, 4096, 32, 8, 120, 4096, 0, "float32"),
-              (1, 4096, 4096, 8, 4, 256, 1024, 0, "float32"),
-              (1, 4096, 4096, 8, 4, 256, 0, 0, "float32"),
-              (1, 4097, 4097, 8, 2, 64, 300, 0, "float32"),
-              (2, 333, 333, 8, 4, 32, 50, 0, "float32"),
-              (1, 256, 4096, 8, 4, 256, 0, 3840, "float32"),
-              (1, 4096, 4096, 16, 1, 256, 2048, 0, "bfloat16"),
-              (1, 4096, 4096, 16, 1, 256, 2048, 0, "float32"))
+# name -> (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype), all causal:
+# minicpm-2b's train shape, h2o-danube's, gemma3-4b's local and global
+# layers, ragged ones, the gemma3 island, recurrentgemma-9b's local MQA (bf16
+# k/v, and float32); the dry-run's training-rank islands (kimi-k2's and
+# qwen3-moe's GQA-4 head plans, h2o-danube's, internvl2-2b's,
+# starcoder2-3b's sequence islands at model rank 0 and 15, whisper-medium's
+# decoder), the minicpm-2b sequence island, kimi-k2's whole layer
+BWD_SHAPES = {
+    "minicpm_train": (2, 4096, 4096, 36, 36, 64, 0, 0, "float32"),
+    "h2o_hd120": (1, 4096, 4096, 32, 8, 120, 4096, 0, "float32"),
+    "gemma3_local": (1, 4096, 4096, 8, 4, 256, 1024, 0, "float32"),
+    "gemma3_global": (1, 4096, 4096, 8, 4, 256, 0, 0, "float32"),
+    "ragged_4097": (1, 4097, 4097, 8, 2, 64, 300, 0, "float32"),
+    "ragged_333": (2, 333, 333, 8, 4, 32, 50, 0, "float32"),
+    "gemma3_island": (1, 256, 4096, 8, 4, 256, 0, 3840, "float32"),
+    "griffin_bf16": (1, 4096, 4096, 16, 1, 256, 2048, 0, "bfloat16"),
+    "griffin_f32": (1, 4096, 4096, 16, 1, 256, 2048, 0, "float32"),
+    "kimi_rank_train": (2, 4096, 4096, 4, 1, 112, 0, 0, "float32"),
+    "qwen3_rank_train": (2, 4096, 4096, 4, 1, 128, 0, 0, "float32"),
+    "h2o_rank_train": (4, 4096, 4096, 2, 1, 120, 4096, 0, "float32"),
+    "internvl2_rank_train": (4, 4096, 4096, 1, 1, 128, 0, 0, "float32"),
+    "starcoder2_rank_seq0": (4, 256, 4096, 24, 2, 128, 0, 0, "float32"),
+    "starcoder2_rank_seq3840": (4, 256, 4096, 24, 2, 128, 0, 3840, "float32"),
+    "whisper_rank_self": (4, 4096, 4096, 1, 1, 64, 0, 0, "float32"),
+    "minicpm_island": (2, 512, 4096, 36, 36, 64, 0, 3584, "float32"),
+    "kimi_hd112": (1, 4096, 4096, 64, 8, 112, 0, 0, "float32"),
+}
 
 
 def limits(got, exp, tol: float, names) -> dict:
@@ -90,7 +111,7 @@ def limits(got, exp, tol: float, names) -> dict:
     return out
 
 
-def run_one(src: str, reps: int, only: str | None) -> None:
+def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> None:
     sys.path.insert(0, src)
     sys.path.insert(0, str(ROOT))
     from chip_smoke import BWD_PASSES, Timer, trace
@@ -112,6 +133,8 @@ def run_one(src: str, reps: int, only: str | None) -> None:
     bwd_design = getattr(fa_k, "bwd_design", None)
     for name, b, tq, tk, h, kvh, hd, kv_dtype, window, q_offset, kv_len, v_mean, lse in (
             FWD_SHAPES if only != "bwd" else ()):
+        if names is not None and name not in names:
+            continue
         q = torch.randn(b, tq, h, hd, generator=gen, device=dev)
         k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev) for _ in range(2))
         k, v = k.to(getattr(torch, kv_dtype)), (v + v_mean).to(getattr(torch, kv_dtype))
@@ -137,7 +160,10 @@ def run_one(src: str, reps: int, only: str | None) -> None:
         del q, k, v, got
         torch.cuda.empty_cache()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for b, t, tk, h, kvh, hd, window, q_offset, kv_dtype in (BWD_SHAPES if only != "fwd" else ()):
+    for name, (b, t, tk, h, kvh, hd, window, q_offset, kv_dtype) in (
+            BWD_SHAPES.items() if only != "fwd" else ()):
+        if names is not None and name not in names:
+            continue
         q, do = (torch.randn(b, t, h, hd, generator=gen, device=dev) for _ in range(2))
         k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev).to(getattr(torch, kv_dtype))
                 for _ in range(2))
@@ -145,7 +171,8 @@ def run_one(src: str, reps: int, only: str | None) -> None:
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
         got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        out = {"src": src, "shape": [b, t, tk, h, kvh, hd, window, q_offset], "kv_dtype": kv_dtype,
+        out = {"src": src, "name": name, "shape": [b, t, tk, h, kvh, hd, window, q_offset],
+               "kv_dtype": kv_dtype,
                "design": bwd_design(hd) if bwd_design else None,
                **limits(got, exp, BWD_TOL, ("dq", "dk", "dv"))}
         if "kv_bf16" in inspect.signature(fa_k.bwd_plan).parameters:  # a parent may predate it
@@ -164,8 +191,16 @@ def run_one(src: str, reps: int, only: str | None) -> None:
 
         passes = trace(torch, three, groups={**BWD_PASSES, "flush": ("",)})["by_group_ms"]
         out["passes_ms"] = {g: ms / 3 for g, (ms, _) in passes.items() if g != "flush"}
+        # the yardstick: autograd through float32 SDPA on the same inputs
+        mask = fa_r.key_mask(t, tk, causal=True, window=window, q_offset=q_offset, kv_len=None,
+                             device=dev)
+        leaves = [x.float().transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                                enable_gqa=True)
+        out["library_ms"] = timer.ms(lambda: torch.autograd.grad(sdpa, leaves, do.transpose(1, 2),
+                                                                 retain_graph=True))
         print(json.dumps(out), flush=True)
-        del q, k, v, do, o, lse, got
+        del q, k, v, do, o, lse, got, mask, leaves, sdpa
         torch.cuda.empty_cache()
 
 
@@ -174,15 +209,18 @@ def main() -> int:
     ap.add_argument("srcs", nargs="*", default=[str(ROOT / "src")])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--only", choices=("fwd", "bwd"), default=None)
+    ap.add_argument("--shapes", default=None, help="comma-separated shape names (default: all)")
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the child process's package
     args = ap.parse_args()
     if args.one:
-        run_one(args.one, args.reps, args.only)
+        run_one(args.one, args.reps, args.only,
+                set(args.shapes.split(",")) if args.shapes else None)
         return 0
     rc = 0
     for src in args.srcs:
         cmd = [sys.executable, __file__, "--one", src, "--reps", str(args.reps)]
-        rc |= subprocess.run(cmd + (["--only", args.only] if args.only else [])).returncode
+        cmd += ["--only", args.only] if args.only else []
+        rc |= subprocess.run(cmd + (["--shapes", args.shapes] if args.shapes else [])).returncode
     return rc
 
 

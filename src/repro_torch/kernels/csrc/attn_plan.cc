@@ -42,7 +42,8 @@ extern "C" int rt_flash_attention_bwd_plan(int hd, int B, int Tq, int Tk, int H,
   if (hd != 32 && hd != 64 && hd != 112 && hd != 120 && hd != 128 && hd != 256) return 1;
   int lo, hi;
   *nchunk = attn_plan::bwd_dq_chunks(hd, B, Tq, Tk, H, q_offset, window, causal, sms, &lo, &hi);
-  *nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tk, H, KV, *nchunk, sms);
+  *nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tq, Tk, H, KV, q_offset, window, causal,
+                                           *nchunk, sms);
   *kv_parts = attn_plan::bwd_kv_parts(hd, kv_bf16, *nchunk);
   const int hdk = hd == 112 || hd == 120 ? 128 : hd;
   *scratch_bytes =

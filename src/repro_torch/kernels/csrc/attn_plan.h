@@ -1,5 +1,5 @@
-// The split rules of the two hd-256 attention designs, in one
-// place: flash_tiled (the forward, flash_attention.cu) and bwd_wide
+// The split rules of the attention designs, in one place: flash_tiled (the
+// forward, flash_attention.cu), bwd_wide and bwd_wgmma
 // (flash_attention_bwd.cu): the key split, the backward's head split and
 // its k/v parts.  Plain C++: the CUDA entry points include it to decide,
 // and attn_plan.cc exports it to the Python wrappers (built by the host
@@ -16,16 +16,21 @@
 // already fills a wave runs one chunk, the unsplit path.  The chunks'
 // partial results are merged in chunk order (deterministic).
 //
-// The head split (bwd_kv_head_splits).  bwd_wide's dK/dV pass has one block
-// per (batch, kv head, 64-key tile), each streaming the query tiles of every
-// query head of the GQA group; recurrentgemma-9b's local MQA (16 query heads
-// over one kv head, 4,096 keys) gives 64 blocks on 132 SMs, each streaming
-// 16 heads' tiles.  Under one wave the group's query heads are cut into n
+// The head split (bwd_kv_head_splits).  Both backward designs' dK/dV pass has
+// one block per (batch, kv head, 64-key tile), each streaming the query
+// tiles of every query head of the GQA group; recurrentgemma-9b's local MQA
+// (16 query heads over one kv head, 4,096 keys) gives bwd_wide 64 blocks on
+// 132 SMs, each streaming 16 heads' tiles, and a causal GQA-4 rank island
+// (qwen3-moe's, kimi-k2's: q [2, 4096, 4, 128] over one kv head) gives
+// bwd_wgmma 128 blocks in one wave whose first streams 4 x 128 query tiles
+// and whose last 4 x 2.  There the group's query heads are cut into n
 // contiguous subsets instead, one block per (key tile, subset), each
 // writing a partial dK and dV that a merge sums in subset order.
 #pragma once
 
 #include <stdint.h>
+
+#include <vector>
 
 #ifdef __CUDACC__
 #define ATTN_PLAN_FN __host__ __device__ __forceinline__
@@ -137,25 +142,96 @@ inline int bwd_dq_chunks(int hd, int B, int Tq, int Tk, int H, int q_offset, int
   return key_chunks(blocks, sms, *k_begin, *k_end);
 }
 
-// bwd_wide's dK/dV pass (hd 256): n subsets of the group's query heads
-// (subset s holds heads head_begin(s) .. head_begin(s + 1) - 1 of the
-// group).  Where the pass's grid (B x KV x ceil(Tk / 64) blocks) is under
-// one wave and a group has more than one head: the most subsets that keep
-// blocks x n <= SMs, at most one per head (recurrentgemma-9b: 64 blocks,
-// n = 2).  Else 1, the unsplit pass: every other hd-256 call on a path
-// (gemma3-4b's full layers and islands: 256 blocks), and the dS path
-// (nchunk > 0), whose dK/dV pass also stores dS.  Partials [n][B KV][Tk]
-// [256] float32 of dK, then of dV, summed in subset order (none for n = 1).
-inline int bwd_kv_head_splits(int hd, int B, int Tk, int H, int KV, int nchunk, int sms) {
-  const int groups = H / KV;
-  const int64_t blocks = static_cast<int64_t>(B) * KV * cdiv(Tk, kRows);
-  if (hd != kHd || groups < 2 || nchunk > 0 || blocks >= sms) return 1;
-  int64_t n = sms / blocks;
-  if (n > groups) n = groups;
-  return n < 1 ? 1 : static_cast<int>(n);
+ATTN_PLAN_FN int head_begin(int s, int n, int groups) { return s * groups / n; }
+
+// bwd_wgmma's 128-wide dK/dV pass (hd 112, 120, 128): its streamed query
+// tiles, a block's fixed cost (loading its 64 keys' k and v parts, storing
+// dK and dV) counted in such tiles, and the grids it weighs (under
+// kMaxWaves waves; past that the longest-first launch order balances them).
+constexpr int kWgmmaRows = 32;
+constexpr int kBlockTiles = 2;
+constexpr int kMaxWaves = 2;
+
+// The query tiles of kWgmmaRows rows that one head streams for key tile kt
+// (flash_attention_bwd.cu's stream_range<false>): the queries that see one
+// of its 64 keys.
+inline int kv_tile_queries(int kt, int Tq, int Tk, int q_offset, int window, int causal) {
+  const int r_first = kt * kRows, r_last = (r_first + kRows < Tk ? r_first + kRows : Tk) - 1;
+  const int lo = causal ? (r_first - q_offset > 0 ? r_first - q_offset : 0) : 0;
+  int hi = Tq - 1;
+  if (window > 0 && r_last + window - 1 - q_offset < hi) hi = r_last + window - 1 - q_offset;
+  return hi < lo ? 0 : hi / kWgmmaRows - lo / kWgmmaRows + 1;
 }
 
-ATTN_PLAN_FN int head_begin(int s, int n, int groups) { return s * groups / n; }
+// The dK/dV pass's length in streamed tiles with n head subsets: its blocks
+// handed out in launch order (subset, key tile, batch x kv head), each to
+// the SM that frees first, a block costing kBlockTiles plus its tiles.
+inline int64_t kv_pass_makespan(int n, int bkv, const std::vector<int>& tiles, int groups,
+                                int sms) {
+  std::vector<int64_t> load(sms, 0);
+  for (int s = 0; s < n; ++s) {
+    const int heads = head_begin(s + 1, n, groups) - head_begin(s, n, groups);
+    for (int t : tiles)
+      for (int x = 0; x < bkv; ++x) {
+        int at = 0;
+        for (int i = 1; i < sms; ++i)
+          if (load[i] < load[at]) at = i;
+        load[at] += kBlockTiles + static_cast<int64_t>(t) * heads;
+      }
+  }
+  int64_t most = 0;
+  for (int64_t x : load) most = x > most ? x : most;
+  return most;
+}
+
+// The dK/dV pass's head subsets n (subset s holds heads head_begin(s) ..
+// head_begin(s + 1) - 1 of the group); 1 is the unsplit pass.  Partials
+// [n][B KV][Tk][hdk] float32 of dK, then of dV, summed in subset order.
+// - bwd_wide (hd 256): where its grid (B x KV x ceil(Tk / 64) blocks) is
+//   under one wave and a group has more than one head, the most subsets that
+//   keep blocks x n <= SMs, at most one per head (recurrentgemma-9b: 64
+//   blocks, n = 2).  Else 1: every other hd-256 call on a path (gemma3-4b's
+//   full layers and islands: 256 blocks), and the dS path (nchunk > 0),
+//   whose dK/dV pass also stores dS.
+// - bwd_wgmma's 128-wide template (hd 112, 120, 128): where the grid is
+//   under kMaxWaves waves and a group has more than one head, the n (at most
+//   one subset per head) whose pass kv_pass_makespan makes shortest, taken
+//   only if it is at least a tenth shorter than the unsplit one (the
+//   partials' writes and the merge cost the rest).  The causal GQA-4
+//   islands: 128 blocks, the unsplit pass 514 tiles long against a mean of
+//   262, n = 2 258; h2o-danube-3-4b's rank (256 blocks, 2 heads) stays
+//   whole (258 against 260); starcoder2-3b's island (512 blocks) and
+//   every group of one head too.
+// - hd 32 and 64: 1 (no path runs them on a GQA group under two waves).
+inline int bwd_kv_head_splits(int hd, int B, int Tq, int Tk, int H, int KV, int q_offset,
+                              int window, int causal, int nchunk, int sms) {
+  const int groups = H / KV;
+  const int64_t blocks = static_cast<int64_t>(B) * KV * cdiv(Tk, kRows);
+  if (groups < 2) return 1;
+  if (hd == kHd) {
+    if (nchunk > 0 || blocks >= sms) return 1;
+    int64_t n = sms / blocks;
+    if (n > groups) n = groups;
+    return n < 1 ? 1 : static_cast<int>(n);
+  }
+  if (hd != 112 && hd != 120 && hd != 128) return 1;
+  if (blocks >= static_cast<int64_t>(kMaxWaves) * sms) return 1;
+  std::vector<int> tiles;
+  for (int kt = 0; kt < cdiv(Tk, kRows); ++kt)
+    tiles.push_back(kv_tile_queries(kt, Tq, Tk, q_offset, window, causal));
+  const int bkv = B * KV;
+  const int64_t whole = kv_pass_makespan(1, bkv, tiles, groups, sms);
+  int best = 1;
+  int64_t best_len = whole;
+  for (int n = 2; n <= groups; ++n) {
+    const int64_t len = kv_pass_makespan(n, bkv, tiles, groups, sms);
+    if (len < best_len) {
+      best = n;
+      best_len = len;
+    }
+  }
+  return 10 * best_len <= 9 * whole ? best : 1;
+}
 
 // The bf16 parts the backward holds of k and v: 1 where they are bfloat16
 // and bwd_wide's recomputing passes run (hd 256, nchunk 0: k and v enter as
@@ -170,7 +246,7 @@ inline int bwd_kv_parts(int hd, int kv_bf16, int nchunk) {
 // bf16 parts of q / sqrt(hd), dO ([3][B H][Tq][hdk] each) and of k, v
 // ([kv_parts][B KV][Tk][hdk]); lse and D as [B H][Tp] float32 (Tp: Tq padded
 // to kPadRows); on the dS path the dQ partials (more than one chunk) and dS;
-// with a head split the dK and dV partials.
+// with a head split the dK and dV partials ([n][B KV][Tk][hdk] each).
 struct BwdLayout {
   int64_t qp, dop, kp, vp, lse, d, dq_part, ds, kv_part, total;  // byte offsets, and the size
 };
@@ -192,7 +268,7 @@ inline BwdLayout bwd_layout(int hdk, int B, int Tq, int Tk, int H, int KV, int n
          (nchunk > 1 ? align256(4 * static_cast<int64_t>(nchunk) * B * H * Tq * kHd) : 0);
   l.kv_part = l.ds + (nchunk > 0 ? align256(4 * static_cast<int64_t>(B) * H * Tq * Tk) : 0);
   l.total = l.kv_part +
-            (nsplit > 1 ? align256(2 * 4 * static_cast<int64_t>(nsplit) * B * KV * Tk * kHd) : 0);
+            (nsplit > 1 ? align256(2 * 4 * static_cast<int64_t>(nsplit) * B * KV * Tk * hdk) : 0);
   return l;
 }
 

@@ -73,14 +73,14 @@
 //
 // * bwd_wgmma (hd 32, 64, 112, 120 and 128; the training path's hd 64):
 //   bwd_wgmma<HD, false> (dK, dV) and bwd_wgmma<HD, true> (dQ).
-//   One block = NWG consumer warpgroups (64 fixed rows each) and a
-//   producer warpgroup, one thread of which issues every copy; with NWG 2
-//   the producer hands its registers to the consumers (setmaxnreg 24 /
-//   240).  The fixed rows' two operands (dK/dV pass: 64 keys of k and v;
-//   dQ pass: 64 queries of q and dO), all three parts, come in once by TMA;
-//   the producer then streams tiles of BS rows of the other two through a
-//   two-stage mbarrier ring, 128-byte (hd 32: 64-byte) swizzled.  Per
-//   streamed tile a warpgroup computes, as FlashAttention-3 does,
+//   One block = two consumer warpgroups and a producer warpgroup, one
+//   thread of which issues every copy; the producer hands its registers to
+//   the consumers (setmaxnreg 24 / 240).  The fixed rows' two operands
+//   (dK/dV pass: 64 keys of k and v; dQ pass: 64 queries of q and dO), all
+//   three parts, come in once by TMA; the producer then streams tiles of BS
+//   rows of the other two through a two-stage mbarrier ring, 128-byte (hd
+//   32: 64-byte) swizzled.  Per streamed tile a warpgroup computes, as
+//   FlashAttention-3 does,
 //     dK/dV pass:  S^T = K Q^T and dP^T = V dO^T (A and B from shared
 //                  memory, both K-major), then P^T and dS^T in registers,
 //                  dV += P^T dO and dK += dS^T Q (A from registers: the
@@ -88,14 +88,28 @@
 //                  MN-major through the transpose bit), the sum over the
 //                  GQA group in the same registers;
 //     dQ pass:     S = Q K^T and dP = dO V^T, then dS, dQ += dS K.
-//   A warpgroup skips a loaded tile that its own rows cannot see.  hd 32
-//   and 64: NWG 2 (128 fixed rows), BS 64, 192 KB of shared memory at hd
-//   64; 384 threads start at 168 registers each (three warps share a
-//   sub-partition's 16K), too few for the dK/dV consumers without the 240
-//   that setmaxnreg gives them.  hd 128 (and 112 and 120, in the 128-wide
-//   template with the columns past hd zero): NWG 1 (256 threads, up to 255
-//   registers), BS 32, 192 KB; its dK/dV pass (64 + 64 accumulator floats a
-//   thread) still spills a few hundred bytes.
+//   hd 32 and 64: each consumer warpgroup owns 64 fixed rows (128 a block)
+//   and reads every tile, skipping one its rows cannot see; BS 64, 192 KB
+//   of shared memory at hd 64.  hd 128 (and 112 and 120, in the 128-wide
+//   template with the columns past hd zero): BS 32, 194 KB; the block's 64
+//   fixed rows are shared by both consumers, which take the streamed tiles
+//   in turns (even, odd: stage 0 is always the first's, stage 1 the
+//   second's), each summing its own dK and dV (64 + 64 accumulator floats a
+//   thread) or dQ; at the end the second hands its sums to the first through
+//   the ring, which adds them (warpgroup 0's + warpgroup 1's, a fixed
+//   order).  One warpgroup's mask, exp and dS math, its split of the A
+//   fragments and its waits on its products overlap the other's products,
+//   through which the tensor cores of a one-warpgroup block idle.  The
+//   dK/dV pass's lse and D rows of each query tile come in with the tile (a
+//   bulk copy into the stage), not from device memory after its products.
+//   The 128-wide dK/dV pass also takes the head split (attn_plan.h:
+//   bwd_kv_head_splits): where its grid is under two waves and unbalanced
+//   (the causal GQA-4 islands of qwen3-moe's and kimi-k2's training ranks:
+//   128 blocks on 132 SMs, the first streaming 4 x 128 query tiles and the
+//   last 4 x 2), the group's heads are cut into n contiguous subsets,
+//   blockIdx.z the subset: bwd_wgmma<128, false, true> streams its subset's
+//   heads only and writes partial dK and dV ([n][B KV][Tk][128] float32),
+//   and bwd_kv_merge<128> sums them in subset order (deterministic).
 // * bwd_wide (hd 256: gemma3-4b): bwd_wide<false> (dK, dV) and
 //   bwd_wide<true> (dQ).  bwd_wgmma's layout does not fit: the three parts of
 //   64 fixed rows of two operands are 192 KB alone, and dK and dV of 64 keys
@@ -135,7 +149,7 @@
 //   heads are cut into n contiguous subsets (n = 2 there: 128 blocks),
 //   blockIdx.z the subset: bwd_wide<false, false, true> streams its
 //   subset's heads only and writes a partial dK and dV ([n][B KV][Tk][256]
-//   float32), and bwd_kv_merge sums them in subset order into dk, dv
+//   float32), and bwd_kv_merge<256> sums them in subset order into dk, dv
 //   (deterministic).  Each subset's sums keep the fresh accumulators.  Its
 //   own instance: the full layers' pass is unchanged.
 //   bf16 k/v (the KV1 instances: bwd_wide<false, false, false / true,
@@ -207,7 +221,7 @@ struct BwdArgs {
   float* lse_p;
   float* d_p;
   float* ds;  // the dS path: dS [B H][Tq][Tk] float32, stored by bwd_wide<false, true>; else null
-  float* kv_part;  // the head split: partial dK, then dV, [nsplit][B KV][Tk][256]; else null
+  float* kv_part;  // the head split: partial dK, then dV, [nsplit][B KV][Tk][hdk]; else null
   int nsplit;      // the dK/dV pass's head subsets (1: unsplit)
   int B, Tq, Tk, Tp, H, KV, groups, hd;  // Tp: Tq padded to kPadRows
   int q_offset, window, causal;
@@ -236,10 +250,15 @@ __device__ __forceinline__ int fixed_rows(const BwdArgs& a) {
 
 template <int HD>
 struct Bw {
-  static constexpr int NWG = HD <= 64 ? 2 : 1;     // consumer warpgroups, 64 fixed rows each
+  static constexpr int NWG = HD <= 64 ? 2 : 1;     // groups of 64 fixed rows a block
+  // hd 128: the two consumer warpgroups share the block's 64 fixed rows and
+  // take the streamed tiles in turns (even, odd), each summing its own; hd
+  // 32, 64: one consumer warpgroup a group of fixed rows, each taking every tile
+  static constexpr bool TURNS = NWG == 1;
+  static constexpr int CWG = 2;                     // consumer warpgroups
   static constexpr int BS = HD <= 64 ? 64 : 32;    // rows of a streamed tile
   static constexpr int STAGES = 2;
-  static constexpr int THREADS = 128 * (NWG + 1);  // + the producer warpgroup
+  static constexpr int THREADS = 128 * (CWG + 1);  // + the producer warpgroup
   static constexpr int TN = HD < 64 ? HD : 64;     // output columns per promoted product
   static constexpr int SW = HD >= 64 ? 128 : 64;   // swizzle span: bytes per row of an atom
   static constexpr int ATOM = SW / 2;              // bf16 columns per atom
@@ -247,12 +266,19 @@ struct Bw {
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
   static constexpr int FIX_TILE = NATOM * 64 * SW;  // one part of 64 fixed rows
   static constexpr int STR_TILE = NATOM * BS * SW;  // one part of a streamed tile
-  // fixed: [warpgroup][operand 0/1][part]; a stage: [operand 0/1][part]
+  // fixed: [group][operand 0/1][part]; a stage: [operand 0/1][part]
   static constexpr int OFF_STR = NWG * 2 * kParts * FIX_TILE;
   static constexpr int STAGE = 2 * kParts * STR_TILE;
-  static constexpr int OFF_BAR = OFF_STR + STAGES * STAGE;
+  // TURNS: each stage's lse and D rows (BS floats each) of its query tile
+  // (dK/dV pass), brought in by the producer with the tile
+  static constexpr int OFF_LSE = OFF_STR + STAGES * STAGE;
+  static constexpr int LSE_BYTES = TURNS ? STAGES * 2 * BS * 4 : 0;
+  static constexpr int OFF_BAR = OFF_LSE + LSE_BYTES;
   static constexpr size_t kSmem = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + base alignment
   static constexpr int ROWS = 64 * NWG;            // fixed rows per block
+  static constexpr int READERS = TURNS ? 128 : 128 * NWG;  // consumer threads that read a stage
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+  static_assert(!TURNS || HD * 128 * 4 <= STAGES * STAGE, "the turns' sums must fit the ring");
 };
 
 constexpr int kPadRows = attn_plan::kPadRows;  // lse and D rows padded to a multiple of every
@@ -348,19 +374,31 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
 // acc = X . S^T over the kSplit part products: X the 64 fixed rows (three
 // parts at x_parts, K-major, the A operand), S the streamed tile's rows
 // (three parts at s_parts, K-major, the B operand); the first overwrites.
+// The shared-memory address at which a product's descriptors start; with
+// TURNS pinned where it is read (an empty asm the compiler cannot see
+// through), so that the descriptors are rebuilt from it at each use and not
+// hoisted out of the tile loop into registers the consumers lack.
+template <int HD>
+__device__ __forceinline__ uint32_t desc_base(uint32_t addr) {
+  if constexpr (Bw<HD>::TURNS) asm volatile("" : "+r"(addr));
+  return addr;
+}
+
 template <int HD>
 __device__ __forceinline__ void products_ss(float (&acc)[Bw<HD>::BS / 2], uint32_t x_parts,
                                             uint32_t s_parts) {
   using C = Bw<HD>;
+  // a descriptor's address field is the byte address / 16: an offset into
+  // shared memory adds offset / 16 to the base's descriptor
+  const uint64_t da0 = gmma_desc(desc_base<HD>(x_parts), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t db0 = gmma_desc(s_parts, 16, 8 * C::SW, C::LAYOUT);
 #pragma unroll
   for (int p = 0; p < kSplit; ++p)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int atom = kk * 16 / C::ATOM, col = (kk * 16 % C::ATOM) * 2;
-      const uint64_t da = gmma_desc(x_parts + pair_a(p) * C::FIX_TILE + atom * 64 * C::SW + col,
-                                    16, 8 * C::SW, C::LAYOUT);
-      const uint64_t db = gmma_desc(s_parts + pair_b(p) * C::STR_TILE + atom * C::BS * C::SW + col,
-                                    16, 8 * C::SW, C::LAYOUT);
+      const uint64_t da = da0 + ((pair_a(p) * C::FIX_TILE + atom * 64 * C::SW + col) >> 4);
+      const uint64_t db = db0 + ((pair_b(p) * C::STR_TILE + atom * C::BS * C::SW + col) >> 4);
       wgmma_ss<C::BS>(acc, da, db, p | kk);
     }
 }
@@ -377,6 +415,7 @@ template <int HD>
 __device__ __forceinline__ void products_rs(float (&o)[HD / 2], const float (&acc)[Bw<HD>::BS / 2],
                                             uint32_t s_parts) {
   using C = Bw<HD>;
+  const uint64_t db0 = gmma_desc(s_parts, C::BS * C::SW, 8 * C::SW, C::LAYOUT);
 #pragma unroll
   for (int c = 0; c < HD / C::TN; ++c) {
     // columns c TN .. of every row: their atom, then bytes into its rows
@@ -394,8 +433,7 @@ __device__ __forceinline__ void products_rs(float (&o)[HD / 2], const float (&ac
 #pragma unroll
       for (int p = 0; p < kSplit; ++p)
         wgmma_rs<C::TN>(t, fr[pair_a(p)],
-                        gmma_desc(s_parts + pair_b(p) * C::STR_TILE + col_off + kk * 16 * C::SW,
-                                  C::BS * C::SW, 8 * C::SW, C::LAYOUT));
+                        db0 + ((pair_b(p) * C::STR_TILE + col_off + kk * 16 * C::SW) >> 4));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -405,19 +443,37 @@ __device__ __forceinline__ void products_rs(float (&o)[HD / 2], const float (&ac
   }
 }
 
-// One block of either pass.  Grid (heads, tiles): blockIdx.x the fixed
-// rows' (batch x head) (dK/dV: b * KV + kvh; dQ: b * H + h), blockIdx.y the
-// tile of ROWS fixed rows, the longest first (dK/dV: the first key tiles,
-// which the most queries see; dQ: the last query tiles).  Maps: fix0/fix1
-// the fixed operands (k, v or q, dO; boxes of 64 rows), str0/str1 the
-// streamed ones (q, dO or k, v; boxes of BS rows), all over the parts
-// [part][batch x head][T][HDK].
-template <int HD, bool DQ>
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One block of either pass.  Grid (heads, tiles, subsets): blockIdx.x the
+// fixed rows' (batch x head) (dK/dV: b * KV + kvh; dQ: b * H + h),
+// blockIdx.y the tile of ROWS fixed rows, the longest first (dK/dV: the
+// first key tiles, which the most queries see; dQ: the last query tiles);
+// HS (the dK/dV pass's head split): blockIdx.z the subset of the group's
+// query heads, and partial dK, dV written to a.kv_part.  Maps: fix0/fix1 the
+// fixed operands (k, v or q, dO; boxes of 64 rows), str0/str1 the streamed
+// ones (q, dO or k, v; boxes of BS rows), all over the parts [part][batch x
+// head][T][HDK].
+template <int HD, bool DQ, bool HS = false>
 __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     bwd_wgmma(const __grid_constant__ CUtensorMap fix0, const __grid_constant__ CUtensorMap fix1,
               const __grid_constant__ CUtensorMap str0, const __grid_constant__ CUtensorMap str1,
               BwdArgs a) {
   using C = Bw<HD>;
+  static_assert(!(HS && DQ), "no such instance");
+  constexpr bool LSE_SMEM = C::TURNS && !DQ;  // lse and D come with the tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -434,21 +490,26 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   const int kvh = DQ ? h / a.groups : bh % a.KV;
   const int nbh_fix = DQ ? a.B * a.H : a.B * a.KV;   // batch x heads of each map
   const int nbh_str = DQ ? a.B * a.KV : a.B * a.H;
+  // the dK/dV pass's query heads of the group: all, or the block's subset
+  const int split = HS ? static_cast<int>(blockIdx.z) : 0;
+  const int h0 = HS ? attn_plan::head_begin(split, a.nsplit, a.groups) : 0;
+  const int nheads = DQ ? 1 : HS ? attn_plan::head_begin(split + 1, a.nsplit, a.groups) - h0
+                                 : a.groups;
   int lo, hi;
   stream_range<DQ>(a, r0, r0 + C::ROWS - 1, lo, hi);
   const int s_first = lo / C::BS;
   const int per_head = hi >= lo ? hi / C::BS - s_first + 1 : 0;
-  const int n_tiles = (DQ ? 1 : a.groups) * per_head;
+  const int n_tiles = nheads * per_head;
   // streamed tile t < n_tiles: its first row and its (batch x head)
   auto streamed = [&](int t, int& row0, int& sbh) {
     row0 = (s_first + t % per_head) * C::BS;
-    sbh = DQ ? b * a.KV + kvh : b * a.H + kvh * a.groups + t / per_head;
+    sbh = DQ ? b * a.KV + kvh : b * a.H + kvh * a.groups + h0 + t / per_head;
   };
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, 128 * C::NWG);
+      mbar_init(bar_empty + 8 * s, C::READERS);
     }
     mbar_init(bar_fix, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -456,9 +517,9 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   __syncthreads();
 
   if (tid < 128) {  // producer warpgroup: one thread starts every copy
-    if (C::NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
-      // a warpgroup whose rows all lie past T loads nothing (its rows are
+      // a group of fixed rows that lies past T loads nothing (its rows are
       // masked and never stored)
       const int live = min(C::NWG, (fixed_rows<DQ>(a) - r0 + 63) / 64);
       mbar_expect_tx(bar_fix, live * 2 * kParts * C::FIX_TILE);
@@ -473,7 +534,7 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % C::STAGES;
         mbar_wait(bar_empty + 8 * s, ((t / C::STAGES) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, C::STAGE);
+        mbar_expect_tx(bar_full + 8 * s, C::STAGE + (LSE_SMEM ? 2 * C::BS * 4 : 0));
         int row0, sbh;
         streamed(t, row0, sbh);
         for (int op = 0; op < 2; ++op)
@@ -484,20 +545,27 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
                               c * C::BS * C::SW,
                           op ? &str1 : &str0, bar_full + 8 * s, c * C::ATOM, row0,
                           i * nbh_str + sbh);
+        if constexpr (LSE_SMEM) {  // rows row0 .. row0 + BS - 1 < Tp of lse and D
+          const int64_t at = static_cast<int64_t>(sbh) * a.Tp + row0;
+          const uint32_t dst = s_fix + C::OFF_LSE + s * 2 * C::BS * 4;
+          bulk_load(dst, a.lse_p + at, C::BS * 4, bar_full + 8 * s);
+          bulk_load(dst + C::BS * 4, a.d_p + at, C::BS * 4, bar_full + 8 * s);
+        }
       }
     }
     return;
   }
 
-  if (C::NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int wg = (tid >> 7) - 1, warp = (tid >> 5) & 3, lane = tid & 31;
   const int r_lo = warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
-  const int fr0 = r0 + 64 * wg;  // this warpgroup's first fixed row
-  const uint32_t s_mine = s_fix + wg * 2 * kParts * C::FIX_TILE;
-  int wlo, whi;                  // the streamed rows this warpgroup's rows see
+  const int fg = C::TURNS ? 0 : wg;  // this warpgroup's group of fixed rows
+  const int fr0 = r0 + 64 * fg;      // its first fixed row
+  const uint32_t s_mine = s_fix + fg * 2 * kParts * C::FIX_TILE;
+  int wlo, whi;                      // the streamed rows this warpgroup's rows see
   stream_range<DQ>(a, fr0, fr0 + 63, wlo, whi);
-  int vlo[2], vhi[2];            // the streamed rows each of the thread's rows sees
+  int vlo[2], vhi[2];                // the streamed rows each of the thread's rows sees
 #pragma unroll
   for (int e = 0; e < 2; ++e) row_range<DQ>(a, fr0 + r_lo + 8 * e, vlo[e], vhi[e]);
   float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};  // dQ pass: per fixed row (query)
@@ -515,15 +583,16 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   const bool cap = a.softcap > 0.f;  // uniform
   mbar_wait(bar_fix, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
+  // TURNS: this warpgroup's tiles are every other one, from its own index
+  for (int t = C::TURNS ? wg : 0; t < n_tiles; t += C::TURNS ? C::CWG : 1) {
     const int s = t % C::STAGES;
     int row0, sbh;
     streamed(t, row0, sbh);
     const uint32_t s_st = s_str + s * C::STAGE;
     mbar_wait(bar_full + 8 * s, (t / C::STAGES) & 1);
-    // the mask hides all of it from this warpgroup's rows (one warpgroup a
-    // block: never, the block's range is its own)
-    if (C::NWG > 1 && (row0 > whi || row0 + C::BS - 1 < wlo)) {
+    // the mask hides all of it from this warpgroup's rows (with TURNS never:
+    // the block's range is its rows')
+    if (!C::TURNS && (row0 > whi || row0 + C::BS - 1 < wlo)) {
       mbar_arrive(bar_empty + 8 * s);
       continue;
     }
@@ -540,12 +609,17 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
 
     // softcap (a uniform branch), mask, P and dS; acc0 becomes P (or P^T),
     // acc1 dS (or dS^T).  lse and D belong to the query: the column here
-    // (dK/dV pass), the row (dQ pass).
+    // (dK/dV pass; with TURNS from the stage), the row (dQ pass).
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + C::OFF_LSE + s * 2 * C::BS * 4);
 #pragma unroll
     for (int j = 0; j < C::BS / 8; ++j) {
       const int c0 = row0 + 8 * j + cq;
       float2 lse_c = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
-      if (!DQ) {
+      if (LSE_SMEM) {
+        lse_c = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+        d_c = *reinterpret_cast<const float2*>(lse_s + C::BS + 8 * j + cq);
+      } else if (!DQ) {
         const int64_t at = static_cast<int64_t>(sbh) * a.Tp + c0;
         lse_c = *reinterpret_cast<const float2*>(a.lse_p + at);
         d_c = *reinterpret_cast<const float2*>(a.d_p + at);
@@ -576,12 +650,40 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     mbar_arrive(bar_empty + 8 * s);
   }
 
-  // dK/dV pass: rows are keys of kv head kvh; dQ pass: queries of head h
+  if constexpr (C::TURNS) {
+    // the two warpgroups' sums added in a fixed order (warpgroup 0's +
+    // warpgroup 1's): warpgroup 1 hands its own over through the ring,
+    // which both have left (every loaded tile has been read)
+    float* xch = reinterpret_cast<float*>(smem + C::OFF_STR);
+    const int ltid = tid & 127;
+    named_bar_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) {
+        xch[i * 128 + ltid] = o0[i];
+        if (!DQ) xch[(HD / 2 + i) * 128 + ltid] = o1[i];
+      }
+    }
+    named_bar_sync(1, 256);
+    if (wg == 1) return;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      o0[i] += xch[i * 128 + ltid];
+      if (!DQ) o1[i] += xch[(HD / 2 + i) * 128 + ltid];
+    }
+  }
+
+  // dK/dV pass: rows are keys of kv head kvh (HS: the subset's partials
+  // [split][b KV + kvh][key][HD]); dQ pass: queries of head h
+  float* dk = HS ? a.kv_part : a.dk;
+  float* dv = HS ? a.kv_part + static_cast<int64_t>(a.nsplit) * a.B * a.KV * a.Tk * HD : a.dv;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = fr0 + r_lo + 8 * e;
     if (r >= fixed_rows<DQ>(a)) continue;
-    const int64_t at = DQ ? q_row(a, b, r, h) : kv_row(a, b, r, kvh);
+    const int64_t at = DQ ? q_row(a, b, r, h)
+                          : HS ? ((static_cast<int64_t>(split) * a.B * a.KV + bh) * a.Tk + r) * HD
+                               : kv_row(a, b, r, kvh);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + cq;
@@ -590,9 +692,9 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
         *reinterpret_cast<float2*>(a.dq + at + col) =
             make_float2(o0[4 * j + 2 * e] / a.sqrt_hd, o0[4 * j + 2 * e + 1] / a.sqrt_hd);
       } else {
-        *reinterpret_cast<float2*>(a.dk + at + col) =
+        *reinterpret_cast<float2*>(dk + at + col) =
             make_float2(o0[4 * j + 2 * e], o0[4 * j + 2 * e + 1]);
-        *reinterpret_cast<float2*>(a.dv + at + col) =
+        *reinterpret_cast<float2*>(dv + at + col) =
             make_float2(o1[4 * j + 2 * e], o1[4 * j + 2 * e + 1]);
       }
     }
@@ -648,10 +750,6 @@ __host__ __device__ constexpr int first_pair(int ap, int bp) {
   for (int p = 0; p < kSplit; ++p)
     if (pair_a(p) < ap && pair_b(p) < bp) return p;
   return 0;
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The A fragment of 16 columns (k-step kk) of a fixed operand (float32 in
@@ -1201,19 +1299,21 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_merge(BwdArgs a, int nchunk, 
       make_float4(sum.x / a.sqrt_hd, sum.y / a.sqrt_hd, sum.z / a.sqrt_hd, sum.w / a.sqrt_hd);
 }
 
-// dk, dv = the head subsets' partials summed in subset order: one thread per
-// 4 columns of a (b, t, kv head) row.
+// dk, dv = the head subsets' partials ([nsplit][B KV][Tk][HDK] each) summed
+// in subset order: one thread per 4 columns (below hd) of a (b, t, kv head) row.
+template <int HDK>
 __global__ void __launch_bounds__(kThreads) bwd_kv_merge(BwdArgs a) {
-  constexpr int V = Wd::HD / 4;
+  constexpr int V = HDK / 4;
   const int64_t n = static_cast<int64_t>(a.B) * a.KV * a.Tk * V;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   const int col = static_cast<int>(i % V) * 4;
+  if (col >= a.hd) return;
   const int64_t row = i / V;  // (b KV + kvh) Tk + t
   const int t = static_cast<int>(row % a.Tk);
   const int bkv = static_cast<int>(row / a.Tk), b = bkv / a.KV, kvh = bkv % a.KV;
-  const int64_t stride = static_cast<int64_t>(a.B) * a.KV * a.Tk * Wd::HD;
-  const float* pk = a.kv_part + row * Wd::HD + col;
+  const int64_t stride = static_cast<int64_t>(a.B) * a.KV * a.Tk * HDK;
+  const float* pk = a.kv_part + row * HDK + col;
   const float* pv = pk + a.nsplit * stride;
   float4 sk = *reinterpret_cast<const float4*>(pk), sv = *reinterpret_cast<const float4*>(pv);
   for (int c = 1; c < a.nsplit; ++c) {
@@ -1226,7 +1326,15 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_merge(BwdArgs a) {
   *reinterpret_cast<float4*>(a.dv + kv_row(a, b, t, kvh) + col) = sv;
 }
 
-template <int HD, bool DQ>
+// The head split's merge of the dK and dV partials.
+template <int HDK>
+cudaError_t launch_kv_merge(const BwdArgs& a, cudaStream_t s) {
+  const int64_t n = static_cast<int64_t>(a.B) * a.KV * a.Tk * (HDK / 4);
+  bwd_kv_merge<HDK><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD, bool DQ, bool HS = false>
 cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   using C = Bw<HD>;
   CUtensorMap f0, f1, s0, s1;
@@ -1244,12 +1352,17 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
                   make_parts_map(&s1, str[1], HD, tstr, nstr, C::BS, C::ATOM, C::SW);
   if (!ok) return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      bwd_wgmma<HD, DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  const cudaError_t e = cudaFuncSetAttribute(bwd_wgmma<HD, DQ, HS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(C::kSmem));
   if (e != cudaSuccess) return e;
-  const dim3 grid(DQ ? nq : nk, (tfix + C::ROWS - 1) / C::ROWS);
-  bwd_wgmma<HD, DQ><<<grid, C::THREADS, C::kSmem, s>>>(f0, f1, s0, s1, a);
-  return cudaGetLastError();
+  const dim3 grid(DQ ? nq : nk, (tfix + C::ROWS - 1) / C::ROWS, HS ? a.nsplit : 1);
+  bwd_wgmma<HD, DQ, HS><<<grid, C::THREADS, C::kSmem, s>>>(f0, f1, s0, s1, a);
+  const cudaError_t e2 = cudaGetLastError();
+  if constexpr (HS) {
+    if (e2 == cudaSuccess) return launch_kv_merge<HD>(a, s);
+  }
+  return e2;
 }
 
 // The dS path's dQ: bwd_dq_ds over nchunk chunks of keys [k_begin, k_end),
@@ -1295,10 +1408,10 @@ cudaError_t launch_wide(const BwdArgs& a, cudaStream_t s) {
   const dim3 grid(DQ ? a.B * a.H : a.B * a.KV, (tfix + 63) / 64, HS ? a.nsplit : 1);
   bwd_wide<DQ, DS, HS, KV1><<<grid, C::THREADS, L::kSmem, s>>>(s0, s1, a);
   const cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess || !HS) return e2;
-  const int64_t n = static_cast<int64_t>(a.B) * a.KV * a.Tk * (C::HD / 4);
-  bwd_kv_merge<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  if constexpr (HS) {
+    if (e2 == cudaSuccess) return launch_kv_merge<C::HD>(a, s);
+  }
+  return e2;
 }
 
 // bwd_wide's recomputing passes: dK/dV (head split where nsplit > 1), then
@@ -1359,7 +1472,14 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
     if (e != cudaSuccess) return e;
     return launch_dq_ds(a, nchunk, k_begin, k_end, reinterpret_cast<float*>(p + l.dq_part), s);
   } else {
-    e = launch_pass<HD, false>(a, s);
+    // the head split's instance exists at 128 only (attn_plan.h gives 32 and
+    // 64 one subset)
+    if constexpr (HD == 128) {
+      e = nsplit > 1 ? launch_pass<HD, false, true>(a, s) : launch_pass<HD, false>(a, s);
+    } else {
+      if (nsplit > 1) return cudaErrorInvalidValue;
+      e = launch_pass<HD, false>(a, s);
+    }
     if (e != cudaSuccess) return e;
     return launch_pass<HD, true>(a, s);
   }
@@ -1377,9 +1497,10 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
 // total for the plan a card of `sms` SMs gets (attn_plan.h's bwd_dq_chunks,
 // bwd_kv_head_splits, bwd_kv_parts; rt_flash_attention_bwd_plan in
 // attn_plan.cc gives it), 16-byte aligned.  hd 32, 64, 112 and 120 (the
-// 128-wide template), 128: bwd_wgmma; 256: bwd_wide, on the dS path where
-// its dQ grid is under one wave, with the head split where its dK/dV grid
-// is; four to six launches, all on `stream`.
+// 128-wide template), 128: bwd_wgmma, at 112-128 with the head split where
+// attn_plan.h takes it; 256: bwd_wide, on the dS path where its dQ grid is
+// under one wave, with the head split where its dK/dV grid is; four to six
+// launches, all on `stream`.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dq, void* dk,
                                       void* dv, void* scratch, int64_t scratch_bytes, int hd,
@@ -1394,7 +1515,8 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   int k_begin = 0, k_end = 0;
   const int nchunk = attn_plan::bwd_dq_chunks(hd, B, Tq, Tk, H, q_offset, window, causal, sms,
                                               &k_begin, &k_end);
-  const int nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tk, H, KV, nchunk, sms);
+  const int nsplit = attn_plan::bwd_kv_head_splits(hd, B, Tq, Tk, H, KV, q_offset, window, causal,
+                                                   nchunk, sms);
   const int kv_parts = attn_plan::bwd_kv_parts(hd, kv_bf16, nchunk);
   if (kv_bf16 && kv_parts != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t need = attn_plan::bwd_layout(hdk, B, Tq, Tk, H, KV, nchunk, nsplit, kv_parts).total;
@@ -1420,11 +1542,11 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (hd) {
-    case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, 1, kParts, s); break;
-    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, 1, kParts, s); break;
+    case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;
+    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;
     case 112:
     case 120:
-    case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, 1, kParts, s); break;
+    case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;
     case 256: e = launch_wgmma<256>(a, scratch, nchunk, k_begin, k_end, nsplit, kv_parts, s); break;
     default: e = cudaErrorInvalidValue;
   }

@@ -20,13 +20,15 @@ The split rules of the hd-256 designs (``csrc/attn_plan.h``): where
 card's SMs (gemma3-4b's sequence-split islands), the CUDA entry point cuts
 the visible keys into chunks of whole 64-key tiles and merges the chunks'
 partials in chunk order; where ``bwd_wide``'s dK/dV grid is
-(recurrentgemma-9b's 16-head MQA group over one kv head), it cuts the
+(recurrentgemma-9b's 16-head MQA group over one kv head), or where
+``bwd_wgmma``'s 128-wide dK/dV grid is under two waves and unbalanced
+(the causal GQA-4 rank islands of qwen3-moe and kimi-k2), it cuts the
 group's query heads into subsets and merges their partial dK, dV in subset
 order.  The wrappers ask the same rules for the scratch (``tiled_plan``,
 ``bwd_plan``) and count the calls that take them (``split_launches``:
 "flash_tiled" the forwards with more than one chunk, "bwd_wide" the
 backwards on the dS path; ``head_split_launches``: the backwards whose
-dK/dV pass splits the heads).
+dK/dV pass splits the heads, by design).
 
 ``flash_attention_lse`` is the training path's forward: a prefill design
 (``flash_wgmma`` for bfloat16 k/v, the float32-k/v designs else), which
@@ -70,7 +72,7 @@ bwd_design_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 split_launches = {"flash_tiled": 0, "bwd_wide": 0}
 # backward calls whose dK/dV pass took the head split, and those that took
 # bf16 k/v as they are (each also counted above)
-head_split_launches = {"bwd_wide": 0}
+head_split_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 bf16_kv_launches = {"bwd_wide": 0}
 
 HEAD_DIMS = (32, 64, 112, 120, 128, 256)
@@ -186,9 +188,11 @@ def bwd_plan(hd: int, b: int, tq: int, tk: int, h: int, kvh: int, *, causal: boo
     or (``kv_bf16``) bfloat16 k/v (the rules the CUDA entry point applies):
     0 chunks for the recomputing dQ pass (every width but 256, and
     ``bwd_wide`` where its dQ grid fills a wave), else ``bwd_wide``'s dS
-    path; the dK/dV pass's head subsets (more than 1 only in ``bwd_wide``
-    under a wave of dK/dV blocks); 1 k/v part where ``bwd_wide``'s
-    recomputing passes take bf16 k/v as they are, else 3."""
+    path; the dK/dV pass's head subsets (more than 1 in ``bwd_wide`` under
+    a wave of dK/dV blocks, and in ``bwd_wgmma``'s 128-wide template where
+    subsets shorten an unbalanced grid of under two waves); 1 k/v part
+    where ``bwd_wide``'s recomputing passes take bf16 k/v as they are,
+    else 3."""
     return _plan_call(_build.plan_library().rt_flash_attention_bwd_plan, hd, b, tq, tk, h, kvh,
                       q_offset, window, causal, kv_bf16, sms, extra=2)
 
@@ -466,7 +470,7 @@ def flash_attention_bwd(
     if plan.chunks:
         split_launches["bwd_wide"] += 1
     if plan.head_splits > 1:
-        head_split_launches["bwd_wide"] += 1
+        head_split_launches[bwd_design(hd)] += 1
     if kv_bf16:
         bf16_kv_launches["bwd_wide"] += 1
     return dq, dk.to(kv_dtype), dv.to(kv_dtype)

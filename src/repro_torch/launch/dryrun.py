@@ -197,16 +197,28 @@ def _reference(tag: str) -> dict | None:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, coords: dict | None = None,
-             device: str = "cpu", save: bool = True) -> dict:
+             device: str = "cpu", save: bool = True, variant: str = "baseline",
+             overrides: dict | None = None) -> dict:
+    """Trace one rank of a cell and record it.  ``variant`` tags the record
+    (``__{variant}`` on the file name unless "baseline"); ``overrides``
+    replaces config fields, but ``microbatches``, which goes to the trace."""
     cfg = configs.get(arch)
+    micro = None
+    if overrides:
+        overrides = dict(overrides)
+        micro = overrides.pop("microbatches", None)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
     cell = shapes.SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     coords = {a: int((coords or {}).get(a, 0)) for a in mesh.axis_names}
     ok, reason = shapes.cell_supported(cfg, cell)
     tag = f"{arch}__{shape_name}__{_mesh_tag(mesh)}"
+    if variant != "baseline":
+        tag += f"__{variant}"
     record: dict = {
         "arch": arch, "shape": shape_name, "mesh": list(mesh.axis_sizes),
-        "axes": list(mesh.axis_names), "chips": mesh.size, "variant": "baseline",
+        "axes": list(mesh.axis_names), "chips": mesh.size, "variant": variant,
         "coords": coords,
     }
     if not ok:
@@ -216,7 +228,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, coords: dic
         return record
     t0 = time.time()
     try:
-        rc, stats = trace_cell(cfg, cell, mesh, coords, device=device)
+        rc, stats = trace_cell(cfg, cell, mesh, coords, device=device, microbatches=micro)
     except Exception as e:  # record the failure; dry-run failures are bugs
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"

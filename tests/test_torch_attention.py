@@ -11,6 +11,8 @@ kernel itself runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``); here its host-side planning is checked.
 """
 
+import heapq
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -782,7 +784,8 @@ def test_key_split_plan_covers_the_visible_keys(seed):
 def _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, nchunk, nsplit, kv_parts):
     """csrc/attn_plan.h's bwd_layout total, written out: parts of q and dO,
     k/v parts, lse and D padded to 128 rows, the dQ partials and dS (dS
-    path), the dK and dV partials (head split); each 256-byte aligned."""
+    path), the dK and dV partials at the template's width (head split); each
+    256-byte aligned."""
     def a256(n):
         return -(-n // 256) * 256
 
@@ -791,7 +794,7 @@ def _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, nchunk, nsplit, kv_parts):
     total += 2 * a256(4 * b * h * tp)
     total += a256(4 * nchunk * b * h * tq * 256) if nchunk > 1 else 0
     total += a256(4 * b * h * tq * tk) if nchunk > 0 else 0
-    total += a256(2 * 4 * nsplit * b * kvh * tk * 256) if nsplit > 1 else 0
+    total += a256(2 * 4 * nsplit * b * kvh * tk * hdk) if nsplit > 1 else 0
     return total
 
 
@@ -828,17 +831,60 @@ def test_head_split_plan_at_griffin_and_gemma3(kv_bf16):
     assert (mini.head_splits, mini.kv_parts) == (1, 3)
 
 
+def _kv_pass_makespan(n, bkv, tiles, groups, sms):
+    """attn_plan.h's kv_pass_makespan, written out: the dK/dV pass's blocks in
+    launch order (subset, key tile, batch x kv head), each to the SM that
+    frees first (the lowest index among equals), a block costing 2 streamed
+    tiles plus its own (tiles of its key tile x heads of its subset)."""
+    load = [(0, i) for i in range(sms)]
+    heapq.heapify(load)
+    for s in range(n):
+        heads = (s + 1) * groups // n - s * groups // n
+        for t in tiles:
+            for _ in range(bkv):
+                busy, at = heapq.heappop(load)
+                heapq.heappush(load, (busy + 2 + t * heads, at))
+    return max(busy for busy, _ in load)
+
+
+def _kv_tile_queries(kt, tq, tk, q_offset, window, causal):
+    """The 32-row query tiles that key tile kt's 64 keys are seen from."""
+    r_first, r_last = 64 * kt, min(64 * kt + 64, tk) - 1
+    lo = max(0, r_first - q_offset) if causal else 0
+    hi = min(tq - 1, r_last + window - 1 - q_offset) if window > 0 else tq - 1
+    return 0 if hi < lo else hi // 32 - lo // 32 + 1
+
+
+def _head_splits(hd, b, tq, tk, h, kvh, causal, window, q_offset, chunks, sms):
+    """The dK/dV pass's head subsets by the rule of attn_plan.h's
+    bwd_kv_head_splits, written out."""
+    groups, blocks = h // kvh, b * kvh * -(-tk // 64)
+    if groups < 2:
+        return 1
+    if hd == 256:
+        return min(groups, sms // blocks) if chunks == 0 and blocks < sms else 1
+    if hd not in (112, 120, 128) or blocks >= 2 * sms:
+        return 1
+    tiles = [_kv_tile_queries(kt, tq, tk, q_offset, window, causal) for kt in range(-(-tk // 64))]
+    spans = {n: _kv_pass_makespan(n, b * kvh, tiles, groups, sms) for n in range(1, groups + 1)}
+    best = min(spans, key=lambda n: (spans[n], n))
+    return best if 10 * spans[best] <= 9 * spans[1] else 1
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_head_split_plan_rule(seed):
-    """Across random shapes: the dK/dV pass splits the heads only at hd 256
-    off the dS path with a group of more than one head and fewer dK/dV
-    blocks than SMs, then into the most subsets that keep the grid within
-    one wave, at most one per head; the scratch is bwd_layout's."""
+    """Across random shapes: the dK/dV pass splits the heads of a group of
+    more than one head at hd 256 off the dS path with fewer dK/dV blocks
+    than SMs (into the most subsets that keep the grid within one wave, at
+    most one per head), and at hd 112-128 under two waves of blocks where
+    the launch-order schedule of the split grid is at least a tenth shorter
+    than the whole one's (the n that makes it shortest); the scratch is
+    bwd_layout's, the partials at the template's width."""
     rng = np.random.default_rng(seed)
     for _ in range(150):
-        hd = int(rng.choice([64, 128, 256, 256]))
+        hd = int(rng.choice([64, 112, 120, 128, 256, 256]))
         b, kvh = int(rng.integers(1, 3)), int(rng.choice([1, 2, 4]))
-        h = kvh * int(rng.choice([1, 2, 8, 16]))
+        h = kvh * int(rng.choice([1, 2, 4, 8, 16]))
         tk = int(rng.integers(1, 5000))
         tq = int(rng.integers(1, tk + 1))
         causal, window = bool(rng.integers(0, 2)), int(rng.choice([0, 100, 2048]))
@@ -847,16 +893,91 @@ def test_head_split_plan_rule(seed):
         kv_bf16 = bool(rng.integers(0, 2))
         plan = fa_k.bwd_plan(hd, b, tq, tk, h, kvh, causal=causal, window=window,
                              q_offset=q_offset, sms=sms, kv_bf16=kv_bf16)
-        blocks = b * kvh * -(-tk // 64)
         n = plan.head_splits
-        if hd == 256 and h > kvh and plan.chunks == 0 and blocks < sms:
-            assert n == min(h // kvh, sms // blocks) and n * blocks <= sms
-        else:
-            assert n == 1
+        assert n == _head_splits(hd, b, tq, tk, h, kvh, causal, window, q_offset, plan.chunks,
+                                 sms)
+        assert 1 <= n <= h // kvh
         assert plan.kv_parts == (1 if kv_bf16 and hd == 256 and plan.chunks == 0 else 3)
         hdk = 128 if hd in (112, 120) else hd
         assert plan.scratch_bytes == _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, plan.chunks, n,
                                                        plan.kv_parts)
+
+
+# the dry-run's training-rank islands (chip_smoke.TP_RANK_SHAPES) and
+# minicpm-2b's train shape: (hd, b, tq, tk, h, kvh, window, q_offset) ->
+# (dS-path chunks, head subsets, k/v parts) on 132 SMs
+RANK_PLANS = {
+    # 128 causal dK/dV blocks in one wave, the first streaming 4 x 128 query
+    # tiles and the last 4 x 2: 2 subsets of 2 heads (258 tiles against 514)
+    "kimi_rank_train": ((112, 2, 4096, 4096, 4, 1, 0, 0), (0, 2, 3)),
+    "qwen3_rank_train": ((128, 2, 4096, 4096, 4, 1, 0, 0), (0, 2, 3)),
+    # 256 blocks of 2 heads: already balanced (258 against 260 split)
+    "h2o_rank_train": ((120, 4, 4096, 4096, 2, 1, 4096, 0), (0, 1, 3)),
+    # a group of one head
+    "internvl2_rank_train": ((128, 4, 4096, 4096, 1, 1, 0, 0), (0, 1, 3)),
+    # 512 blocks: two waves and more
+    "starcoder2_rank_seq0": ((128, 4, 256, 4096, 24, 2, 0, 0), (0, 1, 3)),
+    "starcoder2_rank_seq3840": ((128, 4, 256, 4096, 24, 2, 0, 3840), (0, 1, 3)),
+    # 4,608 blocks, MHA
+    "minicpm_train": ((64, 2, 4096, 4096, 36, 36, 0, 0), (0, 1, 3)),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(RANK_PLANS))
+def test_head_split_plan_at_the_rank_islands(cell):
+    """The plans chip_smoke.py holds the rank islands to: kimi-k2's and
+    qwen3-moe's GQA-4 islands split the group in 2 subsets (their partials
+    [2][2][4096][128] float32, 16.8 MB, in the scratch), every other island
+    and minicpm-2b's train shape keep the whole group."""
+    (hd, b, tq, tk, h, kvh, window, q_offset), want = RANK_PLANS[cell]
+    plan = fa_k.bwd_plan(hd, b, tq, tk, h, kvh, causal=True, window=window, q_offset=q_offset,
+                         sms=SMS)
+    assert (plan.chunks, plan.head_splits, plan.kv_parts) == want
+    hdk = 128 if hd in (112, 120) else hd
+    whole = _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, 0, 1, 3)
+    assert plan.scratch_bytes - whole == (2 * 4 * 2 * b * kvh * tk * hdk if want[1] == 2 else 0)
+
+
+# the head split at hd 128 (bwd_wgmma's 128-wide template) on a GQA-4 group:
+# name -> (tq, tk, causal, window, softcap, q_offset, head subsets)
+HD128_HEAD_SPLIT_CASES = {
+    "causal_2_subsets": (128, 128, True, 0, 0.0, 0, 2),
+    "island_4_subsets": (64, 192, True, 0, 0.0, 128, 4),
+    "window_softcap_3_subsets": (128, 128, True, 48, 30.0, 0, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HD128_HEAD_SPLIT_CASES))
+def test_bwd_split_ref_head_splits_at_hd128(case):
+    """ref.attention_bwd_split_ref with the dK/dV pass's heads in subsets,
+    at hd 128 over a 4-head group (numpy inputs from a seed): within
+    BWD_TOL of the unsplit emulation and of jax.grad of the reference's
+    blocked attention (layers._attention_flash, blocks of 16 queries and 64
+    keys) on the same inputs."""
+    import jax
+
+    tq, tk, causal, window, softcap, q_offset, n = HD128_HEAD_SPLIT_CASES[case]
+    q, _, _, do = _grad_inputs(1, tq, 4, 1, 128, seed=len(case))
+    _, k, v, _ = _grad_inputs(1, tk, 4, 1, 128, seed=len(case) + 1)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    got = fa_r.attention_bwd_split_ref(qt, kt, vt, o, lse, dot, **kw, head_splits=n)
+    whole = fa_r.attention_bwd_split_ref(qt, kt, vt, o, lse, dot, **kw)
+
+    def f(q_, k_, v_):
+        out = JL._attention_flash(q_, k_, v_, causal=causal, window=jnp.asarray(window),
+                                  softcap=softcap, q_offset=q_offset, kv_len=None, q_block=16,
+                                  kv_block=64)
+        return jnp.sum(out * jnp.asarray(do))
+
+    exp_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    assert torch.equal(got[0], whole[0])   # dQ does not split
+    for name, g, w, e in zip("qkv", got, whole, exp_j):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"d{name}")
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=f"jax d{name}")
 
 
 # island-like shapes (q_offset > 0, Tq < Tk, GQA 2, hd 256) that split:

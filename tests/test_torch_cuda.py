@@ -580,6 +580,54 @@ def test_flash_bwd_head_split_reads_no_unwritten_scratch(cuda, name, kv_dtype, m
     assert all(bool(torch.isfinite(x).all()) for x in got)
 
 
+# bwd_wgmma's head split (the 128-wide template; attn_plan.h: a grid under
+# two waves that subsets shorten): (b, tq, tk, h, kvh, hd, causal, window,
+# softcap, q_offset)
+WGMMA_HEAD_SPLIT_SHAPES = {
+    # qwen3-moe's and kimi-k2's rank islands: 128 causal blocks, 2 subsets
+    "qwen3_rank": (2, 4096, 4096, 4, 1, 128, True, 0, 0.0, 0),
+    "kimi_rank": (2, 4096, 4096, 4, 1, 112, True, 0, 0.0, 0),
+    # ragged T, a window and a softcap at hd 120
+    "gqa4_ragged_window_softcap": (2, 333, 333, 8, 2, 120, True, 100, 30.0, 0),
+    # an island: 300 rows at q_offset 400 of 700 keys
+    "gqa4_offset": (1, 300, 700, 8, 2, 128, True, 0, 0.0, 400),
+    # a cross-attention, Tq != Tk, a group of 8 over one kv head
+    "mqa8_cross": (1, 200, 900, 8, 1, 128, False, 0, 0.0, 0),
+}
+
+
+def _wgmma_head_split_inputs(cuda, name, seed=0):
+    b, tq, tk, h, kvh, hd, causal, window, softcap, off = WGMMA_HEAD_SPLIT_SHAPES[name]
+    q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, hd, torch.float32, seed=seed + tq + hd)
+    return q, k, v, dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA_HEAD_SPLIT_SHAPES))
+def test_flash_bwd_wgmma_head_split_matches_plain(cuda, name):
+    """bwd_wgmma's head-split dK/dV pass (partials merged in subset order)
+    against the plain backward; each call counted once in
+    head_split_launches["bwd_wgmma"]."""
+    q, k, v, kw = _wgmma_head_split_inputs(cuda, name)
+    plan = _head_split_plan(q, k, kw)
+    assert plan.chunks == 0 and plan.head_splits > 1 and plan.kv_parts == 3
+    before = fa_k.head_split_launches["bwd_wgmma"]
+    _bwd_check(q, k, v, kw)
+    assert fa_k.head_split_launches["bwd_wgmma"] == before + 1
+
+
+@pytest.mark.parametrize("name", ["qwen3_rank", "gqa4_ragged_window_softcap"])
+def test_flash_bwd_wgmma_head_split_is_deterministic(cuda, name):
+    """The subsets' partials merge in subset order and the two consumer
+    warpgroups' sums in warpgroup order, so repeats are bit-equal."""
+    q, k, v, kw = _wgmma_head_split_inputs(cuda, name, seed=4)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    do = torch.randn_like(q)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(3):
+        again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2), (256, 4)])
 def test_flash_bwd_islands_reassemble_the_full_call(cuda, hd, tps):
     """The sequence split's islands (rank r: rows r T / tps .. at q_offset

@@ -12,6 +12,7 @@ processes, because the fake process group is a process's default group.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pickle
 import random
@@ -490,6 +491,84 @@ def test_rank_islands_are_the_ones_the_card_times(rank_calls, arch):
         assert {r[4]["q_offset"] for r in seq} == {0, 3840}
         assert all(r[1:4] == row[1:4] for r in seq)
         assert all(i[0] != arch for i in chip_smoke.DRYRUN_ISLANDS)   # held once
+
+
+# -- (4b) run_cell's variant and overrides against the reference's run_cell -------------
+
+RUN_CELL = r"""
+import dataclasses, json, sys
+pkg, arch, shape, variant, overrides = json.loads(sys.argv[1])
+if pkg == "repro":
+    from repro.launch import dryrun
+else:
+    from repro_torch.launch import dryrun
+
+class Stop(Exception):
+    pass
+
+seen = {}
+def spy(cfg, cell, mesh, *a, microbatches=None, **k):
+    seen.update(config=dataclasses.asdict(cfg), microbatches=microbatches, cell=cell.name)
+    raise Stop
+def keep(tag, record, save):
+    seen.update(tag=tag, record=record, save=save)
+if pkg == "repro":
+    dryrun.lower_cell = spy
+else:
+    dryrun.trace_cell = spy
+dryrun._save = keep
+try:
+    returned = dryrun.run_cell(arch, shape, save=False, variant=variant, overrides=overrides)
+except Stop:
+    returned = None
+rec = seen["record"]
+print(json.dumps({"tag": seen["tag"], "variant": rec["variant"], "status": rec["status"],
+                  "returned": returned is not None, "config": seen.get("config"),
+                  "microbatches": seen.get("microbatches"), "cell": seen.get("cell")}))
+"""
+
+RUN_CELL_CASES = {
+    "skipped": ("minicpm-2b", "long_500k", "optimized", None),
+    "overrides": ("minicpm-2b", "train_4k", "mb8", {"microbatches": 8, "num_layers": 3}),
+    "baseline": ("whisper-medium", "train_4k", "baseline", {"remat": False}),
+}
+
+
+def _run_cell(pkg: str, case: tuple) -> dict:
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
+           "JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_force_host_platform_device_count=256"}
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN_CELL),
+                           json.dumps([pkg, *case])], env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", sorted(RUN_CELL_CASES))
+def test_run_cell_variant_and_overrides_are_the_references(case):
+    """``run_cell(variant=, overrides=)`` (C 7): a variant other than
+    "baseline" tags the record ``{arch}__{shape}__16x16__{variant}`` and
+    stores it under "variant"; ``overrides`` hands its ``microbatches`` to the
+    trace and replaces the other fields of the config; each as the
+    reference's ``run_cell`` does (on 256 host devices, its lowering stopped
+    where the port's trace is), nothing traced or saved."""
+    arch, shape, variant, overrides = RUN_CELL_CASES[case]
+    got, ref = _run_cell("repro_torch", RUN_CELL_CASES[case]), _run_cell("repro", RUN_CELL_CASES[case])
+    tag = f"{arch}__{shape}__16x16" + ("" if variant == "baseline" else f"__{variant}")
+    assert got["tag"] == ref["tag"] == tag
+    assert got["variant"] == ref["variant"] == variant
+    if case == "skipped":
+        assert got["status"] == ref["status"] == "skipped" and got["returned"] and ref["returned"]
+        assert got["config"] is None and ref["config"] is None
+        return
+    assert got["status"] == ref["status"] == "error" and not got["returned"]
+    assert got["cell"] == ref["cell"] == shape
+    assert got["microbatches"] == ref["microbatches"] == (overrides or {}).get("microbatches")
+    whole = json.loads(json.dumps(dataclasses.asdict(configs.get(arch))))
+    want = {k: v for k, v in overrides.items() if k != "microbatches"}
+    for k in whole:
+        assert got["config"][k] == (want[k] if k in want else whole[k]), k
+    assert {k: ref["config"][k] for k in want} == want
 
 
 # -- (5) the committed artifacts --------------------------------------------------------
