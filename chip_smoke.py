@@ -12,8 +12,10 @@ Phases, one JSON line each:
    unless the SASS (``cuobjdump -sass``) of every tensor-core kernel holds
    ``HGMMA`` (warpgroup tensor-core) instructions: the forward's
    ``flash_wgmma`` for bf16 and for float32 k/v (``flash_wgmma_split``),
-   the backward's ``bwd_wgmma``, ``bwd_dq_ds`` (the dS path's dQ) and each
-   of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
+   each of the backward's ``bwd_wgmma`` instances (``BWD_WGMMA_INSTANCES``:
+   both passes at hd 32, 64 and 128, the 128-wide head-split dK/dV pass,
+   and both bf16-k/v passes at hd 64), ``bwd_dq_ds`` (the dS path's dQ) and
+   each of ``bwd_wide``'s seven instances (``BWD_WIDE_INSTANCES``: the two
    recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
    and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
 1b. dryrun — in child processes (each one's default process group a
@@ -202,15 +204,17 @@ Phases, one JSON line each:
    q_offset 0 and 3840 over [4, 4096, 2, 128]), each backward's plan (head
    subsets, k/v parts) held to the one the cell names.  6b and 6c also fail
    unless the limits reject the plain version given one key too few.  bf16
-   k/v enter ``bwd_wide`` as they are (Griffin's, with the head split) and ``bwd_wgmma`` as their
-   float32 values, and dk, dv come back rounded to bfloat16: held at
+   k/v enter ``bwd_wide`` as they are (Griffin's, with the head split) and
+   ``bwd_wgmma`` too (Whisper's encoder and cross-attention, hd 64: plan
+   (1, 1)), and dk, dv come back rounded to bfloat16: held at
    ``BWD_TOL`` plus one rounding.  Each bound counts the bf16 products its
    operands need (``attn_products``: 1 for a product of two bf16 values, 3
    where one operand is one, 6 where neither is; 4.2 a product for the
    backward on bf16 k/v, 3.2 where q is a bf16 value too), and
    ``bound_ms_as_run`` those the design makes (``FLASH_SPLIT``,
    ``BWD_SPLIT``, and ``kernel.bwd_products`` of the instance that runs:
-   ``bwd_wide`` takes bf16 k/v as they are, 4.2).  Each backward row also
+   ``bwd_wide`` and ``bwd_wgmma`` at hd 64 take bf16 k/v as they are,
+   4.2).  Each backward row also
    names its plan (the head subsets of its dK/dV pass, the k/v parts) and
    gives the device ms of each pass (``BWD_PASSES``, ``torch.profiler``).
 7. serve   — ``serve_step.generate`` on gemma3-4b at full width (random
@@ -265,8 +269,10 @@ Phases, one JSON line each:
    4's is below step 1's, the peak is under 75 GB, and the calls by design
    are those its layers make (each layer's forward and its recompute, and
    one backward; recurrentgemma's 4 backwards on bf16 k/v with the head
-   split, ``csrc/attn_plan.h``, and no other path of the script with
-   either); then a fifth step under the profiler (a ``trace``
+   split, ``csrc/attn_plan.h``, and Whisper's 4 x 48 encoder and
+   cross-attention backwards on bf16 k/v in ``bwd_wgmma``, and no other
+   path of the script with either but the dryrun ranks of the same
+   families); then a fifth step under the profiler (a ``trace``
    line).  ``families_train_check``: each family at ``reduced()``,
    one step on the card against the CPU from the same master weights and
    batch: the loss and each gradient (the norm of the difference against
@@ -490,14 +496,16 @@ FAMILY_CHECK_B, FAMILY_CHECK_PROMPT, FAMILY_CHECK_NEW = 2, 16, 16
 # recurrentgemma 2 flash_wgmma (bf16 k/v) + 1 bwd_wide, on bf16 k/v with its
 # 16-head group split over the SMs (attn_plan.h: 2 subsets); whisper 24 x 2
 # encoder + 24 x 2 cross flash_wgmma, 24 x 2 decoder flash_wgmma_split
-# (float32 k/v), 72 bwd_wgmma
+# (float32 k/v), 72 bwd_wgmma, the encoder's and the cross-attention's 48 of
+# them on bf16 k/v as they are (bwd_wgmma's hd-64 bf16-k/v instances)
 FAMILY_TRAIN_STEPS = 4
 FAMILY_TRAIN = (
     ("rwkv6", "rwkv6-7b", {"num_layers": 4}, 1, 4096, {}),
     ("recurrentgemma", "recurrentgemma-9b", {"num_layers": 3}, 1, 4096,
      {"flash_wgmma": 4 * 2, "bwd_wide": 4, "head_split/bwd_wide": 4, "bf16_kv/bwd_wide": 4}),
     ("whisper", "whisper-medium", {}, 4, 448,
-     {"flash_wgmma": 4 * 96, "flash_wgmma_split": 4 * 48, "bwd_wgmma": 4 * 72}),
+     {"flash_wgmma": 4 * 96, "flash_wgmma_split": 4 * 48, "bwd_wgmma": 4 * 72,
+      "bf16_kv/bwd_wgmma": 4 * 48}),
 )
 # the one-step card-vs-CPU check at reduced(): loss and every gradient (the
 # norm of the difference against the CPU gradient's) within 1e-4 where the
@@ -515,9 +523,9 @@ FAMILY_TRAIN_SHAPES = (
     ("griffin_local_train", (1, 4096, 16, 256), (1, 4096, 1, 256), "bfloat16",
      dict(causal=True, window=2048), "families_train/recurrentgemma", False, None),
     ("whisper_encoder_train", (4, 1500, 16, 64), (4, 1500, 16, 64), "bfloat16",
-     dict(causal=False, window=0), "families_train/whisper", True, None),
+     dict(causal=False, window=0), "families_train/whisper", True, (1, 1)),
     ("whisper_cross_train", (4, 448, 16, 64), (4, 1500, 16, 64), "bfloat16",
-     dict(causal=False, window=0), "families_train/whisper", False, None),
+     dict(causal=False, window=0), "families_train/whisper", False, (1, 1)),
     ("whisper_self_train", (4, 448, 16, 64), (4, 448, 16, 64), "float32",
      dict(causal=True, window=0), "families_train/whisper", False, None),
 )
@@ -528,17 +536,18 @@ FAMILY_TRAIN_SHAPES = (
 # bf16, over the whole bf16 kv head: flash_wgmma, and bwd_wide with neither
 # head subsets, a group of one, nor the dS path, its dQ grid of 256 blocks
 # filling a wave: bf16 k/v as they are), and whisper-medium train_4k's
-# encoder, decoder self- and cross-attention (bwd_wgmma), as the dryrun
+# encoder, decoder self- and cross-attention (bwd_wgmma; the encoder's and
+# the cross-attention's on bf16 k/v as they are), as the dryrun
 # phase's recurrentgemma-9b, whisper-medium and kimi-k2 ranks run them
 TP_RANK_SHAPES = (
     ("griffin_rank_train", (4, 4096, 1, 256), (4, 4096, 1, 256), "bfloat16",
      dict(causal=True, window=2048), "dryrun_rank", True, (1, 1)),
     ("whisper_rank_encoder", (4, 1500, 1, 64), (4, 1500, 1, 64), "bfloat16",
-     dict(causal=False, window=0), "dryrun_rank", True, (1, 3)),
+     dict(causal=False, window=0), "dryrun_rank", True, (1, 1)),
     ("whisper_rank_self", (4, 4096, 1, 64), (4, 4096, 1, 64), "float32",
      dict(causal=True, window=0), "dryrun_rank", False, (1, 3)),
     ("whisper_rank_cross", (4, 4096, 1, 64), (4, 1500, 1, 64), "bfloat16",
-     dict(causal=False, window=0), "dryrun_rank", False, (1, 3)),
+     dict(causal=False, window=0), "dryrun_rank", False, (1, 1)),
     # kimi-k2 train_4k's expert-parallel rank: the head plan's island, 4 of
     # 64 q heads over kv head 0 of 8 (float32 products), 2 sequences a
     # microbatch: flash_wgmma_split (hd 112 in the 128-wide template), bwd_wgmma
@@ -612,6 +621,13 @@ BWD_PASSES = {"prologues": ("bwd_prep",), "dq_from_ds": ("bwd_dq_ds",),
 BWD_WIDE_INSTANCES = ("ILb0ELb0ELb0ELb0E", "ILb1ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb0E",
                       "ILb0ELb0ELb1ELb0E", "ILb0ELb0ELb0ELb1E", "ILb0ELb0ELb1ELb1E",
                       "ILb1ELb0ELb0ELb1E")
+# bwd_wgmma's instances <HD, DQ, HS, KV1>: both passes at hd 32, 64 and 128,
+# the 128-wide head-split dK/dV pass, and at hd 64 on bf16 k/v both passes
+BWD_WGMMA_INSTANCES = tuple(
+    f"ILi{hd}ELb{dq}ELb{hs}ELb{kv1}E"
+    for hd, dq, hs, kv1 in ((32, 0, 0, 0), (32, 1, 0, 0), (64, 0, 0, 0), (64, 1, 0, 0),
+                            (128, 0, 0, 0), (128, 1, 0, 0), (128, 0, 1, 0), (64, 0, 0, 1),
+                            (64, 1, 0, 1)))
 # every path runs at its full size and depth but these
 # the dryrun phase: one rank, (0, 0), of the 16 x 16 production mesh under a
 # fake process group, each cell (arch, shape, whether it is also traced on
@@ -667,6 +683,11 @@ DRYRUN_COORDS = {"data": 0, "model": 0}
 # the cells whose backwards split the GQA group's heads in bwd_wgmma's dK/dV
 # pass (attn_plan.h: the causal GQA-4 islands, TP_RANK_SHAPES' (2, 3))
 DRYRUN_HEAD_SPLIT = ("kimi-k2-1t-a32b/train_4k", "qwen3-moe-235b-a22b/train_4k")
+# the backwards of the dry-run ranks' timed steps that take bf16 k/v as they
+# are in bwd_wgmma's hd-64 instances: whisper-medium/train_4k's encoder and
+# cross-attention, 24 layers each, 4 microbatches (its decoder's k/v are
+# float32); no other cell's
+DRYRUN_BF16_KV_WGMMA = 2 * 24 * 4
 # the cells whose timed step may run beside the fake-CUDA traces, first in
 # DRYRUN_CELLS: device-bound (float32 products at ~36 TFLOP/s; 45.7-46.4 s
 # a kimi-k2 step whether or not the traces ran beside it).  Every other
@@ -898,8 +919,8 @@ def counters(hp_k, jp_k, sr_k, fa_k) -> dict[str, int]:
         **{f"flash_attention/{d}": n for d, n in fa_k.fwd_design_launches.items()},
         **{f"flash_attention_bwd/{d}": n for d, n in fa_k.bwd_design_launches.items()},
         # the calls that took the key split (flash_tiled: more than one
-        # chunk; bwd_wide: the dS path), the head split (bwd_wide's dK/dV
-        # pass) and bf16 k/v as they are (bwd_wide)
+        # chunk; bwd_wide: the dS path), the head split (the dK/dV pass) and
+        # bf16 k/v as they are, by design
         **{f"key_split/{d}": n for d, n in fa_k.split_launches.items()},
         **{f"head_split/{d}": n for d, n in fa_k.head_split_launches.items()},
         **{f"bf16_kv/{d}": n for d, n in fa_k.bf16_kv_launches.items()},
@@ -1118,8 +1139,8 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
     """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b;
     ``TP_RANK_SHAPES``, a tensor-parallel rank's): the forward with lse
     (``flash_wgmma`` on bf16 k/v, ``flash_wgmma_split`` on Whisper's float32
-    decoder) and the backward (``bwd_wide`` at hd 256, bf16 k/v as they are;
-    ``bwd_wgmma`` at 64, their float32 values) against the plain versions
+    decoder) and the backward (``bwd_wide`` at hd 256 and ``bwd_wgmma`` at
+    64, bf16 k/v as they are) against the plain versions
     from the same o and lse; each timed with its bound (the products its
     operands need) and the design's, the plain version and SDPA (autograd
     for the backward); the backward also with its plan (head subsets, k/v
@@ -3344,9 +3365,10 @@ def main() -> int:
         "flash_wgmma", "fwd_prep_kv", "flash_decode", "flash_tiled", "bwd_wgmma", "bwd_wide",
         "bwd_dq", "bwd_kv", "bwd_prep", "probe_kernel", "build_index")}})
     # flash_wgmma<HD, false> (bf16 k/v) and <HD, true> (flash_wgmma_split),
-    # bwd_wgmma, bwd_wide's seven instances and bwd_dq_ds: every instance on
-    # the tensor cores
-    for name, instances in (("flash_wgmma", ("ELb0E", "ELb1E")), ("bwd_wgmma", ("",)),
+    # bwd_wgmma (BWD_WGMMA_INSTANCES), bwd_wide's seven instances and
+    # bwd_dq_ds: every instance on the tensor cores
+    for name, instances in (("flash_wgmma", ("ELb0E", "ELb1E")),
+                            ("bwd_wgmma", BWD_WGMMA_INSTANCES),
                             ("bwd_wide", BWD_WIDE_INSTANCES), ("bwd_dq_ds", ("",))):
         hgmma = sass_has(_build.build(), name, "HGMMA")
         if not all(any(i in f for f in hgmma) for i in instances) or not all(hgmma.values()):
@@ -4172,17 +4194,23 @@ def main() -> int:
     # backwards (one attention layer a step), and bf16 k/v also on the
     # recurrentgemma-9b dryrun rank (its groups of one head split nothing);
     # bwd_wgmma's head split on every backward of the kimi-k2 and qwen3-moe
-    # ranks; no other path (serve, train, spmd: the gemma3 islands and full
-    # layers keep the whole group, kimi-k2's whole layer fills two waves)
+    # ranks; bwd_wgmma on bf16 k/v on Whisper's encoder and cross-attention
+    # backwards, in families_train and on the whisper-medium rank; no other
+    # path (serve, train, spmd: the gemma3 islands and full layers keep the
+    # whole group, kimi-k2's whole layer fills two waves, the whisper cross
+    # island's k/v are float32)
     def rank_calls(cells, design):
         return sum(c["b"]["launches"].get(f"flash_attention_bwd/{design}", 0)
                    for name, c in dryrun_run["cells"].items() if name.startswith(cells))
     rank_bwd = rank_calls(("recurrentgemma-9b/",), "bwd_wide")
     split_bwd = rank_calls(DRYRUN_HEAD_SPLIT, "bwd_wgmma")
     rg = {"families_train/recurrentgemma": FAMILY_TRAIN_STEPS}
+    whisper = {"families_train/whisper": dict((r[0], r[-1]) for r in FAMILY_TRAIN)["whisper"][
+        "bf16_kv/bwd_wgmma"], "dryrun_rank": DRYRUN_BF16_KV_WGMMA}
     for counter, want in (("head_split/bwd_wide", rg),
                           ("bf16_kv/bwd_wide", {**rg, "dryrun_rank": rank_bwd} if rank_bwd else rg),
-                          ("head_split/bwd_wgmma", {"dryrun_rank": split_bwd})):
+                          ("head_split/bwd_wgmma", {"dryrun_rank": split_bwd}),
+                          ("bf16_kv/bwd_wgmma", whisper)):
         by_path = {run: n for run, n in launches.get(counter, {}).items() if n}
         if by_path != want:
             fail(f"{counter} ran on {by_path}, want {want}")

@@ -29,14 +29,21 @@ tp 16 (q [1, 256, 8, 256] at q_offset 3840 over k/v [1, 4096, 4, 256]).
 Backward shapes: minicpm-2b's, h2o-danube's, gemma3-4b's local and global
 layers (window 1024 and 0), two ragged ones, the gemma3 island,
 recurrentgemma-9b's local MQA (16 query heads over one kv head of 256,
-window 2048) on bf16 k/v (its training path) and on float32 k/v, and the
-float32 islands of the dry-run's training ranks (``chip_smoke.TP_RANK_SHAPES``
-and the minicpm-2b sequence island; kimi-k2's whole-width layer at hd 112);
+window 2048) on bf16 k/v (its training path) and on float32 k/v, the
+islands of the dry-run's training ranks (``chip_smoke.TP_RANK_SHAPES``,
+whisper-medium's encoder and cross-attention on bf16 k/v, and the
+minicpm-2b sequence islands of ``DRYRUN_ISLANDS`` and the spmd phase;
+kimi-k2's whole-width layer at hd 112), and whisper-medium's training
+attention (``chip_smoke.FAMILY_TRAIN_SHAPES``: the encoder and the
+cross-attention over its 1500 frames on bf16 k/v, non-causal, and the
+decoder's self-attention) and the spmd phase's float32 cross-attention;
 each backward line also carries the device time of each pass
 (``torch.profiler`` through ``chip_smoke.trace``, mean of 3 calls, L2
 flushed before each), autograd through float32
 ``scaled_dot_product_attention`` on the same inputs (``library_ms``) and,
-where the package has them, its plan's head subsets and k/v parts.
+where the package has them, its plan's head subsets and k/v parts, and the
+call's count in ``bf16_kv_launches`` by design (bf16 k/v taken as they
+are).
 ``--shapes`` keeps the named shapes only (both tables' names).  dk and
 dv of bf16 k/v come back as bfloat16: held at the limit plus one rounding
 (2^-8 of the value).
@@ -70,32 +77,42 @@ FWD_SHAPES = (
     ("gemma3_island_fwd", 1, 256, 4096, 8, 4, 256, "float32", 0, 3840, None, 0.0, True),
 )
 BF16_ROUND = 2.0**-8
-# name -> (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype), all causal:
+# name -> (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype, causal):
 # minicpm-2b's train shape, h2o-danube's, gemma3-4b's local and global
 # layers, ragged ones, the gemma3 island, recurrentgemma-9b's local MQA (bf16
 # k/v, and float32); the dry-run's training-rank islands (kimi-k2's and
 # qwen3-moe's GQA-4 head plans, h2o-danube's, internvl2-2b's,
 # starcoder2-3b's sequence islands at model rank 0 and 15, whisper-medium's
-# decoder), the minicpm-2b sequence island, kimi-k2's whole layer
+# decoder, encoder and cross-attention), the minicpm-2b sequence islands
+# (the spmd phase's at q_offset 3584, the dry-run rank's at 0), kimi-k2's
+# whole layer; whisper-medium's training attention (families_train) and the
+# spmd phase's cross-attention
 BWD_SHAPES = {
-    "minicpm_train": (2, 4096, 4096, 36, 36, 64, 0, 0, "float32"),
-    "h2o_hd120": (1, 4096, 4096, 32, 8, 120, 4096, 0, "float32"),
-    "gemma3_local": (1, 4096, 4096, 8, 4, 256, 1024, 0, "float32"),
-    "gemma3_global": (1, 4096, 4096, 8, 4, 256, 0, 0, "float32"),
-    "ragged_4097": (1, 4097, 4097, 8, 2, 64, 300, 0, "float32"),
-    "ragged_333": (2, 333, 333, 8, 4, 32, 50, 0, "float32"),
-    "gemma3_island": (1, 256, 4096, 8, 4, 256, 0, 3840, "float32"),
-    "griffin_bf16": (1, 4096, 4096, 16, 1, 256, 2048, 0, "bfloat16"),
-    "griffin_f32": (1, 4096, 4096, 16, 1, 256, 2048, 0, "float32"),
-    "kimi_rank_train": (2, 4096, 4096, 4, 1, 112, 0, 0, "float32"),
-    "qwen3_rank_train": (2, 4096, 4096, 4, 1, 128, 0, 0, "float32"),
-    "h2o_rank_train": (4, 4096, 4096, 2, 1, 120, 4096, 0, "float32"),
-    "internvl2_rank_train": (4, 4096, 4096, 1, 1, 128, 0, 0, "float32"),
-    "starcoder2_rank_seq0": (4, 256, 4096, 24, 2, 128, 0, 0, "float32"),
-    "starcoder2_rank_seq3840": (4, 256, 4096, 24, 2, 128, 0, 3840, "float32"),
-    "whisper_rank_self": (4, 4096, 4096, 1, 1, 64, 0, 0, "float32"),
-    "minicpm_island": (2, 512, 4096, 36, 36, 64, 0, 3584, "float32"),
-    "kimi_hd112": (1, 4096, 4096, 64, 8, 112, 0, 0, "float32"),
+    "minicpm_train": (2, 4096, 4096, 36, 36, 64, 0, 0, "float32", True),
+    "h2o_hd120": (1, 4096, 4096, 32, 8, 120, 4096, 0, "float32", True),
+    "gemma3_local": (1, 4096, 4096, 8, 4, 256, 1024, 0, "float32", True),
+    "gemma3_global": (1, 4096, 4096, 8, 4, 256, 0, 0, "float32", True),
+    "ragged_4097": (1, 4097, 4097, 8, 2, 64, 300, 0, "float32", True),
+    "ragged_333": (2, 333, 333, 8, 4, 32, 50, 0, "float32", True),
+    "gemma3_island": (1, 256, 4096, 8, 4, 256, 0, 3840, "float32", True),
+    "griffin_bf16": (1, 4096, 4096, 16, 1, 256, 2048, 0, "bfloat16", True),
+    "griffin_f32": (1, 4096, 4096, 16, 1, 256, 2048, 0, "float32", True),
+    "kimi_rank_train": (2, 4096, 4096, 4, 1, 112, 0, 0, "float32", True),
+    "qwen3_rank_train": (2, 4096, 4096, 4, 1, 128, 0, 0, "float32", True),
+    "h2o_rank_train": (4, 4096, 4096, 2, 1, 120, 4096, 0, "float32", True),
+    "internvl2_rank_train": (4, 4096, 4096, 1, 1, 128, 0, 0, "float32", True),
+    "starcoder2_rank_seq0": (4, 256, 4096, 24, 2, 128, 0, 0, "float32", True),
+    "starcoder2_rank_seq3840": (4, 256, 4096, 24, 2, 128, 0, 3840, "float32", True),
+    "whisper_rank_self": (4, 4096, 4096, 1, 1, 64, 0, 0, "float32", True),
+    "whisper_rank_encoder": (4, 1500, 1500, 1, 1, 64, 0, 0, "bfloat16", False),
+    "whisper_rank_cross": (4, 4096, 1500, 1, 1, 64, 0, 0, "bfloat16", False),
+    "minicpm_island": (2, 512, 4096, 36, 36, 64, 0, 3584, "float32", True),
+    "minicpm_rank_island": (4, 256, 4096, 36, 36, 64, 0, 0, "float32", True),
+    "kimi_hd112": (1, 4096, 4096, 64, 8, 112, 0, 0, "float32", True),
+    "whisper_encoder_train": (4, 1500, 1500, 16, 16, 64, 0, 0, "bfloat16", False),
+    "whisper_cross_train": (4, 448, 1500, 16, 16, 64, 0, 0, "bfloat16", False),
+    "whisper_self_train": (4, 448, 448, 16, 16, 64, 0, 0, "float32", True),
+    "whisper_cross_f32": (4, 128, 1500, 16, 16, 64, 0, 0, "float32", False),
 }
 
 
@@ -160,23 +177,26 @@ def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> No
         del q, k, v, got
         torch.cuda.empty_cache()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, (b, t, tk, h, kvh, hd, window, q_offset, kv_dtype) in (
+    for name, (b, t, tk, h, kvh, hd, window, q_offset, kv_dtype, causal) in (
             BWD_SHAPES.items() if only != "fwd" else ()):
         if names is not None and name not in names:
             continue
         q, do = (torch.randn(b, t, h, hd, generator=gen, device=dev) for _ in range(2))
         k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev).to(getattr(torch, kv_dtype))
                 for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=0.0, q_offset=q_offset)
+        kw = dict(causal=causal, window=window, softcap=0.0, q_offset=q_offset)
         o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+        bf16_before = dict(fa_k.bf16_kv_launches)
         got = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        bf16_kv = {d: n - bf16_before.get(d, 0) for d, n in fa_k.bf16_kv_launches.items()
+                   if n != bf16_before.get(d, 0)}
         exp = fa_r.attention_bwd_ref(q, k, v, o, lse, do, **kw)
         out = {"src": src, "name": name, "shape": [b, t, tk, h, kvh, hd, window, q_offset],
-               "kv_dtype": kv_dtype,
-               "design": bwd_design(hd) if bwd_design else None,
+               "kv_dtype": kv_dtype, "causal": causal,
+               "design": bwd_design(hd) if bwd_design else None, "bf16_kv_launches": bf16_kv,
                **limits(got, exp, BWD_TOL, ("dq", "dk", "dv"))}
         if "kv_bf16" in inspect.signature(fa_k.bwd_plan).parameters:  # a parent may predate it
-            plan = fa_k.bwd_plan(hd, b, t, tk, h, kvh, causal=True, window=window,
+            plan = fa_k.bwd_plan(hd, b, t, tk, h, kvh, causal=causal, window=window,
                                  q_offset=q_offset, sms=sms, kv_bf16=kv_dtype == "bfloat16")
             out.update(head_splits=plan.head_splits, kv_parts=plan.kv_parts)
         again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -192,7 +212,7 @@ def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> No
         passes = trace(torch, three, groups={**BWD_PASSES, "flush": ("",)})["by_group_ms"]
         out["passes_ms"] = {g: ms / 3 for g, (ms, _) in passes.items() if g != "flush"}
         # the yardstick: autograd through float32 SDPA on the same inputs
-        mask = fa_r.key_mask(t, tk, causal=True, window=window, q_offset=q_offset, kv_len=None,
+        mask = fa_r.key_mask(t, tk, causal=causal, window=window, q_offset=q_offset, kv_len=None,
                              device=dev)
         leaves = [x.float().transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask,

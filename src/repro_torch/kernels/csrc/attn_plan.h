@@ -234,12 +234,16 @@ inline int bwd_kv_head_splits(int hd, int B, int Tq, int Tk, int H, int KV, int 
 }
 
 // The bf16 parts the backward holds of k and v: 1 where they are bfloat16
-// and bwd_wide's recomputing passes run (hd 256, nchunk 0: k and v enter as
-// they are, each product with them takes three bf16 products where float32
-// operands take six), else 3 (float32 values, or bf16 ones taken as their
-// float32 values: bwd_wgmma and the dS path).
+// and an instance takes them as they are (bwd_wgmma at hd 64; bwd_wide's
+// recomputing passes, hd 256 and nchunk 0: each product with k or v takes
+// three bf16 products where float32 operands take six), else 3 (float32
+// values, or bf16 ones taken as their float32 values: bwd_wgmma at hd 32
+// and 112-128, and the dS path).  has_kv1: the head widths that have such
+// (KV1) instances, which launch_wgmma builds and dispatches by too.
+constexpr bool has_kv1(int hd) { return hd == 64 || hd == kHd; }
+
 inline int bwd_kv_parts(int hd, int kv_bf16, int nchunk) {
-  return kv_bf16 && hd == kHd && nchunk == 0 ? 1 : kParts;
+  return kv_bf16 && has_kv1(hd) && (hd != kHd || nchunk == 0) ? 1 : kParts;
 }
 
 // The backward's scratch, in this order, each part 256-byte aligned: the

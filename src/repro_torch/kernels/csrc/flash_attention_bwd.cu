@@ -8,8 +8,8 @@
 // kernel with no gradient, so its backward is one too.
 //
 // Semantics: the gradient of ref.attention_ref with q [B, Tq, H, hd]
-// float32 and k, v [B, Tk, KV, hd] float32 or (bwd_wide) bfloat16 (H % KV
-// == 0), query row i at position
+// float32 and k, v [B, Tk, KV, hd] float32 or (bwd_wgmma at hd 64,
+// bwd_wide) bfloat16 (H % KV == 0), query row i at position
 // q_offset + i and kv_len Tk, causal or not, a run-time sliding window (0 =
 // none) and a tanh softcap c (d/ds of c tanh(s / c) is 1 - (s' / c)^2 with
 // s' the capped score).  Every row sees at least its own key: a non-causal,
@@ -42,11 +42,11 @@
 // products: 0.45%), where train_check (a) allows 1% between the card and
 // the CPU in all and the card's float32 products already spend up to 0.8%;
 // 6 move 0.08% (scripts/torch_bwd_split_choice.py).  bf16 k/v have one
-// non-zero part: bwd_wide takes them as they are (attn_plan.h:
-// bwd_kv_parts), and the products with k or v (S, dP, dQ) make three bf16
-// products, the non-zero three of the six in the same order, so the sums
-// equal the float32-k/v path's on the same values; dV and dK stay at six:
-// 4.2 a product on average, the bound of bf16 k/v.
+// non-zero part: bwd_wgmma at hd 64 and bwd_wide take them as they are
+// (attn_plan.h: bwd_kv_parts), and the products with k or v (S, dP, dQ)
+// make three bf16 products, the non-zero three of the six in the same
+// order, so the sums equal the float32-k/v path's on the same values; dV
+// and dK stay at six: 4.2 a product on average, the bound of bf16 k/v.
 //
 // Two designs, by head width (the wrapper, kernel.bwd_design, mirrors it),
 // both deterministic with no atomics: each output element is written once
@@ -78,8 +78,11 @@
 //   the consumers (setmaxnreg 24 / 240).  The fixed rows' two operands
 //   (dK/dV pass: 64 keys of k and v; dQ pass: 64 queries of q and dO), all
 //   three parts, come in once by TMA; the producer then streams tiles of BS
-//   rows of the other two through a two-stage mbarrier ring, 128-byte (hd
-//   32: 64-byte) swizzled.  Per streamed tile a warpgroup computes, as
+//   rows of the other two through a mbarrier ring of two stages (hd 64:
+//   three), 128-byte (hd 32: 64-byte) swizzled.  A block whose fixed keys
+//   no query sees loads nothing and writes zero dK and dV rows (the
+//   sequence islands at q_offset 0: 15 of 16 key tiles).  Per streamed tile
+//   a warpgroup computes, as
 //   FlashAttention-3 does,
 //     dK/dV pass:  S^T = K Q^T and dP^T = V dO^T (A and B from shared
 //                  memory, both K-major), then P^T and dS^T in registers,
@@ -88,20 +91,41 @@
 //                  MN-major through the transpose bit), the sum over the
 //                  GQA group in the same registers;
 //     dQ pass:     S = Q K^T and dP = dO V^T, then dS, dQ += dS K.
-//   hd 32 and 64: each consumer warpgroup owns 64 fixed rows (128 a block)
-//   and reads every tile, skipping one its rows cannot see; BS 64, 192 KB
-//   of shared memory at hd 64.  hd 128 (and 112 and 120, in the 128-wide
-//   template with the columns past hd zero): BS 32, 194 KB; the block's 64
-//   fixed rows are shared by both consumers, which take the streamed tiles
-//   in turns (even, odd: stage 0 is always the first's, stage 1 the
-//   second's), each summing its own dK and dV (64 + 64 accumulator floats a
-//   thread) or dQ; at the end the second hands its sums to the first through
-//   the ring, which adds them (warpgroup 0's + warpgroup 1's, a fixed
-//   order).  One warpgroup's mask, exp and dS math, its split of the A
-//   fragments and its waits on its products overlap the other's products,
+//   hd 32: each consumer warpgroup owns 64 fixed rows (128 a block) and
+//   reads every tile, skipping one its rows cannot see; BS 64.  hd 64 and
+//   hd 128 (and 112 and 120, in the 128-wide template with the columns past
+//   hd zero), BS 32: the block's 64 fixed rows are shared by both
+//   consumers, which take the streamed tiles in turns (even, odd), each
+//   summing its own dK and dV (hd 64: 32 + 32 accumulator floats a thread;
+//   128: 64 + 64) or dQ; at the end the second hands its sums to the first
+//   through the ring, which adds them (warpgroup 0's + warpgroup 1's, a
+//   fixed order).  One warpgroup's mask, exp and dS math, its split of the
+//   A fragments and its waits on its products overlap the other's products,
 //   through which the tensor cores of a one-warpgroup block idle.  The
 //   dK/dV pass's lse and D rows of each query tile come in with the tile (a
 //   bulk copy into the stage), not from device memory after its products.
+//   The ring: 2 stages at hd 128 (stage 0 the first warpgroup's, 1 the
+//   second's); 3 at hd 64, rotating under the two warpgroups (2 took 14%
+//   longer on minicpm-2b's train shape, 4 and 6 2-3% longer than 3 with the
+//   hand-over wait below: PERF.md §6).
+//   There tile t reuses the stage of tile t - 3, the other warpgroup's, and
+//   the consumer of t may get there before t - 3 has even landed (it saw
+//   only its own t - 2); a wait on full's parity would then take t - 3's
+//   phase for t's.  So it first waits on the stage's empty barrier for the
+//   other warpgroup's release of t - 3 (BwL::HANDOVER), which no phase of
+//   its own can complete.
+//   hd 64 also commits S (S^T) and dP (dP^T) as two groups and forms P
+//   while dP's products run (the split wait; its derivative of the softcap
+//   kept for dS: 16 more registers, which the 128-wide dK/dV pass lacks).
+//   bf16 k/v at hd 64 (the KV1 instances bwd_wgmma<64, false / true, false,
+//   true>: Whisper's encoder and cross-attention): bwd_prep_kv copies k and
+//   v as their one part, [B KV][Tk][64] bf16.  dK/dV pass: the fixed k and
+//   v are one part each, S^T and dP^T take the three products with their
+//   part 0, dV and dK keep six.  dQ pass: the streamed k and v are one part
+//   each, and S, dP and dQ take three.  Per tile 18 of the 24 products of
+//   the dK/dV pass, 9 of the 18 of the dQ pass; BwL has each instance's
+//   shared memory (the KV1 instances keep 3 stages: 4 and 8 measured
+//   slower).
 //   The 128-wide dK/dV pass also takes the head split (attn_plan.h:
 //   bwd_kv_head_splits): where its grid is under two waves and unbalanced
 //   (the causal GQA-4 islands of qwen3-moe's and kimi-k2's training ranks:
@@ -250,14 +274,14 @@ __device__ __forceinline__ int fixed_rows(const BwdArgs& a) {
 
 template <int HD>
 struct Bw {
-  static constexpr int NWG = HD <= 64 ? 2 : 1;     // groups of 64 fixed rows a block
-  // hd 128: the two consumer warpgroups share the block's 64 fixed rows and
-  // take the streamed tiles in turns (even, odd), each summing its own; hd
-  // 32, 64: one consumer warpgroup a group of fixed rows, each taking every tile
+  static constexpr int NWG = HD < 64 ? 2 : 1;      // groups of 64 fixed rows a block
+  // hd 64 and 128: the two consumer warpgroups share the block's 64 fixed
+  // rows and take the streamed tiles in turns (even, odd), each summing its
+  // own; hd 32: one consumer warpgroup a group of fixed rows, each taking
+  // every tile
   static constexpr bool TURNS = NWG == 1;
   static constexpr int CWG = 2;                     // consumer warpgroups
-  static constexpr int BS = HD <= 64 ? 64 : 32;    // rows of a streamed tile
-  static constexpr int STAGES = 2;
+  static constexpr int BS = HD < 64 ? 64 : 32;     // rows of a streamed tile
   static constexpr int THREADS = 128 * (CWG + 1);  // + the producer warpgroup
   static constexpr int TN = HD < 64 ? HD : 64;     // output columns per promoted product
   static constexpr int SW = HD >= 64 ? 128 : 64;   // swizzle span: bytes per row of an atom
@@ -266,19 +290,41 @@ struct Bw {
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
   static constexpr int FIX_TILE = NATOM * 64 * SW;  // one part of 64 fixed rows
   static constexpr int STR_TILE = NATOM * BS * SW;  // one part of a streamed tile
-  // fixed: [group][operand 0/1][part]; a stage: [operand 0/1][part]
-  static constexpr int OFF_STR = NWG * 2 * kParts * FIX_TILE;
-  static constexpr int STAGE = 2 * kParts * STR_TILE;
-  // TURNS: each stage's lse and D rows (BS floats each) of its query tile
-  // (dK/dV pass), brought in by the producer with the tile
-  static constexpr int OFF_LSE = OFF_STR + STAGES * STAGE;
-  static constexpr int LSE_BYTES = TURNS ? STAGES * 2 * BS * 4 : 0;
-  static constexpr int OFF_BAR = OFF_LSE + LSE_BYTES;
-  static constexpr size_t kSmem = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + base alignment
   static constexpr int ROWS = 64 * NWG;            // fixed rows per block
   static constexpr int READERS = TURNS ? 128 : 128 * NWG;  // consumer threads that read a stage
+};
+
+// An instance's shared memory.  FP, SP: the bf16 parts of each fixed and
+// of each streamed operand (1 for k and v where KV1: bf16 k/v as they are).
+// Fixed: [group][operand 0/1][part]; a stage: [operand 0/1][part]; with
+// TURNS each stage's lse and D rows (BS floats each) of its query tile (the
+// dK/dV pass), brought in by the producer with the tile; the barriers.
+//   hd 32:            2 x 24 + 2 x 24 KB                      =  96.0 KB
+//   hd 64:            48 + 3 x 24 KB (+ 3 x 256 B lse, D)      = 120.75 KB
+//   hd 64 KV1, dK/dV: 16 + 3 x 24 KB (+ 3 x 256 B)             =  88.75 KB
+//   hd 64 KV1, dQ:    48 + 3 x 8 KB                            =  72.0 KB
+//   hd 128:           96 + 2 x 48 KB (+ 2 x 256 B)             = 192.5 KB
+// each + barriers and 1 KB of alignment, of the 227 KB a block may use.
+template <int HD, bool DQ, bool KV1>
+struct BwL {
+  using C = Bw<HD>;
+  static constexpr int FP = !DQ && KV1 ? 1 : kParts;
+  static constexpr int SP = DQ && KV1 ? 1 : kParts;
+  static constexpr int FIX = 2 * FP * C::FIX_TILE;  // a group's two fixed operands
+  static constexpr int OFF_STR = C::NWG * FIX;
+  static constexpr int STAGE = 2 * SP * C::STR_TILE;
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  // a stage passes from one consumer warpgroup to the other (TURNS over an
+  // odd ring: hd 64), so a consumer first waits for the other to release it
+  static constexpr bool HANDOVER = C::TURNS && STAGES % C::CWG != 0;
+  static constexpr bool LSE_SMEM = C::TURNS && !DQ;  // lse and D come with the tile
+  static constexpr int OFF_LSE = OFF_STR + STAGES * STAGE;
+  static constexpr int LSE_BYTES = LSE_SMEM ? STAGES * 2 * C::BS * 4 : 0;
+  static constexpr int OFF_BAR = OFF_LSE + LSE_BYTES;
+  static constexpr size_t kSmem = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + base alignment
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
-  static_assert(!TURNS || HD * 128 * 4 <= STAGES * STAGE, "the turns' sums must fit the ring");
+  static_assert(!C::TURNS || (DQ ? 1 : 2) * HD / 2 * 128 * 4 <= STAGES * STAGE,
+                "the turns' sums must fit the ring");
 };
 
 constexpr int kPadRows = attn_plan::kPadRows;  // lse and D rows padded to a multiple of every
@@ -371,9 +417,14 @@ __global__ void __launch_bounds__(kThreads) bwd_prep_kv(BwdArgs a) {
   }
 }
 
-// acc = X . S^T over the kSplit part products: X the 64 fixed rows (three
-// parts at x_parts, K-major, the A operand), S the streamed tile's rows
-// (three parts at s_parts, K-major, the B operand); the first overwrites.
+// The first of the kSplit products whose parts an A operand of ap parts and
+// a B operand of bp parts hold (it overwrites the accumulator).
+__host__ __device__ constexpr int first_pair(int ap, int bp) {
+  for (int p = 0; p < kSplit; ++p)
+    if (pair_a(p) < ap && pair_b(p) < bp) return p;
+  return 0;
+}
+
 // The shared-memory address at which a product's descriptors start; with
 // TURNS pinned where it is read (an empty asm the compiler cannot see
 // through), so that the descriptors are rebuilt from it at each use and not
@@ -384,34 +435,42 @@ __device__ __forceinline__ uint32_t desc_base(uint32_t addr) {
   return addr;
 }
 
-template <int HD>
+// acc = X . S^T over the kSplit part products whose parts both hold: X the
+// 64 fixed rows (FP parts at x_parts, K-major, the A operand), S the
+// streamed tile's rows (SP parts at s_parts, K-major, the B operand); the
+// first overwrites.  FP or SP 1: k or v as their one bf16 part, the three
+// non-zero products of the six in the same order.
+template <int HD, int FP, int SP>
 __device__ __forceinline__ void products_ss(float (&acc)[Bw<HD>::BS / 2], uint32_t x_parts,
                                             uint32_t s_parts) {
   using C = Bw<HD>;
+  constexpr int P0 = first_pair(FP, SP);
   // a descriptor's address field is the byte address / 16: an offset into
   // shared memory adds offset / 16 to the base's descriptor
   const uint64_t da0 = gmma_desc(desc_base<HD>(x_parts), 16, 8 * C::SW, C::LAYOUT);
   const uint64_t db0 = gmma_desc(s_parts, 16, 8 * C::SW, C::LAYOUT);
 #pragma unroll
-  for (int p = 0; p < kSplit; ++p)
+  for (int p = 0; p < kSplit; ++p) {
+    if (pair_a(p) >= FP || pair_b(p) >= SP) continue;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int atom = kk * 16 / C::ATOM, col = (kk * 16 % C::ATOM) * 2;
       const uint64_t da = da0 + ((pair_a(p) * C::FIX_TILE + atom * 64 * C::SW + col) >> 4);
       const uint64_t db = db0 + ((pair_b(p) * C::STR_TILE + atom * C::BS * C::SW + col) >> 4);
-      wgmma_ss<C::BS>(acc, da, db, p | kk);
+      wgmma_ss<C::BS>(acc, da, db, (p != P0) | kk);
     }
+  }
 }
 
 // o += A . S, A (64 x BS) in registers in the accumulator layout (P^T,
-// dS^T or dS), S the streamed tile's BS rows (three parts at s_parts, the B
-// operand, MN-major through the transpose bit), TN output columns at a
-// time.  wgmma's float32 accumulator rounds its sums toward zero; over the
-// thousands of steps of a long sum (6 products x 16 rows each) that shrinks
-// a gradient by ~1e-4 of itself.  So each tile's product runs in a fresh
-// accumulator of kSplit x BS / 16 steps and is added to o with float32
-// (round-to-nearest) adds.
-template <int HD>
+// dS^T or dS), S the streamed tile's BS rows (SP parts at s_parts, the B
+// operand, MN-major through the transpose bit; SP 1: k, the products with
+// its part 0), TN output columns at a time.  wgmma's float32 accumulator
+// rounds its sums toward zero; over the thousands of steps of a long sum (6
+// products x 16 rows each) that shrinks a gradient by ~1e-4 of itself.  So
+// each tile's product runs in a fresh accumulator of kSplit x BS / 16 steps
+// and is added to o with float32 (round-to-nearest) adds.
+template <int HD, int SP>
 __device__ __forceinline__ void products_rs(float (&o)[HD / 2], const float (&acc)[Bw<HD>::BS / 2],
                                             uint32_t s_parts) {
   using C = Bw<HD>;
@@ -432,8 +491,9 @@ __device__ __forceinline__ void products_rs(float (&o)[HD / 2], const float (&ac
         split3(acc[8 * kk + 2 * f], acc[8 * kk + 2 * f + 1], fr[0][f], fr[1][f], fr[2][f]);
 #pragma unroll
       for (int p = 0; p < kSplit; ++p)
-        wgmma_rs<C::TN>(t, fr[pair_a(p)],
-                        db0 + ((pair_b(p) * C::STR_TILE + col_off + kk * 16 * C::SW) >> 4));
+        if (pair_b(p) < SP)
+          wgmma_rs<C::TN>(t, fr[pair_a(p)],
+                          db0 + ((pair_b(p) * C::STR_TILE + col_off + kk * 16 * C::SW) >> 4));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -465,21 +525,22 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // query heads, and partial dK, dV written to a.kv_part.  Maps: fix0/fix1 the
 // fixed operands (k, v or q, dO; boxes of 64 rows), str0/str1 the streamed
 // ones (q, dO or k, v; boxes of BS rows), all over the parts [part][batch x
-// head][T][HDK].
-template <int HD, bool DQ, bool HS = false>
+// head][T][HDK] (k and v where KV1: one part, [batch x kv head][T][HD]).
+template <int HD, bool DQ, bool HS = false, bool KV1 = false>
 __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     bwd_wgmma(const __grid_constant__ CUtensorMap fix0, const __grid_constant__ CUtensorMap fix1,
               const __grid_constant__ CUtensorMap str0, const __grid_constant__ CUtensorMap str1,
               BwdArgs a) {
   using C = Bw<HD>;
+  using L = BwL<HD, DQ, KV1>;
   static_assert(!(HS && DQ), "no such instance");
-  constexpr bool LSE_SMEM = C::TURNS && !DQ;  // lse and D come with the tile
+  constexpr bool LSE_SMEM = L::LSE_SMEM;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const uint32_t s_fix = smem_u32(smem), s_str = s_fix + C::OFF_STR;
-  const uint32_t bar_full = s_fix + C::OFF_BAR, bar_empty = bar_full + 8 * C::STAGES;
-  const uint32_t bar_fix = bar_empty + 8 * C::STAGES;
+  const uint32_t s_fix = smem_u32(smem), s_str = s_fix + L::OFF_STR;
+  const uint32_t bar_full = s_fix + L::OFF_BAR, bar_empty = bar_full + 8 * L::STAGES;
+  const uint32_t bar_fix = bar_empty + 8 * L::STAGES;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -507,7 +568,7 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   };
 
   if (tid == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, C::READERS);
     }
@@ -520,34 +581,35 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
       // a group of fixed rows that lies past T loads nothing (its rows are
-      // masked and never stored)
-      const int live = min(C::NWG, (fixed_rows<DQ>(a) - r0 + 63) / 64);
-      mbar_expect_tx(bar_fix, live * 2 * kParts * C::FIX_TILE);
+      // masked and never stored), nor does a block that streams no tile (keys
+      // that no query sees: its dK and dV rows are 0)
+      const int live = n_tiles > 0 ? min(C::NWG, (fixed_rows<DQ>(a) - r0 + 63) / 64) : 0;
+      mbar_expect_tx(bar_fix, live * L::FIX);
       for (int w = 0; w < live; ++w)
         for (int op = 0; op < 2; ++op)
-          for (int i = 0; i < kParts; ++i)
+          for (int i = 0; i < L::FP; ++i)
 #pragma unroll
             for (int c = 0; c < C::NATOM; ++c)
-              tma_load_3d(s_fix + ((w * 2 + op) * kParts + i) * C::FIX_TILE + c * 64 * C::SW,
+              tma_load_3d(s_fix + w * L::FIX + (op * L::FP + i) * C::FIX_TILE + c * 64 * C::SW,
                           op ? &fix1 : &fix0, bar_fix, c * C::ATOM, r0 + 64 * w,
                           i * nbh_fix + bh);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % C::STAGES;
-        mbar_wait(bar_empty + 8 * s, ((t / C::STAGES) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, C::STAGE + (LSE_SMEM ? 2 * C::BS * 4 : 0));
+        const int s = t % L::STAGES;
+        mbar_wait(bar_empty + 8 * s, ((t / L::STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, L::STAGE + (LSE_SMEM ? 2 * C::BS * 4 : 0));
         int row0, sbh;
         streamed(t, row0, sbh);
         for (int op = 0; op < 2; ++op)
-          for (int i = 0; i < kParts; ++i)
+          for (int i = 0; i < L::SP; ++i)
 #pragma unroll
             for (int c = 0; c < C::NATOM; ++c)
-              tma_load_3d(s_str + s * C::STAGE + (op * kParts + i) * C::STR_TILE +
+              tma_load_3d(s_str + s * L::STAGE + (op * L::SP + i) * C::STR_TILE +
                               c * C::BS * C::SW,
                           op ? &str1 : &str0, bar_full + 8 * s, c * C::ATOM, row0,
                           i * nbh_str + sbh);
         if constexpr (LSE_SMEM) {  // rows row0 .. row0 + BS - 1 < Tp of lse and D
           const int64_t at = static_cast<int64_t>(sbh) * a.Tp + row0;
-          const uint32_t dst = s_fix + C::OFF_LSE + s * 2 * C::BS * 4;
+          const uint32_t dst = s_fix + L::OFF_LSE + s * 2 * C::BS * 4;
           bulk_load(dst, a.lse_p + at, C::BS * 4, bar_full + 8 * s);
           bulk_load(dst + C::BS * 4, a.d_p + at, C::BS * 4, bar_full + 8 * s);
         }
@@ -562,7 +624,7 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
   const int cq = (lane & 3) * 2;
   const int fg = C::TURNS ? 0 : wg;  // this warpgroup's group of fixed rows
   const int fr0 = r0 + 64 * fg;      // its first fixed row
-  const uint32_t s_mine = s_fix + fg * 2 * kParts * C::FIX_TILE;
+  const uint32_t s_mine = s_fix + fg * L::FIX;
   int wlo, whi;                      // the streamed rows this warpgroup's rows see
   stream_range<DQ>(a, fr0, fr0 + 63, wlo, whi);
   int vlo[2], vhi[2];                // the streamed rows each of the thread's rows sees
@@ -585,11 +647,18 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
 
   // TURNS: this warpgroup's tiles are every other one, from its own index
   for (int t = C::TURNS ? wg : 0; t < n_tiles; t += C::TURNS ? C::CWG : 1) {
-    const int s = t % C::STAGES;
+    const int s = t % L::STAGES;
     int row0, sbh;
     streamed(t, row0, sbh);
-    const uint32_t s_st = s_str + s * C::STAGE;
-    mbar_wait(bar_full + 8 * s, (t / C::STAGES) & 1);
+    const uint32_t s_st = s_str + s * L::STAGE;
+    // HANDOVER: the stage last held tile t - STAGES, the other warpgroup's,
+    // and full's parity alone cannot tell t's fill from that one's (phases
+    // k and k - 2 look alike).  empty's phase k - 1 ends only when the other
+    // warpgroup has read t - STAGES, and its phase k only on this one's own
+    // arrivals, so this wait is exact; after it full is in phase k or k + 1
+    // (for t < STAGES a fresh barrier: it returns at once).
+    if constexpr (L::HANDOVER) mbar_wait(bar_empty + 8 * s, ((t / L::STAGES) & 1) ^ 1);
+    mbar_wait(bar_full + 8 * s, (t / L::STAGES) & 1);
     // the mask hides all of it from this warpgroup's rows (with TURNS never:
     // the block's range is its rows')
     if (!C::TURNS && (row0 > whi || row0 + C::BS - 1 < wlo)) {
@@ -597,33 +666,40 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
       continue;
     }
 
-    // acc0 = X0 . S0^T (S^T or S), acc1 = X1 . S1^T (dP^T or dP)
-    float acc0[C::BS / 2], acc1[C::BS / 2];
+    // acc0 = X0 . S0^T (S^T or S), acc1 = X1 . S1^T (dP^T or dP); SPLIT:
+    // each product its own group, P formed while dP's products run
+    constexpr bool SPLIT = HD == 64;
+    float acc0[C::BS / 2], acc1[C::BS / 2], gcap[C::BS / 2];
     wgmma_fence();
-    products_ss<HD>(acc0, s_mine, s_st);
-    products_ss<HD>(acc1, s_mine + kParts * C::FIX_TILE, s_st + kParts * C::STR_TILE);
+    products_ss<HD, L::FP, L::SP>(acc0, s_mine, s_st);
+    if constexpr (SPLIT) wgmma_commit();
+    products_ss<HD, L::FP, L::SP>(acc1, s_mine + L::FP * C::FIX_TILE, s_st + L::SP * C::STR_TILE);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<SPLIT ? 1 : 0>();
     fence_regs(acc0);
-    fence_regs(acc1);
+    if constexpr (!SPLIT) fence_regs(acc1);
 
-    // softcap (a uniform branch), mask, P and dS; acc0 becomes P (or P^T),
-    // acc1 dS (or dS^T).  lse and D belong to the query: the column here
-    // (dK/dV pass; with TURNS from the stage), the row (dQ pass).
+    // softcap (a uniform branch; gcap its derivative), mask, P and dS: acc0
+    // becomes P (or P^T), acc1 dS (or dS^T), with SPLIT once dP's products
+    // have finished.  lse and D belong to the query: the column here (dK/dV
+    // pass; with TURNS from the stage), the row (dQ pass).
     const float* lse_s =
-        reinterpret_cast<const float*>(smem + C::OFF_LSE + s * 2 * C::BS * 4);
-#pragma unroll
-    for (int j = 0; j < C::BS / 8; ++j) {
-      const int c0 = row0 + 8 * j + cq;
-      float2 lse_c = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
+        reinterpret_cast<const float*>(smem + L::OFF_LSE + s * 2 * C::BS * 4);
+    auto query_cols = [&](int j, float2& lse_c, float2& d_c) {  // dK/dV pass: columns 8 j + cq
       if (LSE_SMEM) {
         lse_c = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
         d_c = *reinterpret_cast<const float2*>(lse_s + C::BS + 8 * j + cq);
       } else if (!DQ) {
-        const int64_t at = static_cast<int64_t>(sbh) * a.Tp + c0;
+        const int64_t at = static_cast<int64_t>(sbh) * a.Tp + row0 + 8 * j + cq;
         lse_c = *reinterpret_cast<const float2*>(a.lse_p + at);
         d_c = *reinterpret_cast<const float2*>(a.d_p + at);
       }
+    };
+#pragma unroll
+    for (int j = 0; j < C::BS / 8; ++j) {
+      const int c0 = row0 + 8 * j + cq;
+      float2 lse_c = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
+      query_cols(j, lse_c, d_c);
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -638,15 +714,36 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
           const float lse = DQ ? lse_r[e] : (f ? lse_c.y : lse_c.x);
           const float dd = DQ ? d_r[e] : (f ? d_c.y : d_c.x);
           const float p = vlo[e] <= col && col <= vhi[e] ? expf(x - lse) : 0.f;
-          acc1[i] = p * (acc1[i] - dd) * g;
+          if constexpr (SPLIT) {
+            gcap[i] = g;
+          } else {
+            acc1[i] = p * (acc1[i] - dd) * g;
+          }
           acc0[i] = p;
         }
+    }
+    if constexpr (SPLIT) {
+      wgmma_wait<0>();
+      fence_regs(acc1);
+#pragma unroll
+      for (int j = 0; j < C::BS / 8; ++j) {
+        float2 lse_c = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
+        query_cols(j, lse_c, d_c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const int i = 4 * j + 2 * e + f;
+            const float dd = DQ ? d_r[e] : (f ? d_c.y : d_c.x);
+            acc1[i] = acc0[i] * (acc1[i] - dd) * gcap[i];
+          }
+      }
     }
 
     // dK/dV pass: dV += P^T . dO (S1), dK += dS^T . Q (S0);
     // dQ pass:    dQ += dS . K (S0).
-    if (!DQ) products_rs<HD>(o1, acc0, s_st + kParts * C::STR_TILE);
-    products_rs<HD>(o0, acc1, s_st);
+    if (!DQ) products_rs<HD, L::SP>(o1, acc0, s_st + L::SP * C::STR_TILE);
+    products_rs<HD, L::SP>(o0, acc1, s_st);
     mbar_arrive(bar_empty + 8 * s);
   }
 
@@ -654,7 +751,7 @@ __global__ void __launch_bounds__(Bw<HD>::THREADS, 1)
     // the two warpgroups' sums added in a fixed order (warpgroup 0's +
     // warpgroup 1's): warpgroup 1 hands its own over through the ring,
     // which both have left (every loaded tile has been read)
-    float* xch = reinterpret_cast<float*>(smem + C::OFF_STR);
+    float* xch = reinterpret_cast<float*>(smem + L::OFF_STR);
     const int ltid = tid & 127;
     named_bar_sync(1, 256);
     if (wg == 1) {
@@ -743,14 +840,6 @@ struct WdL {
   static constexpr size_t kSmem = OFF_BAR + 2 * SLOTS * 8 + 1024;  // + base alignment
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
-
-// The first of the kSplit products whose parts an A operand of ap parts and
-// a B operand of bp parts hold (it overwrites the accumulator).
-__host__ __device__ constexpr int first_pair(int ap, int bp) {
-  for (int p = 0; p < kSplit; ++p)
-    if (pair_a(p) < ap && pair_b(p) < bp) return p;
-  return 0;
-}
 
 // The A fragment of 16 columns (k-step kk) of a fixed operand (float32 in
 // shared memory, [row][128 float2 slots], slot s of row r stored at
@@ -1334,17 +1423,18 @@ cudaError_t launch_kv_merge(const BwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int HD, bool DQ, bool HS = false>
+template <int HD, bool DQ, bool HS = false, bool KV1 = false>
 cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
   using C = Bw<HD>;
+  using L = BwL<HD, DQ, KV1>;
   CUtensorMap f0, f1, s0, s1;
   const int nq = a.B * a.H, nk = a.B * a.KV;
   // fixed: 64-row boxes of k, v (dK/dV pass) or q, dO (dQ pass); streamed:
   // BS-row boxes of the other two
   const void* fix[2] = {DQ ? a.qp : a.kp, DQ ? a.dop : a.vp};
   const void* str[2] = {DQ ? a.kp : a.qp, DQ ? a.vp : a.dop};
-  const int64_t nfix = static_cast<int64_t>(kParts) * (DQ ? nq : nk);
-  const int64_t nstr = static_cast<int64_t>(kParts) * (DQ ? nk : nq);
+  const int64_t nfix = static_cast<int64_t>(L::FP) * (DQ ? nq : nk);
+  const int64_t nstr = static_cast<int64_t>(L::SP) * (DQ ? nk : nq);
   const int tfix = DQ ? a.Tq : a.Tk, tstr = DQ ? a.Tk : a.Tq;
   const bool ok = make_parts_map(&f0, fix[0], HD, tfix, nfix, 64, C::ATOM, C::SW) &&
                   make_parts_map(&f1, fix[1], HD, tfix, nfix, 64, C::ATOM, C::SW) &&
@@ -1352,12 +1442,12 @@ cudaError_t launch_pass(const BwdArgs& a, cudaStream_t s) {
                   make_parts_map(&s1, str[1], HD, tstr, nstr, C::BS, C::ATOM, C::SW);
   if (!ok) return cudaErrorInvalidValue;
   // the opt-in above 48 KB holds per device, so it is set on every launch
-  const cudaError_t e = cudaFuncSetAttribute(bwd_wgmma<HD, DQ, HS>,
+  const cudaError_t e = cudaFuncSetAttribute(bwd_wgmma<HD, DQ, HS, KV1>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(C::kSmem));
+                                             static_cast<int>(L::kSmem));
   if (e != cudaSuccess) return e;
   const dim3 grid(DQ ? nq : nk, (tfix + C::ROWS - 1) / C::ROWS, HS ? a.nsplit : 1);
-  bwd_wgmma<HD, DQ, HS><<<grid, C::THREADS, C::kSmem, s>>>(f0, f1, s0, s1, a);
+  bwd_wgmma<HD, DQ, HS, KV1><<<grid, C::THREADS, L::kSmem, s>>>(f0, f1, s0, s1, a);
   const cudaError_t e2 = cudaGetLastError();
   if constexpr (HS) {
     if (e2 == cudaSuccess) return launch_kv_merge<HD>(a, s);
@@ -1424,15 +1514,33 @@ cudaError_t launch_wide_passes(const BwdArgs& a, cudaStream_t s) {
   return launch_wide<true, false, false, KV1>(a, s);
 }
 
+// bwd_wgmma's passes: dK/dV (at hd 128 the head split's instance where
+// nsplit > 1; attn_plan.h gives 32 and 64 one subset), then dQ; KV1 the
+// bf16-k/v instances (hd 64).
+template <int HD, bool KV1>
+cudaError_t launch_wgmma_passes(const BwdArgs& a, cudaStream_t s) {
+  cudaError_t e;
+  if constexpr (HD == 128) {
+    e = a.nsplit > 1 ? launch_pass<HD, false, true>(a, s) : launch_pass<HD, false>(a, s);
+  } else {
+    if (a.nsplit > 1) return cudaErrorInvalidValue;
+    e = launch_pass<HD, false, false, KV1>(a, s);
+  }
+  if (e != cudaSuccess) return e;
+  return launch_pass<HD, true, false, KV1>(a, s);
+}
+
 // The prologues, then the two passes: bwd_wgmma<HD, false / true>, or at hd
 // 256 bwd_wide's recomputing passes (launch_wide_passes) or, where
 // attn_plan.h's bwd_dq_chunks picks the dS path (nchunk > 0),
 // bwd_wide<false, true> (dS stored) and bwd_dq_ds.  kv_parts 1: bf16 k/v
-// (bwd_wide's recomputing passes only).  The scratch as
+// (bwd_wgmma at hd 64, bwd_wide's recomputing passes).  The scratch as
 // attn_plan::bwd_layout lays it out.
 template <int HD>
 cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int k_end,
                          int nsplit, int kv_parts, cudaStream_t s) {
+  constexpr bool kKv1 = attn_plan::has_kv1(HD);  // the widths with bf16-k/v instances
+  if (kv_parts == 1 && !kKv1) return cudaErrorInvalidValue;
   a.Tp = (a.Tq + kPadRows - 1) / kPadRows * kPadRows;
   const attn_plan::BwdLayout l =
       attn_plan::bwd_layout(HD, a.B, a.Tq, a.Tk, a.H, a.KV, nchunk, nsplit, kv_parts);
@@ -1454,12 +1562,8 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const unsigned kv_blocks = static_cast<unsigned>((krows + kRowsPerBlock - 1) / kRowsPerBlock);
-  if constexpr (HD == 256) {
-    if (kv_parts == 1) {
-      bwd_prep_kv<HD, true><<<kv_blocks, kThreads, 0, s>>>(a);
-    } else {
-      bwd_prep_kv<HD><<<kv_blocks, kThreads, 0, s>>>(a);
-    }
+  if (kv_parts == 1) {
+    if constexpr (kKv1) bwd_prep_kv<HD, true><<<kv_blocks, kThreads, 0, s>>>(a);
   } else {
     bwd_prep_kv<HD><<<kv_blocks, kThreads, 0, s>>>(a);
   }
@@ -1472,16 +1576,10 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
     if (e != cudaSuccess) return e;
     return launch_dq_ds(a, nchunk, k_begin, k_end, reinterpret_cast<float*>(p + l.dq_part), s);
   } else {
-    // the head split's instance exists at 128 only (attn_plan.h gives 32 and
-    // 64 one subset)
-    if constexpr (HD == 128) {
-      e = nsplit > 1 ? launch_pass<HD, false, true>(a, s) : launch_pass<HD, false>(a, s);
-    } else {
-      if (nsplit > 1) return cudaErrorInvalidValue;
-      e = launch_pass<HD, false>(a, s);
+    if constexpr (kKv1) {
+      if (kv_parts == 1) return launch_wgmma_passes<HD, true>(a, s);
     }
-    if (e != cudaSuccess) return e;
-    return launch_pass<HD, true>(a, s);
+    return launch_wgmma_passes<HD, false>(a, s);
   }
 }
 
@@ -1489,8 +1587,9 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
 
 // q, o, dout, dq: [B, Tq, H, hd]; k, v, dk, dv: [B, Tk, KV, hd]; lse: [B,
 // H, Tq]; all contiguous, float32 but k and v, which are bfloat16 where
-// kv_bf16 (taken only where attn_plan.h's bwd_kv_parts gives 1: bwd_wide's
-// recomputing passes; else the caller passes their float32 values).  q row
+// kv_bf16 (taken only where attn_plan.h's bwd_kv_parts gives 1: bwd_wgmma at
+// hd 64, bwd_wide's recomputing passes; else the caller passes their float32
+// values).  q row
 // i sits at position q_offset + i; a causal or windowed call needs 0 <=
 // q_offset and q_offset + Tq <= Tk (every row then sees its own key).
 // scratch: scratch_bytes of device memory, at least attn_plan::bwd_layout's
@@ -1543,7 +1642,7 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
   cudaError_t e;
   switch (hd) {
     case 32: e = launch_wgmma<32>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;
-    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;
+    case 64: e = launch_wgmma<64>(a, scratch, 0, 0, 0, nsplit, kv_parts, s); break;
     case 112:
     case 120:
     case 128: e = launch_wgmma<128>(a, scratch, 0, 0, 0, nsplit, kParts, s); break;

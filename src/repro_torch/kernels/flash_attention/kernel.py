@@ -40,10 +40,11 @@ cores (``BWD_SPLIT`` bf16 products per float32 product of float32 operands)
 in four CUDA launches (the two prologues, dK/dV, dQ; one more for each
 merge: the dK/dV partials of a head split, the dQ partials of the dS path
 with more than one chunk): ``bwd_wgmma`` for every width but 256,
-``bwd_wide`` for 256.  bfloat16 k/v: ``bwd_wide``'s recomputing passes take
-them as they are (``bwd_plan(...).kv_parts`` 1; ``bf16_kv_launches``),
-where each product with k or v makes three bf16 products
-(``bwd_products``); ``bwd_wgmma`` and the dS path take their float32
+``bwd_wide`` for 256.  bfloat16 k/v: ``bwd_wgmma`` at hd 64 and
+``bwd_wide``'s recomputing passes take them as they are
+(``bwd_plan(...).kv_parts`` 1; ``bf16_kv_launches``, by design), where
+each product with k or v makes three bf16 products (``bwd_products``);
+``bwd_wgmma`` at hd 32 and 112-128 and the dS path take their float32
 values (exact) and make six.  ``launches`` counts forward calls and
 ``fwd_design_launches`` the forward calls of each design; ``bwd_launches``
 backward calls, and ``bwd_design_launches`` the backward calls of each
@@ -73,7 +74,7 @@ split_launches = {"flash_tiled": 0, "bwd_wide": 0}
 # backward calls whose dK/dV pass took the head split, and those that took
 # bf16 k/v as they are (each also counted above)
 head_split_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
-bf16_kv_launches = {"bwd_wide": 0}
+bf16_kv_launches = {"bwd_wgmma": 0, "bwd_wide": 0}
 
 HEAD_DIMS = (32, 64, 112, 120, 128, 256)
 SPLIT_ROWS = 8     # csrc kMaxSplitRows
@@ -191,8 +192,8 @@ def bwd_plan(hd: int, b: int, tq: int, tk: int, h: int, kvh: int, *, causal: boo
     path; the dK/dV pass's head subsets (more than 1 in ``bwd_wide`` under
     a wave of dK/dV blocks, and in ``bwd_wgmma``'s 128-wide template where
     subsets shorten an unbalanced grid of under two waves); 1 k/v part
-    where ``bwd_wide``'s recomputing passes take bf16 k/v as they are,
-    else 3."""
+    where bf16 k/v are taken as they are (``bwd_wgmma`` at hd 64,
+    ``bwd_wide``'s recomputing passes), else 3."""
     return _plan_call(_build.plan_library().rt_flash_attention_bwd_plan, hd, b, tq, tk, h, kvh,
                       q_offset, window, causal, kv_bf16, sms, extra=2)
 
@@ -201,8 +202,8 @@ def bwd_products(kv_parts: int) -> dict[str, int]:
     """bf16 products per float32 product of each of the backward's five
     matrix products in the instance that runs with ``kv_parts`` parts of k
     and v (``bwd_plan``): ``BWD_SPLIT`` each for 3 (float32 values); for 1
-    (bf16 k/v in ``bwd_wide``) 3 in S, dP and dQ, whose one operand is k or
-    v, and ``BWD_SPLIT`` in dV and dK."""
+    (bf16 k/v in ``bwd_wgmma`` at hd 64 and in ``bwd_wide``) 3 in S, dP and
+    dQ, whose one operand is k or v, and ``BWD_SPLIT`` in dV and dK."""
     kv = {3: BWD_SPLIT, 1: 3}[kv_parts]
     return {"S": kv, "dP": kv, "dV": BWD_SPLIT, "dK": BWD_SPLIT, "dQ": kv}
 
@@ -420,8 +421,8 @@ def flash_attention_bwd(
     ``ref.attention_bwd_ref``); every tensor contiguous, on one card, the
     shapes ``check_grad_shape`` admits.  k and v are float32 or both
     bfloat16: bfloat16 k/v enter the kernel as they are where ``bwd_plan``
-    gives one k/v part (``bwd_wide``'s recomputing passes), else as their
-    float32 values (exact); dk, dv come back rounded to bfloat16, as the
+    gives one k/v part (``bwd_wgmma`` at hd 64, ``bwd_wide``'s recomputing
+    passes), else as their float32 values (exact); dk, dv come back rounded to bfloat16, as the
     gradient of the reference's upcast is; everything else is float32."""
     global bwd_launches
     dev = _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
@@ -472,5 +473,5 @@ def flash_attention_bwd(
     if plan.head_splits > 1:
         head_split_launches[bwd_design(hd)] += 1
     if kv_bf16:
-        bf16_kv_launches["bwd_wide"] += 1
+        bf16_kv_launches[bwd_design(hd)] += 1
     return dq, dk.to(kv_dtype), dv.to(kv_dtype)

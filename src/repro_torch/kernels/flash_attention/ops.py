@@ -247,9 +247,10 @@ class FlashAttention(torch.autograd.Function):
     ``csrc/flash_attention_bwd.cu``; the CPU: ``ref.attention_bwd_ref``).
     q of another float type is taken as its float32 value, and k/v as they
     are (float32 or bfloat16: the forward reads bf16 k/v as they are, and so
-    does the backward's hd-256 design ``bwd_wide`` where ``kernel.bwd_plan``
-    gives one k/v part, its products with k or v then three bf16 products
-    each; elsewhere the backward reads their float32 values); o is float32,
+    does the backward where ``kernel.bwd_plan`` gives one k/v part,
+    ``bwd_wgmma`` at hd 64 and ``bwd_wide``, its products with k or v then
+    three bf16 products each; elsewhere the backward reads their float32
+    values); o is float32,
     and each gradient comes back in its input's type."""
 
     @staticmethod

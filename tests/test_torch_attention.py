@@ -522,48 +522,49 @@ def test_bwd_design_by_head_width():
         fa_k.bwd_design(96)
 
 
-# bwd_wide's bf16-k/v instances (k and v as one bf16 part: three products in
-# S, dP and dQ) and its head split (the dK/dV pass over n subsets of a
-# group's query heads, the subsets' partial dK, dV added in order): name ->
-# (b, t, h, kvh, causal, window, softcap, head subsets), hd 256
-BWD_HEAD_SPLIT_CASES = {
-    "mqa16_window_2_subsets": (1, 80, 16, 1, True, 24, 0.0, 2),
-    "mqa16_16_subsets": (1, 50, 16, 1, True, 0, 0.0, 16),
-    "gqa4_softcap_3_subsets": (1, 70, 8, 2, True, 0, 30.0, 3),
-    "mqa8_bidirectional_4_subsets": (1, 40, 8, 1, False, 10, 0.0, 4),
+# k and v as one bf16 part (three products in S, dP and dQ): bwd_wide's
+# bf16-k/v instances at hd 256 with its head split (the dK/dV pass over n
+# subsets of a group's query heads, the subsets' partial dK, dV added in
+# order), and bwd_wgmma's at hd 64 (Whisper's encoder and cross-attention
+# with Tq != Tk, and a q_offset island; one subset): name -> (hd, b, tq, tk,
+# h, kvh, causal, window, softcap, q_offset, head subsets)
+BWD_ONE_KV_PART_CASES = {
+    "mqa16_window_2_subsets": (256, 1, 80, 80, 16, 1, True, 24, 0.0, 0, 2),
+    "mqa16_16_subsets": (256, 1, 50, 50, 16, 1, True, 0, 0.0, 0, 16),
+    "gqa4_softcap_3_subsets": (256, 1, 70, 70, 8, 2, True, 0, 30.0, 0, 3),
+    "mqa8_bidirectional_4_subsets": (256, 1, 40, 40, 8, 1, False, 10, 0.0, 0, 4),
+    "whisper_encoder": (64, 2, 75, 75, 4, 4, False, 0, 0.0, 0, 1),
+    "whisper_cross": (64, 2, 24, 75, 4, 4, False, 0, 0.0, 0, 1),
+    "gqa2_causal_window_softcap": (64, 1, 90, 90, 4, 2, True, 30, 20.0, 0, 1),
+    "island": (64, 1, 32, 96, 4, 4, True, 0, 0.0, 64, 1),
 }
 
 
-def _bf16_kv_bwd_inputs(b, t, h, kvh, causal, window, softcap, seed):
-    """q and dO float32; k and v bfloat16 (the training path's cache type)."""
-    q, k, v, do = _grad_inputs(b, t, h, kvh, 256, seed)
-    k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
-    q, do = torch.from_numpy(q), torch.from_numpy(do)
-    kw = dict(causal=causal, window=window, softcap=softcap)
-    o, lse = fa_r.attention_lse_ref(q, k, v, **kw)
-    return (q, k, v, o, lse, do), kw
-
-
-@pytest.mark.parametrize("case", sorted(BWD_HEAD_SPLIT_CASES))
+@pytest.mark.parametrize("case", sorted(BWD_ONE_KV_PART_CASES))
 def test_bwd_split_ref_one_kv_part_and_head_splits(case):
-    """k and v as one bf16 part with the head split: within BWD_TOL of the
-    plain backward and of jax.grad of the reference's attention (on the
-    float32 values of the bf16 k/v), and bit-equal to the six-product
-    emulation with the same head split, whose k/v parts past the first are
-    zeros."""
+    """k and v as one bf16 part (numpy inputs from a seed, k and v rounded
+    to bfloat16), with the head split: within BWD_TOL of the plain backward
+    and of jax.grad of the reference's attention (on the float32 values of
+    the bf16 k/v), and bit-equal to the six-product emulation with the same
+    head split, whose k/v parts past the first are zeros."""
     import jax
 
-    *shape, n = BWD_HEAD_SPLIT_CASES[case]
-    args, kw = _bf16_kv_bwd_inputs(*shape, seed=len(case))
+    hd, b, tq, tk, h, kvh, causal, window, softcap, off, n = BWD_ONE_KV_PART_CASES[case]
+    q, k, v, do = _offset_inputs(b, tq, tk, h, kvh, hd, len(case))
+    qt, dot = torch.from_numpy(q), torch.from_numpy(do)
+    kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    o, lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+    args = (qt, kt, vt, o, lse, dot)
     got = fa_r.attention_bwd_split_ref(*args, **kw, kv_parts=1, head_splits=n)
     six = fa_r.attention_bwd_split_ref(*args, **kw, head_splits=n)
     exp = fa_r.attention_bwd_ref(*args, **kw)
-    q, k, v, _, _, do = (x.float().numpy() for x in args)
 
     def f(q_, k_, v_):
         return jnp.sum(JL.attention(q_, k_, v_, impl="direct", **kw) * jnp.asarray(do))
 
-    exp_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    kf, vf = (x.float().numpy() for x in (kt, vt))
+    exp_j = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf))
     for name, g, s6, e, ej in zip("qkv", got, six, exp, exp_j):
         assert torch.equal(g, s6), f"d{name}"
         np.testing.assert_allclose(g.numpy(), e.numpy(), atol=BWD_TOL, rtol=BWD_TOL,
@@ -826,9 +827,12 @@ def test_head_split_plan_at_griffin_and_gemma3(kv_bf16):
                            window=0, q_offset=3840)
     assert (island.chunks, island.head_splits, island.kv_parts) == (4, 1, 3)
     assert island.scratch_bytes == _bwd_layout_bytes(256, 1, 256, 4096, 8, 4, 4, 1, 3)
-    # every other width: the whole group, k/v as float32 values
+    # hd 64 (bwd_wgmma's bf16-k/v instances) takes bf16 k/v as they are too,
+    # the whole group; the 128-wide template takes their float32 values
     mini = fa_k.bwd_plan(64, 1, 4096, 4096, 4, 1, sms=SMS, kv_bf16=kv_bf16, **kw)
-    assert (mini.head_splits, mini.kv_parts) == (1, 3)
+    assert (mini.head_splits, mini.kv_parts) == (1, parts)
+    assert mini.scratch_bytes == _bwd_layout_bytes(64, 1, 4096, 4096, 4, 1, 0, 1, parts)
+    assert fa_k.bwd_plan(128, 1, 4096, 4096, 4, 1, sms=SMS, kv_bf16=kv_bf16, **kw).kv_parts == 3
 
 
 def _kv_pass_makespan(n, bkv, tiles, groups, sms):
@@ -897,7 +901,8 @@ def test_head_split_plan_rule(seed):
         assert n == _head_splits(hd, b, tq, tk, h, kvh, causal, window, q_offset, plan.chunks,
                                  sms)
         assert 1 <= n <= h // kvh
-        assert plan.kv_parts == (1 if kv_bf16 and hd == 256 and plan.chunks == 0 else 3)
+        one_part = hd == 64 or (hd == 256 and plan.chunks == 0)
+        assert plan.kv_parts == (1 if kv_bf16 and one_part else 3)
         hdk = 128 if hd in (112, 120) else hd
         assert plan.scratch_bytes == _bwd_layout_bytes(hdk, b, tq, tk, h, kvh, plan.chunks, n,
                                                        plan.kv_parts)

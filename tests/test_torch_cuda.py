@@ -628,6 +628,96 @@ def test_flash_bwd_wgmma_head_split_is_deterministic(cuda, name):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+# bwd_wgmma's hd-64 template (two consumer warpgroups taking the streamed
+# tiles of a block's 64 fixed rows in turns) on float32 k/v and on bf16 k/v
+# (its bf16-k/v instances, one k/v part): (b, tq, tk, h, kvh, causal,
+# window, softcap, q_offset)
+HD64_SHAPES = {
+    "causal_mha": (2, 300, 300, 4, 4, True, 0, 0.0, 0),
+    # Whisper's encoder over its 1500 frames (ragged: 23 x 64 + 28) and its
+    # cross-attention (448 decoder positions over them)
+    "whisper_encoder": (2, 1500, 1500, 4, 4, False, 0, 0.0, 0),
+    "whisper_cross": (2, 448, 1500, 4, 4, False, 0, 0.0, 0),
+    "gqa4_window_softcap": (1, 700, 700, 8, 2, True, 100, 30.0, 0),
+    "island": (1, 256, 1024, 4, 4, True, 0, 0.0, 768),
+    "mqa4_bidirectional_window_offset": (1, 77, 200, 4, 1, False, 30, 0.0, 60),
+    "one_tile": (1, 40, 40, 2, 1, True, 0, 0.0, 0),
+}
+
+
+def _hd64_inputs(cuda, name, kv_dtype, seed=0):
+    b, tq, tk, h, kvh, causal, window, softcap, off = HD64_SHAPES[name]
+    q, k, v = _flash_inputs(cuda, b, tq, tk, h, kvh, 64, torch.float32, seed=seed + tq + tk)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    return q, k.to(kv_dtype), v.to(kv_dtype), kw
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(HD64_SHAPES))
+def test_flash_bwd_hd64_matches_plain(cuda, name, kv_dtype):
+    """The hd-64 template against the plain backward; bf16 k/v run the
+    bf16-k/v instances (one k/v part), each call counted once in
+    bf16_kv_launches["bwd_wgmma"], float32 k/v in none."""
+    q, k, v, kw = _hd64_inputs(cuda, name, kv_dtype)
+    bf16 = kv_dtype == torch.bfloat16
+    plan = _head_split_plan(q, k, kw)
+    assert (plan.chunks, plan.head_splits, plan.kv_parts) == (0, 1, 1 if bf16 else 3)
+    before = dict(fa_k.bf16_kv_launches)
+    _bwd_check(q, k, v, kw)
+    assert fa_k.bf16_kv_launches == {**before, "bwd_wgmma": before["bwd_wgmma"] + int(bf16)}
+
+
+@pytest.mark.parametrize("name", sorted(HD64_SHAPES))
+def test_flash_bwd_hd64_bf16_kv_equals_float32_kv_path(cuda, name):
+    """bwd_wgmma<64> on bf16 k/v (one part: the three non-zero products of
+    the six, in the same order) against the same call on their float32
+    values (three parts, two of them zeros): the dropped products add exact
+    zeros, so dq is bit-equal and dk, dv are the float32 path's rounded to
+    bfloat16."""
+    q, k, v, kw = _hd64_inputs(cuda, name, torch.bfloat16, seed=11)
+    do = torch.randn_like(q)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    dq, dk, dv = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    dq32, dk32, dv32 = fa_k.flash_attention_bwd(q, k.float(), v.float(), o, lse, do, **kw)
+    assert torch.equal(dq, dq32)
+    assert torch.equal(dk, dk32.to(torch.bfloat16)) and torch.equal(dv, dv32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["whisper_encoder", "gqa4_window_softcap"])
+def test_flash_bwd_hd64_is_deterministic(cuda, name, kv_dtype):
+    """The two consumer warpgroups' sums are added in warpgroup order, so
+    repeats are bit-equal."""
+    q, k, v, kw = _hd64_inputs(cuda, name, kv_dtype, seed=4)
+    o, lse = fa_k.flash_attention_lse(q, k, v, **kw)
+    do = torch.randn_like(q)
+    first = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["whisper_encoder", "whisper_cross", "causal_mha", "island"])
+def test_flash_bwd_hd64_fails_its_limit_one_key_too_few(cuda, name, kv_dtype):
+    """The plain backward given one key too few (causal: a window one
+    shorter than the longest row's reach; else the last key dropped) lies
+    outside the limit that the kernel's gradients meet."""
+    q, k, v, kw = _hd64_inputs(cuda, name, kv_dtype)
+    got, _, do = _bwd_check(q, k, v, kw)
+    if kw["causal"]:
+        near, kn, vn = dict(kw, window=kw["q_offset"] + q.shape[1] - 1), k, v
+    else:
+        near, kn, vn = kw, k[:, :-1], v[:, :-1]
+    o_n, lse_n = fa_r.attention_lse_ref(q, kn, vn, **near)
+    exp_n = fa_r.attention_bwd_ref(q, kn, vn, o_n, lse_n, do, **near)
+    within = True
+    for a, e in zip(got, exp_n):
+        rounded = BF16_ROUND if a.dtype == torch.bfloat16 else 0.0
+        err = (a.float()[:, :e.shape[1]] - e).abs()
+        within &= bool((err <= BWD_TOL + (BWD_TOL + rounded) * e.abs()).all())
+    assert not within
+
+
 @pytest.mark.parametrize("hd,tps", [(64, 4), (256, 2), (256, 4)])
 def test_flash_bwd_islands_reassemble_the_full_call(cuda, hd, tps):
     """The sequence split's islands (rank r: rows r T / tps .. at q_offset
