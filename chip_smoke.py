@@ -19,14 +19,15 @@ Phases, one JSON line each:
    recomputing passes, the dS path's dK/dV pass, the head-split dK/dV pass,
    and the bf16-k/v dK/dV (whole and head-split) and dQ passes).
 1b. dryrun — in child processes (each one's default process group a
-   ``fake`` one of 256 ranks; ``--dryrun-child trace`` and ``run``): (a)
-   begun before phase 1's build (fake tensors: no kernel, nothing on the
-   card; ``DRYRUN_TRACE_CHILDREN`` of them, each tracing its share of the
-   cells) and (b) right after it, while the script's own process holds
-   nothing on the card; all are waited for before phase 2, so that no
-   busy host process runs beside the timed phases, and (b) times a
-   cell's step only once (a) has ended, but the device-bound cells of
-   ``DRYRUN_BESIDE_TRACES``, which it runs first.  Rank (0, 0) of the
+   ``fake`` one of 256 ranks; ``--dryrun-child trace``, ``run`` and
+   ``serve``): (a) begun before phase 1's build (fake tensors: no kernel,
+   nothing on the card; ``DRYRUN_TRACE_CHILDREN`` of them, each tracing
+   its share of the cells), (b) right after it, while the script's own
+   process holds nothing on the card, and (c) once (b) has ended; all are
+   waited for before phase 2, so that no busy host process runs beside
+   the timed phases, and (b) times a cell's step only once (a) has ended,
+   but the device-bound cells of ``DRYRUN_BESIDE_TRACES``, which it runs
+   first.  Rank (0, 0) of the
    16 x 16 production mesh
    for ``DRYRUN_CELLS`` (every architecture's ``train_4k``: minicpm-2b,
    gemma3-4b, recurrentgemma-9b, whisper-medium, kimi-k2, qwen3-moe,
@@ -41,13 +42,20 @@ Phases, one JSON line each:
    the cells so marked traced on fake CUDA tensors (``launch.dryrun``),
    their FLOPs, wire bytes by kind, argument bytes and peak equal to the
    committed ``experiments/dryrun_torch/`` records (traced on the CPU);
-   (b) every cell's rank program run once for real on the card (the fake
-   group's collectives move nothing, so values are not checked): its
-   FLOPs (``FlopCounterMode``) must equal the record's,
-   ``max_memory_allocated`` must be within ``DRYRUN_PEAK_TOL`` of the
-   record's peak and under the card's memory, a second step is timed, its
-   flash calls by design must be ``DRYRUN_LAUNCHES``'s and its launches
-   join the counts under ``dryrun_rank``; and the sequence-split training
+   (b) every cell's rank program run for real on the card (the fake
+   group's collectives move nothing, so values are not checked; its
+   arguments made one leaf at a time and freed before the next cell): a
+   first step, whose FLOPs (``FlopCounterMode`` alone) must equal the
+   record's (a plain warm-up for the cells (a) traces: the trace holds
+   their FLOPs), whose ``max_memory_allocated`` must be within
+   ``DRYRUN_PEAK_TOL`` of the record's peak and under the card's memory,
+   and whose flash calls by design must be ``DRYRUN_LAUNCHES``'s, its
+   launches joining the counts under ``dryrun_rank``; then a second step
+   timed, with the same launches; (c) the same for the MoE families'
+   serving ranks (``DRYRUN_SERVE_CELLS``: qwen3-moe-235b-a22b and
+   kimi-k2-1t-a32b ``prefill_32k`` and ``decode_32k`` at full width and
+   depth, each FLOP-counted; their attention calls are phase 6c's
+   serving rows); and the sequence-split training
    ranks' islands (``DRYRUN_ISLANDS``: q [4, 256, H, hd] over k/v [4, 4096,
    KV, hd] float32; minicpm-2b's at q_offset 0 through
    ``flash_wgmma_split`` and ``bwd_wgmma``, gemma3-4b's
@@ -202,7 +210,17 @@ Phases, one JSON line each:
    120] over [4, 4096, 1, 120], window 4096; internvl2-2b's, q [4, 4096, 1, 128] over
    one kv head; starcoder2-3b's sequence islands, q [4, 256, 24, 128] at
    q_offset 0 and 3840 over [4, 4096, 2, 128]), each backward's plan (head
-   subsets, k/v parts) held to the one the cell names.  6b and 6c also fail
+   subsets, k/v parts) held to the one the cell names; and the MoE serving
+   ranks' calls, forward only (``serving_row``): the rank's 4 q heads over
+   kv head 0 of the bf16 cache (a strided view of every kv head), qwen3-moe
+   and kimi-k2 at prefill_32k (q [2, 32768, 4, hd] over [2, 32768, 1, hd]:
+   ``flash_wgmma``; the plain version on the first and the last 2,048 query
+   rows, and timed over the whole call 2,048 rows at a time) and at
+   decode_32k (q [8, 1, 4, hd] at q_offset 32,767 over the 32,768-position
+   cache: ``flash_decode``, kimi-k2's hd 112 in the 128-wide template),
+   each within 2e-5 with v of mean 0 and of mean 1, failing it given one
+   key too few, timed with its bound and SDPA (k/v repeated to the q
+   heads, the memory-efficient kernel).  6b and 6c also fail
    unless the limits reject the plain version given one key too few.  bf16
    k/v enter ``bwd_wide`` as they are (Griffin's, with the head split) and
    ``bwd_wgmma`` too (Whisper's encoder and cross-attention, hd 64: plan
@@ -233,15 +251,15 @@ Phases, one JSON line each:
 8b. families — ``serve_step.generate`` on the four other model families,
    one run each, random weights and inputs from ``--seed`` made on the card,
    each family's weights freed before the next: qwen3-moe-235b-a22b at full
-   width with bfloat16 weight storage, 4 of its 94 layers (41.7 GB of
+   width with bfloat16 weight storage, 2 of its 94 layers (22.1 GB of
    weights), B 4 x 2048 prompt tokens + 32, capacity factor 1.25; rwkv6-7b
    (7.5B float32 parameters), B 4 x 4096 + 32; recurrentgemma-9b (10.4B
    parameters, its cast leaves in bfloat16), B 4 x 4096 + 32; whisper-medium
    (24 + 24 layers), B 4 x 1500 frames, a 4-token prompt + 124 tokens.  Each
    run is counted and timed as phase 7's (time to first token, token gaps,
    decode tokens/s, peak memory) and fails unless flash attention ran
-   exactly the calls its design rule gives (``FAMILY_RUNS``: qwen3-moe 4 +
-   31 x 4 and recurrentgemma 12 + 31 x 12, all ``flash_wgmma``; rwkv6 none;
+   exactly the calls its design rule gives (``FAMILY_RUNS``: qwen3-moe 2 +
+   31 x 2 and recurrentgemma 12 + 31 x 12, all ``flash_wgmma``; rwkv6 none;
    whisper 24 ``flash_wgmma`` (encoder) + 24 + 24 + 123 x 48
    ``flash_decode``); then one prefill and one decode step under the
    profiler.  ``families_check``: each family at full width and a CPU-sized
@@ -468,12 +486,12 @@ JOBS_CSV_ROWS, JOBS_CHUNK_BYTES, JOBS_MAP_TASKS = 1_000_000, 2 << 20, 8
 # the families phase: one generate per run at full width, random weights from
 # --seed: (run, arch, config overrides, B, prompt tokens, new tokens, the
 # flash-attention forward calls by design that the run must make).  qwen3-moe
-# at 4 of its 94 layers (a layer's 256 padded experts are 9.66 GB in
-# bfloat16); whisper over its 30 s window (1500 frames) with a 4-token prompt,
-# the length of its start-of-transcript sequence
+# at 2 of its 94 layers (a layer's 256 padded experts are 9.66 GB in
+# bfloat16; its dryrun ranks serve all 94); whisper over its 30 s window (1500
+# frames) with a 4-token prompt, the length of its start-of-transcript sequence
 FAMILY_RUNS = (
-    ("qwen3_moe", "qwen3-moe-235b-a22b", {"num_layers": 4}, 4, 2048, 32,
-     {"flash_wgmma": 4 + 31 * 4}),
+    ("qwen3_moe", "qwen3-moe-235b-a22b", {"num_layers": 2}, 4, 2048, 32,
+     {"flash_wgmma": 2 + 31 * 2}),
     ("rwkv6", "rwkv6-7b", {}, 4, 4096, 32, {}),
     ("recurrentgemma", "recurrentgemma-9b", {}, 4, 4096, 32,
      {"flash_wgmma": 12 + 31 * 12}),
@@ -573,7 +591,28 @@ TP_RANK_SHAPES = (
      dict(causal=True, window=0, q_offset=0), "dryrun_rank", False, (1, 3)),
     ("starcoder2_rank_seq3840", (4, 256, 24, 128), (4, 4096, 2, 128), "float32",
      dict(causal=True, window=0, q_offset=3840), "dryrun_rank", False, (1, 3)),
+    # the MoE families' serving ranks (DRYRUN_SERVE_CELLS), forward only (a
+    # row whose mask names kv_len; its last field the cache's kv heads): the
+    # rank's 4 q heads (float32) over kv head 0 of the bf16 cache, the
+    # strided view of a cache of every kv head that the prefill and
+    # transformer._decode_heads hand the kernel; flash_wgmma at prefill_32k
+    # (2 sequences of 32,768 rows, 131,072 rows per kv head), flash_decode at
+    # decode_32k (8 sequences at the last of 32,768 positions; kimi-k2's hd
+    # 112 in the 128-wide template with a run-time width)
+    ("qwen3_rank_prefill", (2, 32768, 4, 128), (2, 32768, 1, 128), "bfloat16",
+     dict(causal=True, window=0, q_offset=0, kv_len=32768), "dryrun_rank", False, 4),
+    ("qwen3_rank_decode", (8, 1, 4, 128), (8, 32768, 1, 128), "bfloat16",
+     dict(causal=True, window=0, q_offset=32767, kv_len=32768), "dryrun_rank", False, 4),
+    ("kimi_rank_prefill", (2, 32768, 4, 112), (2, 32768, 1, 112), "bfloat16",
+     dict(causal=True, window=0, q_offset=0, kv_len=32768), "dryrun_rank", False, 8),
+    ("kimi_rank_decode", (8, 1, 4, 112), (8, 32768, 1, 112), "bfloat16",
+     dict(causal=True, window=0, q_offset=32767, kv_len=32768), "dryrun_rank", False, 8),
 )
+# a serving row's plain version runs this many query rows at a time: its
+# first and last such block are held against the kernel (the last rows see
+# the most keys), and the whole call is timed block by block (a prefill
+# rank's 32,768 rows would take 2 x 4 x 32,768^2 float32 scores, 34 GB)
+PLAIN_ROWS = 2048
 # the decode islands of the dryrun phase's decode_32k ranks, tp 16: one q
 # head a rank (float32) over the bf16 kv head it maps to, 8 sequences at the
 # 32,768-position cache's last position: internvl2-2b's (hd 128, 24 a step)
@@ -647,9 +686,22 @@ DRYRUN_CELLS = (("kimi-k2-1t-a32b", "train_4k", False),
                 ("whisper-medium", "train_4k", False), ("h2o-danube-3-4b", "train_4k", True),
                 ("starcoder2-3b", "train_4k", True), ("internvl2-2b", "train_4k", True),
                 ("rwkv6-7b", "train_4k", False))
+# the MoE families' serving ranks, each at full width and depth, in a dryrun
+# child of their own (``--dryrun-child serve``) that starts when the run
+# child has ended: qwen3-moe-235b-a22b and kimi-k2-1t-a32b prefill_32k (2
+# sequences of 32,768 a rank) and decode_32k (8 sequences over a 32,768-position
+# bf16 cache of every kv head: 54.15 / 68.29 GB of arguments), each behind the
+# expert-parallel dispatch (a decode step pads its 8 tokens to the replicated
+# 'model' axis's 16); not traced on fake CUDA tensors (their CPU records are
+# the estimates), so each counts its FLOPs on the card
+DRYRUN_SERVE_CELLS = (("qwen3-moe-235b-a22b", "prefill_32k", False),
+                      ("qwen3-moe-235b-a22b", "decode_32k", False),
+                      ("kimi-k2-1t-a32b", "prefill_32k", False),
+                      ("kimi-k2-1t-a32b", "decode_32k", False))
 # each cell's flash-attention calls by design in one step (the timed one):
 # a training rank's layers x microbatches x (forward, recompute) forwards
-# and layers x microbatches backwards; a decode step's one call a layer
+# and layers x microbatches backwards; a prefill's or a decode step's one
+# call a layer
 DRYRUN_LAUNCHES = {
     "minicpm-2b/train_4k": {"flash_wgmma_split": 40 * 4 * 2, "bwd_wgmma": 40 * 4},
     "gemma3-4b/train_4k": {"flash_tiled": 34 * 4 * 2, "bwd_wide": 34 * 4},
@@ -666,6 +718,10 @@ DRYRUN_LAUNCHES = {
     "starcoder2-3b/train_4k": {"flash_wgmma_split": 30 * 4 * 2, "bwd_wgmma": 30 * 4},
     "internvl2-2b/train_4k": {"flash_wgmma_split": 24 * 4 * 2, "bwd_wgmma": 24 * 4},
     "rwkv6-7b/train_4k": {},
+    "qwen3-moe-235b-a22b/prefill_32k": {"flash_wgmma": 94},
+    "qwen3-moe-235b-a22b/decode_32k": {"flash_decode": 94},
+    "kimi-k2-1t-a32b/prefill_32k": {"flash_wgmma": 61},
+    "kimi-k2-1t-a32b/decode_32k": {"flash_decode": 61},
 }
 # the rank-(0, 0) training islands held against the plain versions: (arch,
 # q_offset, on a sliding-window layer) with the designs the path runs (the
@@ -700,12 +756,14 @@ DRYRUN_BESIDE_TRACES = ("kimi-k2-1t-a32b/train_4k", "qwen3-moe-235b-a22b/train_4
 DRYRUN_TRACE_CHILDREN = 2
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_TIMEOUT_S = 600
+# float elements a rank's random leaf is drawn in at a time (1 GB of float32)
+DRYRUN_MAKE_SLICE = 1 << 28
 
 SIZE_CUTS: list[str] = [
     "bsp: 3 supersteps a run (the paper's 10 iterations; benchmarks/time_composition.py "
     "runs 3)",
-    "families: qwen3-moe-235b-a22b at 4 of its 94 layers (full width, bf16 storage: "
-    "~41 GB of weights)",
+    "families: qwen3-moe-235b-a22b at 2 of its 94 layers (full width, bf16 storage: "
+    "~22 GB of weights; the dryrun phase serves it at full depth)",
     "spmd: one rank (world 1 on NCCL: NCCL refuses two ranks on one card; the multi-rank "
     "behaviour is the gloo tests')",
     f"spmd (d): minicpm-2b at {SPMD_DP_LAYERS} of its 40 layers, {SPMD_DP_STEPS} steps per dp "
@@ -995,10 +1053,13 @@ def flash_bwd_bytes(q, k, lse, mask) -> int:
             + 2 * k.numel() * k.element_size() + 4 * lse.numel())
 
 
-def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len):
+def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len, expand=False):
     """One ``scaled_dot_product_attention`` call computing the same function
     (the library yardstick; the port never calls it): k/v upcast to float32
-    and the mask made outside the timed call."""
+    and the mask made outside the timed call.  With ``expand`` (a serving
+    rank's call, up to 32,768 x 32,768 scores a head: the math path would
+    hold them), k/v repeated to the q heads and no mask where it hides no key
+    or is the plain causal one, on the memory-efficient kernel alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ref as fa_r
@@ -1006,7 +1067,22 @@ def sdpa_call(torch, q, k, v, *, causal, window, q_offset, kv_len):
     mask = fa_r.key_mask(q.shape[1], k.shape[1], causal=causal, window=window,
                          q_offset=q_offset, kv_len=kv_len, device=q.device)
     qt, kt, vt = q.transpose(1, 2), k.float().transpose(1, 2), v.float().transpose(1, 2)
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    if not expand:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[2] // k.shape[2]
+    kt, vt = (t.repeat_interleave(g, 1) for t in (kt, vt))
+    whole = bool(mask.all())
+    if not (whole or torch.equal(mask, torch.ones_like(mask).tril())):
+        fail("sdpa_call(expand=True) takes a mask that hides no key or the plain causal one")
+    del mask
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=not whole)
+    return call
 
 
 def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
@@ -1135,6 +1211,83 @@ def one_key_too_few(torch, fa_r, q, k, v, o, lse, do, grads, kw) -> list[float] 
     return None if within else [fwd, bwd]
 
 
+def serving_row(torch, gen, timer, fa_k, fa_r, row) -> dict:
+    """A serving rank's attention call (a ``TP_RANK_SHAPES`` row whose mask
+    names kv_len): q float32 over kv head 0 of a bf16 cache of the row's
+    kv heads, the strided view the model hands the kernel.  Held against the
+    plain version, whole or, past ``PLAIN_ROWS`` query rows, on the first
+    and the last ``PLAIN_ROWS`` (each at its q_offset), within FLASH_TOL
+    with v of mean 0 and of mean 1 (|O| ~ 1, where a bias of O would show),
+    and failing it given one key too few (kv_len - 1, which the last row
+    sees); timed with its bound (the products its operands need, 3 for bf16
+    k/v), the plain version over the whole call (``PLAIN_ROWS`` rows at a
+    time) and SDPA.  ``{name: row}``."""
+    cell, q_shape, kv_shape, kv_dtype, kw, path, _, heads = row
+    dev = gen.device
+    b, tk, _, hd = kv_shape
+    tq = q_shape[1]
+    kw = {"softcap": 0.0, **kw}
+    q = torch.randn(q_shape, generator=gen, device=dev)
+    design = fa_k.fwd_design(hd, torch.bfloat16, tq * q_shape[2] // kv_shape[2])
+    blocks = [(0, tq)] if tq <= PLAIN_ROWS else [(0, PLAIN_ROWS), (tq - PLAIN_ROWS, tq)]
+
+    def plain(q, k, v, start, stop, **over):
+        return fa_r.attention_ref(q[:, start:stop], k, v,
+                                  **dict(kw, q_offset=kw["q_offset"] + start, **over))
+
+    def within(got, exp) -> bool:
+        return bool(((got - exp).abs() <= FLASH_TOL + FLASH_TOL * exp.abs()).all())
+
+    out = {}
+    for v_mean in (0.0, 1.0):
+        k, v = ((torch.randn((b, tk, heads, hd), generator=gen, device=dev) + mean)
+                .to(getattr(torch, kv_dtype))[:, :, :1] for mean in (0.0, v_mean))
+        before = fa_k.fwd_design_launches[design]
+        o = fa_k.flash_attention(q, k, v, **kw)
+        if fa_k.fwd_design_launches[design] != before + 1:
+            fail(f"{cell}: flash_attention did not run {design}")
+        err, signed, scale = 0.0, 0.0, 0.0
+        for start, stop in blocks:
+            exp = plain(q, k, v, start, stop)
+            got = o[:, start:stop]
+            if not within(got, exp):
+                fail(f"{cell} (v of mean {v_mean:g}): rows [{start}, {stop}) differ from the "
+                     f"plain version by {float((got - exp).abs().max())}")
+            err = max(err, float((got - exp).abs().max()))
+            signed += float(((got - exp) * exp.sign()).sum())
+            scale += float(exp.abs().sum())
+        out[v_mean] = {"max_abs_err": err, "mean_signed_rel_err": signed / scale}
+        if v_mean:
+            break
+        start, stop = blocks[-1]
+        near = plain(q, k, v, start, stop, kv_len=kw["kv_len"] - 1)
+        if within(o[:, start:stop], near):
+            fail(f"{cell}: the limit {FLASH_TOL} does not tell one key too few")
+        out["one_key_off"] = float((o[:, start:stop] - near).abs().max())
+        del near
+        full = {n: kw[n] for n in ("causal", "window", "q_offset", "kv_len")}
+        nbytes, ops = flash_work(torch, q, k, **full)
+        split, _ = attn_products(False, True)
+        bms, bby = bound(nbytes, ops, "bf16_tensor", split)
+        fms, fby = bound(nbytes, ops)
+        ms = timer.ms(lambda: fa_k.flash_attention(q, k, v, **kw))
+        plain_ms = timer.ms(lambda: [plain(q, k, v, i, min(i + PLAIN_ROWS, tq))
+                                     for i in range(0, tq, PLAIN_ROWS)])
+        library_ms = timer.ms(sdpa_call(torch, q, k, v, **full, expand=True))
+        timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                 "share_of_bound": bms / ms, "bound_fp32_ms": fms, "bound_fp32_by": fby,
+                 "share_of_fp32_bound": fms / ms, "bytes": nbytes, "operations": ops,
+                 "split": split, "library_ms": library_ms}
+        del k, v, o
+        torch.cuda.empty_cache()
+    return {f"flash_attention/{design}@{cell}": {
+        "q": list(q_shape), "kv": list(kv_shape), "kv_dtype": kv_dtype, "cache_kv_heads": heads,
+        "kv_stride": [tk * heads * hd, heads * hd, hd, 1], **kw, "path": path,
+        "design": design, "max_abs_err": max(out[0.0]["max_abs_err"], out[1.0]["max_abs_err"]),
+        "checked_rows": blocks, "v_mean_0": out[0.0], "v_mean_1": out[1.0],
+        "one_key_off_max_abs_err": out["one_key_off"], "tol": FLASH_TOL, **timed}}
+
+
 def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES) -> dict:
     """The families' training attention (``FAMILY_TRAIN_SHAPES``, phase 6b;
     ``TP_RANK_SHAPES``, a tensor-parallel rank's): the forward with lse
@@ -1145,7 +1298,8 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
     operands need) and the design's, the plain version and SDPA (autograd
     for the backward); the backward also with its plan (head subsets, k/v
     parts; the cell's own where it names one, else the run fails) and its
-    device ms by pass.  One row per kernel and shape, named
+    device ms by pass; a serving rank's row, the forward alone
+    (``serving_row``).  One row per kernel and shape, named
     ``<kernel>/<design>@<cell>``."""
     import torch.nn.functional as F
 
@@ -1155,7 +1309,11 @@ def family_train_rows(torch, gen, timer, fa_k, fa_r, shapes=FAMILY_TRAIN_SHAPES)
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for cell, q_shape, kv_shape, kv_dtype, mask_kw, path, q_bf16, want_plan in shapes:
+    for row in shapes:
+        if "kv_len" in row[4]:  # a serving rank's call: forward only
+            rows.update(serving_row(torch, gen, timer, fa_k, fa_r, row))
+            continue
+        cell, q_shape, kv_shape, kv_dtype, mask_kw, path, q_bf16, want_plan = row
         kvt = getattr(torch, kv_dtype)
         q, do = randn(q_shape), randn(q_shape)
         if q_bf16:   # the float32 values of bf16 q
@@ -3045,28 +3203,14 @@ def dryrun_trace_child(part: int) -> int:
     return 0
 
 
-def dryrun_child(seed: int, traces_done: Path) -> int:
-    """The dryrun phase's part (b), a child process (the fake process group
-    must be its default group): every cell of ``DRYRUN_CELLS``'s rank
-    program at (0, 0) run for real on the card under the fake group (its
-    collectives move nothing, so values are not checked): one step counted
-    (``FlopCounterMode`` alone: its FLOPs must equal the committed record's;
-    ``max_memory_allocated`` within ``DRYRUN_PEAK_TOL`` of the record's
-    estimate and under the card's memory), then one step timed, once
-    ``traces_done`` exists (the traces have ended) but for the cells of
-    ``DRYRUN_BESIDE_TRACES``, and its kernel launches counted.  Also the
-    training ranks' attention islands (``DRYRUN_ISLANDS``) held against
-    their plain versions.  Prints one JSON line."""
+def _dryrun_setup(seed: int) -> tuple:
+    """A dryrun child's card, production mesh, its fake ``DeviceMesh`` at
+    ``DRYRUN_COORDS`` (the process's default group) and the ``--seed``
+    generator."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch import configs
-    from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
-    from repro_torch.kernels.hash_partition import kernel as hp_k
-    from repro_torch.kernels.join_probe import kernel as jp_k
-    from repro_torch.kernels.segment_reduce import kernel as sr_k
-    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3075,14 +3219,42 @@ def dryrun_child(seed: int, traces_done: Path) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     mesh = make_production_mesh()
-    out: dict = {"cells": {}}
-    mesh_dev = dryrun.fake_mesh(mesh, DRYRUN_COORDS, "cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    launches: dict[str, int] = {}
-    for arch, shape, _ in DRYRUN_CELLS:
+    return dev, mesh, dryrun.fake_mesh(mesh, DRYRUN_COORDS, "cuda"), gen
+
+
+def dryrun_cells(cells, dev, mesh, mesh_dev, gen, traces_done: Path | None,
+                 launches: dict) -> dict:
+    """Each cell of ``cells`` ((arch, shape, traced on fake CUDA tensors))
+    at rank (0, 0), its rank program run for real on the card under the fake
+    group (its collectives move nothing, so values are not checked), its
+    arguments made one leaf at a time and freed before the next cell.  A
+    first step: a cell not traced counts its FLOPs there (``FlopCounterMode``
+    alone), which must equal the committed record's (a traced cell's trace
+    (a) holds them, and its first step is a plain warm-up);
+    ``max_memory_allocated`` within ``DRYRUN_PEAK_TOL`` of the record's
+    estimate and under the card's memory; its flash calls by design
+    ``DRYRUN_LAUNCHES``'s, its kernel launches added to ``launches``.  Then
+    one step timed, with the same launches, once ``traces_done`` exists (the
+    traces have ended) but for the cells of ``DRYRUN_BESIDE_TRACES`` (no wait
+    without it).  The cells' lines."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.hash_partition import kernel as hp_k
+    from repro_torch.kernels.join_probe import kernel as jp_k
+    from repro_torch.kernels.segment_reduce import kernel as sr_k
+    from repro_torch.launch import dryrun, shapes
+
+    out = {}
+    card = torch.cuda.get_device_properties(dev).total_memory
+    for arch, shape, traced in cells:
         cfg, cell = configs.get(arch), shapes.SHAPES[shape]
         rc = dryrun.rank_cell(cfg, cell, mesh, DRYRUN_COORDS)
+        name = f"{arch}/{shape}"
 
         def make(t, cfg=cfg, rc=rc):
             if t.dtype == torch.int32:  # tokens from --seed (a 0-d step counter: 0)
@@ -3092,67 +3264,112 @@ def dryrun_child(seed: int, traces_done: Path) -> int:
                                      device=dev, dtype=torch.int32)
             if not t.dtype.is_floating_point or rc.kind != "train" and t.dim() >= 5:
                 return torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev)  # caches, int8
-            return (torch.randn(tuple(t.shape), generator=gen, device=dev) * 0.02).to(t.dtype)
+            # drawn in float32 a slice at a time: a bf16 leaf's draw never
+            # holds more than one slice beside the leaf
+            leaf = torch.empty(tuple(t.shape), dtype=t.dtype, device=dev)
+            flat = leaf.view(-1)
+            for i in range(0, flat.numel(), DRYRUN_MAKE_SLICE):
+                n = min(DRYRUN_MAKE_SLICE, flat.numel() - i)
+                flat[i:i + n] = torch.randn(n, generator=gen, device=dev).mul_(0.02)
+            return leaf
 
         est = _dryrun_figures(json.loads((dryrun.ARTIFACT_DIR / f"{arch}__{shape}__16x16.json")
                                          .read_text()))
-        out["cells"][f"{arch}/{shape}"] = {"record": est}
         torch.cuda.empty_cache()
         args = dryrun.materialize(rc, make)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()  # the arguments held, none of their making
         step = dryrun.rank_step(cfg, rc, mesh_dev, args)
-        # the step's result holds the rank's parameters and optimizer state:
-        # not kept, so that they do not outlive the cell's arguments
-        t0 = time.perf_counter()
-        with FlopCounterMode(display=False) as flop_mode, \
-                torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
-            step()
-        torch.cuda.synchronize()
-        counted_s = time.perf_counter() - t0
-        flops = float(flop_mode.get_total_flops())
-        del flop_mode
+        # the step's result holds the rank's parameters and optimizer state
+        # (a decode step's, its new state): not kept, so that they do not
+        # outlive the cell's arguments
+
+        def run(count: bool) -> tuple[float, float | None]:
+            reset_counters(hp_k, jp_k, sr_k, fa_k)
+            with contextlib.ExitStack() as stack:
+                if rc.kind != "train":
+                    stack.enter_context(torch.no_grad())
+                mode = stack.enter_context(FlopCounterMode(display=False)) if count else None
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return wall, None if mode is None else float(mode.get_total_flops())
+
+        first_s, flops = run(not traced)
         peak = torch.cuda.max_memory_allocated()
-        if flops != est["flops"]:
-            fail(f"dryrun (b) {arch} {shape}: the card's step counted {flops} FLOPs, "
+        got = counters(hp_k, jp_k, sr_k, fa_k)
+        if not traced and flops != est["flops"]:
+            fail(f"dryrun {arch} {shape}: the card's step counted {flops} FLOPs, "
                  f"the estimate {est['flops']}")
+        designs = {n.split("/")[1]: c for n, c in got.items()
+                   if n.startswith(("flash_attention/", "flash_attention_bwd/")) and c}
+        if designs != DRYRUN_LAUNCHES[name]:
+            fail(f"dryrun {arch} {shape}: flash calls by design {designs}, want "
+                 f"{DRYRUN_LAUNCHES[name]}")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
         t0 = time.perf_counter()
-        while f"{arch}/{shape}" not in DRYRUN_BESIDE_TRACES and not traces_done.exists():
+        while (traces_done is not None and name not in DRYRUN_BESIDE_TRACES
+               and not traces_done.exists()):
             if time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
-                fail(f"dryrun (b) {arch} {shape}: the traces did not end")
+                fail(f"dryrun {arch} {shape}: the traces did not end")
             time.sleep(0.2)
         waited = time.perf_counter() - t0
-        beside_traces = not traces_done.exists()
-        reset_counters(hp_k, jp_k, sr_k, fa_k)
-        t0 = time.perf_counter()
-        with torch.no_grad() if rc.kind != "train" else contextlib.nullcontext():
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        beside_traces = beside_traces or not traces_done.exists()
-        got = counters(hp_k, jp_k, sr_k, fa_k)
-        for name, c in got.items():
-            launches[name] = launches.get(name, 0) + c
-        designs = {name.split("/")[1]: c for name, c in got.items()
-                   if name.startswith(("flash_attention/", "flash_attention_bwd/")) and c}
-        if designs != DRYRUN_LAUNCHES[f"{arch}/{shape}"]:
-            fail(f"dryrun (b) {arch} {shape}: flash calls by design {designs}, want "
-                 f"{DRYRUN_LAUNCHES[f'{arch}/{shape}']}")
-        out["cells"][f"{arch}/{shape}"]["b"] = {
-            "flops": flops, "flops_equal": True, "step_s": wall,
-            "step_beside_traces": beside_traces, "waited_for_traces_s": waited,
-            "counted_step_s": counted_s, "max_memory_allocated": peak,
+        beside_traces = traces_done is not None and not traces_done.exists()
+        wall, _ = run(False)
+        if counters(hp_k, jp_k, sr_k, fa_k) != got:
+            fail(f"dryrun {arch} {shape}: the timed step's launches differ from the first's")
+        beside_traces = beside_traces or traces_done is not None and not traces_done.exists()
+        first = ({"warmup_step_s": first_s, "flops_held_by": "trace (a)"} if traced else
+                 {"flops": flops, "flops_equal": True, "counted_step_s": first_s})
+        out[name] = {"record": est, "b": {
+            **first, "step_s": wall, "step_beside_traces": beside_traces,
+            "waited_for_traces_s": waited, "max_memory_allocated": peak,
             "estimate_peak": est["peak_bytes_per_device"],
             "peak_over_estimate": peak / est["peak_bytes_per_device"],
             "within_tol": abs(peak / est["peak_bytes_per_device"] - 1) <= DRYRUN_PEAK_TOL,
-            "launches": {k: v for k, v in got.items() if v}}
-        card = torch.cuda.get_device_properties(dev).total_memory
-        if not out["cells"][f"{arch}/{shape}"]["b"]["within_tol"] or peak > card:
-            fail(f"dryrun (b) {arch} {shape}: max_memory_allocated {peak} B against the "
+            "launches": {k: v for k, v in got.items() if v}}}
+        if not out[name]["b"]["within_tol"] or peak > card:
+            fail(f"dryrun {arch} {shape}: max_memory_allocated {peak} B against the "
                  f"estimate {est['peak_bytes_per_device']} B (within {DRYRUN_PEAK_TOL:.0%}) "
                  f"and the card's {card} B")
         del args, step
         torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_serve_child(seed: int) -> int:
+    """The dryrun phase's serving ranks (``DRYRUN_SERVE_CELLS``), a child
+    process of their own (the fake process group must be its default
+    group), started once the run child has ended: ``dryrun_cells``.
+    Prints one JSON line."""
+    import torch.distributed as dist
+
+    launches: dict[str, int] = {}
+    out = {"cells": dryrun_cells(DRYRUN_SERVE_CELLS, *_dryrun_setup(seed), None, launches),
+           "launches": launches}
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def dryrun_child(seed: int, traces_done: Path) -> int:
+    """The dryrun phase's part (b), a child process (the fake process group
+    must be its default group): every cell of ``DRYRUN_CELLS`` through
+    ``dryrun_cells``, its timed steps after the traces of part (a) but those
+    of ``DRYRUN_BESIDE_TRACES``.  Also the training ranks' attention islands
+    (``DRYRUN_ISLANDS``) held against their plain versions.  Prints one JSON
+    line."""
+    import torch
+
+    dev, mesh, mesh_dev, gen = _dryrun_setup(seed)   # puts src/ on the path
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
+
+    launches: dict[str, int] = {}
+    out: dict = {"cells": dryrun_cells(DRYRUN_CELLS, dev, mesh, mesh_dev, gen, traces_done,
+                                       launches)}
     # the training ranks' islands: q rows [q_offset, q_offset + 256) of 4096
     # (tp 16, the sequence split) over the whole keys, float32 k/v; model
     # rank 0 at q_offset 0 and, for gemma3-4b, model rank 15 at 3840 (the
@@ -3281,12 +3498,16 @@ def dryrun_trace_finish(started: tuple, done: Path) -> dict:
     return {"cells": cells, "wall_s": wall}
 
 
-def dryrun_start(torch, tmp: Path, seed: int, traces_done: Path) -> tuple:
-    """Start ``dryrun_child`` while this process holds nothing on the card:
-    (its ``child_start``, the start time, the bytes this process holds)."""
+def dryrun_start(torch, tmp: Path, seed: int, traces_done: Path | None,
+                 child: str = "run") -> tuple:
+    """Start ``dryrun_child`` (``child`` "run") or ``dryrun_serve_child``
+    ("serve", which takes no ``traces_done``) while this process holds
+    nothing on the card: (its ``child_start``, the start time, the bytes
+    this process holds)."""
     torch.cuda.empty_cache()
-    return (child_start(tmp, "dryrun_run", "--dryrun-child", "run", "--seed", str(seed),
-                        "--traces-done", str(traces_done)),
+    args = ("--traces-done", str(traces_done)) if child == "run" else ()
+    return (child_start(tmp, f"dryrun_{child}", "--dryrun-child", child, "--seed", str(seed),
+                        *args),
             time.perf_counter(), torch.cuda.memory_allocated())
 
 
@@ -3296,7 +3517,8 @@ def dryrun_finish(started: tuple, launches: dict) -> dict:
     child, t0, parent_bytes = started
     out = child_line(child, t0, "the dryrun child")
     for name, c in out.pop("launches").items():
-        launches.setdefault(name, {})["dryrun_rank"] = c
+        by_path = launches.setdefault(name, {})
+        by_path["dryrun_rank"] = by_path.get("dryrun_rank", 0) + c
     return {**out, "parent_allocated_bytes": parent_bytes, "wall_s": time.perf_counter() - t0}
 
 
@@ -3310,7 +3532,7 @@ def _ptxas(pattern: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dryrun-child", choices=("trace", "run"), help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", choices=("trace", "run", "serve"), help=argparse.SUPPRESS)
     ap.add_argument("--trace-part", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--traces-done", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3325,6 +3547,8 @@ def main() -> int:
         return dryrun_trace_child(args.trace_part)
     if args.dryrun_child == "run":
         return dryrun_child(args.seed, args.traces_done)
+    if args.dryrun_child == "serve":
+        return dryrun_serve_child(args.seed)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import make_communicator
     from repro_torch.dataframe import Table, ops_dist
@@ -3384,6 +3608,10 @@ def main() -> int:
     dryrun_run = dryrun_finish(running, launches)
     emit({"phase": "dryrun", "part": "run", **dryrun_run})
     emit({"phase": "dryrun", "part": "trace", **dryrun_trace})
+    # the serving ranks, in a child of their own once the run child has ended
+    serving = dryrun_start(torch, Path(child_tmp.name), args.seed, None, "serve")
+    children.append(serving[0])
+    emit({"phase": "dryrun", "part": "serve", **dryrun_finish(serving, launches)})
     child_tmp.cleanup()
 
     timer = Timer(torch)

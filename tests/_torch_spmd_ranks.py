@@ -8,8 +8,8 @@ with numpy from fixed seeds), its results pickled beside it.
 JOB ``main`` runs the world-4 checks (collectives and their backward,
 compression, the dataframe operators, attention_sharded, the dense model,
 the dp train steps, the driver's gate, the expert-parallel dispatch over a
-replicated axis of 4 and over the dp axis); ``moe`` the world-8
-expert-parallel dispatch on a (2, 4) mesh; ``shard`` (world 4) distributes
+replicated axis of 4, also at decode scale, and over the dp axis); ``moe``
+the world-8 expert-parallel dispatch on a (2, 4) mesh; ``shard`` (world 4) distributes
 the ``shard_trees`` over ``launch.mesh.make_host_mesh``'s (2, 2) mesh with
 ``dist.sharding.shardings_for``'s placements; ``sharded`` (world 4, the same
 mesh) runs one train step, and a prefill with two decode steps, on every
@@ -93,6 +93,12 @@ SUMS = ("allreduce", "allreduce_mean", "reduce_scatter_dim0", "reduce_scatter_di
 BACKWARD_SHAPES = {"allreduce": (8, 12), "allreduce_mean": (8, 12), "allgather_dim0": (32, 12),
                    "allgather_dim1": (8, 48), "alltoall_00": (8, 12), "alltoall_01": (2, 48),
                    "alltoall_10": (32, 3), "alltoall_11": (8, 12)}
+# the decode-scale dispatch: MOE_OVER's 8 experts padded to 16, so that over
+# an ep axis of 4 the last two ranks hold padding experts only, which get no
+# token; fewer tokens than the axis's 4, as a production decode rank hands
+# its 16 replicated ranks 8 (MOE_DECODE_TOKENS[1])
+MOE_DECODE_OVER = dict(MOE_OVER, moe_pad_experts=8)
+MOE_DECODE_TOKENS = (1, 2, 3)
 # the MoE train step: qwen3-moe at MOE_OVER, float32 storage, 2 layers
 MOE_STEP_OVER = dict(MOE_OVER, num_layers=2, vocab_size=CFG_OVER["vocab_size"],
                      param_dtype="float32")
@@ -174,6 +180,11 @@ def make_inputs() -> dict:
     inp["moe_cot_aux"] = np.float32(rng.normal() * 10)
     inp["moe_batch"] = {"tokens": rng.integers(0, CFG_OVER["vocab_size"], (8, 16)).astype(np.int32),
                         "mask": (rng.random((8, 16)) < 0.8).astype(np.float32)}
+    dcfg = configs.get("qwen3-moe-235b-a22b").reduced(**MOE_DECODE_OVER)
+    inp["moe_decode_params"] = {k: w[0].numpy() for k, w in moe.init_moe_block(
+        dcfg, torch.Generator().manual_seed(33), 1, "cpu").items()}
+    inp["moe_decode_x"] = np.random.default_rng(33).normal(
+        size=(max(MOE_DECODE_TOKENS), 1, dcfg.d_model)).astype(np.float32)
     return inp
 
 
@@ -419,6 +430,27 @@ def moe_ep(inp, rank, out, mesh, ep_axis, shard_axis=None):
     return r
 
 
+def moe_ep_decode(inp, mesh, ep_axis) -> dict:
+    """_moe_ep under ``torch.no_grad`` at decode scale over ``ep_axis``, which
+    the tokens are replicated over: each count of ``MOE_DECODE_TOKENS`` (one
+    token a sequence), padded to the axis's size, every padded expert on
+    every rank, against the local dispatch of the same tokens."""
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced(**MOE_DECODE_OVER)
+    blk = {k: t_(w).requires_grad_() for k, w in inp["moe_decode_params"].items()}
+    ctx = DistContext(mesh=mesh, ep_axis=ep_axis, tp_axis=ep_axis)
+    p, m = direct.axis_size(ep_axis, mesh), direct.axis_index(ep_axis, mesh)
+    e_loc = cfg.num_experts_padded // p
+    r = {"experts": (m * e_loc, (m + 1) * e_loc), "live": cfg.num_experts, "axis": p}
+    with torch.no_grad():
+        for n in MOE_DECODE_TOKENS:
+            x = t_(inp["moe_decode_x"][:n])
+            y, aux = moe.moe_block(x, blk, cfg, ctx)
+            y_loc, aux_loc = moe.moe_block(x, blk, cfg, None)
+            r[n] = {"ep": np_(y), "local": np_(y_loc), "aux": float(aux),
+                    "requires_grad": y.requires_grad}
+    return r
+
+
 def moe_train_step(inp, mesh, ep_axis, dp_axis):
     """make_train_step on a 2-layer qwen3-moe, each rank on its dp shard of
     the batch, with the experts over ``ep_axis`` (every expert on every
@@ -558,13 +590,16 @@ def sharded_steps(inp, out) -> None:
             "want": flat({"params": _own(p1, p_specs, mesh), "opt": _own(o1, o_specs, mesh)}),
             "got": flat({"params": p2, "opt": o2}),
         }
-    # serving: per case a prefill and two decode steps
+    # serving: per case a prefill and two decode steps on the case's first
+    # sequences of the prompt; the MoE over the joint ('data', 'model') axis
+    # in both runs, as on the production mesh (dryrun.rank_cell)
     res["serve"] = {}
-    for case, (arch, over) in inp["sharded"]["serve"].items():
+    for case, (arch, over, seqs) in inp["sharded"]["serve"].items():
         cfg = configs.get(arch).reduced(**over)
-        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model")
+        ctx = DistContext(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                          ep_axis=sharding.ep_axes(cfg, mesh) if cfg.family == "moe" else None)
         params = interop.params_from_numpy(cfg, inp["sharded"]["serve_params"][case], DEV)
-        prompt = inp["sharded"]["prompt"]
+        prompt = inp["sharded"]["prompt"][:seqs]
         b, t = prompt.shape
         n = b // 2
         whole = api.init_decode_state(cfg, b, t + 2, torch.float32, device=DEV)
@@ -578,17 +613,29 @@ def sharded_steps(inp, out) -> None:
         batch = {"tokens": t_(prompt[data * n:(data + 1) * n])}
         if cfg.family == "audio":
             batch["frames"] = t_(inp["sharded"]["frames"][data * n:(data + 1) * n])
-        logits = {}
-        with torch.inference_mode():
-            for name, (c, p, st) in runs.items():
-                lg, st = api.prefill_fn(cfg, p, batch, st, ctx=c)
-                steps = [np_(lg)]
-                for i in range(2):
-                    tok = t_(inp["sharded"]["decode"][i][data * n:(data + 1) * n])
-                    lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
-                    steps.append(np_(lg))
-                logits[name] = steps
-        res["serve"][case] = logits
+        logits, tokens = {}, {}
+        real = moe._moe_ep
+
+        def spy(x2d, *a):  # the tokens each expert-parallel dispatch is handed
+            tokens[name][-1].append(int(x2d.shape[0]))
+            return real(x2d, *a)
+
+        moe._moe_ep = spy
+        try:
+            with torch.inference_mode():
+                for name, (c, p, st) in runs.items():
+                    tokens[name] = [[]]
+                    lg, st = api.prefill_fn(cfg, p, batch, st, ctx=c)
+                    steps = [np_(lg)]
+                    for i in range(2):
+                        tokens[name].append([])
+                        tok = t_(inp["sharded"]["decode"][i][data * n:(data + 1) * n])
+                        lg, st = api.decode_fn(cfg, p, tok, st, ctx=c)
+                        steps.append(np_(lg))
+                    logits[name] = steps
+        finally:
+            moe._moe_ep = real
+        res["serve"][case] = {**logits, "ep_tokens": tokens}
     out["sharded"] = res
 
 
@@ -843,6 +890,7 @@ def run_rank(job: str, rank: int, world: int, store_path: str, inputs: str, out_
         model = init_device_mesh(DEV.type, (4,), mesh_dim_names=("model",))
         data = init_device_mesh(DEV.type, (4,), mesh_dim_names=("data",))
         out["moe"] = moe_ep(inp, rank, out, model, "model")
+        out["moe"]["decode"] = moe_ep_decode(inp, model, "model")
         out["moe"]["step_over_dp"] = moe_train_step(inp, data, "data", "data")
     elif job == "shard":
         shard(out)

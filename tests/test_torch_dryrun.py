@@ -1,12 +1,14 @@
 """The dry-run slice: gather at use, the attention custom ops, the
 fixed-length expert counts, ``launch.dryrun.trace_cell`` on the fake 16 x 16
-mesh, the attention islands of the training ranks ``chip_smoke.py`` runs
-on the card against the rows it times, and the committed
+mesh, the attention islands of the training and the MoE serving ranks
+``chip_smoke.py`` runs on the card against the rows it times, and the committed
 ``experiments/dryrun_torch/*.json`` against the reference's
 ``experiments/dryrun/*.json``.
 
-The sharded step runs on four gloo ranks (``tests/_torch_spmd_ranks.py``'s
-``sharded`` job) from the reference's parameters; the traces run in child
+The sharded step and serving (the MoE families' through the
+expert-parallel dispatch) run on four gloo ranks
+(``tests/_torch_spmd_ranks.py``'s ``sharded`` job) from the reference's
+parameters; the traces run in child
 processes, because the fake process group is a process's default group.
 """
 
@@ -59,10 +61,19 @@ CASES = {"dense": ("minicpm-2b", "float32", {}, 1e-8),
 # (and, with as many layers as the batch has sequences, RWKV-6's state
 # leaves get the dp axes on their layer dim, as rwkv6-7b's prefill_32k does)
 # float32 compute and caches: a bf16 cache would round the sharded and the
-# whole run's k/v (float32 sums in another order) to neighbouring values
-SERVE = {"dense": ("minicpm-2b", {"dtype": "float32"}), "ssm": ("rwkv6-7b", {}),
-         "ssm_layer_dim": ("rwkv6-7b", {"num_layers": 8}),
-         "audio": ("whisper-medium", {"dtype": "float32"})}
+# whole run's k/v (float32 sums in another order) to neighbouring values.
+# The MoE families run the expert-parallel dispatch over the joint ('data',
+# 'model') axis, as the production ranks do: qwen3-moe on the 8 shared
+# sequences, kimi-k2 (its shared expert, no qk-norm, int8 moments) on the
+# first 6, so that each data rank's decode step hands the dispatch 3 tokens,
+# which it pads to a multiple of the replicated 'model' axis's 2 (the
+# production decode rank's 8 tokens over 16); 8 sequences give 4 a rank.
+# (arch, config overrides, sequences, the seed of its reference weights)
+SERVE = {"dense": ("minicpm-2b", {"dtype": "float32"}, 8, 1), "ssm": ("rwkv6-7b", {}, 8, 2),
+         "ssm_layer_dim": ("rwkv6-7b", {"num_layers": 8}, 8, 3),
+         "audio": ("whisper-medium", {"dtype": "float32"}, 8, 0),
+         "moe": ("qwen3-moe-235b-a22b", {"dtype": "float32"}, 8, 4),
+         "moe_kimi": ("kimi-k2-1t-a32b", {"dtype": "float32"}, 6, 5)}
 ARTIFACTS = REPO / "experiments" / "dryrun_torch"
 REFERENCE = REPO / "experiments" / "dryrun"
 
@@ -83,11 +94,11 @@ def sharded(tmp_path_factory):
 
     seeds = {"minicpm-2b": 0, "qwen3-moe-235b-a22b": 1}
     params = {case: init(arch, seeds[arch], **over) for case, (arch, _, over, _) in CASES.items()}
-    serve_params = {case: init(arch, i, **over) for i, (case, (arch, over)) in enumerate(
-        sorted(SERVE.items()))}
+    serve_params = {case: init(arch, seed, **over) for case, (arch, over, _, seed) in SERVE.items()}
     wcfg = jconfigs.get("whisper-medium").reduced()
     inp = {"opt": OPT, "sharded": {
-        "cases": CASES, "serve": SERVE, "params": params, "serve_params": serve_params,
+        "cases": CASES, "serve": {case: v[:3] for case, v in SERVE.items()}, "params": params,
+        "serve_params": serve_params,
         "frames": rng.normal(size=(8, wcfg.source_positions, wcfg.d_model)).astype(np.float32),
         "batch": {"tokens": rng.integers(0, 512, (8, 16)).astype(np.int32),
                   "mask": (rng.random((8, 16)) < 0.8).astype(np.float32)},
@@ -164,12 +175,25 @@ def test_sharded_step_equals_replicated(sharded, case):
 def test_sharded_serving_equals_whole(sharded, case):
     """A prefill and two decode steps on sharded params and decode state
     (gathered at use, the rank's block of the new state written back) give
-    the logits of the run on whole leaves."""
+    the logits of the run on whole leaves.  The MoE families' layers go
+    through the expert-parallel dispatch in both runs, every layer of every
+    step; kimi-k2's decode steps hand it a token count that the replicated
+    'model' axis does not divide, so that it pads them."""
+    arch, _, seqs, _ = SERVE[case]
+    layers = configs.get(arch).reduced().num_layers
     for rank in sharded:
         whole, shard = rank["serve"][case]["whole"], rank["serve"][case]["sharded"]
         assert len(whole) == len(shard) == 3
         for a, b in zip(whole, shard):
             np.testing.assert_allclose(b, a, rtol=SERVE_TOL, atol=SERVE_TOL)
+        tokens = rank["serve"][case]["ep_tokens"]
+        if configs.get(arch).family != "moe":
+            assert tokens["whole"] == tokens["sharded"] == [[], [], []]
+            continue
+        # a data rank's sequences: the prompt's 12 tokens, then one a step
+        want = [[seqs // 2 * t] * layers for t in (12, 1, 1)]
+        assert tokens["whole"] == tokens["sharded"] == want
+        assert any(n % 2 for n, *_ in want) == (case == "moe_kimi")
 
 
 # -- (2) the attention custom ops ------------------------------------------------------
@@ -390,9 +414,17 @@ def test_trace_cell_on_the_fake_production_mesh(traces, coords):
 RANK_CELLS = {"qwen3-moe-235b-a22b": "qwen3_rank_train", "h2o-danube-3-4b": "h2o_rank_train",
               "starcoder2-3b": "starcoder2_rank_seq0", "internvl2-2b": "internvl2_rank_train",
               "rwkv6-7b": None}
-# each cell's rank (0, 0) at 1 and 2 layers (rwkv6-7b, 7.8 s a layer, at 1):
-# the attention custom ops it calls, counted by (op, q, k/v, kv type, mask)
-RANK_TRACE = r'''
+# the MoE serving ranks of the dryrun phase (chip_smoke.DRYRUN_SERVE_CELLS):
+# the TP_RANK_SHAPES row of rank (0, 0)'s attention call (forward only)
+SERVE_RANK_CELLS = {"qwen3-moe-235b-a22b/prefill_32k": "qwen3_rank_prefill",
+                    "qwen3-moe-235b-a22b/decode_32k": "qwen3_rank_decode",
+                    "kimi-k2-1t-a32b/prefill_32k": "kimi_rank_prefill",
+                    "kimi-k2-1t-a32b/decode_32k": "kimi_rank_decode"}
+# each cell's rank (0, 0) at 1 and 2 layers (rwkv6-7b, 7.8 s a layer, at 1;
+# a serving step under no_grad, as the card runs it): the attention custom
+# ops it calls, counted by (op, q, k/v, kv type, mask, kv_len), and the
+# strides of the k each hands the op
+RANK_TRACE = r"""
 import dataclasses, json, sys
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -405,47 +437,53 @@ from repro_torch.launch.mesh import make_production_mesh
 class Calls(TorchDispatchMode):
     def __init__(self):
         super().__init__()
-        self.seen = {}
+        self.seen, self.strides = {}, {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.namespace == "repro_torch":
             name = func.overloadpacket.__name__
-            causal, window, _, q_offset = args[3 if name != "flash_attention_bwd" else 6:][:4]
+            causal, window, _, q_offset, *kv_len = args[3 if name != "flash_attention_bwd" else 6:]
             key = json.dumps([name, list(args[0].shape), list(args[1].shape),
-                              str(args[1].dtype).split(".")[1], causal, window, q_offset])
+                              str(args[1].dtype).split(".")[1], causal, window, q_offset,
+                              kv_len[0] if kv_len else None])
             self.seen[key] = self.seen.get(key, 0) + 1
+            self.strides.setdefault(key, []).append(list(args[1].stride()))
         return func(*args, **(kwargs or {}))
 
 
 mesh, coords = make_production_mesh(), {"data": 0, "model": 0}
 mesh_dev = dryrun.fake_mesh(mesh, coords)
-out = {}
-for arch in sys.argv[1:]:
+out, strides = {}, {}
+for name in sys.argv[1:]:
+    arch, shape = name.split("/")
     for layers in ((1,) if arch == "rwkv6-7b" else (1, 2)):
         cfg = dataclasses.replace(configs.get(arch), num_layers=layers)
-        rc = dryrun.rank_cell(cfg, shapes.SHAPES["train_4k"], mesh, coords)
+        rc = dryrun.rank_cell(cfg, shapes.SHAPES[shape], mesh, coords)
         calls = Calls()
         with FakeTensorMode():
             args = dryrun.materialize(rc, lambda t: torch.empty(t.shape, dtype=t.dtype))
             step = dryrun.rank_step(cfg, rc, mesh_dev, args)
-            with calls:
+            with torch.no_grad() if rc.kind != "train" else torch.enable_grad(), calls:
                 step()
-        out[f"{arch}/{layers}"] = calls.seen
-print(json.dumps(out))
-'''
+        out[f"{name}/{layers}"] = calls.seen
+        strides[f"{name}/{layers}"] = calls.strides
+print(json.dumps({"calls": out, "strides": strides}))
+"""
 
 
 @pytest.fixture(scope="module")
 def rank_calls():
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
-    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RANK_TRACE), *RANK_CELLS],
+    cells = [f"{arch}/train_4k" for arch in RANK_CELLS] + list(SERVE_RANK_CELLS)
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RANK_TRACE), *cells],
                           env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    def key(c):   # (op, q shape, k/v shape, kv type, causal, window, q_offset)
+    def key(c):   # (op, q shape, k/v shape, kv type, causal, window, q_offset, kv_len)
         return tuple(tuple(x) if isinstance(x, list) else x for x in json.loads(c))
 
-    return {k: {key(c): n for c, n in v.items()}
-            for k, v in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    return ({k: {key(c): n for c, n in v.items()} for k, v in got["calls"].items()},
+            {k: {key(c): s for c, s in v.items()} for k, v in got["strides"].items()})
 
 
 @pytest.mark.parametrize("arch", sorted(RANK_CELLS))
@@ -466,15 +504,16 @@ def test_rank_islands_are_the_ones_the_card_times(rank_calls, arch):
     assert (arch, "train_4k", arch in ("h2o-danube-3-4b", "starcoder2-3b", "internvl2-2b")) \
         in chip_smoke.DRYRUN_CELLS
     want = chip_smoke.DRYRUN_LAUNCHES[f"{arch}/train_4k"]
+    calls = rank_calls[0]
     if RANK_CELLS[arch] is None:
-        assert rank_calls[f"{arch}/1"] == {} and want == {}
+        assert calls[f"{arch}/train_4k/1"] == {} and want == {}
         return
-    one, two = rank_calls[f"{arch}/1"], rank_calls[f"{arch}/2"]
+    one, two = calls[f"{arch}/train_4k/1"], calls[f"{arch}/train_4k/2"]
     assert one and two == {c: 2 * n for c, n in one.items()}   # per layer, nothing outside
     row = next(r for r in chip_smoke.TP_RANK_SHAPES if r[0] == RANK_CELLS[arch])
     _, q_shape, kv_shape, kv_dtype, mask, _, _, _ = row
     island = (q_shape, kv_shape, kv_dtype, mask["causal"], mask["window"],
-              mask.get("q_offset", 0))
+              mask.get("q_offset", 0), None)
     assert {c[1:] for c in one} == {island}
     assert {c[0] for c in one} == {"flash_attention_lse", "flash_attention_bwd"}
     layers = configs.get(arch).num_layers
@@ -491,6 +530,42 @@ def test_rank_islands_are_the_ones_the_card_times(rank_calls, arch):
         assert {r[4]["q_offset"] for r in seq} == {0, 3840}
         assert all(r[1:4] == row[1:4] for r in seq)
         assert all(i[0] != arch for i in chip_smoke.DRYRUN_ISLANDS)   # held once
+
+
+@pytest.mark.parametrize("cell", sorted(SERVE_RANK_CELLS))
+def test_serving_islands_are_the_ones_the_card_times(rank_calls, cell):
+    """Each MoE serving rank of the dryrun phase, traced at (0, 0) on fake
+    tensors at 1 and 2 layers under no_grad: every attention call it makes
+    is the forward-only row ``chip_smoke.TP_RANK_SHAPES`` holds and times for
+    the cell (q, k/v, kv type, mask, q_offset, kv_len), its k/v kv head 0 of
+    a bf16 cache of every kv head (the strides the row's k/v view has: no
+    copy of the cache), each layer makes the same call and nothing else
+    does, and at the config's depth the calls by design are
+    ``DRYRUN_LAUNCHES``'s."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    arch, shape = cell.split("/")
+    assert (arch, shape, False) in chip_smoke.DRYRUN_SERVE_CELLS
+    calls, strides = rank_calls
+    one, two = calls[f"{cell}/1"], calls[f"{cell}/2"]
+    assert one and two == {c: 2 * n for c, n in one.items()}   # per layer, nothing outside
+    row = next(r for r in chip_smoke.TP_RANK_SHAPES if r[0] == SERVE_RANK_CELLS[cell])
+    _, q_shape, kv_shape, kv_dtype, mask, path, _, heads = row
+    call = ("flash_attention", q_shape, kv_shape, kv_dtype, mask["causal"], mask["window"],
+            mask["q_offset"], mask["kv_len"])
+    assert set(one) == {call} and one[call] == 1 and path == "dryrun_rank"
+    cfg = configs.get(arch)
+    b, tk, _, hd = kv_shape
+    assert heads == cfg.num_kv_heads and hd == cfg.resolved_head_dim
+    assert q_shape[2] == cfg.num_heads // 16   # the rank's q heads, tp 16
+    assert tk == mask["kv_len"] == shapes.SHAPES[shape].seq_len
+    for n in (1, 2):
+        assert strides[f"{cell}/{n}"][call] == [[tk * heads * hd, heads * hd, hd, 1]] * n
+    design = fa_k.fwd_design(hd, getattr(torch, kv_dtype), q_shape[1] * q_shape[2] // kv_shape[2])
+    assert {design: cfg.num_layers * one[call]} == chip_smoke.DRYRUN_LAUNCHES[cell]
 
 
 # -- (4b) run_cell's variant and overrides against the reference's run_cell -------------

@@ -635,6 +635,29 @@ def test_moe_ep_forward_under_no_grad_matches_local(tmp_path):
     np.testing.assert_allclose(float(aux), float(aux_loc), atol=2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("tokens", ranks_.MOE_DECODE_TOKENS)
+def test_moe_ep_decode_scale_under_no_grad_matches_local(runs, tokens):
+    """_moe_ep under torch.no_grad at decode scale on the world-4 ranks (ep
+    over a replicated axis of 4): fewer tokens than the axis's size, which
+    it pads to a multiple of it, so that some ranks route only padding;
+    8 live experts padded to 16, so that the last two ranks hold padding
+    experts only, which get no token.  The output equals the local dispatch
+    of the same tokens at 2e-4 on every rank, every rank the same, with no
+    graph kept; the aux loss is finite."""
+    _, main, _, _ = runs
+    for r, res in enumerate(main):
+        dec = res["moe"]["decode"]
+        assert dec["axis"] == 4 and tokens % 4
+        lo, hi = dec["experts"]
+        assert (hi <= dec["live"]) == (r < 2) and (lo >= dec["live"]) == (r >= 2)
+        got = dec[tokens]
+        assert got["ep"].shape == (tokens, 1, ranks_.MOE_DECODE_OVER["d_model"])
+        np.testing.assert_allclose(got["ep"], got["local"], atol=2e-4, rtol=2e-4,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_array_equal(got["ep"], main[0]["moe"]["decode"][tokens]["ep"])
+        assert not got["requires_grad"] and np.isfinite(got["aux"])
+
+
 def test_moe_ep_grads_at_world_1(tmp_path):
     """At world 1 (an in-process gloo group) _moe_ep under autograd gives the
     local dispatch's gradients of x, the router, wi and wo at 2e-4."""
