@@ -191,7 +191,12 @@ Phases, one JSON line each:
    TFLOP/s; ``bound_ms``) and the float32 CUDA-core one (10 hd at 67
    TFLOP/s), each against the bytes.  Its time, the plain version's time
    and autograd through float32 ``scaled_dot_product_attention`` as the
-   library yardstick.
+   library yardstick.  Then the gradient through ``ops.flash_attention``'s
+   autograd where the kernels alone do not cover the call (``cache_checks``):
+   a partly filled cache (kv_len 1200 of 1536 keys: dk, dv 0 past it,
+   within ``BWD_TOL`` of ``attention_bwd_ref`` at that kv_len and failing
+   it given one key too few) and rows past the keys whose last 65 see none
+   (against the plain forward's autograd).
 6b. kernel — the families' training attention (``FAMILY_TRAIN_SHAPES``),
    each forward with lse and its backward against the plain versions from
    the same o and lse, timed as phase 6 times: recurrentgemma-9b's local
@@ -326,10 +331,11 @@ Phases, one JSON line each:
    4 uninterrupted steps, bit for bit, and the resumed call must log its
    re-bootstrap through the session.
 10b. reshard — the resharded ranged restore (``dist.checkpoint.
-   restore_sharded`` under ``dist.sharding.param_specs``) at full width:
-   minicpm-2b's float32 masters (random from ``--seed``) and AdamW state
-   with int8 moments (made non-zero by one ``apply_updates`` from a seeded
-   random gradient; no backward), 16.4 GB, saved once into an ``S3Store``
+   restore_sharded`` under ``dist.sharding.param_specs``) at full width and
+   ``RESHARD_LAYERS`` of 40 layers: minicpm-2b's float32 masters (random
+   from ``--seed``) and AdamW state with int8 moments (made non-zero by one
+   ``apply_updates`` from a seeded random gradient; no backward), 9.1 GB
+   (16.4 GB at 40 layers), saved once into an ``S3Store``
    and restored onto the card: whole (``restore``), then each model coord
    of ``benchmarks/ckpt_store.py``'s (1, 4) mesh and coords
    ``PRODUCTION_COORDS`` of ``launch.mesh.make_production_mesh()`` (16 x
@@ -642,8 +648,10 @@ SPMD_CROSS = ("whisper-medium", 4, 128, 1500)   # arch, B, decoder positions, fr
 SPMD_DP_LAYERS, SPMD_DP_STEPS = 8, 3
 SPMD_MOE_B, SPMD_MOE_T = 4, 2048
 SPMD_PG_TIMEOUT_S = 300
-# phase 10b: the production mesh's shards restored (first, middle, last)
+# phase 10b: the production mesh's shards restored (first, middle, last), of
+# minicpm-2b's state at RESHARD_LAYERS of its 40 layers (full width)
 PRODUCTION_COORDS = ((0, 0), (7, 11), (15, 15))
+RESHARD_LAYERS = 20
 # the attention backward's kernels by pass (profiler names, first match
 # wins): the prologues, the dS path's dQ and its merge, the head split's
 # dK/dV merge, the recomputing dQ pass (bwd_wide<true, ...>, bwd_wgmma<HD,
@@ -770,6 +778,8 @@ SIZE_CUTS: list[str] = [
     "step (at 40 the compressed step's residual adds 10.9 GB to the train phase's 70 GB "
     "peak; 8 keeps the phase near a minute)",
     "spmd (e): qwen3-moe-235b-a22b at 1 of its 94 layers (9.66 GB of padded bf16 experts)",
+    f"reshard: minicpm-2b's training state at {RESHARD_LAYERS} of its 40 layers (full width; "
+    "the restores' host walls, ~100 s at 40, kept the script inside its time limit)",
     "families_train: rwkv6-7b at 4 of its 32 layers, recurrentgemma-9b at 3 of its 38 (one "
     "rec, rec, attn group; its 2.75B parameters hold 44 GB of float32 state), "
     f"{FAMILY_TRAIN_STEPS} steps each on one batch",
@@ -904,17 +914,23 @@ def find_cuobjdump() -> str:
     fail("cuobjdump not found: the prefill kernel's SASS cannot be checked")
 
 
-def sass_has(lib: Path, kernel: str, opcode: str) -> dict[str, bool]:
-    """For each function of ``lib`` whose mangled name holds ``kernel``,
-    whether its SASS holds ``opcode``."""
+def sass_count(lib: Path, kernel: str, opcode: str) -> dict[str, int]:
+    """For each function of ``lib`` whose mangled name holds ``kernel``, how
+    many of its SASS instructions are ``opcode``."""
     out = subprocess.run([find_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                          check=True).stdout
-    found: dict[str, bool] = {}
+    found: dict[str, int] = {}
     for section in out.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
         if kernel in name:
-            found[name] = opcode in section
+            found[name] = section.count(opcode)
     return found
+
+
+def sass_has(lib: Path, kernel: str, opcode: str) -> dict[str, bool]:
+    """For each function of ``lib`` whose mangled name holds ``kernel``,
+    whether its SASS holds ``opcode``."""
+    return {name: n > 0 for name, n in sass_count(lib, kernel, opcode).items()}
 
 
 def rotating(fn, copies: list, launches: int) -> list:
@@ -1174,6 +1190,49 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
             small[f"hd{hd}_T{t}_groups{h // kvh}_softcap{softcap:g}_window{window}"] = \
                 errs(got, exp)
             del q, do, k, v, o, lse, got, exp
+    # the gradient through a partly filled cache and past the keys, through
+    # autograd (ops.flash_attention: the backward on k and v cut to kv_len,
+    # dk and dv 0 past it, and do / Tk on every row of dv from each row that
+    # sees no key): kv_len 1200 of 1536 keys, rows 400 .. 1423 (GQA 2),
+    # against attention_bwd_ref at that kv_len and failing it given one key
+    # too few; rows past 384 keys with a window of 64 (the last 65 see no
+    # key), against the plain forward's autograd
+    from repro_torch.kernels.flash_attention import ops as fa_o
+
+    cache = {}
+    for cell, (b, tq, tk, h, kvh, hd), kw in (
+        ("kv_len_1200", (2, 1024, 1536, 8, 4, 64),
+         dict(causal=True, window=0, q_offset=400, kv_len=1200)),
+        ("past_the_keys_window", (1, 512, 384, 4, 2, 128),
+         dict(causal=True, window=64, q_offset=0, kv_len=None)),
+    ):
+        q, do = randn(b, tq, h, hd), randn(b, tq, h, hd)
+        k, v = randn(b, tk, kvh, hd), randn(b, tk, kvh, hd)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fa_k.bwd_launches
+        got = torch.autograd.grad(fa_o.flash_attention(*leaves, **kw), leaves, do)
+        if fa_k.bwd_launches != before + 1:
+            fail(f"flash_attention's gradient ({cell}) did not launch the backward kernel")
+        if kw["kv_len"] is not None:
+            o_r, lse_r = fa_r.attention_lse_ref(q, k, v, **kw)
+            exp = fa_r.attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+            if bool(got[1][:, kw["kv_len"]:].any()) or bool(got[2][:, kw["kv_len"]:].any()):
+                fail(f"flash_attention's gradient ({cell}): dk or dv past kv_len")
+            near = dict(kw, kv_len=kw["kv_len"] - 1)
+            o_n, lse_n = fa_r.attention_lse_ref(q, k, v, **near)
+            if within(got, fa_r.attention_bwd_ref(q, k, v, o_n, lse_n, do, **near)):
+                fail(f"flash_attention_bwd limit {BWD_TOL} does not tell one key too few ({cell})")
+            del o_r, lse_r, o_n, lse_n
+        else:
+            plain = [x.clone().requires_grad_() for x in (q, k, v)]
+            exp = torch.autograd.grad(fa_r.attention_ref(*plain, **kw), plain, do)
+        if not within(got, exp):
+            fail(f"flash_attention's gradient ({cell}) differs from the plain version: max |err| "
+                 f"{errs(got, exp)}")
+        cache[cell] = {"q": [b, tq, h, hd], "kv": [b, tk, kvh, hd], **kw,
+                       "max_abs_err": errs(got, exp)}
+        del q, do, k, v, leaves, got, exp
+    torch.cuda.empty_cache()
     ptx = _ptxas("bwd_")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1181,7 +1240,8 @@ def flash_bwd_phase(torch, gen, timer, configs, fa_k, fa_r) -> dict:
         "replaces": "src/repro/models/layers.py:114",
         **shapes["minicpm_train"],
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes.values()),
-        "shapes": shapes, "small_checks_max_abs_err": small, "tol": BWD_TOL, "ptxas": ptx,
+        "shapes": shapes, "small_checks_max_abs_err": small, "cache_checks": cache,
+        "tol": BWD_TOL, "ptxas": ptx,
     }
 
 
@@ -2246,6 +2306,8 @@ def reshard_phase(torch, seed) -> dict:
     and restored onto the card whole and shard by shard (module doc, phase
     10b); then ``shardings_for``'s placements on the spmd group's
     ``make_host_mesh(model=1)``."""
+    import dataclasses
+
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
 
@@ -2261,7 +2323,7 @@ def reshard_phase(torch, seed) -> dict:
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=RESHARD_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 20)
     params = api.init_params(cfg, gen, device=dev, master=True)
@@ -2312,7 +2374,8 @@ def reshard_phase(torch, seed) -> dict:
             if a.device.type != "cuda" or not same_bits(a, b):
                 fail(f"reshard: {what} {at}: {path_str(path)} is not local_shard's block")
 
-    out = {"arch": TRAIN_ARCH, "params": cfg.param_count(), "tree_bytes": tree_bytes,
+    out = {"arch": TRAIN_ARCH, "layers": cfg.num_layers, "params": cfg.param_count(),
+           "tree_bytes": tree_bytes,
            "leaves": len(leaves(full)), "save_wall_s": save_wall, "full": full_ops}
     # the reference benchmark's mesh: every model coord, then the reassembly
     sizes = {"data": 1, "model": 4}

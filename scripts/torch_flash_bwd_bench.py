@@ -9,8 +9,9 @@ parent in one call).
 Each SRC_DIR is a ``src`` directory holding a ``repro_torch`` package
 (default: this checkout's ``src``); each runs in its own process, in the
 order given (list a parent and a change as A B B A).  Per package: the
-build time and the registers and spilled bytes (ptxas) of the tensor-core
-kernels; then one JSON line per shape: the design that ran (where the
+build time, the registers and spilled bytes (ptxas) of the tensor-core
+kernels and the ``HGMMA`` instructions in each ``flash_wgmma`` instance's
+SASS; then one JSON line per shape: the design that ran (where the
 package names it), whether the outputs lie within the kernel's limit of its
 plain version (forward 2e-5 against ``ref.attention_ref`` /
 ``attention_lse_ref``; backward ``BWD_TOL`` against
@@ -19,13 +20,25 @@ signed deviation of those, relative to the expected value), whether a
 repeat is bit-equal, and the time (``chip_smoke.Timer``: CUDA events behind
 a sleep kernel, L2 flushed, median).
 
-Forward shapes: gemma3-4b's serve prefill (q [4, 4096, 8, 256] over a bf16
-cache slice of 4128 positions, window 1024 and 0), its global layer at
-32,768 keys (q [1, 512, 8, 256] at q_offset 32,256; v of mean 0 and 1), and
-the float32-k/v training forwards with lse: minicpm-2b's [2, 4096, 36, 64],
-h2o-danube's hd 120 (32 / 8 heads, window 4096) and gemma3-4b's global
-layer (8 / 4 heads of 256), and gemma3-4b's last sequence-split island at
-tp 16 (q [1, 256, 8, 256] at q_offset 3840 over k/v [1, 4096, 4, 256]).
+Forward shapes: every forward row of ``PERF.md`` §6 that runs a prefill
+design (``FWD_SHAPES``): gemma3-4b's serve prefill (q [4, 4096, 8, 256] over
+a bf16 cache slice of 4128 positions, window 1024 and 0), its global layer
+at 32,768 keys (q [1, 512, 8, 256] at q_offset 32,256; v of mean 0 and 1),
+the float32-k/v training forwards with lse (minicpm-2b's [2, 4096, 36, 64],
+h2o-danube's hd 120, gemma3-4b's global layer, gemma3-4b's and minicpm-2b's
+sequence-split islands), h2o-danube's and kimi-k2's bf16 prefill, the
+families' serving prefills and their 16-row decodes (whisper-medium's
+encoder, qwen3-moe, recurrentgemma-9b), whisper-medium's float32
+cross-attention; then the forwards of ``chip_smoke.FAMILY_TRAIN_SHAPES``
+and ``chip_smoke.TP_RANK_SHAPES`` (the serving ranks' prefill over kv head 0
+of the bf16 cache, a strided view; the decode ranks run ``flash_decode``
+and are left out) and minicpm-2b's ``DRYRUN_ISLANDS`` island.  Each forward
+line carries its bound (``chip_smoke.bound`` over ``flash_work``'s bytes and
+operations at the bf16 products its operands need, ``attn_products``) and
+``scaled_dot_product_attention``'s time (``library_ms``,
+``chip_smoke.sdpa_call``) and the plain version's (``plain_ms``); past
+``chip_smoke.PLAIN_ROWS`` query rows the plain version checks the first
+and the last ``PLAIN_ROWS`` rows, and runs ``PLAIN_ROWS`` rows at a time.
 Backward shapes: minicpm-2b's, h2o-danube's, gemma3-4b's local and global
 layers (window 1024 and 0), two ragged ones, the gemma3 island,
 recurrentgemma-9b's local MQA (16 query heads over one kv head of 256,
@@ -63,19 +76,61 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402  (the shapes; no torch at import)
+
 FLASH_TOL = 2e-5
 BWD_TOL = 1e-4
-# (name, b, tq, tk, h, kvh, hd, kv dtype, window, q_offset, kv_len, v mean, lse)
-FWD_SHAPES = (
-    ("serve_prefill_local", 4, 4096, 4128, 8, 4, 256, "bfloat16", 1024, 0, 4096, 0.0, False),
-    ("serve_prefill_global", 4, 4096, 4128, 8, 4, 256, "bfloat16", 0, 0, 4096, 0.0, False),
-    ("global_32k", 1, 512, 32768, 8, 4, 256, "bfloat16", 0, 32256, 32768, 0.0, False),
-    ("global_32k_v_mean_1", 1, 512, 32768, 8, 4, 256, "bfloat16", 0, 32256, 32768, 1.0, False),
-    ("minicpm_train_fwd", 2, 4096, 4096, 36, 36, 64, "float32", 0, 0, None, 0.0, True),
-    ("h2o_hd120_fwd", 1, 4096, 4096, 32, 8, 120, "float32", 4096, 0, None, 0.0, True),
-    ("gemma3_global_f32_fwd", 1, 4096, 4096, 8, 4, 256, "float32", 0, 0, None, 0.0, True),
-    ("gemma3_island_fwd", 1, 256, 4096, 8, 4, 256, "float32", 0, 3840, None, 0.0, True),
-)
+
+
+def _fwd(q, kv, kv_dtype, *, causal=True, window=0, q_offset=0, kv_len=None, v_mean=0.0,
+         lse=False, q_bf16=False, cache_heads=None) -> dict:
+    return dict(q=q, kv=kv, kv_dtype=kv_dtype, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len, v_mean=v_mean, lse=lse, q_bf16=q_bf16, cache_heads=cache_heads)
+
+
+# name -> a forward call: q [B, Tq, H, hd], k/v [B, Tk, KV, hd]; lse: the
+# training forward (kv_len Tk); q_bf16: q holds bf16 values; cache_heads: k/v
+# are kv head 0 of a cache of that many kv heads (a strided view)
+FWD_SHAPES = {
+    "serve_prefill_local": _fwd((4, 4096, 8, 256), (4, 4128, 4, 256), "bfloat16", window=1024,
+                                kv_len=4096),
+    "serve_prefill_global": _fwd((4, 4096, 8, 256), (4, 4128, 4, 256), "bfloat16", kv_len=4096),
+    "global_32k": _fwd((1, 512, 8, 256), (1, 32768, 4, 256), "bfloat16", q_offset=32256,
+                       kv_len=32768),
+    "global_32k_v_mean_1": _fwd((1, 512, 8, 256), (1, 32768, 4, 256), "bfloat16",
+                                q_offset=32256, kv_len=32768, v_mean=1.0),
+    "minicpm_train_fwd": _fwd((2, 4096, 36, 64), (2, 4096, 36, 64), "float32", lse=True),
+    "h2o_hd120_fwd": _fwd((1, 4096, 32, 120), (1, 4096, 8, 120), "float32", window=4096,
+                          lse=True),
+    "h2o_hd120_bf16": _fwd((1, 4096, 32, 120), (1, 4096, 8, 120), "bfloat16", window=4096,
+                           kv_len=4096),
+    "gemma3_global_f32_fwd": _fwd((1, 4096, 8, 256), (1, 4096, 4, 256), "float32", lse=True),
+    "gemma3_island_fwd": _fwd((1, 256, 8, 256), (1, 4096, 4, 256), "float32", q_offset=3840,
+                              lse=True),
+    "minicpm_island_fwd": _fwd((2, 512, 36, 64), (2, 4096, 36, 64), "float32", q_offset=3584,
+                               lse=True),
+    "whisper_cross_f32_fwd": _fwd((4, 128, 16, 64), (4, 1500, 16, 64), "float32", causal=False,
+                                  lse=True),
+    "kimi_hd112_bf16": _fwd((1, 4096, 64, 112), (1, 4096, 8, 112), "bfloat16", kv_len=4096),
+    "kimi_hd112_f32_fwd": _fwd((1, 4096, 64, 112), (1, 4096, 8, 112), "float32", lse=True),
+    "whisper_encoder": _fwd((4, 1500, 16, 64), (4, 1500, 16, 64), "bfloat16", causal=False),
+    "qwen3_moe_prefill": _fwd((4, 2048, 64, 128), (4, 2080, 4, 128), "bfloat16", kv_len=2048),
+    "griffin_local": _fwd((4, 4096, 16, 256), (4, 4096, 1, 256), "bfloat16", window=2048,
+                          kv_len=4096),
+    "qwen3_moe_decode": _fwd((4, 1, 64, 128), (4, 2080, 4, 128), "bfloat16", q_offset=2048,
+                             kv_len=2049),
+    "griffin_decode": _fwd((4, 1, 16, 256), (4, 4128, 1, 256), "bfloat16", window=2048,
+                           q_offset=4096, kv_len=4097),
+    **{f"{row[0]}_fwd": _fwd(row[1], row[2], row[3], lse=True, q_bf16=row[6], **row[4])
+       for row in chip_smoke.FAMILY_TRAIN_SHAPES},
+    **{f"{row[0]}_fwd": (_fwd(row[1], row[2], row[3], lse=True, q_bf16=row[6], **row[4])
+                         if "kv_len" not in row[4] else
+                         _fwd(row[1], row[2], row[3], cache_heads=row[7], **row[4]))
+       for row in chip_smoke.TP_RANK_SHAPES if row[1][1] > 1},
+    # minicpm-2b's dry-run island (DRYRUN_ISLANDS): rank (0, 0) of tp 16
+    "minicpm_rank_island_fwd": _fwd((4, 256, 36, 64), (4, 4096, 36, 64), "float32", lse=True),
+}
 BF16_ROUND = 2.0**-8
 # name -> (b, tq, tk, h, kvh, hd, window, q_offset, kv dtype, causal):
 # minicpm-2b's train shape, h2o-danube's, gemma3-4b's local and global
@@ -130,7 +185,6 @@ def limits(got, exp, tol: float, names) -> dict:
 
 def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> None:
     sys.path.insert(0, src)
-    sys.path.insert(0, str(ROOT))
     from chip_smoke import BWD_PASSES, Timer, trace
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_k, ref as fa_r
@@ -138,9 +192,12 @@ def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> No
     t0 = time.perf_counter()
     _build.library()
     ptx = {name.split("_cu_")[-1]: [r["registers"], r["spill_store_bytes"]]
-           for pat in ("flash_wgmma", "flash_tiled", "bwd_wgmma", "bwd_wide", "bwd_dq", "bwd_kv")
+           for pat in ("flash_wgmma", "fwd_prep", "flash_tiled", "bwd_wgmma", "bwd_wide", "bwd_dq",
+                       "bwd_kv")
            for name, r in _build.ptxas_report(pat).items()}
-    print(json.dumps({"src": src, "build_s": time.perf_counter() - t0, "ptxas": ptx}), flush=True)
+    hgmma = chip_smoke.sass_count(_build.build(), "flash_wgmma", "HGMMA")
+    print(json.dumps({"src": src, "build_s": time.perf_counter() - t0, "ptxas": ptx,
+                      "flash_wgmma_hgmma": hgmma}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -148,33 +205,64 @@ def run_one(src: str, reps: int, only: str | None, names: set[str] | None) -> No
     # a parent may predate the design names
     fwd_design = getattr(fa_k, "fwd_design", None)
     bwd_design = getattr(fa_k, "bwd_design", None)
-    for name, b, tq, tk, h, kvh, hd, kv_dtype, window, q_offset, kv_len, v_mean, lse in (
-            FWD_SHAPES if only != "bwd" else ()):
+    for name, f in (FWD_SHAPES.items() if only != "bwd" else ()):
         if names is not None and name not in names:
             continue
-        q = torch.randn(b, tq, h, hd, generator=gen, device=dev)
-        k, v = (torch.randn(b, tk, kvh, hd, generator=gen, device=dev) for _ in range(2))
-        k, v = k.to(getattr(torch, kv_dtype)), (v + v_mean).to(getattr(torch, kv_dtype))
-        out = {"src": src, "shape": name, "q": [b, tq, h, hd], "kv": [b, tk, kvh, hd],
-               "kv_dtype": kv_dtype,
-               "design": fwd_design(hd, k.dtype, tq * h // kvh, lse=lse) if fwd_design else None}
-        if lse:
-            kw = dict(causal=True, window=window, q_offset=q_offset)
-            call = lambda: fa_k.flash_attention_lse(q, k, v, **kw)  # noqa: E731
-            got, exp = call(), fa_r.attention_lse_ref(q, k, v, **kw)
+        b, tq, h, hd = f["q"]
+        tk, kvh = f["kv"][1], f["kv"][2]
+        kvt = getattr(torch, f["kv_dtype"])
+        q = torch.randn(f["q"], generator=gen, device=dev)
+        if f["q_bf16"]:
+            q = q.to(torch.bfloat16).float()
+        heads = f["cache_heads"] or kvh
+        k, v = ((torch.randn(b, tk, heads, hd, generator=gen, device=dev) + mean).to(kvt)
+                for mean in (0.0, f["v_mean"]))
+        if f["cache_heads"]:  # kv head 0 of the cache, in place
+            k, v = k[:, :, :1], v[:, :, :1]
+        mask = dict(causal=f["causal"], window=f["window"], q_offset=f["q_offset"])
+        out = {"src": src, "shape": name, "q": list(f["q"]), "kv": list(f["kv"]),
+               "kv_dtype": f["kv_dtype"], **mask, "kv_len": f["kv_len"],
+               "design": (fwd_design(hd, kvt, tq * h // kvh, lse=f["lse"]) if fwd_design
+                          else None)}
+        if f["lse"]:
+            call = lambda: fa_k.flash_attention_lse(q, k, v, **mask)  # noqa: E731
+            got, exp = call(), fa_r.attention_lse_ref(q, k, v, **mask)
             out.update(limits(got, exp, FLASH_TOL, ("o", "lse")))
         else:
-            kw = dict(causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+            kw = dict(mask, kv_len=f["kv_len"])
             call = lambda: (fa_k.flash_attention(q, k, v, **kw),)  # noqa: E731
-            got, exp = call(), (fa_r.attention_ref(q, k, v, **kw),)
-            out.update(limits(got, exp, FLASH_TOL, ("o",)))
-            out["mean_signed_rel_err"] = float(((got[0] - exp[0]) * exp[0].sign()).mean()
-                                               / exp[0].abs().mean())
+            got = call()
+            # past PLAIN_ROWS rows the plain version's scores would not fit:
+            # the first and the last PLAIN_ROWS rows, each at its q_offset
+            rows = chip_smoke.PLAIN_ROWS
+            blocks = [(0, tq)] if tq <= rows else [(0, rows), (tq - rows, tq)]
+            part = [(got[0][:, i:j], fa_r.attention_ref(
+                q[:, i:j], k, v, **dict(kw, q_offset=kw["q_offset"] + i))) for i, j in blocks]
+            out.update(limits([g for g, _ in part], [e for _, e in part], FLASH_TOL,
+                              ("o",) * len(part)))
+            out["mean_signed_rel_err"] = (sum(float(((g - e) * e.sign()).sum()) for g, e in part)
+                                          / sum(float(e.abs().sum()) for _, e in part))
+            exp = None
         out["repeat_bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, call()))
-        del exp
+        del exp, got
         out["ms"] = timer.ms(call)
+        full = dict(mask, kv_len=tk if f["kv_len"] is None else f["kv_len"])
+        nbytes, ops = chip_smoke.flash_work(torch, q, k, **full)
+        nbytes += 4 * b * h * tq if f["lse"] else 0
+        split, _ = chip_smoke.attn_products(f["q_bf16"], kvt == torch.bfloat16)
+        out["bound_ms"], out["bound_by"] = chip_smoke.bound(nbytes, ops, "bf16_tensor", split)
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+        out["library_ms"] = timer.ms(chip_smoke.sdpa_call(
+            torch, q, k, v, **full, expand=f["cache_heads"] is not None))
+        # the plain version over the whole call, PLAIN_ROWS rows at a time
+        if f["lse"]:
+            out["plain_ms"] = timer.ms(lambda: fa_r.attention_lse_ref(q, k, v, **mask))
+        else:
+            out["plain_ms"] = timer.ms(lambda: [
+                fa_r.attention_ref(q[:, i:i + rows], k, v, **dict(kw, q_offset=kw["q_offset"] + i))
+                for i in range(0, tq, rows)])
         print(json.dumps(out), flush=True)
-        del q, k, v, got
+        del q, k, v
         torch.cuda.empty_cache()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (b, t, tk, h, kvh, hd, window, q_offset, kv_dtype, causal) in (

@@ -74,6 +74,7 @@ SIGNATURES = {
     ),
 }
 PLAN_SIGNATURES = {
+    "rt_flash_fwd_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "rt_flash_tiled_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "rt_flash_attention_bwd_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                     _P),

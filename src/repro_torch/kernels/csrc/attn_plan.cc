@@ -28,6 +28,31 @@ extern "C" int rt_flash_tiled_plan(int B, int Tq, int Tk, int H, int KV, int q_o
   return 0;
 }
 
+// flash_wgmma at head width hd on bf16 (kv_bf16) or float32 k/v: the keys
+// of a streamed tile and the ring's stages; on float32 k/v (flash_wgmma_split)
+// the keys [*k_begin, *k_end) its prologue splits and the scratch bytes of
+// their parts ([k, v][part][B KV][keys][hdk] bf16); on bf16 k/v 0 bytes.
+extern "C" int rt_flash_fwd_plan(int hd, int kv_bf16, int B, int Tq, int Tk, int H, int KV,
+                                 int q_offset, int window, int kv_len, int causal, int* tile_keys,
+                                 int* stages, int* k_begin, int* k_end, int64_t* scratch_bytes) {
+  if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0) return 1;
+  if (hd != 32 && hd != 64 && hd != 112 && hd != 120 && hd != 128 && hd != 256) return 1;
+  const int hdk = hd == 112 || hd == 120 ? 128 : hd;
+  const bool split = !kv_bf16;
+  if (split && hdk > 128) return 1;  // float32 k/v at hd 256: flash_tiled
+  *tile_keys = attn_plan::fwd_tile_keys(hdk, split);
+  *stages = attn_plan::fwd_stages(hdk, split);
+  *k_begin = 0;
+  *k_end = Tk;
+  *scratch_bytes = 0;
+  if (split) {
+    attn_plan::fwd_parts_keys(Tq, Tk, causal, window, q_offset, kv_len, k_begin, k_end);
+    *scratch_bytes = 2 * static_cast<int64_t>(attn_plan::kParts) * B * KV * (*k_end - *k_begin) *
+                     hdk * 2;
+  }
+  return 0;
+}
+
 // The backward at head width hd with k/v bfloat16 (kv_bf16) or float32:
 // *nchunk 0 for the recomputing dQ pass, else the dS path's chunks (and
 // bounds[0 .. *nchunk]); *nsplit the dK/dV pass's head subsets (1:

@@ -71,6 +71,35 @@ inline void visible_keys(int Tq, int Tk, int causal, int window, int q_offset, i
   *hi = key_hi(last) + 1;
 }
 
+// ---------------------------------------------------------------------------
+// flash_wgmma<HD, SPLIT> (the prefill forward on the tensor cores; HD the
+// template width 32, 64, 128 or 256; SPLIT: float32 k/v as three bf16
+// parts).  Keys of a streamed tile and stages of the ring (flash_attention.cu,
+// Wg): 64-key tiles, whose S products read as many bytes of shared memory
+// as the tensor cores take clocks (32-key ones read 1.5x as long), in four
+// stages where they fit beside q's three parts, two at hd 256 (q's parts
+// are 96 KB; a stage 64 KB); at hd 128 on split k/v a 64-key stage of six
+// parts would be 96 KB: 32 keys in three stages (48 KB each).  Two consumer
+// warpgroups take the tiles in turns, so an even count gives each its own
+// stages; an odd one hands a stage over.
+// ---------------------------------------------------------------------------
+
+ATTN_PLAN_FN constexpr int fwd_tile_keys(int hd, bool split) {
+  return split && hd == 128 ? 32 : 64;
+}
+ATTN_PLAN_FN constexpr int fwd_stages(int hd, bool split) {
+  return hd == 256 ? 2 : split && hd == 128 ? 3 : 4;
+}
+
+// The keys [*k_begin, *k_end) whose bf16 parts the split design's prologue
+// writes: the visible keys, the first rounded down to a whole kTile (a
+// multiple of every tile), so that each block's first tile starts inside.
+inline void fwd_parts_keys(int Tq, int Tk, int causal, int window, int q_offset, int kv_len,
+                           int* k_begin, int* k_end) {
+  visible_keys(Tq, Tk, causal, window, q_offset, kv_len, k_begin, k_end);
+  *k_begin = *k_begin / kTile * kTile;
+}
+
 // The first key of chunk c of nchunk over keys [k_begin, k_end); c = nchunk
 // gives k_end.  Inner bounds fall on multiples of kTile, so every tile
 // belongs to one chunk.

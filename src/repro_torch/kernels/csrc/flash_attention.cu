@@ -52,39 +52,47 @@
 //   x = x1 + x2 + x3 (x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 -
 //   x2)), which keep all 24 bits of a float32 mantissa.  S = sum_i Qi . K^T
 //   and O += sum_i Pi . V accumulate in float32: six products per tile pair,
-//   so the bound is 3 x operations / 989 TFLOP/s.  One block = a consumer
-//   warpgroup of 64 rows and a producer warp.  The producer brings 64-key k
-//   and v tiles by TMA straight from the strided cache slice into a
-//   two-stage ring (128-byte swizzle, zero fill past Tk), completed on
-//   mbarriers.  The consumer keeps q's three parts in shared memory
-//   (written swizzled), S (64 x 64) and O (64 x hd) in registers, and feeds
-//   p to the second product from registers: the S accumulator's layout is
-//   the A-operand layout.  Q . K^T reads k K-major (hd contiguous); P . V
-//   reads v MN-major through the transpose bit, so nothing is transposed in
-//   memory.  wgmma's float32 accumulator rounds toward zero: summed over
-//   every key tile of a row it biases O toward zero, in proportion to the
-//   number of tiles (on the H100, by 8.6e-5 of |O| on average at 32,768
-//   keys, 1.6e-4 where v has a mean of 1; PERF.md, C 1), so each tile's
-//   P . V runs in a fresh accumulator, 32 columns of O at a time (64 below
-//   hd 256), added to O in float32; two such accumulators take turns, so
-//   that a slice's products run while the one before is added.  Shared
-//   memory at hd = 256: 96 KB of q parts + 2 stages x 64 KB of k/v = 224 KB
-//   (one block per SM); registers: 128 for O, 2 x 16 for the fresh
-//   products, 48 for p's parts.
+//   so the bound is 3 x operations / 989 TFLOP/s.  One block = 64 rows, a
+//   producer warpgroup and two consumer warpgroups (setmaxnreg 24 / 240, as
+//   the backward's bwd_wgmma; hd 256 below).  One producer thread brings k
+//   and v tiles (attn_plan.h: fwd_tile_keys) by TMA straight from the
+//   strided cache slice into a ring (fwd_stages; 128-byte swizzle, zero
+//   fill past Tk),
+//   completed on mbarriers.  The consumers share q's three parts in shared
+//   memory (written swizzled, scaled by log2(e) / sqrt(hd), so that the
+//   softmax is one exp2 a score) and take the key tiles in turns (even,
+//   odd), each with its own m, l and O (64 x hd) in registers: while one
+//   runs its mask, exp2 and the split of p on the CUDA cores, the other's
+//   products keep the tensor cores busy.  At the end the second hands m, l and
+//   O to the first through the ring, which merges them (log-sum-exp, a
+//   fixed order: deterministic).  The mask is tested only on a tile that
+//   crosses some row's edge or Tk.  p goes to the second product from
+//   registers: the S accumulator's layout is the A-operand layout.
+//   Q . K^T reads k K-major (hd contiguous); P . V reads v MN-major through
+//   the transpose bit, so nothing is transposed in memory.  wgmma's float32
+//   accumulator rounds toward zero: summed over every key tile of a row it
+//   biases O toward zero, in proportion to the number of tiles (on the
+//   H100, by 8.6e-5 of |O| on average at 32,768 keys, 1.6e-4 where v has a
+//   mean of 1; PERF.md, C 1), so each tile's P . V runs in a fresh
+//   accumulator, a slice of O's columns at a time (Wg::TN), added to O in
+//   float32; two such accumulators take turns, so that a slice's products
+//   run while the one before is added.  Tiles of 64 keys in four stages; at
+//   hd 256 in two (96 KB of q parts + 2 x 64 KB of k/v = 224 KB), where O
+//   takes 128 of a consumer's 240 registers.
 // * flash_wgmma<HD, true> (float32 k/v, R > 8, hd <= 128: the training
 //   forward with lse, and the cache-free forward).  The same design with k
-//   and v split too: a prologue (fwd_prep_kv) writes their three bf16 parts
-//   head-major [k, v][part][batch x kv head][Tk][HD] into wrapper scratch
-//   (the layout of the backward's prologue, split_row in wgmma.cuh), the
+//   and v split too: a prologue (fwd_prep_kv) writes the three bf16 parts
+//   of the keys some row can see (attn_plan.h: fwd_parts_keys) head-major
+//   [k, v][part][batch x kv head][keys][HD] into wrapper scratch (the
+//   layout of the backward's prologue, split_row in wgmma.cuh), the
 //   producer brings the parts by 3-D TMA, and each float32 product is the six
 //   bf16 products of parts (i, j) with i + j <= 2 (pair_a / pair_b), as in
-//   the backward: the bound is 6 x operations / 989 TFLOP/s.  Tiles of 32
-//   keys (hd 32: 64).  Shared memory at hd 64: 24 KB of q parts + 2 stages x
-//   (k, v) x 3 parts x 4 KB = 72 KB, two blocks per SM (one block's softmax
-//   overlaps the other's products); hd 128: 48 + 96 = 144 KB, one block.
-//   Registers at hd 64: 32 for O, 16 for S, 24 for p's parts, 32 for the
-//   fresh P . V product (launch bound 204 a thread at two blocks); hd 128:
-//   64 for O, 2 x 32 for the fresh products.
+//   the backward: the bound is 6 x operations / 989 TFLOP/s.  Tiles of 64
+//   keys in four stages at hd 32 and 64 (hd 64: 24 KB of q parts + 4 x
+//   (k, v) x 3 parts x 8 KB = 216 KB), of 32 keys in three at hd 128 (48 +
+//   3 x 48 = 192 KB; a stage passes between the warpgroups, as in
+//   bwd_wgmma's HANDOVER).  Registers a consumer thread at hd 128: 64 for
+//   O, 2 x 32 for the fresh products, 24 for p's parts.
 // * flash_tiled (float32 k/v at hd 256, R > 8: gemma3's cache-free forward
 //   and its training forward with lse; its parts would be 192 KB a stage):
 //   256 threads per 64 rows; q, k, v and p staged in shared memory as
@@ -142,6 +150,8 @@ struct Args {
   int hd;      // valid head width: HD, or 112 / 120 run in the 128-wide template
   float* lse;  // prefill designs only: [B, H, Tq] log-sum-exp per row, or null
   float softcap, sqrt_hd;
+  float qscale;  // flash_wgmma: log2(e) / sqrt(hd), q's scale before its split
+  int kv_base;   // flash_wgmma<HD, true>: the first key of the prologue's parts
 };
 
 // First and last key (inclusive) a query at position qpos may see; the row
@@ -493,27 +503,34 @@ __global__ void __launch_bounds__(kThreads) flash_tiled_merge(Args a, int B, int
 // flash_wgmma: more than 8 rows per kv head on the bf16 tensor cores; k/v
 // bf16 (SPLIT false: read in place from the cache) or float32 (SPLIT true:
 // their three bf16 parts, written by fwd_prep_kv).  Grid (row blocks of 64,
-// B * KV); 160 threads: warps 0-3 the consumer warpgroup, warp 4 the
-// producer.  The consumer's thread (warp w, lane l) holds rows
-// 16 w + l / 4 and 16 w + l / 4 + 8 and, in every 8-column block j of S and
-// O, columns 8 j + 2 (l % 4) and the next one (the wgmma accumulator
-// layout).
+// B * KV); 384 threads: warpgroup 0 the producer, warpgroups 1 and 2 the
+// consumers, which take the key tiles in turns.  A consumer's thread (warp
+// w of its warpgroup, lane l) holds rows 16 w + l / 4 and 16 w + l / 4 + 8
+// and, in every 8-column block j of S and O, columns 8 j + 2 (l % 4) and
+// the next one (the wgmma accumulator layout).
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;
-constexpr int kWgStages = 2;
-constexpr int kWgThreads = 160;
+constexpr int kWgThreads = 384;  // a producer and two consumer warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD, bool SPLIT>
 struct Wg {
-  static constexpr int BN = SPLIT && HD > 32 ? 32 : 64;  // keys per tile
+  static constexpr int BN = attn_plan::fwd_tile_keys(HD, SPLIT);  // keys per tile
+  static constexpr int STAGES = attn_plan::fwd_stages(HD, SPLIT);
+  // an odd ring passes a stage from one consumer warpgroup to the other, so
+  // a consumer first waits for the other's release of it (bwd_wgmma's rule)
+  static constexpr bool HANDOVER = STAGES % 2 != 0;
   static constexpr int KV_PARTS = SPLIT ? kParts : 1;   // bf16 parts of each k (v) value
   static constexpr int NPROD = SPLIT ? kSplit : kParts; // bf16 products per float32 product
   static constexpr int SW = HD >= 64 ? 128 : 64;        // swizzle span: bytes per row of an atom
   static constexpr int ATOM = SW / 2;                    // bf16 columns per atom
   static constexpr int NATOM = HD / ATOM;                // atoms across hd
-  // O columns per fresh P . V product (hd 256: 32, so that two fit beside O)
-  static constexpr int TN = HD == 256 ? 32 : HD < 64 ? HD : 64;
+  // O columns per fresh P . V product: at hd 256, where O takes 128 of a
+  // consumer's 240 registers, 16 (ptxas spills 436 B at 32; PERF.md,
+  // finding 26)
+  static constexpr int TN = HD == 256 ? 16 : HD < 64 ? HD : 64;
   static constexpr int Q_ATOM = kWgRows * SW;            // bytes of one [64 rows][ATOM] atom column
   static constexpr int KV_ATOM = BN * SW;
   static constexpr int Q_PART = NATOM * Q_ATOM;          // one bf16 part of q: 64 x hd
@@ -521,17 +538,24 @@ struct Wg {
   static constexpr int STAGE = 2 * KV_PARTS * KV_TILE;   // k's parts, then v's
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
   static constexpr int OFF_KV = 3 * Q_PART;
-  static constexpr int OFF_BAR = OFF_KV + kWgStages * STAGE;
-  static constexpr size_t kSmem = OFF_BAR + 2 * kWgStages * 8 + 1024;  // + base alignment
-  static constexpr int MIN_BLOCKS = SPLIT && HD <= 64 ? 2 : 1;         // blocks per SM
+  static constexpr int OFF_BAR = OFF_KV + STAGES * STAGE;
+  static constexpr size_t kSmem = OFF_BAR + 2 * STAGES * 8 + 1024;  // + base alignment
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+  // the second warpgroup's O, m and l pass through the ring at the end
+  static_assert((HD / 2 + 4) * 128 * 4 <= STAGES * STAGE, "the merge must fit the ring");
 };
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // SPLIT false: tmap_k / tmap_v are 4-D maps of the bf16 k / v; k_inner /
 // v_inner say whether the kv-head dimension lies inside the key dimension in
 // memory (the tensor maps order their dimensions by stride).  SPLIT true:
-// 3-D maps of k's and v's parts [part][batch x kv head][Tk][HD].
+// 3-D maps of k's and v's parts [part][batch x kv head][keys][HD], key
+// a.kv_base at row 0.
 template <int HD, bool SPLIT>
-__global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
+__global__ void __launch_bounds__(kWgThreads, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tmap_k,
                 const __grid_constant__ CUtensorMap tmap_v, Args a, int k_inner, int v_inner) {
   using C = Wg<HD, SPLIT>;
@@ -541,62 +565,75 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const uint32_t s_q = smem_u32(smem);
   const uint32_t s_kv = s_q + C::OFF_KV;
-  const uint32_t bar_full = s_q + C::OFF_BAR, bar_empty = bar_full + 8 * kWgStages;
+  const uint32_t bar_full = s_q + C::OFF_BAR, bar_empty = bar_full + 8 * C::STAGES;
 
   const int tid = threadIdx.x;
   const int bkv = blockIdx.y, b = bkv / a.KV, kvh = bkv % a.KV;
   const int M = a.Tq * a.groups;
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;  // the longest row blocks first
+  const int m_last = min(m0 + kWgRows, M) - 1;
   int k_lo, k_hi;
-  block_keys(a, m0, min(m0 + kWgRows, M) - 1, k_lo, k_hi);
+  block_keys(a, m0, m_last, k_lo, k_hi);
   const int t_first = k_lo / BN;
   const int n_tiles = k_hi / BN - t_first + 1;
 
   if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, 128);
+      mbar_init(bar_empty + 8 * s, 128);  // a tile's readers: one warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= 128) {  // producer warp: one thread starts every copy
-    if (tid == 128) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kWgStages;
-        mbar_wait(bar_empty + 8 * s, ((t / kWgStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, C::STAGE);
-        const int n0 = (t_first + t) * BN;
-        const uint32_t dst = s_kv + s * C::STAGE;
+  // tile t's k and v (their parts) into stage t % STAGES, by one thread;
+  // the maps by their addresses in parameter space
+  const CUtensorMap* map_k = &tmap_k;
+  const CUtensorMap* map_v = &tmap_v;
+  auto load = [&](int t) {
+    const int s = t % C::STAGES;
+    mbar_expect_tx(bar_full + 8 * s, C::STAGE);
+    const int n0 = (t_first + t) * BN;
+    const uint32_t dst = s_kv + s * C::STAGE;
 #pragma unroll
-        for (int c = 0; c < C::NATOM; ++c) {
-          if (SPLIT) {
+    for (int c = 0; c < C::NATOM; ++c) {
+      if (SPLIT) {
 #pragma unroll
-            for (int i = 0; i < kParts; ++i) {
-              const uint32_t off = i * C::KV_TILE + c * C::KV_ATOM;
-              tma_load_3d(dst + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, n0,
-                          i * gridDim.y + bkv);
-              tma_load_3d(dst + kParts * C::KV_TILE + off, &tmap_v, bar_full + 8 * s,
-                          c * C::ATOM, n0, i * gridDim.y + bkv);
-            }
-          } else {
-            const uint32_t off = c * C::KV_ATOM;
-            tma_load_4d(dst + off, &tmap_k, bar_full + 8 * s, c * C::ATOM, k_inner ? kvh : n0,
-                        k_inner ? n0 : kvh, b);
-            tma_load_4d(dst + C::KV_TILE + off, &tmap_v, bar_full + 8 * s, c * C::ATOM,
-                        v_inner ? kvh : n0, v_inner ? n0 : kvh, b);
-          }
+        for (int i = 0; i < kParts; ++i) {
+          const uint32_t off = i * C::KV_TILE + c * C::KV_ATOM;
+          tma_load_3d(dst + off, map_k, bar_full + 8 * s, c * C::ATOM, n0 - a.kv_base,
+                      i * gridDim.y + bkv);
+          tma_load_3d(dst + kParts * C::KV_TILE + off, map_v, bar_full + 8 * s, c * C::ATOM,
+                      n0 - a.kv_base, i * gridDim.y + bkv);
         }
+      } else {
+        const uint32_t off = c * C::KV_ATOM;
+        tma_load_4d(dst + off, map_k, bar_full + 8 * s, c * C::ATOM, k_inner ? kvh : n0,
+                    k_inner ? n0 : kvh, b);
+        tma_load_4d(dst + C::KV_TILE + off, map_v, bar_full + 8 * s, c * C::ATOM,
+                    v_inner ? kvh : n0, v_inner ? n0 : kvh, b);
+      }
+    }
+  };
+
+  if (tid < 128) {  // producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(bar_empty + 8 * (t % C::STAGES), ((t / C::STAGES) & 1) ^ 1);
+        load(t);
       }
     }
     return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int ctid = tid - 128;  // 0 .. 255 over both consumer warpgroups
+  const int wg = ctid >> 7, ltid = ctid & 127;
 
-  // q -> shared: rows (position, group) scaled by 1/sqrt(hd), three bf16
-  // parts, each in [atom][row][ATOM] with the 16-byte chunks of a row
+  // q -> shared: rows (position, group) scaled by log2(e) / sqrt(hd), three
+  // bf16 parts, each in [atom][row][ATOM] with the 16-byte chunks of a row
   // swizzled as TMA would (chunk ^ (row bits above the 128-byte line)).
-  for (int i = tid; i < kWgRows * (HD / 8); i += 128) {
+  for (int i = ctid; i < kWgRows * (HD / 8); i += 256) {
     const int r = i / (HD / 8), cc = i % (HD / 8);
     const int m = m0 + r;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -606,7 +643,7 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
       load_row<float, 4>(src, x);
       load_row<float, 4>(src + 4, x + 4);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] /= a.sqrt_hd;
+      for (int e = 0; e < 8; ++e) x[e] *= a.qscale;
     }
     uint32_t p1[4], p2[4], p3[4];
 #pragma unroll
@@ -619,28 +656,41 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
     st_shared_v4(s_q + 2 * C::Q_PART + off, p3);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  named_bar_sync(1, 256);
 
-  const int warp = tid >> 5, lane = tid & 31;
+  const int warp = ltid >> 5, lane = tid & 31;
   const int r_lo = warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
   int klo[2], khi[2];  // the keys each of the thread's two rows may see
-  float m_i[2] = {kMask, kMask}, l_i[2] = {0.f, 0.f};  // l: this thread's part of the row sum
+  float m_i[2] = {kMask, kMask}, l_i[2] = {0.f, 0.f};  // m in log2 units; l: this thread's part
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     key_bounds(a, a.q_offset + (m0 + r_lo + 8 * h) / a.groups, klo[h], khi[h]);
+  // keys [in_lo, in_hi] that every row of the block sees: a tile inside them
+  // needs no mask (none where a row sees no key)
+  const int qp_first = a.q_offset + m0 / a.groups, qp_last = a.q_offset + m_last / a.groups;
+  const bool any_empty = key_lo(a, qp_first) > key_hi(a, qp_first) ||
+                         key_lo(a, qp_last) > key_hi(a, qp_last);
+  const int in_lo = any_empty ? INT_MAX : key_lo(a, qp_last);
+  const int in_hi = key_hi(a, qp_first);
+  const float cap = a.softcap * kLog2e;  // the softcap in log2 units
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kWgStages;
+  // this warpgroup's tiles: every other one, from its own index
+  for (int t = wg; t < n_tiles; t += 2) {
+    const int s = t % C::STAGES;
     const int n0 = (t_first + t) * BN;
     const uint32_t s_k = s_kv + s * C::STAGE, s_v = s_k + C::KV_PARTS * C::KV_TILE;
-    mbar_wait(bar_full + 8 * s, (t / kWgStages) & 1);
+    // HANDOVER: the stage last held tile t - STAGES, the other warpgroup's,
+    // and full's parity alone cannot tell t's fill from that one's; empty's
+    // phase for that tile ends only on the other's release of it
+    if constexpr (C::HANDOVER) mbar_wait(bar_empty + 8 * s, ((t / C::STAGES) & 1) ^ 1);
+    mbar_wait(bar_full + 8 * s, (t / C::STAGES) & 1);
 
     // S = sum over the products of Q's parts (A) and K's (B; k itself when
-    // it is bf16)
+    // it is bf16), in log2 units
     float sc[BN / 2];
     wgmma_fence();
 #pragma unroll
@@ -657,35 +707,41 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
     wgmma_wait_all();
     fence_regs(sc);
 
-    // softcap (a uniform branch), mask, online softmax; sc becomes p
+    // softcap (a uniform branch), the mask where the tile crosses a row's
+    // edge or Tk (uniform too), online softmax in log2 units; sc becomes p
     if (a.softcap > 0.f) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sc[i] = a.softcap * tanhf(sc[i] / a.softcap);
+      for (int i = 0; i < BN / 2; ++i) sc[i] = cap * tanhf(sc[i] / cap);
+    }
+    if (n0 < in_lo || n0 + BN - 1 > in_hi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = n0 + 8 * j + cq + e;
+            float x = sc[4 * j + 2 * h + e];
+            x = klo[h] <= kpos && kpos <= khi[h] ? x : kMask;
+            sc[4 * j + 2 * h + e] = kpos < a.Tk ? x : -INFINITY;  // past Tk: not a key at all
+          }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = n0 + 8 * j + cq + e;
-          float x = sc[4 * j + 2 * h + e];
-          x = klo[h] <= kpos && kpos <= khi[h] ? x : kMask;
-          x = kpos < a.Tk ? x : -INFINITY;  // past Tk: not a key at all
-          sc[4 * j + 2 * h + e] = x;
-          mx = fmaxf(mx, x);
-        }
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_i[h], mx);  // >= -1e30: finite
-      const float corr = expf(m_i[h] - m_new);
+      const float corr = exp2f(m_i[h] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = expf(sc[4 * j + 2 * h + e] - m_new);
+          const float p = exp2f(sc[4 * j + 2 * h + e] - m_new);
           sc[4 * j + 2 * h + e] = p;
           sum += p;
         }
@@ -719,7 +775,7 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
     for (int c = 0; c <= NS; ++c) {
       if (c < NS) {
 #pragma unroll
-        for (int i = 0; i < C::TN / 2; ++i) acc[c & 1][i] = 0.f;
+        for (int i = 0; i < C::TN / 2; ++i) acc[c % 2][i] = 0.f;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -727,24 +783,58 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
           for (int p = 0; p < C::NPROD; ++p) {
             const int pa = SPLIT ? pair_a(p) : p, vb = SPLIT ? pair_b(p) : 0;
             const uint32_t col = (c * C::TN / C::ATOM) * C::KV_ATOM + (c * C::TN % C::ATOM) * 2;
-            wgmma_rs<C::TN>(acc[c & 1], fr[kk][pa],
+            wgmma_rs<C::TN>(acc[c % 2], fr[kk][pa],
                             gmma_desc(s_v + vb * C::KV_TILE + col + kk * 16 * C::SW, C::KV_ATOM,
                                       8 * C::SW, C::LAYOUT));
           }
         wgmma_commit();
       }
-      if (c > 0) {
+      const int d = c - 1;  // the slice whose product is added now
+      if (d >= 0) {
         if (c < NS) {
           wgmma_wait<1>();
         } else {
           wgmma_wait<0>();
         }
-        fence_regs(acc[(c - 1) & 1]);
+        fence_regs(acc[d % 2]);
 #pragma unroll
-        for (int i = 0; i < C::TN / 2; ++i) o[(c - 1) * C::TN / 2 + i] += acc[(c - 1) & 1][i];
+        for (int i = 0; i < C::TN / 2; ++i) o[d * C::TN / 2 + i] += acc[d % 2][i];
       }
     }
     mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // the two warpgroups' states merged in a fixed order (warpgroup 0's, then
+  // 1's): warpgroup 1 hands its m, its part of l and O over through the
+  // ring, which both have left (every loaded tile has been read).  A state
+  // that saw no tile (m -1e30, l 0, O 0) weighs nothing.
+  float* xch = reinterpret_cast<float*>(smem + C::OFF_KV);
+  named_bar_sync(1, 256);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) xch[i * 128 + ltid] = o[i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xch[(HD / 2 + h) * 128 + ltid] = m_i[h];
+      xch[(HD / 2 + 2 + h) * 128 + ltid] = l_i[h];
+    }
+  }
+  named_bar_sync(1, 256);
+  if (wg == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m1 = xch[(HD / 2 + h) * 128 + ltid], l1 = xch[(HD / 2 + 2 + h) * 128 + ltid];
+    const float mx = fmaxf(m_i[h], m1);
+    const float w0 = exp2f(m_i[h] - mx), w1 = exp2f(m1 - mx);
+    l_i[h] = l_i[h] * w0 + l1 * w1;
+    m_i[h] = mx;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        o[i] = o[i] * w0 + xch[i * 128 + ltid] * w1;
+      }
   }
 
 #pragma unroll
@@ -762,27 +852,32 @@ __global__ void __launch_bounds__(kWgThreads, (Wg<HD, SPLIT>::MIN_BLOCKS))
       if (8 * j < a.hd)
         *reinterpret_cast<float2*>(op + 8 * j) =
             make_float2(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
-    // m is the row's in all four lanes that share it
+    // m is the row's in all four lanes that share it; a row that sees no key
+    // keeps the natural -1e30 (its log2 units would scale it)
     if (a.lse != nullptr && cq == 0)
-      a.lse[(static_cast<int64_t>(b) * a.H + hh) * a.Tq + t] = m_i[h] + logf(den);
+      a.lse[(static_cast<int64_t>(b) * a.H + hh) * a.Tq + t] =
+          (m_i[h] == kMask ? kMask : m_i[h] * kLn2) + logf(den);
   }
 }
 
-// Prologue of flash_wgmma<HD, true>: one warp per (b, t, kv head) row, k's
-// and v's rows (any strides) split into three bf16 parts, into
-// [k, v][part][b * KV + kvh][Tk][HD] (columns hd .. HD - 1 zero).
+// Prologue of flash_wgmma<HD, true>: one warp per (b, key, kv head) row of
+// keys [k_begin, k_begin + nk), k's and v's rows (any strides) split into
+// three bf16 parts, into [k, v][part][b * KV + kvh][nk][HD] (columns hd ..
+// HD - 1 zero).
 template <int HD>
-__global__ void __launch_bounds__(kThreads) fwd_prep_kv(Args a, int B, uint32_t* parts) {
+__global__ void __launch_bounds__(kThreads) fwd_prep_kv(Args a, int B, int k_begin, int nk,
+                                                        uint32_t* parts) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= static_cast<int64_t>(B) * a.Tk * a.KV) return;
+  if (row >= static_cast<int64_t>(B) * nk * a.KV) return;
   const int kvh = static_cast<int>(row % a.KV);
   const int64_t bt = row / a.KV;
-  const int t = static_cast<int>(bt % a.Tk);
-  const int64_t b = bt / a.Tk;
-  const int64_t part = static_cast<int64_t>(B) * a.KV * a.Tk * HD / 2;  // uint32 per part
-  uint32_t* dst = parts + ((b * a.KV + kvh) * a.Tk + t) * HD / 2;
-  const float* k = static_cast<const float*>(a.k) + b * a.skb + t * a.skt + kvh * a.skh;
-  const float* v = static_cast<const float*>(a.v) + b * a.svb + t * a.svt + kvh * a.svh;
+  const int t = static_cast<int>(bt % nk);
+  const int64_t b = bt / nk;
+  const int64_t part = static_cast<int64_t>(B) * a.KV * nk * HD / 2;  // uint32 per part
+  uint32_t* dst = parts + ((b * a.KV + kvh) * nk + t) * HD / 2;
+  const int key = k_begin + t;
+  const float* k = static_cast<const float*>(a.k) + b * a.skb + key * a.skt + kvh * a.skh;
+  const float* v = static_cast<const float*>(a.v) + b * a.svb + key * a.svt + kvh * a.svh;
   split_row<HD>(k, a.hd, 1.f, dst, part, threadIdx.x & 31);
   split_row<HD>(v, a.hd, 1.f, dst + kParts * part, part, threadIdx.x & 31);
 }
@@ -1124,21 +1219,26 @@ cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t stream) {
   return launch_flash_wgmma<HD, false>(mk, mv, a, B, k_inner, v_inner, stream);
 }
 
-// float32 k/v: split into parts (kv_parts_bytes(HD, ...) of scratch), then
-// the kernel
+// float32 k/v: the visible keys (attn_plan::fwd_parts_keys) split into parts
+// (the wrapper's scratch: rt_flash_fwd_plan's bytes), then the kernel
 template <int HD>
-cudaError_t launch_split(const Args& a, int B, uint32_t* parts, cudaStream_t stream) {
+cudaError_t launch_split(Args a, int B, uint32_t* parts, cudaStream_t stream) {
   using C = Wg<HD, true>;
-  const int64_t rows = static_cast<int64_t>(B) * a.Tk * a.KV;
+  int k_begin, k_end;
+  attn_plan::fwd_parts_keys(a.Tq, a.Tk, a.causal, a.window, a.q_offset, a.kv_len, &k_begin,
+                            &k_end);
+  const int nk = k_end - k_begin;
+  a.kv_base = k_begin;
+  const int64_t rows = static_cast<int64_t>(B) * nk * a.KV;
   constexpr int kRowsPerBlock = kThreads / 32;
   fwd_prep_kv<HD><<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads,
-                    0, stream>>>(a, B, parts);
+                    0, stream>>>(a, B, k_begin, nk, parts);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int64_t outer = static_cast<int64_t>(kParts) * B * a.KV;
   CUtensorMap mk, mv;
-  if (!make_parts_map(&mk, parts, HD, a.Tk, outer, C::BN, C::ATOM, C::SW) ||
-      !make_parts_map(&mv, parts + outer * a.Tk * HD / 2, HD, a.Tk, outer, C::BN, C::ATOM, C::SW))
+  if (!make_parts_map(&mk, parts, HD, nk, outer, C::BN, C::ATOM, C::SW) ||
+      !make_parts_map(&mv, parts + outer * nk * HD / 2, HD, nk, outer, C::BN, C::ATOM, C::SW))
     return cudaErrorInvalidValue;
   return launch_flash_wgmma<HD, true>(mk, mv, a, B, 0, 0, stream);
 }
@@ -1219,8 +1319,8 @@ cudaError_t dispatch(int kv_bf16, const Args& a, int B, float* scratch, uint32_t
 // hd: 32, 64, 128, 256, or 112 / 120 (run in the 128-wide template).
 // part == nullptr: more than 8 rows per kv head or lse wanted: flash_wgmma
 // with bf16 k/v; with float32 k/v flash_wgmma on their parts (hd <= 128;
-// kv_parts: kv_parts_bytes of scratch, 16-byte aligned) or flash_tiled (hd
-// 256).  lse (these designs only, else null): [B, H, Tq] float32, each
+// kv_parts: rt_flash_fwd_plan's scratch bytes, 16-byte aligned) or
+// flash_tiled (hd 256).  lse (these designs only, else null): [B, H, Tq] float32, each
 // row's log-sum-exp.  Otherwise the decode design over keys [k_begin, k_end) in
 // nsplit chunks of `chunk` keys, with part its scratch (see flash_decode):
 // counters that are 0 when the call starts and 0 again when it ends.
@@ -1258,6 +1358,8 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   a.hd = hd;
   a.lse = static_cast<float*>(lse);
   a.sqrt_hd = static_cast<float>(sqrt(static_cast<double>(hd)));
+  a.qscale = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd)));
+  a.kv_base = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
   uint32_t* kp = static_cast<uint32_t*>(kv_parts);

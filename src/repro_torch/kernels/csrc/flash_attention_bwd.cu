@@ -1590,8 +1590,9 @@ cudaError_t launch_wgmma(BwdArgs a, void* scratch, int nchunk, int k_begin, int 
 // kv_bf16 (taken only where attn_plan.h's bwd_kv_parts gives 1: bwd_wgmma at
 // hd 64, bwd_wide's recomputing passes; else the caller passes their float32
 // values).  q row
-// i sits at position q_offset + i; a causal or windowed call needs 0 <=
-// q_offset and q_offset + Tq <= Tk (every row then sees its own key).
+// i sits at position q_offset + i, any q_offset and Tq: a row that sees no
+// key (past the keys by the window, or before key 0) adds nothing (its
+// autograd term, do / Tk on every row of dv, is the wrapper's).
 // scratch: scratch_bytes of device memory, at least attn_plan::bwd_layout's
 // total for the plan a card of `sms` SMs gets (attn_plan.h's bwd_dq_chunks,
 // bwd_kv_head_splits, bwd_kv_parts; rt_flash_attention_bwd_plan in
@@ -1607,8 +1608,6 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                                       int window, int causal, float softcap, int kv_bf16,
                                       int sms, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || KV < 1 || H % KV != 0 || sms < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((causal || window > 0) && (q_offset < 0 || q_offset + Tq > Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hdk = hd == 112 || hd == 120 ? 128 : hd;
   int k_begin = 0, k_end = 0;

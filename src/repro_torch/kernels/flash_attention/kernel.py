@@ -6,11 +6,13 @@ KV cache in place); ``flash_attention_heads`` the Pallas kernel's head-major
 contract (q [BH, Tq, hd], k/v [BKV, Tk, hd]), which is the same kernel with
 other strides.  The designs (``csrc/flash_attention.cu``; ``fwd_design``
 names the one a call runs): with more than ``SPLIT_ROWS`` query rows per kv
-head (Tq * groups) one block covers 64 rows on the bf16 tensor cores,
-``flash_wgmma`` when k/v are bfloat16 (every prefill of the serve path) and
-``flash_wgmma_split`` when they are float32 (k and v split into three bf16
-parts by a prologue, into scratch this wrapper allocates), except at head
-width 256, where float32 k/v run ``flash_tiled`` on the float32 CUDA cores;
+head (Tq * groups) one block covers 64 rows on the bf16 tensor cores, two
+consumer warpgroups taking its key tiles in turns, ``flash_wgmma`` when k/v
+are bfloat16 (every prefill of the serve path) and ``flash_wgmma_split``
+when they are float32 (the keys some row sees split into three bf16 parts
+by a prologue, into scratch this wrapper allocates: ``fwd_plan``), except
+at head width 256, where float32 k/v run ``flash_tiled`` on the float32
+CUDA cores;
 with at most ``SPLIT_ROWS`` (decode) ``flash_decode`` cuts the keys the rows
 can see into chunks, one block each, and the last block of each kv head to
 finish merges them, in the same launch.
@@ -32,8 +34,8 @@ dK/dV pass splits the heads, by design).
 
 ``flash_attention_lse`` is the training path's forward: a prefill design
 (``flash_wgmma`` for bfloat16 k/v, the float32-k/v designs else), which
-also writes each row's log-sum-exp, at any ``q_offset`` and Tq, Tk (a
-sequence-split island, a cross-attention); ``flash_attention_bwd``
+also writes each row's log-sum-exp, at any ``q_offset``, Tq, Tk and kv_len
+(a sequence-split island, a cross-attention); ``flash_attention_bwd``
 launches the backward (``csrc/flash_attention_bwd.cu``) from it, in the
 design ``bwd_design`` names for the head width, both on the bf16 tensor
 cores (``BWD_SPLIT`` bf16 products per float32 product of float32 operands)
@@ -245,10 +247,50 @@ def fwd_design(hd: int, kv_dtype: torch.dtype, rows_per_kv_head: int, lse: bool 
     return "flash_wgmma_split" if kernel_head_dim(hd) <= 128 else "flash_tiled"
 
 
-def kv_parts_bytes(hd: int, b: int, tk: int, kvh: int) -> int:
-    """Scratch bytes of ``flash_wgmma_split``'s prologue: k's and v's three
-    bf16 parts, [k, v][part][B x KV][Tk][kernel_head_dim(hd)]."""
-    return 2 * 3 * b * kvh * tk * kernel_head_dim(hd) * 2
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """``flash_wgmma``'s plan for a call, as ``csrc/attn_plan.h`` decides it:
+    the keys of a streamed tile and the ring's stages of the instance that
+    runs, and on float32 k/v (``flash_wgmma_split``) the keys
+    [``k_begin``, ``k_end``) whose bf16 parts its prologue writes and the
+    scratch bytes they take ([k, v][part][B x KV][keys][kernel_head_dim(hd)]
+    bf16); on bfloat16 k/v 0 bytes."""
+
+    tile_keys: int
+    stages: int
+    k_begin: int
+    k_end: int
+    scratch_bytes: int
+
+
+def fwd_plan(hd: int, kv_dtype: torch.dtype, b: int, tq: int, tk: int, h: int, kvh: int, *,
+             causal: bool, window: int, q_offset: int, kv_len: int) -> FwdPlan:
+    """``flash_wgmma``'s plan at head width ``hd`` on k/v of ``kv_dtype``
+    (the rule the CUDA entry point applies)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    nbytes = ctypes.c_int64()
+    rc = _build.plan_library().rt_flash_fwd_plan(
+        hd, int(kv_dtype == torch.bfloat16), b, tq, tk, h, kvh, q_offset, window, kv_len,
+        int(causal), *(ctypes.addressof(x) for x in out), ctypes.addressof(nbytes))
+    if rc != 0:
+        raise ValueError(f"flash_attention: no flash_wgmma plan for hd {hd}, {kv_dtype}, sizes "
+                         f"{(b, tq, tk, h, kvh)}")
+    return FwdPlan(*(x.value for x in out), nbytes.value)
+
+
+def rows_seeing_keys(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
+                     kv_len: int | None) -> tuple[int, int]:
+    """The query rows [first, end) that see a key (``ref.key_mask``'s
+    non-empty rows; first >= end where none does).  The rows that see none
+    lie at the two ends, each the mean of v over all Tk keys: before the
+    first key's position (causal), or past the last key by the window.  In
+    closed form, host ints (a fake tensor holds no mask)."""
+    last = (tk if kv_len is None else min(int(kv_len), tk)) - 1
+    if last < 0:
+        return 0, 0
+    first = min(tq, max(0, -q_offset)) if causal else 0  # position >= 0
+    end = tq if window <= 0 else min(tq, last + window - q_offset)  # position - window < last
+    return first, max(first, end)
 
 
 def bwd_design(hd: int) -> str:
@@ -312,7 +354,9 @@ def _launch(q, k, v, o, *, causal, window, softcap, q_offset, kv_len, lse=None) 
         part = _decode_scratch(dev, b * kvh, b * kvh * nsplit * tq * (h // kvh)
                                * (2 + kernel_head_dim(hd)))
     elif design == "flash_wgmma_split":
-        kv_parts = torch.empty(kv_parts_bytes(hd, b, tk, kvh), dtype=torch.uint8, device=dev)
+        plan = fwd_plan(hd, k.dtype, b, tq, tk, h, kvh, causal=causal, window=window,
+                        q_offset=q_offset, kv_len=kv_len)
+        kv_parts = _scratch_bytes(plan.scratch_bytes, dev)
     elif design == "flash_tiled":
         plan = tiled_plan(b, tq, tk, h, kvh, causal=causal, window=window, q_offset=q_offset,
                           kv_len=kv_len, sms=sms)
@@ -373,17 +417,6 @@ def flash_attention_heads(
     return o
 
 
-def check_grad_shape(tq: int, tk: int, *, causal: bool, window: int, q_offset: int) -> None:
-    """The shapes the gradient covers: a causal or windowed call needs
-    0 <= q_offset and q_offset + Tq <= Tk, so that every row sees its own
-    key (the backward kernel's assumption); a call that is neither sees
-    every key."""
-    if (causal or window > 0) and not 0 <= q_offset <= tk - tq:
-        raise ValueError(f"flash_attention's gradient: a causal or windowed call needs "
-                         f"0 <= q_offset and q_offset + Tq <= Tk, got q_offset {q_offset}, "
-                         f"Tq {tq}, Tk {tk}")
-
-
 def flash_attention_lse(
     q: torch.Tensor,       # [B, Tq, H, hd] float32
     k: torch.Tensor,       # [B, Tk, KV, hd] bfloat16 or float32
@@ -393,14 +426,15 @@ def flash_attention_lse(
     window: int = 0,
     softcap: float = 0.0,
     q_offset: int = 0,
+    kv_len: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training path's forward: (o [B, Tq, H, hd], lse [B, H, Tq])
-    float32 from a prefill design (``fwd_design`` with lse), kv_len Tk."""
+    float32 from a prefill design (``fwd_design`` with lse)."""
     b, t, h, _ = q.shape
     o = _empty_out(tuple(q.shape), q.device)
     lse = _empty_out((b, h, t), q.device)
     _launch(q, k, v, o, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
-            kv_len=None, lse=lse)
+            kv_len=kv_len, lse=lse)
     return o, lse
 
 
@@ -417,9 +451,10 @@ def flash_attention_bwd(
     softcap: float = 0.0,
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_attention_lse``'s output (semantics of
-    ``ref.attention_bwd_ref``); every tensor contiguous, on one card, the
-    shapes ``check_grad_shape`` admits.  k and v are float32 or both
+    """(dq, dk, dv) of ``flash_attention_lse``'s output at kv_len Tk
+    (semantics of ``ref.attention_bwd_ref``: a row that sees no key adds
+    nothing); every tensor contiguous, on one card, any q_offset, Tq and Tk.
+    k and v are float32 or both
     bfloat16: bfloat16 k/v enter the kernel as they are where ``bwd_plan``
     gives one k/v part (``bwd_wgmma`` at hd 64, ``bwd_wide``'s recomputing
     passes), else as their float32 values (exact); dk, dv come back rounded to bfloat16, as the
@@ -444,7 +479,6 @@ def flash_attention_bwd(
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t):
         raise ValueError("flash_attention_bwd: o and do must have q's shape, lse [B, H, Tq]")
     kernel_head_dim(hd)
-    check_grad_shape(t, tk, causal=causal, window=int(window), q_offset=int(q_offset))
     if max(b * t * h, b * tk * kvh) * hd >= 2**31:
         raise ValueError("flash_attention_bwd: sizes must fit int32")
     dq = torch.empty_like(q)

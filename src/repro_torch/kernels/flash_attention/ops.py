@@ -20,9 +20,9 @@ hd backward (S recomputed, dP, dV, dK, dQ), the pairs in closed form
 the forward kernel that keeps each row's log-sum-exp, and the backward
 kernel) when autograd records and q, k or v requires a gradient: the
 training forward, the islands of the sequence-split attention (a
-``q_offset``, Tq < Tk) and a cross-attention (Tq != Tk), with kv_len Tk and
-the shapes ``kernel.check_grad_shape`` admits.  Serving never records a
-graph and keeps the forward designs of ``kernel.py``."""
+``q_offset``, Tq < Tk) and a cross-attention (Tq != Tk), at any kv_len and
+q_offset, as the reference's ``jax.grad`` takes them.  Serving never records
+a graph and keeps the forward designs of ``kernel.py``."""
 
 from __future__ import annotations
 
@@ -90,7 +90,8 @@ def _fwd_scratch(q, k, *, causal, window, q_offset, kv_len, lse: bool) -> int:
     kv_len = tk if kv_len is None else int(kv_len)
     design = kernel.fwd_design(hd, k.dtype, tq * (h // kvh), lse=lse)
     if design == "flash_wgmma_split":
-        return kernel.kv_parts_bytes(hd, b, tk, kvh)
+        return kernel.fwd_plan(hd, k.dtype, b, tq, tk, h, kvh, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len).scratch_bytes
     if design == "flash_tiled":
         return kernel.tiled_plan(b, tq, tk, h, kvh, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len, sms=H100_SMS).scratch_bytes
@@ -130,21 +131,22 @@ def _fwd_fake(q, k, v, causal, window, softcap, q_offset, kv_len):
 @torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(),
                          device_types="cpu")
 def _fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
-             softcap: float, q_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+             softcap: float, q_offset: int,
+             kv_len: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
     return ref.attention_lse_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, kv_len=_kv_len(kv_len))
 
 
 @_fwd_lse.register_kernel("cuda")
-def _fwd_lse_cuda(q, k, v, causal, window, softcap, q_offset):
+def _fwd_lse_cuda(q, k, v, causal, window, softcap, q_offset, kv_len=-1):
     return kernel.flash_attention_lse(q, k, v, causal=causal, window=window, softcap=softcap,
-                                      q_offset=q_offset)
+                                      q_offset=q_offset, kv_len=_kv_len(kv_len))
 
 
 @_fwd_lse.register_fake
-def _fwd_lse_fake(q, k, v, causal, window, softcap, q_offset):
+def _fwd_lse_fake(q, k, v, causal, window, softcap, q_offset, kv_len=-1):
     _note_scratch(_fwd_scratch(q, k, causal=causal, window=window, q_offset=q_offset,
-                               kv_len=None, lse=True), q.device)
+                               kv_len=_kv_len(kv_len), lse=True), q.device)
     b, t, h, _ = q.shape
     return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
             torch.empty((b, h, t), dtype=torch.float32, device=q.device))
@@ -221,10 +223,10 @@ def _fwd_flops(q, k, v, causal, window, softcap, q_offset, kv_len, out_shape=Non
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_lse)
-def _fwd_lse_flops(q, k, v, causal, window, softcap, q_offset, out_shape=None, **kw):
+def _fwd_lse_flops(q, k, v, causal, window, softcap, q_offset, kv_len=-1, out_shape=None, **kw):
     b, tq, h, hd = q
     return 4 * hd * b * h * visible_pairs(tq, k[1], causal=causal, window=window,
-                                          q_offset=q_offset, kv_len=None)
+                                          q_offset=q_offset, kv_len=_kv_len(kv_len))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
@@ -251,27 +253,62 @@ class FlashAttention(torch.autograd.Function):
     ``bwd_wgmma`` at hd 64 and ``bwd_wide``, its products with k or v then
     three bf16 products each; elsewhere the backward reads their float32
     values); o is float32,
-    and each gradient comes back in its input's type."""
+    and each gradient comes back in its input's type.
+
+    Through a partly filled cache (kv_len < Tk) the backward runs on k and v
+    cut to their first kv_len rows, and dk, dv are 0 past them: no row sees
+    a key there.  A row that sees no key at all is the mean of v over all
+    Tk keys (the reference masks with a finite -1e30): it adds do / Tk to
+    every row of dv and nothing to dq or dk (``_empty_rows_dv``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float, q_offset: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float, q_offset: int,
+                kv_len: int | None):
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         ctx.q_dtype = q.dtype
         q = q.float()
-        o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal, window, softcap,
-                                                           q_offset)
+        o, lse = torch.ops.repro_torch.flash_attention_lse(
+            q, k, v, causal, window, softcap, q_offset, -1 if kv_len is None else kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = kw
+        ctx.kw, ctx.kv_len = kw, kv_len
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = ctx.kw
-        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-            q, k, v, o, lse, do.contiguous(), kw["causal"], kw["window"], kw["softcap"],
-            kw["q_offset"])
-        return dq.to(ctx.q_dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        do = do.contiguous()
+        tk = k.shape[1]
+        seen = tk if ctx.kv_len is None else max(0, min(ctx.kv_len, tk))
+        if seen:
+            kc, vc = (k, v) if seen == tk else (k[:, :seen].contiguous(), v[:, :seen].contiguous())
+            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+                q, kc, vc, o, lse, do, kw["causal"], kw["window"], kw["softcap"], kw["q_offset"])
+            if seen < tk:  # no row sees a key past kv_len
+                pad = (0, 0, 0, 0, 0, tk - seen)
+                dk, dv = torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
+        else:
+            dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+        extra = _empty_rows_dv(do, k, causal=kw["causal"], window=kw["window"],
+                               q_offset=kw["q_offset"], kv_len=ctx.kv_len)
+        if extra is not None:
+            dv = (dv.float() + extra).to(v.dtype)
+        return (dq.to(ctx.q_dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
+
+
+def _empty_rows_dv(do, k, *, causal, window, q_offset, kv_len) -> torch.Tensor | None:
+    """dv's term from the rows that see no key, each the mean of v over all
+    Tk keys: the sum of their do over the query heads of each kv head, / Tk,
+    on every key ([B, 1, KV, hd] float32); None where every row sees one."""
+    b, tq, h, hd = do.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    first, end = kernel.rows_seeing_keys(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                                         kv_len=kv_len)
+    if (first, end) == (0, tq):
+        return None
+    g = do[:, :first].float().sum(1) + do[:, end:].float().sum(1)     # [B, H, hd]
+    return (g.reshape(b, kvh, h // kvh, hd).sum(2) / tk)[:, None]
 
 
 def flash_attention(
@@ -286,13 +323,9 @@ def flash_attention(
     kv_len: int | None = None,
 ) -> torch.Tensor:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if kv_len is not None and kv_len != k.shape[1]:
-            raise NotImplementedError("flash_attention's gradient covers kv_len == Tk (no "
-                                      "training path reads a partly filled cache)")
-        kernel.check_grad_shape(q.shape[1], k.shape[1], causal=bool(causal), window=int(window),
-                                q_offset=int(q_offset))
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(causal),
-                                    int(window), float(softcap), int(q_offset))
+                                    int(window), float(softcap), int(q_offset),
+                                    None if kv_len is None else int(kv_len))
     return torch.ops.repro_torch.flash_attention(
         q, k, v, bool(causal), int(window), float(softcap), int(q_offset),
         -1 if kv_len is None else int(kv_len))

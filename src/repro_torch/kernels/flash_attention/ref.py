@@ -11,9 +11,10 @@ reference.  Arithmetic is float32 whatever the input types; the result has
 q's dtype.
 
 :func:`attention_split_ref` emulates the numerics of the kernel's
-tensor-core design (bf16 products of three-part splits, float32 sums); the
-tests hold it against :func:`attention_ref` and the reference.  The model
-path never calls it.
+tensor-core design (q scaled by log2(e) / sqrt(hd), bf16 products of
+three-part splits, float32 sums, an exp2 softmax over key tiles in two
+turns whose states are merged: ``_turns``); the tests hold it against
+:func:`attention_ref` and the reference.  The model path never calls it.
 
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` are the plain
 versions of the training path's forward (with each row's log-sum-exp) and
@@ -105,14 +106,18 @@ def attention_lse_ref(
     window: int = 0,
     softcap: float = 0.0,
     q_offset: int = 0,
+    kv_len: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (``attention_ref``'s output, each row's
-    log-sum-exp [B, H, Tq] float32), kv_len Tk."""
+    log-sum-exp [B, H, Tq] float32)."""
     _, logits, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
-                              q_offset=q_offset, kv_len=None)
+                              q_offset=q_offset, kv_len=kv_len)
     logits = logits.masked_fill(~mask, MASK_VALUE)
     lse = torch.logsumexp(logits, dim=-1)                       # [B, KV, G, T]
-    out = torch.einsum("bkgqs,bskh->bkgqh", torch.exp(logits - lse[..., None]), v.float())
+    # a row that sees no key weighs every key 1 / Tk: its lse, -1e30 +
+    # log(Tk), rounds to -1e30 in float32, so exp(logits - lse) would be 1
+    p = torch.where(mask.any(-1)[:, None], torch.exp(logits - lse[..., None]), 1.0 / k.shape[1])
+    out = torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
     b, tq, h, _ = q.shape
     return _unheads(out).to(q.dtype), lse.reshape(b, h, tq)
 
@@ -129,21 +134,23 @@ def attention_bwd_ref(
     window: int = 0,
     softcap: float = 0.0,
     q_offset: int = 0,
+    kv_len: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``attention_ref`` at ``q_offset`` with kv_len Tk
-    (every row sees at least one key: ``kernel.check_grad_shape``), written
-    as the formulas the backward kernel computes, not as autograd of the
-    forward:
+    """(dq, dk, dv) of ``attention_ref`` at ``q_offset`` over the rows that
+    see a key (a row that sees none adds nothing here: the autograd wrapper,
+    ``ops.FlashAttention``, adds its term), written as the formulas the
+    backward kernel computes, not as autograd of the forward:
 
         s = (q / sqrt(hd)) . k,  s' = c tanh(s / c) (softcap c > 0, else s),
         p = exp(s' - lse) where visible, else 0,  D = rowsum(dO * O),
         dv = p^T dO,  ds = p * (dO . v - D) * (1 - (s' / c)^2),
         dq = ds . k / sqrt(hd),  dk = ds^T . (q / sqrt(hd)),
 
-    dk and dv summed over the query heads of each kv head.  float32."""
+    dk and dv summed over the query heads of each kv head (0 past kv_len).
+    float32."""
     kvh = k.shape[2]
     qf, s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap,
-                          q_offset=q_offset, kv_len=None)
+                          q_offset=q_offset, kv_len=kv_len)
     of, dof = _heads(o, kvh), _heads(do, kvh)
     p = torch.where(mask, torch.exp(s - lse.float().reshape(qf.shape[:4])[..., None]), 0.0)
     delta = (dof * of).sum(-1, keepdim=True)
@@ -168,6 +175,92 @@ def split_bf16(x: torch.Tensor, parts: int = 3) -> list[torch.Tensor]:
     return out
 
 
+LOG2E = 1.4426950408889634
+
+
+def _q_log2(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """q [B, Tq, H, hd] as ``_heads`` gives it, times float32(log2(e) /
+    sqrt(hd)): the kernel's scale before its split, so that the scores come
+    out in log2 units."""
+    return _heads(q, kvh) * torch.tensor(LOG2E / math.sqrt(q.shape[3]), dtype=torch.float32)
+
+
+WG_ROWS = 64  # rows (position, query head of a kv head) of a flash_wgmma block
+
+
+def _first_tiles(tq: int, groups: int, tk: int, *, causal: bool, window: int, q_offset: int,
+                 kv_len: int | None, block: int) -> torch.Tensor:
+    """Each row's first key tile in ``flash_wgmma`` ([groups, Tq]): its block
+    of ``WG_ROWS`` rows (m = position * groups + head) starts at the first
+    key its first row sees, at key 0 where a row of its first or last
+    position sees none (the kernel's ``block_keys``)."""
+    m = torch.arange(tq * groups)
+    m0 = m // WG_ROWS * WG_ROWS
+    m_last = torch.clamp(m0 + WG_ROWS - 1, max=tq * groups - 1)
+    end = tk if kv_len is None else min(int(kv_len), tk)
+
+    def lo(pos):
+        return (pos - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(pos)
+
+    def hi(pos):
+        return torch.clamp(pos, max=end - 1) if causal else torch.full_like(pos, end - 1)
+
+    first, last = q_offset + m0 // groups, q_offset + m_last // groups
+    empty = (lo(first) > hi(first)) | (lo(last) > hi(last))
+    k_lo = torch.where(empty, 0, lo(first))
+    return (k_lo // block).reshape(tq, groups).T
+
+
+def _turns(s2: torch.Tensor, pv, block: int,
+           first: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_wgmma``'s softmax: the masked scores ``s2`` [..., G, Tq, Tk]
+    (log2 units, -1e30 where masked) in tiles of ``block`` keys taken in two
+    turns, tile j by turn (j - ``first``) mod 2 (``first`` [G, Tq]: each
+    row's first tile, ``_first_tiles``), each an online softmax in exp2:
+    m' = max(m, the tile's max), p = 2^(s - m'), l = l 2^(m - m') + sum(p),
+    O = O 2^(m - m') + ``pv(p, n0)`` (the tile's fresh P . V); then the
+    turns merged (weights 2^(m_i - max)).  A tile outside a row block's keys,
+    which the kernel skips, holds masked keys only and weighs nothing.  (O /
+    l [..., Tq, hd], lse in natural units [..., Tq]; a row that sees no key
+    keeps -1e30.)"""
+    tk = s2.shape[-1]
+    m = [torch.full(s2.shape[:-1], MASK_VALUE, dtype=torch.float32, device=s2.device)] * 2
+    l, o = [torch.zeros_like(m[0])] * 2, None
+    for j, n0 in enumerate(range(0, tk, block)):
+        even = ((j - first) % 2 == 0).expand(m[0].shape)  # the row's turn 0 takes tile j
+        m_cur, l_cur = torch.where(even, m[0], m[1]), torch.where(even, l[0], l[1])
+        tile = s2[..., n0:n0 + block]
+        m_new = torch.maximum(m_cur, tile.amax(-1))
+        corr = torch.exp2(m_cur - m_new)
+        p = torch.exp2(tile - m_new[..., None])
+        part = pv(p, n0)
+        if o is None:
+            o = [torch.zeros_like(part)] * 2
+        o_new = torch.where(even[..., None], o[0], o[1]) * corr[..., None] + part
+        l_new = l_cur * corr + p.sum(-1)
+        m = [torch.where(even, m_new, m[0]), torch.where(even, m[1], m_new)]
+        l = [torch.where(even, l_new, l[0]), torch.where(even, l[1], l_new)]
+        o = [torch.where(even[..., None], o_new, o[0]), torch.where(even[..., None], o[1], o_new)]
+    mx = torch.maximum(m[0], m[1])
+    w0, w1 = torch.exp2(m[0] - mx), torch.exp2(m[1] - mx)
+    den = (l[0] * w0 + l[1] * w1).clamp_min(1e-30)
+    out = o[0] * w0[..., None] + o[1] * w1[..., None]
+    lse = torch.where(mx == MASK_VALUE, MASK_VALUE, mx * math.log(2.0)) + torch.log(den)
+    return out / den[..., None], lse
+
+
+def _masked_log2(s2, q, k, *, causal, window, softcap, q_offset, kv_len):
+    """Scores in log2 units capped (the cap in log2 units too) and masked to
+    -1e30, as the kernel forms them."""
+    if softcap > 0:
+        cap = softcap * LOG2E
+        s2 = cap * torch.tanh(s2 / cap)
+    mask = key_mask(q.shape[1], k.shape[1], causal=causal, window=int(window),
+                    q_offset=int(q_offset), kv_len=None if kv_len is None else int(kv_len),
+                    device=q.device)
+    return s2.masked_fill(~mask, MASK_VALUE)
+
+
 def attention_split_ref(
     q: torch.Tensor,       # [B, Tq, H, hd]
     k: torch.Tensor,       # [B, Tk, KV, hd] bfloat16 (others are rounded to it)
@@ -179,29 +272,29 @@ def attention_split_ref(
     q_offset: int = 0,
     kv_len: int | None = None,
     parts: int = 3,
+    block: int = 64,
 ) -> torch.Tensor:
-    """The tensor-core design's arithmetic: S = sum_i Qi . K^T with Qi the
-    ``parts`` bf16 parts of q / sqrt(hd), p = exp(S - max) un-normalised,
-    O = sum_i Pi . V / sum(p); every product of bf16 operands, every sum in
+    """``flash_wgmma``'s arithmetic on bf16 k/v: S = sum_i Qi . K^T with Qi
+    the ``parts`` bf16 parts of q log2(e) / sqrt(hd), then ``_turns`` over
+    tiles of ``block`` keys, each tile's P . V = sum_i Pi . V (the parts of
+    the un-normalised p); every product of bf16 operands, every sum in
     float32.  [B, Tq, H, hd] float32."""
-    b, tq, h, hd = q.shape
-    tk, kvh = k.shape[1], k.shape[2]
-    groups = h // kvh
+    kvh = k.shape[2]
     kf = k.to(torch.bfloat16).float()
     vf = v.to(torch.bfloat16).float()
-    qf = (q.float() / math.sqrt(hd)).reshape(b, tq, kvh, groups, hd).permute(0, 2, 3, 1, 4)
-    logits = sum(torch.einsum("bkgqh,bskh->bkgqs", part.float(), kf)
-                 for part in split_bf16(qf, parts))
-    if softcap > 0:
-        logits = softcap * torch.tanh(logits / softcap)
-    mask = key_mask(tq, tk, causal=causal, window=int(window), q_offset=int(q_offset),
-                    kv_len=None if kv_len is None else int(kv_len), device=q.device)
-    logits = logits.masked_fill(~mask, MASK_VALUE)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    out = sum(torch.einsum("bkgqs,bskh->bkgqh", part.float(), vf)
-              for part in split_bf16(p, parts))
-    out = out / p.sum(-1, keepdim=True)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd)
+    qf = _q_log2(q, kvh)
+    s2 = sum(torch.einsum("bkgqh,bskh->bkgqs", part.float(), kf) for part in split_bf16(qf, parts))
+    s2 = _masked_log2(s2, q, k, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                      kv_len=kv_len)
+
+    def pv(p, n0):
+        return sum(torch.einsum("bkgqs,bskh->bkgqh", part.float(), vf[:, n0:n0 + block])
+                   for part in split_bf16(p, parts))
+
+    first = _first_tiles(q.shape[1], q.shape[2] // kvh, k.shape[1], causal=causal,
+                         window=int(window), q_offset=int(q_offset), kv_len=kv_len, block=block)
+    out, _ = _turns(s2, pv, block, first)
+    return _unheads(out)
 
 
 # The cross products of bf16 parts (i of the first operand, j of the second)
@@ -243,40 +336,27 @@ def attention_fwd_split_ref(
     kv_len: int | None = None,
     parts: int = 3,
     pairs: int = 6,
-    block: int = 32,
+    block: int = 64,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The float32-k/v forward's tensor-core arithmetic (``flash_wgmma_split``):
-    S = the float32 sum of the products of the bf16 parts of q / sqrt(hd) and
-    of k (``pairs`` of ``BWD_PAIRS``, smallest first), masked to -1e30; then
-    an online softmax over tiles of ``block`` keys: m' = max(m, the tile's
-    max), p = exp(s - m'), l = l exp(m - m') + sum(p), and O = O exp(m - m')
-    + the tile's P . V, itself a fresh float32 sum of the products of p's and
-    v's parts; o = O / l, lse = m + log l.  (o [B, Tq, H, hd], lse [B, H, Tq])
-    float32.  Tests only."""
+    S = the float32 sum of the products of the bf16 parts of q log2(e) /
+    sqrt(hd) and of k (``pairs`` of ``BWD_PAIRS``, smallest first), in log2
+    units, masked to -1e30; then ``_turns`` over tiles of ``block`` keys,
+    each tile's P . V a fresh float32 sum of the products of p's and v's
+    parts.  (o [B, Tq, H, hd], lse [B, H, Tq]) float32.  Tests only."""
     b, tq, h, hd = q.shape
-    tk, kvh = k.shape[1], k.shape[2]
-    qf = _heads(q, kvh) / math.sqrt(hd)
-    s = _split_product("bkgqh,bskh->bkgqs", qf, k.float(), parts, pairs)
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    mask = key_mask(tq, tk, causal=causal, window=int(window), q_offset=int(q_offset),
-                    kv_len=None if kv_len is None else int(kv_len), device=q.device)
-    s = s.masked_fill(~mask, MASK_VALUE)
-    m = torch.full(s.shape[:4], MASK_VALUE, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    o = torch.zeros(*s.shape[:4], hd, dtype=torch.float32, device=q.device)
+    s2 = _split_product("bkgqh,bskh->bkgqs", _q_log2(q, k.shape[2]), k.float(), parts, pairs)
+    s2 = _masked_log2(s2, q, k, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                      kv_len=kv_len)
     vf = v.float()
-    for n0 in range(0, tk, block):
-        tile = s[..., n0:n0 + block]
-        m_new = torch.maximum(m, tile.amax(-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(tile - m_new[..., None])
-        l = l * corr + p.sum(-1)
-        o = o * corr[..., None] + _split_product("bkgqs,bskh->bkgqh", p, vf[:, n0:n0 + block],
-                                                 parts, pairs)
-        m = m_new
-    den = l.clamp_min(1e-30)
-    return _unheads(o / den[..., None]), (m + torch.log(den)).reshape(b, h, tq)
+
+    def pv(p, n0):
+        return _split_product("bkgqs,bskh->bkgqh", p, vf[:, n0:n0 + block], parts, pairs)
+
+    first = _first_tiles(tq, h // k.shape[2], k.shape[1], causal=causal, window=int(window),
+                         q_offset=int(q_offset), kv_len=kv_len, block=block)
+    out, lse = _turns(s2, pv, block, first)
+    return _unheads(out), lse.reshape(b, h, tq)
 
 
 def attention_bwd_split_ref(

@@ -161,7 +161,8 @@ def test_split_ref_matches_attention(hd, case):
     _attention_direct, bf16 k/v, at the float32 limit."""
     tq, tk, kw = SPLIT_CASES[case]
     (qj, kj, vj), (qt, kt, vt) = _model_inputs(2, tq, tk, 4, 2, hd, hd + len(case), kv_bf16=True)
-    got = fa_r.attention_split_ref(qt, kt, vt, causal=True, **kw)
+    block = _tile_keys(hd, torch.bfloat16)
+    got = fa_r.attention_split_ref(qt, kt, vt, causal=True, block=block, **kw)
     exp = fa_r.attention_ref(qt, kt, vt, causal=True, **kw)
     np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
     exp_j = JL._attention_direct(qj, kj, vj, causal=True, window=jnp.asarray(kw.get("window", 0)),
@@ -335,15 +336,57 @@ def test_attention_bwd_ref_matches_autograd_of_plain_forward(case):
                                    err_msg=f"d{name}")
 
 
-def test_attention_grad_refuses_cached_calls():
-    """A gradient through a partly filled cache (kv_len < Tk) is refused;
-    so is a causal call whose last row would sit past the keys."""
-    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
-    k = torch.zeros(1, 8, 1, 32)
-    with pytest.raises(NotImplementedError, match="kv_len"):
-        TL.attention(q, k, k, q_offset=4, kv_len=6)
-    with pytest.raises(ValueError, match="q_offset"):
-        TL.attention(q, k, k, q_offset=5)
+# the gradient through a partly filled cache (kv_len < Tk) and of rows that
+# lie past the keys: name -> (b, tq, tk, h, kvh, hd, causal, window,
+# q_offset, kv_len); the last four have rows that see no key (the mean of v
+# over all Tk keys: do / Tk on every row of dv, nothing on dq or dk)
+CACHE_GRAD_CASES = {
+    "kv_len_causal": (2, 24, 64, 4, 4, 32, True, 0, 30, 50),
+    "kv_len_window": (1, 24, 64, 4, 4, 32, True, 12, 30, 48),
+    "kv_len_gqa_hd64": (1, 30, 48, 8, 2, 64, True, 0, 10, 40),
+    "past_the_keys_causal_hd120": (1, 40, 32, 4, 2, 120, True, 0, 8, None),
+    "past_the_keys_window": (2, 40, 32, 4, 2, 32, True, 10, 8, None),
+    "no_key_rows_kv_len": (2, 6, 48, 4, 2, 32, True, 8, 40, 20),
+    "empty_cache": (1, 8, 24, 4, 1, 32, True, 0, 0, 0),
+    "before_the_keys": (1, 20, 32, 4, 4, 64, True, 0, -5, 28),
+}
+
+
+@pytest.mark.parametrize("impl", ["direct", "flash"])
+@pytest.mark.parametrize("case", sorted(CACHE_GRAD_CASES))
+def test_attention_grads_through_a_cache_match_jax(case, impl):
+    """TL.attention's output and gradients (the plain backward, through
+    ops.FlashAttention's cut to kv_len and its term for rows that see no
+    key) against jax.grad of the reference's _attention_direct and
+    _attention_flash (one block of every query and key) at the same
+    kv_len, q_offset and window, 1e-4 (float32 sums in another order); no
+    case raises."""
+    import jax
+
+    b, tq, tk, h, kvh, hd, causal, window, off, kv_len = CACHE_GRAD_CASES[case]
+    q, k, v, do = _offset_inputs(b, tq, tk, h, kvh, hd, len(case))
+    fn = JL._attention_direct if impl == "direct" else JL._attention_flash
+    mask = dict(causal=causal, window=window, q_offset=off, kv_len=kv_len)
+
+    def f(q_, k_, v_):
+        out = fn(q_, k_, v_, causal=causal, window=jnp.asarray(window), softcap=0.0,
+                 q_offset=off, kv_len=None if kv_len is None else jnp.asarray(kv_len))
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, exp_o), exp_g = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got_o, got_g = _port_grads(q, k, v, do, **mask)
+    np.testing.assert_allclose(got_o, np.asarray(exp_o), atol=1e-4, rtol=1e-4)
+    for name, g, e in zip("qkv", got_g, exp_g):
+        np.testing.assert_allclose(g, np.asarray(e), atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+    first, end = fa_k.rows_seeing_keys(tq, tk, causal=causal, window=window, q_offset=off,
+                                       kv_len=kv_len)
+    sees = _visible(tq, tk, causal, window, off, kv_len).any(axis=1)
+    assert (np.nonzero(sees)[0].tolist() == list(range(first, end)))
+    assert ((first, end) != (0, tq)) == (case in ("past_the_keys_window", "no_key_rows_kv_len",
+                                                  "empty_cache", "before_the_keys"))
+    if kv_len is not None and kv_len < tk:  # no row sees a key past kv_len
+        assert not got_g[1][:, kv_len:].any()
 
 
 # the gradient at a query offset and Tq != Tk (a sequence-split island, a
@@ -600,11 +643,12 @@ def test_bwd_products_by_kv_parts():
 
 # -- the float32-k/v forward's tensor-core arithmetic (flash_wgmma_split) --------
 
-# ref.attention_fwd_split_ref emulates it: q / sqrt(hd), k and v split into
-# three bf16 parts, six products per float32 product, an online softmax over
-# key tiles with each tile's P . V a fresh float32 sum.  Held at the forward
-# kernel's own limit (2e-5, as tests/test_torch_cuda.py holds the kernel)
-# against the plain forward with lse and the reference.
+# ref.attention_fwd_split_ref emulates it: q log2(e) / sqrt(hd), k and v
+# split into three bf16 parts, six products per float32 product, an exp2
+# softmax over key tiles taken in two turns (each tile's P . V a fresh
+# float32 sum), the turns' states merged.  Held at the forward kernel's own
+# limit (2e-5, as tests/test_torch_cuda.py holds the kernel) against the
+# plain forward with lse and the reference.
 FWD_SPLIT_CASES = {
     # name: (b, t, h, kvh, causal, window, softcap); t not a multiple of the
     # 32- or 64-key tiles
@@ -615,13 +659,19 @@ FWD_SPLIT_CASES = {
 }
 
 
-@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+def _tile_keys(hd, kv_dtype):
+    """The keys of flash_wgmma's streamed tile at hd on k/v of kv_dtype."""
+    return fa_k.fwd_plan(hd, kv_dtype, 1, 64, 64, 1, 1, causal=True, window=0, q_offset=0,
+                         kv_len=64).tile_keys
+
+
+@pytest.mark.parametrize("hd", [32, 64, 112, 120, 128])
 @pytest.mark.parametrize("case", sorted(FWD_SPLIT_CASES))
 def test_fwd_split_ref_matches_lse_ref_and_jax_direct(hd, case):
     b, t, h, kvh, causal, window, softcap = FWD_SPLIT_CASES[case]
     (qj, kj, vj), (qt, kt, vt) = _model_inputs(b, t, t, h, kvh, hd, hd + len(case), kv_bf16=False)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    block = 64 if hd == 32 else 32  # the kernel's key tiles
+    block = _tile_keys(hd, torch.float32)  # the kernel's key tiles
     got_o, got_lse = fa_r.attention_fwd_split_ref(qt, kt, vt, block=block, **kw)
     exp_o, exp_lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
     np.testing.assert_allclose(got_o.numpy(), exp_o.numpy(), atol=F32_TOL, rtol=F32_TOL)
@@ -629,6 +679,45 @@ def test_fwd_split_ref_matches_lse_ref_and_jax_direct(hd, case):
     exp_j = JL._attention_direct(qj, kj, vj, causal=causal, window=jnp.asarray(window),
                                  softcap=softcap, q_offset=0, kv_len=None)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(exp_j), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("kv_bf16", [False, True])
+@pytest.mark.parametrize("hd", [64, 112, 120, 128])
+def test_fwd_turns_merge_rows_of_one_turn(hd, kv_bf16):
+    """The two turns' merge where a row's keys all lie in one warpgroup's
+    tiles (a window shorter than a tile: the other turn holds only masked
+    keys, or no tile at all) and where a row sees no key (kv_len 0 past
+    the window: the mean of v over all Tk), on float32 k/v (six products)
+    and bf16 k/v (three), against the plain forward and _attention_direct
+    at 2e-5; lse too on float32 k/v."""
+    kv_dtype = torch.bfloat16 if kv_bf16 else torch.float32
+    block = _tile_keys(hd, kv_dtype)
+    tq, tk, window = 3 * block, 3 * block, block // 4
+    (qj, kj, vj), (qt, kt, vt) = _model_inputs(1, tq, tk, 4, 2, hd, hd, kv_bf16=kv_bf16)
+    # rows near a tile's end see keys of that tile only: in tile j's turn (j mod 2)
+    mask = _visible(tq, tk, True, window, 0, None)
+    tiles = [set(np.nonzero(row)[0] // block) for row in mask]
+    assert any(t == {0} for t in tiles) and any(t == {1} for t in tiles)
+    # some row blocks start at an odd tile: their turns count from it
+    first = fa_r._first_tiles(tq, 2, tk, causal=True, window=window, q_offset=0, kv_len=None,
+                              block=block)
+    assert (first % 2 == 1).any() and (first % 2 == 0).any()
+    for kw in (dict(causal=True, window=window), dict(causal=True, window=window, q_offset=tk,
+                                                      kv_len=tk - window - 4)):
+        if kv_bf16:
+            got = fa_r.attention_split_ref(qt, kt, vt, block=block, **kw)
+        else:
+            got, got_lse = fa_r.attention_fwd_split_ref(qt, kt, vt, block=block, **kw)
+            if "kv_len" not in kw:
+                _, exp_lse = fa_r.attention_lse_ref(qt, kt, vt, **kw)
+                np.testing.assert_allclose(got_lse.numpy(), exp_lse.numpy(), atol=F32_TOL,
+                                           rtol=F32_TOL)
+        exp = fa_r.attention_ref(qt, kt, vt, **kw)
+        np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL)
+        kv_len = None if "kv_len" not in kw else jnp.asarray(kw["kv_len"])
+        exp_j = JL._attention_direct(qj, kj, vj, causal=True, window=jnp.asarray(window),
+                                     softcap=0.0, q_offset=kw.get("q_offset", 0), kv_len=kv_len)
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp_j), atol=F32_TOL, rtol=F32_TOL)
 
 
 @pytest.mark.parametrize("window", [0, 512])
@@ -652,6 +741,54 @@ def test_fwd_split_ref_cached_shape_and_one_product_too_few():
     for pairs in (1, 2):
         few, _ = fa_r.attention_fwd_split_ref(qt, kt, vt, pairs=pairs, **kw)
         assert not np.allclose(few.numpy(), exp.numpy(), atol=F32_TOL, rtol=F32_TOL), pairs
+
+
+# flash_wgmma's plan (csrc/attn_plan.h, through kernel.fwd_plan) at the
+# forward rows of PERF.md §6: name -> ((hd, kv bf16, b, tq, tk, h, kvh,
+# window, q_offset), (tile keys, stages, first and end key of the split
+# prologue's parts)); every call causal over all Tk keys but the cross
+# attention (non-causal).  Scratch: [k, v][3 parts][B KV][keys][hdk] bf16.
+FWD_PLANS = {
+    "train_fwd": ((64, False, 2, 4096, 4096, 36, 36, 0, 0), (64, 4, 0, 4096)),
+    # the dry-run rank's island sees 256 of 4,096 keys: 1/16 of the parts
+    "minicpm_rank_island": ((64, False, 4, 256, 4096, 36, 36, 0, 0), (64, 4, 0, 256)),
+    "minicpm_island": ((64, False, 2, 512, 4096, 36, 36, 0, 3584), (64, 4, 0, 4096)),
+    "whisper_rank_self": ((64, False, 4, 4096, 4096, 1, 1, 0, 0), (64, 4, 0, 4096)),
+    "whisper_cross_f32": ((64, False, 4, 128, 1500, 16, 16, 0, 0), (64, 4, 0, 1500)),
+    "qwen3_rank_train": ((128, False, 2, 4096, 4096, 4, 1, 0, 0), (32, 3, 0, 4096)),
+    "kimi_rank_train": ((112, False, 2, 4096, 4096, 4, 1, 0, 0), (32, 3, 0, 4096)),
+    "h2o_rank_train": ((120, False, 4, 4096, 4096, 2, 1, 4096, 0), (32, 3, 0, 4096)),
+    "starcoder2_rank_seq0": ((128, False, 4, 256, 4096, 24, 2, 0, 0), (32, 3, 0, 256)),
+    "starcoder2_rank_seq3840": ((128, False, 4, 256, 4096, 24, 2, 0, 3840), (32, 3, 0, 4096)),
+    # a windowed island: its first key (3840 - 1023) rounded down to 64
+    "window_island": ((64, False, 1, 256, 4096, 8, 8, 1024, 3840), (64, 4, 2816, 4096)),
+    "qwen3_rank_prefill": ((128, True, 2, 32768, 32768, 4, 1, 0, 0), (64, 4, 0, 32768)),
+    "kimi_rank_prefill": ((112, True, 2, 32768, 32768, 4, 1, 0, 0), (64, 4, 0, 32768)),
+    "whisper_encoder": ((64, True, 4, 1500, 1500, 16, 16, 0, 0), (64, 4, 0, 1500)),
+    "serve_prefill": ((256, True, 4, 4096, 4128, 8, 4, 1024, 0), (64, 2, 0, 4128)),
+    "griffin_local": ((256, True, 4, 4096, 4096, 16, 1, 2048, 0), (64, 2, 0, 4096)),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(FWD_PLANS))
+def test_fwd_plan_at_the_forward_rows(cell):
+    """Keys a tile and ring stages by instance (64-key tiles in four
+    stages, at hd 256 in two, and at hd 112-128 on float32 k/v 32 keys in
+    three), and the float32 prologue's parts: the keys some row sees, sized
+    for those alone."""
+    (hd, bf16, b, tq, tk, h, kvh, window, q_offset), want = FWD_PLANS[cell]
+    causal = cell != "whisper_cross_f32"
+    kv_dtype = torch.bfloat16 if bf16 else torch.float32
+    plan = fa_k.fwd_plan(hd, kv_dtype, b, tq, tk, h, kvh, causal=causal, window=window,
+                         q_offset=q_offset, kv_len=tk)
+    assert (plan.tile_keys, plan.stages, plan.k_begin, plan.k_end) == want
+    keys = want[3] - want[2]
+    hdk = fa_k.kernel_head_dim(hd)
+    assert plan.scratch_bytes == (0 if bf16 else 2 * 3 * b * kvh * keys * hdk * 2)
+    lo, hi = fa_k.key_range(tq, tk, causal=causal, window=window, q_offset=q_offset, kv_len=tk)
+    assert bf16 or (plan.k_begin == lo // 64 * 64 and plan.k_end == hi)
+    assert fa_k.fwd_design(hd, kv_dtype, tq * h // kvh, lse=not bf16) == (
+        "flash_wgmma" if bf16 else "flash_wgmma_split")
 
 
 @pytest.mark.parametrize("hd,kv_dtype,rows,lse,design", [

@@ -899,6 +899,81 @@ def test_flash_autograd_through_the_kernels(cuda):
         torch.testing.assert_close(a.grad.cpu(), e.grad, atol=BWD_TOL, rtol=BWD_TOL)
 
 
+BF16_U = 2.0**-8  # bfloat16's unit roundoff (round to nearest)
+
+
+def _bf16_grad_ok(got, exact, term):
+    """Whether bfloat16 gradients ``got`` lie within what the kernel may give
+    of the exact float32 ones: its float32 value x' within BWD_TOL of x =
+    ``exact`` - ``term``, rounded to bfloat16, and where ``term`` (the rows
+    that see no key, added after the kernel) is not None, x' + term rounded
+    again.  |got - exact| <= B (1 + u) + u |x| (the first rounding, where
+    there are two) + u |got| / (1 - u) (the last), B = BWD_TOL (1 + |x|).
+    (ok, the largest |got - exact| over its bound)."""
+    u = BF16_U
+    x = exact if term is None else exact - term
+    bound = BWD_TOL * (1 + x.abs()) * (1 + u) + u / (1 - u) * got.abs()
+    if term is not None:
+        bound = bound + u * x.abs()
+    ratio = float(((got - exact).abs() / bound).max())
+    return ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,kw", [
+    (64, dict(q_offset=40, kv_len=150)),             # a partly filled cache
+    (128, dict(q_offset=110, window=40)),            # rows past the keys; the last see none
+    (256, dict(q_offset=-10, kv_len=170)),           # rows before the first key
+    (112, dict(q_offset=200, window=8, kv_len=120)),  # no row sees a key
+])
+def test_flash_autograd_through_a_cache_and_past_the_keys(cuda, hd, kw, kv_dtype):
+    """The gradient at kv_len < Tk and of rows that lie past (or before) the
+    keys, through the kernels (one forward and one backward launch, on the
+    first kv_len keys), against the plain versions' exact float32 gradient
+    on the CPU (k, v as their float32 values): BWD_TOL, and for bfloat16 dk,
+    dv the roundings to bfloat16 (``_bf16_grad_ok``).  Where a row sees the
+    last key, the kernels given one key too few fail that check."""
+    q, k, v = _flash_inputs(cuda, 2, 120, 180, 8, 2, hd, kv_dtype, seed=11)
+    do = torch.randn_like(q)
+    kw = dict(causal=True, **kw)
+
+    def grads(**over):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fa_ops.flash_attention(*leaves, **{**kw, **over})
+        out.backward(do)
+        return out.detach().cpu(), [x.grad.float().cpu() for x in leaves]
+
+    before = fa_k.launches, fa_k.bwd_launches
+    out, got = grads()
+    assert (fa_k.launches, fa_k.bwd_launches) == (before[0] + 1, before[1] + 1)
+    cpu = [x.cpu().float().detach().requires_grad_() for x in (q, k, v)]
+    out_c = fa_ops.flash_attention(*cpu, **kw)
+    out_c.backward(do.cpu())
+    exact = [x.grad for x in cpu]
+    term = fa_ops._empty_rows_dv(do.cpu(), cpu[1], causal=True, window=kw.get("window", 0),
+                                 q_offset=kw["q_offset"], kv_len=kw.get("kv_len"))
+
+    def ok(g):
+        if not torch.allclose(g[0], exact[0], atol=BWD_TOL, rtol=BWD_TOL):
+            return False, "dq"
+        if kv_dtype == torch.float32:
+            return all(torch.allclose(a, e, atol=BWD_TOL, rtol=BWD_TOL)
+                       for a, e in zip(g[1:], exact[1:])), "dk, dv"
+        (ok_k, r_k), (ok_v, r_v) = (_bf16_grad_ok(g[1], exact[1], None),
+                                    _bf16_grad_ok(g[2], exact[2], term))
+        return ok_k and ok_v, f"dk {r_k:.3f}, dv {r_v:.3f} of their bounds"
+
+    torch.testing.assert_close(out, out_c.detach(), atol=FLASH_TOL, rtol=FLASH_TOL)
+    good, why = ok(got)
+    assert good, why
+    kv_len = kw.get("kv_len")
+    seen = fa_r.key_mask(120, 180, causal=True, window=kw.get("window", 0),
+                         q_offset=kw["q_offset"], kv_len=kv_len, device="cpu")
+    if kv_len is not None and seen[:, kv_len - 1].any():
+        _, short = grads(kv_len=kv_len - 1)
+        assert not ok(short)[0], "one key too few passes the check"
+
+
 @pytest.mark.parametrize("hd,design", [(32, "bwd_wgmma"), (64, "bwd_wgmma"),
                                        (120, "bwd_wgmma"), (128, "bwd_wgmma"),
                                        (256, "bwd_wide")])
